@@ -10,12 +10,13 @@ tensors, objects holding tensors with ``.to(device=, dtype=)``, explicit
 ``device=`` on constructors, and ``torch.autograd.Function`` around each
 kernel. This package never imports JAX.
 
-Ported so far: the forward Bloch path, ``SpinCube.applypulse`` through
-``sims.blochsim_rfgr`` (fused engine, kernel ``rfgr_fwd``) and
-``sims.blochsim`` (B-effective streaming engine, kernel ``beff_fwd``).
-Kernels build with ``nvcc`` at their first CUDA call (see
-:mod:`mrphy_tpu_torch.kernels`); CPU tensors take each kernel's plain
-PyTorch version.
+Ported so far: the Bloch path and its gradient, ``SpinCube.applypulse``
+through ``sims.blochsim_rfgr`` (fused engine, kernels ``rfgr_fwd`` and
+``rfgr_bwd``) and ``sims.blochsim`` (B-effective streaming engine,
+kernels ``beff_fwd`` and ``beff_bwd``), and the joint RF + gradient
+design loop :mod:`mrphy_tpu_torch.design`. Kernels build with ``nvcc``
+at their first CUDA call (see :mod:`mrphy_tpu_torch.kernels`); CPU
+tensors take each kernel's plain PyTorch version.
 
 Shape grammar and units are those of :mod:`mrphy_tpu`.
 """
@@ -52,6 +53,7 @@ from mrphy_tpu_torch.ops import sims               # noqa: E402
 from mrphy_tpu_torch.ops import slowsims           # noqa: E402
 from mrphy_tpu_torch.models import mobjs           # noqa: E402
 from mrphy_tpu_torch import kernels                # noqa: E402
+from mrphy_tpu_torch import design                 # noqa: E402
 
 # Flat import paths (`import mrphy_tpu_torch.sims`), as in mrphy_tpu.
 import sys as _sys                                 # noqa: E402
@@ -62,4 +64,4 @@ for _name, _mod in (('beffective', beffective), ('sims', sims),
 
 __all__ = ['gamH', 'γH', 'T1G', 'T2G', 'dt0', 'gmax0', 'smax0', 'rfmax0',
            'utils', 'beffective', 'sims', 'slowsims', 'mobjs', 'kernels',
-           'cuda_is_available']
+           'design', 'cuda_is_available']

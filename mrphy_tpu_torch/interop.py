@@ -1,12 +1,16 @@
 r"""Build the port's objects from :mod:`mrphy_tpu` state held as numpy.
 
-Each function takes the dict that the JAX object's
+The ``*_from_numpy`` object builders take the dict that the JAX object's
 ``asdict(toNumpy=True)`` returns (grid form, the default, or compact
 form with ``doEmbed=False``; the dict carries the static ``mask``) and
-returns the matching :mod:`mrphy_tpu_torch.models.mobjs` object on
+return the matching :mod:`mrphy_tpu_torch.models.mobjs` object on
 ``device`` in ``dtype`` (default: the dict's own dtype). Grid-form
 attributes are NaN outside the mask; building through the grid names
 extracts the masked values, so both forms give the same object.
+
+The design state carries across too: :func:`design_params_from_numpy`
+takes the JAX ``design.init_params`` dict, :func:`adam_state_from_numpy`
+optax's Adam state, so a design run in JAX can continue in the port.
 
 No JAX is needed: the values only pass through :func:`numpy.asarray`.
 """
@@ -18,7 +22,8 @@ from mrphy_tpu_torch.models.mobjs import (Pulse, SpinArray, SpinBolus,
                                           SpinCube)
 
 __all__ = ['pulse_from_numpy', 'spinarray_from_numpy', 'spincube_from_numpy',
-           'spinbolus_from_numpy']
+           'spinbolus_from_numpy', 'design_params_from_numpy',
+           'adam_state_from_numpy']
 
 
 def _dtype(d, dtype):
@@ -77,3 +82,49 @@ def spinbolus_from_numpy(d: dict, *, device=None, dtype=None) -> SpinBolus:
     kw = _grid_or_compact(d, _SPINARRAY_KEYS + (('vel', 'vel'),))
     return SpinBolus(tuple(d['shape']), np.asarray(d['mask']), **kw,
                      device=device, dtype=_dtype(d, dtype))
+
+
+def design_params_from_numpy(d: dict, *, device=None, dtype=None) -> dict:
+    r"""The port's design variables (leaf tensors that require grad, for
+    :func:`mrphy_tpu_torch.design.design_step`) from a JAX
+    ``design.init_params`` dict ``{'trho', 'theta', 'ts'}`` of arrays."""
+    return {k: torch.tensor(np.asarray(v), dtype=dtype,
+                            device=device).requires_grad_()
+            for k, v in d.items()}
+
+
+def _adam_leaf(state):
+    r"""The ``ScaleByAdamState`` (fields ``count``, ``mu``, ``nu``) inside
+    an optax state (a chain's state is a tuple of its transforms')."""
+    if all(hasattr(state, f) for f in ('count', 'mu', 'nu')):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _adam_leaf(s)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_numpy(opt_state, params: dict) -> dict:
+    r"""``torch.optim.Adam`` state from optax's Adam state.
+
+    ``opt_state``: the state of ``optax.adam`` (or of a chain holding
+    ``scale_by_adam``) with its arrays as numpy, e.g. through
+    ``jax.tree.map(np.asarray, ...)``. ``params``: the port's design
+    variables, keyed as optax's ``mu``/``nu``. Returns the per-parameter
+    state (``step``, ``exp_avg``, ``exp_avg_sq``) to put into an Adam
+    optimizer over ``params``: ``opt.state.update(...)``.
+    """
+    st = _adam_leaf(opt_state)
+    if st is None:
+        raise ValueError('no optax Adam state (count, mu, nu) in opt_state')
+    step = float(np.asarray(st.count))
+
+    def like(v, p):
+        return torch.tensor(np.asarray(v), dtype=p.dtype, device=p.device)
+
+    return {p: {'step': torch.tensor(step, dtype=torch.float32),
+                'exp_avg': like(st.mu[k], p),
+                'exp_avg_sq': like(st.nu[k], p)}
+            for k, p in params.items()}

@@ -1,10 +1,13 @@
-// One Bloch step shared by the forward kernels: rotation by the field
-// impulse b (radians) about u = b/|b|, then T1/T2 relaxation.
+// One Bloch step shared by the kernels: rotation by the field impulse b
+// (radians) about u = b/|b|, then T1/T2 relaxation (`rot_relax`, the
+// forward kernels), and the same step run backwards for the
+// reconstruction adjoints (`rot_relax_bwd`).
 //
-// Same arithmetic as mrphy_tpu's `_rot_relax_planes`
-// (mrphy_tpu/ops/pallas_kernels.py), except that sin/cos come from the
-// CUDA math library (sincosf / sincos, full range reduction; no fast-math
-// intrinsics) instead of the TPU's polynomial `_fast_sincos`.
+// Same arithmetic as mrphy_tpu's `_rot_relax_planes` and the step of
+// `_rfgr_bwd_kernel` / `_beff_bwd_kernel` (mrphy_tpu/ops/pallas_kernels.py),
+// except that sin/cos come from the CUDA math library (sincosf / sincos,
+// full range reduction; no fast-math intrinsics) instead of the TPU's
+// polynomial `_fast_sincos`.
 //
 // Rounding: the kernels are built with -fmad=false (kernels/_build.py)
 // and write every operation in the order of the plain PyTorch version
@@ -66,6 +69,73 @@ __device__ __forceinline__ void rot_relax(T& mx, T& my, T& mz, T bx, T by,
   mx = m1x;
   my = m1y;
   mz = m1z;
+}
+
+// One reverse step of the reconstruction adjoint. In: the state m₁ after
+// the step, the cotangent h₁ = ∂L/∂m₁, the field b, and the hoisted
+// inverses iE2 = 1/E2, iE1 = 1/E1. Out: m₀ (the state before the step) in
+// (mx, my, mz), h₀ = ∂L/∂m₀ in (hx, hy, hz), and ∂L/∂b in (dbx, dby, dbz):
+//   m̃ = ((m₁x, m₁y)·iE2, (m₁z + e1_1)·iE1)   (undo relaxation), h̃ = E∘h₁;
+//   m₀ = Rᵀm̃, h₀ = Rᵀh̃ (rotation by +ϕ; uᵀm̃ == uᵀm₀);
+//   ∂L/∂b = −s/ϕ·(m₀×h̃) − (c−1)/ϕ·((uᵀh̃)m₀ + (uᵀm₀)h̃) + K·u,
+//   K = (s/ϕ − c)·uᵀ(m₀×h̃) + (2(c−1)/ϕ + s)(uᵀm₀)(uᵀh̃) − s·h̃ᵀm₀.
+// The order of operations is that of the plain version
+// (kernels/bloch.py, `_rot_relax_bwd`).
+template <typename T>
+__device__ __forceinline__ void rot_relax_bwd(T& mx, T& my, T& mz, T& hx,
+                                              T& hy, T& hz, T bx, T by, T bz,
+                                              bool relax, T E2, T E1, T e1_1,
+                                              T iE2, T iE1, T& dbx, T& dby,
+                                              T& dbz) {
+  T n2 = bx * bx + by * by + bz * bz;
+  n2 = n2 > phi_eps2<T>() ? n2 : phi_eps2<T>();
+  const T inv = rsqrt_(n2);
+  const T phi = n2 * inv;
+  const T ux = bx * inv, uy = by * inv, uz = bz * inv;
+  T s, c;
+  sin_cos(phi, &s, &c);
+  const T c1 = c - T(1);
+  T mtx = mx, mty = my, mtz = mz, htx = hx, hty = hy, htz = hz;
+  if (relax) {
+    mtx = mx * iE2;
+    mty = my * iE2;
+    mtz = (mz + e1_1) * iE1;
+    htx = hx * E2;
+    hty = hy * E2;
+    htz = hz * E1;
+  }
+  const T utm = ux * mtx + uy * mty + uz * mtz;
+  const T m0x = mtx + s * (uy * mtz - uz * mty) + c1 * (mtx - utm * ux);
+  const T m0y = mty + s * (uz * mtx - ux * mtz) + c1 * (mty - utm * uy);
+  const T m0z = mtz + s * (ux * mty - uy * mtx) + c1 * (mtz - utm * uz);
+  const T uth = ux * htx + uy * hty + uz * htz;
+  const T uxhx = uy * htz - uz * hty;
+  const T uxhy = uz * htx - ux * htz;
+  const T uxhz = ux * hty - uy * htx;
+  hx = htx + s * uxhx + c1 * (htx - uth * ux);
+  hy = hty + s * uxhy + c1 * (hty - uth * uy);
+  hz = htz + s * uxhz + c1 * (htz - uth * uz);
+  const T sp = s * inv, c1p = c1 * inv;
+  const T mxhx = m0y * htz - m0z * hty;
+  const T mxhy = m0z * htx - m0x * htz;
+  const T mxhz = m0x * hty - m0y * htx;
+  const T tt = ux * mxhx + uy * mxhy + uz * mxhz;
+  const T hm = htx * m0x + hty * m0y + htz * m0z;
+  const T k = (sp - c) * tt + (T(2) * c1p + s) * utm * uth - s * hm;
+  dbx = -sp * mxhx - c1p * (uth * m0x + utm * htx) + k * ux;
+  dby = -sp * mxhy - c1p * (uth * m0y + utm * hty) + k * uy;
+  dbz = -sp * mxhz - c1p * (uth * m0z + utm * htz) + k * uz;
+  mx = m0x;
+  my = m0y;
+  mz = m0z;
+}
+
+// Sum over the 32 lanes of a warp; every lane must call it. The result is
+// valid in lane 0.
+template <typename T> __device__ __forceinline__ T warp_sum(T v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
 }
 
 }  // namespace mrphy

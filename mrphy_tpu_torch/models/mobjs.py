@@ -14,7 +14,7 @@ Objects hold torch tensors on one device, given by the constructors'
 - Unicode attribute/keyword aliases are accepted: ``γ``/``γ_`` ↔
   ``gam``/``gam_``, ``Δf``/``Δf_`` ↔ ``df``/``df_``.
 
-``Pulse.interpT`` and ``SpinArray.acquire`` are not ported yet.
+``SpinArray.acquire`` is not ported yet.
 """
 
 import numpy as np
@@ -22,7 +22,7 @@ import torch
 
 from mrphy_tpu_torch import (gamH, dt0, gmax0, smax0, rfmax0, T1G, T2G, pi)
 from mrphy_tpu_torch.ops import beffective, sims
-from mrphy_tpu_torch.utils import ctrsub
+from mrphy_tpu_torch.utils import ctrsub, interp1d_apply, interp_matrix
 
 __all__ = ['Pulse', 'SpinArray', 'SpinCube', 'SpinBolus', 'Examples']
 
@@ -37,6 +37,13 @@ def _norm_name(k: str) -> str:
 def _tonp(x, toNumpy: bool):
     x = x.detach()
     return x.cpu().numpy() if toNumpy else x
+
+
+def _host(x) -> np.ndarray:
+    r"""A number or tensor as a flat float64 numpy array."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu()
+    return np.asarray(x, dtype=np.float64).reshape(-1)
 
 
 def _pop_df(kw):
@@ -199,6 +206,47 @@ class Pulse:
         Outputs: ``beff``: `(N, *Nd, nT, xyz)`.
         """
         return beffective.rfgr2beff(self.rf, self.gr, loc, gam=gam, **kw)
+
+    def interpT(self, dt, *, kind: str = 'linear') -> 'Pulse':
+        r"""Temporal resampling to a new dwell time (multi-scale design).
+
+        A zero sample is prepended at t = 0, as in the reference; the new
+        grid is ``dt, 2·dt, …`` up to the end of the old one. Every kind
+        is one `(nNew, nOld)` matrix built in float64 on the host
+        (:func:`mrphy_tpu_torch.utils.interp_matrix`) and applied on the
+        pulse's device as one matrix product, differentiable w.r.t.
+        ``rf``/``gr``.
+
+        Inputs:
+            - ``dt``: `()` ⊻ `(1,)`, "Sec", the new dwell time.
+            - ``kind``: any SciPy ``interp1d`` kind (default 'linear').
+        """
+        # both dwell times in the pulse dtype: a float32 dt compared with
+        # a float64 argument would miss the equality shortcut and floor
+        # away the last resampled step
+        cast = torch.empty((), dtype=self.dtype).numpy().dtype.type
+        dt_o, dt_n = _host(self.dt), _host(dt)
+        if dt_o.size != 1 or dt_n.size != 1:
+            raise ValueError('interpT needs one dwell time on each side')
+        dt_o, dt_n = float(cast(dt_o[0])), float(cast(dt_n[0]))
+        if dt_o == dt_n:
+            return Pulse(self.rf, self.gr, dt=self.dt, gmax=self.gmax,
+                         smax=self.smax, rfmax=self.rfmax, desc=self.desc,
+                         device=self.device, dtype=self.dtype)
+
+        def with_zero(x):                  # prepend the t = 0 sample
+            return torch.cat([torch.zeros_like(x[:, :, :1]), x], dim=2)
+
+        rf0, gr0 = with_zero(self.rf), with_zero(self.gr)
+        t_o = np.arange(rf0.shape[2]) * dt_o
+        # tolerant floor: ratios exact in intent (dt/2) may land a few
+        # ulps under an integer
+        t_n = np.arange(1, int(np.floor(t_o[-1] / dt_n + 1e-9)) + 1) * dt_n
+        C = interp_matrix(t_o, t_n, kind)
+        return Pulse(interp1d_apply(C, rf0, axis=2),
+                     interp1d_apply(C, gr0, axis=2), dt=dt,
+                     desc=f"{self.desc} + interpT'ed: dt = {dt_n}",
+                     device=self.device, dtype=self.dtype)
 
     def to(self, *, device=None, dtype=None) -> 'Pulse':
         r"""Copy with new dtype and/or device (``self`` if neither

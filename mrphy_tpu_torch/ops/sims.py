@@ -3,9 +3,11 @@ r"""Bloch simulation — the fast engines (counterpart of
 
 - :func:`blochsim_rfgr`: the fused engine. B-effective is assembled per
   step inside the time loop from the raw waveforms, so the O(nM·nT)
-  field tensor never materializes. Kernel ``rfgr_fwd``.
-- :func:`blochsim`: the B-effective streaming engine. Kernel
-  ``beff_fwd``; a bfloat16 Beff is honoured as a storage format.
+  field tensor never materializes. Kernels ``rfgr_fwd`` and, for the
+  gradient, ``rfgr_bwd``.
+- :func:`blochsim`: the B-effective streaming engine. Kernels
+  ``beff_fwd`` and ``beff_bwd``; a bfloat16 Beff is honoured as a storage
+  format (its gradient is bfloat16 too).
 - :func:`freeprec`: closed-form free precession.
 - :func:`rfgr_phi_bound`: a bound on the per-step rotation angle.
 
@@ -15,21 +17,29 @@ convention; inside, the engines use plain structure-of-arrays planes —
 spins for the streaming engine. Kernels mask the ragged edge themselves,
 so no spin padding is added.
 
-``backend='auto'`` takes the CUDA kernel for CUDA tensors and the plain
-PyTorch version for CPU tensors; ``'cuda'`` insists on the kernel (and
-raises for CPU tensors); ``'torch'`` runs the plain version on any device.
+``backend='auto'`` takes the CUDA kernels for CUDA tensors and the plain
+PyTorch versions for CPU tensors; ``'cuda'`` insists on the kernels (and
+raises for CPU tensors); ``'torch'`` runs the plain versions on any
+device.
 
-Gradients: on the CPU the plain versions are differentiated by torch
-autograd, w.r.t. ``Mi``/``rf``/``gr``/``loc``/``df``/``b1Map``/``vel``
+Gradients w.r.t. ``Mi``/``rf``/``gr``/``loc``/``df``/``b1Map``/``vel``
 (:func:`blochsim_rfgr`) or ``Mi``/``Beff`` (:func:`blochsim`); ``T1``,
 ``T2``, ``gam`` and ``dt`` get zero gradients, as in the JAX engine (the
-γ2πdt scale and the relaxation factors are detached). The CUDA adjoint
-kernels are not ported yet: backward through a kernel raises
-:class:`NotImplementedError`. ``adjoint=`` is validated and kept for the
-CUDA adjoints to come; autograd through the plain loop stores the history
-either way.
+γ2πdt scale and the relaxation factors are detached). ``adjoint=``:
+
+- ``'reconstruct'`` (default): the chunk-checkpointed reconstruction
+  adjoint. The forward keeps only the chunk-end states, O(nM·nT/tc)
+  memory; the backward rebuilds the trajectory in reverse. On
+  ``backend='cuda'`` forward and backward are the kernels
+  (``rfgr_fwd``+``rfgr_bwd``, ``beff_fwd``+``beff_bwd``); on
+  ``backend='torch'`` their plain versions, in the same
+  ``torch.autograd.Function``.
+- ``'history'``: torch autograd through the plain time loop on any
+  device, which keeps every step, O(nM·nT) memory (JAX routes it to its
+  XLA engine); ``backend='cuda'`` refuses it.
 """
 
+import functools
 import math
 from typing import Optional
 
@@ -52,6 +62,9 @@ def _check_common(T1, T2, adjoint: str, backend: str, x) -> str:
     if adjoint not in _ADJOINTS:
         raise ValueError(f'adjoint must be one of {_ADJOINTS}, not '
                          f'{adjoint!r}')
+    if backend == 'cuda' and adjoint == 'history':
+        raise ValueError("backend='cuda' implements adjoint='reconstruct' "
+                         "only; adjoint='history' runs the plain loop")
     if backend == 'auto':
         return 'cuda' if x.device.type == 'cuda' else 'torch'
     if backend == 'cuda' and x.device.type != 'cuda':
@@ -60,6 +73,15 @@ def _check_common(T1, T2, adjoint: str, backend: str, x) -> str:
     if backend not in ('torch', 'cuda'):
         raise ValueError(f'unknown backend {backend!r}')
     return backend
+
+
+def _engine(kernel, plain_loop, backend: str, adjoint: str):
+    r"""The engine for the resolved ``backend`` and ``adjoint``: the
+    kernel wrapper (kernels forward and backward), the same wrapper on
+    the plain versions, or the plain loop under torch autograd."""
+    if adjoint == 'history':
+        return plain_loop
+    return functools.partial(kernel, plain=backend != 'cuda')
 
 
 def _promote(*xs) -> torch.dtype:
@@ -117,7 +139,8 @@ def blochsim(Mi, Beff, *, T1: Optional[torch.Tensor] = None,
         - ``gam`` (alias ``γ``): `()` ⊻ `(N ⊻ 1, *Nd ⊻ 1,)`, "Hz/Gauss".
         - ``dt``: `()` ⊻ `(N ⊻ 1,)`, "Sec".
         - ``backend``: ``'auto'`` | ``'torch'`` | ``'cuda'``.
-        - ``adjoint``: ``'reconstruct'`` | ``'history'`` (validated).
+        - ``adjoint``: ``'reconstruct'`` (default) | ``'history'``, see
+          the module docstring.
         - ``max_phi``: accepted for API compatibility; it has no effect
           here (the CUDA kernels use the library ``sincos`` with its full
           range reduction at any angle).
@@ -125,7 +148,8 @@ def blochsim(Mi, Beff, *, T1: Optional[torch.Tensor] = None,
         - ``Mo``: `(N, *Nd, xyz)`.
 
     The wrapper permutes Beff to ``(nT, 3, B)`` for coalesced loads: one
-    extra copy of Beff in memory.
+    extra copy of Beff in memory (and one more for its gradient, which
+    flows back through the permute and, for bf16, the cast).
     """
     Mi, Beff = torch.as_tensor(Mi), torch.as_tensor(Beff)
     if Mi.shape[:-1] != Beff.shape[:-2]:
@@ -133,7 +157,7 @@ def blochsim(Mi, Beff, *, T1: Optional[torch.Tensor] = None,
                          f'{tuple(Beff.shape)} disagree on (N, *Nd)')
     backend = _check_common(T1, T2, adjoint, backend, Mi)
     args = beff_planes(Mi, Beff, T1=T1, T2=T2, gam=gam, dt=dt)
-    run = bloch.beff_fwd if backend == 'cuda' else bloch.beff_fwd_torch
+    run = _engine(bloch.beff_fwd, bloch.beff_fwd_torch, backend, adjoint)
     return run(*args)[-1].T.reshape(tuple(Mi.shape))
 
 
@@ -171,7 +195,7 @@ def blochsim_rfgr(Mi, rf, gr, loc, *, T1: Optional[torch.Tensor] = None,
     backend = _check_common(T1, T2, adjoint, backend, Mi)
     args = rfgr_planes(Mi, rf, gr, loc, T1=T1, T2=T2, df=df, b1Map=b1Map,
                        gam=gam, dt=dt, vel=vel)
-    run = bloch.rfgr_fwd if backend == 'cuda' else bloch.rfgr_fwd_torch
+    run = _engine(bloch.rfgr_fwd, bloch.rfgr_fwd_torch, backend, adjoint)
     return run(*args)[:, -1].transpose(1, 2).reshape(tuple(Mi.shape))
 
 

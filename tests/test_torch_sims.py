@@ -6,8 +6,9 @@ Tolerances: 1e-10 in float64 against JAX's XLA engine (the same
 arithmetic, rounding only); 2e-6 in float32 against JAX's Pallas kernels
 in interpret mode (as ``tests/test_pallas.py`` runs them) — the port uses
 the library sin/cos where the TPU kernels use a polynomial, ~1e-7 per
-step; gradients of torch autograd through the plain path against
-``jax.grad`` of the reconstruction adjoint at rtol 1e-7 in float64.
+step; gradients against ``jax.grad`` of the reconstruction adjoint at
+rtol 1e-7 (one case) and 1e-9 (every gradient of both engines, relative
+to each gradient's largest value) in float64.
 """
 
 import numpy as np
@@ -229,8 +230,9 @@ def test_rfgr_phi_bound_vs_jax():
 
 
 def test_grads_vs_jax_reconstruct_adjoint():
-    r"""The line the CUDA adjoint (K2) has to meet: autograd through the
-    plain forward against JAX's reconstruction adjoint, for rf, gr, Mi."""
+    r"""The default engine's gradient (the plain versions of rfgr_fwd +
+    rfgr_bwd, the arithmetic of the kernels) against JAX's
+    reconstruction adjoint, for rf, gr, Mi."""
     a = _mk(nS=64, nT=24, seed=7)
     W = np.random.default_rng(8).normal(size=a['Mi'].shape)
     cfg = ('relax', 'df', 'b1')
@@ -282,6 +284,8 @@ def test_keyword_validation():
         tsims.blochsim_rfgr(*args, mesh=object())
     with pytest.raises(ValueError, match='adjoint'):
         tsims.blochsim_rfgr(*args, adjoint='bogus')
+    with pytest.raises(ValueError, match="adjoint='reconstruct'"):
+        tsims.blochsim_rfgr(*args, backend='cuda', adjoint='history')
     with pytest.raises(ValueError, match='T1 and T2'):
         tsims.blochsim_rfgr(*args, T1=1.0)
     with pytest.raises(TypeError):
@@ -330,3 +334,113 @@ def test_utils_vs_jax():
     assert tsh.rshape(t([1., 2.]), 3).shape == (2, 1, 1)
     with pytest.raises(ValueError):
         tsh.rshape(t(np.ones((2, 2))), 1)
+
+
+def _grads_rfgr(a, case, adjoint, W):
+    r"""Every gradient of ``Σ W·blochsim_rfgr`` through the port (float64)
+    and through JAX's XLA engine with ``adjoint``."""
+    names = ['Mi', 'rf', 'gr', 'loc'] + [k for k in ('df', 'b1', 'vel')
+                                         if k in case['cfg']]
+    rf = a['rf'] if case.get('nC', 1) > 1 else a['rf'][..., 0]
+    vals = dict(a, rf=rf)
+    kwname = {'df': 'df', 'b1': 'b1Map', 'vel': 'vel'}
+
+    def split(xs, to):
+        kw = _kw(a, case['cfg'], to)
+        kw.update({kwname[n]: x for n, x in zip(names[4:], xs[4:])})
+        return xs[:4], kw
+
+    def jloss(*xs):
+        pos, kw = split(xs, _j())
+        return jnp.sum(jnp.asarray(W) * jsims.blochsim_rfgr(
+            pos[0], pos[1], pos[2], pos[3], backend='xla',
+            adjoint='reconstruct', **kw))
+
+    gj = jax.grad(jloss, argnums=tuple(range(len(names))))(
+        *(jnp.asarray(vals[n], F64) for n in names))
+    xs = [torch.tensor(vals[n], requires_grad=True) for n in names]
+    pos, kw = split(xs, _t())
+    loss = torch.sum(torch.as_tensor(W) * tsims.blochsim_rfgr(
+        *pos, adjoint=adjoint, **kw))
+    return names, torch.autograd.grad(loss, xs), gj
+
+
+@pytest.mark.parametrize('adjoint', ['reconstruct', 'history'])
+@pytest.mark.parametrize('case', RFGR_CASES,
+                         ids=lambda c: '+'.join(c['cfg']) or 'bare')
+def test_rfgr_every_gradient_vs_jax_f64(case, adjoint, monkeypatch):
+    r"""Mi, rf, gr, loc, df, b1Map and vel gradients of the port's
+    ``adjoint='reconstruct'`` (the plain versions of rfgr_fwd + rfgr_bwd)
+    and ``'history'`` (autograd through the plain loop) against JAX's
+    XLA reconstruction adjoint, at rtol 1e-9 in float64. ``nT`` = 48 in
+    chunks of 16 exercises the restarts from the chunk ends."""
+    a = _mk(N=case.get('N', 1), nC=case.get('nC', 1), Nd=case.get('Nd'),
+            nT=48)
+    W = np.random.default_rng(8).normal(size=a['Mi'].shape)
+    from mrphy_tpu_torch.kernels import bloch
+    monkeypatch.setattr(bloch, 'TC_MAX', 16)
+    names, gt, gj = _grads_rfgr(a, case, adjoint, W)
+    for n, x, y in zip(names, gt, gj):
+        y = np.asarray(y)
+        np.testing.assert_allclose(x.numpy(), y, rtol=1e-9,
+                                   atol=1e-9 * np.abs(y).max(), err_msg=n)
+
+
+@pytest.mark.parametrize('adjoint', ['reconstruct', 'history'])
+def test_blochsim_every_gradient_vs_jax_f64(adjoint):
+    a = _mk(N=2, Nd=(5, 7), nT=40)
+    j = _j()
+    beff = np.asarray(jbeff.rfgr2beff(j(a['rf']), j(a['gr']), j(a['loc']),
+                                      df=j(a['df'])))
+    W = np.random.default_rng(9).normal(size=a['Mi'].shape)
+    kw = dict(T1=a['T1'], T2=a['T2'], dt=a['dt'])
+    gj = jax.grad(lambda m, b: jnp.sum(jnp.asarray(W) * jsims.blochsim(
+        m, b, backend='xla', adjoint='reconstruct',
+        **{k: j(v) for k, v in kw.items()})), argnums=(0, 1))(
+            j(a['Mi']), j(beff))
+    mi, bf = (torch.tensor(x, requires_grad=True) for x in (a['Mi'], beff))
+    gt = torch.autograd.grad(torch.sum(torch.as_tensor(W) * tsims.blochsim(
+        mi, bf, adjoint=adjoint, **{k: _t()(v) for k, v in kw.items()})),
+        (mi, bf))
+    for x, y in zip(gt, gj):
+        y = np.asarray(y)
+        np.testing.assert_allclose(x.numpy(), y, rtol=1e-9,
+                                   atol=1e-9 * np.abs(y).max())
+
+
+def _saved_elements(fn):
+    r"""Elements of the tensors autograd saves while ``fn`` runs."""
+    count = [0]
+
+    def pack(x):
+        count[0] += x.numel()
+        return x
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+        fn()
+    return count[0]
+
+
+def test_reconstruct_saves_chunk_ends_only():
+    r"""``adjoint='reconstruct'`` keeps O(nM·nT/tc) for the backward: the
+    chunk-end states and the inputs, not the O(nM·nT) history that
+    autograd through the time loop keeps (``'history'``)."""
+    nS, nT = 64, 512                                  # tc = 256, 2 chunks
+    a = _mk(nS=nS, nT=nT, nC=2)
+    t = _t()
+    kw = _kw(a, ('relax', 'df', 'b1', 'vel'), t)
+    counts = {}
+    for adjoint in ('reconstruct', 'history'):
+        xs = [t(a[k]).requires_grad_() for k in ('Mi', 'rf', 'gr', 'loc')]
+        counts[adjoint] = _saved_elements(lambda: tsims.blochsim_rfgr(
+            *xs, adjoint=adjoint, **kw))
+    assert counts['history'] > 10 * nS * nT
+    assert counts['reconstruct'] < nS * nT / 4, counts
+    b = np.random.default_rng(2).normal(size=(1, nS, nT, 3))
+    for adjoint in ('reconstruct', 'history'):
+        mi, bf = t(a['Mi']).requires_grad_(), t(b).requires_grad_()
+        counts[adjoint] = _saved_elements(lambda: tsims.blochsim(
+            mi, bf, T1=t(a['T1']), T2=t(a['T2']), adjoint=adjoint))
+    # the Beff input itself (3·nS·nT) is saved either way
+    assert counts['history'] > 10 * nS * nT
+    assert counts['reconstruct'] < 4 * nS * nT, counts
