@@ -13,9 +13,11 @@ kernel. This package never imports JAX.
 Ported so far: the Bloch path and its gradient, ``SpinCube.applypulse``
 through ``sims.blochsim_rfgr`` (fused engine, kernels ``rfgr_fwd`` and
 ``rfgr_bwd``) and ``sims.blochsim`` (B-effective streaming engine,
-kernels ``beff_fwd`` and ``beff_bwd``), and the joint RF + gradient
-design loop :mod:`mrphy_tpu_torch.design`. Kernels build with ``nvcc``
-at their first CUDA call (see :mod:`mrphy_tpu_torch.kernels`); CPU
+kernels ``beff_fwd`` and ``beff_bwd``), the joint RF + gradient design
+loop :mod:`mrphy_tpu_torch.design`, and the two-pool Bloch–McConnell
+engine ``ops.mc.blochsim_mc_rfgr`` (kernels ``mc_fwd`` and ``mc_bwd``)
+with its oracle ``slowsims.blochsim_mc``. Kernels build with ``nvcc`` at
+their first CUDA call (see :mod:`mrphy_tpu_torch.kernels`); CPU
 tensors take each kernel's plain PyTorch version.
 
 Shape grammar and units are those of :mod:`mrphy_tpu`.

@@ -56,6 +56,14 @@ _SIGNATURES = {
     'mrphy_beff_bwd_f32': (_P,) * 8 + (_I64,) * 3 + (_P,),
     'mrphy_beff_bwd_f32_bf16': (_P,) * 8 + (_I64,) * 3 + (_P,),
     'mrphy_beff_bwd_f64': (_P,) * 8 + (_I64,) * 3 + (_P,),
+    # mi6, rf2, gr2, loc, dfg, b1, g2pd, sb, X, Z, chk, N, nS, nT, nC, tc,
+    # stream
+    'mrphy_mc_fwd_f32': (_P,) * 11 + (_I64,) * 5 + (_P,),
+    'mrphy_mc_fwd_f64': (_P,) * 11 + (_I64,) * 5 + (_P,),
+    # chk, g, rf2, gr2, loc, dfg, b1, g2pd, sb, X, Z, states, dmi, dwf,
+    # dloc, ddfg, db1, dsb, dX, dZ, N, nS, nT, nC, tc, stream
+    'mrphy_mc_bwd_f32': (_P,) * 20 + (_I64,) * 5 + (_P,),
+    'mrphy_mc_bwd_f64': (_P,) * 20 + (_I64,) * 5 + (_P,),
 }
 
 
@@ -106,8 +114,10 @@ def _compile(sources, out: Path) -> str:
     then link the objects into ``out``; returns nvcc's ``-Xptxas -v``
     report (registers, shared memory and spills of every kernel).
 
-    On an H100 machine (8 cores, nvcc 12.9) the four sources build in
-    8.0–8.1 s this way, against 12.5–17.7 s in one ``nvcc`` call."""
+    On an H100 machine (8 cores, nvcc 12.9) the four Bloch sources built
+    in 8.0–8.1 s this way, against 12.5–17.7 s in one ``nvcc`` call; with
+    the two two-pool sources (20 instances in all) the six build in
+    11.5 s."""
     out.parent.mkdir(parents=True, exist_ok=True)
     # build in a private directory and rename at the end: a concurrent
     # build of the same sources never sees a half-written library

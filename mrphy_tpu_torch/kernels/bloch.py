@@ -74,19 +74,35 @@ def pick_tc(nT: int) -> int:
     return largest_divisor_leq(nT, TC_MAX)
 
 
+def _rotation(bx, by, bz):
+    r"""The rotation by the field impulse ``b`` (radians): ``(u, 1/ϕ, sin ϕ,
+    cos ϕ, cos ϕ − 1)``. The arithmetic of ``csrc/bloch_step.cuh``
+    ``rotation_of``."""
+    n2 = torch.clamp_min(bx * bx + by * by + bz * bz, _PHI_EPS ** 2)
+    inv = torch.rsqrt(n2)
+    phi = n2 * inv
+    s, c = torch.sin(phi), torch.cos(phi)
+    return (bx * inv, by * inv, bz * inv), inv, s, c, c - 1
+
+
+def _rodrigues(r, s, m):
+    r"""``m − s·(u×m) + (c−1)·(m − (uᵀm)·u)`` and ``uᵀm`` for the rotation
+    ``r``; ``s`` = −sin ϕ rotates back. The arithmetic of
+    ``csrc/bloch_step.cuh`` ``rodrigues``."""
+    (ux, uy, uz), _, _, _, c1 = r
+    mx, my, mz = m
+    utm = ux * mx + uy * my + uz * mz
+    return ((mx - s * (uy * mz - uz * my) + c1 * (mx - utm * ux),
+             my - s * (uz * mx - ux * mz) + c1 * (my - utm * uy),
+             mz - s * (ux * my - uy * mx) + c1 * (mz - utm * uz)), utm)
+
+
 def _rot_relax(mx, my, mz, bx, by, bz, E2, E1, e1_1):
     r"""One step on xyz components: rotate by the field impulse ``b``
     (radians) about ``u = b/|b|``, then relax if ``E2`` is given. The
     arithmetic of ``csrc/bloch_step.cuh`` ``rot_relax``."""
-    n2 = torch.clamp_min(bx * bx + by * by + bz * bz, _PHI_EPS ** 2)
-    inv = torch.rsqrt(n2)
-    phi = n2 * inv
-    ux, uy, uz = bx * inv, by * inv, bz * inv
-    s, c1 = torch.sin(phi), torch.cos(phi) - 1
-    utm = ux * mx + uy * my + uz * mz
-    m1x = mx - s * (uy * mz - uz * my) + c1 * (mx - utm * ux)
-    m1y = my - s * (uz * mx - ux * mz) + c1 * (my - utm * uy)
-    m1z = mz - s * (ux * my - uy * mx) + c1 * (mz - utm * uz)
+    r = _rotation(bx, by, bz)
+    (m1x, m1y, m1z), _ = _rodrigues(r, r[2], (mx, my, mz))
     if E2 is not None:
         m1x, m1y, m1z = m1x * E2, m1y * E2, m1z * E1 - e1_1
     return m1x, m1y, m1z
@@ -98,20 +114,22 @@ def _rot_relax_bwd(m, h, b, E2, E1, e1_1, iE2, iE1):
     the state before the step, its cotangent and ∂L/∂b. The arithmetic of
     ``csrc/bloch_step.cuh`` ``rot_relax_bwd`` (derivation: JAX
     ``sims._fused_bwd_step``)."""
-    (mx, my, mz), (hx, hy, hz), (bx, by, bz) = m, h, b
-    n2 = torch.clamp_min(bx * bx + by * by + bz * bz, _PHI_EPS ** 2)
-    inv = torch.rsqrt(n2)
-    phi = n2 * inv
-    ux, uy, uz = bx * inv, by * inv, bz * inv
-    s, c = torch.sin(phi), torch.cos(phi)
-    c1 = c - 1
+    r = _rotation(*b)
     if E2 is not None:        # undo relaxation: m̃ = (m₁ + e1z)/E, h̃ = E∘h₁
-        mx, my, mz = mx * iE2, my * iE2, (mz + e1_1) * iE1
-        hx, hy, hz = hx * E2, hy * E2, hz * E1
-    utm = ux * mx + uy * my + uz * mz           # uᵀm̃ == uᵀm₀
-    m0x = mx + s * (uy * mz - uz * my) + c1 * (mx - utm * ux)
-    m0y = my + s * (uz * mx - ux * mz) + c1 * (my - utm * uy)
-    m0z = mz + s * (ux * my - uy * mx) + c1 * (mz - utm * uz)
+        (mx, my, mz), (hx, hy, hz) = m, h
+        m = mx * iE2, my * iE2, (mz + e1_1) * iE1
+        h = hx * E2, hy * E2, hz * E1
+    m0, utm = _rodrigues(r, -r[2], m)           # uᵀm̃ == uᵀm₀
+    h0, db = _adj_tail(r, utm, m0, h)
+    return m0, h0, db
+
+
+def _adj_tail(r, utm, m0, h):
+    r"""The adjoint of the rotation ``r`` given its input ``m0``, ``utm`` =
+    uᵀm₀ and the cotangent ``h`` at its output: ``(h0, ∂L/∂b)``. The
+    arithmetic of ``csrc/bloch_step.cuh`` ``rot_adj_tail``."""
+    (ux, uy, uz), inv, s, c, c1 = r
+    (m0x, m0y, m0z), (hx, hy, hz) = m0, h
     uth = ux * hx + uy * hy + uz * hz
     uxhx, uxhy, uxhz = uy * hz - uz * hy, uz * hx - ux * hz, ux * hy - uy * hx
     h0x = hx + s * uxhx + c1 * (hx - uth * ux)
@@ -127,7 +145,18 @@ def _rot_relax_bwd(m, h, b, E2, E1, e1_1, iE2, iE1):
     dbx = -sp * mxhx - c1p * (uth * m0x + utm * hx) + k * ux
     dby = -sp * mxhy - c1p * (uth * m0y + utm * hy) + k * uy
     dbz = -sp * mxhz - c1p * (uth * m0z + utm * hz) + k * uz
-    return (m0x, m0y, m0z), (h0x, h0y, h0z), (dbx, dby, dbz)
+    return (h0x, h0y, h0z), (dbx, dby, dbz)
+
+
+def _rot_adj(m0, h, b):
+    r"""The adjoint of one rotation (no relaxation) from its input state
+    ``m0`` (no inversion): returns the rotated state ``m1``, the cotangent
+    ``h0`` at the input and ∂L/∂b, from the cotangent ``h`` at the
+    output. The arithmetic of ``csrc/bloch_step.cuh`` ``rot_adj``."""
+    r = _rotation(*b)
+    m1, utm = _rodrigues(r, r[2], m0)
+    h0, db = _adj_tail(r, utm, m0, h)
+    return m1, h0, db
 
 
 def _relax_planes(E, axis):

@@ -1,6 +1,7 @@
-r"""The CUDA kernels of :mod:`mrphy_tpu_torch.kernels` on the card: each
-against its plain PyTorch version, the launch counts, the wrappers'
-refusals, and backward through the engines reaching the adjoint kernels.
+r"""The CUDA kernels of :mod:`mrphy_tpu_torch.kernels` on the card (the
+Bloch kernels and the two-pool ``mc_fwd``/``mc_bwd``): each against its
+plain PyTorch version, the launch counts, the wrappers' refusals, and
+backward through the engines reaching the adjoint kernels.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run them
@@ -220,4 +221,107 @@ def test_engine_gradients_cuda_vs_plain(cuda, dtype):
                                                 backend='torch')).sum(),
                              (Mi, Beff))
     for x, y in zip(gk, gp):
+        _rows_close(x, y, rel)
+
+
+def mc_args(N=2, nS=300, nT=64, nC=2, seed=4, dtype=np.float32):
+    r"""Pre-scaled ``mc_fwd`` arguments (numpy): per-voxel planes and
+    waveforms of physical size, every third voxel an MT bound pool (T2b
+    10 µs, so X ≈ 0), exchange rates varying by voxel."""
+    from mrphy_tpu_torch.ops.slowsims import mc_propagators
+    rng = np.random.default_rng(seed)
+    g2pd = np.full((N, nS), G2PD) * (1 + 0.1 * rng.random((N, nS)))
+    T2b = np.full((N, nS), 0.01)
+    T2b[:, ::3] = 1e-5
+    kab = 3.0 * (1 + rng.random((N, nS)))
+    pr = mc_propagators(*(torch.as_tensor(v) for v in (
+        1.2, 0.06, 1.0, T2b, kab, 50 * kab, 1.0, 0.02, 4e-6)))
+    a = dict(mi6=rng.random((N, 6, nS)) - 0.5,
+             rf2=(rng.random((N, 2 * nC, nT)) - 0.5) * 0.1,
+             gr2=(rng.random((N, 3, nT)) - 0.5) * 4,
+             loc_p=g2pd[:, None] * (rng.random((N, 3, nS)) - 0.5) * 4,
+             dfg=2 * np.pi * 4e-6 * (rng.random((N, nS)) - 0.5) * 600,
+             b1_p=g2pd[:, None] * (rng.random((N, 2 * nC, nS)) - 0.5),
+             sb=np.full((N, nS), 2 * np.pi * 4e-6 * 750.0),
+             Xp=torch.stack(pr[:4], 1).numpy(),
+             Zp=torch.stack(pr[4:], 1).numpy(), g2pd=g2pd)
+    return {k: v.astype(dtype) for k, v in a.items()}
+
+
+MC_KEYS = ('rf2', 'gr2', 'loc_p', 'dfg', 'b1_p', 'sb', 'Xp', 'Zp', 'g2pd')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows', [(torch.float32, 2e-6, 1e-5),
+                                            (torch.float64, 1e-12, 1e-12)])
+@pytest.mark.parametrize('nC,b1,dfg', [(2, True, True), (1, False, True),
+                                       (3, False, False), (12, True, True)])
+def test_mc_kernels_vs_plain_on_card(cuda, dtype, bar, rows, nC, b1, dfg):
+    r"""``mc_fwd`` and ``mc_bwd`` against their plain versions: B1 in
+    registers (2 coils), no B1 (1 and 3 coils, with and without Δf), and
+    B1 of more coils than the register arrays hold (12)."""
+    from mrphy_tpu_torch.kernels import mc as kmc
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    a = {k: v.to(cuda) for k, v in _tt(mc_args(nC=nC, dtype=npdt)).items()}
+    a['b1_p'] = a['b1_p'] if b1 else None
+    a['dfg'] = a['dfg'] if dfg else None
+    args = tuple(a[k] for k in MC_KEYS)
+    n0 = dict(kmc.LAUNCHES)
+    chk = kmc.mc_fwd(a['mi6'], *args, tc=16)
+    assert kmc.LAUNCHES['mc_fwd'] == n0['mc_fwd'] + 1
+    torch.testing.assert_close(chk, kmc.mc_fwd_torch(a['mi6'], *args, tc=16),
+                               rtol=0, atol=bar)
+    g = torch.as_tensor(np.random.default_rng(5).normal(
+        size=tuple(chk.shape)).astype(npdt), device=cuda)
+    k = kmc.mc_bwd(chk, g, *args, tc=16)
+    assert kmc.LAUNCHES['mc_bwd'] == n0['mc_bwd'] + 1
+    p = kmc.mc_bwd_torch(chk, g, *args, tc=16)
+    for i, (x, y) in enumerate(zip(k, p)):
+        if y is None:
+            assert x is None
+        elif i in (1, 2):                     # drf2, dgr2: sums over voxels
+            _rows_close(x, y, rows)
+        else:
+            torch.testing.assert_close(x, y, rtol=0, atol=bar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_mc_engine_gradients_cuda_vs_plain(cuda, dtype):
+    r"""Every gradient through ``mc.blochsim_mc_rfgr`` on the card: the
+    kernels (``backend='cuda'``) against the plain versions
+    (``backend='torch'``) on the same CUDA tensors, the tissue and
+    exchange maps included."""
+    from mrphy_tpu_torch.kernels import mc as kmc
+    from mrphy_tpu_torch.ops import mc
+    rng = np.random.default_rng(6)
+    nS, nT = 400, 64
+
+    def leaf(*shape, lo=-0.5, hi=0.5):
+        return torch.tensor(rng.uniform(lo, hi, shape), dtype=dtype,
+                            device=cuda, requires_grad=True)
+
+    pos = (leaf(1, nS, 3), leaf(1, nS, 3, lo=-0.01, hi=0.01),
+           leaf(1, 2, nT, 2, lo=-0.05, hi=0.05), leaf(1, 3, nT),
+           leaf(1, nS, 3, lo=-4, hi=4))
+    kw = dict(df=leaf(1, nS, lo=-300, hi=300), b1Map=leaf(1, nS, 2, 2),
+              T1a=leaf(1, nS, lo=1, hi=1.4), T2a=leaf(1, nS, lo=.05, hi=.07),
+              T1b=leaf(1, nS, lo=.9, hi=1.1), T2b=leaf(1, nS, lo=1e-5, hi=.01),
+              kab=leaf(1, nS, lo=.5, hi=5), kba=leaf(1, nS, lo=25, hi=250),
+              Ma0=leaf(1, nS, lo=.9, hi=1.1), Mb0=leaf(1, nS, lo=.01, hi=.03),
+              dfb=leaf(1, nS, lo=700, hi=800))
+    xs = pos + tuple(kw.values())
+    W = torch.as_tensor(rng.normal(size=(2, 1, nS, 3)), dtype=dtype,
+                        device=cuda)
+    n0 = dict(kmc.LAUNCHES)
+    grads = []
+    for backend in ('cuda', 'torch'):
+        Ma, Mb = mc.blochsim_mc_rfgr(*pos, backend=backend, **kw)
+        grads.append(torch.autograd.grad((W[0] * Ma).sum() + (W[1] * Mb)
+                                         .sum(), xs))
+    assert kmc.LAUNCHES['mc_fwd'] == n0['mc_fwd'] + 1
+    assert kmc.LAUNCHES['mc_bwd'] == n0['mc_bwd'] + 1
+    rel = 1e-5 if dtype == torch.float32 else 1e-10
+    for x, y in zip(*grads):
+        assert bool(torch.isfinite(x).all())
         _rows_close(x, y, rel)

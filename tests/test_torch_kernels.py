@@ -310,6 +310,6 @@ def test_kernel_sources_present():
     names = {p.name for p in (_build.Path(_build.__file__).parent
                               / 'csrc').glob('*.cu')}
     assert names == {'rfgr_fwd.cu', 'beff_fwd.cu', 'rfgr_bwd.cu',
-                     'beff_bwd.cu'}
+                     'beff_bwd.cu', 'mc_fwd.cu', 'mc_bwd.cu'}
     assert '--use_fast_math' not in _build.NVCC_FLAGS
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
