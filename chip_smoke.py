@@ -86,22 +86,48 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     (c) at the full ``bench_cest`` width, the forward's and one fit
     step's (∂ΣMa/∂kab) time and peak memory.
 
+12. The k-space signal kernels ``sig_fwd``, ``sig_adj`` and ``sig_vjp``
+    against their plain versions on the arguments ``ops.signal`` gives
+    them: the configuration of ``benchmarks/suite.py`` ``bench_signal``
+    (262,144 spins × 16,384 samples × 8 coils, Δf ∈ ±100 Hz, T2* ∈ [5, 50]
+    ms, float32, timed; the plain versions' reductions run on cuBLAS, the
+    counterpart of the JAX package's default XLA route); at 16,384 spins ×
+    4,096 samples one coil without maps, 32 coils (four coil groups),
+    neither Δf nor T2*, N = 3 with broadcast inputs, ragged sizes (16381 ×
+    4093) with per-batch inputs, and the float64 instance. ``SIG_BAR`` on
+    the linear outputs, ``SIG_CHAIN_BAR`` on the phase-chain cotangents.
+13. The acquisition path through the entry points: (a) the
+    ``examples/recon_sense.py`` problem (32×32, 4 coils, spiral-out, Δf
+    ±40 Hz, CG-SENSE 40 iterations) in float64 against the JAX package's
+    results (literals below: the signal at 1e-10 and ∂Σs²/∂ktraj at 1e-9
+    of their largest value, the image at 1e-9) and its image bound (1%)
+    in both types; (b) a 64³ ``SpinCube`` excited (``applypulse``) then
+    read (``acquire``, 8 coils, T2*, 16,384 samples), and a 4,096-spin
+    cube's ``acquire`` against the Bloch simulator stepped through the
+    readout (float64, 1e-10); (c) CG-SENSE at ``bench_recon`` width
+    (128×128, 8 coils, ~29k samples, 10 iterations, float32): image error
+    and seconds per iteration; (d) ``signal``, ``signal_adjoint`` and
+    ∂Σs²/∂(ktraj, M) at ``bench_signal`` width: times, spin-samples per
+    second and peak memory.
+
 Launch counts are zeroed right before the forward path (phase 4) and read
 after it (``rfgr_fwd``, ``beff_fwd`` must have launched), zeroed again
 before the gradient and design path (phases 7–8) and read after it (all
-four Bloch kernels must have launched), and again before the two-pool
-path (phase 11; ``mc_fwd`` and ``mc_bwd`` must have launched). The
-comparisons with the plain versions (phases 2, 3, 5, 6, 9, 10) run
-before and are not counted.
+four Bloch kernels must have launched), again before the two-pool path
+(phase 11; ``mc_fwd`` and ``mc_bwd`` must have launched), and again before
+the acquisition path (phase 13; ``sig_fwd``, ``sig_adj``, ``sig_vjp`` and
+``rfgr_fwd`` must have launched). The comparisons with the plain versions
+(phases 2, 3, 5, 6, 9, 10, 12) run before and are not counted.
 
 The line before the last is one JSON object with each kernel's launches
 on those paths, error, times and bound: ``bound_ms`` is the larger of the
 bytes of its timed float32 case (inputs read once, outputs written once)
 over 3.35 TB/s and the arithmetic of its plain version on the same
 inputs (:func:`count_ops`) over 67 TFLOP/s; ``library_ms`` is null, as no
-single PyTorch call computes a Bloch simulation. The last line is the
-contract line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
-"count": ...}}``.
+single PyTorch call computes a Bloch simulation or the off-resonance- and
+decay-weighted non-uniform encoding. The last line is the contract line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}``.
 """
 
 import functools
@@ -507,6 +533,12 @@ KERNELS = {
                    replaces='mrphy_tpu/ops/mc_pallas.py:250'),
     'mc_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/mc_bwd.cu',
                    replaces='mrphy_tpu/ops/mc_pallas.py:583'),
+    'sig_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/sig_fwd.cu',
+                    replaces='mrphy_tpu/ops/signal_pallas.py:311'),
+    'sig_vjp': dict(source='mrphy_tpu_torch/kernels/csrc/sig_vjp.cu',
+                    replaces='mrphy_tpu/ops/signal_pallas.py:369'),
+    'sig_adj': dict(source='mrphy_tpu_torch/kernels/csrc/sig_adj.cu',
+                    replaces='mrphy_tpu/ops/signal_pallas.py:414'),
 }
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
@@ -691,16 +723,21 @@ def row_err(a, b) -> float:
 RFGR_BWD_OUT = ('dmi', 'drf2', 'dgr2', 'dloc', 'ddfg', 'db1', 'dvel')
 
 # The arithmetic of the plain versions, one operation per element of each
-# result (a sum: per element of its input). Indexing, stacking and copies
-# are not counted; nor are the kernels' own extra instructions (sincos's
-# range reduction and polynomials count as one operation each for sin and
-# cos): a lower bound on the card's work.
+# result (a sum: per element of its input); a matrix product counts 2·m·n·k
+# (a multiply and an add per term; ``addmm``/``baddbmm`` one more add per
+# element). Indexing, stacking and copies are not counted; nor are the
+# kernels' own extra instructions (sincos's range reduction and
+# polynomials count as one operation each for sin and cos): a lower bound
+# on the card's work.
 _ARITH = {'add', 'sub', 'mul', 'div', 'neg', 'rsqrt', 'sin', 'cos',
-          'clamp_min', 'reciprocal', 'sum', 'exp', 'expm1'}
+          'clamp_min', 'reciprocal', 'sum', 'exp', 'expm1', 'round',
+          'remainder'}
+_MATMUL = {'mm', 'bmm', 'addmm', 'baddbmm', 'matmul', 'mv'}
 
 
 def count_ops(fn) -> int:
-    r"""The operations of ``_ARITH`` that ``fn()`` performs."""
+    r"""The operations of ``_ARITH`` and ``_MATMUL`` that ``fn()``
+    performs."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -712,6 +749,12 @@ def count_ops(fn) -> int:
             if name in _ARITH:
                 Count.n += (args[0].numel() if name == 'sum'
                             else out.numel())
+            elif name in _MATMUL:
+                a = args[1] if name in ('addmm', 'baddbmm') else args[0]
+                Count.n += 2 * out.numel() * a.shape[-1] + (
+                    out.numel() if name in ('addmm', 'baddbmm') else 0)
+            elif name == 'dot':
+                Count.n += 2 * args[0].numel()
             return out
 
     with Count():
@@ -1354,6 +1397,484 @@ def phase_mc_path(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The k-space acquisition operator (phases 12-13)
+# ---------------------------------------------------------------------------
+
+# benchmarks/suite.py bench_signal (lines 274-340): one readout of a 3-D
+# volume, 64³ = 262,144 spins × 16,384 samples × 8 coils
+SIG_NM, SIG_NT, SIG_NC = 64 ** 3, 16_384, 8
+# Bars on max|kernel − plain| / max|plain|. 2e-5 on the linear outputs (U,
+# V, XR, XS) in float32: the bar tests/test_signal.py sets between two
+# float32 routes of this operator (the kernels take sincospi where the
+# plain versions take sin/cos of a rounded radian, and sum in another
+# order); 2e-4 on the phase-chain cotangents (dloc, dk, ddf, di2), whose
+# terms cancel more (tests/test_signal.py:272); float64: rounding only.
+SIG_BAR = {torch.float32: 2e-5, torch.float64: 1e-12}
+SIG_CHAIN_BAR = {torch.float32: 2e-4, torch.float64: 1e-10}
+
+
+def signal_case(nM, nT, dtype, dev, *, nC=8, N=1, bcast=True, sens=True,
+                df=True, t2=True, seed=0):
+    r"""``signal`` inputs of the bench_signal configuration, from ``seed``:
+    M standard normal, locations uniform over ±12 cm, readout gradients
+    uniform in ±2 G/cm at dt0 (the Rx k-space their γ·dt cumsum, |k| up to
+    ~2.5 cycle/cm), ``nC`` standard-normal receive maps, Δf ∈ ±100 Hz, T2*
+    ∈ [5, 50] ms. With ``bcast`` every input but M has a batch of 1."""
+    from mrphy_tpu_torch import dt0, gamH
+    rng = np.random.default_rng(seed)
+    Nb = 1 if bcast else N
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    M = arr(rng.standard_normal((N, nM, 3)))
+    loc = arr(rng.uniform(-12, 12, (Nb, nM, 3)))
+    k = arr(np.cumsum(rng.uniform(-2, 2, (Nb, 3, nT)), axis=2) * gamH * dt0)
+    kw = {}
+    if sens:
+        kw['sens'] = arr(rng.standard_normal((Nb, nM, 2, nC)))
+    if df:
+        kw['df'] = arr(rng.uniform(-100, 100, (Nb, nM)))
+    if t2:
+        kw['T2s'] = arr(rng.uniform(5e-3, 5e-2, (Nb, nM)))
+    return (M, loc, k), kw
+
+
+# The kernels' cases (phase 12): label, spins, samples, dtype, signal_case
+# keywords, timed.
+SIG_CASES = (
+    ('262k x 16k x 8 coils, df+T2* (bench_signal)', SIG_NM, SIG_NT,
+     torch.float32, {}, True),
+    ('16k x 4k, 1 coil, no sens', 1 << 14, 4096, torch.float32,
+     dict(nC=1, sens=False), False),
+    ('16k x 4k x 32 coils', 1 << 14, 4096, torch.float32, dict(nC=32), False),
+    ('16k x 4k x 8 coils, no df/T2*', 1 << 14, 4096, torch.float32,
+     dict(df=False, t2=False), False),
+    ('N=3 x 16k x 4k x 4 coils, inputs broadcast', 1 << 14, 4096,
+     torch.float32, dict(nC=4, N=3), False),
+    ('16381 x 4093 x 3 coils, ragged, N=2 per-batch inputs', 16381, 4093,
+     torch.float32, dict(nC=3, N=2, bcast=False), False),
+    ('16k x 4k x 8 coils, df+T2*', 1 << 14, 4096, torch.float64, {}, False))
+
+SIG_OUT = {'sig_fwd': ('U', 'V'), 'sig_adj': ('XR', 'XS'),
+           'sig_vjp': ('XR', 'XS', 'dloc', 'dk', 'ddf', 'di2')}
+
+
+def phase_signal_kernels(dev):
+    r"""Phase 12: ``sig_fwd``, ``sig_adj`` and ``sig_vjp`` against their
+    plain versions on the arguments ``ops.signal`` gives them, on
+    SIG_CASES; the adjoints fed seeded signal / cotangent rows. Returns
+    each kernel's rows."""
+    from mrphy_tpu_torch import dt0
+    from mrphy_tpu_torch.kernels import signal as ks
+    from mrphy_tpu_torch.ops import signal as sig
+    rows = {name: [] for name in SIG_OUT}
+    for seed, (label, nM, nT, dtype, kw, timed) in enumerate(SIG_CASES, 40):
+        pos, kws = signal_case(nM, nT, dtype, dev, **kw)
+        w2, *sp = sig.signal_planes(*pos, **kws)
+        del pos, kws
+        g2 = cotangent(torch.empty((w2.shape[0], w2.shape[1], nT),
+                                   dtype=dtype, device=dev), seed)
+        runs = {'sig_fwd': (lambda: ks.sig_fwd(w2, *sp, dt0),
+                            lambda: ks.sig_fwd_torch(w2, *sp, dt0),
+                            (w2, sp)),
+                'sig_adj': (lambda: ks.sig_adj(g2, *sp, dt0),
+                            lambda: ks.sig_adj_torch(g2, *sp, dt0),
+                            (g2, sp)),
+                'sig_vjp': (lambda: ks.sig_vjp(g2, w2, *sp, dt0),
+                            lambda: ks.sig_vjp_torch(g2, w2, *sp, dt0),
+                            (g2, w2, sp))}
+        for name, (run_kernel, run_plain, inputs) in runs.items():
+            k, p = run_kernel(), run_plain()
+            torch.cuda.synchronize()
+            errs, abs_errs = {}, {}
+            for n, a, b in zip(SIG_OUT[name], k, p):
+                check((a is None) == (b is None), f'{name} {n}: None')
+                if b is not None:
+                    check(a.shape == b.shape, f'{name} {n} shape')
+                    abs_errs[n] = max_err(a, b)
+                    errs[n] = row_err(a, b)
+            del k
+            lin = [n for n in errs if n in ('U', 'V', 'XR', 'XS')]
+            row = dict(case=label, dtype=str(dtype).replace('torch.', ''),
+                       rel_err=errs, bar=SIG_BAR[dtype],
+                       chain_bar=SIG_CHAIN_BAR[dtype],
+                       max_abs_err=max(abs_errs[n] for n in lin),
+                       max_rel_err=max(errs[n] for n in lin))
+            if timed:
+                row['ms'] = time_ms(run_kernel)
+                row['plain_ms'] = time_ms(run_plain, reps=3)
+                if dtype == torch.float32:
+                    row.update(bound(run_plain, inputs, p))
+            del p
+            print(f'{name} {label}: ' + json.dumps(row), flush=True)
+            for n, e in errs.items():
+                bar = (SIG_BAR if n in lin else SIG_CHAIN_BAR)[dtype]
+                check(e <= bar, f'{name} {label} {n}: {e} > {bar}')
+            rows[name].append(row)
+        del w2, sp, g2
+    return rows
+
+
+def phase_sincos_accuracy(dev):
+    r"""The factors' accuracy in float32 against float64: ``sig_adj`` with
+    identity signal rows (64 coils, 128 samples) returns the factor matrix
+    itself, ``XR[t, m] = C[m, t]``, ``XS[t, m] = S[m, t]`` (no Δf, no
+    decay). 65,536 spins over ±12 cm and k up to ±4 cycle/cm put |φ| up to
+    ~150 cycles. Both the kernel (sincospi of the exact reduced argument)
+    and the plain version (sin/cos of the rounded radian −2πr) are held to
+    cos/sin(−2πφ) in float64 at the same float32 phase φ (which both form
+    bit for bit): the error of the reduction and sin/cos alone, under
+    4e-7, the bar of tests/test_signal.py's sweep of the TPU kernels'
+    polynomial sincos."""
+    from mrphy_tpu_torch import dt0
+    from mrphy_tpu_torch.kernels import signal as ks
+    rng = np.random.default_rng(3)
+    nM, nT = 1 << 16, 128
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    pos = arr(rng.uniform(-12, 12, (1, 3, nM)))
+    k = arr(rng.uniform(-4, 4, (1, 3, nT)))
+    eye = torch.eye(nT, dtype=torch.float32, device=dev)[None]
+    x, y, z = (pos[0, i, :, None] for i in range(3))
+    phi = x * k[0, 0] + y * k[0, 1] + z * k[0, 2]     # the kernels' order
+    ref = torch.exp(-2j * np.pi * phi.double())       # (nM, nT), float64
+    out = {'max_abs_phase_cycles': float(phi.abs().max())}
+    for name, run in (('kernel', ks.sig_adj), ('plain', ks.sig_adj_torch)):
+        XR, XS = run(eye, pos, None, None, k, dt0)
+        out[name] = max(max_err(XR[0].T, ref.real), max_err(XS[0].T, ref.imag))
+    print('sincos vs float64: ' + json.dumps(out), flush=True)
+    for name in ('kernel', 'plain'):
+        check(out[name] <= 4e-7, f'sincos {name}: {out[name]} > 4e-7')
+    return out
+
+
+# examples/recon_sense.py's default problem: a 32×32 ellipse phantom with
+# a smooth phase, 4 smooth coils, FOV 24 cm, the corner-covering spiral-out
+# (spiral2d(24, 46, direction='out'), 3358 samples at dt0), a linear
+# off-resonance map of ±40 Hz, CG-SENSE with λ = 1e-6, 40 iterations.
+RECON = dict(n=32, nc=4, fov=24.0, df=40.0, iters=40, lam=1e-6)
+RECON_STEPS = [0, 97, 1000, 2345, 3357]
+# benchmarks/suite.py bench_recon (lines 343-406): a 128×128 grid, 8
+# random coils, a random image, the corner-covering spiral-out
+# (spiral2d(24, 182, direction='out'), ~29k samples), 10 CG iterations.
+RECON_BENCH = dict(n=128, nc=8, fov=24.0, iters=10)
+RECON_PIXELS = [0, 100, 300, 528, 777, 1023]
+
+
+def recon_phantom(n):
+    r"""examples/recon_sense.py's ellipse phantom with a smooth phase,
+    `(n·n, 2)` re/im."""
+    y, x = np.mgrid[-1:1:n * 1j, -1:1:n * 1j]
+    mag = np.zeros((n, n))
+    mag[(x / 0.82) ** 2 + (y / 0.92) ** 2 < 1] = 1.0
+    mag[((x - 0.22) / 0.31) ** 2 + ((y + 0.1) / 0.41) ** 2 < 1] = 0.35
+    mag[((x + 0.22) / 0.27) ** 2 + ((y + 0.1) / 0.41) ** 2 < 1] = 0.65
+    mag[(x / 0.08) ** 2 + ((y - 0.55) / 0.11) ** 2 < 1] = 1.4
+    ph = 0.8 * x + 0.5 * y * y
+    return np.stack([mag * np.cos(ph), mag * np.sin(ph)], -1).reshape(-1, 2)
+
+
+def recon_coil_maps(n, nc):
+    r"""examples/recon_sense.py's smooth complex coil maps, `(n·n, 2,
+    nc)`."""
+    y, x = np.mgrid[-1:1:n * 1j, -1:1:n * 1j]
+    maps = []
+    for c in range(nc):
+        a = 2 * np.pi * c / nc
+        m = np.exp(-((x - 1.3 * np.cos(a)) ** 2
+                     + (y - 1.3 * np.sin(a)) ** 2) / 2.4)
+        p = 0.5 * (x * np.sin(a) - y * np.cos(a))
+        maps.append(np.stack([m * np.cos(p), m * np.sin(p)], -1))
+    return np.stack(maps, -1).reshape(n * n, 2, nc)
+
+
+def recon_arrays():
+    r"""The RECON problem's numpy float64 inputs: ``loc_ (1, nM, 3)``,
+    ``x_true (nM, 2)``, ``sens (1, nM, 2, nc)``, ``df (1, nM)`` and the
+    readout k-space ``k (1, 3, nT)``."""
+    from mrphy_tpu_torch import dt0, gamH
+    from mrphy_tpu_torch.utils import spiral2d
+    n, nc, fov = RECON['n'], RECON['nc'], RECON['fov']
+    ax = (np.arange(n) - n // 2) / n * fov
+    yy, xx = np.meshgrid(ax, ax, indexing='ij')
+    loc = np.stack([xx, yy, np.zeros_like(xx)], -1).reshape(1, n * n, 3)
+    df = RECON['df'] * (xx / fov * 2).reshape(1, n * n)
+    gr, _ = spiral2d(fov, int(np.ceil(1.42 * n)), direction='out')
+    k = gamH * dt0 * np.cumsum(gr, axis=2)
+    return (loc, recon_phantom(n), recon_coil_maps(n, nc)[None], df, k)
+
+
+def recon_ops(loc, sens, df, k):
+    r"""The encoding operator ``A`` `(nM, 2)` → `(1, nc, nT, 2)` and its
+    adjoint ``AH`` through ``ops.signal``, as examples/recon_sense.py
+    builds them."""
+    from mrphy_tpu_torch.ops import signal as sig
+    nM = loc.shape[1]
+
+    def A(x):
+        M = torch.cat([x, x.new_zeros((nM, 1))], -1)[None]
+        return sig.signal(M, loc, k, sens=sens, df=df)
+
+    def AH(s):
+        return sig.signal_adjoint(s, loc, k, sens=sens, df=df).sum(0)
+    return A, AH
+
+
+def cg_sense(A, AH, s, iters, lam=0.0):
+    r"""CG on ``(AᴴA + λI) x = Aᴴ s`` from 0 — examples/recon_sense.py's
+    loop: frozen once the squared residual falls below 1e-12 of the
+    first. Returns the image and the residual norm."""
+    b = AH(s)
+    x, r = torch.zeros_like(b), b
+    p, rs = r, (r * r).sum()
+    rs0 = rs
+    for _ in range(iters):
+        live = rs > 1e-12 * rs0
+        Ap = AH(A(p)) + lam * p
+        alpha = torch.where(live, rs / (p * Ap).sum(), 0.0)
+        x, r = x + alpha * p, r - alpha * Ap
+        rs_new = (r * r).sum()
+        p = torch.where(live, r + (rs_new / rs.clamp_min(1e-30)) * p, p)
+        rs = rs_new
+    return x, rs.sqrt()
+
+
+# mrphy_tpu (JAX, XLA route on the CPU), float64, on the RECON problem
+# (tests/make_signal_goldens.py prints these): the acquired signal at
+# RECON_STEPS (coils × steps × re/im) and its largest |value|; ∂Σs²/∂ktraj
+# at RECON_STEPS (xyz × steps) and its largest |value|; the CG-SENSE image
+# at RECON_PIXELS (pixels × re/im).
+GOLDEN_RECON = {'s': [[[200.0855127666203, 48.22895363791878],
+                       [-47.93238088949127, -11.177458947786883],
+                       [-0.09850685288263417, -0.6438096509719307],
+                       [-0.2599206984482687, -0.7993127485715334],
+                       [1.1489161614022065, 1.4183908736058588]],
+                      [[203.01053597551712, 23.014316238928348],
+                       [-37.73486437053407, -31.366963379509386],
+                       [3.2898607787728604, -0.8451125466466379],
+                       [0.9671011397818277, -1.897388911074458],
+                       [0.9882666170371979, 0.6659516131415915]],
+                      [[210.71426490751088, -8.939009858379757],
+                       [-38.96157288346173, -10.533006643157377],
+                       [1.2881102371587545, 2.2382305879613806],
+                       [1.0602772715725581, -0.3395006514451492],
+                       [0.9213754328204242, 0.6774692108369067]],
+                      [[222.60900723436075, 27.43410079361201],
+                       [-38.49792237001747, -20.955910348190724],
+                       [-0.6815442941947942, 2.811575637748219],
+                       [1.2729337463829695, 0.15824171361590622],
+                       [1.2753503838472742, 0.8059613307013015]]],
+                's_max': 222.9117747137282,
+                'dk': [[3377764.14008886,
+                        -144097.94315115572,
+                        -717.2627120669621,
+                        -249.11007333565829,
+                        -40.55885628922101],
+                       [-450.4080280629042,
+                        -20750.040824967793,
+                        -988.9737971278294,
+                        -195.1520595112691,
+                        -70.84780143872372],
+                       [0.0, 0.0, 0.0, 0.0, 0.0]],
+                'dk_max': 4982576.092562888,
+                'x': [[4.262738328908971e-06, 6.569162886131879e-07],
+                      [-4.4103617542229206e-06, 8.969526882938293e-07],
+                      [0.6472060813082426, -0.06017833727807889],
+                      [0.6497743401653377, 0.01711094059085578],
+                      [0.9829119508438173, -0.18406340431415452],
+                      [1.5147011125872427e-06, 2.737670233832806e-06]]}
+
+
+def excite_acquire_oracle(cube, gr, sens, T2s, dt):
+    r"""The signal of ``cube``'s magnetization over readout ``gr`` by the
+    Bloch simulator: ``slowsims.blochsim_1step`` stepped through the
+    readout with the gradient (and Δf) as Bz and T2* as T2, the spins'
+    transverse magnetization coil-combined after every step (the oracle of
+    tests/test_signal.py)."""
+    from mrphy_tpu_torch import gamH, pi
+    from mrphy_tpu_torch.ops import slowsims
+    M, loc, df = cube.M_, cube.loc_, cube.df_
+    E2 = torch.exp(-dt / T2s)
+    g2pd = 2 * pi * gamH * dt
+    mxy = []
+    for t in range(gr.shape[2]):
+        bz = (loc * gr[:, None, :, t]).sum(-1) + df / gamH
+        b = torch.cat([torch.zeros_like(loc[..., :2]), bz[..., None]], -1)
+        M, _ = slowsims.blochsim_1step(M, M, b, 1.0, 0.0, E2, g2pd)
+        mxy.append(M[0, :, :2])
+    mr, mi = torch.stack(mxy).unbind(-1)              # (nT, nM)
+    sr, si = sens[0, :, 0], sens[0, :, 1]             # (nM, nC)
+    return torch.stack([(mr @ sr - mi @ si).T, (mi @ sr + mr @ si).T],
+                       -1)[None]                      # (1, nC, nT, 2)
+
+
+def phase_signal_path(dev):
+    r"""Phase 13: the acquisition path through the entry points: (a) the
+    recon_sense problem against JAX in float64 and its image bound in
+    float32; (b) excite then acquire on the 64³ cube, and against the Bloch
+    oracle on a 4096-spin cube; (c) CG-SENSE at bench_recon width; (d)
+    bench_signal width through ``signal``: times and peak memory."""
+    from mrphy_tpu_torch import dt0, gamH
+    from mrphy_tpu_torch.models.mobjs import SpinCube
+    from mrphy_tpu_torch.ops import signal as sig
+    from mrphy_tpu_torch.utils import spiral2d
+    out, bars = {}, {}
+
+    # (a) the recon_sense problem, float64 against JAX, float32 image bound
+    for dtype in (torch.float64, torch.float32):
+        loc, x_true, sens, df, k = (torch.as_tensor(a, dtype=dtype,
+                                                    device=dev)
+                                    for a in recon_arrays())
+        A, AH = recon_ops(loc, sens, df, k)
+        s = A(x_true)
+        x, res = cg_sense(A, AH, s, RECON['iters'], RECON['lam'])
+        tag = 'f64' if dtype == torch.float64 else 'f32'
+        key = f'recon_{tag}_image_err'
+        out[key] = float(torch.linalg.vector_norm(x - x_true)
+                         / torch.linalg.vector_norm(x_true))
+        bars[key] = 0.01          # examples/recon_sense.py's own bound
+        if dtype != torch.float64:
+            continue
+        out['recon_f64_residual'] = float(res)
+        steps = torch.tensor(RECON_STEPS, device=dev)
+        out['recon_f64_signal_vs_jax'] = (max_err(
+            s[0][:, steps].cpu(), torch.tensor(
+            GOLDEN_RECON['s'], dtype=torch.float64))
+            / GOLDEN_RECON['s_max'])
+        bars['recon_f64_signal_vs_jax'] = 1e-10
+        kk = k.clone().requires_grad_()
+        M = torch.cat([x_true, x_true.new_zeros((x_true.shape[0], 1))],
+                      -1)[None]
+        dk, = torch.autograd.grad((sig.signal(M, loc, kk, sens=sens, df=df)
+                                   ** 2).sum(), kk)
+        out['recon_f64_dk_vs_jax'] = (max_err(
+            dk[0][:, steps].cpu(), torch.tensor(
+            GOLDEN_RECON['dk'], dtype=torch.float64))
+            / GOLDEN_RECON['dk_max'])
+        bars['recon_f64_dk_vs_jax'] = 1e-9
+        px = torch.tensor(RECON_PIXELS, device=dev)
+        out['recon_f64_image_vs_jax'] = max_err(
+            x[px].cpu(), torch.tensor(
+            GOLDEN_RECON['x'], dtype=torch.float64))
+        bars['recon_f64_image_vs_jax'] = 1e-9
+
+    # (b) excite then acquire: the 64³ cube at full width (float32, timed)
+    cube, pulse = cube64(torch.float32, dev)
+    rng = np.random.default_rng(12)
+    gr = torch.as_tensor(rng.uniform(-2, 2, (1, 3, SIG_NT)),
+                         dtype=torch.float32, device=dev)
+    sens = torch.as_tensor(rng.standard_normal((1, cube.nM, 2, SIG_NC)),
+                           dtype=torch.float32, device=dev)
+    T2s = torch.as_tensor(rng.uniform(5e-3, 5e-2, (1, cube.nM)),
+                          dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cube.applypulse(pulse, doUpdate=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s = cube.acquire(gr, sens_=sens, T2s_=T2s)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(tuple(s.shape) == (1, SIG_NC, SIG_NT, 2)
+          and bool(torch.isfinite(s).all()), 'excite-acquire signal')
+    out.update(cube64_excite_s=t1 - t0, cube64_acquire_s=t2 - t1)
+    del cube, s, sens, T2s
+    # ... and against the Bloch oracle on a 16³ = 4096-spin cube over 24
+    # cm (every 4th voxel of the 64³ grid) × 2048 samples, float64
+    mask = np.zeros((1, CUBE, CUBE, CUBE), dtype=bool)
+    mask[0, ::4, ::4, ::4] = True
+    cube = SpinCube((1, CUBE, CUBE, CUBE), [[24., 24., 24.]], mask=mask,
+                    device=dev, dtype=torch.float64)
+    cube.df_ = cube.loc_.sum(-1) / 36 * 100
+    rf, grp = waveforms(1000, torch.float64, dev)
+    from mrphy_tpu_torch.models.mobjs import Pulse
+    cube.applypulse(Pulse(rf, grp, dt=dt0), doUpdate=True)
+    nT = 2048
+    gr64 = gr[:, :, :nT].double()
+    sens = torch.as_tensor(rng.standard_normal((1, cube.nM, 2, SIG_NC)),
+                           device=dev)
+    T2s = torch.as_tensor(rng.uniform(5e-3, 5e-2, (1, cube.nM)), device=dev)
+    s = cube.acquire(gr64, sens_=sens, T2s_=T2s)
+    s_or = excite_acquire_oracle(cube, gr64, sens, T2s, dt0)
+    out['cube_4096_acquire_vs_oracle'] = row_err(s, s_or)
+    bars['cube_4096_acquire_vs_oracle'] = 1e-10
+    del cube, s, s_or
+
+    # (c) CG-SENSE at bench_recon width, float32
+    n, nc, fov, iters = (RECON_BENCH[k] for k in ('n', 'nc', 'fov', 'iters'))
+    rng = np.random.default_rng(0)
+    ax = np.linspace(-fov / 2, fov / 2, n, endpoint=False) + fov / (2 * n)
+    yy, xx = np.meshgrid(ax, ax, indexing='ij')
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    loc = arr(np.stack([xx, yy, np.zeros_like(xx)], -1).reshape(1, n * n, 3))
+    sens = arr(rng.standard_normal((1, n * n, 2, nc)))
+    x_true = arr(rng.standard_normal((n * n, 2)))
+    grs, _ = spiral2d(fov, int(np.ceil(1.42 * n)), direction='out')
+    k = arr(gamH * dt0 * np.cumsum(grs, axis=2))
+    A, AH = recon_ops(loc, sens, None, k)
+    s = A(x_true)
+    cg_sense(A, AH, s, 1)                                 # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, _ = cg_sense(A, AH, s, iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = float(torch.linalg.vector_norm(x - x_true)
+                / torch.linalg.vector_norm(x_true))
+    check(np.isfinite(err) and err < 1, f'bench_recon CG made no progress: '
+          f'{err}')
+    out.update(bench_recon_nT=int(k.shape[-1]), bench_recon_image_err=err,
+               bench_recon_s_per_iter=wall / iters)
+
+    # (d) bench_signal width through signal: forward, adjoint and the
+    # trajectory-optimization gradient ∂Σs²/∂(ktraj, M)
+    pos, kws = signal_case(SIG_NM, SIG_NT, torch.float32, dev)
+    M, loc, k = pos
+    s = sig.signal(M, loc, k, **kws)
+
+    def fwd():
+        return sig.signal(M, loc, k, **kws)
+
+    def adj():
+        return sig.signal_adjoint(s, loc, k, **kws)
+
+    def grad():
+        kk, MM = k.clone().requires_grad_(), M.clone().requires_grad_()
+        return torch.autograd.grad((sig.signal(MM, loc, kk, **kws) ** 2)
+                                   .sum(), (kk, MM))
+
+    gk, gM = grad()
+    check(bool(torch.isfinite(gk).all()) and bool(torch.isfinite(gM).all())
+          and float(gk.abs().max()) > 0, 'bench_signal gradient')
+    del gk, gM
+    for name, fn in (('fwd', fwd), ('adj', adj), ('grad_kM', grad)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        ms = statistics.median(ts) * 1e3
+        out[f'bench_signal_{name}_ms'] = ms
+        out[f'bench_signal_{name}_spin_samples_per_s'] = (
+            SIG_NM * SIG_NT / ms * 1e3)
+        out[f'bench_signal_{name}_peak_mem_gb'] = (
+            torch.cuda.max_memory_allocated(dev) / 1e9)
+    print('acquisition path: ' + json.dumps(dict(measured=out, bars=bars)),
+          flush=True)
+    for key, bar in bars.items():
+        check(out[key] <= bar, f'{key}: {out[key]} > {bar}')
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False',
@@ -1361,6 +1882,7 @@ def main() -> int:
         return 1
     from mrphy_tpu_torch.kernels import _build, bloch
     from mrphy_tpu_torch.kernels import mc as kmc
+    from mrphy_tpu_torch.kernels import signal as ksig
 
     dev = device()
     smi = subprocess.run(
@@ -1396,19 +1918,24 @@ def main() -> int:
     beff_bwd_rows = phase_beff_bwd(dev)
     mc_fwd_rows = phase_mc_fwd(dev)
     mc_bwd_rows = phase_mc_bwd(dev)
+    sig_rows = phase_signal_kernels(dev)
+    phase_sincos_accuracy(dev)
 
-    # the forward path, the gradient and design path, and the two-pool
-    # path: each with the launch counts zeroed just before it and read
-    # just after
+    # the forward path, the gradient and design path, the two-pool path
+    # and the acquisition path: each with the launch counts zeroed just
+    # before it and read just after
     counters = {**{k: bloch.LAUNCHES for k in bloch.LAUNCHES},
-                **{k: kmc.LAUNCHES for k in kmc.LAUNCHES}}
+                **{k: kmc.LAUNCHES for k in kmc.LAUNCHES},
+                **{k: ksig.LAUNCHES for k in ksig.LAUNCHES}}
     launches = {k: 0 for k in counters}
     for path, run, needs in (
             ('forward', phase_main_path, ('rfgr_fwd', 'beff_fwd')),
             ('gradient+design', lambda d: (phase_gradients(d),
                                            phase_design(d)),
              tuple(bloch.LAUNCHES)),
-            ('two-pool', phase_mc_path, tuple(kmc.LAUNCHES))):
+            ('two-pool', phase_mc_path, tuple(kmc.LAUNCHES)),
+            ('acquisition', phase_signal_path,
+             tuple(ksig.LAUNCHES) + ('rfgr_fwd',))):
         for k, table in counters.items():
             table[k] = 0
         run(dev)
@@ -1425,9 +1952,13 @@ def main() -> int:
     for name, rows in (('rfgr_fwd', rfgr_rows), ('beff_fwd', beff_rows),
                        ('rfgr_bwd', rfgr_bwd_rows),
                        ('beff_bwd', beff_bwd_rows),
-                       ('mc_fwd', mc_fwd_rows), ('mc_bwd', mc_bwd_rows)):
+                       ('mc_fwd', mc_fwd_rows), ('mc_bwd', mc_bwd_rows),
+                       ('sig_fwd', sig_rows['sig_fwd']),
+                       ('sig_vjp', sig_rows['sig_vjp']),
+                       ('sig_adj', sig_rows['sig_adj'])):
         head = rows[0]   # the float32 timed case at the main path's shape
-        err = 'max_abs_err_chk' if name.endswith('fwd') else 'max_abs_err'
+        err = ('max_abs_err_chk' if name in ('rfgr_fwd', 'beff_fwd', 'mc_fwd')
+               else 'max_abs_err')
         f32 = [r for r in rows if r['dtype'] == 'float32']
         kernels.append(dict(
             name=name, route='cuda', **KERNELS[name],
@@ -1435,12 +1966,16 @@ def main() -> int:
             max_abs_err=max(r[err] for r in f32),
             ms=head['ms'], plain_ms=head['plain_ms'],
             bound_ms=head['bound_ms'], bound_by=head['bound_by'],
-            # no single PyTorch call computes a Bloch simulation
+            # no single PyTorch call computes a Bloch simulation, or the
+            # off-resonance- and decay-weighted non-uniform encoding
             library_ms=None))
-        if name.endswith('bwd') and name != 'beff_bwd':
+        if name in ('rfgr_bwd', 'mc_bwd'):
             # the rows: max|Δ| / max|row|
             kernels[-1]['max_row_rel_err'] = max(
                 r['max_row_rel_err'] for r in f32)
+        if name.startswith('sig'):
+            # the linear outputs: max|Δ| / max|plain|
+            kernels[-1]['max_rel_err'] = max(r['max_rel_err'] for r in f32)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

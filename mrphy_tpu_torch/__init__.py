@@ -7,7 +7,8 @@ keeps its counterpart's signature and array layouts (``(N, *Nd, xyz)``,
 ``(N, xy, nT, (nCoils))``, ``(N, xyz, nT)``) so the two can be compared
 like with like. Inside, the port uses PyTorch's idiom: plain functions on
 tensors, objects holding tensors with ``.to(device=, dtype=)``, explicit
-``device=`` on constructors, and ``torch.autograd.Function`` around each
+``device=`` on constructors (default: the CUDA card, see
+:func:`default_device`), and ``torch.autograd.Function`` around each
 kernel. This package never imports JAX.
 
 Ported so far: the Bloch path and its gradient, ``SpinCube.applypulse``
@@ -16,7 +17,10 @@ through ``sims.blochsim_rfgr`` (fused engine, kernels ``rfgr_fwd`` and
 kernels ``beff_fwd`` and ``beff_bwd``), the joint RF + gradient design
 loop :mod:`mrphy_tpu_torch.design`, and the two-pool Bloch–McConnell
 engine ``ops.mc.blochsim_mc_rfgr`` (kernels ``mc_fwd`` and ``mc_bwd``)
-with its oracle ``slowsims.blochsim_mc``. Kernels build with ``nvcc`` at
+with its oracle ``slowsims.blochsim_mc``, and the k-space acquisition
+operator ``ops.signal.signal`` / ``signal_adjoint`` behind
+``SpinCube.acquire`` (kernels ``sig_fwd``, ``sig_vjp``, ``sig_adj``) with
+the trajectory and receive-coil utilities. Kernels build with ``nvcc`` at
 their first CUDA call (see :mod:`mrphy_tpu_torch.kernels`); CPU
 tensors take each kernel's plain PyTorch version.
 
@@ -49,6 +53,19 @@ def cuda_is_available() -> bool:
     return torch.cuda.is_available()
 
 
+def default_device(device=None):
+    r"""``torch.device(device)``, or the CUDA card when ``device`` is None.
+    Without a card that raises: the port's objects and entry points never
+    fall back to the CPU unasked."""
+    import torch
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
+                           'CPU')
+    return torch.device('cuda')
+
+
 from mrphy_tpu_torch import utils                  # noqa: E402
 from mrphy_tpu_torch.ops import beffective         # noqa: E402
 from mrphy_tpu_torch.ops import sims               # noqa: E402
@@ -66,4 +83,4 @@ for _name, _mod in (('beffective', beffective), ('sims', sims),
 
 __all__ = ['gamH', 'γH', 'T1G', 'T2G', 'dt0', 'gmax0', 'smax0', 'rfmax0',
            'utils', 'beffective', 'sims', 'slowsims', 'mobjs', 'kernels',
-           'design', 'cuda_is_available']
+           'design', 'cuda_is_available', 'default_device']

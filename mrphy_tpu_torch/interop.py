@@ -4,7 +4,8 @@ The ``*_from_numpy`` object builders take the dict that the JAX object's
 ``asdict(toNumpy=True)`` returns (grid form, the default, or compact
 form with ``doEmbed=False``; the dict carries the static ``mask``) and
 return the matching :mod:`mrphy_tpu_torch.models.mobjs` object on
-``device`` in ``dtype`` (default: the dict's own dtype). Grid-form
+``device`` (default: the CUDA card, as the objects' own default) in
+``dtype`` (default: the dict's own dtype). Grid-form
 attributes are NaN outside the mask; building through the grid names
 extracts the masked values, so both forms give the same object.
 
@@ -18,6 +19,7 @@ No JAX is needed: the values only pass through :func:`numpy.asarray`.
 import numpy as np
 import torch
 
+from mrphy_tpu_torch import default_device
 from mrphy_tpu_torch.models.mobjs import (Pulse, SpinArray, SpinBolus,
                                           SpinCube)
 
@@ -58,7 +60,7 @@ def pulse_from_numpy(d: dict, *, device=None, dtype=None) -> Pulse:
     return Pulse(_t(d['rf']), _t(d['gr']), dt=_t(d['dt']),
                  gmax=_t(d['gmax']), smax=_t(d['smax']),
                  rfmax=_t(d['rfmax']), desc=d.get('desc', 'generic pulse'),
-                 device=device, dtype=_dtype(d, dtype))
+                 device=default_device(device), dtype=_dtype(d, dtype))
 
 
 def spinarray_from_numpy(d: dict, *, device=None, dtype=None) -> SpinArray:
@@ -87,7 +89,9 @@ def spinbolus_from_numpy(d: dict, *, device=None, dtype=None) -> SpinBolus:
 def design_params_from_numpy(d: dict, *, device=None, dtype=None) -> dict:
     r"""The port's design variables (leaf tensors that require grad, for
     :func:`mrphy_tpu_torch.design.design_step`) from a JAX
-    ``design.init_params`` dict ``{'trho', 'theta', 'ts'}`` of arrays."""
+    ``design.init_params`` dict ``{'trho', 'theta', 'ts'}`` of arrays, on
+    ``device`` (default: the CUDA card)."""
+    device = default_device(device)
     return {k: torch.tensor(np.asarray(v), dtype=dtype,
                             device=device).requires_grad_()
             for k, v in d.items()}

@@ -35,10 +35,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_P, _I64, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 
 # C entry points and their argument types: every pointer and the stream
-# are c_void_p, every size c_int64; each returns a cudaError_t (0 = ok).
+# are c_void_p, every size c_int64, the dwell time c_double; each returns
+# a cudaError_t (0 = ok).
 _SIGNATURES = {
     # mi, rf2, gr2, loc, dfg, b1, E, e1_1, g2pd, vel, tarr, chk,
     # N, nS, nT, nC, tc, stream
@@ -64,6 +65,18 @@ _SIGNATURES = {
     # dloc, ddfg, db1, dsb, dX, dZ, N, nS, nT, nC, tc, stream
     'mrphy_mc_bwd_f32': (_P,) * 20 + (_I64,) * 5 + (_P,),
     'mrphy_mc_bwd_f64': (_P,) * 20 + (_I64,) * 5 + (_P,),
+    # w2, pos, df, it2, k, Upart, Vpart, pos_bs, df_bs, it2_bs, k_bs, N,
+    # nM, nT, nC, nsplit, dt, stream
+    'mrphy_sig_fwd_f32': (_P,) * 7 + (_I64,) * 9 + (_D, _P),
+    'mrphy_sig_fwd_f64': (_P,) * 7 + (_I64,) * 9 + (_D, _P),
+    # s2, pos, df, it2, k, XR, XS, pos_bs, df_bs, it2_bs, k_bs, N, nM, nT,
+    # nC, dt, stream
+    'mrphy_sig_adj_f32': (_P,) * 7 + (_I64,) * 8 + (_D, _P),
+    'mrphy_sig_adj_f64': (_P,) * 7 + (_I64,) * 8 + (_D, _P),
+    # g2, w2, pos, df, it2, k, XR, XS, dloc, ddf, di2, dk, pos_bs, df_bs,
+    # it2_bs, k_bs, N, nM, nT, nC, nblk, dt, stream
+    'mrphy_sig_vjp_f32': (_P,) * 12 + (_I64,) * 9 + (_D, _P),
+    'mrphy_sig_vjp_f64': (_P,) * 12 + (_I64,) * 9 + (_D, _P),
 }
 
 

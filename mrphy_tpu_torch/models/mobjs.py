@@ -2,7 +2,8 @@ r"""User-facing object model: ``Pulse``, ``SpinArray``, ``SpinCube``,
 ``SpinBolus``, ``Examples`` (counterpart of :mod:`mrphy_tpu.models.mobjs`).
 
 Objects hold torch tensors on one device, given by the constructors'
-``device=`` (default: the CPU), and move with ``.to(device=, dtype=)``.
+``device=`` (default: the CUDA card; without one they raise, so a CPU run
+asks for ``device='cpu'``), and move with ``.to(device=, dtype=)``.
 
 - **Masked compact storage**: attributes are stored compact,
   ``(N, nM, ...)``, over a static boolean mask (host numpy) of the grid
@@ -13,16 +14,16 @@ Objects hold torch tensors on one device, given by the constructors'
   compact attribute (``obj.T1_``), as in the reference.
 - Unicode attribute/keyword aliases are accepted: ``γ``/``γ_`` ↔
   ``gam``/``gam_``, ``Δf``/``Δf_`` ↔ ``df``/``df_``.
-
-``SpinArray.acquire`` is not ported yet.
 """
 
 import numpy as np
 import torch
 
-from mrphy_tpu_torch import (gamH, dt0, gmax0, smax0, rfmax0, T1G, T2G, pi)
+from mrphy_tpu_torch import (gamH, dt0, gmax0, smax0, rfmax0, T1G, T2G, pi,
+                             default_device)
 from mrphy_tpu_torch.ops import beffective, sims
-from mrphy_tpu_torch.utils import ctrsub, interp1d_apply, interp_matrix
+from mrphy_tpu_torch.ops import signal as _signal
+from mrphy_tpu_torch.utils import ctrsub, g2k, interp1d_apply, interp_matrix
 
 __all__ = ['Pulse', 'SpinArray', 'SpinCube', 'SpinBolus', 'Examples']
 
@@ -92,7 +93,7 @@ class Pulse:
         - ``rfmax``: `()` ⊻ `(N ⊻ 1, (nCoils))`, "Gauss".
         - ``desc``: str description.
         - ``device``: torch device (default: that of a tensor ``rf``/``gr``,
-          else the CPU).
+          else the CUDA card).
         - ``dtype``: torch dtype (default: inferred from ``rf``/``gr``,
           falling back to float32).
     """
@@ -106,14 +107,15 @@ class Pulse:
                  device=None, dtype=None):
         if rf is None and gr is None:
             raise ValueError('Missing both `rf` and `gr` inputs')
+        if device is None:
+            tensors = [x for x in (rf, gr) if torch.is_tensor(x)]
+            device = tensors[0].device if tensors else default_device()
         given = [torch.as_tensor(x) for x in (rf, gr) if x is not None]
         if dtype is None:
             cands = [x.dtype for x in given if x.is_floating_point()]
             dtype = cands[0] if cands else torch.float32
             for c in cands[1:]:
                 dtype = torch.promote_types(dtype, c)
-        if device is None:
-            device = given[0].device
         object.__setattr__(self, '_dtype', dtype)
         object.__setattr__(self, '_device', torch.device(device))
 
@@ -279,7 +281,8 @@ class SpinArray:
         - ``T1`` ⊻ ``T1_``, ``T2`` ⊻ ``T2_``, ``gam`` ⊻ ``gam_`` (aliases
           ``γ``/``γ_``), ``M`` ⊻ ``M_``: grid `(N, *Nd, ...)` or compact
           `(N, nM, ...)` attributes.
-        - ``device``: torch device of every tensor (default: the CPU).
+        - ``device``: torch device of every tensor (default: the CUDA
+          card; raises without one).
 
     Properties: ``shape``, ``mask``, ``ndim``, ``nM``, ``dtype``,
     ``device``; compact ``T1_, T2_, gam_, M_``; grid views via plain names
@@ -307,7 +310,7 @@ class SpinArray:
         mask = np.asarray(mask)
         if mask.dtype != np.bool_ or mask.shape != (1,) + shape[1:]:
             raise ValueError(f'mask must be bool of shape {(1,) + shape[1:]}')
-        device = torch.device('cpu' if device is None else device)
+        device = default_device(device)
 
         object.__setattr__(self, '_shape', shape)
         object.__setattr__(self, '_mask', mask)
@@ -500,6 +503,46 @@ class SpinArray:
             self.M_ = M_
         return self.embed(M_) if doEmbed else M_
 
+    def acquire(self, gr, *, loc=None, loc_=None, sens=None, sens_=None,
+                T2s=None, T2s_=None, dt=None, mesh=None,
+                backend: str = 'auto', **kw):
+        r"""k-space signal of this array's current magnetization over a
+        readout gradient (:func:`mrphy_tpu_torch.ops.signal.signal`)::
+
+            cube.applypulse(p, doUpdate=True)   # excite
+            s = cube.acquire(gr_readout, sens=maps)
+
+        Inputs:
+            - ``gr``: `(N ⊻ 1, xyz, nT)`, "Gauss/cm", readout gradient;
+              the Rx k-space is its γ·dt cumsum (:func:`mrphy_tpu_torch
+              .utils.g2k` with ``isTx=False``, γ of each batch's first
+              spin).
+            - ``loc`` ⊻ ``loc_``: spin positions.
+        Optionals:
+            - ``sens`` ⊻ ``sens_``: `(N ⊻ 1, *Nd ⊻ nM, xy, nC)` receive
+              maps; ``df`` ⊻ ``df_`` (aliases ``Δf``/``Δf_``)
+              off-resonance during the readout; ``T2s`` ⊻ ``T2s_`` T2*
+              decay (not defaulted to ``T2_``); ``dt`` dwell (default
+              ``dt0``); ``mesh``/``backend`` as :func:`mrphy_tpu_torch.ops
+              .signal.signal`.
+        Outputs:
+            - ``s``: `(N, nC, nT, 2)` signal, re/im pairs.
+        """
+        df, df_ = _pop_df(kw)
+        if (loc_ is None) == (loc is None):
+            raise ValueError('need loc xor loc_')
+        loc_ = _either(self, loc, loc_, 'loc')
+        df_ = _either(self, df, df_, 'df')
+        sens_ = _either(self, sens, sens_, 'sens')
+        T2s_ = _either(self, T2s, T2s_, 'T2s')
+        dt = dt0 if dt is None else dt
+        # one γ per batch for the g → k conversion: the signal model has
+        # one k-space trajectory per batch
+        k = g2k(torch.as_tensor(gr, dtype=self.dtype, device=self.device),
+                False, dt, gam=self.gam_[:, :1, None])
+        return _signal.signal(self.M_, loc_, k, sens=sens_, df=df_,
+                              T2s=T2s_, dt=dt, mesh=mesh, backend=backend)
+
     def pulse2beff(self, pulse: Pulse, *, doEmbed: bool = False,
                    loc=None, loc_=None, b1Map=None, b1Map_=None, **kw):
         r"""B-effective of ``pulse`` under this array's γ."""
@@ -670,6 +713,23 @@ class SpinCube(SpinArray):
         return self._spinarray.freeprec(dur, df_=self.df_, doEmbed=doEmbed,
                                         doRelax=doRelax, doUpdate=doUpdate)
 
+    def acquire(self, gr, *, sens=None, sens_=None, T2s=None, T2s_=None,
+                dt=None, mesh=None, backend: str = 'auto', nseg: int = 8,
+                width: int = 5):
+        r"""Readout of the cube's current magnetization at its own grid
+        ``loc_`` and off-resonance ``Δf_`` (see :meth:`SpinArray.acquire`).
+        ``backend='nufft'`` (the gridding NUFFT, which ``nseg`` and
+        ``width`` tune) is not ported yet and raises."""
+        if backend == 'nufft':
+            raise NotImplementedError("backend='nufft' (the gridding NUFFT) "
+                                      'is not ported to mrphy_tpu_torch yet '
+                                      '(ROADMAP.md slice 9)')
+        sp = self._spinarray
+        return sp.acquire(gr, loc_=self.loc_, df_=self.df_,
+                          sens_=_either(sp, sens, sens_, 'sens'),
+                          T2s_=_either(sp, T2s, T2s_, 'T2s'), dt=dt,
+                          mesh=mesh, backend=backend)
+
     def pulse2beff(self, pulse: Pulse, *, doEmbed: bool = False,
                    b1Map=None, b1Map_=None):
         return self._spinarray.pulse2beff(pulse, loc_=self.loc_,
@@ -755,11 +815,12 @@ class SpinBolus(SpinArray):
 
 class Examples:
     r"""Canonical demo objects (the same as :class:`mrphy_tpu.models.mobjs
-    .Examples`)."""
+    .Examples`), on ``device`` (default: the CUDA card)."""
 
     @staticmethod
     def pulse(dtype=torch.float32, device=None) -> Pulse:
         r"""512-step cos/sin RF + atan gradient demo pulse."""
+        device = default_device(device)
         N, nT = 1, 512
         t = torch.arange(nT, dtype=dtype, device=device).reshape((N, 1, nT))
         rf = 10 * torch.cat([torch.cos(t / nT * 2 * pi),

@@ -1,7 +1,8 @@
 r"""The CUDA kernels of :mod:`mrphy_tpu_torch.kernels` on the card (the
-Bloch kernels and the two-pool ``mc_fwd``/``mc_bwd``): each against its
-plain PyTorch version, the launch counts, the wrappers' refusals, and
-backward through the engines reaching the adjoint kernels.
+Bloch kernels, the two-pool ``mc_fwd``/``mc_bwd`` and the k-space signal
+kernels ``sig_fwd``/``sig_adj``/``sig_vjp``): each against its plain
+PyTorch version, the launch counts, the wrappers' refusals, and backward
+through the engines reaching the adjoint kernels.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run them
@@ -15,6 +16,11 @@ in float64 (the kernels follow their plain versions' operations; on an
 H100 they have agreed bit for bit). The adjoints' waveform-gradient rows
 are sums over spins in another order than the plain version's: they are
 held at 1e-5 (float32) and 1e-12 (float64) of the row's largest value.
+The signal kernels take sincospi where their plain versions take sin/cos
+and sum in another order (the plain versions by matrix products): their
+outputs are held at 2e-5 (float32, the bar tests/test_signal.py sets
+between two float32 routes) and 1e-12 (float64) of each output's largest
+value.
 """
 
 import numpy as np
@@ -325,3 +331,115 @@ def test_mc_engine_gradients_cuda_vs_plain(cuda, dtype):
     for x, y in zip(*grads):
         assert bool(torch.isfinite(x).all())
         _rows_close(x, y, rel)
+
+
+def sig_args(N=2, nM=300, nT=97, nC=3, seed=7, dtype=np.float32, df=True,
+             t2=True, bcast=True):
+    r"""The signal kernels' arguments (numpy): coil-weighted spins ``w2``,
+    cotangent rows ``g2``, locations over ±12 cm, a k-space walk of
+    readout gradients up to 2 G/cm at 4 µs, Δf ∈ ±100 Hz, T2* ∈ [5, 50]
+    ms; with ``bcast`` the per-spin and per-sample inputs have a batch of
+    1 (broadcast over N)."""
+    rng = np.random.default_rng(seed)
+    Nb = 1 if bcast else N
+    a = dict(w2=rng.standard_normal((N, 2 * nC, nM)),
+             g2=rng.standard_normal((N, 2 * nC, nT)),
+             pos=rng.uniform(-12, 12, (Nb, 3, nM)),
+             df=rng.uniform(-100, 100, (Nb, nM)) if df else None,
+             it2=1 / rng.uniform(5e-3, 5e-2, (Nb, nM)) if t2 else None,
+             k=np.cumsum(rng.uniform(-2, 2, (Nb, 3, nT)), -1) * 4257.6 * 4e-6)
+    return {k: None if v is None else v.astype(dtype) for k, v in a.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar', [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize('kw', [dict(nC=1, df=False, t2=False),
+                                dict(nC=3, bcast=False),
+                                dict(nC=8, N=1, nM=1000, nT=300),
+                                dict(nC=32, nM=257, nT=129)],
+                         ids=['1coil-bare', '3coil-batched', '8coil',
+                              '32coil-ragged'])
+def test_signal_kernels_vs_plain_on_card(cuda, dtype, bar, kw):
+    r"""``sig_fwd``, ``sig_adj`` and ``sig_vjp`` against their plain
+    versions: one coil with neither Δf nor T2*, a batch with per-batch
+    inputs, 8 coils (one full group), 32 coils (four groups) on ragged
+    sizes."""
+    from mrphy_tpu_torch.kernels import signal as ks
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    a = {k: None if v is None else torch.as_tensor(v, device=cuda)
+         for k, v in sig_args(dtype=npdt, **kw).items()}
+    sp = (a['pos'], a['df'], a['it2'], a['k'], 4e-6)
+    n0 = dict(ks.LAUNCHES)
+    outs = [(ks.sig_fwd(a['w2'], *sp), ks.sig_fwd_torch(a['w2'], *sp)),
+            (ks.sig_adj(a['g2'], *sp), ks.sig_adj_torch(a['g2'], *sp)),
+            (ks.sig_vjp(a['g2'], a['w2'], *sp),
+             ks.sig_vjp_torch(a['g2'], a['w2'], *sp))]
+    assert all(ks.LAUNCHES[k] == n0[k] + 1 for k in ks.LAUNCHES)
+    for kern, plain in outs:
+        for x, y in zip(kern, plain):
+            if y is None:
+                assert x is None
+            else:
+                assert x.shape == y.shape
+                _rows_close(x, y, bar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_signal_gradients_cuda_vs_plain(cuda, dtype):
+    r"""Every gradient through ``ops.signal.signal`` on the card, the
+    kernels (``backend='cuda'``: ``sig_fwd`` + ``sig_vjp``) against the
+    plain versions (``backend='torch'``), and ``signal_adjoint`` through
+    ``sig_adj``; the wrappers refuse what the kernels do not take."""
+    from mrphy_tpu_torch.kernels import signal as ks
+    from mrphy_tpu_torch.ops import signal as sig
+    rng = np.random.default_rng(8)
+    N, nM, nT, nC = 2, 300, 130, 4
+
+    def leaf(*shape, lo=-1.0, hi=1.0):
+        return torch.tensor(rng.uniform(lo, hi, shape), dtype=dtype,
+                            device=cuda, requires_grad=True)
+
+    xs = (leaf(N, nM, 3), leaf(1, nM, 3, lo=-12, hi=12),
+          leaf(N, 3, nT, lo=-0.5, hi=0.5), leaf(1, nM, 2, nC),
+          leaf(1, nM, lo=-100, hi=100), leaf(1, nM, lo=5e-3, hi=5e-2))
+    W = torch.as_tensor(rng.normal(size=(N, nC, nT, 2)), dtype=dtype,
+                        device=cuda)
+    n0 = dict(ks.LAUNCHES)
+    grads = []
+    for backend in ('cuda', 'torch'):
+        s = sig.signal(xs[0], xs[1], xs[2], sens=xs[3], df=xs[4], T2s=xs[5],
+                       backend=backend)
+        grads.append(torch.autograd.grad((W * s).sum(), xs))
+    assert ks.LAUNCHES['sig_fwd'] == n0['sig_fwd'] + 1
+    assert ks.LAUNCHES['sig_vjp'] == n0['sig_vjp'] + 1
+    rel = 2e-5 if dtype == torch.float32 else 1e-10
+    for x, y in zip(*grads):
+        assert bool(torch.isfinite(x).all())
+        _rows_close(x, y, rel)
+    assert float(grads[0][0][..., 2].abs().max()) == 0.0
+    args = tuple(x.detach() for x in xs[1:3])
+    kw = dict(sens=xs[3].detach(), df=xs[4].detach(), T2s=xs[5].detach())
+    m_k = sig.signal_adjoint(W, *args, backend='cuda', **kw)
+    m_p = sig.signal_adjoint(W, *args, backend='torch', **kw)
+    assert ks.LAUNCHES['sig_adj'] == n0['sig_adj'] + 1
+    _rows_close(m_k, m_p, rel)
+    pos, k = args[0].transpose(1, 2).contiguous(), args[1].contiguous()
+    s2 = torch.zeros((N, 4, 2 * nT), dtype=dtype, device=cuda)
+    with pytest.raises(ValueError, match='contiguous'):
+        ks.sig_adj(s2[..., ::2], pos, None, None, k, 4e-6)
+    with pytest.raises(TypeError):
+        ks.sig_adj(s2[..., :nT].to(torch.float16), pos, None, None, k, 4e-6)
+
+
+@pytest.mark.cuda
+def test_objects_default_to_the_card_on_card(cuda):
+    r"""With no ``device=`` the objects and the numpy builders give CUDA
+    tensors."""
+    from mrphy_tpu_torch.models.mobjs import Examples, Pulse
+    cube = Examples.spincube()
+    assert cube.M_.device.type == 'cuda' and cube.loc_.device.type == 'cuda'
+    assert Examples.pulse().rf.device.type == 'cuda'
+    assert Pulse(rf=np.zeros((1, 2, 4))).rf.device.type == 'cuda'
+    assert Examples.spinbolus().vel_.device.type == 'cuda'

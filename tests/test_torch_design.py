@@ -146,7 +146,7 @@ def test_interp_matrix_vs_jax(kind):
 @pytest.mark.parametrize('kind', ['linear', 'cubic'])
 def test_pulse_interpT_vs_jax(kind):
     jp = jm.Examples.pulse(F64)
-    tp = tm.Examples.pulse(torch.float64)
+    tp = tm.Examples.pulse(torch.float64, device='cpu')
     for dt in (2 * dt0, 3e-6):
         a = jp.interpT(jnp.asarray(dt), kind=kind)
         b = tp.interpT(dt, kind=kind)
@@ -156,7 +156,7 @@ def test_pulse_interpT_vs_jax(kind):
         assert float(b.dt[0]) == float(a.dt[0])
     # refining doubles nT exactly, in float32 too (the dwell times are
     # compared in the pulse's dtype)
-    p32 = tm.Examples.pulse(torch.float32)
+    p32 = tm.Examples.pulse(torch.float32, device='cpu')
     coarse = p32.interpT(2 * dt0, kind=kind)
     assert coarse.rf.shape[2] == 256
     assert coarse.interpT(dt0, kind=kind).rf.shape[2] == 512
@@ -171,8 +171,8 @@ def test_pulse_interpT_vs_jax(kind):
 def _problem():
     jc, jp = jm.Examples.spincube(F64), jm.Examples.pulse(F64)
     Mtgt = np.tile([0., 0., -1.], (1, jc.nM, 1))
-    tc, tp = tm.Examples.spincube(torch.float64), tm.Examples.pulse(
-        torch.float64)
+    tc = tm.Examples.spincube(torch.float64, device='cpu')
+    tp = tm.Examples.pulse(torch.float64, device='cpu')
     return (jc, jp, jnp.asarray(Mtgt)), (tc, tp, _t(Mtgt))
 
 
@@ -285,7 +285,8 @@ def test_interop_continues_a_jax_design(jax_adam):
     losses_j, (params5, opt5) = jax_adam
     _, (tc, _, Mtgt) = _problem()
     cfg = tj.DesignConfig(**CFG)
-    params = interop.design_params_from_numpy(params5, dtype=torch.float64)
+    params = interop.design_params_from_numpy(params5, dtype=torch.float64,
+                                              device='cpu')
     assert all(p.is_leaf and p.requires_grad for p in params.values())
     opt = tj.make_optimizer(cfg, params)
     opt.state.update(interop.adam_state_from_numpy(opt5, params))

@@ -274,15 +274,28 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
 
 
 def test_import_without_jax():
-    r"""The port imports, builds nothing and runs on the CPU with JAX
-    made unimportable."""
+    r"""Every module of the port imports, builds nothing and runs on the
+    CPU (``device='cpu'``: excite, acquire, back-project) with JAX and the
+    JAX package made unimportable."""
     code = ('import sys; sys.modules["jax"] = None\n'
-            'import torch, mrphy_tpu_torch as m\n'
+            'sys.modules["mrphy_tpu"] = None\n'
+            'import importlib, pkgutil, torch, mrphy_tpu_torch as m\n'
+            'for i in pkgutil.walk_packages(m.__path__, m.__name__ + "."):\n'
+            '    importlib.import_module(i.name)\n'
             'from mrphy_tpu_torch.models.mobjs import Examples\n'
-            'M = Examples.spincube().applypulse(Examples.pulse())\n'
+            'from mrphy_tpu_torch.ops import signal\n'
+            'from mrphy_tpu_torch.utils import spiral2d\n'
+            'cube = Examples.spincube(device="cpu")\n'
+            'p = Examples.pulse(device="cpu")\n'
+            'M = cube.applypulse(p, doUpdate=True)\n'
             'assert M.shape == (1, 15, 3) and bool(torch.isfinite(M).all())\n'
-            'assert not any(k.startswith("jax") and sys.modules[k] '
-            'for k in sys.modules)\n'
+            'gr, _ = spiral2d(3.0, 4, direction="out")\n'
+            's = cube.acquire(torch.as_tensor(gr), T2s_=0.05)\n'
+            'x = signal.signal_adjoint(s, cube.loc_, torch.zeros(1, 3, '
+            's.shape[2]))\n'
+            'assert x.shape == (1, 15, 2) and bool(torch.isfinite(x).all())\n'
+            'assert not any(k.startswith(("jax", "mrphy_tpu.")) and '
+            'sys.modules[k] for k in sys.modules)\n'
             'print(m.cuda_is_available())\n')
     r = subprocess.run([sys.executable, '-c', code], capture_output=True,
                        text=True, timeout=120)
@@ -310,6 +323,7 @@ def test_kernel_sources_present():
     names = {p.name for p in (_build.Path(_build.__file__).parent
                               / 'csrc').glob('*.cu')}
     assert names == {'rfgr_fwd.cu', 'beff_fwd.cu', 'rfgr_bwd.cu',
-                     'beff_bwd.cu', 'mc_fwd.cu', 'mc_bwd.cu'}
+                     'beff_bwd.cu', 'mc_fwd.cu', 'mc_bwd.cu', 'sig_fwd.cu',
+                     'sig_adj.cu', 'sig_vjp.cu'}
     assert '--use_fast_math' not in _build.NVCC_FLAGS
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS

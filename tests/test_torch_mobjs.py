@@ -42,8 +42,9 @@ def _masked_cube8(seed=0):
 
 def _port(cube, pulse, embed=True):
     tc = interop.spincube_from_numpy(cube.asdict(doEmbed=embed),
-                                     dtype=torch.float64)
-    tp = interop.pulse_from_numpy(pulse.asdict(), dtype=torch.float64)
+                                     dtype=torch.float64, device='cpu')
+    tp = interop.pulse_from_numpy(pulse.asdict(), dtype=torch.float64,
+                                  device='cpu')
     return tc, tp
 
 
@@ -90,8 +91,8 @@ def test_masked_cube_applypulse_vs_jax(doFuse):
 
 def test_examples_vs_jax_f64():
     jc, jp = jm.Examples.spincube(F64), jm.Examples.pulse(F64)
-    tc, tp = tm.Examples.spincube(torch.float64), tm.Examples.pulse(
-        torch.float64)
+    tc = tm.Examples.spincube(torch.float64, device='cpu')
+    tp = tm.Examples.pulse(torch.float64, device='cpu')
     np.testing.assert_allclose(tc.loc_.numpy(), np.asarray(jc.loc_),
                                atol=1e-14)
     np.testing.assert_allclose(tc.df_.numpy(), np.asarray(jc.df_),
@@ -107,7 +108,8 @@ def test_examples_vs_jax_f64():
     np.testing.assert_allclose(ic.applypulse(ip).numpy(),
                                np.asarray(jc.applypulse(jp)), atol=1e-10)
     # float32 examples: within f32 accumulation of the float64 result
-    out32 = tm.Examples.spincube().applypulse(tm.Examples.pulse())
+    out32 = tm.Examples.spincube(device='cpu').applypulse(
+        tm.Examples.pulse(device='cpu'))
     assert out32.dtype == torch.float32
     np.testing.assert_allclose(out32.numpy(), np.asarray(jc.applypulse(jp)),
                                atol=1e-4)
@@ -116,8 +118,10 @@ def test_examples_vs_jax_f64():
 def test_spinbolus_vs_jax():
     jb = jm.Examples.spinbolus(F64)
     jc, jp = jm.Examples.spincube(F64), jm.Examples.pulse(F64)
-    tb = interop.spinbolus_from_numpy(jb.asdict(), dtype=torch.float64)
-    tp = interop.pulse_from_numpy(jp.asdict(), dtype=torch.float64)
+    tb = interop.spinbolus_from_numpy(jb.asdict(), dtype=torch.float64,
+                                      device='cpu')
+    tp = interop.pulse_from_numpy(jp.asdict(), dtype=torch.float64,
+                                  device='cpu')
     np.testing.assert_array_equal(tb.vel_.numpy(), np.asarray(jb.vel_))
     ref = jb.applypulse(jp, loc_=jc.loc_, df_=jc.df_)
     out = tb.applypulse(tp, loc_=torch.as_tensor(np.asarray(jc.loc_)),
@@ -131,8 +135,10 @@ def test_spinarray_b1_and_pulse2beff_vs_jax():
     rng = np.random.default_rng(3)
     ja = jm.Examples.spinarray(F64)
     jc, jp = jm.Examples.spincube(F64), jm.Examples.pulse(F64)
-    ta = interop.spinarray_from_numpy(ja.asdict(), dtype=torch.float64)
-    tp = interop.pulse_from_numpy(jp.asdict(), dtype=torch.float64)
+    ta = interop.spinarray_from_numpy(ja.asdict(), dtype=torch.float64,
+                                      device='cpu')
+    tp = interop.pulse_from_numpy(jp.asdict(), dtype=torch.float64,
+                                  device='cpu')
     b1 = rng.random((1, 15, 2)) - 0.5
     loc = np.asarray(jc.loc_)
     kw_j = dict(loc_=jc.loc_, b1Map_=jnp.asarray(b1, F64), df_=jc.df_)
@@ -147,7 +153,7 @@ def test_spinarray_b1_and_pulse2beff_vs_jax():
 
 
 def test_object_semantics():
-    cube = tm.Examples.spincube()
+    cube = tm.Examples.spincube(device='cpu')
     assert cube.device == torch.device('cpu') and not cube.is_cuda
     assert cube.dtype == torch.float32 and cube.nM == 15
     assert cube.Δf_ is cube.df_ and cube.γ_ is cube.gam_
@@ -159,8 +165,8 @@ def test_object_semantics():
     with pytest.raises(AttributeError, match='read-only'):
         cube.loc_ = cube.loc_
     with pytest.raises(ValueError, match='need loc xor loc_'):
-        cube.spinarray.applypulse(tm.Examples.pulse())
-    M_ = cube.applypulse(tm.Examples.pulse(), doUpdate=True)
+        cube.spinarray.applypulse(tm.Examples.pulse(device='cpu'))
+    M_ = cube.applypulse(tm.Examples.pulse(device='cpu'), doUpdate=True)
     torch.testing.assert_close(cube.M_, M_, rtol=0, atol=0)
     p = tm.Pulse(gr=torch.ones(1, 3, 8))
     assert p.rf.shape == (1, 2, 8) and p.dt.shape == (1,)
@@ -171,5 +177,22 @@ def test_object_semantics():
         tm.SpinArray((1, 2), gam=1.0, γ=1.0)
     with pytest.raises(TypeError, match='both'):
         cube.spinarray.freeprec(1e-3, df_=0.0, Δf_=0.0)
-    d = tm.Examples.spincube().asdict()
+    d = tm.Examples.spincube(device='cpu').asdict()
     assert d['M'].shape == (1, 3, 3, 3, 3) and 'Δf' in d
+
+
+def test_objects_default_to_the_card():
+    r"""With no ``device=`` the objects go to the CUDA card; without one
+    they raise rather than fall back to the CPU (the card's side:
+    ``tests/test_torch_cuda.py::test_objects_default_to_the_card_on_card``)."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the cuda-marked twin runs')
+    for make in (tm.Examples.spincube, tm.Examples.pulse,
+                 tm.Examples.spinarray, tm.Examples.spinbolus,
+                 lambda: tm.Pulse(rf=np.zeros((1, 2, 4))),
+                 lambda: interop.spinarray_from_numpy(
+                     jm.Examples.spinarray(F64).asdict())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    # tensors given to a Pulse keep their device
+    assert tm.Pulse(gr=torch.ones(1, 3, 4)).device == torch.device('cpu')
