@@ -109,6 +109,44 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     and seconds per iteration; (d) ``signal``, ``signal_adjoint`` and
     ∂Σs²/∂(ktraj, M) at ``bench_signal`` width: times, spin-samples per
     second and peak memory.
+14. The gridding NUFFT kernels ``nufft_sample``, ``nufft_spread`` and
+    ``nufft_dk`` against their plain versions on the arguments
+    ``ops.nufft`` gives them (``NUFFT_CASES``): the full-width 3-D case,
+    ``examples/recon3d.py``'s plan at n = 128 (192³ grid, W 4) on its
+    koosh-ball trajectory at 8192 spokes (2,285,568 samples), float32,
+    timed with both versions and with the library yardstick
+    (``torch.sparse.mm`` of the interpolation matrix for the sample, of its
+    transpose for the spread, built once); the same nT drawn uniform at
+    random (the spread's contention at the centre of k-space, timed);
+    ``bench_nufft3d`` (96³, osf 1.25, 32k samples) and ``bench_nufft`` (128²,
+    W 5, 32k samples), timed; a 1-D case, a W 7 case (the kernels'
+    run-time-width instance), a batch with per-entry trajectories, a
+    float64 batch with a shared trajectory and the float64 recon3d plan. max|Δ|/max|plain| at ``NUFFT_BAR`` for the sample and
+    the trajectory cotangent; the spread's atomics sum in another order,
+    held at :func:`atomic_bar` of the most taps that meet at one point.
+15. The gridding path through the entry points: (a) the
+    ``examples/recon3d.py`` problem in float64 (32³, 1200 spokes, data
+    from the exact operator ``signal`` plus 1% noise, |k|² density
+    weights, gridding, 12 CG iterations on the exact Toeplitz kernel)
+    against the JAX package's results (literals below, at 1e-9 of their
+    largest values; the CG image after 4 iterations at 1e-9 and after
+    12 at ``RECON3D_CG_BAR``, as the iteration amplifies rounding), and
+    ``dcf_pipe_menon`` of its trajectory (``nufft_spread`` then
+    ``nufft_sample``, 30 iterations) against JAX's weights at 1e-9;
+    against the exact operator (K7, K9) at the plan's measured accuracy,
+    with the example's asserts; (b) the
+    ``examples/recon_sense.py --op nufft`` problem in float64 (W 5, Δf
+    through 12 segments, 4 coils on the batch axis) against JAX literals:
+    the signal, ∂Σs²/∂ktraj (``nufft_dk``) and the 40-iteration CG-SENSE
+    image; (c) the 64³ cube excited (``applypulse``) then read through
+    ``acquire(backend='nufft', width=6, nseg=16)`` with 8 coils against
+    the exact ``acquire`` at the JAX test's 1e-3, times of both; (d) at the
+    full-width 3-D case, ``nufft``, ``nufft_adjoint``, ∂Σ|s|²/∂ktraj and a
+    CG iteration ``nufft_adjoint(nufft(·))``: times, samples per second,
+    peak memory, and the plan against the exact operator on a 16,384-
+    sample subset; (e) CG-SENSE at ``bench_recon`` width through the NUFFT
+    (data from the exact operator): seconds per iteration, and the image
+    error held at 1e-2 (the exact route's is 2.49e-3).
 
 Launch counts are zeroed right before the forward path (phase 4) and read
 after it (``rfgr_fwd``, ``beff_fwd`` must have launched), zeroed again
@@ -116,16 +154,22 @@ before the gradient and design path (phases 7–8) and read after it (all
 four Bloch kernels must have launched), again before the two-pool path
 (phase 11; ``mc_fwd`` and ``mc_bwd`` must have launched), and again before
 the acquisition path (phase 13; ``sig_fwd``, ``sig_adj``, ``sig_vjp`` and
-``rfgr_fwd`` must have launched). The comparisons with the plain versions
-(phases 2, 3, 5, 6, 9, 10, 12) run before and are not counted.
+``rfgr_fwd`` must have launched), and again before the gridding path
+(phase 15; ``nufft_sample``, ``nufft_spread`` and ``nufft_dk`` must have
+launched). The comparisons with the plain versions (phases 2, 3, 5, 6, 9,
+10, 12, 14) run before and are not counted.
 
 The line before the last is one JSON object with each kernel's launches
 on those paths, error, times and bound: ``bound_ms`` is the larger of the
 bytes of its timed float32 case (inputs read once, outputs written once)
 over 3.35 TB/s and the arithmetic of its plain version on the same
 inputs (:func:`count_ops`) over 67 TFLOP/s; ``library_ms`` is null, as no
-single PyTorch call computes a Bloch simulation or the off-resonance- and
-decay-weighted non-uniform encoding. The last line is the contract line
+single PyTorch call computes a Bloch simulation, the off-resonance- and
+decay-weighted non-uniform encoding or the NUFFT's trajectory cotangent;
+for the NUFFT's sample and spread it is the time of ``torch.sparse.mm`` of
+the interpolation matrix (cuSPARSE), which the port never calls. The
+NUFFT rows add ``sector_ms``, the gather's 32-byte-sector traffic over
+3.35 TB/s. The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``.
 """
@@ -539,6 +583,14 @@ KERNELS = {
                     replaces='mrphy_tpu/ops/signal_pallas.py:369'),
     'sig_adj': dict(source='mrphy_tpu_torch/kernels/csrc/sig_adj.cu',
                     replaces='mrphy_tpu/ops/signal_pallas.py:414'),
+    'nufft_sample': dict(
+        source='mrphy_tpu_torch/kernels/csrc/nufft_sample.cu',
+        replaces='mrphy_tpu/ops/nufft_pallas.py:223'),
+    'nufft_spread': dict(
+        source='mrphy_tpu_torch/kernels/csrc/nufft_spread.cu',
+        replaces='mrphy_tpu/ops/nufft_pallas.py:291'),
+    'nufft_dk': dict(source='mrphy_tpu_torch/kernels/csrc/nufft_dk.cu',
+                     replaces='mrphy_tpu/ops/nufft_pallas.py:392'),
 }
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
@@ -725,13 +777,15 @@ RFGR_BWD_OUT = ('dmi', 'drf2', 'dgr2', 'dloc', 'ddfg', 'db1', 'dvel')
 # The arithmetic of the plain versions, one operation per element of each
 # result (a sum: per element of its input); a matrix product counts 2·m·n·k
 # (a multiply and an add per term; ``addmm``/``baddbmm`` one more add per
-# element). Indexing, stacking and copies are not counted; nor are the
-# kernels' own extra instructions (sincos's range reduction and
-# polynomials count as one operation each for sin and cos): a lower bound
-# on the card's work.
-_ARITH = {'add', 'sub', 'mul', 'div', 'neg', 'rsqrt', 'sin', 'cos',
-          'clamp_min', 'reciprocal', 'sum', 'exp', 'expm1', 'round',
-          'remainder'}
+# element); ``index_add_`` one add per element of its source. Indexing,
+# stacking, copies, comparisons and selects are not counted (a plain
+# version with branches evaluates each on its own elements, as the NUFFT's
+# I₀ does, so that only the branch taken counts); nor are the kernels' own
+# extra instructions (sincos's range reduction and polynomials count as
+# one operation each for sin and cos): a lower bound on the card's work.
+_ARITH = {'add', 'sub', 'rsub', 'mul', 'div', 'neg', 'rsqrt', 'sqrt', 'sin',
+          'cos', 'clamp_min', 'reciprocal', 'sum', 'exp', 'expm1', 'round',
+          'floor', 'remainder'}
 _MATMUL = {'mm', 'bmm', 'addmm', 'baddbmm', 'matmul', 'mv'}
 
 
@@ -755,6 +809,8 @@ def count_ops(fn) -> int:
                     out.numel() if name in ('addmm', 'baddbmm') else 0)
             elif name == 'dot':
                 Count.n += 2 * args[0].numel()
+            elif name == 'index_add':
+                Count.n += args[3].numel()
             return out
 
     with Count():
@@ -1875,6 +1931,640 @@ def phase_signal_path(dev):
     return out
 
 
+# ==========================================================================
+# The gridding NUFFT (phases 14-15)
+# ==========================================================================
+
+# The full-width 3-D case: examples/recon3d.py's plan at n = 128 (FOV 24
+# cm, osf 1.5, W 4: a 192³ grid) and its golden-angle koosh-ball
+# trajectory at 8192 spokes, 2,285,568 samples (~0.32 × Nyquist).
+NUFFT3D = dict(n=128, fov=24.0, osf=1.5, width=4, spokes=8192)
+# Sample-stage bars on max|kernel − plain| / max|plain| (the kernels follow
+# their plain versions' operations: on the card they may agree bit for
+# bit); the spread's is atomic_bar().
+NUFFT_BAR = {torch.float32: 5e-5, torch.float64: 1e-10}
+EPS = {torch.float32: 2.0 ** -23, torch.float64: 2.0 ** -52}
+# The W 4, osf 1.5 plan against the exact operator (relative 2-norm of the
+# samples, and of the adjoint's image): 6.9e-4 / 9.4e-4 on the recon3d
+# phantom at 32³ and 7.1e-4 / 1.04e-3 at 64³ (4096 / 1024 radial samples),
+# 2.5e-3 / 1.2e-3 on a standard-normal 32³ image (float64, the plain route
+# on a CPU). The bar on the phantoms of phase 15.
+NUFFT_PLAN_ACC = 3e-3
+
+
+def atomic_bar(dtype, m_max: int) -> float:
+    r"""Bar on max|spread − index_add_| / max|grid|: two sums of the same
+    m terms in two orders differ by ~ε·√m of the partial sums' size
+    (random-walk rounding, each order ε·√(m/2)), four standard deviations
+    at the grid point where the most samples meet (``m_max`` taps)."""
+    return 4 * EPS[dtype] * max(m_max, 1) ** 0.5
+
+
+def radial3d_k(n, fov, spokes):
+    r"""examples/recon3d.py's trajectory: ``utils.radial3d`` spokes laid
+    end to end, `(3, nspokes·nT)` numpy float64, "cycle/cm"."""
+    from mrphy_tpu_torch.utils import radial3d
+    _, k = radial3d(fov, n, nspokes=spokes)
+    return k.transpose(1, 0, 2).reshape(3, -1)
+
+
+def sector_bytes(nT, width, d, elem) -> float:
+    r"""32-byte-sector traffic of a gather of nT samples' taps: W^(d−1)
+    rows of W contiguous re/im points per sample, a row starting at any
+    point offset within its sector (each sector counted once per row)."""
+    e2 = 2 * elem
+    offs = range(0, 32, e2) if e2 < 32 else [0]
+    per_row = sum(-(-(o + width * e2) // 32) for o in offs) / len(offs)
+    return nT * width ** (d - 1) * per_row * 32
+
+
+# The kernels' cases (phase 14): label, image size, FOV, osf, W,
+# trajectory ('radial' | 'uniform'), its spokes or samples, dtype, N, Nk,
+# timed ('full': kernel and plain version, 'kernel': the kernel only).
+NUFFT_CASES = (
+    ('128^3 osf 1.5 W4, radial3d 8192 spokes (recon3d at n=128)',
+     (128,) * 3, 24.0, 1.5, 4, 'radial', 8192, torch.float32, 1, 1, 'full'),
+    ('128^3 osf 1.5 W4, 2,285,568 uniform random samples',
+     (128,) * 3, 24.0, 1.5, 4, 'uniform', 2_285_568, torch.float32, 1, 1,
+     'kernel'),
+    ('96^3 osf 1.25 W4, 32k uniform (bench_nufft3d)', (96,) * 3, 24.0,
+     1.25, 4, 'uniform', 32_768, torch.float32, 1, 1, 'kernel'),
+    ('128^2 osf 2 W5, 32k uniform (bench_nufft)', (128, 128), 25.6, 2.0, 5,
+     'uniform', 32_768, torch.float32, 1, 1, 'kernel'),
+    ('256 (1-D) osf 2 W6, 4096 uniform', (256,), 24.0, 2.0, 6, 'uniform',
+     4096, torch.float32, 1, 1, None),
+    ('40^3 osf 2 W7 (the run-time-width instance), 8192 uniform', (40,) * 3,
+     24.0, 2.0, 7, 'uniform', 8192, torch.float32, 1, 1, None),
+    ('N=4 x 64^2 osf 2 W4, per-entry k, 8192 uniform', (64, 64), 24.0, 2.0,
+     4, 'uniform', 8192, torch.float32, 4, 4, None),
+    ('N=3 x 48x40 osf 2 W5, broadcast k, 4096 uniform', (48, 40), (24.0,
+     20.0), 2.0, 5, 'uniform', 4096, torch.float64, 3, 1, None),
+    ('32^3 osf 1.5 W4, radial3d 1200 spokes (recon3d)', (32,) * 3, 24.0,
+     1.5, 4, 'radial', 1200, torch.float64, 1, 1, None))
+
+NUFFT_KERNELS = ('nufft_sample', 'nufft_spread', 'nufft_dk')
+
+
+def nufft_case(im_size, fov, osf, width, traj, nT, dtype, dev, N, Nk,
+               seed):
+    r"""The kernels' arguments as ``ops.nufft`` gives them: the plan, the
+    spectrum of a standard-normal image through the grid stage
+    (``_to_grid``), the trajectory `(Nk, d, nT)` (``traj`` 'radial':
+    ``nT`` spokes of ``radial3d``; 'uniform': ``nT`` samples in the Nyquist
+    box), and standard-normal samples / cotangents `(N, nT, 2)`."""
+    from mrphy_tpu_torch.ops import nufft as nf
+    rng = np.random.default_rng(seed)
+    d = len(im_size)
+    fov = (fov,) * d if np.isscalar(fov) else fov
+    plan = nf.nufft_plan(im_size, fov, osf=osf, width=width, dtype=dtype,
+                         device=dev)
+    if traj == 'radial':
+        k = radial3d_k(im_size[0], fov[0], nT)[None]
+    else:
+        k = np.stack([rng.uniform(-n / (2 * f), n / (2 * f), (Nk, nT))
+                      for n, f in zip(im_size, fov)], 1)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    k = arr(k)
+    img = arr(rng.standard_normal((N,) + im_size + (2,)))
+    grid = nf._to_grid(plan, img).contiguous()
+    s = arr(rng.standard_normal((N, k.shape[-1], 2)))
+    g = arr(rng.standard_normal((N, k.shape[-1], 2)))
+    return plan, grid, k, s, g
+
+
+def interp_matrices(fi, fw, nG):
+    r"""The interpolation matrix A `(nT, ΠG)` of taps ``fi``/weights ``fw``
+    (one batch entry) as CSR, and Aᵀ `(ΠG, nT)` as CSR, int32 indices:
+    the operands of the library yardstick ``torch.sparse.mm``."""
+    nT, P = fi.shape
+    dev = fi.device
+    col = fi.reshape(-1)
+    crow = torch.arange(0, nT * P + 1, P, device=dev, dtype=torch.int32)
+    A = torch.sparse_csr_tensor(crow, col.int(), fw.reshape(-1),
+                                size=(nT, nG))
+    order = torch.argsort(col, stable=True)
+    counts = torch.bincount(col, minlength=nG)
+    crow_t = torch.zeros(nG + 1, dtype=torch.int64, device=dev)
+    crow_t[1:] = torch.cumsum(counts, 0)
+    AT = torch.sparse_csr_tensor(crow_t.int(), (order // P).int(),
+                                 fw.reshape(-1)[order], size=(nG, nT))
+    return A, AT
+
+
+def phase_nufft_kernels(dev):
+    r"""Phase 14: ``nufft_sample``, ``nufft_spread`` and ``nufft_dk``
+    against their plain versions on NUFFT_CASES; the timed full-width case
+    with the library yardstick (``torch.sparse.mm`` of the interpolation
+    matrix and of its transpose, built once) and the 32-byte-sector
+    traffic estimate beside the bound. Returns each kernel's rows."""
+    from mrphy_tpu_torch.kernels import nufft as knf
+    rows = {name: [] for name in NUFFT_KERNELS}
+    for seed, (label, im_size, fov, osf, W, traj, nT, dtype, N, Nk,
+               timed) in enumerate(NUFFT_CASES, 60):
+        plan, grid, k, s, g = nufft_case(im_size, fov, osf, W, traj, nT,
+                                         dtype, dev, N, Nk, seed)
+        geom, nG = plan.geom, int(np.prod(plan.grid_size))
+        fi, _, _ = knf.taps(k[:1], geom)
+        m_max = int(torch.bincount(fi.reshape(-1), minlength=nG).max())
+        del fi
+        runs = {'nufft_sample': (lambda: knf.nufft_sample(grid, k, geom),
+                                 lambda: knf.nufft_sample_torch(grid, k,
+                                                                geom),
+                                 (grid, k)),
+                'nufft_spread': (lambda: knf.nufft_spread(s, k, geom),
+                                 lambda: knf.nufft_spread_torch(s, k, geom),
+                                 (s, k)),
+                'nufft_dk': (lambda: knf.nufft_dk(grid, k, g, geom),
+                             lambda: knf.nufft_dk_torch(grid, k, g, geom),
+                             (grid, k, g))}
+        for name, (run_kernel, run_plain, inputs) in runs.items():
+            kout, pout = run_kernel(), run_plain()
+            torch.cuda.synchronize()
+            check(kout.shape == pout.shape, f'{name} {label}: shape')
+            err = row_err(kout, pout)
+            bar = (atomic_bar(dtype, m_max) if name == 'nufft_spread'
+                   else NUFFT_BAR[dtype])
+            row = dict(case=label, dtype=str(dtype).replace('torch.', ''),
+                       nT=int(k.shape[-1]), N=N, max_rel_err=err, bar=bar,
+                       max_abs_err=max_err(kout, pout),
+                       bit_identical=bool(torch.equal(kout, pout)))
+            if name == 'nufft_spread':
+                row['max_taps_at_one_point'] = m_max
+            if timed:
+                row['ms'] = time_ms(run_kernel)
+                row['samples_per_s'] = N * k.shape[-1] / row['ms'] * 1e3
+            if timed == 'full':
+                row['plain_ms'] = time_ms(run_plain, reps=3)
+                row.update(bound(run_plain, inputs, pout))
+                sb = sector_bytes(N * k.shape[-1], W, len(im_size),
+                                  grid.element_size())
+                row.update(sector_bytes=sb, sector_ms=sb / HBM_BPS * 1e3)
+            del kout, pout
+            rows[name].append(row)
+        if timed == 'full':
+            # the library yardstick: one torch.sparse.mm of the
+            # interpolation matrix (its build not timed); none for dk
+            fi, fw, _ = knf.taps(k[0:1], geom)
+            A, AT = interp_matrices(fi[0], fw[0], nG)
+            del fi, fw
+            for name, run, ref in (
+                    ('nufft_sample', lambda: torch.sparse.mm(A, grid[0]),
+                     lambda: knf.nufft_sample(grid, k, geom)[0]),
+                    ('nufft_spread', lambda: torch.sparse.mm(AT, s[0]),
+                     lambda: knf.nufft_spread(s, k, geom)[0])):
+                row = rows[name][-1]
+                row['library_ms'] = time_ms(run)
+                row['library_rel_err'] = row_err(run(), ref())
+            rows['nufft_dk'][-1]['library_ms'] = None
+            del A, AT
+        for name in NUFFT_KERNELS:
+            print(f'{name} {label}: ' + json.dumps(rows[name][-1]),
+                  flush=True)
+            r = rows[name][-1]
+            check(r['max_rel_err'] <= r['bar'], f"{name} {label}: "
+                  f"{r['max_rel_err']} > {r['bar']}")
+        del plan, grid, k, s, g
+    return rows
+
+
+# examples/recon3d.py at its defaults: a 32³ three-sphere phantom, FOV 24
+# cm, 1200 golden-angle koosh-ball spokes (169,200 samples), data from
+# the exact operator plus 1% complex noise (numpy default_rng(0)), the
+# plan W 4 at osf 1.5, |k|² density weights calibrated to unit DC gain,
+# and CG with the exact Toeplitz kernel (λ = 2e-4 of the PSF peak, 12
+# iterations). Voxels where the JAX literals are held (flat indices).
+RECON3D = dict(n=32, fov=24.0, spokes=1200, iters=12, noise=0.01, l2=2e-4,
+               width=4, osf=1.5)
+RECON3D_VOXELS = [0, 4681, 9362, 16912, 17424, 23405, 32767]
+# Samples where its Pipe–Menon weights are held (0 and 84600 lie within
+# 1e-3 cycle/cm of k = 0, where the spokes crowd).
+RECON3D_SAMPLES = [0, 70, 5287, 84600, 120001, 169199]
+# The Toeplitz CG of this problem amplifies rounding. JAX against itself
+# (float64, CPU; tests/make_nufft_goldens.py prints it): a relative change
+# of 1e-14 of the right-hand side moves iterate 4 by 3.6e-13, iterate 10
+# by 3.7e-3 and iterate 12 by 1.4e-8 of the iterate's largest value; a
+# 1-ulp change moves them by 9.3e-15, 5.3e-5 and 1.9e-10. The port's
+# operators differ from JAX's by ~1e-14 (the gridding image), so iterate
+# RECON3D_CG_EARLY is held to JAX at 1e-9 and iterate 12 at
+# RECON3D_CG_BAR, about ten times the largest gap measured on the H100
+# (1.1e-6).
+RECON3D_CG_EARLY = 4
+RECON3D_CG_BAR = 1e-5
+# examples/recon_sense.py --op nufft on the RECON problem: the gridding
+# plan W 5 at osf 2, Δf through 12 time segments (the example's --nseg).
+RECON_NUFFT = dict(width=5, nseg=12)
+# mrphy_tpu (JAX, gather route, eager, on the CPU), float64, on the RECON3D
+# problem (tests/make_nufft_goldens.py prints these): the calibration
+# image nufft_adjoint(w ⊙ nufft(𝟙)), the gridding image and the CG image
+# after RECON3D_CG_EARLY iterations and after all, at RECON3D_VOXELS
+# (voxels × re/im), each with its largest |value|; the Pipe–Menon weights
+# dcf_pipe_menon(plan, ktraj) at RECON3D_SAMPLES and their largest value.
+GOLDEN_RECON3D = {
+    'cal': [[38495.043840248894, 6466.101988040318],
+            [51312.38662780389, -2220.873337019489],
+            [49928.41286739162, -2620.567820919223],
+            [58450.85253139268, -1248.3980552944522],
+            [51665.3539336957, -1548.700116859991],
+            [49917.15185672466, 2617.420812833334],
+            [38470.98917487, -6434.726837808256]],
+    'cal_max': 72039.72546556692,
+    'grid': [[-0.09337736890384546, -0.0021083242527327583],
+             [0.22184913767988687, 0.043244121120498705],
+             [0.1205257963745748, -0.18920475470601028],
+             [2.6666448702480117, 0.02072324597170911],
+             [0.17275791706497656, 0.15186676971662194],
+             [0.2714224347461221, -0.2064771177403458],
+             [-0.030565657487428798, -0.062244710853161404]],
+    'grid_max': 2.6666448702480117,
+    'cg_early': [[0.11741088002460362, -0.003621931134204669],
+                 [0.05256258453161965, 0.002516449499459665],
+                 [0.05180534584632296, -0.009973367331862333],
+                 [1.148637463769864, -0.0005391086736985748],
+                 [-0.040511631585280095, 0.009063146148615236],
+                 [0.18915399331982918, -0.008554221079943976],
+                 [0.013419740778441339, -0.00780886310673227]],
+    'cg_early_max': 1.2866057655020091,
+    'cg': [[0.3860272312413433, -0.02478344431618137],
+           [0.022526325074024432, 0.006524000576616652],
+           [0.010900153286812951, -0.04465834879239547],
+           [1.2537989068543811, 0.008547498450711805],
+           [0.05415108929185047, 0.02364508862449015],
+           [0.10463400141309771, -0.04295675566901607],
+           [0.03345376998686379, -0.03740236484415513]],
+    'cg_max': 1.4990024731953542,
+    'dcf': [1.8503607364420027e-09, 3.8004536150497965e-06,
+            4.000202617960359e-06, 1.7692297243049936e-09,
+            4.7935466888611275e-08, 1.4368501155121533e-06],
+    'dcf_max': 1.850796140557777e-05}
+# ... and on the RECON problem through the gridding NUFFT (recon_sense.py
+# --op nufft): the signal at RECON_STEPS (coils × steps × re/im) and its
+# largest |value|; ∂Σs²/∂ktraj of the plan-ordered (ky, kx) trajectory at
+# RECON_STEPS (axes × steps) and its largest |value|; the 40-iteration
+# CG-SENSE image at RECON_PIXELS (pixels × re/im).
+GOLDEN_RECON_NUFFT = {
+    's': [[[200.08870466292473, 48.23042891344485],
+           [-47.82230837449346, -11.16476834012077],
+           [-0.10006349174158366, -0.6390523576229266],
+           [-0.2557261993842279, -0.7983227955545611],
+           [1.1489977340949504, 1.4184125436222716]],
+          [[203.01330280716408, 23.014660892987816],
+           [-37.633044427772646, -31.382105040183497],
+           [3.284012690703591, -0.8434382456843785],
+           [0.9661873795007454, -1.899025685404892],
+           [0.9883648933989078, 0.6660078124963589]],
+          [[210.71758502978926, -8.93940918204309],
+           [-38.79100162722489, -10.499845471540084],
+           [1.2902915985386756, 2.231581287081692],
+           [1.0598947027115335, -0.3429701060426986],
+           [0.9213469593217426, 0.6775390080916232]],
+          [[222.6122022751093, 27.434330856708023],
+           [-38.42491774574913, -20.87319218752907],
+           [-0.6778529166389022, 2.8112544075217336],
+           [1.2749767231881592, 0.15556928415152843],
+           [1.2753949293249875, 0.8059234418879601]]],
+    's_max': 222.90892589138457,
+    'dk': [[-553.7594922707649,
+            -19689.684916230362,
+            -983.3223265205471,
+            -197.17885911107322,
+            -70.76752851506745],
+           [3377411.9264205126,
+            -143928.74874676592,
+            -711.4091505834011,
+            -247.42838683062087,
+            -40.28550761808722]],
+    'dk_max': 4978634.721526625,
+    'x': [[-9.75369411941461e-05, 0.00020017434205267198],
+          [-0.00048236588967879207, 0.00020228572109085943],
+          [0.6469664751453379, -0.06010295860619674],
+          [0.6504978039149689, 0.017542170029195527],
+          [0.9840952781198627, -0.184026951144503],
+          [-0.0002487469120646824, -0.00022490536371426312]]}
+
+
+def recon3d_arrays():
+    r"""The RECON3D problem's numpy float64 inputs: the phantom ``img0``
+    `(n, n, n, 2)`, the trajectory ``kt`` `(3, nT)`, the grid locations
+    ``loc_`` `(1, n³, 3)` and the noise draw ``z`` `(nT, 2)`."""
+    n, fov = RECON3D['n'], RECON3D['fov']
+    ax = (np.arange(n) - n // 2) / n * fov
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing='ij')
+    ph = np.zeros((n, n, n))
+    for (cx, cy, cz, r, a) in ((0, 0, 0, 0.36 * fov, 1.0),
+                               (0.12 * fov, 0, 0.08 * fov, 0.10 * fov,
+                                -0.45),
+                               (-0.14 * fov, -0.1 * fov, -0.06 * fov,
+                                0.07 * fov, 0.6)):
+        ph += a * ((X - cx) ** 2 + (Y - cy) ** 2 + (Z - cz) ** 2 < r * r)
+    img0 = np.stack([ph, 0 * ph], -1)
+    kt = radial3d_k(n, fov, RECON3D['spokes'])
+    loc_ = np.stack([X, Y, Z], -1).reshape(1, -1, 3)
+    z = np.random.default_rng(0).standard_normal((kt.shape[1], 2))
+    return img0, kt, loc_, z
+
+
+def recon3d_run(nf, sig, img0, kt, loc_, z):
+    r"""examples/recon3d.py's pipeline on tensors through the port's
+    ``ops.nufft`` (``nf``) and ``ops.signal`` (``sig``): returns the
+    calibration image ``nufft_adjoint(w ⊙ nufft(𝟙))``, the gridding image,
+    the CG image after RECON3D_CG_EARLY iterations and after all of them,
+    and the plan."""
+    n, fov = RECON3D['n'], RECON3D['fov']
+    M = torch.cat([img0.reshape(1, -1, 2), img0.new_zeros((1, n ** 3, 1))],
+                  -1)
+    s = sig.signal(M, loc_, kt[None])[0, 0]                # (nT, 2)
+    s = s + RECON3D['noise'] * float(s.abs().max()) * z
+    plan = nf.nufft_plan((n,) * 3, (fov,) * 3, width=RECON3D['width'],
+                         osf=RECON3D['osf'], dtype=img0.dtype,
+                         device=img0.device)
+    w = (kt * kt).sum(0)
+    w = torch.where(w == 0, w[w > 0].min(), w)
+    ones = torch.stack([torch.ones_like(img0[..., 0]),
+                        torch.zeros_like(img0[..., 0])], -1)
+    cal = nf.nufft_adjoint(plan, w[:, None] * nf.nufft(plan, ones, kt), kt)
+    w = w / cal[..., 0].mean()
+    grid_rec = nf.nufft_adjoint(plan, w[:, None] * s, kt)
+    that = nf.toeplitz_kernel(plan, kt)
+    b = nf.nufft_adjoint(plan, s, kt)
+    lam = RECON3D['l2'] * float(that.abs().max())
+    x, r = torch.zeros_like(b), b
+    p, rs = r, (r * r).sum()
+    for it in range(1, RECON3D['iters'] + 1):
+        Ap = nf.toeplitz_apply(plan, that, p) + lam * p
+        al = rs / (p * Ap).sum().clamp_min(1e-30)
+        x, r = x + al * p, r - al * Ap
+        rs2 = (r * r).sum()
+        p = r + (rs2 / rs.clamp_min(1e-30)) * p
+        rs = rs2
+        if it == RECON3D_CG_EARLY:
+            x_early = x
+    return cal, grid_rec, x_early, x, plan
+
+
+def recon_nufft_ops(nf, sens, df, k, n, fov):
+    r"""examples/recon_sense.py --op nufft's operators on an n×n grid over
+    ``fov``: ``A`` `(n², 2)` → `(1, nc, nT, 2)` (each coil's image through
+    ``nufft``, with Δf segmentation unless ``df`` is None; the coils ride
+    the batch axis) and its adjoint ``AH``; grid axis 0 is y, so the
+    plan's trajectory is ``k[:, (1, 0)]``. Returns ``(A, AH, k2)``."""
+    from mrphy_tpu_torch import dt0
+    nc = sens.shape[-1]
+    plan = nf.nufft_plan((n, n), (fov, fov), width=RECON_NUFFT['width'],
+                         dtype=sens.dtype, device=sens.device)
+    nkw = {} if df is None else dict(df=df.reshape(n, n), dt=dt0,
+                                     nseg=RECON_NUFFT['nseg'])
+    k2 = k[:, (1, 0), :].contiguous()                      # (1, 2, nT)
+    sg = sens[0].reshape(n, n, 2, nc).movedim(-1, 0)       # (nc, n, n, 2)
+
+    def A(x, kk=k2):
+        xg = x.reshape(1, n, n, 2)
+        w = torch.stack([sg[..., 0] * xg[..., 0] - sg[..., 1] * xg[..., 1],
+                         sg[..., 0] * xg[..., 1] + sg[..., 1] * xg[..., 0]],
+                        -1)
+        return nf.nufft(plan, w, kk, **nkw)[None]
+
+    def AH(s):
+        xg = nf.nufft_adjoint(plan, s[0], k2, **nkw)       # (nc, n, n, 2)
+        xr = sg[..., 0] * xg[..., 0] + sg[..., 1] * xg[..., 1]
+        xi = sg[..., 0] * xg[..., 1] - sg[..., 1] * xg[..., 0]
+        return torch.stack([xr, xi], -1).sum(0).reshape(n * n, 2)
+    return A, AH, k2
+
+
+def gridding_accuracy(nf, sig, plan, img, k, loc):
+    r"""The plan against the exact operator on the same image and
+    trajectory: ``‖nufft − signal‖/‖signal‖`` (K10 vs K7) and
+    ``‖nufft_adjoint − signal_adjoint‖/‖signal_adjoint‖`` (K11 vs K9) of
+    the forward's samples."""
+    nM = loc.shape[1]
+    M = torch.cat([img.reshape(1, nM, 2), img.new_zeros((1, nM, 1))], -1)
+    k3 = k[None]
+    s_ex = sig.signal(M, loc, k3)[0, 0]
+    s_nf = nf.nufft(plan, img, k)
+    x_ex = sig.signal_adjoint(s_ex[None, None], loc, k3)[0]
+    x_nf = nf.nufft_adjoint(plan, s_ex, k).reshape(nM, 2)
+    return (float(torch.linalg.vector_norm(s_nf - s_ex)
+                  / torch.linalg.vector_norm(s_ex)),
+            float(torch.linalg.vector_norm(x_nf - x_ex)
+                  / torch.linalg.vector_norm(x_ex)))
+
+
+def phase_nufft_path(dev):
+    r"""Phase 15: the gridding path through the entry points: (a) the
+    recon3d problem in float64 against JAX literals and the exact
+    operator, with the example's own asserts; (b) the recon_sense --op
+    nufft problem in float64 against JAX literals; (c) excite, then
+    acquire through the NUFFT against the exact acquire; (d) the
+    full-width 3-D case's nufft, adjoint, trajectory gradient and CG
+    iteration, and its accuracy against the exact operator on a subset;
+    (e) CG-SENSE at bench_recon width through the NUFFT."""
+    from mrphy_tpu_torch import dt0, gamH
+    from mrphy_tpu_torch.ops import nufft as nf
+    from mrphy_tpu_torch.ops import signal as sig
+    from mrphy_tpu_torch.utils import spiral2d
+    out, bars = {}, {}
+    f64 = torch.float64
+
+    def arr(x, dtype=f64):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    # (a) the recon3d problem, float64
+    img0, kt, loc_, z = (arr(a) for a in recon3d_arrays())
+    cal, grid_rec, cg_early, cg_rec, plan = recon3d_run(nf, sig, img0, kt,
+                                                        loc_, z)
+    vox = torch.tensor(RECON3D_VOXELS, device=dev)
+    for key, x, bar in (('cal', cal, 1e-9), ('grid', grid_rec, 1e-9),
+                        ('cg_early', cg_early, 1e-9),
+                        ('cg', cg_rec, RECON3D_CG_BAR)):
+        ref = GOLDEN_RECON3D[key]
+        out[f'recon3d_{key}_vs_jax'] = max_err(
+            x.reshape(-1, 2)[vox].cpu(), torch.tensor(ref, dtype=f64)) / (
+            GOLDEN_RECON3D[f'{key}_max'])
+        bars[f'recon3d_{key}_vs_jax'] = bar
+
+    def nrmse(x):
+        return float(torch.linalg.vector_norm(x[..., 0] - img0[..., 0])
+                     / torch.linalg.vector_norm(img0[..., 0]))
+
+    out.update(recon3d_nT=int(kt.shape[1]), recon3d_nrmse_grid=nrmse(
+        grid_rec), recon3d_nrmse_cg=nrmse(cg_rec))
+    check(out['recon3d_nrmse_cg'] < out['recon3d_nrmse_grid'],
+          'recon3d: CG does not beat gridding')
+    bars['recon3d_nrmse_cg'] = 0.35               # the example's own bound
+    fwd_err, adj_err = gridding_accuracy(nf, sig, plan, img0, kt, loc_)
+    out.update(recon3d_nufft_vs_exact=fwd_err,
+               recon3d_adjoint_vs_exact=adj_err)
+    bars.update(recon3d_nufft_vs_exact=NUFFT_PLAN_ACC,
+                recon3d_adjoint_vs_exact=NUFFT_PLAN_ACC)
+    # Pipe–Menon weights of the recon3d trajectory (30 iterations of
+    # nufft_spread then nufft_sample)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wd = nf.dcf_pipe_menon(plan, kt)
+    torch.cuda.synchronize()
+    out['recon3d_dcf_s'] = time.perf_counter() - t0
+    smp = torch.tensor(RECON3D_SAMPLES, device=dev)
+    out['recon3d_dcf_vs_jax'] = max_err(
+        wd[smp].cpu(), torch.tensor(GOLDEN_RECON3D['dcf'], dtype=f64)) / (
+        GOLDEN_RECON3D['dcf_max'])
+    out['recon3d_dcf_max_vs_jax'] = abs(
+        float(wd.abs().max()) / GOLDEN_RECON3D['dcf_max'] - 1)
+    bars.update(recon3d_dcf_vs_jax=1e-9, recon3d_dcf_max_vs_jax=1e-9)
+    del img0, kt, loc_, z, cal, grid_rec, cg_early, cg_rec, plan, wd
+
+    # (b) examples/recon_sense.py --op nufft, float64
+    loc, x_true, sens, df, k = (arr(a) for a in recon_arrays())
+    A_ex, _ = recon_ops(loc, sens, df, k)
+    s_acq = A_ex(x_true)                          # acquired exactly (K7)
+    A, AH, k2 = recon_nufft_ops(nf, sens, df, k, RECON['n'], RECON['fov'])
+    steps = torch.tensor(RECON_STEPS, device=dev)
+    sn = A(x_true)
+    out['recon_nufft_signal_vs_jax'] = max_err(
+        sn[0][:, steps].cpu(), torch.tensor(GOLDEN_RECON_NUFFT['s'],
+                                            dtype=f64)) / (
+        GOLDEN_RECON_NUFFT['s_max'])
+    kk = k2.clone().requires_grad_()
+    dk, = torch.autograd.grad((A(x_true, kk) ** 2).sum(), kk)
+    out['recon_nufft_dk_vs_jax'] = max_err(
+        dk[0][:, steps].cpu(), torch.tensor(GOLDEN_RECON_NUFFT['dk'],
+                                            dtype=f64)) / (
+        GOLDEN_RECON_NUFFT['dk_max'])
+    x, _ = cg_sense(A, AH, s_acq, RECON['iters'], RECON['lam'])
+    px = torch.tensor(RECON_PIXELS, device=dev)
+    out['recon_nufft_image_vs_jax'] = max_err(
+        x[px].cpu(), torch.tensor(GOLDEN_RECON_NUFFT['x'], dtype=f64))
+    out['recon_nufft_image_err'] = float(torch.linalg.vector_norm(
+        x - x_true) / torch.linalg.vector_norm(x_true))
+    bars.update(recon_nufft_signal_vs_jax=1e-9, recon_nufft_dk_vs_jax=1e-9,
+                recon_nufft_image_vs_jax=1e-9,
+                recon_nufft_image_err=0.02)       # the example's --op bound
+    del loc, x_true, sens, df, k, s_acq, sn, dk, x
+
+    # (c) excite (K1), then acquire through the NUFFT against the exact
+    # acquire (K7): the 64³ cube of phase 13b, 8 coils, 16,384 samples of
+    # a random readout at dt 1 µs, T2* ∈ [20, 100] ms and the cube's Δf
+    # map scaled to ±10 Hz, so that 16 segments stay in the hat model's
+    # valid regime (bench_nufft's note; the bar is the JAX test's)
+    cube, pulse = cube64(torch.float32, dev)
+    rng = np.random.default_rng(12)
+    gr = arr(rng.uniform(-2, 2, (1, 3, SIG_NT)), torch.float32)
+    sens = arr(rng.standard_normal((1, cube.nM, 2, SIG_NC)), torch.float32)
+    T2s = arr(rng.uniform(2e-2, 1e-1, (1, cube.nM)), torch.float32)
+    cube.applypulse(pulse, doUpdate=True)
+    cube.df_ = cube.df_ * 0.1
+    kw = dict(sens_=sens, T2s_=T2s, dt=1e-6)
+    ts = {}
+    for name, extra in (('exact', {}), ('nufft', dict(
+            backend='nufft', width=6, nseg=16))):
+        cube.acquire(gr, **kw, **extra)                   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts[name] = cube.acquire(gr, **kw, **extra)
+        torch.cuda.synchronize()
+        out[f'cube64_acquire_{name}_s'] = time.perf_counter() - t0
+    out['cube64_acquire_nufft_vs_exact'] = float(
+        torch.linalg.vector_norm(ts['nufft'] - ts['exact'])
+        / torch.linalg.vector_norm(ts['exact']))
+    bars['cube64_acquire_nufft_vs_exact'] = 1e-3  # tests/test_nufft.py's
+    del cube, ts, sens, T2s
+
+    # (d) the full-width 3-D case, float32: a 128³ three-sphere phantom
+    # through nufft, nufft_adjoint, ∂Σ|s|²/∂ktraj and a CG iteration
+    n, fov = NUFFT3D['n'], NUFFT3D['fov']
+    kt = arr(radial3d_k(n, fov, NUFFT3D['spokes']), torch.float32)
+    nT = kt.shape[1]
+    plan = nf.nufft_plan((n,) * 3, (fov,) * 3, osf=NUFFT3D['osf'],
+                         width=NUFFT3D['width'], device=dev)
+    ax = (torch.arange(n, device=dev) - n // 2) / n * fov
+    X, Y, Z = torch.meshgrid(ax, ax, ax, indexing='ij')
+    img = torch.stack([((X ** 2 + Y ** 2 + Z ** 2) < (0.36 * fov) ** 2)
+                       .float() - 0.45 * (((X - 0.12 * fov) ** 2 + Y ** 2
+                                          + (Z - 0.08 * fov) ** 2)
+                                         < (0.1 * fov) ** 2).float(),
+                       torch.zeros_like(X)], -1)
+    s = nf.nufft(plan, img, kt)
+
+    def grad_k():
+        kk = kt.clone().requires_grad_()
+        return torch.autograd.grad((nf.nufft(plan, img, kk) ** 2).sum(),
+                                   kk)[0]
+
+    def cg_iter():
+        return nf.nufft_adjoint(plan, nf.nufft(plan, img, kt), kt)
+
+    gk = grad_k()
+    check(bool(torch.isfinite(gk).all()) and float(gk.abs().max()) > 0,
+          'full-width trajectory gradient')
+    del gk
+    for name, fn in (('fwd', lambda: nf.nufft(plan, img, kt)),
+                     ('adj', lambda: nf.nufft_adjoint(plan, s, kt)),
+                     ('grad_k', grad_k), ('cg_iter', cg_iter)):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            tms.append(time.perf_counter() - t0)
+        ms = statistics.median(tms) * 1e3
+        out[f'nufft3d_{name}_ms'] = ms
+        out[f'nufft3d_{name}_samples_per_s'] = nT / ms * 1e3
+        out[f'nufft3d_{name}_peak_mem_gb'] = (
+            torch.cuda.max_memory_allocated(dev) / 1e9)
+    # the plan against the exact operator (K7, K9) on a 16,384-sample
+    # subset: 2.1M spins × 16k samples
+    loc = torch.stack([X, Y, Z], -1).reshape(1, -1, 3)
+    sub = kt[:, ::max(1, nT // 16384)][:, :16384].contiguous()
+    fwd_err, adj_err = gridding_accuracy(nf, sig, plan, img, sub, loc)
+    out.update(nufft3d_nT=nT, nufft3d_nufft_vs_exact=fwd_err,
+               nufft3d_adjoint_vs_exact=adj_err)
+    bars.update(nufft3d_nufft_vs_exact=NUFFT_PLAN_ACC,
+                nufft3d_adjoint_vs_exact=NUFFT_PLAN_ACC)
+    del kt, plan, img, s, loc, X, Y, Z, sub
+
+    # (e) CG-SENSE at bench_recon width through the NUFFT (phase 13c's
+    # problem: 128×128, 8 random coils, the corner-covering spiral-out,
+    # 10 iterations, float32; data from the exact operator), with the
+    # voxels on the plan's grid x_j = fov·(j − n//2)/n (bench_recon's own
+    # grid sits half a voxel off it)
+    n, nc, fov, iters = (RECON_BENCH[k] for k in ('n', 'nc', 'fov', 'iters'))
+    rng = np.random.default_rng(0)
+    ax = (np.arange(n) - n // 2) / n * fov
+    yy, xx = np.meshgrid(ax, ax, indexing='ij')
+    loc = arr(np.stack([xx, yy, np.zeros_like(xx)], -1).reshape(1, n * n, 3),
+              torch.float32)
+    sens = arr(rng.standard_normal((1, n * n, 2, nc)), torch.float32)
+    x_true = arr(rng.standard_normal((n * n, 2)), torch.float32)
+    grs, _ = spiral2d(fov, int(np.ceil(1.42 * n)), direction='out')
+    k = arr(gamH * dt0 * np.cumsum(grs, axis=2), torch.float32)
+    A_ex, _ = recon_ops(loc, sens, None, k)
+    s = A_ex(x_true)
+    A, AH, _ = recon_nufft_ops(nf, sens, None, k, n, fov)
+    cg_sense(A, AH, s, 1)                                 # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, _ = cg_sense(A, AH, s, iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = float(torch.linalg.vector_norm(x - x_true)
+                / torch.linalg.vector_norm(x_true))
+    out.update(bench_recon_nufft_image_err=err,
+               bench_recon_nufft_s_per_iter=wall / iters)
+    # the exact route's image error on this problem is 2.49e-3 (phase 13c,
+    # H100): through the W 5 plan at osf 2 it stays within a few times that
+    bars['bench_recon_nufft_image_err'] = 1e-2
+    print('gridding path: ' + json.dumps(dict(measured=out, bars=bars)),
+          flush=True)
+    for key, bar in bars.items():
+        check(out[key] <= bar, f'{key}: {out[key]} > {bar}')
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False',
@@ -1882,6 +2572,7 @@ def main() -> int:
         return 1
     from mrphy_tpu_torch.kernels import _build, bloch
     from mrphy_tpu_torch.kernels import mc as kmc
+    from mrphy_tpu_torch.kernels import nufft as knf
     from mrphy_tpu_torch.kernels import signal as ksig
 
     dev = device()
@@ -1920,13 +2611,15 @@ def main() -> int:
     mc_bwd_rows = phase_mc_bwd(dev)
     sig_rows = phase_signal_kernels(dev)
     phase_sincos_accuracy(dev)
+    nufft_rows = phase_nufft_kernels(dev)
 
-    # the forward path, the gradient and design path, the two-pool path
-    # and the acquisition path: each with the launch counts zeroed just
-    # before it and read just after
+    # the forward path, the gradient and design path, the two-pool path,
+    # the acquisition path and the gridding path: each with the launch
+    # counts zeroed just before it and read just after
     counters = {**{k: bloch.LAUNCHES for k in bloch.LAUNCHES},
                 **{k: kmc.LAUNCHES for k in kmc.LAUNCHES},
-                **{k: ksig.LAUNCHES for k in ksig.LAUNCHES}}
+                **{k: ksig.LAUNCHES for k in ksig.LAUNCHES},
+                **{k: knf.LAUNCHES for k in knf.LAUNCHES}}
     launches = {k: 0 for k in counters}
     for path, run, needs in (
             ('forward', phase_main_path, ('rfgr_fwd', 'beff_fwd')),
@@ -1935,7 +2628,8 @@ def main() -> int:
              tuple(bloch.LAUNCHES)),
             ('two-pool', phase_mc_path, tuple(kmc.LAUNCHES)),
             ('acquisition', phase_signal_path,
-             tuple(ksig.LAUNCHES) + ('rfgr_fwd',))):
+             tuple(ksig.LAUNCHES) + ('rfgr_fwd',)),
+            ('gridding', phase_nufft_path, tuple(knf.LAUNCHES))):
         for k, table in counters.items():
             table[k] = 0
         run(dev)
@@ -1955,7 +2649,8 @@ def main() -> int:
                        ('mc_fwd', mc_fwd_rows), ('mc_bwd', mc_bwd_rows),
                        ('sig_fwd', sig_rows['sig_fwd']),
                        ('sig_vjp', sig_rows['sig_vjp']),
-                       ('sig_adj', sig_rows['sig_adj'])):
+                       ('sig_adj', sig_rows['sig_adj']),
+                       *nufft_rows.items()):
         head = rows[0]   # the float32 timed case at the main path's shape
         err = ('max_abs_err_chk' if name in ('rfgr_fwd', 'beff_fwd', 'mc_fwd')
                else 'max_abs_err')
@@ -1966,16 +2661,22 @@ def main() -> int:
             max_abs_err=max(r[err] for r in f32),
             ms=head['ms'], plain_ms=head['plain_ms'],
             bound_ms=head['bound_ms'], bound_by=head['bound_by'],
-            # no single PyTorch call computes a Bloch simulation, or the
-            # off-resonance- and decay-weighted non-uniform encoding
-            library_ms=None))
+            # no single PyTorch call computes a Bloch simulation, the
+            # off-resonance- and decay-weighted non-uniform encoding, or
+            # the trajectory cotangent of the interpolation; the NUFFT's
+            # sample and spread are one sparse product each
+            library_ms=head.get('library_ms')))
         if name in ('rfgr_bwd', 'mc_bwd'):
             # the rows: max|Δ| / max|row|
             kernels[-1]['max_row_rel_err'] = max(
                 r['max_row_rel_err'] for r in f32)
-        if name.startswith('sig'):
+        if name.startswith(('sig', 'nufft')):
             # the linear outputs: max|Δ| / max|plain|
             kernels[-1]['max_rel_err'] = max(r['max_rel_err'] for r in f32)
+        if name.startswith('nufft'):
+            # the gather's 32-byte-sector traffic over HBM_BPS, beside the
+            # bound's inputs-once bytes
+            kernels[-1]['sector_ms'] = head['sector_ms']
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

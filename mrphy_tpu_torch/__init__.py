@@ -20,9 +20,11 @@ engine ``ops.mc.blochsim_mc_rfgr`` (kernels ``mc_fwd`` and ``mc_bwd``)
 with its oracle ``slowsims.blochsim_mc``, and the k-space acquisition
 operator ``ops.signal.signal`` / ``signal_adjoint`` behind
 ``SpinCube.acquire`` (kernels ``sig_fwd``, ``sig_vjp``, ``sig_adj``) with
-the trajectory and receive-coil utilities. Kernels build with ``nvcc`` at
-their first CUDA call (see :mod:`mrphy_tpu_torch.kernels`); CPU
-tensors take each kernel's plain PyTorch version.
+the trajectory and receive-coil utilities, and the gridding NUFFT
+``ops.nufft`` behind ``SpinCube.acquire(backend='nufft')`` (kernels
+``nufft_sample``, ``nufft_spread``, ``nufft_dk``). Kernels build with
+``nvcc`` at their first CUDA call (see :mod:`mrphy_tpu_torch.kernels`);
+CPU tensors take each kernel's plain PyTorch version.
 
 Shape grammar and units are those of :mod:`mrphy_tpu`.
 """
@@ -70,6 +72,7 @@ from mrphy_tpu_torch import utils                  # noqa: E402
 from mrphy_tpu_torch.ops import beffective         # noqa: E402
 from mrphy_tpu_torch.ops import sims               # noqa: E402
 from mrphy_tpu_torch.ops import slowsims           # noqa: E402
+from mrphy_tpu_torch.ops import nufft              # noqa: E402
 from mrphy_tpu_torch.models import mobjs           # noqa: E402
 from mrphy_tpu_torch import kernels                # noqa: E402
 from mrphy_tpu_torch import design                 # noqa: E402
@@ -78,9 +81,10 @@ from mrphy_tpu_torch import design                 # noqa: E402
 import sys as _sys                                 # noqa: E402
 
 for _name, _mod in (('beffective', beffective), ('sims', sims),
-                    ('slowsims', slowsims), ('mobjs', mobjs)):
+                    ('slowsims', slowsims), ('nufft', nufft),
+                    ('mobjs', mobjs)):
     _sys.modules[f'{__name__}.{_name}'] = _mod
 
 __all__ = ['gamH', 'γH', 'T1G', 'T2G', 'dt0', 'gmax0', 'smax0', 'rfmax0',
-           'utils', 'beffective', 'sims', 'slowsims', 'mobjs', 'kernels',
-           'design', 'cuda_is_available', 'default_device']
+           'utils', 'beffective', 'sims', 'slowsims', 'nufft', 'mobjs',
+           'kernels', 'design', 'cuda_is_available', 'default_device']

@@ -11,7 +11,9 @@ extracts the masked values, so both forms give the same object.
 
 The design state carries across too: :func:`design_params_from_numpy`
 takes the JAX ``design.init_params`` dict, :func:`adam_state_from_numpy`
-optax's Adam state, so a design run in JAX can continue in the port.
+optax's Adam state, so a design run in JAX can continue in the port; and
+:func:`nufftplan_from_numpy` a gridding plan's attributes, so both
+packages can run on one plan.
 
 No JAX is needed: the values only pass through :func:`numpy.asarray`.
 """
@@ -22,10 +24,11 @@ import torch
 from mrphy_tpu_torch import default_device
 from mrphy_tpu_torch.models.mobjs import (Pulse, SpinArray, SpinBolus,
                                           SpinCube)
+from mrphy_tpu_torch.ops.nufft import NufftPlan
 
 __all__ = ['pulse_from_numpy', 'spinarray_from_numpy', 'spincube_from_numpy',
            'spinbolus_from_numpy', 'design_params_from_numpy',
-           'adam_state_from_numpy']
+           'adam_state_from_numpy', 'nufftplan_from_numpy']
 
 
 def _dtype(d, dtype):
@@ -132,3 +135,20 @@ def adam_state_from_numpy(opt_state, params: dict) -> dict:
                 'exp_avg': like(st.mu[k], p),
                 'exp_avg_sq': like(st.nu[k], p)}
             for k, p in params.items()}
+
+
+def nufftplan_from_numpy(d: dict, *, device=None, dtype=None) -> NufftPlan:
+    r"""The port's :class:`~mrphy_tpu_torch.ops.nufft.NufftPlan` from a
+    ``mrphy_tpu`` plan's attributes: ``d`` holds ``im_size``,
+    ``grid_size``, ``fov``, ``width``, ``beta`` and ``deapod`` (numpy),
+    e.g. ``{k: getattr(plan, k) for k in (...)}``. ``deapod`` goes to
+    ``device`` (default: the CUDA card) in ``dtype`` (default: its own).
+    The route is the port's ``interp='auto'`` (the JAX plan's TPU
+    strategy does not carry over)."""
+    deapod = np.asarray(d['deapod'])
+    return NufftPlan(tuple(d['im_size']), tuple(d['grid_size']),
+                     tuple(np.asarray(d['fov'], np.float64).reshape(-1)),
+                     d['width'], d['beta'],
+                     torch.tensor(deapod, dtype=_dtype(
+                         {'dtype': deapod.dtype}, dtype),
+                         device=default_device(device)))

@@ -10,12 +10,16 @@ r"""Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
 - :mod:`mrphy_tpu_torch.kernels.signal`: ``sig_fwd``, ``sig_adj`` and
   ``sig_vjp``, the k-space signal operator, its adjoint and its full VJP,
   with their plain PyTorch versions and launch counts.
+- :mod:`mrphy_tpu_torch.kernels.nufft`: ``nufft_sample``,
+  ``nufft_spread`` and ``nufft_dk``, the gridding NUFFT's interpolation,
+  its transpose and its trajectory cotangent, with their plain PyTorch
+  versions, launch counts and the autograd Functions of the two stages.
 - :mod:`mrphy_tpu_torch.kernels._build`: compiles ``csrc/*.cu`` with
   ``nvcc`` (one process per source, all at once) into one library under
   ``build/kernels/`` at the first CUDA launch and loads it with
   :mod:`ctypes`. Importing this package builds nothing.
 """
 
-from mrphy_tpu_torch.kernels import bloch, mc, signal  # noqa: F401
+from mrphy_tpu_torch.kernels import bloch, mc, nufft, signal  # noqa: F401
 
-__all__ = ['bloch', 'mc', 'signal']
+__all__ = ['bloch', 'mc', 'nufft', 'signal']

@@ -77,6 +77,15 @@ _SIGNATURES = {
     # it2_bs, k_bs, N, nM, nT, nC, nblk, dt, stream
     'mrphy_sig_vjp_f32': (_P,) * 12 + (_I64,) * 9 + (_D, _P),
     'mrphy_sig_vjp_f64': (_P,) * 12 + (_I64,) * 9 + (_D, _P),
+    # grid, k, out, geo (17 host doubles), k_bs, N, nT, D, W, stream
+    'mrphy_nufft_sample_f32': (_P,) * 4 + (_I64,) * 5 + (_P,),
+    'mrphy_nufft_sample_f64': (_P,) * 4 + (_I64,) * 5 + (_P,),
+    # s, k, grid, geo, k_bs, N, nT, D, W, stream
+    'mrphy_nufft_spread_f32': (_P,) * 4 + (_I64,) * 5 + (_P,),
+    'mrphy_nufft_spread_f64': (_P,) * 4 + (_I64,) * 5 + (_P,),
+    # grid, k, cot, dk, geo, k_bs, N, nT, D, W, stream
+    'mrphy_nufft_dk_f32': (_P,) * 5 + (_I64,) * 5 + (_P,),
+    'mrphy_nufft_dk_f64': (_P,) * 5 + (_I64,) * 5 + (_P,),
 }
 
 

@@ -718,17 +718,78 @@ class SpinCube(SpinArray):
                 width: int = 5):
         r"""Readout of the cube's current magnetization at its own grid
         ``loc_`` and off-resonance ``Δf_`` (see :meth:`SpinArray.acquire`).
-        ``backend='nufft'`` (the gridding NUFFT, which ``nseg`` and
-        ``width`` tune) is not ported yet and raises."""
-        if backend == 'nufft':
-            raise NotImplementedError("backend='nufft' (the gridding NUFFT) "
-                                      'is not ported to mrphy_tpu_torch yet '
-                                      '(ROADMAP.md slice 9)')
+
+        ``backend='nufft'`` routes through the gridding NUFFT
+        (:mod:`mrphy_tpu_torch.ops.nufft`; kernels ``nufft_sample`` and,
+        for gradients, ``nufft_spread``/``nufft_dk`` on CUDA tensors)
+        instead of the exact operator: O(G^d log G + nT·W^d) per readout
+        instead of O(nM·nT). It needs a FULL mask (the cube is the NUFFT
+        grid); singleton axes drop out of the plan, ``ofst`` enters as the
+        exact sample phase ``e^{−i2π k·ofst}`` over all three axes, and
+        ``Δf_``/``T2s`` go through ``nseg``-hat time segmentation (accuracy
+        ∝ (2πΔf·T/nseg)²; the exact backend stays the oracle). ``width``:
+        KB taps (the accuracy knob). Coils and batch entries ride the
+        NUFFT's batch axis."""
         sp = self._spinarray
-        return sp.acquire(gr, loc_=self.loc_, df_=self.df_,
-                          sens_=_either(sp, sens, sens_, 'sens'),
-                          T2s_=_either(sp, T2s, T2s_, 'T2s'), dt=dt,
-                          mesh=mesh, backend=backend)
+        sens_ = _either(sp, sens, sens_, 'sens')
+        T2s_ = _either(sp, T2s, T2s_, 'T2s')
+        if backend != 'nufft':
+            return sp.acquire(gr, loc_=self.loc_, df_=self.df_, sens_=sens_,
+                              T2s_=T2s_, dt=dt, mesh=mesh, backend=backend)
+        return self._acquire_nufft(gr, sens_, T2s_, dt0 if dt is None else dt,
+                                   mesh, nseg, width)
+
+    def _acquire_nufft(self, gr, sens_, T2s_, dt, mesh, nseg, width):
+        from mrphy_tpu_torch.ops import nufft as _nf
+        sp = self._spinarray
+        assert bool(np.all(sp.mask)), \
+            "backend='nufft' needs a full-grid cube (mask all True)"
+        N, grid_full = sp.shape[0], sp.shape[1:]
+        dims = [i for i, n in enumerate(grid_full) if n > 1]
+        im_size = tuple(grid_full[i] for i in dims)
+        fov = self.fov.expand(N, 3)
+        assert N == 1 or bool((fov == fov[:1]).all()), \
+            'per-batch FOVs need per-batch plans; split the batch'
+        plan = _nf.nufft_plan(im_size, fov[0, dims], width=width,
+                              dtype=self.dtype, device=self.device)
+        gr = torch.as_tensor(gr, dtype=self.dtype, device=self.device)
+        k = g2k(gr, False, dt, gam=self.gam_[:, :1, None]).expand(
+            N, 3, gr.shape[-1])
+        mxy = sp.M_[..., :2].reshape((N,) + im_size + (2,))
+        if sens_ is None:
+            img, nC = mxy[:, None], 1                    # (N, 1, n…, 2)
+        else:
+            sens_ = torch.as_tensor(sens_, dtype=self.dtype,
+                                    device=self.device)
+            nC = sens_.shape[-1]
+            sr, si = (sens_[..., i, :].movedim(-1, 1).expand(
+                N, nC, sp.nM).reshape((N, nC) + im_size) for i in (0, 1))
+            mx, my = mxy[:, None, ..., 0], mxy[:, None, ..., 1]
+            img = torch.stack([sr * mx - si * my, sr * my + si * mx], -1)
+        # batch entries and coils on the NUFFT's batch axis: n·nC + c
+        img = img.reshape((N * nC,) + im_size + (2,))
+
+        def per_entry(x):                                # (N, …) → (N·nC, …)
+            return x if N == 1 else x.repeat_interleave(nC, dim=0)
+
+        def grid_map(x):
+            if x is None:
+                return None
+            x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
+            x = torch.broadcast_to(x, (N, sp.nM)).reshape((N,) + im_size)
+            return x[0] if N == 1 else per_entry(x)
+
+        s = _nf.nufft(plan, img, per_entry(k[:, dims]),
+                      df=grid_map(self.df_), T2s=grid_map(T2s_), dt=dt,
+                      nseg=nseg, mesh=mesh)
+        s = s.reshape(N, nC, -1, 2)
+        # the exact offset phase over all three axes (dropped ones too)
+        o = self.ofst.expand(N, 3)[:, :, None]
+        ph = (-2 * pi) * ((k[:, 0] * o[:, 0] + k[:, 1] * o[:, 1])
+                          + k[:, 2] * o[:, 2])[:, None]  # (N, 1, nT)
+        c_, s_ = torch.cos(ph), torch.sin(ph)
+        return torch.stack([s[..., 0] * c_ - s[..., 1] * s_,
+                            s[..., 0] * s_ + s[..., 1] * c_], -1)
 
     def pulse2beff(self, pulse: Pulse, *, doEmbed: bool = False,
                    b1Map=None, b1Map_=None):

@@ -1,6 +1,7 @@
 r"""The CUDA kernels of :mod:`mrphy_tpu_torch.kernels` on the card (the
-Bloch kernels, the two-pool ``mc_fwd``/``mc_bwd`` and the k-space signal
-kernels ``sig_fwd``/``sig_adj``/``sig_vjp``): each against its plain
+Bloch kernels, the two-pool ``mc_fwd``/``mc_bwd``, the k-space signal
+kernels ``sig_fwd``/``sig_adj``/``sig_vjp`` and the gridding NUFFT's
+``nufft_sample``/``nufft_spread``/``nufft_dk``): each against its plain
 PyTorch version, the launch counts, the wrappers' refusals, and backward
 through the engines reaching the adjoint kernels.
 
@@ -443,3 +444,138 @@ def test_objects_default_to_the_card_on_card(cuda):
     assert Examples.pulse().rf.device.type == 'cuda'
     assert Pulse(rf=np.zeros((1, 2, 4))).rf.device.type == 'cuda'
     assert Examples.spinbolus().vel_.device.type == 'cuda'
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar', [(torch.float32, 2e-6),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize('im_size,fov,width,N,Nk', [
+    ((16, 12), (24.0, 18.0), 5, 3, 1), ((12, 10, 14), (18.0, 15.0, 21.0),
+                                         4, 2, 2),
+    ((8, 6, 10), (16.0, 12.0, 20.0), 6, 1, 1),
+    ((20, 16), (24.0, 18.0), 3, 2, 2), ((12, 10, 14), (18.0, 15.0, 21.0),
+                                        7, 1, 1),
+    ((40,), (24.0,), 8, 2, 1)],
+    ids=['2d-w5-broadcast-k', '3d-w4-batched-k', '3d-w6', '2d-w3-batched-k',
+         '3d-w7', '1d-w8-broadcast-k'])
+def test_nufft_kernels_vs_plain_on_card(cuda, dtype, bar, im_size, fov,
+                                        width, N, Nk):
+    r"""``nufft_sample``, ``nufft_spread`` and ``nufft_dk`` against their
+    plain versions on the card, k up to 1.5× the Nyquist box (taps wrap),
+    at widths with their own instance (4–6) and through the run-time-width
+    instance (3, 7, 8). The spread sums by atomics in another order than
+    ``index_add_``: its grid is held at the same relative bar."""
+    from mrphy_tpu_torch.kernels import nufft as knf
+    from mrphy_tpu_torch.ops import nufft as tnf
+    rng = np.random.default_rng(19)
+    plan = tnf.nufft_plan(im_size, fov, width=width, device=cuda)
+    nT, nG = 333, int(np.prod(plan.grid_size))
+    k = np.stack([rng.uniform(-1.5 * n / (2 * f), 1.5 * n / (2 * f),
+                              (Nk, nT)) for n, f in zip(im_size, fov)], 1)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=cuda)
+
+    k, grid = arr(k), arr(rng.standard_normal((N, nG, 2)))
+    s = arr(rng.standard_normal((N, nT, 2)))
+    g = plan.geom
+    n0 = dict(knf.LAUNCHES)
+    outs = [(knf.nufft_sample(grid, k, g), knf.nufft_sample_torch(grid, k, g)),
+            (knf.nufft_spread(s, k, g), knf.nufft_spread_torch(s, k, g)),
+            (knf.nufft_dk(grid, k, s, g), knf.nufft_dk_torch(grid, k, s, g))]
+    assert all(knf.LAUNCHES[n] == n0[n] + 1 for n in knf.LAUNCHES)
+    for x, y in outs:
+        assert x.shape == y.shape
+        _rows_close(x, y, bar)
+    with pytest.raises(ValueError, match='contiguous'):
+        knf.nufft_spread(s.transpose(1, 2).contiguous().transpose(1, 2), k,
+                         g)
+    with pytest.raises(TypeError):
+        knf.nufft_sample(grid.half(), k.half(), g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_nufft_path_on_card(cuda, dtype):
+    r"""The NUFFT path on CUDA tensors: ``acquire(backend='nufft')``
+    launches ``nufft_sample``; ``nufft``/``nufft_adjoint`` and their
+    gradients w.r.t. image, samples and trajectory through the kernels
+    (``interp='auto'``) against the plain route (``interp='gather'``)."""
+    from mrphy_tpu_torch.kernels import nufft as knf
+    from mrphy_tpu_torch.models.mobjs import SpinCube
+    from mrphy_tpu_torch.ops import nufft as tnf
+    rng = np.random.default_rng(23)
+    cube = SpinCube((1, 12, 10, 1), [[24., 20., 1.]], ofst=[[1., -2., 3.]],
+                    device=cuda, dtype=dtype)
+    cube.M_ = torch.as_tensor(rng.standard_normal((1, cube.nM, 3)),
+                              dtype=dtype, device=cuda)
+    cube.df_ = torch.as_tensor(rng.uniform(-40, 40, (1, cube.nM)),
+                               dtype=dtype, device=cuda)
+    gr = torch.as_tensor(rng.uniform(-0.4, 0.4, (1, 3, 200)), dtype=dtype,
+                         device=cuda)
+    sens = torch.as_tensor(rng.standard_normal((1, cube.nM, 2, 3)),
+                           dtype=dtype, device=cuda)
+    n0 = knf.LAUNCHES['nufft_sample']
+    s = cube.acquire(gr, sens_=sens, T2s_=0.05, backend='nufft', nseg=4)
+    assert knf.LAUNCHES['nufft_sample'] == n0 + 4      # one per segment
+    assert s.shape == (1, 3, 200, 2) and bool(torch.isfinite(s).all())
+    im_size, fov = (10, 8, 12), (15.0, 12.0, 18.0)
+    k = torch.as_tensor(np.stack([rng.uniform(-n / (2 * f), n / (2 * f), 150)
+                                  for n, f in zip(im_size, fov)]),
+                        dtype=dtype, device=cuda)
+    img = torch.as_tensor(rng.standard_normal(im_size + (2,)), dtype=dtype,
+                          device=cuda)
+    y = torch.as_tensor(rng.standard_normal((150, 2)), dtype=dtype,
+                        device=cuda)
+    grads = []
+    for interp in ('auto', 'gather'):
+        plan = tnf.nufft_plan(im_size, fov, width=4, osf=1.5, dtype=dtype,
+                              interp=interp, device=cuda)
+        xs = (img.clone().requires_grad_(), y.clone().requires_grad_(),
+              k.clone().requires_grad_())
+        loss = ((tnf.nufft(plan, xs[0], xs[2]) ** 2).sum()
+                + (tnf.nufft_adjoint(plan, xs[1], xs[2]) ** 2).sum())
+        grads.append(torch.autograd.grad(loss, xs))
+    rel = 1e-5 if dtype == torch.float32 else 1e-10
+    for a, b in zip(*grads):
+        _rows_close(a, b, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar', [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-12)])
+def test_nufft_toeplitz_and_dcf_on_card(cuda, dtype, bar):
+    r"""``toeplitz_kernel`` (weighted, 3-D) and ``dcf_pipe_menon`` (2-D,
+    48 spokes at random angles, 65 samples at random radii: off the
+    lattice, so float32 and float64 take the same taps) on CUDA tensors
+    against float64 on the CPU: the Toeplitz products in full float32
+    (TF32 would miss the bar by ~50×), the Pipe–Menon iteration through
+    ``nufft_spread`` then ``nufft_sample``."""
+    from mrphy_tpu_torch.kernels import nufft as knf
+    from mrphy_tpu_torch.ops import nufft as tnf
+    rng = np.random.default_rng(29)
+    im_size, fov = (10, 8, 12), (15.0, 12.0, 18.0)
+    k = np.stack([rng.uniform(-n / (2 * f), n / (2 * f), 301)
+                  for n, f in zip(im_size, fov)])
+    w = rng.uniform(0.2, 1.0, 301)
+    outs = []
+    for dev, dt in ((cuda, dtype), ('cpu', torch.float64)):
+        plan = tnf.nufft_plan(im_size, fov, dtype=dt, device=dev)
+        outs.append(tnf.toeplitz_kernel(
+            plan, torch.as_tensor(k, dtype=dt, device=dev),
+            weights=torch.as_tensor(w, dtype=dt, device=dev), chunk=128))
+    _rows_close(outs[0].cpu().double(), outs[1], bar)
+    n, fv = 16, 24.0
+    th = rng.uniform(0, np.pi, (48, 1))
+    r = n / (2 * fv) * rng.uniform(-1, 1, (48, 65))
+    k = np.stack([(np.cos(th) * r).reshape(-1), (np.sin(th) * r).reshape(-1)])
+    outs = []
+    n0 = dict(knf.LAUNCHES)
+    for dev, dt in ((cuda, dtype), ('cpu', torch.float64)):
+        plan = tnf.nufft_plan((n, n), (fv, fv), dtype=dt, device=dev)
+        outs.append(tnf.dcf_pipe_menon(
+            plan, torch.as_tensor(k, dtype=dt, device=dev), iters=20))
+    assert knf.LAUNCHES['nufft_spread'] >= n0['nufft_spread'] + 20
+    assert knf.LAUNCHES['nufft_sample'] >= n0['nufft_sample'] + 20
+    _rows_close(outs[0].cpu().double(), outs[1],
+                1e-4 if dtype == torch.float32 else 1e-10)

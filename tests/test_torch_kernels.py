@@ -324,6 +324,7 @@ def test_kernel_sources_present():
                               / 'csrc').glob('*.cu')}
     assert names == {'rfgr_fwd.cu', 'beff_fwd.cu', 'rfgr_bwd.cu',
                      'beff_bwd.cu', 'mc_fwd.cu', 'mc_bwd.cu', 'sig_fwd.cu',
-                     'sig_adj.cu', 'sig_vjp.cu'}
+                     'sig_adj.cu', 'sig_vjp.cu', 'nufft_sample.cu',
+                     'nufft_spread.cu', 'nufft_dk.cu'}
     assert '--use_fast_math' not in _build.NVCC_FLAGS
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
