@@ -148,6 +148,39 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     (data from the exact operator): seconds per iteration, and the image
     error held at 1e-2 (the exact route's is 2.49e-3).
 
+16. The SPGR / MRF-FISP EPG kernels ``spgr_fwd``, ``spgr_fwd_chk`` and
+    ``spgr_bwd`` against their plain versions on the arguments
+    ``ops.epg.epg_spgr`` gives them (``EPG_CASES``): the configuration of
+    ``benchmarks/suite.py`` ``bench_mrf_fisp`` (65,536 atoms × 400 TRs, K
+    48, rf-spoiled phases, IR prep, variable TR, float32), without and with
+    spoiler diffusion, timed; the trains phase 18 gives the kernels (the
+    ``bench_mrf_pipeline`` dictionary, 62,325 atoms × 400 TRs at K 48 with
+    constant TR, and its refinement's 4096 atoms at K 16, in one chunk of
+    400 TRs); constant TR with b1, kshift −1 and 2, the
+    default K (the state in device memory), a ragged atom count and float64
+    cases. Per-atom outputs (echoes, checkpoints, per-atom gradient rows) at
+    ``EPG_BAR`` of their largest value, the adjoint's per-TR rows (sums over
+    atoms) at ``EPG_ROW_BAR``; then the forward and the full gradient
+    (w.r.t. T1, T2, tr, and D) through ``epg_spgr`` at full width, timed.
+17. The matched filter ``match`` against its plain version at
+    ``bench_mrf_pipeline`` width (62,325 compressed atoms and their
+    rotation, 1,048,576 compressed probes, rank 16, float32), timed beside
+    the library yardstick (one ``torch.matmul`` per probe chunk against
+    the stacked atoms, ``amax``/``argmax``, TF32 off), and on real, ragged
+    and float64 cases: ``best`` at ``MATCH_BAR`` of the largest score,
+    ``idx`` equal wherever the two atoms' scores differ by more than that
+    (the count of such near-tie flips printed).
+18. The MRF path through the entry points: (a) ``bench_mrf_pipeline``:
+    the ``epg_spgr`` dictionary, ``svd_basis`` (rank 16), ``compress`` and
+    ``dict_match_compressed`` over 1M synthetic voxels, timed (voxels per
+    second), the matched T1/T2 error, and ``match_refine(batched=True)``
+    of 4096 voxels (50 Adam steps), timed, with its error; (b) the
+    ``examples/mrf_dictionary.py`` SPGR problem in float64 against the
+    JAX package's results (literals below, from
+    ``tests/make_mrf_goldens.py``): the dictionary at 1e-10, the basis
+    rank and the matched atoms equal, ``m0`` at 1e-10, the 250-step
+    refinement's parameters and score at rtol 1e-8.
+
 Launch counts are zeroed right before the forward path (phase 4) and read
 after it (``rfgr_fwd``, ``beff_fwd`` must have launched), zeroed again
 before the gradient and design path (phases 7–8) and read after it (all
@@ -156,8 +189,10 @@ four Bloch kernels must have launched), again before the two-pool path
 the acquisition path (phase 13; ``sig_fwd``, ``sig_adj``, ``sig_vjp`` and
 ``rfgr_fwd`` must have launched), and again before the gridding path
 (phase 15; ``nufft_sample``, ``nufft_spread`` and ``nufft_dk`` must have
-launched). The comparisons with the plain versions (phases 2, 3, 5, 6, 9,
-10, 12, 14) run before and are not counted.
+launched), and again before the MRF path (phase 18; ``spgr_fwd``,
+``spgr_fwd_chk``, ``spgr_bwd`` and ``match`` must have launched). The
+comparisons with the plain versions (phases 2, 3, 5, 6, 9, 10, 12, 14,
+16, 17) run before and are not counted.
 
 The line before the last is one JSON object with each kernel's launches
 on those paths, error, times and bound: ``bound_ms`` is the larger of the
@@ -165,9 +200,11 @@ bytes of its timed float32 case (inputs read once, outputs written once)
 over 3.35 TB/s and the arithmetic of its plain version on the same
 inputs (:func:`count_ops`) over 67 TFLOP/s; ``library_ms`` is null, as no
 single PyTorch call computes a Bloch simulation, the off-resonance- and
-decay-weighted non-uniform encoding or the NUFFT's trajectory cotangent;
-for the NUFFT's sample and spread it is the time of ``torch.sparse.mm`` of
-the interpolation matrix (cuSPARSE), which the port never calls. The
+decay-weighted non-uniform encoding, the NUFFT's trajectory cotangent
+or an EPG train; for the NUFFT's sample and spread it is the time of
+``torch.sparse.mm`` of the interpolation matrix (cuSPARSE), for the
+matched filter that of one ``torch.matmul`` per probe chunk against the
+stacked atoms, then ``amax``/``argmax``; the port calls neither. The
 NUFFT rows add ``sector_ms``, the gather's 32-byte-sector traffic over
 3.35 TB/s. The last line is the contract line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
@@ -591,6 +628,14 @@ KERNELS = {
         replaces='mrphy_tpu/ops/nufft_pallas.py:291'),
     'nufft_dk': dict(source='mrphy_tpu_torch/kernels/csrc/nufft_dk.cu',
                      replaces='mrphy_tpu/ops/nufft_pallas.py:392'),
+    'spgr_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/spgr_fwd.cu',
+                     replaces='mrphy_tpu/ops/epg_pallas.py:1644'),
+    'spgr_fwd_chk': dict(source='mrphy_tpu_torch/kernels/csrc/spgr_fwd.cu',
+                         replaces='mrphy_tpu/ops/epg_pallas.py:1558'),
+    'spgr_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/spgr_bwd.cu',
+                     replaces='mrphy_tpu/ops/epg_pallas.py:1593'),
+    'match': dict(source='mrphy_tpu_torch/kernels/csrc/match.cu',
+                  replaces='mrphy_tpu/ops/mrf_pallas.py:142'),
 }
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
@@ -2565,13 +2610,558 @@ def phase_nufft_path(dev):
     return out
 
 
+# ==========================================================================
+# The MRF path (phases 16-18)
+# ==========================================================================
+
+# benchmarks/suite.py bench_mrf_fisp (lines 969-1027): the canonical
+# MRF-FISP dictionary, 65,536 atoms × 400 TRs, K 48, rf-spoiled phases,
+# inversion prep (TI 18 ms), variable TR (11.5-14.5 ms), TE 2 ms; with and
+# without spoiler diffusion (D ∈ [0.4, 3.2]e-5 cm²/s, dk 500 rad/cm).
+MRF_FISP = dict(nA=65536, nTR=400, K=48, te=2e-3, ti=0.018, dk=500.0)
+# Bars on max|kernel − plain| / max|plain|. Per-atom outputs (echoes,
+# checkpoints, the per-atom gradient rows): the kernels follow the plain
+# versions' operations (bit for bit expected); the per-TR coefficient rows
+# are sums over atoms that the kernel takes by warps, in another order.
+EPG_BAR = {torch.float32: 1e-6, torch.float64: 1e-12}
+EPG_ROW_BAR = {torch.float32: 1e-4, torch.float64: 1e-12}
+# The SPGR kernels' cases (phase 16): label, atoms, TRs, K (None: the
+# default nTR·|kshift| + 1), dtype, mrf_fisp_case keywords (or
+# ``pipe=True``: mrf_pipe_case, the trains phase 18's MRF path gives the
+# kernels), timed.
+EPG_CASES = (
+    ('bench_mrf_pipeline dictionary 62,325 x 400, K 48, const TR', 62325,
+     400, 48, torch.float32, dict(pipe=True), False),
+    ('bench_mrf_pipeline refinement 4096 x 400, K 16 (tc = nTR)', 4096, 400,
+     16, torch.float32, dict(pipe=True), False),
+    ('bench_mrf_fisp 64k x 400, K 48', 65536, 400, 48, torch.float32, {},
+     True),
+    ('bench_mrf_fisp + diffusion', 65536, 400, 48, torch.float32,
+     dict(D=True), True),
+    ('16k x 200, K 32, const TR, b1', 16384, 200, 32, torch.float32,
+     dict(vartr=False, b1=True), False),
+    ('16k x 200, K 32, kshift -1', 16384, 200, 32, torch.float32,
+     dict(kshift=-1), False),
+    ('16k x 100, K 24, kshift 2, diffusion', 16384, 100, 24, torch.float32,
+     dict(kshift=2, D=True), False),
+    ('2048 x 400, default K 401 (device-memory state)', 2048, 400, None,
+     torch.float32, {}, False),
+    ('ragged 1001 x 200, K 32, b1, diffusion', 1001, 200, 32, torch.float32,
+     dict(b1=True, D=True), False),
+    ('f64 8192 x 200, K 32, b1, diffusion', 8192, 200, 32, torch.float64,
+     dict(b1=True, D=True), False),
+    ('f64 1000 x 200, default K 201 (device-memory state)', 1000, 200, None,
+     torch.float64, dict(vartr=False), False),
+)
+EPG_KERNELS = ('spgr_fwd', 'spgr_fwd_chk', 'spgr_bwd')
+
+
+def mrf_fisp_case(nA, nTR, K, dtype, dev, *, vartr=True, D=False, b1=False,
+                  kshift=1, seed=0):
+    r"""``epg_spgr`` keywords of the bench_mrf_fisp train at ``nA`` atoms ×
+    ``nTR`` TRs, from ``seed``: flips 10-70°, rf-spoiled phases, T1 ∈ [0.2,
+    3] s, T2 ∈ [0.02, 0.4] s, IR prep; optionally constant TR (12 ms),
+    diffusion, a b1 map ∈ [0.8, 1.2]."""
+    from mrphy_tpu_torch.ops import epg
+    rng = np.random.default_rng(seed)
+    t = np.arange(nTR)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    T1 = arr(rng.uniform(0.2, 3.0, nA))
+    kw = dict(flips=arr(np.deg2rad(10 + 60 * np.abs(np.sin(np.pi * t / 75)))),
+              phis=epg.rf_spoil_phases(nTR, dtype=dtype, device=dev),
+              T1=T1, T2=arr(rng.uniform(0.02, 0.4, nA)),
+              tr=(arr(0.0115 + 0.003 * (0.5 + 0.5 * np.sin(2 * np.pi * t
+                                                          / 37)))
+                  if vartr else 0.012),
+              te=MRF_FISP['te'], zinit=epg.ir_prep(MRF_FISP['ti'], T1),
+              kshift=kshift, K=K)
+    if D:
+        kw.update(D=arr(rng.uniform(0.4e-5, 3.2e-5, nA)), dk=MRF_FISP['dk'])
+    if b1:
+        kw['b1'] = arr(rng.uniform(0.8, 1.2, nA))
+    return kw
+
+
+def mrf_pipe_case(nA, nTR, K, dtype, dev, *, seed=0):
+    r"""``epg_spgr`` keywords of phase 18's trains at ``nA`` atoms: the
+    bench_mrf_pipeline flips (no phase, no prep), tr 12 ms, te 3 ms, and
+    its grid's atoms, all of them (the dictionary) or ``nA`` drawn from
+    ``seed`` (the refinement's first step: matched grid atoms)."""
+    flips, T1, T2 = mrf_pipe_grid(dev)
+    check(flips.shape[0] == nTR and nA <= T1.shape[0],
+          f'{nA} x {nTR} is not a bench_mrf_pipeline train')
+    if nA < T1.shape[0]:
+        sel = torch.as_tensor(np.random.default_rng(seed).choice(
+            T1.shape[0], nA, replace=False), device=dev)
+        T1, T2 = T1[sel], T2[sel]
+    return dict(flips=flips.to(dtype), phis=None, T1=T1.to(dtype),
+                T2=T2.to(dtype), **dict(MRF_SEQ, K=K))
+
+
+def spgr_args(kw):
+    r"""The kernels' arguments ``(coef, par, cdiff, cfg)`` for
+    ``epg_spgr(**kw)`` (``ops.epg._spgr_rows``)."""
+    from mrphy_tpu_torch.ops import epg
+    coef, par, cdiff, cfg, _ = epg._spgr_rows(**kw)
+    return coef.contiguous(), par.contiguous(), cdiff, cfg
+
+
+def phase_epg_kernels(dev):
+    r"""Phase 16: ``spgr_fwd``, ``spgr_fwd_chk`` and ``spgr_bwd`` against
+    their plain versions on EPG_CASES (the adjoint fed the kernel's
+    checkpoints and a cotangent drawn from a seed); the timed full-width
+    cases with their bounds; then, at bench_mrf_fisp width, the forward and
+    the full gradient through ``epg_spgr`` (w.r.t. T1, T2, tr, and D).
+    Returns each kernel's rows."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    rows = {name: [] for name in EPG_KERNELS}
+    for seed, (label, nA, nTR, K, dtype, kw, timed) in enumerate(EPG_CASES,
+                                                                 160):
+        kw = dict(kw)
+        make = mrf_pipe_case if kw.pop('pipe', False) else mrf_fisp_case
+        coef, par, cdiff, cfg = spgr_args(make(nA, nTR, K, dtype, dev,
+                                               seed=seed, **kw))
+        tc = kepg.pick_tc(nTR, cfg.K, nA, par.element_size())
+        sig = kepg.spgr_fwd(coef, par, cdiff, cfg)
+        _, chk = kepg.spgr_fwd_chk(coef, par, cdiff, cfg, tc=tc)
+        g = cotangent(sig, seed)
+        runs = {
+            'spgr_fwd': (lambda: kepg.spgr_fwd(coef, par, cdiff, cfg),
+                         lambda: kepg.spgr_fwd_torch(coef, par, cdiff, cfg),
+                         (coef, par, cdiff)),
+            'spgr_fwd_chk': (
+                lambda: kepg.spgr_fwd_chk(coef, par, cdiff, cfg, tc=tc),
+                lambda: kepg.spgr_fwd_chk_torch(coef, par, cdiff, cfg,
+                                                tc=tc),
+                (coef, par, cdiff)),
+            'spgr_bwd': (
+                lambda: kepg.spgr_bwd(coef, par, cdiff, cfg, chk, g, tc=tc),
+                lambda: kepg.spgr_bwd_torch(coef, par, cdiff, cfg, chk, g,
+                                            tc=tc),
+                (coef, par, cdiff, chk, g))}
+        for name, (run_kernel, run_plain, inputs) in runs.items():
+            kout, pout = run_kernel(), run_plain()
+            torch.cuda.synchronize()
+            # per-atom outputs; the adjoint's per-TR rows (summed over
+            # atoms) apart
+            if name == 'spgr_bwd':
+                pairs = dict(dpar=(kout[1], pout[1]),
+                             dcoef=(kout[0], pout[0]))
+            elif name == 'spgr_fwd':
+                pairs = dict(sig=(kout, pout))
+            else:
+                pairs = dict(sig=(kout[0], pout[0]), chk=(kout[1], pout[1]))
+            errs = {k: row_err(a, b) for k, (a, b) in pairs.items()}
+            atom = [k for k in pairs if k != 'dcoef']
+            row = dict(case=label, dtype=str(dtype).replace('torch.', ''),
+                       nA=nA, nTR=nTR, K=cfg.K, kshift=cfg.kshift, tc=tc,
+                       threads_state=kepg.launch_cfg(cfg.K,
+                                                     par.element_size()),
+                       err=errs, bar=EPG_BAR[dtype],
+                       row_bar=EPG_ROW_BAR[dtype],
+                       per_atom_bit_identical=all(
+                           torch.equal(*pairs[k]) for k in atom),
+                       max_abs_err=max(max_err(*pairs[k]) for k in atom),
+                       max_rel_err=max(errs[k] for k in atom))
+            if name == 'spgr_bwd':
+                row['max_row_rel_err'] = errs['dcoef']
+            if timed:
+                row['ms'] = time_ms(run_kernel)
+                row['plain_ms'] = time_ms(run_plain, reps=2)
+                row.update(bound(run_plain, inputs, pout))
+                row['library_ms'] = None
+            del kout, pout
+            rows[name].append(row)
+            print(f'{name} {label}: ' + json.dumps(row), flush=True)
+            for k, e in errs.items():
+                bar = EPG_ROW_BAR[dtype] if k == 'dcoef' else EPG_BAR[dtype]
+                check(e <= bar, f'{name} {label} {k}: {e} > {bar}')
+        del coef, par, cdiff, sig, chk, g
+    out = {}
+    for D in (False, True):
+        out.update(epg_entry_timing(dev, D))
+    print('bench_mrf_fisp through epg_spgr: ' + json.dumps(out), flush=True)
+    return rows
+
+
+def epg_entry_timing(dev, D):
+    r"""bench_mrf_fisp through the entry point: the forward (``spgr_fwd``)
+    and the gradient of Σ w·signals w.r.t. T1, T2, tr (and D)
+    (``spgr_fwd_chk`` + ``spgr_bwd``), times and atoms per second."""
+    from mrphy_tpu_torch.ops import epg
+    c = MRF_FISP
+    kw = mrf_fisp_case(c['nA'], c['nTR'], c['K'], torch.float32, dev, D=D,
+                       seed=7)
+    w = cotangent(torch.empty((c['nA'], c['nTR'], 2), device=dev), 8)
+    names = ('T1', 'tr') + (('D',) if D else ())
+
+    def grad():
+        xs = {n: kw[n].clone().requires_grad_() for n in names}
+        T2 = kw['T2'].clone().requires_grad_()
+        k2 = dict(kw, T2=T2, **xs,
+                  zinit=epg.ir_prep(c['ti'], xs['T1']))
+        return torch.autograd.grad((w * epg.epg_spgr(**k2)).sum(),
+                                   (*xs.values(), T2))
+
+    gs = grad()
+    check(all(bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0
+              for x in gs), f'epg_spgr gradient (D={D})')
+    tag = 'diff_' if D else ''
+    fwd = time_ms(lambda: epg.epg_spgr(**kw), reps=3)
+    gms = time_ms(grad, reps=3)
+    return {f'{tag}fwd_ms': fwd, f'{tag}fwd_atoms_per_s': c['nA'] / fwd * 1e3,
+            f'{tag}grad_ms': gms}
+
+
+# benchmarks/suite.py bench_mrf_pipeline (lines 823-907): the dictionary
+# of a 256 × 256 log-spaced (T1 0.2-3 s, T2 0.02-0.5 s) grid's T2 < T1
+# atoms (62,325), 400 TRs of FISP (flips 10-60°, no phase), tr 12 ms, te 3
+# ms, K 48, a rank-16 pair basis, 1,048,576 synthetic voxels (random atoms,
+# receive phase, noise 0.002; numpy default_rng(0) for the atoms and
+# phases, the noise from a torch generator seeded 0 on the card), and
+# continuous refinement of 4096 voxels (batched, 50 Adam steps, lr 0.02,
+# the model at K 16).
+MRF_PIPE = dict(ntr=400, ngrid=256, nV=1 << 20, rank=16, nref=4096,
+                iters=50, lr=0.02, noise=0.002)
+MRF_SEQ = dict(tr=12e-3, te=3e-3, K=48)
+# Bars on the matched filter: best within MATCH_BAR of the largest score;
+# idx equal wherever the two atoms' scores differ by more than that.
+MATCH_BAR = {torch.float32: 1e-5, torch.float64: 1e-12}
+# K40's cases (phase 17) besides the pipeline's: label, atoms, voxels,
+# rank, pair, dtype.
+MATCH_CASES = (
+    ('real 20000 atoms x 50000 voxels, r 24', 20000, 50000, 24, False,
+     torch.float32),
+    ('ragged pair 3001 x 10007, r 10', 3001, 10007, 10, True, torch.float32),
+    ('f64 pair 5000 x 20000, r 16', 5000, 20000, 16, True, torch.float64),
+)
+
+
+def mrf_pipe_grid(dev):
+    r"""The bench_mrf_pipeline flips and atoms ``(flips, T1, T2)``."""
+    n, g = MRF_PIPE['ntr'], MRF_PIPE['ngrid']
+    flips = torch.tensor(np.deg2rad(10 + 50 * np.abs(np.sin(np.arange(n)
+                                                            / 40.0))),
+                         dtype=torch.float32, device=dev)
+    T1g, T2g = np.meshgrid(np.exp(np.linspace(np.log(0.2), np.log(3.0), g)),
+                           np.exp(np.linspace(np.log(0.02), np.log(0.5), g)),
+                           indexing='ij')
+    keep = T2g < T1g
+    return (flips, torch.tensor(T1g[keep], dtype=torch.float32, device=dev),
+            torch.tensor(T2g[keep], dtype=torch.float32, device=dev))
+
+
+def mrf_pipe_probes(D, dev):
+    r"""bench_mrf_pipeline's synthetic volume from the dictionary ``D (nA,
+    nTR, 2)``: ``(X (nV, nTR, 2), ks (nV,))``, random atoms with a receive
+    phase and noise."""
+    rng = np.random.default_rng(0)
+    nV = MRF_PIPE['nV']
+    ks = torch.as_tensor(rng.integers(0, D.shape[0], nV), device=dev)
+    ph = torch.as_tensor(rng.uniform(-np.pi, np.pi, nV), dtype=D.dtype,
+                         device=dev)[:, None, None]
+    X = D[ks]
+    X = torch.cos(ph) * X + torch.sin(ph) * torch.stack(
+        [-X[..., 1], X[..., 0]], -1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    X += MRF_PIPE['noise'] * torch.randn(X.shape, generator=gen,
+                                         dtype=D.dtype, device=dev)
+    return X, ks
+
+
+def phase_match_kernel(dev):
+    r"""Phase 17: ``match`` against its plain version at bench_mrf_pipeline
+    width (the unit-norm compressed atoms and their rotation, the 1M
+    compressed probes), timed beside the library yardstick, and on
+    MATCH_CASES (random unit-norm atoms). Returns the rows."""
+    from mrphy_tpu_torch.kernels import mrf as kmrf
+    from mrphy_tpu_torch.ops import epg, mrf
+    flips, T1, T2 = mrf_pipe_grid(dev)
+    D = epg.epg_spgr(flips, None, T1=T1, T2=T2, **MRF_SEQ)
+    basis = mrf.svd_basis(D, rank=MRF_PIPE['rank'])
+    Dc = mrf.compress(D, basis)
+    X, _ = mrf_pipe_probes(D, dev)
+    Xc = mrf.compress(X, basis)
+    del D, X
+    nrm = torch.linalg.vector_norm(Dc, dim=1)
+    Dn = (Dc / nrm[:, None]).contiguous()
+    with kmrf.full_f32_matmul():
+        Dim = torch.matmul(Dn, basis.jc.T).contiguous()
+    cases = [('bench_mrf_pipeline 62k atoms x 1M voxels, r 16', Dn, Dim, Xc,
+              True, True)]
+    rng = np.random.default_rng(170)
+    for label, nA, nV, r, pair, dtype in MATCH_CASES:
+        A = torch.as_tensor(rng.standard_normal((nA, r)), dtype=dtype,
+                            device=dev)
+        A = A / torch.linalg.vector_norm(A, dim=1, keepdim=True)
+        Ai = torch.as_tensor(rng.standard_normal((nA, r)), dtype=dtype,
+                             device=dev) if pair else None
+        Xr = torch.as_tensor(rng.standard_normal((nV, r)), dtype=dtype,
+                             device=dev)
+        cases.append((label, A, Ai, Xr, pair, False))
+    rows = []
+    for label, A, Ai, Xr, pair, timed in cases:
+        chunk = mrf._pick_chunk(Xr.shape[0], A.shape[0])
+
+        def run_kernel():
+            return kmrf.match(A, Ai, Xr, pairlike=pair)
+
+        def run_plain():
+            return kmrf.match_torch(A, Ai, Xr, pairlike=pair, chunk=chunk)
+
+        (ik, bk), (ip, bp) = run_kernel(), run_plain()
+        torch.cuda.synchronize()
+        dtype = Xr.dtype
+        top = float(bp.abs().max())
+        err = max_err(bk, bp) / top
+        # where the indices differ, the two atoms' scores (float64) must
+        # be within the bar: a near-tie, not a wrong winner
+        flip = torch.nonzero(ik != ip).reshape(-1)
+
+        def score(idx):
+            x = Xr[flip].double()
+            s = (A[idx[flip].long()].double() * x).sum(-1)
+            if pair:
+                s = s * s + ((Ai[idx[flip].long()].double() * x).sum(-1)
+                             ** 2)
+            return s
+
+        gap = float((score(ik) - score(ip)).abs().max()) / top \
+            if len(flip) else 0.0
+        row = dict(case=label, dtype=str(dtype).replace('torch.', ''),
+                   nA=A.shape[0], nV=Xr.shape[0], r=A.shape[1], pair=pair,
+                   max_rel_err=err, max_abs_err=max_err(bk, bp),
+                   bar=MATCH_BAR[dtype], flips=len(flip),
+                   max_flip_score_gap=gap)
+        if timed:
+            row['ms'] = time_ms(run_kernel)
+            row['plain_ms'] = time_ms(run_plain, reps=3)
+            row.update(bound(run_plain, (A, Ai, Xr), (ip, bp)))
+            # the library yardstick: one matrix product per probe chunk
+            # against the stacked atoms, then amax/argmax (TF32 off)
+            AA = torch.cat([A, Ai]).T.contiguous()
+
+            def library():
+                out = []
+                with kmrf.full_f32_matmul():
+                    for c0 in range(0, Xr.shape[0], chunk):
+                        s = torch.matmul(Xr[c0:c0 + chunk], AA)
+                        mag = s[:, :A.shape[0]].square() + \
+                            s[:, A.shape[0]:].square()
+                        out.append((mag.argmax(-1), mag.amax(-1)))
+                return out
+
+            row['library_ms'] = time_ms(library, reps=3)
+            del AA
+        print(f'match {label}: ' + json.dumps(row), flush=True)
+        check(err <= MATCH_BAR[dtype], f'match {label}: {err} > bar')
+        check(gap <= MATCH_BAR[dtype], f'match {label}: a flipped atom '
+              f'scores {gap} below the best')
+        rows.append(row)
+    return rows
+
+
+# examples/mrf_dictionary.py's SPGR problem (its defaults, float64 here):
+# 150 TRs of MRF-FISP (flips 10-70° in smooth lobes, rf-spoiled phases,
+# inversion at TI 18 ms, variable TR around 12 ms, te 6 ms), a 24 × 24
+# log-spaced (T1, T2) grid with T2 < T1, an SVD basis at energy 1 − 1e-8,
+# an off-grid probe (T1 830 ms, T2 67 ms) with receive phase 0.6 and the
+# same probe unrotated, matched in the compressed space, then refined by
+# 250 Adam steps (lr 0.02) from the matched atom.
+MRF_EX = dict(ntr=150, nt1=24, nt2=24, tr=0.012, ti=0.018, T1=0.83,
+              T2=0.067, ph=0.6, iters=250, lr=0.02, energy=1 - 1e-8)
+# the dictionary entries held to JAX: (atom, TR)
+MRF_EX_ENTRIES = [(0, 0), (0, 149), (17, 3), (40, 77), (123, 100),
+                  (200, 12), (299, 149)]
+
+
+def mrf_example_arrays():
+    r"""The MRF_EX problem's numpy float64 inputs: ``(flips, phis, trs,
+    T1 (nA,), T2 (nA,))``."""
+    c = MRF_EX
+    n, tr = c['ntr'], c['tr']
+    t = np.arange(n)
+    flips = np.deg2rad(10 + 60 * np.abs(np.sin(np.pi * t / 75))
+                       * (0.6 + 0.4 * np.cos(np.pi * t / n)))
+    phis = np.deg2rad(117.0) * (t * (t + 1) / 2)
+    trs = tr + 0.25 * tr * (0.5 + 0.5 * np.sin(2 * np.pi * t / 37)
+                            + 0.3 * np.sin(2 * np.pi * t / 101))
+    T1g, T2g = np.meshgrid(np.geomspace(0.2, 3.0, c['nt1']),
+                           np.geomspace(0.02, 0.4, c['nt2']), indexing='ij')
+    keep = T2g < T1g
+    return flips, phis, trs, T1g[keep], T2g[keep]
+
+
+# mrphy_tpu (JAX, XLA route on the CPU), float64, on the MRF_EX problem
+# (tests/make_mrf_goldens.py prints these): the dictionary at
+# MRF_EX_ENTRIES (re, im) and its largest |value|, the basis rank, the
+# matched atoms of the two probes and their m0, the refined parameters
+# [log T1, log T2, df/100] and the final score.
+GOLDEN_MRF = {
+    'D': [
+        [0.0, 0.10649765086310957],
+        [-0.0003949424643994148, -0.08854732645740174],
+        [0.0006270594347519299, 0.1317228532171491],
+        [-0.0015349693850757553, -0.08142235777885308],
+        [-0.0016184931024839778, -0.08194631798763242],
+        [0.007869736098386775, 0.03681035547371676],
+        [-0.001999985587298194, -0.04013607230395464]],
+    'D_max': 0.29920466507947835, 'rank': 34, 'idx': [276, 276],
+    'm0': [[0.829213549138688, 0.5645577589750173],
+           [1.0031527638718278, -0.00225956420266835]],
+    'p': [-0.18632959012429984, -2.7030627239494507, 0.0],
+    'score': 0.9999999999999997}
+
+
+def phase_mrf_path(dev):
+    r"""Phase 18: the MRF path through the entry points. (a)
+    bench_mrf_pipeline: ``epg_spgr`` dictionary (``spgr_fwd``),
+    ``svd_basis``, ``compress``, ``dict_match_compressed`` over 1M voxels
+    (``match``), timed end to end, with the matched maps' error; then
+    ``match_refine(batched=True)`` of 4096 voxels (``spgr_fwd_chk`` +
+    ``spgr_bwd`` per step), timed, with the refined map's error. (b) The
+    examples/mrf_dictionary.py problem in float64 against JAX's literals:
+    the dictionary at 1e-10 of its largest value, the basis rank and the
+    matched atoms equal, m0 at 1e-10, the refined parameters and score at
+    rtol 1e-8."""
+    from mrphy_tpu_torch.ops import epg, mrf
+    out, bars = {}, {}
+    # (a) the pipeline at bench_mrf_pipeline width
+    flips, T1, T2 = mrf_pipe_grid(dev)
+    D = epg.epg_spgr(flips, None, T1=T1, T2=T2, **MRF_SEQ)
+    X, ks = mrf_pipe_probes(D, dev)
+    del D
+
+    def pipeline():
+        D = epg.epg_spgr(flips, None, T1=T1, T2=T2, **MRF_SEQ)
+        basis = mrf.svd_basis(D, rank=MRF_PIPE['rank'])
+        Dc = mrf.compress(D, basis)
+        Xc = mrf.compress(X, basis)
+        return mrf.dict_match_compressed(Dc, Xc, basis)
+
+    res = pipeline()
+    torch.cuda.synchronize()
+    tms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pipeline()
+        torch.cuda.synchronize()
+        tms.append(time.perf_counter() - t0)
+    t = statistics.median(tms)
+    idx = res.idx.long()
+    check(bool(torch.isfinite(res.score).all()), 'pipeline scores finite')
+    e1 = float(((T1[idx] - T1[ks]).abs() / T1[ks]).median())
+    e2 = float(((T2[idx] - T2[ks]).abs() / T2[ks]).median())
+    out.update(pipeline_ms=t * 1e3, voxels_per_s=MRF_PIPE['nV'] / t,
+               atoms=int(T1.shape[0]), median_T1_relerr=e1,
+               median_T2_relerr=e2,
+               exact_atom_share=float((idx == ks).double().mean()))
+    bars.update(median_T1_relerr=0.02, median_T2_relerr=0.02)
+    nref = MRF_PIPE['nref']
+    p0 = torch.log(torch.stack([T1[idx[:nref]], T2[idx[:nref]]], -1))
+
+    def sig_b(P):
+        return epg.epg_spgr(flips, None, T1=torch.exp(P[:, 0]),
+                            T2=torch.exp(P[:, 1]), tr=MRF_SEQ['tr'],
+                            te=MRF_SEQ['te'], K=16)
+
+    def refine():
+        return mrf.match_refine(sig_b, p0, X[:nref],
+                                iters=MRF_PIPE['iters'], lr=MRF_PIPE['lr'],
+                                batched=True)
+
+    refine()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    P, score = refine()
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    check(bool(torch.isfinite(P).all()), 'refined parameters finite')
+    kk = ks[:nref]
+    out.update(refine_s=t_ref, refine_voxels_per_s=nref / t_ref,
+               refine_ms_per_step=t_ref / MRF_PIPE['iters'] * 1e3,
+               refine_T1_relerr=float(((torch.exp(P[:, 0]) - T1[kk]).abs()
+                                       / T1[kk]).median()),
+               refine_T2_relerr=float(((torch.exp(P[:, 1]) - T2[kk]).abs()
+                                       / T2[kk]).median()),
+               refine_min_score=float(score.min()))
+    bars.update(refine_T1_relerr=0.05, refine_T2_relerr=0.05)
+    del X, ks, res, P, score
+    # (b) examples/mrf_dictionary.py in float64 against JAX
+    out.update(mrf_example(dev))
+    bars.update(example_D=1e-10, example_m0=1e-10, example_p=1e-8,
+                example_score=1e-8)
+    print('MRF path: ' + json.dumps(dict(measured=out, bars=bars)),
+          flush=True)
+    for key, bar in bars.items():
+        check(out[key] <= bar, f'{key}: {out[key]} > {bar}')
+    return out
+
+
+def mrf_example(dev):
+    r"""The MRF_EX problem in float64 on the card against GOLDEN_MRF:
+    errors relative to each quantity's largest value (parameters and
+    score: relative to each value)."""
+    from mrphy_tpu_torch.ops import epg, mrf
+    c, gold = MRF_EX, GOLDEN_MRF
+    flips, phis, trs, T1a, T2a = (torch.as_tensor(x, device=dev) for x in
+                                  mrf_example_arrays())
+
+    def signals(T1, T2):
+        return epg.epg_spgr(flips, phis, T1=T1, T2=T2, tr=trs,
+                            te=c['tr'] / 2, zinit=epg.ir_prep(c['ti'], T1))
+
+    D = signals(T1a, T2a)
+    basis = mrf.svd_basis(D, energy=c['energy'])
+    Dc = mrf.compress(D, basis)
+    probe0 = signals(torch.tensor(c['T1'], dtype=torch.float64, device=dev),
+                     torch.tensor(c['T2'], dtype=torch.float64, device=dev))
+    cp, sp = np.cos(c['ph']), np.sin(c['ph'])
+    probe = torch.stack([cp * probe0[..., 0] - sp * probe0[..., 1],
+                         sp * probe0[..., 0] + cp * probe0[..., 1]], -1)
+    res = mrf.dict_match_compressed(Dc, torch.stack([probe, probe0]), basis)
+    best = int(res.idx[0])
+    check([int(i) for i in res.idx] == gold['idx'],
+          f"example match {res.idx.tolist()} != JAX's {gold['idx']}")
+    check(basis.B.shape[1] == gold['rank'],
+          f"example rank {basis.B.shape[1]} != JAX's {gold['rank']}")
+    ents = torch.stack([D[a, t] for a, t in MRF_EX_ENTRIES]).cpu().numpy()
+
+    def sig(p):
+        return signals(torch.exp(p[0]), torch.exp(p[1]))
+
+    p0 = torch.tensor([[np.log(float(T1a[best])), np.log(float(T2a[best])),
+                        0.0]], dtype=torch.float64, device=dev)
+    p, score = mrf.match_refine(sig, p0, probe[None], iters=c['iters'],
+                                lr=c['lr'])
+    p, score = p[0].cpu().numpy(), float(score[0])
+    gp = np.asarray(gold['p'])
+    return dict(
+        example_D=float(np.abs(ents - np.asarray(gold['D'])).max()
+                        / gold['D_max']),
+        example_D_max_vs_jax=abs(float(D.abs().max()) - gold['D_max']),
+        example_m0=float(np.abs(res.m0.cpu().numpy()
+                                - np.asarray(gold['m0'])).max()
+                         / np.abs(gold['m0']).max()),
+        example_p=float(np.max(np.abs(p - gp) / np.maximum(np.abs(gp),
+                                                           1e-300))),
+        example_score=abs(score - gold['score']) / gold['score'],
+        example_T1_fit=float(np.exp(p[0])), example_T2_fit=float(np.exp(p[1])),
+        example_idx=[int(i) for i in res.idx], example_rank=gold['rank'])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False',
               file=sys.stderr)
         return 1
     from mrphy_tpu_torch.kernels import _build, bloch
+    from mrphy_tpu_torch.kernels import epg as kepg
     from mrphy_tpu_torch.kernels import mc as kmc
+    from mrphy_tpu_torch.kernels import mrf as kmrf
     from mrphy_tpu_torch.kernels import nufft as knf
     from mrphy_tpu_torch.kernels import signal as ksig
 
@@ -2612,14 +3202,18 @@ def main() -> int:
     sig_rows = phase_signal_kernels(dev)
     phase_sincos_accuracy(dev)
     nufft_rows = phase_nufft_kernels(dev)
+    epg_rows = phase_epg_kernels(dev)
+    match_rows = phase_match_kernel(dev)
 
     # the forward path, the gradient and design path, the two-pool path,
-    # the acquisition path and the gridding path: each with the launch
-    # counts zeroed just before it and read just after
+    # the acquisition path, the gridding path and the MRF path: each with
+    # the launch counts zeroed just before it and read just after
     counters = {**{k: bloch.LAUNCHES for k in bloch.LAUNCHES},
                 **{k: kmc.LAUNCHES for k in kmc.LAUNCHES},
                 **{k: ksig.LAUNCHES for k in ksig.LAUNCHES},
-                **{k: knf.LAUNCHES for k in knf.LAUNCHES}}
+                **{k: knf.LAUNCHES for k in knf.LAUNCHES},
+                **{k: kepg.LAUNCHES for k in kepg.LAUNCHES},
+                **{k: kmrf.LAUNCHES for k in kmrf.LAUNCHES}}
     launches = {k: 0 for k in counters}
     for path, run, needs in (
             ('forward', phase_main_path, ('rfgr_fwd', 'beff_fwd')),
@@ -2629,7 +3223,9 @@ def main() -> int:
             ('two-pool', phase_mc_path, tuple(kmc.LAUNCHES)),
             ('acquisition', phase_signal_path,
              tuple(ksig.LAUNCHES) + ('rfgr_fwd',)),
-            ('gridding', phase_nufft_path, tuple(knf.LAUNCHES))):
+            ('gridding', phase_nufft_path, tuple(knf.LAUNCHES)),
+            ('mrf', phase_mrf_path,
+             tuple(kepg.LAUNCHES) + tuple(kmrf.LAUNCHES))):
         for k, table in counters.items():
             table[k] = 0
         run(dev)
@@ -2650,8 +3246,10 @@ def main() -> int:
                        ('sig_fwd', sig_rows['sig_fwd']),
                        ('sig_vjp', sig_rows['sig_vjp']),
                        ('sig_adj', sig_rows['sig_adj']),
-                       *nufft_rows.items()):
-        head = rows[0]   # the float32 timed case at the main path's shape
+                       *nufft_rows.items(), *epg_rows.items(),
+                       ('match', match_rows)):
+        # the first timed case: float32 at the main path's shape
+        head = next(r for r in rows if 'ms' in r)
         err = ('max_abs_err_chk' if name in ('rfgr_fwd', 'beff_fwd', 'mc_fwd')
                else 'max_abs_err')
         f32 = [r for r in rows if r['dtype'] == 'float32']
@@ -2662,17 +3260,21 @@ def main() -> int:
             ms=head['ms'], plain_ms=head['plain_ms'],
             bound_ms=head['bound_ms'], bound_by=head['bound_by'],
             # no single PyTorch call computes a Bloch simulation, the
-            # off-resonance- and decay-weighted non-uniform encoding, or
-            # the trajectory cotangent of the interpolation; the NUFFT's
-            # sample and spread are one sparse product each
+            # off-resonance- and decay-weighted non-uniform encoding, the
+            # trajectory cotangent of the interpolation or an EPG train;
+            # the NUFFT's sample and spread are one sparse product each,
+            # the matched filter one matrix product per probe chunk
             library_ms=head.get('library_ms')))
-        if name in ('rfgr_bwd', 'mc_bwd'):
+        if name in ('rfgr_bwd', 'mc_bwd', 'spgr_bwd'):
             # the rows: max|Δ| / max|row|
             kernels[-1]['max_row_rel_err'] = max(
                 r['max_row_rel_err'] for r in f32)
-        if name.startswith(('sig', 'nufft')):
+        if name.startswith(('sig', 'nufft', 'spgr')) or name == 'match':
             # the linear outputs: max|Δ| / max|plain|
             kernels[-1]['max_rel_err'] = max(r['max_rel_err'] for r in f32)
+        if name == 'match':
+            # argmax flips between near-tied atoms, all runs
+            kernels[-1]['flips'] = sum(r['flips'] for r in rows)
         if name.startswith('nufft'):
             # the gather's 32-byte-sector traffic over HBM_BPS, beside the
             # bound's inputs-once bytes

@@ -22,7 +22,11 @@ operator ``ops.signal.signal`` / ``signal_adjoint`` behind
 ``SpinCube.acquire`` (kernels ``sig_fwd``, ``sig_vjp``, ``sig_adj``) with
 the trajectory and receive-coil utilities, and the gridding NUFFT
 ``ops.nufft`` behind ``SpinCube.acquire(backend='nufft')`` (kernels
-``nufft_sample``, ``nufft_spread``, ``nufft_dk``). Kernels build with
+``nufft_sample``, ``nufft_spread``, ``nufft_dk``), and the MRF path: the
+SPGR / MRF-FISP EPG train ``ops.epg.epg_spgr`` (kernels ``spgr_fwd``,
+``spgr_fwd_chk``, ``spgr_bwd``) with ``ops.routing.route``, and dictionary
+compression, matching and refinement ``ops.mrf`` (kernel ``match``).
+Kernels build with
 ``nvcc`` at their first CUDA call (see :mod:`mrphy_tpu_torch.kernels`);
 CPU tensors take each kernel's plain PyTorch version.
 
@@ -72,6 +76,9 @@ from mrphy_tpu_torch import utils                  # noqa: E402
 from mrphy_tpu_torch.ops import beffective         # noqa: E402
 from mrphy_tpu_torch.ops import sims               # noqa: E402
 from mrphy_tpu_torch.ops import slowsims           # noqa: E402
+from mrphy_tpu_torch.ops import epg                # noqa: E402
+from mrphy_tpu_torch.ops import mrf                # noqa: E402
+from mrphy_tpu_torch.ops import signal             # noqa: E402
 from mrphy_tpu_torch.ops import nufft              # noqa: E402
 from mrphy_tpu_torch.models import mobjs           # noqa: E402
 from mrphy_tpu_torch import kernels                # noqa: E402
@@ -81,10 +88,12 @@ from mrphy_tpu_torch import design                 # noqa: E402
 import sys as _sys                                 # noqa: E402
 
 for _name, _mod in (('beffective', beffective), ('sims', sims),
-                    ('slowsims', slowsims), ('nufft', nufft),
+                    ('slowsims', slowsims), ('epg', epg), ('mrf', mrf),
+                    ('signal', signal), ('nufft', nufft),
                     ('mobjs', mobjs)):
     _sys.modules[f'{__name__}.{_name}'] = _mod
 
 __all__ = ['gamH', 'γH', 'T1G', 'T2G', 'dt0', 'gmax0', 'smax0', 'rfmax0',
-           'utils', 'beffective', 'sims', 'slowsims', 'nufft', 'mobjs',
-           'kernels', 'design', 'cuda_is_available', 'default_device']
+           'utils', 'beffective', 'sims', 'slowsims', 'epg', 'mrf',
+           'signal', 'nufft', 'mobjs', 'kernels', 'design',
+           'cuda_is_available', 'default_device']

@@ -11,9 +11,11 @@ extracts the masked values, so both forms give the same object.
 
 The design state carries across too: :func:`design_params_from_numpy`
 takes the JAX ``design.init_params`` dict, :func:`adam_state_from_numpy`
-optax's Adam state, so a design run in JAX can continue in the port; and
+optax's Adam state, so a design run in JAX can continue in the port;
 :func:`nufftplan_from_numpy` a gridding plan's attributes, so both
-packages can run on one plan.
+packages can run on one plan; and :func:`basis_from_numpy` an MRF
+compression basis (its singular vectors' signs are free, so two packages
+compare compression and matching on one basis).
 
 No JAX is needed: the values only pass through :func:`numpy.asarray`.
 """
@@ -24,11 +26,13 @@ import torch
 from mrphy_tpu_torch import default_device
 from mrphy_tpu_torch.models.mobjs import (Pulse, SpinArray, SpinBolus,
                                           SpinCube)
+from mrphy_tpu_torch.ops.mrf import Basis
 from mrphy_tpu_torch.ops.nufft import NufftPlan
 
 __all__ = ['pulse_from_numpy', 'spinarray_from_numpy', 'spincube_from_numpy',
            'spinbolus_from_numpy', 'design_params_from_numpy',
-           'adam_state_from_numpy', 'nufftplan_from_numpy']
+           'adam_state_from_numpy', 'nufftplan_from_numpy',
+           'basis_from_numpy']
 
 
 def _dtype(d, dtype):
@@ -152,3 +156,21 @@ def nufftplan_from_numpy(d: dict, *, device=None, dtype=None) -> NufftPlan:
                      torch.tensor(deapod, dtype=_dtype(
                          {'dtype': deapod.dtype}, dtype),
                          device=default_device(device)))
+
+
+def basis_from_numpy(b, *, device=None, dtype=None) -> Basis:
+    r"""The port's :class:`~mrphy_tpu_torch.ops.mrf.Basis` from a
+    ``mrphy_tpu`` ``Basis`` (or anything with its fields ``B``, ``jc``,
+    ``s`` and ``tail``): the arrays go to ``device`` (default: the CUDA
+    card) in ``dtype`` (default: their own)."""
+    dev = default_device(device)
+
+    def arr(v):
+        if v is None:
+            return None
+        v = np.asarray(v)
+        return torch.tensor(v, dtype=_dtype({'dtype': v.dtype}, dtype),
+                            device=dev)
+
+    return Basis(B=arr(b.B), jc=arr(b.jc), s=arr(b.s),
+                 tail=tuple(int(n) for n in b.tail))

@@ -14,12 +14,20 @@ r"""Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
   ``nufft_spread`` and ``nufft_dk``, the gridding NUFFT's interpolation,
   its transpose and its trajectory cotangent, with their plain PyTorch
   versions, launch counts and the autograd Functions of the two stages.
+- :mod:`mrphy_tpu_torch.kernels.epg`: ``spgr_fwd``, ``spgr_fwd_chk`` and
+  ``spgr_bwd``, the SPGR / MRF-FISP EPG train, the same with chunk
+  checkpoints, and its two-phase chunk adjoint, with their plain PyTorch
+  versions, launch counts and the autograd Function of the train.
+- :mod:`mrphy_tpu_torch.kernels.mrf`: ``match``, the fused matched filter
+  of MRF dictionary matching, with its plain PyTorch version and launch
+  count.
 - :mod:`mrphy_tpu_torch.kernels._build`: compiles ``csrc/*.cu`` with
   ``nvcc`` (one process per source, all at once) into one library under
   ``build/kernels/`` at the first CUDA launch and loads it with
   :mod:`ctypes`. Importing this package builds nothing.
 """
 
-from mrphy_tpu_torch.kernels import bloch, mc, nufft, signal  # noqa: F401
+from mrphy_tpu_torch.kernels import (bloch, epg, mc, mrf, nufft,  # noqa: F401
+                                     signal)
 
-__all__ = ['bloch', 'mc', 'nufft', 'signal']
+__all__ = ['bloch', 'epg', 'mc', 'mrf', 'nufft', 'signal']

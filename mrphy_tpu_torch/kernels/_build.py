@@ -86,6 +86,19 @@ _SIGNATURES = {
     # grid, k, cot, dk, geo, k_bs, N, nT, D, W, stream
     'mrphy_nufft_dk_f32': (_P,) * 5 + (_I64,) * 5 + (_P,),
     'mrphy_nufft_dk_f64': (_P,) * 5 + (_I64,) * 5 + (_P,),
+    # coef, par, cdiff, sig, chk, gstate, nA, nTR, nC, K, kshift, flags, tc,
+    # threads, stream
+    'mrphy_spgr_fwd_f32': (_P,) * 6 + (_I64,) * 8 + (_P,),
+    'mrphy_spgr_fwd_f64': (_P,) * 6 + (_I64,) * 8 + (_P,),
+    'mrphy_spgr_fwd_chk_f32': (_P,) * 6 + (_I64,) * 8 + (_P,),
+    'mrphy_spgr_fwd_chk_f64': (_P,) * 6 + (_I64,) * 8 + (_P,),
+    # coef, par, cdiff, chk, g, scratch, hstate, dpar, dcf, nA, nTR, nC, K,
+    # kshift, flags, tc, threads, stream
+    'mrphy_spgr_bwd_f32': (_P,) * 9 + (_I64,) * 8 + (_P,),
+    'mrphy_spgr_bwd_f64': (_P,) * 9 + (_I64,) * 8 + (_P,),
+    # dre, dim, x, idx, best, nA, nV, r, stream
+    'mrphy_match_f32': (_P,) * 5 + (_I64,) * 3 + (_P,),
+    'mrphy_match_f64': (_P,) * 5 + (_I64,) * 3 + (_P,),
 }
 
 

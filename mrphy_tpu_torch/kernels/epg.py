@@ -1,0 +1,608 @@
+r"""The single-pool SPGR / MRF-FISP EPG kernels: wrappers, plain PyTorch
+versions and launch counts.
+
+Three kernels, each the Hopper counterpart of a TPU kernel of
+:mod:`mrphy_tpu.ops.epg_pallas`:
+
+- ``spgr_fwd`` (``csrc/spgr_fwd.cu``, replaces ``_spgr_kernel``): the
+  gradient-spoiled train of every atom. Per TR: the RF mix (``epg_rf``),
+  the echo ``F+(0)`` demodulated by the transmit phase with its TE decay,
+  relaxation over TR with recovery into ``Z(0)``, the spoiler's diffusion
+  attenuation, and ``|kshift|`` unit shifts of the configuration orders.
+- ``spgr_fwd_chk`` (the same source, replaces ``_spgr_fwd_chk_kernel``):
+  the same train, also writing the state at the start of every chunk of
+  ``tc`` TRs.
+- ``spgr_bwd`` (``csrc/spgr_bwd.cu``, replaces ``_spgr_bwd_kernel``): the
+  two-phase chunk adjoint. Per chunk, newest first, phase 1 re-runs the
+  forward from the chunk's start state and stores every pre-RF state;
+  phase 2 walks them backwards (shift transpose, diffusion and relaxation
+  transposes, the echo's cotangent, the RF-mix transpose).
+
+Arguments, as ``_spgr_dispatch`` (``epg_pallas.py:219-273``) builds them:
+
+- ``coef (nC, nTR)``: the per-TR rows ``[cos²(α/2), sin²(α/2), sin α,
+  cos α, cos φ, sin φ, cos 2φ, sin 2φ, α]``, and under variable TR/TE
+  (``vartr``) two more, ``[tr, te]`` (nC = 11, else 9);
+- ``par (7, nA)``: the per-atom rows ``[E1, E2, E2te, rec, z0, b1, dq]``;
+  under ``vartr`` the first four hold ``[R1, R2, M0, 0]`` and the kernels
+  form the factors per TR (``E1 = exp(−tr·R1)`` and the recovery
+  ``M0·(1 − E1)`` through ``expm1``); ``dq`` is ``D·dk²·tr`` at constant
+  TR and the rate ``D·dk²`` under ``vartr``;
+- ``cdiff (3, K)``: the b-factor coefficients of each order, ``[k² + kδ +
+  δ²/3, k² − kδ + δ²/3, k²]`` with ``δ = kshift`` (:func:`diff_coef`);
+- ``cfg``: :class:`SpgrCfg`, the static switches.
+
+The forward returns the echoes ``sig (nA, nTR, 2)`` ([re, im]) and, with
+``tc``, the chunk-start states ``chk (nTR / tc, 6, K, nA)``, rows ``[F+
+re, F+ im, F− re, F− im, Z re, Z im]``. The adjoint takes ``chk`` and the
+echoes' cotangent and returns ``dcoef (nC, nTR)`` (summed over atoms) and
+``dpar (7, nA)``, ``[dE1, dE2, dE2te, drec, dz0, db1, ddq]`` (under
+``vartr``: ``[dR1, dR2, dM0, 0, dz0, db1, ddq]``). The gradients of T1,
+T2, tr, te, M0, zinit, b1, D and dk w.r.t. these rows come from torch
+autograd of their construction (:func:`mrphy_tpu_torch.ops.epg.epg_spgr`).
+
+Each kernel has beside it its plain PyTorch version (``*_torch``: a Python
+loop over TRs on ``(nA, K)`` planes in the kernel's order of operations,
+sums over the orders taken one order at a time, as the kernels take them;
+the adjoint's uses no autograd) and a launch count, ``LAUNCHES[name]``,
+raised by one at every launch of the kernel and nowhere else.
+
+:func:`spgr` is a ``torch.autograd.Function``: with no gradient needed it
+runs ``spgr_fwd``; otherwise ``spgr_fwd_chk``, and ``spgr_bwd`` as its
+backward (the kernels on CUDA tensors, no fallback; the plain versions on
+CPU tensors). The adjoint takes every instance the
+forward takes: its per-chunk scratch lies in device memory, sized by
+:func:`pick_tc`, so no budget sends a call elsewhere.
+"""
+
+from typing import NamedTuple
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from mrphy_tpu_torch.kernels.bloch import (_check, _check_tc, _device_kind,
+                                           _ptr, _raise_on, _stream)
+from mrphy_tpu_torch.utils._shapes import largest_divisor_leq
+
+__all__ = ['LAUNCHES', 'SpgrCfg', 'diff_coef', 'pick_tc', 'spgr',
+           'spgr_fwd', 'spgr_fwd_torch', 'spgr_fwd_chk',
+           'spgr_fwd_chk_torch', 'spgr_bwd', 'spgr_bwd_torch']
+
+LAUNCHES = {'spgr_fwd': 0, 'spgr_fwd_chk': 0, 'spgr_bwd': 0}
+
+# The adjoint's scratch budget: the pre-RF states of one chunk of every
+# atom, (tc, 6, K, nA) values, stay within 2 GiB (pick_tc).
+SCRATCH_BYTES = 2 << 30
+# The card's shared memory: a block may use 227 KB, an SM holds 228 KB and
+# keeps 1 KB per resident block.
+SMEM_BLOCK, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
+
+
+class SpgrCfg(NamedTuple):
+    r"""The static switches of one SPGR train: ``K`` modelled orders, the
+    spoiler's ``kshift`` k-quanta per TR, per-atom ``b1``, variable TR/TE
+    (``vartr``) and spoiler diffusion (``has_d``)."""
+    K: int
+    kshift: int
+    has_b1: bool
+    vartr: bool
+    has_d: bool
+
+    @property
+    def nC(self) -> int:
+        return 11 if self.vartr else 9
+
+    @property
+    def flags(self) -> int:
+        return int(self.has_b1) | 2 * int(self.vartr) | 4 * int(self.has_d)
+
+
+def diff_coef(K: int, kshift: int, dtype, device) -> torch.Tensor:
+    r"""``(3, K)``: the b-factor coefficient of each order, ``k² ± kδ +
+    δ²/3`` for ``F±`` and ``k²`` for ``Z`` (``δ = kshift``), exactly
+    :func:`mrphy_tpu_torch.ops.epg.epg_diffusion`'s."""
+    k = torch.arange(K, dtype=dtype, device=device)
+    d = float(kshift)
+    return torch.stack([k * k + k * d + d * d / 3, k * k - k * d + d * d / 3,
+                        k * k])
+
+
+def pick_tc(nTR: int, K: int, nA: int, itemsize: int) -> int:
+    r"""The adjoint's chunk length: the largest divisor of ``nTR`` whose
+    scratch of pre-RF states, ``tc·6·K·nA`` values, fits
+    ``SCRATCH_BYTES`` (at least 1). At 65,536 atoms × 400 TRs, K 48,
+    float32: tc 25, a 1.9 GB scratch and 16 checkpoints of 1.2 GB."""
+    per_tr = 6 * K * max(nA, 1) * itemsize
+    return largest_divisor_leq(nTR, max(1, SCRATCH_BYTES // per_tr))
+
+
+# ==========================================================================
+# The plain versions
+# ==========================================================================
+
+def _trig(coef, t, b1, has_b1):
+    r"""TR ``t``'s RF factors ``(cos²(α/2), sin²(α/2), sin α, cos α, cos φ,
+    sin φ, cos 2φ, sin 2φ)``; under ``has_b1`` the first four per atom
+    from ``α = flip·b1`` by the half-angle identities."""
+    if has_b1:
+        ah = (0.5 * coef[8, t]) * b1
+        ch, sh = torch.cos(ah), torch.sin(ah)
+        ca2, sa2 = ch * ch, sh * sh
+        sa, ca = 2 * ch * sh, ca2 - sa2
+    else:
+        ca2, sa2, sa, ca = coef[0, t], coef[1, t], coef[2, t], coef[3, t]
+    return ca2, sa2, sa, ca, coef[4, t], coef[5, t], coef[6, t], coef[7, t]
+
+
+def _factors(coef, t, p, vartr):
+    r"""TR ``t``'s ``(E1, E2, E2te, rec)``: the per-atom rows, or under
+    ``vartr`` formed from the rates and the tr/te rows."""
+    if not vartr:
+        return p[0], p[1], p[2], p[3]
+    trn, ten = coef[9, t], coef[10, t]
+    a1 = -torch.expm1(-(trn * p[0]))
+    return 1 - a1, torch.exp(-(trn * p[1])), torch.exp(-(ten * p[1])), \
+        p[2] * a1
+
+
+def _att(coef, t, p, cdiff, cfg):
+    r"""TR ``t``'s diffusion attenuation of each order, ``exp(−dq·c)``, or
+    None without diffusion."""
+    if not cfg.has_d:
+        return None
+    dqt = p[6] * coef[9, t] if cfg.vartr else p[6]
+    return tuple(torch.exp(-dqt * c) for c in cdiff)
+
+
+def _mix(tg, s):
+    r"""The RF mix (``epg_rf``'s rows in real-pair arithmetic)."""
+    ca2, sa2, sa, ca, c1, s1, c2, s2 = tg
+    Fpr, Fpi, Fmr, Fmi, Zr, Zi = s
+    sc2, ss2 = sa2 * c2, sa2 * s2
+    ss, sc = sa * s1, sa * c1
+    hs, hc = 0.5 * ss, 0.5 * sc
+    return (ca2 * Fpr + (sc2 * Fmr - ss2 * Fmi) + (ss * Zr + sc * Zi),
+            ca2 * Fpi + (sc2 * Fmi + ss2 * Fmr) + (ss * Zi - sc * Zr),
+            (sc2 * Fpr + ss2 * Fpi) + ca2 * Fmr + (ss * Zr - sc * Zi),
+            (sc2 * Fpi - ss2 * Fpr) + ca2 * Fmi + (ss * Zi + sc * Zr),
+            (-hs * Fpr + hc * Fpi) + (-hs * Fmr - hc * Fmi) + ca * Zr,
+            (-hs * Fpi - hc * Fpr) + (-hs * Fmi + hc * Fmr) + ca * Zi)
+
+
+def _mix_T(tg, h):
+    r"""The exact transpose of :func:`_mix`."""
+    ca2, sa2, sa, ca, c1, s1, c2, s2 = tg
+    hFpr, hFpi, hFmr, hFmi, hZr, hZi = h
+    sc2, ss2 = sa2 * c2, sa2 * s2
+    ss, sc = sa * s1, sa * c1
+    hs, hc = 0.5 * ss, 0.5 * sc
+    return (ca2 * hFpr + sc2 * hFmr - ss2 * hFmi - hs * hZr - hc * hZi,
+            ca2 * hFpi + ss2 * hFmr + sc2 * hFmi + hc * hZr - hs * hZi,
+            sc2 * hFpr + ss2 * hFpi + ca2 * hFmr - hs * hZr + hc * hZi,
+            -ss2 * hFpr + sc2 * hFpi + ca2 * hFmi - hc * hZr - hs * hZi,
+            ss * hFpr - sc * hFpi + ss * hFmr + sc * hFmi + ca * hZr,
+            sc * hFpr + ss * hFpi - sc * hFmr + ss * hFmi + ca * hZi)
+
+
+def _at0(x, v):
+    r"""``x`` with ``v`` in place of its order 0."""
+    return torch.cat([v, x[:, 1:]], dim=1)
+
+
+def _relax(E1t, E2t, rect, s, att):
+    r"""Relaxation over TR with recovery into ``Z(0)``, then the
+    diffusion attenuation (before the shift, as ``epg_diffusion``)."""
+    Fpr, Fpi, Fmr, Fmi, Zr, Zi = s
+    Fpr, Fpi, Fmr, Fmi = E2t * Fpr, E2t * Fpi, E2t * Fmr, E2t * Fmi
+    Zr = E1t * Zr
+    Zr, Zi = _at0(Zr, Zr[:, :1] + rect), E1t * Zi
+    if att is not None:
+        ATp, ATm, AL = att
+        Fpr, Fpi, Fmr, Fmi = ATp * Fpr, ATp * Fpi, ATm * Fmr, ATm * Fmi
+        Zr, Zi = AL * Zr, AL * Zi
+    return Fpr, Fpi, Fmr, Fmi, Zr, Zi
+
+
+def _shift(s, kshift):
+    r"""``|kshift|`` unit spoiler shifts (``epg_grad``): ``F+`` up and
+    ``F−`` down for ``kshift > 0`` with ``F+(0) = conj(F−(0))``, the
+    mirror for ``kshift < 0``; orders past ``K − 1`` are dropped."""
+    Fpr, Fpi, Fmr, Fmi, Zr, Zi = s
+    zero = torch.zeros_like(Fpr[:, :1])
+    for _ in range(abs(kshift)):
+        if kshift > 0:
+            Fmr = torch.cat([Fmr[:, 1:], zero], dim=1)
+            Fmi = torch.cat([Fmi[:, 1:], zero], dim=1)
+            Fpr = torch.cat([Fmr[:, :1], Fpr[:, :-1]], dim=1)
+            Fpi = torch.cat([-Fmi[:, :1], Fpi[:, :-1]], dim=1)
+        else:
+            Fpr = torch.cat([Fpr[:, 1:], zero], dim=1)
+            Fpi = torch.cat([Fpi[:, 1:], zero], dim=1)
+            Fmr = torch.cat([Fpr[:, :1], Fmr[:, :-1]], dim=1)
+            Fmi = torch.cat([-Fpi[:, :1], Fmi[:, :-1]], dim=1)
+    return Fpr, Fpi, Fmr, Fmi, Zr, Zi
+
+
+def _shift_T(h, kshift):
+    r"""The transpose of :func:`_shift`: for ``kshift > 0`` one unit is
+    ``F+(k) ← F+(k + 1)``, ``F−(k) ← F−(k − 1)``, and ``conj(F+(0))`` added
+    to ``F−(1)`` (which fed the new ``F+(0)``); the mirror for ``kshift <
+    0``."""
+    hFpr, hFpi, hFmr, hFmi, hZr, hZi = h
+    zero = torch.zeros_like(hFpr[:, :1])
+    K = hFpr.shape[1]
+
+    def up(x):      # x(k) ← x(k − 1), x(0) ← 0
+        return torch.cat([zero, x[:, :-1]], dim=1)
+
+    def down(x):    # x(k) ← x(k + 1), x(K − 1) ← 0
+        return torch.cat([x[:, 1:], zero], dim=1)
+
+    for _ in range(abs(kshift)):
+        if kshift > 0:
+            p0r, p0i = hFpr[:, :1], hFpi[:, :1]
+            hFpr, hFpi, hFmr, hFmi = down(hFpr), down(hFpi), up(hFmr), \
+                up(hFmi)
+            if K > 1:
+                hFmr = torch.cat([hFmr[:, :1], hFmr[:, 1:2] + p0r,
+                                  hFmr[:, 2:]], dim=1)
+                hFmi = torch.cat([hFmi[:, :1], hFmi[:, 1:2] - p0i,
+                                  hFmi[:, 2:]], dim=1)
+        else:
+            m0r, m0i = hFmr[:, :1], hFmi[:, :1]
+            hFmr, hFmi, hFpr, hFpi = down(hFmr), down(hFmi), up(hFpr), \
+                up(hFpi)
+            if K > 1:
+                hFpr = torch.cat([hFpr[:, :1], hFpr[:, 1:2] + m0r,
+                                  hFpr[:, 2:]], dim=1)
+                hFpi = torch.cat([hFpi[:, :1], hFpi[:, 1:2] - m0i,
+                                  hFpi[:, 2:]], dim=1)
+    return hFpr, hFpi, hFmr, hFmi, hZr, hZi
+
+
+def _echo(E2tet, c1, s1, fp0r, fp0i):
+    return torch.cat([E2tet * (c1 * fp0r + s1 * fp0i),
+                      E2tet * (c1 * fp0i - s1 * fp0r)], dim=1)
+
+
+def _init_state(p, K):
+    z = torch.zeros(p.shape[1], K, dtype=p.dtype, device=p.device)
+    return z, z, z, z, _at0(z, p[4]), z
+
+
+def _step(coef, t, p, cdiff, cfg, s):
+    r"""TR ``t`` from the pre-RF state ``s``: ``(next pre-RF state, echo
+    (nA, 2))``."""
+    tg = _trig(coef, t, p[5], cfg.has_b1)
+    E1t, E2t, E2tet, rect = _factors(coef, t, p, cfg.vartr)
+    s1 = _mix(tg, s)
+    echo = _echo(E2tet, tg[4], tg[5], s1[0][:, :1], s1[1][:, :1])
+    s2 = _relax(E1t, E2t, rect, s1, _att(coef, t, p, cdiff, cfg))
+    return _shift(s2, cfg.kshift), echo
+
+
+def _fwd(coef, par, cdiff, cfg, tc):
+    nTR = coef.shape[1]
+    p = par.unsqueeze(-1)                              # (7, nA, 1)
+    s = _init_state(p, cfg.K)
+    echoes, chk = [], []
+    for t in range(nTR):
+        if tc and t % tc == 0:
+            chk.append(torch.stack(s).transpose(1, 2))     # (6, K, nA)
+        s, echo = _step(coef, t, p, cdiff, cfg, s)
+        echoes.append(echo)
+    sig = torch.stack(echoes, dim=1)                   # (nA, nTR, 2)
+    return sig, (torch.stack(chk) if tc else None)
+
+
+def spgr_fwd_torch(coef, par, cdiff, cfg: SpgrCfg):
+    r"""Plain PyTorch version of the ``spgr_fwd`` kernel: ``sig (nA, nTR,
+    2)``. Differentiable by torch autograd (which then keeps every
+    TR)."""
+    return _fwd(coef, par, cdiff, cfg, None)[0]
+
+
+def spgr_fwd_chk_torch(coef, par, cdiff, cfg: SpgrCfg, *, tc: int):
+    r"""Plain PyTorch version of the ``spgr_fwd_chk`` kernel: ``(sig (nA,
+    nTR, 2), chk (nTR / tc, 6, K, nA))``."""
+    _check_tc(coef.shape[1], tc)
+    return _fwd(coef, par, cdiff, cfg, tc)
+
+
+def _ksum(x):
+    r"""``x (..., K)`` summed over its last axis one order at a time, as
+    the kernels sum."""
+    acc = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
+
+
+def spgr_bwd_torch(coef, par, cdiff, cfg: SpgrCfg, chk, g, *, tc: int):
+    r"""Plain PyTorch version of the ``spgr_bwd`` kernel: the two-phase
+    chunk adjoint of :func:`spgr_fwd_chk_torch`, with no autograd.
+
+    ``chk``: its checkpoints at the same ``tc``; ``g``: the echoes'
+    cotangent `(nA, nTR, 2)`. Returns ``(dcoef (nC, nTR), dpar (7,
+    nA))``."""
+    nTR = coef.shape[1]
+    _check_tc(nTR, tc)
+    ntc, K = chk.shape[0], cfg.K
+    if ntc != nTR // tc:
+        raise ValueError(f'chk holds {ntc} states, but nTR={nTR} in chunks '
+                         f'of tc={tc} gives {nTR // tc}')
+    p = par.unsqueeze(-1)
+    E1, E2, M0 = p[0], p[1], p[2]
+    zero = torch.zeros_like(p[0])
+    h = (torch.zeros_like(chk[0, 0].T),) * 6
+    aE1 = aE2 = aE2te = arec = ab1 = aDq = zero
+    dcoef = coef.new_zeros(cfg.nC, nTR)
+    for j in reversed(range(ntc)):
+        # phase 1: the forward from the chunk's start state, every state
+        s = tuple(chk[j, q].T for q in range(6))
+        states = []
+        for t in range(j * tc, (j + 1) * tc):
+            states.append(s)
+            s, _ = _step(coef, t, p, cdiff, cfg, s)
+        # phase 2: the cotangent, backwards through the stored states
+        for t in reversed(range(j * tc, (j + 1) * tc)):
+            s = states.pop()
+            tg = _trig(coef, t, p[5], cfg.has_b1)
+            ca2, sa2, sa, ca, c1, s1c, c2, s2 = tg
+            E1t, E2t, E2tet, rect = _factors(coef, t, p, cfg.vartr)
+            s1 = _mix(tg, s)
+            h = _shift_T(h, cfg.kshift)
+            terms = []
+            att = _att(coef, t, p, cdiff, cfg)
+            if att is not None:
+                # the diffusion transpose: h ← A·h, and A = exp(−dq·c)
+                # contributes −Σ c·A·(h·s2) to ∂dq (s2: after relaxation)
+                ATp, ATm, AL = att
+                cTp, cTm, cL = cdiff
+                s2Zr = E1t * s1[4]
+                s2Zr = _at0(s2Zr, s2Zr[:, :1] + rect)
+                terms.append(
+                    cTp * ATp * (h[0] * (E2t * s1[0]) + h[1] * (E2t * s1[1]))
+                    + cTm * ATm * (h[2] * (E2t * s1[2])
+                                   + h[3] * (E2t * s1[3]))
+                    + cL * AL * (h[4] * s2Zr + h[5] * (E1t * s1[5])))
+                h = (ATp * h[0], ATp * h[1], ATm * h[2], ATm * h[3],
+                     AL * h[4], AL * h[5])
+            # the relaxation transpose
+            terms.append(h[0] * s1[0] + h[1] * s1[1] + h[2] * s1[2]
+                         + h[3] * s1[3])
+            terms.append(h[4] * s1[4] + h[5] * s1[5])
+            d_rec_t = h[4][:, :1]
+            h = (E2t * h[0], E2t * h[1], E2t * h[2], E2t * h[3],
+                 E1t * h[4], E1t * h[5])
+            # the echo's cotangent, injected at F+(0) (the echo reads the
+            # state after the mix, before relaxation)
+            gyr, gyi = g[:, t, 0:1], g[:, t, 1:2]
+            fp0r, fp0i = s1[0][:, :1], s1[1][:, :1]
+            d_E2te_t = (gyr * (c1 * fp0r + s1c * fp0i)
+                        + gyi * (c1 * fp0i - s1c * fp0r))
+            er = E2tet * (c1 * gyr - s1c * gyi)
+            ei = E2tet * (s1c * gyr + c1 * gyi)
+            h = (_at0(h[0], h[0][:, :1] + er),
+                 _at0(h[1], h[1][:, :1] + ei)) + h[2:]
+            d_c1e = E2tet * (gyr * fp0r + gyi * fp0i)
+            d_s1e = E2tet * (gyr * fp0i - gyi * fp0r)
+            # the RF mix's coefficients
+            h1Fpr, h1Fpi, h1Fmr, h1Fmi, h1Zr, h1Zi = h
+            Fpr, Fpi, Fmr, Fmi, Zr, Zi = s
+            terms += [h1Fpr * Fpr + h1Fpi * Fpi + h1Fmr * Fmr + h1Fmi * Fmi,
+                      h1Fpr * Fmr + h1Fpi * Fmi + h1Fmr * Fpr + h1Fmi * Fpi,
+                      -h1Fpr * Fmi + h1Fpi * Fmr + h1Fmr * Fpi
+                      - h1Fmi * Fpr,
+                      (h1Fpr + h1Fmr) * Zr + (h1Fpi + h1Fmi) * Zi,
+                      (h1Fpr - h1Fmr) * Zi - (h1Fpi - h1Fmi) * Zr,
+                      -h1Zr * (Fpr + Fmr) - h1Zi * (Fpi + Fmi),
+                      h1Zr * (Fpi - Fmi) + h1Zi * (Fmr - Fpr),
+                      h1Zr * Zr + h1Zi * Zi]
+            sums = _ksum(torch.stack(terms)).unsqueeze(-1)   # (n, nA, 1)
+            if att is not None:
+                contr, sums = -sums[0], sums[1:]
+            (d_E2_t, d_E1_t, d_ca2, d_sc2, d_ss2, d_ss, d_sc, d_hs, d_hc,
+             d_ca) = sums
+            if cfg.vartr:
+                trn, ten = coef[9, t], coef[10, t]
+                d_E1tot = d_E1_t - M0 * d_rec_t
+                aE2te = aE2te + (1 - E1t) * d_rec_t
+                aE1 = aE1 - trn * E1t * d_E1tot
+                aE2 = aE2 - trn * E2t * d_E2_t - ten * E2tet * d_E2te_t
+                d_tr_row = -E1 * E1t * d_E1tot - E2 * E2t * d_E2_t
+                if att is not None:
+                    aDq = aDq + trn * contr
+                    d_tr_row = d_tr_row + p[6] * contr
+                d_te_row = -E2 * E2tet * d_E2te_t
+            else:
+                aE1, aE2 = aE1 + d_E1_t, aE2 + d_E2_t
+                arec, aE2te = arec + d_rec_t, aE2te + d_E2te_t
+                if att is not None:
+                    aDq = aDq + contr
+            d_sa2 = c2 * d_sc2 + s2 * d_ss2
+            d_c2, d_s2 = sa2 * d_sc2, sa2 * d_ss2
+            d_sa = s1c * (d_ss + 0.5 * d_hs) + c1 * (d_sc + 0.5 * d_hc)
+            d_s1 = sa * (d_ss + 0.5 * d_hs) + d_s1e
+            d_c1 = sa * (d_sc + 0.5 * d_hc) + d_c1e
+            if cfg.has_b1:
+                # α = flip·b1 through the half-angle trig
+                d_al = 0.5 * sa * (d_sa2 - d_ca2) + ca * d_sa - sa * d_ca
+                ab1 = ab1 + d_al * coef[8, t]
+                rows = [zero, zero, zero, zero, d_c1, d_s1, d_c2, d_s2,
+                        d_al * p[5]]
+            else:
+                rows = [d_ca2, d_sa2, d_sa, d_ca, d_c1, d_s1, d_c2, d_s2,
+                        zero]
+            if cfg.vartr:
+                rows += [d_tr_row, d_te_row]
+            dcoef[:, t] = torch.cat(rows, dim=1).sum(dim=0)
+            h = _mix_T(tg, h)
+    # the initial state is z0 on Z(0)'s real part
+    dz0 = h[4][:, :1]
+    dpar = torch.cat([aE1, aE2, aE2te, arec, dz0, ab1, aDq], dim=1).T
+    return dcoef, dpar.contiguous()
+
+
+# ==========================================================================
+# The kernels
+# ==========================================================================
+
+def launch_cfg(K: int, itemsize: int):
+    r"""``(threads per block, state in shared memory)``: a thread walks
+    one atom and keeps its ``6·K`` state values in shared memory; of 128,
+    64 and 32 threads per block the count that keeps the most threads
+    resident on an SM. When even 32 threads' states exceed a block's shared
+    memory (K > 295 in float32, K > 147 in float64), the states live in
+    device memory and blocks take 128 threads."""
+    per_thread = 6 * K * itemsize
+    best = None
+    for th in (128, 64, 32):
+        smem = th * per_thread
+        if smem > SMEM_BLOCK:
+            continue
+        resident = SMEM_SM // (smem + SMEM_RESERVED) * th
+        if best is None or resident > best[1]:
+            best = (th, resident)
+    return (best[0], True) if best else (128, False)
+
+
+def _sizes(name, coef, par, cdiff, cfg):
+    if par.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'{name} takes float32 or float64, not {par.dtype}')
+    if par.ndim != 2 or par.shape[0] != 7:
+        raise ValueError(f'par must be (7, nA), got {tuple(par.shape)}')
+    nA, nTR, K = par.shape[1], coef.shape[-1], cfg.K
+    if K < 1 or cfg.kshift == 0:
+        raise ValueError(f'{name} needs K >= 1 and kshift != 0, got K={K}, '
+                         f'kshift={cfg.kshift}')
+    for x, xname, shape in ((coef, 'coef', (cfg.nC, nTR)),
+                            (par, 'par', (7, nA)),
+                            (cdiff, 'cdiff', (3, K))):
+        _check(x, xname, shape, par.dtype, par.device)
+    return nA, nTR
+
+
+def _entry(lib, kind, dtype):
+    return getattr(lib, f'mrphy_spgr_{kind}_'
+                   f'{"f32" if dtype == torch.float32 else "f64"}')
+
+
+def _launch_fwd(coef, par, cdiff, cfg, tc):
+    from mrphy_tpu_torch.kernels._build import library
+    name = 'spgr_fwd' if tc is None else 'spgr_fwd_chk'
+    nA, nTR = _sizes(name, coef, par, cdiff, cfg)
+    dt, dev = par.dtype, par.device
+    threads, in_smem = launch_cfg(cfg.K, par.element_size())
+    sig = torch.empty((nA, nTR, 2), dtype=dt, device=dev)
+    chk = None
+    if tc is not None:
+        _check_tc(nTR, tc)
+        chk = torch.empty((nTR // tc, 6, cfg.K, nA), dtype=dt, device=dev)
+    state = None if in_smem else torch.empty((6, cfg.K, nA), dtype=dt,
+                                             device=dev)
+    lib, _ = library()
+    with torch.cuda.device(dev):
+        err = _entry(lib, 'fwd' if tc is None else 'fwd_chk', dt)(
+            *map(_ptr, (coef, par, cdiff, sig, chk, state)), nA, nTR,
+            cfg.nC, cfg.K, cfg.kshift, cfg.flags, tc or nTR, threads,
+            _stream(dev))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return sig, chk
+
+
+def _launch_bwd(coef, par, cdiff, cfg, chk, g, tc):
+    from mrphy_tpu_torch.kernels._build import library
+    nA, nTR = _sizes('spgr_bwd', coef, par, cdiff, cfg)
+    _check_tc(nTR, tc)
+    dt, dev = par.dtype, par.device
+    _check(chk, 'chk', (nTR // tc, 6, cfg.K, nA), dt, dev)
+    _check(g, 'g', (nA, nTR, 2), dt, dev)
+    threads, in_smem = launch_cfg(cfg.K, par.element_size())
+    nwarp = -(-nA // 32)
+    # phase 1's pre-RF states of one chunk (the first is chk's own), the
+    # adjoint state when it does not fit in shared memory, and each warp's
+    # per-TR coefficient rows (summed over its atoms)
+    scratch = torch.empty((max(tc - 1, 1), 6, cfg.K, nA), dtype=dt,
+                          device=dev)
+    hstate = None if in_smem else torch.empty((6, cfg.K, nA), dtype=dt,
+                                              device=dev)
+    dpar = torch.empty((7, nA), dtype=dt, device=dev)
+    dcf = torch.empty((nwarp, nTR, cfg.nC), dtype=dt, device=dev)
+    lib, _ = library()
+    with torch.cuda.device(dev):
+        err = _entry(lib, 'bwd', dt)(
+            *map(_ptr, (coef, par, cdiff, chk, g, scratch, hstate, dpar,
+                        dcf)), nA, nTR, cfg.nC, cfg.K, cfg.kshift, cfg.flags,
+            tc, threads, _stream(dev))
+    _raise_on(err, 'spgr_bwd')
+    LAUNCHES['spgr_bwd'] += 1
+    # the warps' partial rows, summed in a fixed order
+    return dcf.sum(dim=0).T.contiguous(), dpar
+
+
+def spgr_fwd(coef, par, cdiff, cfg: SpgrCfg):
+    r"""The ``spgr_fwd`` kernel on CUDA tensors (contiguous, one dtype,
+    float32 or float64), :func:`spgr_fwd_torch` on CPU tensors."""
+    if _device_kind(par) == 'cpu':
+        return spgr_fwd_torch(coef, par, cdiff, cfg)
+    return _launch_fwd(coef, par, cdiff, cfg, None)[0]
+
+
+def spgr_fwd_chk(coef, par, cdiff, cfg: SpgrCfg, *, tc: int):
+    r"""The ``spgr_fwd_chk`` kernel on CUDA tensors,
+    :func:`spgr_fwd_chk_torch` on CPU tensors."""
+    if _device_kind(par) == 'cpu':
+        return spgr_fwd_chk_torch(coef, par, cdiff, cfg, tc=tc)
+    return _launch_fwd(coef, par, cdiff, cfg, tc)
+
+
+def spgr_bwd(coef, par, cdiff, cfg: SpgrCfg, chk, g, *, tc: int):
+    r"""The ``spgr_bwd`` kernel on CUDA tensors, :func:`spgr_bwd_torch` on
+    CPU tensors."""
+    if _device_kind(par) == 'cpu':
+        return spgr_bwd_torch(coef, par, cdiff, cfg, chk, g, tc=tc)
+    return _launch_bwd(coef, par, cdiff, cfg, chk, g, tc)
+
+
+class _Spgr(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, plain, cfg, coef, par, cdiff):
+        ctx.plain, ctx.cfg = plain, cfg
+        if not any(ctx.needs_input_grad[2:4]):
+            if plain:
+                return spgr_fwd_torch(coef, par, cdiff, cfg)
+            return _launch_fwd(coef, par, cdiff, cfg, None)[0]
+        tc = pick_tc(coef.shape[1], cfg.K, par.shape[1], par.element_size())
+        if plain:
+            sig, chk = spgr_fwd_chk_torch(coef, par, cdiff, cfg, tc=tc)
+        else:
+            sig, chk = _launch_fwd(coef, par, cdiff, cfg, tc)
+        ctx.tc = tc
+        ctx.save_for_backward(coef, par, cdiff, chk)
+        return sig
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        coef, par, cdiff, chk = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.plain:
+            dcoef, dpar = spgr_bwd_torch(coef, par, cdiff, ctx.cfg, chk, g,
+                                         tc=ctx.tc)
+        else:
+            dcoef, dpar = _launch_bwd(coef, par, cdiff, ctx.cfg, chk, g,
+                                      ctx.tc)
+        return None, None, dcoef, dpar, None
+
+
+def spgr(coef, par, cdiff, cfg: SpgrCfg):
+    r"""The SPGR train ``sig (nA, nTR, 2)``: the kernels on CUDA tensors
+    (``spgr_fwd``, or ``spgr_fwd_chk`` and ``spgr_bwd`` when a gradient is
+    needed), their plain versions on CPU tensors. Differentiable w.r.t.
+    ``coef`` and ``par``."""
+    plain = _device_kind(par) == 'cpu'
+    return _Spgr.apply(plain, cfg, coef.contiguous(), par.contiguous(),
+                       cdiff.contiguous())

@@ -31,7 +31,9 @@ Separable weights multiply as ``(w_0·w_1)·w_2`` over the flat tap order
 reciprocal (PyTorch divides a CUDA tensor by a scalar that way), and the
 plain versions sum the taps one by one in that order, so with
 ``-fmad=false`` the sample and dk kernels can round exactly as their plain
-versions. The spread's sums take the atomics' order.
+versions. The spread's sums take the atomics' order, which changes from
+run to run: under ``torch.use_deterministic_algorithms(True)`` its launch
+raises (warns under ``warn_only=True``; :func:`refuse_nondeterministic`).
 
 Layout: the grid and the samples are re/im pairs in the last axis (the
 real view of a complex tensor, so the FFT stage hands them over without a
@@ -52,6 +54,7 @@ or when asked (``plain=True``).
 """
 
 import ctypes
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -63,7 +66,7 @@ from mrphy_tpu_torch.kernels.bloch import (_check, _device_kind, _ptr,
 
 __all__ = ['LAUNCHES', 'Geom', 'taps', 'nufft_sample', 'nufft_sample_torch',
            'nufft_spread', 'nufft_spread_torch', 'nufft_dk',
-           'nufft_dk_torch', 'Sample', 'Spread']
+           'nufft_dk_torch', 'Sample', 'Spread', 'refuse_nondeterministic']
 
 LAUNCHES = {'nufft_sample': 0, 'nufft_spread': 0, 'nufft_dk': 0}
 
@@ -319,7 +322,26 @@ def _launch_sample(grid, k, geom: Geom):
     return out
 
 
+def refuse_nondeterministic(name: str) -> None:
+    r"""A kernel that sums with ``atomicAdd`` gives results that change from
+    run to run in their last bits. Under
+    ``torch.use_deterministic_algorithms(True)`` this raises
+    :class:`RuntimeError`, as PyTorch's own such CUDA operations do; under
+    ``warn_only=True`` it warns and the kernel runs."""
+    if not torch.are_deterministic_algorithms_enabled():
+        return
+    msg = (f'{name} sums with atomicAdd on CUDA tensors, so its result '
+           'changes from run to run in the last bits, and '
+           'torch.use_deterministic_algorithms(True) is set')
+    if torch.is_deterministic_algorithms_warn_only_enabled():
+        warnings.warn(msg, UserWarning, stacklevel=3)
+    else:
+        raise RuntimeError(msg + "; the plain route (interp='gather', or "
+                           'CPU tensors) is deterministic')
+
+
 def _launch_spread(s, k, geom: Geom):
+    refuse_nondeterministic('nufft_spread')
     N, nT, d, k_bs = _sizes('nufft_spread', s, k, geom)
     _check(s, 's', (N, nT, 2), s.dtype, s.device)
     grid = torch.zeros((N, int(np.prod(geom.grid_size)), 2), dtype=s.dtype,

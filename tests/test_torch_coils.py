@@ -32,6 +32,14 @@ def _close(x, ref, rel=1e-12):
     np.testing.assert_allclose(x, ref, rtol=0, atol=rel * scale)
 
 
+
+def _jax(fn, *args):
+    r"""``jax.jit(fn)(*args)`` compiled by XLA at its lowest optimisation
+    level: each reference is small and runs once, so compiling it is
+    nearly all of its cost."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={'xla_backend_optimization_level': 0})(*args)
+
 def _psi(rng, nC):
     A = rng.standard_normal((nC, nC)) + 1j * rng.standard_normal((nC, nC))
     P = A @ A.conj().T + nC * np.eye(nC)
@@ -51,7 +59,8 @@ def test_compress_whiten_and_apply_vs_jax():
     s = rng.standard_normal((2, 6, 30, 2))
     for x, axis in ((sens, -1), (s, 1)):
         _close(tc.apply_ccmat(torch.as_tensor(x), W, axis=axis),
-               jc.apply_ccmat(jnp.asarray(x), W, axis=axis))
+               _jax(lambda v: jc.apply_ccmat(v, W, axis=axis),
+                    jnp.asarray(x)))
 
 
 def test_compression_commutes_with_acquisition():
@@ -115,7 +124,8 @@ def _coil_images(n=16, nc=3, seed=7):
 def test_adaptive_and_espirit_maps_vs_jax():
     imgs, S = _coil_images()
     _close(tc.adaptive_maps(torch.as_tensor(imgs), block=5, iters=40),
-           jc.adaptive_maps(jnp.asarray(imgs), block=5, iters=40))
+           _jax(lambda im: jc.adaptive_maps(im, block=5, iters=40),
+                jnp.asarray(imgs)))
     ksp = np.fft.fftshift(np.fft.fftn(np.fft.ifftshift(
         imgs[..., 0] + 1j * imgs[..., 1], axes=(1, 2)), axes=(1, 2)),
         axes=(1, 2))[:, 2:14, 2:14]
@@ -135,7 +145,8 @@ def test_gfactor_sense_vs_jax():
     maps = np.stack([z.real, z.imag], -2)
     Psi = _psi(rng, 4)
     g = tc.gfactor_sense(torch.as_tensor(maps), 3, axis=1, Psi=Psi)
-    _close(g, jc.gfactor_sense(jnp.asarray(maps), 3, axis=1, Psi=Psi))
+    _close(g, _jax(lambda m: jc.gfactor_sense(m, 3, axis=1, Psi=Psi),
+                   jnp.asarray(maps)))
     assert float(g[1, 2]) == 0.0
 
 

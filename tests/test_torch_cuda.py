@@ -579,3 +579,181 @@ def test_nufft_toeplitz_and_dcf_on_card(cuda, dtype, bar):
     assert knf.LAUNCHES['nufft_sample'] >= n0['nufft_sample'] + 20
     _rows_close(outs[0].cpu().double(), outs[1],
                 1e-4 if dtype == torch.float32 else 1e-10)
+
+
+@pytest.mark.cuda
+def test_nufft_spread_refuses_under_deterministic_algorithms(cuda):
+    r"""``nufft_spread`` sums with atomics: under
+    ``torch.use_deterministic_algorithms(True)`` its launch raises, on the
+    wrapper and through the adjoint's and the sample stage's autograd
+    (whose backward spreads), and under ``warn_only=True`` it warns and
+    runs."""
+    from mrphy_tpu_torch.kernels import nufft as knf
+    from mrphy_tpu_torch.ops import nufft as tnf
+    rng = np.random.default_rng(31)
+    plan = tnf.nufft_plan((12, 10), (18.0, 15.0), device=cuda)
+    k = torch.as_tensor(rng.uniform(-0.3, 0.3, (2, 77)), dtype=torch.float32,
+                        device=cuda)
+    s = torch.as_tensor(rng.standard_normal((77, 2)), dtype=torch.float32,
+                        device=cuda)
+    img = torch.zeros((12, 10, 2), device=cuda, requires_grad=True)
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    n0 = knf.LAUNCHES['nufft_spread']
+    try:
+        torch.use_deterministic_algorithms(True)
+        with pytest.raises(RuntimeError, match='atomicAdd'):
+            tnf.nufft_adjoint(plan, s, k)
+        with pytest.raises(RuntimeError, match='atomicAdd'):
+            tnf.nufft(plan, img, k).sum().backward()
+        assert knf.LAUNCHES['nufft_spread'] == n0
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with pytest.warns(UserWarning, match='atomicAdd'):
+            out = tnf.nufft_adjoint(plan, s, k)
+        assert knf.LAUNCHES['nufft_spread'] == n0 + 1
+        assert bool(torch.isfinite(out).all())
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def _spgr_case(cuda, dtype, nA, nTR, K, kshift, b1, vartr, D, seed):
+    r"""``epg_spgr`` keywords (CUDA tensors): an rf-spoiled train with IR
+    prep and, as asked, per-atom b1, a variable TR/TE and diffusion."""
+    from mrphy_tpu_torch.ops import epg
+    rng = np.random.default_rng(seed)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=cuda)
+
+    T1 = arr(rng.uniform(0.2, 3.0, nA))
+    kw = dict(flips=arr(rng.uniform(0.1, 1.2, nTR)),
+              phis=epg.rf_spoil_phases(nTR, dtype=dtype, device=cuda), T1=T1,
+              T2=arr(rng.uniform(0.02, 0.4, nA)),
+              tr=arr(rng.uniform(0.008, 0.016, nTR)) if vartr else 0.012,
+              te=arr(rng.uniform(1e-3, 4e-3, nTR)) if vartr else 2e-3,
+              zinit=epg.ir_prep(0.018, T1), kshift=kshift, K=K)
+    if b1:
+        kw['b1'] = arr(rng.uniform(0.8, 1.2, nA))
+    if D:
+        kw.update(D=arr(rng.uniform(0.4e-5, 3.2e-5, nA)), dk=450.0)
+    return kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows', [(torch.float32, 2e-6, 1e-4),
+                                            (torch.float64, 1e-12, 1e-12)])
+@pytest.mark.parametrize('nA,nTR,K,kshift,b1,vartr,D', [
+    (333, 40, 12, 1, False, True, False), (200, 36, 10, -1, True, False,
+                                           False),
+    (129, 30, 9, 2, True, True, True), (65, 60, None, 1, False, True, True)],
+    ids=['var-tr', 'b1-kshift-1', 'b1-var-tr-diffusion-kshift2',
+         'default-K-diffusion'])
+def test_spgr_kernels_vs_plain_on_card(cuda, dtype, bar, rows, nA, nTR, K,
+                                       kshift, b1, vartr, D):
+    r"""``spgr_fwd``, ``spgr_fwd_chk`` and ``spgr_bwd`` against their plain
+    versions on the card (per-atom outputs at ``bar``, the adjoint's
+    per-TR rows, summed over atoms by warps, at ``rows`` of their largest
+    value), over several chunks; the launch counts; the refusals."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.ops import epg
+    from mrphy_tpu_torch.utils._shapes import largest_divisor_leq
+    kw = _spgr_case(cuda, dtype, nA, nTR, K, kshift, b1, vartr, D, 37)
+    coef, par, cdiff, cfg, _ = epg._spgr_rows(**kw)
+    coef, par = coef.contiguous(), par.contiguous()
+    tc = largest_divisor_leq(nTR, nTR // 3)          # three chunks or more
+    n0 = dict(kepg.LAUNCHES)
+    sig = kepg.spgr_fwd(coef, par, cdiff, cfg)
+    sig2, chk = kepg.spgr_fwd_chk(coef, par, cdiff, cfg, tc=tc)
+    g = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        sig.shape), dtype=dtype, device=cuda)
+    dcoef, dpar = kepg.spgr_bwd(coef, par, cdiff, cfg, chk, g, tc=tc)
+    assert all(kepg.LAUNCHES[n] == n0[n] + 1 for n in kepg.LAUNCHES)
+    sig_p, chk_p = kepg.spgr_fwd_chk_torch(coef, par, cdiff, cfg, tc=tc)
+    dcoef_p, dpar_p = kepg.spgr_bwd_torch(coef, par, cdiff, cfg, chk_p, g,
+                                          tc=tc)
+    for x, y in ((sig, sig_p), (sig2, sig_p), (chk, chk_p), (dpar, dpar_p)):
+        _rows_close(x, y, bar)
+    _rows_close(dcoef, dcoef_p, rows)
+    with pytest.raises(ValueError, match='contiguous'):
+        kepg.spgr_fwd(coef.T.contiguous().T, par, cdiff, cfg)
+    with pytest.raises(TypeError):
+        kepg.spgr_fwd(coef.half(), par.half(), cdiff.half(), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_epg_spgr_gradients_cuda_vs_plain(cuda, dtype):
+    r"""``epg_spgr`` on CUDA tensors runs ``spgr_fwd`` for a value and
+    ``spgr_fwd_chk`` + ``spgr_bwd`` under a gradient, whose gradients
+    w.r.t. every input meet the plain route's."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.ops import epg
+    names = ('flips', 'phis', 'T1', 'T2', 'tr', 'te', 'b1', 'D')
+    kw = _spgr_case(cuda, dtype, 70, 24, 8, -1, True, True, True, 41)
+    w = torch.as_tensor(np.random.default_rng(5).standard_normal((70, 24, 2)),
+                        dtype=dtype, device=cuda)
+    grads = []
+    for backend in ('auto', 'torch'):
+        xs = {n: kw[n].detach().clone().requires_grad_() for n in names}
+        n0 = dict(kepg.LAUNCHES)
+        out = epg.epg_spgr(**dict(kw, **xs, zinit=epg.ir_prep(0.018,
+                                                              xs['T1'])),
+                           backend=backend)
+        grads.append(torch.autograd.grad((w * out).sum(), list(xs.values())))
+        launched = {n: kepg.LAUNCHES[n] - n0[n] for n in kepg.LAUNCHES}
+        assert launched == ({'spgr_fwd': 0, 'spgr_fwd_chk': 1, 'spgr_bwd': 1}
+                            if backend == 'auto' else
+                            dict.fromkeys(kepg.LAUNCHES, 0))
+    n0 = kepg.LAUNCHES['spgr_fwd']
+    with torch.no_grad():
+        epg.epg_spgr(**kw)
+    assert kepg.LAUNCHES['spgr_fwd'] == n0 + 1
+    bar = 1e-4 if dtype == torch.float32 else 1e-10
+    for n, x, y in zip(names, *grads):
+        _rows_close(x, y, bar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar', [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize('nA,nV,r,pair', [(1000, 3001, 16, True),
+                                          (77, 130, 5, True),
+                                          (513, 700, 37, False)])
+def test_match_kernel_vs_plain_on_card(cuda, dtype, bar, nA, nV, r, pair):
+    r"""``match`` against its plain version on the card: the best scores
+    at ``bar`` of the largest, the atoms equal (random atoms: no
+    near-ties); through ``dict_match_compressed`` on CUDA tensors the
+    kernel runs."""
+    from mrphy_tpu_torch.kernels import mrf as kmrf
+    from mrphy_tpu_torch.ops import mrf
+    rng = np.random.default_rng(43)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=cuda)
+
+    D = arr(rng.standard_normal((nA, r)))
+    D = D / torch.linalg.vector_norm(D, dim=1, keepdim=True)
+    Dim = arr(rng.standard_normal((nA, r))) if pair else None
+    X = arr(rng.standard_normal((nV, r)))
+    n0 = kmrf.LAUNCHES['match']
+    ik, bk = kmrf.match(D, Dim, X, pairlike=pair)
+    assert kmrf.LAUNCHES['match'] == n0 + 1 and ik.dtype == torch.int32
+    ip, bp = kmrf.match_torch(D, Dim, X, pairlike=pair, chunk=256)
+    assert torch.equal(ik, ip)
+    _rows_close(bk, bp, bar)
+    if pair:
+        B = torch.linalg.qr(arr(rng.standard_normal((2 * r, r))))[0]
+        J = torch.zeros((2 * r, 2 * r), dtype=dtype, device=cuda)
+        J[1::2, 0::2] = torch.eye(r, dtype=dtype, device=cuda)
+        J[0::2, 1::2] = -torch.eye(r, dtype=dtype, device=cuda)
+        basis = mrf.Basis(B=B, jc=B.T @ J @ B, s=torch.ones(2 * r,
+                                                           dtype=dtype,
+                                                           device=cuda),
+                          tail=(r, 2))
+        res = mrf.dict_match_compressed(D, X, basis)
+        ref = mrf.dict_match_compressed(D.cpu(), X.cpu(), mrf.Basis(
+            *(None if v is None else v.cpu() if torch.is_tensor(v) else v
+              for v in basis)))
+        assert kmrf.LAUNCHES['match'] == n0 + 2
+        assert torch.equal(res.idx.cpu(), ref.idx)
+        _rows_close(res.m0.cpu(), ref.m0, 1e2 * bar)

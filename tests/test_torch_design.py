@@ -46,6 +46,21 @@ def _t(x):
     return torch.tensor(np.asarray(x), dtype=torch.float64)
 
 
+def _jax(fn, *args):
+    r"""``jax.jit(fn)(*args)`` compiled by XLA at its lowest optimisation
+    level: each reference is small and runs once, so compiling it is
+    nearly all of its cost."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={'xla_backend_optimization_level': 0})(*args)
+
+
+def _jax_loss_grad(params, cfg, *args):
+    r"""JAX's design loss and its gradient w.r.t. the design variables
+    (``_loss_fn`` with ``doRelax``), compiled by :func:`_jax`."""
+    return _jax(lambda p, *a: jax.value_and_grad(jj._loss_fn, has_aux=True)(
+        p, cfg, *a, True), params, *args)
+
+
 def _close(x, y, rtol=1e-12, err_msg=''):
     y = np.asarray(y)
     np.testing.assert_allclose(np.asarray(x), y, rtol=rtol,
@@ -229,9 +244,7 @@ def test_design_first_step_at_smax_5e6_vs_jax():
     kw = dict(CFG, smax=5e6)
     jcfg, tcfg = jj.DesignConfig(**kw), tj.DesignConfig(**kw)
     pj = jj.init_params(jp.rf, jp.gr, jcfg)
-    vg = jax.jit(jax.value_and_grad(jj._loss_fn, has_aux=True),
-                 static_argnums=(1, 14))
-    (lj, _), gj = vg(pj, jcfg, *_jax_args(jc, jM), True)
+    (lj, _), gj = _jax_loss_grad(pj, jcfg, *_jax_args(jc, jM))
     params = tj.init_params(tp.rf, tp.gr, tcfg)
     opt = tj.make_optimizer(tcfg, params)
     args = (tc.M_, tc.loc_, tM, tc.T1_, tc.T2_, tc.gam_, tc.df_, None,
@@ -323,9 +336,8 @@ def test_loss_terms_vs_jax():
               np.asarray([[4257.6]]), rng.normal(size=(1, nM)) * 20, b1, w,
               girf, Qr, Qi)
     pj = jj.init_params(jnp.asarray(rf), jnp.asarray(gr), jcfg)
-    vg = jax.jit(jax.value_and_grad(jj._loss_fn, has_aux=True),
-                 static_argnums=(1, 14))
-    (lj, _), gj = vg(pj, jcfg, *(jnp.asarray(f) for f in fields), True)
+    (lj, _), gj = _jax_loss_grad(pj, jcfg, *(jnp.asarray(f)
+                                             for f in fields))
     pt = tj.init_params(_t(rf), _t(gr), tcfg)
     lt, _ = tj._loss_fn(pt, tcfg, *(_t(f) for f in fields), True)
     lt.backward()

@@ -325,6 +325,69 @@ def test_kernel_sources_present():
     assert names == {'rfgr_fwd.cu', 'beff_fwd.cu', 'rfgr_bwd.cu',
                      'beff_bwd.cu', 'mc_fwd.cu', 'mc_bwd.cu', 'sig_fwd.cu',
                      'sig_adj.cu', 'sig_vjp.cu', 'nufft_sample.cu',
-                     'nufft_spread.cu', 'nufft_dk.cu'}
+                     'nufft_spread.cu', 'nufft_dk.cu', 'spgr_fwd.cu',
+                     'spgr_bwd.cu', 'match.cu'}
     assert '--use_fast_math' not in _build.NVCC_FLAGS
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
+
+
+# the JAX package's top-level names that wait for later slices of the port
+NOT_PORTED = {'ssfp', 'dixon', 'field', 'parallel', 'tpu_is_available'}
+
+
+def test_top_level_names_and_flat_paths_match_jax():
+    r"""The port's top-level ``__all__`` holds ``mrphy_tpu``'s, less the
+    names not ported yet, and each module among them also imports by its
+    flat path (``import mrphy_tpu_torch.signal``), as in ``mrphy_tpu``."""
+    import importlib
+    import types
+    import mrphy_tpu as jm
+    import mrphy_tpu_torch as tm
+    assert not NOT_PORTED & set(tm.__all__)
+    assert set(jm.__all__) - NOT_PORTED <= set(tm.__all__)
+    for name in sorted(set(jm.__all__) - NOT_PORTED):
+        if isinstance(getattr(jm, name), types.ModuleType):
+            assert importlib.import_module(f'mrphy_tpu_torch.{name}') is \
+                getattr(tm, name), name
+
+
+def test_epg_and_mrf_names():
+    r"""``epg.__all__`` and ``mrf.__all__`` are the names this slice ports,
+    each a name of the JAX module."""
+    from mrphy_tpu.ops import epg as jepg, mrf as jmrf
+    from mrphy_tpu_torch.ops import epg as tepg, mrf as tmrf
+    ported = {tepg: {'epg_state', 'epg_rf', 'epg_grad', 'epg_relax',
+                     'epg_diffusion', 'epg_spgr', 'ir_prep',
+                     'rf_spoil_phases'},
+              tmrf: {'Basis', 'MatchResult', 'pair_rotate', 'svd_basis',
+                     'compress', 'dict_match', 'dict_match_compressed',
+                     'match_refine'}}
+    for mod, jmod in ((tepg, jepg), (tmrf, jmrf)):
+        assert set(mod.__all__) == ported[mod]
+        assert ported[mod] <= set(jmod.__all__)
+        assert all(callable(getattr(mod, n)) for n in mod.__all__)
+
+
+def test_refuse_nondeterministic():
+    r"""The check before every ``nufft_spread`` launch: silent by default,
+    :class:`RuntimeError` under ``torch.use_deterministic_algorithms(True)``,
+    a warning under ``warn_only=True``; the plain route on CPU tensors is
+    deterministic and never checks."""
+    from mrphy_tpu_torch.kernels import nufft as knf
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    geom = knf.Geom((8,), (12,), (10.0,), 4, 5.0)
+    s = torch.ones((1, 5, 2), dtype=torch.float64)
+    k = torch.linspace(-0.3, 0.3, 5, dtype=torch.float64).reshape(1, 1, 5)
+    try:
+        torch.use_deterministic_algorithms(False)
+        knf.refuse_nondeterministic('nufft_spread')
+        torch.use_deterministic_algorithms(True)
+        with pytest.raises(RuntimeError, match='atomicAdd'):
+            knf.refuse_nondeterministic('nufft_spread')
+        assert knf.nufft_spread(s, k, geom).shape == (1, 12, 2)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with pytest.warns(UserWarning, match='atomicAdd'):
+            knf.refuse_nondeterministic('nufft_spread')
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)

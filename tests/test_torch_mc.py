@@ -43,6 +43,14 @@ def _t(x):
     return torch.tensor(np.asarray(x), dtype=torch.float64)
 
 
+def _jax(fn, *args):
+    r"""``jax.jit(fn)(*args)`` compiled by XLA at its lowest optimisation
+    level: each reference is small and runs once, so compiling it is
+    nearly all of its cost."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={'xla_backend_optimization_level': 0})(*args)
+
+
 def _mk(N=1, nS=24, nT=48, nC=2, seed=0):
     r"""Random fused-engine inputs (numpy, float64): fields of physical
     size, per-voxel tissue/exchange maps around ``PARS``."""
@@ -72,7 +80,7 @@ def test_mc_propagators_vs_jax():
     rng = np.random.default_rng(1)
     pars = [v * (1 + 0.5 * rng.random(16)) for v in PARS.values()][:8]
     pars[4] = np.concatenate([[0.0], pars[4][1:]])      # zero exchange
-    ref = jslow.mc_propagators(*map(_j, pars), _j(2e-4))
+    ref = _jax(jslow.mc_propagators, *map(_j, pars), _j(2e-4))
     out = tslow.mc_propagators(*map(_t, pars), _t(2e-4))
     for name, o, r in zip(('X00', 'X01', 'X10', 'X11', 'Z00', 'Z01', 'Z10',
                            'Z11', 'ca', 'cb'), out, ref):
@@ -99,11 +107,13 @@ def test_mc_propagators_grad_finite_at_zero_exchange():
 
 def test_blochsim_mc_vs_jax():
     a = _mk(N=2, nS=12, nT=20, nC=1)
-    beff = np.asarray(jbeff.rfgr2beff(_j(a['rf']), _j(a['gr']),
-                                      _j(a['loc']), df=_j(a['df'])))
+    beff = np.asarray(_jax(lambda rf, gr, loc, df: jbeff.rfgr2beff(
+        rf, gr, loc, df=df), *(_j(a[k]) for k in ('rf', 'gr', 'loc', 'df'))))
     pars = {k: a[k] for k in PAR_NAMES}
-    ref = jslow.blochsim_mc(_j(a['Mia']), _j(a['Mib']), _j(beff), gam=gamH,
-                            dt=4e-6, **{k: _j(v) for k, v in pars.items()})
+    ref = _jax(lambda Mia, Mib, beff, *p: jslow.blochsim_mc(
+        Mia, Mib, beff, gam=gamH, dt=4e-6, **dict(zip(PAR_NAMES, p))),
+        _j(a['Mia']), _j(a['Mib']), _j(beff), *(_j(pars[k])
+                                                for k in PAR_NAMES))
     out = tslow.blochsim_mc(_t(a['Mia']), _t(a['Mib']), _t(beff), γ=gamH,
                             dt=4e-6, **{k: _t(v) for k, v in pars.items()})
     for o, r in zip(out, ref):
@@ -133,8 +143,11 @@ def test_blochsim_mc_rfgr_vs_jax_xla(case, monkeypatch):
     rf = a['rf'] if 'b1' in cfg else a['rf'][..., 0]
     pos = ('Mia', 'Mib', 'rf', 'gr', 'loc')
     vals = dict(a, rf=rf)
-    ref = jmc.blochsim_mc_rfgr(*(_j(vals[k]) for k in pos), backend='xla',
-                               **_kw(a, cfg, _j))
+    jkw = _kw(a, cfg, _j)
+    arrays = [k for k, v in jkw.items() if isinstance(v, jax.Array)]
+    ref = _jax(lambda *xs: jmc.blochsim_mc_rfgr(
+        *xs[:5], backend='xla', **dict(jkw, **dict(zip(arrays, xs[5:])))),
+        *(_j(vals[k]) for k in pos), *(jkw[k] for k in arrays))
     out = tmc.blochsim_mc_rfgr(*(_t(vals[k]) for k in pos),
                                **_kw(a, cfg, _t))
     for o, r in zip(out, ref):
@@ -161,8 +174,8 @@ def _grads(a, W, dt, names=GRAD_NAMES):
         Ma, Mb = jmc.blochsim_mc_rfgr(*pos, backend='xla', **kw)
         return jnp.sum(_j(W[0]) * Ma) + jnp.sum(_j(W[1]) * Mb)
 
-    gj = jax.grad(jloss, argnums=tuple(range(len(names))))(
-        *(_j(a[k]) for k in names))
+    gj = _jax(jax.grad(jloss, argnums=tuple(range(len(names)))),
+              *(_j(a[k]) for k in names))
     xs = [_t(a[k]).requires_grad_() for k in names]
     pos, kw = split(xs, _t)
     Ma, Mb = tmc.blochsim_mc_rfgr(*pos, **kw)
@@ -219,8 +232,8 @@ def _planes(S, nT, nC, seed=3):
     :mod:`mrphy_tpu_torch.kernels.mc`, ``S`` voxels."""
     rng = np.random.default_rng(seed)
     g2pd = np.full((1, S), 2 * np.pi * gamH * 4e-6)
-    pr = jslow.mc_propagators(*(_j(v) for v in list(PARS.values())[:8]),
-                              _j(4e-6))
+    pr = _jax(jslow.mc_propagators,
+              *(_j(v) for v in list(PARS.values())[:8]), _j(4e-6))
     return dict(
         mi6=rng.standard_normal((1, 6, S)) * 0.5,
         rf2=rng.standard_normal((1, 2 * nC, nT)) * 0.05,
@@ -249,18 +262,17 @@ def test_kernels_vs_jax_pallas_interpret():
     jp = {k: _j(v if k in ('rf2', 'gr2') else v.reshape(v.shape[:-1]
                                                           + (1, L)))
           for k, v in p.items()}
-    out, chk = mc_pallas.mc_fwd_planes(jp['mi6'], *(jp[k] for k in KEYS),
-                                       tc=tc, interpret=True)
+    out, chk = _jax(lambda *xs: mc_pallas.mc_fwd_planes(
+        *xs, tc=tc, interpret=True), jp['mi6'], *(jp[k] for k in KEYS))
     tp = {k: _t(v) for k, v in p.items()}
     tchk = kmc.mc_fwd_torch(tp['mi6'], *(tp[k] for k in KEYS), tc=tc)
     ref = np.concatenate([np.asarray(chk)[..., 0, :],
                           np.asarray(out)[:, None, :, 0, :]], axis=1)
     _close(tchk.numpy(), ref, 1e-6, 'chk')
     g6 = np.random.default_rng(7).standard_normal((1, 6, L))
-    jg = jax.tree_util.tree_map(
-        np.asarray, mc_pallas.mc_bwd_planes(
-            chk, _j(g6.reshape(1, 6, 1, L)), *(jp[k] for k in KEYS), tc=tc,
-            interpret=True))
+    jg = jax.tree_util.tree_map(np.asarray, _jax(
+        lambda *xs: mc_pallas.mc_bwd_planes(*xs, tc=tc, interpret=True),
+        chk, _j(g6.reshape(1, 6, 1, L)), *(jp[k] for k in KEYS)))
     g = torch.zeros_like(tchk)
     g[:, -1] = _t(g6)
     tg = kmc.mc_bwd_torch(tchk, g, *(tp[k] for k in KEYS), tc=tc)
@@ -344,8 +356,9 @@ def test_beff2ab_vs_jax(fn):
     kw = dict(E1=np.exp(-a['dt'][:, None, None] / a['T1']),
               E2=np.exp(-a['dt'][:, None, None] / a['T2']), dt=a['dt'])
     beff = a['beff'][..., :23, :]    # nT 23: odd levels 23 and 3 in the tree
-    A_j, B_j = getattr(jbeff, fn)(_j(beff),
-                                  **{k: _j(v) for k, v in kw.items()})
+    A_j, B_j = _jax(lambda b, E1, E2, dt: getattr(jbeff, fn)(
+        b, E1=E1, E2=E2, dt=dt), _j(beff), *(_j(kw[k]) for k in
+                                             ('E1', 'E2', 'dt')))
     A_t, B_t = getattr(tbeff, fn)(_t(beff),
                                   **{k: _t(v) for k, v in kw.items()})
     np.testing.assert_allclose(A_t.numpy(), np.asarray(A_j), atol=1e-12)
@@ -356,8 +369,11 @@ def test_beff2ab_vs_jax(fn):
 def test_blochsim_variants_vs_jax(fn):
     a = _beff_case()
     kw = dict(T1=a['T1'], T2=a['T2'], dt=a['dt'])
-    ref = getattr(jslow, fn)(_j(a['M']), _j(a['beff']),
-                             **{k: _j(v) for k, v in kw.items()})
+    def jfn(m, beff, T1, T2, dt):
+        return getattr(jslow, fn)(m, beff, T1=T1, T2=T2, dt=dt)
+
+    jargs = [_j(a['beff'])] + [_j(kw[k]) for k in ('T1', 'T2', 'dt')]
+    ref = _jax(jfn, _j(a['M']), *jargs)
     M = _t(a['M']).requires_grad_()
     out = getattr(tslow, fn)(M, _t(a['beff']),
                              **{k: _t(v) for k, v in kw.items()})
@@ -365,8 +381,8 @@ def test_blochsim_variants_vs_jax(fn):
                                atol=1e-12)
     # the gradient through the segments' recomputation, against JAX's
     W = np.random.default_rng(3).normal(size=a['M'].shape)
-    gj = jax.grad(lambda m: jnp.sum(_j(W) * getattr(jslow, fn)(
-        m, _j(a['beff']), **{k: _j(v) for k, v in kw.items()})))(_j(a['M']))
+    gj = _jax(jax.grad(lambda m, w, *xs: jnp.sum(w * jfn(m, *xs))),
+              _j(a['M']), _j(W), *jargs)
     gt = torch.autograd.grad(torch.sum(_t(W) * out), M)[0]
     np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=1e-12)
 
@@ -377,4 +393,5 @@ def test_blochsim_ab_vs_jax():
                                             (2, 5, 3)))
     np.testing.assert_allclose(
         tslow.blochsim_ab(_t(M), _t(A), _t(B)).numpy(),
-        np.asarray(jslow.blochsim_ab(_j(M), _j(A), _j(B))), atol=1e-13)
+        np.asarray(_jax(jslow.blochsim_ab, _j(M), _j(A), _j(B))),
+        atol=1e-13)

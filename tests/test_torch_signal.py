@@ -34,6 +34,18 @@ from mrphy_tpu_torch.ops import signal as tsig
 DT = 4e-5   # a long dwell, so that 24 samples accrue O(1) rad of phase
 
 
+def _compile0(fn, *args):
+    r"""``jax.jit(fn)`` compiled for ``args``' shapes by XLA at its lowest
+    optimisation level: each reference is small and runs once or a few
+    times, so compiling it is nearly all of its cost."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={'xla_backend_optimization_level': 0})
+
+
+def _jax(fn, *args):
+    return _compile0(fn, *args)(*args)
+
+
 def _problem(N=1, nM=12, nT=24, nC=2, seed=0, dtype=np.float64):
     r"""Numpy inputs of the JAX suite's signal problem."""
     rng = np.random.default_rng(seed)
@@ -43,7 +55,8 @@ def _problem(N=1, nM=12, nT=24, nC=2, seed=0, dtype=np.float64):
              df=rng.uniform(-200, 200, (N, nM)),
              T2s=rng.uniform(5e-4, 5e-3, (N, nM)),
              sens=rng.standard_normal((N, nM, 2, nC)))
-    a['k'] = np.asarray(jg2k(jnp.asarray(a['gr']), False, dt=DT))
+    a['k'] = np.asarray(_jax(lambda g: jg2k(g, False, dt=DT),
+                             jnp.asarray(a['gr'])))
     return {k: v.astype(dtype) for k, v in a.items()}
 
 
@@ -72,16 +85,19 @@ def test_signal_and_adjoint_vs_jax(name, N, bcast, keys):
     lead = (lambda x: x[:1]) if bcast else (lambda x: x)
     kw = {k: lead(a['df' if k == 'Δf' else k]) for k in keys}
     pos = (lead(a['loc']), lead(a['k']))
-    ref = jsig.signal(jnp.asarray(a['M']), *map(jnp.asarray, pos), dt=DT,
-                      **{k: jnp.asarray(v) for k, v in kw.items()})
+    names = tuple(kw)
+    jkw = [jnp.asarray(kw[k]) for k in names]
+    ref = _jax(lambda M, loc, k, *v: jsig.signal(
+        M, loc, k, dt=DT, **dict(zip(names, v))), jnp.asarray(a['M']),
+        *map(jnp.asarray, pos), *jkw)
     out = tsig.signal(_t(a['M']), *map(_t, pos), dt=DT,
                       **{k: _t(v) for k, v in kw.items()})
     assert out.shape == ref.shape
     _close(out, ref, 1e-12)
     s = np.random.default_rng(9).standard_normal(ref.shape)
-    ref = jsig.signal_adjoint(jnp.asarray(s), *map(jnp.asarray, pos),
-                              dt=DT, **{k: jnp.asarray(v)
-                                        for k, v in kw.items()})
+    ref = _jax(lambda s, loc, k, *v: jsig.signal_adjoint(
+        s, loc, k, dt=DT, **dict(zip(names, v))), jnp.asarray(s),
+        *map(jnp.asarray, pos), *jkw)
     out = tsig.signal_adjoint(_t(s), *map(_t, pos), dt=DT,
                               **{k: _t(v) for k, v in kw.items()})
     assert out.shape == ref.shape
@@ -120,8 +136,8 @@ def test_gradients_vs_jax():
         return jnp.sum(jnp.asarray(W) * jsig.signal(
             M, loc, k, sens=sens, df=df, T2s=T2s, dt=DT))
 
-    ref = jax.grad(jloss, argnums=tuple(range(6)))(
-        *(jnp.asarray(a[n]) for n in names))
+    ref = _jax(jax.grad(jloss, argnums=tuple(range(6))),
+               *(jnp.asarray(a[n]) for n in names))
     xs = [_t(a[n]).requires_grad_() for n in names]
     s = tsig.signal(xs[0], xs[1], xs[2], sens=xs[3], df=xs[4], T2s=xs[5],
                     dt=DT)
@@ -170,22 +186,23 @@ def test_planes_vs_pallas_interpret():
     def tol(ref, scale):
         return 2e-5 * scale + 1e-6
 
-    U, V = jpl.signal_fwd_planes(jnp.asarray(w2), *jargs, DT,
-                                 interpret=True)
+    U, V = _jax(lambda *xs: jpl.signal_fwd_planes(*xs, DT, interpret=True),
+                jnp.asarray(w2), *jargs)
     tU, tV = ks.sig_fwd_torch(_t(w2[None]), *planes, DT)
     for x, r in ((tU[0], U), (tV[0], V)):
         r = np.asarray(r)
         np.testing.assert_allclose(x.numpy(), r, rtol=0,
                                    atol=tol(r, np.abs(r).max()))
-    XR, XS = jpl.signal_adj_planes(jnp.asarray(g2), *jargs, DT,
-                                   interpret=True)
+    XR, XS = _jax(lambda *xs: jpl.signal_adj_planes(*xs, DT,
+                                                    interpret=True),
+                  jnp.asarray(g2), *jargs)
     tXR, tXS = ks.sig_adj_torch(_t(g2[None]), *planes, DT)
     for x, r in ((tXR[0].T, XR), (tXS[0].T, XS)):
         r = np.asarray(r)
         np.testing.assert_allclose(x.numpy(), r, rtol=0,
                                    atol=tol(r, np.abs(r).max()))
-    ref = jpl.signal_vjp_planes(jnp.asarray(g2), jnp.asarray(w2), *jargs,
-                                DT, interpret=True)
+    ref = _jax(lambda *xs: jpl.signal_vjp_planes(*xs, DT, interpret=True),
+               jnp.asarray(g2), jnp.asarray(w2), *jargs)
     out = ks.sig_vjp_torch(_t(g2[None]), _t(w2[None]), *planes, DT)
     out = (out[0][0].T, out[1][0].T, out[2][0].T, out[3][0], out[4][0],
            out[5][0])
@@ -224,14 +241,16 @@ def test_acquire_vs_jax():
     gr = rng.uniform(-1, 1, (1, 3, 40))
     sens = rng.standard_normal((1, jc.nM, 2, 3))
     T2s = rng.uniform(5e-3, 5e-2, (1, jc.nM))
-    ref = jc.acquire(jnp.asarray(gr), sens_=jnp.asarray(sens),
-                     T2s_=jnp.asarray(T2s), dt=DT)
+    ref = _jax(lambda gr, sens, T2s: jc.acquire(gr, sens_=sens, T2s_=T2s,
+                                                dt=DT),
+               *map(jnp.asarray, (gr, sens, T2s)))
     out = tc.acquire(_t(gr), sens_=_t(sens), T2s_=_t(T2s), dt=DT)
     _close(out, ref, 1e-12)
     # the array's own entry, at given locations and off-resonance
-    ref = jc.spinarray.acquire(jnp.asarray(gr), loc_=jc.loc_, df_=jc.df_,
-                               sens_=jnp.asarray(sens),
-                               T2s_=jnp.asarray(T2s), dt=DT)
+    ref = _jax(lambda gr, loc, df, sens, T2s: jc.spinarray.acquire(
+        gr, loc_=loc, df_=df, sens_=sens, T2s_=T2s, dt=DT),
+        jnp.asarray(gr), jc.loc_, jc.df_, jnp.asarray(sens),
+        jnp.asarray(T2s))
     out = tc.spinarray.acquire(_t(gr), loc_=tc.loc_, Δf_=tc.df_,
                                sens_=_t(sens), T2s_=_t(T2s), dt=DT)
     _close(out, ref, 1e-12)
@@ -285,8 +304,11 @@ def test_cg_sense_vs_jax():
                                       df=T(df))[0]
         return A, AH
 
-    A, AH = map(jax.jit, ops(jnp, jsig, jnp.asarray))
-    ref = _cg(A, AH, A(jnp.asarray(x_true)), 10, jnp.vdot)
+    A, AH = ops(jnp, jsig, jnp.asarray)
+    A = _compile0(A, jnp.asarray(x_true))
+    s0 = A(jnp.asarray(x_true))
+    AH = _compile0(AH, s0)
+    ref = _cg(A, AH, s0, 10, jnp.vdot)
     A, AH = ops(torch, tsig, _t)
     out = _cg(A, AH, A(_t(x_true)), 10,
               lambda a, b: (a * b).sum())

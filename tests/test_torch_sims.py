@@ -61,6 +61,14 @@ def _kw(a, cfg, to):
     return kw
 
 
+def _jax(fn, *args):
+    r"""``jax.jit(fn)(*args)`` compiled by XLA at its lowest optimisation
+    level: each reference is small and runs once, so compiling it is
+    nearly all of its cost."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={'xla_backend_optimization_level': 0})(*args)
+
+
 def _j(dtype=F64):
     return lambda x: jnp.asarray(x, dtype)
 
@@ -85,8 +93,9 @@ def test_blochsim_rfgr_f64_vs_jax_xla(case):
     a = _mk(N=case.get('N', 1), nC=case.get('nC', 1), Nd=case.get('Nd'))
     rf = a['rf'] if case.get('nC', 1) > 1 else a['rf'][..., 0]
     j, t = _j(), _t()
-    ref = jsims.blochsim_rfgr(j(a['Mi']), j(rf), j(a['gr']), j(a['loc']),
-                              backend='xla', **_kw(a, case['cfg'], j))
+    ref = _jax(lambda *xs: jsims.blochsim_rfgr(
+        *xs, backend='xla', **_kw(a, case['cfg'], j)),
+        j(a['Mi']), j(rf), j(a['gr']), j(a['loc']))
     out = tsims.blochsim_rfgr(t(a['Mi']), t(rf), t(a['gr']), t(a['loc']),
                               backend='torch', **_kw(a, case['cfg'], t))
     assert out.shape == ref.shape and out.dtype == torch.float64
@@ -98,10 +107,12 @@ def test_blochsim_rfgr_f64_vs_jax_xla(case):
 def test_blochsim_f64_vs_jax_xla(cfg):
     a = _mk(N=2, Nd=(5, 7))
     j, t = _j(), _t()
-    beff = np.asarray(jbeff.rfgr2beff(j(a['rf']), j(a['gr']), j(a['loc']),
-                                      df=j(a['df']), b1Map=j(a['b1'])))
-    ref = jsims.blochsim(j(a['Mi']), j(beff), backend='xla',
-                         **_kw(a, cfg, j))
+    beff = np.asarray(_jax(lambda rf, gr, loc, df, b1: jbeff.rfgr2beff(
+        rf, gr, loc, df=df, b1Map=b1), *(j(a[k]) for k in
+                                         ('rf', 'gr', 'loc', 'df', 'b1'))))
+    ref = _jax(lambda m, b: jsims.blochsim(m, b, backend='xla',
+                                           **_kw(a, cfg, j)),
+               j(a['Mi']), j(beff))
     out = tsims.blochsim(t(a['Mi']), t(beff), backend='torch',
                          **_kw(a, cfg, t))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
@@ -118,10 +129,10 @@ def test_blochsim_rfgr_f32_vs_jax_pallas_interpret():
     a, T1, T2 = _f32_case()
     j, t = _j(np.float32), _t(torch.float32)
     kw = dict(df=a['df'], b1Map=a['b1'])
-    ref = jsims.blochsim_rfgr(j(a['Mi']), j(a['rf']), j(a['gr']),
-                              j(a['loc']), T1=j(T1), T2=j(T2),
-                              _pallas_interpret=True,
-                              **{k: j(v) for k, v in kw.items()})
+    ref = _jax(lambda mi, rf, gr, loc, T1, T2, df, b1: jsims.blochsim_rfgr(
+        mi, rf, gr, loc, T1=T1, T2=T2, df=df, b1Map=b1,
+        _pallas_interpret=True), *(j(x) for x in (
+            a['Mi'], a['rf'], a['gr'], a['loc'], T1, T2, a['df'], a['b1'])))
     out = tsims.blochsim_rfgr(t(a['Mi']), t(a['rf']), t(a['gr']),
                               t(a['loc']), T1=t(T1), T2=t(T2),
                               **{k: t(v) for k, v in kw.items()})
@@ -133,17 +144,17 @@ def test_blochsim_rfgr_f32_vs_jax_pallas_interpret():
 @pytest.mark.parametrize('store', ['float32', 'bfloat16'])
 def test_blochsim_f32_vs_jax_pallas_interpret(store):
     a, T1, T2 = _f32_case()
-    beff = np.asarray(jbeff.rfgr2beff(
-        jnp.asarray(a['rf'], np.float32), jnp.asarray(a['gr'], np.float32),
-        jnp.asarray(a['loc'], np.float32),
-        df=jnp.asarray(a['df'], np.float32)))
+    beff = np.asarray(_jax(lambda rf, gr, loc, df: jbeff.rfgr2beff(
+        rf, gr, loc, df=df), *(jnp.asarray(a[k], np.float32)
+                               for k in ('rf', 'gr', 'loc', 'df'))))
     jbf = jnp.asarray(beff, jnp.dtype(store))
     # both sides get the same stored values (bf16 → exact in float32)
     tbf = torch.as_tensor(np.asarray(jbf.astype(np.float32))).to(
         getattr(torch, store))
     j, t = _j(np.float32), _t(torch.float32)
-    ref = jsims.blochsim(j(a['Mi']), jbf, T1=j(T1), T2=j(T2),
-                         _pallas_interpret=True)
+    ref = _jax(lambda mi, bf, T1, T2: jsims.blochsim(
+        mi, bf, T1=T1, T2=T2, _pallas_interpret=True),
+        j(a['Mi']), jbf, j(T1), j(T2))
     out = tsims.blochsim(t(a['Mi']), tbf, T1=t(T1), T2=t(T2))
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
@@ -155,13 +166,15 @@ def test_freeprec_vs_jax():
     j, t = _j(), _t()
     dur = np.asarray([1e-3, 3e-3])
     for kw in ({}, dict(T1=a['T1'], T2=a['T2'], df=a['df'])):
-        ref = jsims.freeprec(j(a['Mi']), j(dur),
-                             **{k: j(v) for k, v in kw.items()})
+        names = tuple(kw)
+        jkw = [j(kw[k]) for k in names]
+        ref = _jax(lambda mi, d, *v: jsims.freeprec(
+            mi, d, **dict(zip(names, v))), j(a['Mi']), j(dur), *jkw)
         out = tsims.freeprec(t(a['Mi']), t(dur),
                              **{k: t(v) for k, v in kw.items()})
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-12)
-        refs = jslow.freeprec(j(a['Mi']), j(dur),
-                              **{k: j(v) for k, v in kw.items()})
+        refs = _jax(lambda mi, d, *v: jslow.freeprec(
+            mi, d, **dict(zip(names, v))), j(a['Mi']), j(dur), *jkw)
         outs = tslow.freeprec(t(a['Mi']), t(dur),
                               **{k: t(v) for k, v in kw.items()})
         np.testing.assert_allclose(outs.numpy(), np.asarray(refs),
@@ -178,9 +191,11 @@ def test_rfgr2beff_vs_jax(kind):
     if kind == 'df+b0':
         kw.update(df=a['df'], gam=np.full((2,), 4257.6))
     rf = a['rf'] if kind != 'bare' else a['rf'][..., 0]
-    ref = jbeff.rfgr2beff(j(rf), j(a['gr']), j(a['loc']),
-                          b0=3e4 if kind == 'df+b0' else None,
-                          **{k: j(v) for k, v in kw.items()})
+    names = tuple(kw)
+    ref = _jax(lambda rf, gr, loc, *v: jbeff.rfgr2beff(
+        rf, gr, loc, b0=3e4 if kind == 'df+b0' else None,
+        **dict(zip(names, v))), j(rf), j(a['gr']), j(a['loc']),
+        *(j(kw[k]) for k in names))
     out = tbeff.rfgr2beff(t(rf), t(a['gr']), t(a['loc']),
                           b0=3e4 if kind == 'df+b0' else None,
                           **{k: t(v) for k, v in kw.items()})
@@ -194,7 +209,7 @@ def test_beff2uphi_vs_jax():
     beff = rng.normal(size=(2, 7, 3))
     beff[0, 0] = 0.0                     # zero field: clamped norm
     g = 2 * np.pi * 4257.6 * 4e-6
-    u_j, p_j = jbeff.beff2uphi(jnp.asarray(beff), g)
+    u_j, p_j = _jax(lambda b: jbeff.beff2uphi(b, g), jnp.asarray(beff))
     u_t, p_t = tbeff.beff2uphi(torch.as_tensor(beff), g)
     np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), atol=1e-14)
     np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), atol=1e-14)
@@ -203,11 +218,12 @@ def test_beff2uphi_vs_jax():
 def test_slowsims_blochsim_vs_jax_and_engine():
     a = _mk(N=2, Nd=(4, 3), nT=16)
     j, t = _j(), _t()
-    beff = np.asarray(jbeff.rfgr2beff(j(a['rf']), j(a['gr']), j(a['loc']),
-                                      df=j(a['df'])))
+    beff = np.asarray(_jax(lambda rf, gr, loc, df: jbeff.rfgr2beff(
+        rf, gr, loc, df=df), *(j(a[k]) for k in ('rf', 'gr', 'loc', 'df'))))
     kw = dict(T1=a['T1'], T2=a['T2'], dt=a['dt'])
-    ref = jslow.blochsim(j(a['Mi']), j(beff),
-                         **{k: j(v) for k, v in kw.items()})
+    ref = _jax(lambda mi, b, T1, T2, dt: jslow.blochsim(
+        mi, b, T1=T1, T2=T2, dt=dt), j(a['Mi']), j(beff),
+        *(j(kw[k]) for k in ('T1', 'T2', 'dt')))
     out = tslow.blochsim(t(a['Mi']), t(beff),
                          **{k: t(v) for k, v in kw.items()})
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-10)
@@ -243,8 +259,8 @@ def test_grads_vs_jax_reconstruct_adjoint():
             mi, rf, gr, j(a['loc']), backend='xla', adjoint='reconstruct',
             **_kw(a, cfg, j)))
 
-    gj = jax.grad(jloss, argnums=(0, 1, 2))(j(a['rf']), j(a['gr']),
-                                           j(a['Mi']))
+    gj = _jax(jax.grad(jloss, argnums=(0, 1, 2)), j(a['rf']), j(a['gr']),
+              j(a['Mi']))
     rf, gr, mi = (torch.tensor(a[k], requires_grad=True)
                   for k in ('rf', 'gr', 'Mi'))
     loss = torch.sum(torch.as_tensor(W) * tsims.blochsim_rfgr(
@@ -305,14 +321,16 @@ def test_utils_vs_jax():
     g, dt = a['gr'], np.asarray([4e-6, 8e-6])
     j, t = _j(), _t()
     for isTx in (True, False):
-        kj = ju.g2k(j(g), isTx, j(dt))
+        kj = _jax(lambda x, d: ju.g2k(x, isTx, d), j(g), j(dt))
         kt = tu.g2k(t(g), isTx, t(dt))
         np.testing.assert_allclose(kt.numpy(), np.asarray(kj), rtol=1e-13)
-        np.testing.assert_allclose(tu.k2g(kt, isTx, t(dt)).numpy(),
-                                   np.asarray(ju.k2g(kj, isTx, j(dt))),
-                                   rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(
+            tu.k2g(kt, isTx, t(dt)).numpy(),
+            np.asarray(_jax(lambda x, d: ju.k2g(x, isTx, d), kj, j(dt))),
+            rtol=1e-9, atol=1e-12)
     s = tu.g2s(t(g), t(dt))
-    np.testing.assert_allclose(s.numpy(), np.asarray(ju.g2s(j(g), j(dt))),
+    np.testing.assert_allclose(s.numpy(),
+                               np.asarray(_jax(ju.g2s, j(g), j(dt))),
                                rtol=1e-13)
     np.testing.assert_allclose(tu.s2g(s, t(dt)).numpy(), g, atol=1e-12)
     with pytest.raises(ValueError, match='origin'):
@@ -325,7 +343,7 @@ def test_utils_vs_jax():
     for vi in (rng.normal(size=(2, 5, 3)), rng.normal(size=(2, 5, 3, 4))):
         np.testing.assert_allclose(
             tu.uφrot(t(u), t(phi), t(vi)).numpy(),
-            np.asarray(ju.uphirot(j(u), j(phi), j(vi))), atol=1e-14)
+            np.asarray(_jax(ju.uphirot, j(u), j(phi), j(vi))), atol=1e-14)
     for n, bound in ((1000, 256), (97, 50), (360, 100)):
         assert tsh.largest_divisor_leq(n, bound) == \
             jsh.largest_divisor_leq(n, bound)
@@ -356,8 +374,8 @@ def _grads_rfgr(a, case, adjoint, W):
             pos[0], pos[1], pos[2], pos[3], backend='xla',
             adjoint='reconstruct', **kw))
 
-    gj = jax.grad(jloss, argnums=tuple(range(len(names))))(
-        *(jnp.asarray(vals[n], F64) for n in names))
+    gj = _jax(jax.grad(jloss, argnums=tuple(range(len(names)))),
+              *(jnp.asarray(vals[n], F64) for n in names))
     xs = [torch.tensor(vals[n], requires_grad=True) for n in names]
     pos, kw = split(xs, _t())
     loss = torch.sum(torch.as_tensor(W) * tsims.blochsim_rfgr(
@@ -390,14 +408,14 @@ def test_rfgr_every_gradient_vs_jax_f64(case, adjoint, monkeypatch):
 def test_blochsim_every_gradient_vs_jax_f64(adjoint):
     a = _mk(N=2, Nd=(5, 7), nT=40)
     j = _j()
-    beff = np.asarray(jbeff.rfgr2beff(j(a['rf']), j(a['gr']), j(a['loc']),
-                                      df=j(a['df'])))
+    beff = np.asarray(_jax(lambda rf, gr, loc, df: jbeff.rfgr2beff(
+        rf, gr, loc, df=df), *(j(a[k]) for k in ('rf', 'gr', 'loc', 'df'))))
     W = np.random.default_rng(9).normal(size=a['Mi'].shape)
     kw = dict(T1=a['T1'], T2=a['T2'], dt=a['dt'])
-    gj = jax.grad(lambda m, b: jnp.sum(jnp.asarray(W) * jsims.blochsim(
-        m, b, backend='xla', adjoint='reconstruct',
-        **{k: j(v) for k, v in kw.items()})), argnums=(0, 1))(
-            j(a['Mi']), j(beff))
+    gj = _jax(jax.grad(lambda m, b, w, T1, T2, dt: jnp.sum(w * jsims.blochsim(
+        m, b, backend='xla', adjoint='reconstruct', T1=T1, T2=T2, dt=dt)),
+        argnums=(0, 1)), j(a['Mi']), j(beff), j(W),
+        *(j(kw[k]) for k in ('T1', 'T2', 'dt')))
     mi, bf = (torch.tensor(x, requires_grad=True) for x in (a['Mi'], beff))
     gt = torch.autograd.grad(torch.sum(torch.as_tensor(W) * tsims.blochsim(
         mi, bf, adjoint=adjoint, **{k: _t()(v) for k, v in kw.items()})),
