@@ -180,6 +180,31 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     ``tests/make_mrf_goldens.py``): the dictionary at 1e-10, the basis
     rank and the matched atoms equal, ``m0`` at 1e-10, the 250-step
     refinement's parameters and score at rtol 1e-8.
+19. The CPMG echo-train kernels ``cpmg_fwd``, ``cpmg_fwd_chk`` and
+    ``cpmg_bwd`` against their plain versions on the arguments
+    ``ops.epg.epg_cpmg`` gives them (``CPMG_CASES``): the full-width T2
+    map of phase 20 (1,048,576 voxels × 32 echoes, K 33, b1, float32) and
+    ``bench_mrf``'s CPMG dictionary train (65,536 atoms × 32 echoes,
+    flips 120–180°), timed; an esp train with diffusion, a per-voxel
+    excitation (slice profile) with M0, b1, a ragged atom count, a long
+    train whose state lives in device memory (K 401) and float64 cases.
+    Per-atom outputs (echoes, checkpoints, the eight per-atom gradient
+    rows) at ``EPG_BAR`` of their largest value, the per-echo rows at
+    ``EPG_ROW_BAR``; the plain adjoint is written out (no autograd graph
+    at full width).
+20. The T2-mapping path through ``epg_cpmg``: (a) at full width
+    (``T2MAP``), the forward timed in voxels per second, the gradient of
+    the echo magnitudes' squared error w.r.t. T2, M0 and b1 timed, and 50
+    Adam steps of the (log T2, M0, b1) fit: s per step, voxels per second
+    per gradient step, peak memory, the median relative T2 error (bar
+    0.1); (b) the ``examples/dwi_adc_fit.py`` problem in float64 through
+    the shared train (the float64 kernels) against the JAX package's
+    results (literals below, from ``tests/make_cpmg_goldens.py``): the
+    target magnitudes at 1e-10, the first loss at 1e-10 and its gradient
+    at 1e-9, the 400 Adam steps' losses and fitted parameters at rtol
+    1e-8 (on an H100 the port met JAX at 4.5e-13 and 3.3e-16: these 400
+    steps do not amplify the rounding, so 1e-8 leaves room for a change of
+    summation order without hiding a wrong gradient).
 
 Launch counts are zeroed right before the forward path (phase 4) and read
 after it (``rfgr_fwd``, ``beff_fwd`` must have launched), zeroed again
@@ -190,9 +215,11 @@ the acquisition path (phase 13; ``sig_fwd``, ``sig_adj``, ``sig_vjp`` and
 ``rfgr_fwd`` must have launched), and again before the gridding path
 (phase 15; ``nufft_sample``, ``nufft_spread`` and ``nufft_dk`` must have
 launched), and again before the MRF path (phase 18; ``spgr_fwd``,
-``spgr_fwd_chk``, ``spgr_bwd`` and ``match`` must have launched). The
-comparisons with the plain versions (phases 2, 3, 5, 6, 9, 10, 12, 14,
-16, 17) run before and are not counted.
+``spgr_fwd_chk``, ``spgr_bwd`` and ``match`` must have launched), and
+again before the T2-mapping path (phase 20; ``cpmg_fwd``, ``cpmg_fwd_chk``
+and ``cpmg_bwd`` must have launched). The comparisons with the plain
+versions (phases 2, 3, 5, 6, 9, 10, 12, 14, 16, 17, 19) run before and
+are not counted.
 
 The line before the last is one JSON object with each kernel's launches
 on those paths, error, times and bound: ``bound_ms`` is the larger of the
@@ -636,6 +663,12 @@ KERNELS = {
                      replaces='mrphy_tpu/ops/epg_pallas.py:1593'),
     'match': dict(source='mrphy_tpu_torch/kernels/csrc/match.cu',
                   replaces='mrphy_tpu/ops/mrf_pallas.py:142'),
+    'cpmg_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/cpmg_fwd.cu',
+                     replaces='mrphy_tpu/ops/epg_pallas.py:2003'),
+    'cpmg_fwd_chk': dict(source='mrphy_tpu_torch/kernels/csrc/cpmg_fwd.cu',
+                         replaces='mrphy_tpu/ops/epg_pallas.py:2029'),
+    'cpmg_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/cpmg_bwd.cu',
+                     replaces='mrphy_tpu/ops/epg_pallas.py:2063'),
 }
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
@@ -3153,6 +3186,369 @@ def mrf_example(dev):
         example_idx=[int(i) for i in res.idx], example_rank=gold['rank'])
 
 
+# ==========================================================================
+# The T2-mapping path (phases 19-20)
+# ==========================================================================
+
+# The full-width T2-mapping problem: a whole-brain multi-echo spin-echo
+# volume, 1,048,576 voxels × 32 echoes (K 33) at esp 10 ms, float32. The
+# refocusing is a nominal 150° train (examples/dwi_adc_fit.py's), scaled
+# per voxel by b1 ∈ [0.7, 1.15], so no flip passes 180° (around 180° the
+# echo magnitudes are symmetric in b1, and at a 180° nominal the b1
+# gradient vanishes at the start value 1). T1 1 s; T2 ∈ [20, 300] ms, M0 ∈
+# [0.7, 1.2] and b1 from numpy default_rng(0). The fit: Adam (lr 0.05) on
+# (log T2, M0, b1) of the echo magnitudes' squared error, from T2 100 ms,
+# M0 1, b1 1.
+T2MAP = dict(nV=1 << 20, nE=32, esp=0.01, flip=150.0, T1=1.0, T2=(0.02, 0.3),
+             M0=(0.7, 1.2), b1=(0.7, 1.15), iters=50, lr=0.05, T2_0=0.1)
+# The CPMG kernels' cases (phase 19): label, atoms, echoes, dtype,
+# cpmg_case keywords, timed. ``t2map``: T2MAP's train and tissue; otherwise
+# bench_mrf's CPMG dictionary train (benchmarks/suite.py:626-630: flips
+# uniform(120°, 180°), esp 10 ms) with the options named.
+CPMG_CASES = (
+    ('T2 map 1M x 32, K 33, b1 (full width)', 1 << 20, 32, torch.float32,
+     dict(t2map=True), True),
+    ('bench_mrf CPMG 64k x 32, flips 120-180', 65536, 32, torch.float32, {},
+     True),
+    ('64k x 32, esp train 8-12 ms, diffusion', 65536, 32, torch.float32,
+     dict(varesp=True, D=True), False),
+    ('64k x 32, slice profile: alpha_ex, phi_ex, M0', 65536, 32,
+     torch.float32, dict(ex=True), False),
+    ('64k x 32, b1', 65536, 32, torch.float32, dict(b1=True), False),
+    ('ragged 1001 x 32, every option', 1001, 32, torch.float32,
+     dict(b1=True, varesp=True, D=True, ex=True), False),
+    ('2048 x 400, K 401 (device-memory state), diffusion', 2048, 400,
+     torch.float32, dict(D=True), False),
+    ('f64 65,536 x 32, every option', 65536, 32, torch.float64,
+     dict(b1=True, varesp=True, D=True, ex=True), False),
+    ('f64 1000 x 200, K 201 (device-memory state), b1', 1000, 200,
+     torch.float64, dict(b1=True), False),
+)
+CPMG_KERNELS = ('cpmg_fwd', 'cpmg_fwd_chk', 'cpmg_bwd')
+
+
+def t2map_truth(nV, dtype, dev, seed=0):
+    r"""T2MAP's nominal train ``(nE,)`` and the tissue ``(T2, M0, b1)``,
+    each ``(nV,)``, from ``seed``."""
+    c = T2MAP
+    rng = np.random.default_rng(seed)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    return (arr(np.full(c['nE'], np.deg2rad(c['flip']))),
+            *(arr(rng.uniform(*c[k], nV)) for k in ('T2', 'M0', 'b1')))
+
+
+def cpmg_case(nA, nE, dtype, dev, *, t2map=False, b1=False, varesp=False,
+              D=False, ex=False, seed=0):
+    r"""``(flips, keywords)`` of ``epg_cpmg`` at ``nA`` atoms × ``nE``
+    echoes, from ``seed``: T2MAP's (``t2map``), else bench_mrf's CPMG train
+    (flips uniform(120°, 180°), esp 10 ms, T1 ∈ [0.2, 3] s, T2 ∈ [0.02,
+    0.4] s) with, as asked, an esp train of 8-12 ms, diffusion (D ∈ [0.5,
+    3]·10⁻⁵ cm²/s, dk 450 rad/cm), a per-voxel excitation (``alpha_ex`` ∈
+    [60°, 100°], ``phi_ex`` ∈ [0, 2π), ``M0`` ∈ [0.7, 1.2]) and b1 ∈ [0.7,
+    1.15]."""
+    if t2map:
+        flips, T2, M0, b1v = t2map_truth(nA, dtype, dev, seed)
+        return flips, dict(T1=T2MAP['T1'], T2=T2, esp=T2MAP['esp'], M0=M0,
+                           b1=b1v)
+    rng = np.random.default_rng(seed)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    flips = arr(np.deg2rad(rng.uniform(120, 180, nE)))
+    kw = dict(T1=arr(rng.uniform(0.2, 3.0, nA)),
+              T2=arr(rng.uniform(0.02, 0.4, nA)),
+              esp=arr(rng.uniform(0.008, 0.012, nE)) if varesp else 0.01)
+    if D:
+        kw.update(D=arr(rng.uniform(0.5e-5, 3e-5, nA)), dk=450.0)
+    if ex:
+        kw.update(alpha_ex=arr(np.deg2rad(rng.uniform(60, 100, nA))),
+                  phi_ex=arr(rng.uniform(0, 2 * np.pi, nA)),
+                  M0=arr(rng.uniform(0.7, 1.2, nA)))
+    if b1:
+        kw['b1'] = arr(rng.uniform(0.7, 1.15, nA))
+    return flips, kw
+
+
+def sliced_err(a, b) -> float:
+    r""":func:`max_err` one slice of the leading axis at a time (the
+    full-width checkpoints hold 13 GB in float32)."""
+    return max(max_err(x, y) for x, y in zip(a, b))
+
+
+def phase_cpmg_kernels(dev):
+    r"""Phase 19: ``cpmg_fwd``, ``cpmg_fwd_chk`` and ``cpmg_bwd`` against
+    their plain versions on CPMG_CASES, the arguments ``epg_cpmg`` gives
+    them (``ops.epg._cpmg_rows``; the adjoint fed the kernel's checkpoints
+    and a cotangent drawn from a seed, the plain adjoint written out, with
+    no autograd graph); the timed cases with their bounds. Returns each
+    kernel's rows."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.ops import epg
+    t0 = time.perf_counter()
+    rows = {name: [] for name in CPMG_KERNELS}
+    for seed, (label, nA, nE, dtype, kw, timed) in enumerate(CPMG_CASES,
+                                                             190):
+        flips, ckw = cpmg_case(nA, nE, dtype, dev, seed=seed, **kw)
+        coef, par, dq, cdiff, cfg, _ = epg._cpmg_rows(flips, **ckw)
+        args = (coef.contiguous(), par.contiguous(), dq.contiguous(), cdiff,
+                cfg)
+        tc = kepg.pick_tc(nE, cfg.K, nA, par.element_size())
+        chk = kepg.cpmg_fwd_chk(*args, tc=tc)[2]
+        gr, gi = cotangent(torch.empty((2, nE, nA), dtype=dtype, device=dev),
+                           seed)
+        runs = {
+            'cpmg_fwd': (lambda: kepg.cpmg_fwd(*args),
+                         lambda: kepg.cpmg_fwd_torch(*args), args[:4]),
+            'cpmg_fwd_chk': (lambda: kepg.cpmg_fwd_chk(*args, tc=tc),
+                             lambda: kepg.cpmg_fwd_chk_torch(*args, tc=tc),
+                             args[:4]),
+            'cpmg_bwd': (
+                lambda: kepg.cpmg_bwd(*args, chk, gr, gi, tc=tc),
+                lambda: kepg.cpmg_bwd_torch(*args, chk, gr, gi, tc=tc),
+                args[:4] + (chk, gr, gi))}
+        for name, (run_kernel, run_plain, inputs) in runs.items():
+            kout, pout = run_kernel(), run_plain()
+            torch.cuda.synchronize()
+            # per-atom outputs; the adjoint's per-echo rows (summed over
+            # atoms) apart
+            names = (('dcoef', 'dpar') if name == 'cpmg_bwd' else
+                     ('er', 'ei', 'chk')[:len(kout)])
+            pairs = dict(zip(names, zip(kout, pout)))
+            abs_errs = {k: sliced_err(a, b) for k, (a, b) in pairs.items()}
+            errs = {k: e / max(float(pairs[k][1].abs().max()), 1e-30)
+                    for k, e in abs_errs.items()}
+            atom = [k for k in pairs if k != 'dcoef']
+            row = dict(case=label, dtype=str(dtype).replace('torch.', ''),
+                       nA=nA, nE=nE, K=cfg.K, tc=tc,
+                       threads_state=kepg.launch_cfg(cfg.K,
+                                                     par.element_size()),
+                       err=errs, bar=EPG_BAR[dtype],
+                       row_bar=EPG_ROW_BAR[dtype],
+                       per_atom_bit_identical=all(
+                           torch.equal(*pairs[k]) for k in atom),
+                       max_abs_err=max(abs_errs[k] for k in atom),
+                       max_rel_err=max(errs[k] for k in atom))
+            if name == 'cpmg_bwd':
+                row['max_row_rel_err'] = errs['dcoef']
+            del kout, pairs
+            if timed:
+                row['ms'] = time_ms(run_kernel)
+                row['plain_ms'] = time_ms(run_plain, reps=2)
+                row.update(bound(run_plain, inputs, pout))
+                # no single PyTorch call computes an EPG train
+                row['library_ms'] = None
+            del pout
+            rows[name].append(row)
+            print(f'{name} {label}: ' + json.dumps(row), flush=True)
+            for k, e in errs.items():
+                bar = EPG_ROW_BAR[dtype] if k == 'dcoef' else EPG_BAR[dtype]
+                check(e <= bar, f'{name} {label} {k}: {e} > {bar}')
+        del args, coef, par, dq, chk, gr, gi
+    print(f'phase 19 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return rows
+
+
+# examples/dwi_adc_fit.py's problem (its defaults, float64 here): 64 voxels,
+# 16 echoes at esp 12 ms, 150° refocusing, crushers of 150, 450 and 900
+# rad/cm per half-esp, T1 1.2 s, T2 ∈ [40, 150] ms and D ∈ [0.8, 3]·10⁻⁵
+# cm²/s from numpy default_rng(0); the echo magnitudes' mean squared error
+# fitted by 400 Adam steps (lr 0.03) on (log T2, log D) from T2 80 ms, D
+# 1.5·10⁻⁵ cm²/s.
+CPMG_EX = dict(nV=64, nE=16, esp=0.012, flip=150.0, dks=(150.0, 450.0, 900.0),
+               T1=1.2, T2_0=0.08, D_0=1.5e-5, lr=0.03, iters=400, seed=0)
+# the target magnitudes held to JAX: (crusher, voxel, echo)
+CPMG_EX_ENTRIES = [(0, 0, 0), (0, 0, 15), (1, 17, 3), (2, 40, 8),
+                   (2, 63, 15), (1, 5, 0)]
+CPMG_EX_VOXELS = [0, 17, 40, 63]
+CPMG_EX_LOSS_STEPS = [0, 1, 10, 100, 200, 399]
+
+
+def cpmg_example_arrays():
+    r"""CPMG_EX's true ``(T2, D)``, each ``(nV,)`` numpy float64."""
+    c = CPMG_EX
+    rng = np.random.default_rng(c['seed'])
+    return rng.uniform(0.04, 0.15, c['nV']), rng.uniform(0.8e-5, 3.0e-5,
+                                                         c['nV'])
+
+
+# mrphy_tpu (JAX, XLA route on the CPU), float64, on the CPMG_EX problem
+# (tests/make_cpmg_goldens.py prints these): the target magnitudes at
+# CPMG_EX_ENTRIES and their largest value, the first loss, its gradient at
+# CPMG_EX_VOXELS and each gradient's largest magnitude, the losses at
+# CPMG_EX_LOSS_STEPS and the fitted (log T2, log D) at CPMG_EX_VOXELS.
+GOLDEN_CPMG = {
+    'target': [0.8355428975475192, 0.17738958798126095, 0.5841005784233358,
+               0.22365425589005103, 0.07887585380146138, 0.8494513740236077],
+    'target_max': 0.8589395062526837, 'loss0': 0.008893643864103505,
+    'grad0': {
+        'lt2': [-0.0006496251528362569, -0.00037130754278583383,
+                -0.000526453489948111, -0.000562471842004976],
+        'ld': [7.101789405370038e-05, 2.9621692243936134e-05,
+                5.996111776093009e-05, 6.650274631722084e-05]},
+    'p': {
+        'lt2': [-2.206677041019813, -2.306987426807726,
+                -2.2743059305113587, -2.2649371308254027],
+        'ld': [-11.136455693719023, -10.874060287761319,
+                -11.186874051947186, -11.252938838367182]},
+    'grad0_max': {'lt2': 0.001236473408647605,
+                  'ld': 0.0001497086162014868},
+    'losses': [0.008893643864103505, 0.007619856155919824,
+               0.0015684406047467591, 1.5911301766902777e-06,
+               1.0723356411409576e-07, 4.731788613513388e-10]}
+
+
+def phase_t2map_path(dev):
+    r"""Phase 20: the T2-mapping path through ``epg_cpmg``. (a) At T2MAP's
+    full width: the forward (``cpmg_fwd``), timed in voxels per second; the
+    gradient of the magnitudes' squared error w.r.t. T2, M0 and b1
+    (``cpmg_fwd_chk`` + ``cpmg_bwd``), timed; the Adam fit of (log T2, M0,
+    b1): s per step, voxels per second per gradient step, peak memory and
+    the median relative T2 error. (b) The CPMG_EX problem in float64
+    against JAX's literals (:func:`cpmg_example`)."""
+    from mrphy_tpu_torch.ops import epg
+    t0 = time.perf_counter()
+    c = T2MAP
+    out, bars = {}, {}
+    flips, T2t, M0t, b1t = t2map_truth(c['nV'], torch.float32, dev)
+
+    def mag(T2, M0, b1):
+        e = epg.epg_cpmg(flips, T1=c['T1'], T2=T2, esp=c['esp'], M0=M0,
+                         b1=b1)
+        return torch.linalg.vector_norm(e, dim=-1)
+
+    target = mag(T2t, M0t, b1t)
+    check(target.shape == (c['nV'], c['nE'])
+          and bool(torch.isfinite(target).all()), 'T2 map echoes')
+
+    def loss(lt2, M0, b1):
+        return ((mag(torch.exp(lt2), M0, b1) - target) ** 2).sum()
+
+    def start():
+        one = torch.ones(c['nV'], device=dev)
+        return [(one * np.log(c['T2_0'])).requires_grad_(),
+                one.clone().requires_grad_(), one.clone().requires_grad_()]
+
+    P = start()
+
+    def grad():
+        return torch.autograd.grad(loss(*P), P)
+
+    gs = grad()
+    check(all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+              for g in gs), 'T2 map gradient')
+    fwd = time_ms(lambda: mag(T2t, M0t, b1t), reps=3)
+    gms = time_ms(grad, reps=3)
+    out.update(fwd_ms=fwd, fwd_voxels_per_s=c['nV'] / fwd * 1e3,
+               grad_ms=gms, grad_voxels_per_s=c['nV'] / gms * 1e3)
+    # the fit
+    P = start()
+    opt = torch.optim.Adam(P, lr=c['lr'])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = []
+    t1 = time.perf_counter()
+    for _ in range(c['iters']):
+        opt.zero_grad()
+        val = loss(*P)
+        val.backward()
+        opt.step()
+        losses.append(val.detach())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / c['iters']
+    losses = [float(v) for v in losses]
+    T2f = torch.exp(P[0].detach())
+    out.update(
+        fit_s_per_step=step_s, fit_voxels_per_s=c['nV'] / step_s,
+        fit_peak_mem_GB=torch.cuda.max_memory_allocated(dev) / 1e9,
+        fit_loss_first=losses[0], fit_loss_last=losses[-1],
+        start_median_T2_relerr=float(((c['T2_0'] - T2t).abs() / T2t)
+                                     .median()),
+        median_T2_relerr=float(((T2f - T2t).abs() / T2t).median()),
+        median_b1_relerr=float(((P[2].detach() - b1t).abs() / b1t)
+                               .median()))
+    check(all(np.isfinite(losses)) and losses[-1] < 0.1 * losses[0],
+          f'T2 map fit: loss {losses[0]} -> {losses[-1]}')
+    bars['median_T2_relerr'] = 0.1
+    del target, P, gs, opt
+    # (b) examples/dwi_adc_fit.py in float64 against JAX
+    out.update(cpmg_example(dev))
+    bars.update(example_target=1e-10, example_loss0=1e-10,
+                example_grad0=1e-9, example_losses=1e-8, example_p=1e-8)
+    print('T2-mapping path: ' + json.dumps(dict(measured=out, bars=bars)),
+          flush=True)
+    for key, bar in bars.items():
+        check(out[key] <= bar, f'{key}: {out[key]} > {bar}')
+    print(f'phase 20 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return out
+
+
+def cpmg_example(dev):
+    r"""The CPMG_EX problem in float64 on the card against GOLDEN_CPMG,
+    through ``epg_cpmg`` with the shared ``(nE,)`` train (so the float64
+    kernels run): the target magnitudes relative to their largest, the
+    first loss relative to itself, its gradient relative to each one's
+    largest, the losses along the fit and the fitted (log T2, log D)
+    relative to each value."""
+    from mrphy_tpu_torch.ops import epg
+    c, gold = CPMG_EX, GOLDEN_CPMG
+    f64 = dict(dtype=torch.float64, device=dev)
+    T2t, Dt = (torch.as_tensor(x, **f64) for x in cpmg_example_arrays())
+    flips = np.deg2rad(c['flip']) * torch.ones(c['nE'], **f64)
+
+    def model(T2, D):
+        return torch.stack([torch.hypot(*epg.epg_cpmg(
+            flips, T1=c['T1'], T2=T2, esp=c['esp'], D=D, dk=dk).unbind(-1))
+            for dk in c['dks']])
+
+    target = model(T2t, Dt)
+
+    def loss(p):
+        return torch.mean((model(torch.exp(p['lt2']), torch.exp(p['ld']))
+                           - target) ** 2)
+
+    p = {'lt2': torch.full((c['nV'],), np.log(c['T2_0']), **f64),
+         'ld': torch.full((c['nV'],), np.log(c['D_0']), **f64)}
+    for x in p.values():
+        x.requires_grad_()
+    opt = torch.optim.Adam(list(p.values()), lr=c['lr'])
+    losses = []
+    for i in range(c['iters']):
+        opt.zero_grad()
+        val = loss(p)
+        val.backward()
+        if i == 0:
+            g0 = {k: x.grad.clone() for k, x in p.items()}
+        opt.step()
+        losses.append(float(val.detach()))
+    tgt = target.cpu().numpy()
+    vox = CPMG_EX_VOXELS
+
+    def rel(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+    return dict(
+        example_target=float(np.max(np.abs(
+            [tgt[e] for e in CPMG_EX_ENTRIES] - np.asarray(gold['target'])))
+            / gold['target_max']),
+        example_loss0=rel(losses[0], gold['loss0']),
+        example_grad0=max(float(np.max(np.abs(g0[k][vox].cpu().numpy()
+                                              - gold['grad0'][k])))
+                          / gold['grad0_max'][k] for k in ('lt2', 'ld')),
+        example_losses=rel([losses[i] for i in CPMG_EX_LOSS_STEPS],
+                           gold['losses']),
+        example_p=max(rel(p[k].detach()[vox].cpu().numpy(), gold['p'][k])
+                      for k in ('lt2', 'ld')),
+        example_T2_fit_maxrel=float(((torch.exp(p['lt2'].detach()) - T2t)
+                                     .abs() / T2t).max()),
+        example_D_fit_maxrel=float(((torch.exp(p['ld'].detach()) - Dt)
+                                    .abs() / Dt).max()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False',
@@ -3204,10 +3600,12 @@ def main() -> int:
     nufft_rows = phase_nufft_kernels(dev)
     epg_rows = phase_epg_kernels(dev)
     match_rows = phase_match_kernel(dev)
+    cpmg_rows = phase_cpmg_kernels(dev)
 
     # the forward path, the gradient and design path, the two-pool path,
-    # the acquisition path, the gridding path and the MRF path: each with
-    # the launch counts zeroed just before it and read just after
+    # the acquisition path, the gridding path, the MRF path and the
+    # T2-mapping path: each with the launch counts zeroed just before it
+    # and read just after
     counters = {**{k: bloch.LAUNCHES for k in bloch.LAUNCHES},
                 **{k: kmc.LAUNCHES for k in kmc.LAUNCHES},
                 **{k: ksig.LAUNCHES for k in ksig.LAUNCHES},
@@ -3224,8 +3622,8 @@ def main() -> int:
             ('acquisition', phase_signal_path,
              tuple(ksig.LAUNCHES) + ('rfgr_fwd',)),
             ('gridding', phase_nufft_path, tuple(knf.LAUNCHES)),
-            ('mrf', phase_mrf_path,
-             tuple(kepg.LAUNCHES) + tuple(kmrf.LAUNCHES))):
+            ('mrf', phase_mrf_path, EPG_KERNELS + tuple(kmrf.LAUNCHES)),
+            ('T2-mapping', phase_t2map_path, CPMG_KERNELS)):
         for k, table in counters.items():
             table[k] = 0
         run(dev)
@@ -3247,7 +3645,7 @@ def main() -> int:
                        ('sig_vjp', sig_rows['sig_vjp']),
                        ('sig_adj', sig_rows['sig_adj']),
                        *nufft_rows.items(), *epg_rows.items(),
-                       ('match', match_rows)):
+                       ('match', match_rows), *cpmg_rows.items()):
         # the first timed case: float32 at the main path's shape
         head = next(r for r in rows if 'ms' in r)
         err = ('max_abs_err_chk' if name in ('rfgr_fwd', 'beff_fwd', 'mc_fwd')
@@ -3265,11 +3663,12 @@ def main() -> int:
             # the NUFFT's sample and spread are one sparse product each,
             # the matched filter one matrix product per probe chunk
             library_ms=head.get('library_ms')))
-        if name in ('rfgr_bwd', 'mc_bwd', 'spgr_bwd'):
+        if name in ('rfgr_bwd', 'mc_bwd', 'spgr_bwd', 'cpmg_bwd'):
             # the rows: max|Δ| / max|row|
             kernels[-1]['max_row_rel_err'] = max(
                 r['max_row_rel_err'] for r in f32)
-        if name.startswith(('sig', 'nufft', 'spgr')) or name == 'match':
+        if name.startswith(('sig', 'nufft', 'spgr', 'cpmg')) or \
+                name == 'match':
             # the linear outputs: max|Δ| / max|plain|
             kernels[-1]['max_rel_err'] = max(r['max_rel_err'] for r in f32)
         if name == 'match':

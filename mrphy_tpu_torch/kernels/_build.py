@@ -96,6 +96,16 @@ _SIGNATURES = {
     # kshift, flags, tc, threads, stream
     'mrphy_spgr_bwd_f32': (_P,) * 9 + (_I64,) * 8 + (_P,),
     'mrphy_spgr_bwd_f64': (_P,) * 9 + (_I64,) * 8 + (_P,),
+    # coef, par, dq, cdiff, er, ei, chk, gstate, nA, nE, nC, flags, tc,
+    # threads, stream
+    'mrphy_cpmg_fwd_f32': (_P,) * 8 + (_I64,) * 6 + (_P,),
+    'mrphy_cpmg_fwd_f64': (_P,) * 8 + (_I64,) * 6 + (_P,),
+    'mrphy_cpmg_fwd_chk_f32': (_P,) * 8 + (_I64,) * 6 + (_P,),
+    'mrphy_cpmg_fwd_chk_f64': (_P,) * 8 + (_I64,) * 6 + (_P,),
+    # coef, par, dq, cdiff, chk, gr, gi, scratch, hstate, dpar, dcf, nA, nE,
+    # nC, flags, tc, threads, stream
+    'mrphy_cpmg_bwd_f32': (_P,) * 11 + (_I64,) * 6 + (_P,),
+    'mrphy_cpmg_bwd_f64': (_P,) * 11 + (_I64,) * 6 + (_P,),
     # dre, dim, x, idx, best, nA, nV, r, stream
     'mrphy_match_f32': (_P,) * 5 + (_I64,) * 3 + (_P,),
     'mrphy_match_f64': (_P,) * 5 + (_I64,) * 3 + (_P,),

@@ -167,37 +167,8 @@ __global__ void spgr_bwd_kernel(const T* __restrict__ coef,
           T s1[6];
           mix(g, x, s1);
           T hv[6] = {h(0, ip), h(1, ip), h(2, im), h(3, im), h(4, k), h(5, k)};
-          if (has_d) {
-            // h ← A·h; A = exp(−dq·c) adds −Σ c·A·(h·s2) to ∂dq, with s2
-            // the state after relaxation
-            T A[3];
-            attenuation(cdiff, K, k, dqt, A);
-            T s2Zr = f.E1 * s1[4];
-            if (k == 0) s2Zr = s2Zr + f.rec;
-            kcontr += ((cdiff[k] * A[0]) *
-                           (hv[0] * (f.E2 * s1[0]) + hv[1] * (f.E2 * s1[1])) +
-                       (cdiff[K + k] * A[1]) *
-                           (hv[2] * (f.E2 * s1[2]) + hv[3] * (f.E2 * s1[3]))) +
-                      (cdiff[2 * K + k] * A[2]) *
-                          (hv[4] * s2Zr + hv[5] * (f.E1 * s1[5]));
-            hv[0] = A[0] * hv[0];
-            hv[1] = A[0] * hv[1];
-            hv[2] = A[1] * hv[2];
-            hv[3] = A[1] * hv[3];
-            hv[4] = A[2] * hv[4];
-            hv[5] = A[2] * hv[5];
-          }
-          // the relaxation transpose
-          kE2 += ((hv[0] * s1[0] + hv[1] * s1[1]) + hv[2] * s1[2]) +
-                 hv[3] * s1[3];
-          kE1 += hv[4] * s1[4] + hv[5] * s1[5];
-          if (k == 0) d_rec = hv[4];
-          hv[0] = f.E2 * hv[0];
-          hv[1] = f.E2 * hv[1];
-          hv[2] = f.E2 * hv[2];
-          hv[3] = f.E2 * hv[3];
-          hv[4] = f.E1 * hv[4];
-          hv[5] = f.E1 * hv[5];
+          // the diffusion and relaxation transposes
+          relax_T(f, K, k, has_d, cdiff, dqt, s1, hv, kcontr, kE2, kE1, d_rec);
           if (k == 0) {
             // the echo's cotangent (the echo reads the mixed state)
             const T gyr = gy[(a * nTR + t) * 2], gyi = gy[(a * nTR + t) * 2 + 1];

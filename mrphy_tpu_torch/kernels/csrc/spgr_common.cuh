@@ -4,8 +4,8 @@
 //
 // Every function repeats, operation for operation, the plain PyTorch
 // versions of kernels/epg.py (`_trig`, `_factors`, `_mix`, `_mix_T`,
-// `_relax`, `_shift`): with the build's -fmad=false, a kernel and its plain
-// version round alike.
+// `_relax`, `_relax_T`, `_shift`): with the build's -fmad=false, a kernel
+// and its plain version round alike.
 //
 // Layout. coef (nC, nTR) per-TR rows [cos²(α/2), sin²(α/2), sin α, cos α,
 // cos φ, sin φ, cos 2φ, sin 2φ, α] (+ [tr, te] under variable TR/TE);
@@ -133,6 +133,46 @@ __device__ __forceinline__ void relax(const Factors<T>& f, int k, bool has_d,
     n[4] = A[2] * n[4];
     n[5] = A[2] * n[5];
   }
+}
+
+// The transpose of relax on order k at its input x, given the
+// cotangent hv of its output (after the shift's transpose): under
+// diffusion hv ← A·hv, adding c·A·(hv·s2) to kcontr (s2: x relaxed; −Σ is
+// ∂dq); the sums ∂E2 and ∂E1 over the orders one order at a time, ∂rec at
+// order 0; then hv ← E·hv.
+template <typename T>
+__device__ __forceinline__ void relax_T(const Factors<T>& f, int K, int k,
+                                        bool has_d,
+                                        const T* __restrict__ cdiff, T dqt,
+                                        const T (&x)[6], T (&hv)[6],
+                                        T& kcontr, T& kE2, T& kE1,
+                                        T& d_rec) {
+  if (has_d) {
+    T A[3];
+    attenuation(cdiff, K, k, dqt, A);
+    T s2Zr = f.E1 * x[4];
+    if (k == 0) s2Zr = s2Zr + f.rec;
+    kcontr += ((cdiff[k] * A[0]) *
+                   (hv[0] * (f.E2 * x[0]) + hv[1] * (f.E2 * x[1])) +
+               (cdiff[K + k] * A[1]) *
+                   (hv[2] * (f.E2 * x[2]) + hv[3] * (f.E2 * x[3]))) +
+              (cdiff[2 * K + k] * A[2]) * (hv[4] * s2Zr + hv[5] * (f.E1 * x[5]));
+    hv[0] = A[0] * hv[0];
+    hv[1] = A[0] * hv[1];
+    hv[2] = A[1] * hv[2];
+    hv[3] = A[1] * hv[3];
+    hv[4] = A[2] * hv[4];
+    hv[5] = A[2] * hv[5];
+  }
+  kE2 += ((hv[0] * x[0] + hv[1] * x[1]) + hv[2] * x[2]) + hv[3] * x[3];
+  kE1 += hv[4] * x[4] + hv[5] * x[5];
+  if (k == 0) d_rec = hv[4];
+  hv[0] = f.E2 * hv[0];
+  hv[1] = f.E2 * hv[1];
+  hv[2] = f.E2 * hv[2];
+  hv[3] = f.E2 * hv[3];
+  hv[4] = f.E1 * hv[4];
+  hv[5] = f.E1 * hv[5];
 }
 
 // One atom's 6·K state values, strided: in shared memory (stride = the

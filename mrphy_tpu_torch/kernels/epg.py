@@ -1,8 +1,8 @@
-r"""The single-pool SPGR / MRF-FISP EPG kernels: wrappers, plain PyTorch
-versions and launch counts.
+r"""The single-pool EPG kernels, SPGR / MRF-FISP and CPMG: wrappers, plain
+PyTorch versions and launch counts.
 
-Three kernels, each the Hopper counterpart of a TPU kernel of
-:mod:`mrphy_tpu.ops.epg_pallas`:
+Six kernels, each the Hopper counterpart of a TPU kernel of
+:mod:`mrphy_tpu.ops.epg_pallas`; the three SPGR ones first:
 
 - ``spgr_fwd`` (``csrc/spgr_fwd.cu``, replaces ``_spgr_kernel``): the
   gradient-spoiled train of every atom. Per TR: the RF mix (``epg_rf``),
@@ -53,6 +53,22 @@ backward (the kernels on CUDA tensors, no fallback; the plain versions on
 CPU tensors). The adjoint takes every instance the
 forward takes: its per-chunk scratch lies in device memory, sized by
 :func:`pick_tc`, so no budget sends a call elsewhere.
+
+The CPMG kernels (``csrc/cpmg_fwd.cu``, ``csrc/cpmg_bwd.cu``) are the same
+three for the spin-echo train of T2 mapping: ``cpmg_fwd`` (replaces
+``_cpmg_kernel``), ``cpmg_fwd_chk`` (``_cpmg_fwd_chk_kernel``) and
+``cpmg_bwd`` (``_cpmg_bwd_kernel``). From the closed-form state the
+excitation leaves, per echo: relaxation over esp/2 (with the crusher's
+diffusion attenuation) and a unit shift, the refocusing mix about +x, the
+same half again, the echo ``F+(0)``; the SPGR step functions serve both.
+Arguments, as ``_cpmg_dispatch`` (``epg_pallas.py:362-411``) builds them:
+``coef (5, nE)`` ``[cos²(α/2), sin²(α/2), sin α, cos α, α]`` (+ the esp
+row under a spacing train, ``varesp``), ``par (7, nA)`` ``[E1h, E2h,
+rech, e_ss, e_sc, e_ca, b1]`` (``[R1, R2, M0, …]`` under ``varesp``),
+``dq (1, nA)``, ``cdiff (3, K)`` at ``δ = 1``, ``cfg`` :class:`CpmgCfg` (K =
+nE + 1). The echoes come as ``(er, ei)``, each ``(nE, nA)``; the adjoint
+returns ``dcoef (nC, nE)`` and ``dpar (8, nA)`` (the seven rows' and
+``dq``'s). :func:`cpmg` is their autograd Function, as :func:`spgr`.
 """
 
 from typing import NamedTuple
@@ -66,9 +82,12 @@ from mrphy_tpu_torch.utils._shapes import largest_divisor_leq
 
 __all__ = ['LAUNCHES', 'SpgrCfg', 'diff_coef', 'pick_tc', 'spgr',
            'spgr_fwd', 'spgr_fwd_torch', 'spgr_fwd_chk',
-           'spgr_fwd_chk_torch', 'spgr_bwd', 'spgr_bwd_torch']
+           'spgr_fwd_chk_torch', 'spgr_bwd', 'spgr_bwd_torch', 'CpmgCfg',
+           'cpmg', 'cpmg_fwd', 'cpmg_fwd_torch', 'cpmg_fwd_chk',
+           'cpmg_fwd_chk_torch', 'cpmg_bwd', 'cpmg_bwd_torch']
 
-LAUNCHES = {'spgr_fwd': 0, 'spgr_fwd_chk': 0, 'spgr_bwd': 0}
+LAUNCHES = {'spgr_fwd': 0, 'spgr_fwd_chk': 0, 'spgr_bwd': 0,
+            'cpmg_fwd': 0, 'cpmg_fwd_chk': 0, 'cpmg_bwd': 0}
 
 # The adjoint's scratch budget: the pre-RF states of one chunk of every
 # atom, (tc, 6, K, nA) values, stay within 2 GiB (pick_tc).
@@ -120,18 +139,23 @@ def pick_tc(nTR: int, K: int, nA: int, itemsize: int) -> int:
 # The plain versions
 # ==========================================================================
 
+def _flip_trig(coef, t, arow, b1, has_b1):
+    r"""TR ``t``'s ``(cos²(α/2), sin²(α/2), sin α, cos α)``: the rows, or
+    under ``has_b1`` per atom from ``α = flip·b1`` (the flip in row
+    ``arow``) by the half-angle identities."""
+    if not has_b1:
+        return coef[0, t], coef[1, t], coef[2, t], coef[3, t]
+    ah = (0.5 * coef[arow, t]) * b1
+    ch, sh = torch.cos(ah), torch.sin(ah)
+    ca2, sa2 = ch * ch, sh * sh
+    return ca2, sa2, 2 * ch * sh, ca2 - sa2
+
+
 def _trig(coef, t, b1, has_b1):
     r"""TR ``t``'s RF factors ``(cos²(α/2), sin²(α/2), sin α, cos α, cos φ,
-    sin φ, cos 2φ, sin 2φ)``; under ``has_b1`` the first four per atom
-    from ``α = flip·b1`` by the half-angle identities."""
-    if has_b1:
-        ah = (0.5 * coef[8, t]) * b1
-        ch, sh = torch.cos(ah), torch.sin(ah)
-        ca2, sa2 = ch * ch, sh * sh
-        sa, ca = 2 * ch * sh, ca2 - sa2
-    else:
-        ca2, sa2, sa, ca = coef[0, t], coef[1, t], coef[2, t], coef[3, t]
-    return ca2, sa2, sa, ca, coef[4, t], coef[5, t], coef[6, t], coef[7, t]
+    sin φ, cos 2φ, sin 2φ)`` (:func:`_flip_trig`, then the phase rows)."""
+    return _flip_trig(coef, t, 8, b1, has_b1) + (coef[4, t], coef[5, t],
+                                                 coef[6, t], coef[7, t])
 
 
 def _factors(coef, t, p, vartr):
@@ -155,9 +179,21 @@ def _att(coef, t, p, cdiff, cfg):
 
 
 def _mix(tg, s):
-    r"""The RF mix (``epg_rf``'s rows in real-pair arithmetic)."""
-    ca2, sa2, sa, ca, c1, s1, c2, s2 = tg
+    r"""The RF mix (``epg_rf``'s rows in real-pair arithmetic). A pulse
+    about +x (``tg`` without its phase factors: CPMG's refocusing) drops
+    the terms that carry sin φ or sin 2φ; the rest round as the general
+    rows at φ = 0 do."""
     Fpr, Fpi, Fmr, Fmi, Zr, Zi = s
+    if len(tg) == 4:
+        ca2, sa2, sa, ca = tg
+        hc = 0.5 * sa
+        return ((ca2 * Fpr + sa2 * Fmr) + sa * Zi,
+                (ca2 * Fpi + sa2 * Fmi) - sa * Zr,
+                (sa2 * Fpr + ca2 * Fmr) - sa * Zi,
+                (sa2 * Fpi + ca2 * Fmi) + sa * Zr,
+                (hc * Fpi - hc * Fmi) + ca * Zr,
+                (hc * Fmr - hc * Fpr) + ca * Zi)
+    ca2, sa2, sa, ca, c1, s1, c2, s2 = tg
     sc2, ss2 = sa2 * c2, sa2 * s2
     ss, sc = sa * s1, sa * c1
     hs, hc = 0.5 * ss, 0.5 * sc
@@ -171,8 +207,17 @@ def _mix(tg, s):
 
 def _mix_T(tg, h):
     r"""The exact transpose of :func:`_mix`."""
-    ca2, sa2, sa, ca, c1, s1, c2, s2 = tg
     hFpr, hFpi, hFmr, hFmi, hZr, hZi = h
+    if len(tg) == 4:
+        ca2, sa2, sa, ca = tg
+        hc = 0.5 * sa
+        return ((ca2 * hFpr + sa2 * hFmr) - hc * hZi,
+                (ca2 * hFpi + sa2 * hFmi) + hc * hZr,
+                (sa2 * hFpr + ca2 * hFmr) + hc * hZi,
+                (sa2 * hFpi + ca2 * hFmi) - hc * hZr,
+                (sa * hFmi - sa * hFpi) + ca * hZr,
+                (sa * hFpr - sa * hFmr) + ca * hZi)
+    ca2, sa2, sa, ca, c1, s1, c2, s2 = tg
     sc2, ss2 = sa2 * c2, sa2 * s2
     ss, sc = sa * s1, sa * c1
     hs, hc = 0.5 * ss, 0.5 * sc
@@ -318,6 +363,32 @@ def _ksum(x):
     return acc
 
 
+def _relax_T(h, x, f, att, cdiff):
+    r"""The transpose of :func:`_relax` at its input ``x``, given the
+    cotangent ``h`` of its output: ``(the cotangent of x, terms, ∂rec)``.
+    ``terms`` are the per-order terms whose sums over the orders are ∂E2
+    and ∂E1, led, under diffusion, by the one whose sum is −∂dq: the
+    diffusion transpose ``h ← A·h``, with ``A = exp(−dq·c)`` adding ``−Σ
+    c·A·(h·s2)`` to ∂dq (``s2``: ``x`` relaxed)."""
+    E1, E2, rec = f
+    terms = []
+    if att is not None:
+        ATp, ATm, AL = att
+        cTp, cTm, cL = cdiff
+        s2Zr = E1 * x[4]
+        s2Zr = _at0(s2Zr, s2Zr[:, :1] + rec)
+        terms.append(
+            cTp * ATp * (h[0] * (E2 * x[0]) + h[1] * (E2 * x[1]))
+            + cTm * ATm * (h[2] * (E2 * x[2]) + h[3] * (E2 * x[3]))
+            + cL * AL * (h[4] * s2Zr + h[5] * (E1 * x[5])))
+        h = (ATp * h[0], ATp * h[1], ATm * h[2], ATm * h[3], AL * h[4],
+             AL * h[5])
+    terms.append(h[0] * x[0] + h[1] * x[1] + h[2] * x[2] + h[3] * x[3])
+    terms.append(h[4] * x[4] + h[5] * x[5])
+    return ((E2 * h[0], E2 * h[1], E2 * h[2], E2 * h[3], E1 * h[4],
+             E1 * h[5]), terms, h[4][:, :1])
+
+
 def spgr_bwd_torch(coef, par, cdiff, cfg: SpgrCfg, chk, g, *, tc: int):
     r"""Plain PyTorch version of the ``spgr_bwd`` kernel: the two-phase
     chunk adjoint of :func:`spgr_fwd_chk_torch`, with no autograd.
@@ -351,30 +422,9 @@ def spgr_bwd_torch(coef, par, cdiff, cfg: SpgrCfg, chk, g, *, tc: int):
             ca2, sa2, sa, ca, c1, s1c, c2, s2 = tg
             E1t, E2t, E2tet, rect = _factors(coef, t, p, cfg.vartr)
             s1 = _mix(tg, s)
-            h = _shift_T(h, cfg.kshift)
-            terms = []
             att = _att(coef, t, p, cdiff, cfg)
-            if att is not None:
-                # the diffusion transpose: h ← A·h, and A = exp(−dq·c)
-                # contributes −Σ c·A·(h·s2) to ∂dq (s2: after relaxation)
-                ATp, ATm, AL = att
-                cTp, cTm, cL = cdiff
-                s2Zr = E1t * s1[4]
-                s2Zr = _at0(s2Zr, s2Zr[:, :1] + rect)
-                terms.append(
-                    cTp * ATp * (h[0] * (E2t * s1[0]) + h[1] * (E2t * s1[1]))
-                    + cTm * ATm * (h[2] * (E2t * s1[2])
-                                   + h[3] * (E2t * s1[3]))
-                    + cL * AL * (h[4] * s2Zr + h[5] * (E1t * s1[5])))
-                h = (ATp * h[0], ATp * h[1], ATm * h[2], ATm * h[3],
-                     AL * h[4], AL * h[5])
-            # the relaxation transpose
-            terms.append(h[0] * s1[0] + h[1] * s1[1] + h[2] * s1[2]
-                         + h[3] * s1[3])
-            terms.append(h[4] * s1[4] + h[5] * s1[5])
-            d_rec_t = h[4][:, :1]
-            h = (E2t * h[0], E2t * h[1], E2t * h[2], E2t * h[3],
-                 E1t * h[4], E1t * h[5])
+            h, terms, d_rec_t = _relax_T(_shift_T(h, cfg.kshift), s1,
+                                         (E1t, E2t, rect), att, cdiff)
             # the echo's cotangent, injected at F+(0) (the echo reads the
             # state after the mix, before relaxation)
             gyr, gyi = g[:, t, 0:1], g[:, t, 1:2]
@@ -445,6 +495,209 @@ def spgr_bwd_torch(coef, par, cdiff, cfg: SpgrCfg, chk, g, *, tc: int):
 
 
 # ==========================================================================
+# CPMG: the plain versions
+# ==========================================================================
+
+class CpmgCfg(NamedTuple):
+    r"""The static switches of one CPMG train: ``nE`` echoes (``K = nE +
+    1`` orders), per-atom ``b1``, a per-echo spacing train (``varesp``)
+    and spoiler diffusion (``has_d``)."""
+    nE: int
+    has_b1: bool
+    varesp: bool
+    has_d: bool
+
+    @property
+    def K(self) -> int:
+        return self.nE + 1
+
+    @property
+    def nC(self) -> int:
+        return 6 if self.varesp else 5
+
+    @property
+    def flags(self) -> int:
+        return int(self.has_b1) | 2 * int(self.varesp) | 4 * int(self.has_d)
+
+
+def _cpmg_factors(coef, t, p, varesp):
+    r"""Echo ``t``'s half-interval ``(E1h, E2h, rech)``: the atom's rows,
+    or under ``varesp`` formed from the rates (``R1``, ``R2``), ``M0`` and
+    the esp row, the recovery through expm1."""
+    if not varesp:
+        return p[0], p[1], p[2]
+    hn = 0.5 * coef[5, t]
+    a1 = -torch.expm1(-(hn * p[0]))
+    return 1 - a1, torch.exp(-(hn * p[1])), p[2] * a1
+
+
+def _cpmg_att(coef, t, dq, cdiff, cfg):
+    r"""Echo ``t``'s diffusion attenuation of each order over one half,
+    ``exp(−dq·c)`` (``dq`` the rate ``D·dk²`` times esp/2 under
+    ``varesp``), or None without diffusion."""
+    if not cfg.has_d:
+        return None
+    dqt = dq * (0.5 * coef[5, t]) if cfg.varesp else dq
+    return tuple(torch.exp(-dqt * c) for c in cdiff)
+
+
+def _cpmg_half(f, s, att):
+    r"""One half echo: relaxation over esp/2 (and the attenuation), then
+    the crusher's unit shift."""
+    return _shift(_relax(*f, s, att), 1)
+
+
+def _cpmg_echo(coef, t, p, dq, cdiff, cfg, s):
+    r"""Echo ``t`` from its pre-echo state ``s``: half, the refocusing
+    mix about +x, half; returns the state whose ``F+(0)`` is the echo."""
+    f = _cpmg_factors(coef, t, p, cfg.varesp)
+    att = _cpmg_att(coef, t, dq, cdiff, cfg)
+    s = _cpmg_half(f, s, att)
+    s = _mix(_flip_trig(coef, t, 4, p[6], cfg.has_b1), s)
+    return _cpmg_half(f, s, att)
+
+
+def _cpmg_init(p, K):
+    r"""The closed-form state after the excitation of equilibrium ``M0``:
+    ``F± = sinα·(sinφ ∓ i·cosφ)·M0``, ``Z = cosα·M0`` (the rows ``e_ss,
+    e_sc, e_ca``)."""
+    z = torch.zeros(p.shape[1], K, dtype=p.dtype, device=p.device)
+    return (_at0(z, p[3]), _at0(z, -p[4]), _at0(z, p[3]), _at0(z, p[4]),
+            _at0(z, p[5]), z)
+
+
+def _cpmg_fwd(coef, par, dq, cdiff, cfg, tc):
+    p, dq = par.unsqueeze(-1), dq.reshape(-1, 1)
+    s = _cpmg_init(p, cfg.K)
+    er, ei = [], []
+    chk = par.new_empty((cfg.nE // tc, 6, cfg.K, par.shape[1])) if tc \
+        else None
+    for t in range(cfg.nE):
+        if tc and t % tc == 0:
+            chk[t // tc] = torch.stack(s).transpose(1, 2)  # (6, K, nA)
+        s = _cpmg_echo(coef, t, p, dq, cdiff, cfg, s)
+        er.append(s[0][:, 0])
+        ei.append(s[1][:, 0])
+    return torch.stack(er), torch.stack(ei), chk
+
+
+def cpmg_fwd_torch(coef, par, dq, cdiff, cfg: CpmgCfg):
+    r"""Plain PyTorch version of the ``cpmg_fwd`` kernel: the echoes ``(er,
+    ei)``, each ``(nE, nA)``. Differentiable by torch autograd (which then
+    keeps every echo)."""
+    return _cpmg_fwd(coef, par, dq, cdiff, cfg, None)[:2]
+
+
+def cpmg_fwd_chk_torch(coef, par, dq, cdiff, cfg: CpmgCfg, *, tc: int):
+    r"""Plain PyTorch version of the ``cpmg_fwd_chk`` kernel: ``(er, ei,
+    chk (nE / tc, 6, K, nA))``, the pre-echo state at the start of every
+    chunk of ``tc`` echoes."""
+    _check_tc(coef.shape[1], tc)
+    return _cpmg_fwd(coef, par, dq, cdiff, cfg, tc)
+
+
+def cpmg_bwd_torch(coef, par, dq, cdiff, cfg: CpmgCfg, chk, gr, gi, *,
+                   tc: int):
+    r"""Plain PyTorch version of the ``cpmg_bwd`` kernel: the two-phase
+    chunk adjoint of :func:`cpmg_fwd_chk_torch`, with no autograd.
+
+    ``chk``: its checkpoints at the same ``tc``; ``gr``/``gi``: the
+    echoes' cotangent, each ``(nE, nA)``. Per echo, newest first: the
+    cotangent injected at ``F+(0)``, the second half's transpose (shift,
+    attenuation, relaxation), the refocusing mix's coefficients and
+    transpose, the first half's transpose. Returns ``(dcoef (nC, nE),
+    dpar (8, nA))``: ``dpar`` rows ``[dE1h, dE2h, drech, d_ss, d_sc, d_ca,
+    db1, ddq]`` (under ``varesp`` the first three ``[dR1, dR2, dM0]``, and
+    ``dcoef``'s row 5 the esp train's)."""
+    nE = coef.shape[1]
+    _check_tc(nE, tc)
+    ntc, K = chk.shape[0], cfg.K
+    if ntc != nE // tc:
+        raise ValueError(f'chk holds {ntc} states, but nE={nE} in chunks '
+                         f'of tc={tc} gives {nE // tc}')
+    p, dqc = par.unsqueeze(-1), dq.reshape(-1, 1)
+    R1, R2, M0 = p[0], p[1], p[2]
+    zero = torch.zeros_like(p[0])
+    h = (torch.zeros_like(chk[0, 0].T),) * 6
+    aE1 = aE2 = arec = ab1 = aDq = zero
+    dcoef = coef.new_zeros(cfg.nC, nE)
+    for j in reversed(range(ntc)):
+        # phase 1: the forward from the chunk's start state, every state
+        s = tuple(chk[j, q].T for q in range(6))
+        states = []
+        for t in range(j * tc, (j + 1) * tc):
+            states.append(s)
+            s = _cpmg_echo(coef, t, p, dqc, cdiff, cfg, s)
+        # phase 2: the cotangent, backwards through the stored states
+        for t in reversed(range(j * tc, (j + 1) * tc)):
+            s = states.pop()
+            tg = _flip_trig(coef, t, 4, p[6], cfg.has_b1)
+            ca2, sa2, sa, ca = tg
+            f = _cpmg_factors(coef, t, p, cfg.varesp)
+            E1h, E2h, _ = f
+            att = _cpmg_att(coef, t, dqc, cdiff, cfg)
+            sh1 = _cpmg_half(f, s, att)        # the refocusing's input
+            s1 = _mix(tg, sh1)
+            # the echo reads F+(0) after the second half
+            h = (_at0(h[0], h[0][:, :1] + gr[t][:, None]),
+                 _at0(h[1], h[1][:, :1] + gi[t][:, None])) + h[2:]
+            h, t2, d_rec2 = _relax_T(_shift_T(h, 1), s1, f, att, cdiff)
+            # the refocusing's coefficients (h: its output's cotangent)
+            hFpr, hFpi, hFmr, hFmi, hZr, hZi = h
+            Fpr, Fpi, Fmr, Fmi, Zr, Zi = sh1
+            tm = [hFpr * Fpr + hFpi * Fpi + hFmr * Fmr + hFmi * Fmi,
+                  hFpr * Fmr + hFpi * Fmi + hFmr * Fpr + hFmi * Fpi,
+                  (hFpr - hFmr) * Zi - (hFpi - hFmi) * Zr,
+                  hZr * (Fpi - Fmi) + hZi * (Fmr - Fpr),
+                  hZr * Zr + hZi * Zi]
+            h = _mix_T(tg, h)
+            h, t1, d_rec1 = _relax_T(_shift_T(h, 1), s, f, att, cdiff)
+            sums = _ksum(torch.stack(t2 + tm + t1)).unsqueeze(-1)
+            n2 = len(t2)
+            d_esp = zero
+            # each half's factors (and diffusion), the second half first
+            for hs, d_rec in ((sums[:n2], d_rec2), (sums[n2 + 5:], d_rec1)):
+                if att is not None:
+                    contr, hs = -hs[0], hs[1:]
+                    if cfg.varesp:
+                        aDq = aDq + (0.5 * coef[5, t]) * contr
+                        d_esp = d_esp + 0.5 * dqc * contr
+                    else:
+                        aDq = aDq + contr
+                d_E2h, d_E1h = hs
+                if cfg.varesp:
+                    # the slots hold (R1, R2, M0); rech = M0·(1 − E1h)
+                    hn = 0.5 * coef[5, t]
+                    d_E1tot = d_E1h - M0 * d_rec
+                    arec = arec + (1 - E1h) * d_rec
+                    aE1 = aE1 - hn * E1h * d_E1tot
+                    aE2 = aE2 - hn * E2h * d_E2h
+                    d_esp = d_esp - 0.5 * (R1 * E1h * d_E1tot
+                                           + R2 * E2h * d_E2h)
+                else:
+                    aE1, aE2, arec = aE1 + d_E1h, aE2 + d_E2h, arec + d_rec
+            d_ca2, d_sa2, d_sc, d_hc, d_ca = sums[n2:n2 + 5]
+            d_sa = d_sc + 0.5 * d_hc
+            if cfg.has_b1:
+                # α = flip·b1 through the half-angle trig
+                d_al = 0.5 * sa * (d_sa2 - d_ca2) + ca * d_sa - sa * d_ca
+                ab1 = ab1 + d_al * coef[4, t]
+                rows = [zero, zero, zero, zero, d_al * p[6]]
+            else:
+                rows = [d_ca2, d_sa2, d_sa, d_ca, zero]
+            if cfg.varesp:
+                rows.append(d_esp)
+            dcoef[:, t] = torch.cat(rows, dim=1).sum(dim=0)
+    # the excitation's state: F+(0) = (e_ss, −e_sc), F−(0) = (e_ss, e_sc),
+    # Z(0) = e_ca
+    d_ss = h[0][:, :1] + h[2][:, :1]
+    d_sc = -h[1][:, :1] + h[3][:, :1]
+    dpar = torch.cat([aE1, aE2, arec, d_ss, d_sc, h[4][:, :1], ab1, aDq],
+                     dim=1).T
+    return dcoef, dpar.contiguous()
+
+
+# ==========================================================================
 # The kernels
 # ==========================================================================
 
@@ -483,8 +736,9 @@ def _sizes(name, coef, par, cdiff, cfg):
     return nA, nTR
 
 
-def _entry(lib, kind, dtype):
-    return getattr(lib, f'mrphy_spgr_{kind}_'
+def _entry(lib, name, dtype):
+    r"""Kernel ``name``'s C entry point for ``dtype``."""
+    return getattr(lib, f'mrphy_{name}_'
                    f'{"f32" if dtype == torch.float32 else "f64"}')
 
 
@@ -503,7 +757,7 @@ def _launch_fwd(coef, par, cdiff, cfg, tc):
                                              device=dev)
     lib, _ = library()
     with torch.cuda.device(dev):
-        err = _entry(lib, 'fwd' if tc is None else 'fwd_chk', dt)(
+        err = _entry(lib, name, dt)(
             *map(_ptr, (coef, par, cdiff, sig, chk, state)), nA, nTR,
             cfg.nC, cfg.K, cfg.kshift, cfg.flags, tc or nTR, threads,
             _stream(dev))
@@ -532,7 +786,7 @@ def _launch_bwd(coef, par, cdiff, cfg, chk, g, tc):
     dcf = torch.empty((nwarp, nTR, cfg.nC), dtype=dt, device=dev)
     lib, _ = library()
     with torch.cuda.device(dev):
-        err = _entry(lib, 'bwd', dt)(
+        err = _entry(lib, 'spgr_bwd', dt)(
             *map(_ptr, (coef, par, cdiff, chk, g, scratch, hstate, dpar,
                         dcf)), nA, nTR, cfg.nC, cfg.K, cfg.kshift, cfg.flags,
             tc, threads, _stream(dev))
@@ -606,3 +860,142 @@ def spgr(coef, par, cdiff, cfg: SpgrCfg):
     plain = _device_kind(par) == 'cpu'
     return _Spgr.apply(plain, cfg, coef.contiguous(), par.contiguous(),
                        cdiff.contiguous())
+
+
+# ==========================================================================
+# CPMG: the kernels
+# ==========================================================================
+
+def _cpmg_sizes(name, coef, par, dq, cdiff, cfg):
+    if par.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'{name} takes float32 or float64, not {par.dtype}')
+    if par.ndim != 2 or par.shape[0] != 7:
+        raise ValueError(f'par must be (7, nA), got {tuple(par.shape)}')
+    nA, nE = par.shape[1], cfg.nE
+    if nE < 1:
+        raise ValueError(f'{name} needs nE >= 1, got {nE}')
+    for x, xname, shape in ((coef, 'coef', (cfg.nC, nE)),
+                            (par, 'par', (7, nA)), (dq, 'dq', (1, nA)),
+                            (cdiff, 'cdiff', (3, cfg.K))):
+        _check(x, xname, shape, par.dtype, par.device)
+    return nA, nE
+
+
+def _launch_cpmg_fwd(coef, par, dq, cdiff, cfg, tc):
+    from mrphy_tpu_torch.kernels._build import library
+    name = 'cpmg_fwd' if tc is None else 'cpmg_fwd_chk'
+    nA, nE = _cpmg_sizes(name, coef, par, dq, cdiff, cfg)
+    dt, dev = par.dtype, par.device
+    threads, in_smem = launch_cfg(cfg.K, par.element_size())
+    er = torch.empty((nE, nA), dtype=dt, device=dev)
+    ei = torch.empty((nE, nA), dtype=dt, device=dev)
+    chk = None
+    if tc is not None:
+        _check_tc(nE, tc)
+        chk = torch.empty((nE // tc, 6, cfg.K, nA), dtype=dt, device=dev)
+    state = None if in_smem else torch.empty((6, cfg.K, nA), dtype=dt,
+                                             device=dev)
+    lib, _ = library()
+    with torch.cuda.device(dev):
+        err = _entry(lib, name, dt)(
+            *map(_ptr, (coef, par, dq, cdiff, er, ei, chk, state)), nA, nE,
+            cfg.nC, cfg.flags, tc or nE, threads, _stream(dev))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return er, ei, chk
+
+
+def _launch_cpmg_bwd(coef, par, dq, cdiff, cfg, chk, gr, gi, tc):
+    from mrphy_tpu_torch.kernels._build import library
+    nA, nE = _cpmg_sizes('cpmg_bwd', coef, par, dq, cdiff, cfg)
+    _check_tc(nE, tc)
+    dt, dev = par.dtype, par.device
+    _check(chk, 'chk', (nE // tc, 6, cfg.K, nA), dt, dev)
+    _check(gr, 'gr', (nE, nA), dt, dev)
+    _check(gi, 'gi', (nE, nA), dt, dev)
+    threads, in_smem = launch_cfg(cfg.K, par.element_size())
+    # phase 1's pre-echo states of one chunk (the first is chk's own), the
+    # adjoint state when it does not fit in shared memory, and each warp's
+    # per-echo coefficient rows (summed over its atoms)
+    scratch = torch.empty((max(tc - 1, 1), 6, cfg.K, nA), dtype=dt,
+                          device=dev)
+    hstate = None if in_smem else torch.empty((6, cfg.K, nA), dtype=dt,
+                                              device=dev)
+    dpar = torch.empty((8, nA), dtype=dt, device=dev)
+    dcf = torch.empty((-(-nA // 32), nE, cfg.nC), dtype=dt, device=dev)
+    lib, _ = library()
+    with torch.cuda.device(dev):
+        err = _entry(lib, 'cpmg_bwd', dt)(
+            *map(_ptr, (coef, par, dq, cdiff, chk, gr, gi, scratch, hstate,
+                        dpar, dcf)), nA, nE, cfg.nC, cfg.flags, tc, threads,
+            _stream(dev))
+    _raise_on(err, 'cpmg_bwd')
+    LAUNCHES['cpmg_bwd'] += 1
+    # the warps' partial rows, summed in a fixed order
+    return dcf.sum(dim=0).T.contiguous(), dpar
+
+
+def cpmg_fwd(coef, par, dq, cdiff, cfg: CpmgCfg):
+    r"""The ``cpmg_fwd`` kernel on CUDA tensors (contiguous, one dtype,
+    float32 or float64), :func:`cpmg_fwd_torch` on CPU tensors."""
+    if _device_kind(par) == 'cpu':
+        return cpmg_fwd_torch(coef, par, dq, cdiff, cfg)
+    return _launch_cpmg_fwd(coef, par, dq, cdiff, cfg, None)[:2]
+
+
+def cpmg_fwd_chk(coef, par, dq, cdiff, cfg: CpmgCfg, *, tc: int):
+    r"""The ``cpmg_fwd_chk`` kernel on CUDA tensors,
+    :func:`cpmg_fwd_chk_torch` on CPU tensors."""
+    if _device_kind(par) == 'cpu':
+        return cpmg_fwd_chk_torch(coef, par, dq, cdiff, cfg, tc=tc)
+    return _launch_cpmg_fwd(coef, par, dq, cdiff, cfg, tc)
+
+
+def cpmg_bwd(coef, par, dq, cdiff, cfg: CpmgCfg, chk, gr, gi, *, tc: int):
+    r"""The ``cpmg_bwd`` kernel on CUDA tensors, :func:`cpmg_bwd_torch` on
+    CPU tensors."""
+    if _device_kind(par) == 'cpu':
+        return cpmg_bwd_torch(coef, par, dq, cdiff, cfg, chk, gr, gi, tc=tc)
+    return _launch_cpmg_bwd(coef, par, dq, cdiff, cfg, chk, gr, gi, tc)
+
+
+class _Cpmg(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, plain, cfg, coef, par, dq, cdiff):
+        ctx.plain, ctx.cfg = plain, cfg
+        if not any(ctx.needs_input_grad[2:5]):
+            if plain:
+                return cpmg_fwd_torch(coef, par, dq, cdiff, cfg)
+            return _launch_cpmg_fwd(coef, par, dq, cdiff, cfg, None)[:2]
+        tc = pick_tc(cfg.nE, cfg.K, par.shape[1], par.element_size())
+        if plain:
+            er, ei, chk = cpmg_fwd_chk_torch(coef, par, dq, cdiff, cfg,
+                                             tc=tc)
+        else:
+            er, ei, chk = _launch_cpmg_fwd(coef, par, dq, cdiff, cfg, tc)
+        ctx.tc = tc
+        ctx.save_for_backward(coef, par, dq, cdiff, chk)
+        return er, ei
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gr, gi):
+        coef, par, dq, cdiff, chk = ctx.saved_tensors
+        args = (coef, par, dq, cdiff, ctx.cfg, chk, gr.contiguous(),
+                gi.contiguous())
+        if ctx.plain:
+            dcoef, dpar = cpmg_bwd_torch(*args, tc=ctx.tc)
+        else:
+            dcoef, dpar = _launch_cpmg_bwd(*args, ctx.tc)
+        return None, None, dcoef, dpar[:7], dpar[7:], None
+
+
+def cpmg(coef, par, dq, cdiff, cfg: CpmgCfg):
+    r"""The CPMG echoes ``(er, ei)``, each ``(nE, nA)``: the kernels on CUDA
+    tensors (``cpmg_fwd``, or ``cpmg_fwd_chk`` and ``cpmg_bwd`` when a
+    gradient is needed), their plain versions on CPU tensors.
+    Differentiable w.r.t. ``coef``, ``par`` and ``dq``."""
+    plain = _device_kind(par) == 'cpu'
+    return _Cpmg.apply(plain, cfg, coef.contiguous(), par.contiguous(),
+                       dq.contiguous(), cdiff.contiguous())

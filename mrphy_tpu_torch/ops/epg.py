@@ -1,5 +1,6 @@
 r"""Extended Phase Graphs (EPG): differentiable echo-train simulation
-(counterpart of :mod:`mrphy_tpu.ops.epg`, its single-pool SPGR part).
+(counterpart of :mod:`mrphy_tpu.ops.epg`, its single-pool SPGR and CPMG
+parts).
 
 Magnetization is tracked in the Fourier domain of the dephasing angle as
 configuration states ``F+(k), F−(k), Z(k)``; the state is a real ``(...,
@@ -9,14 +10,16 @@ reference implementation): the RF mixing matrix about phase ``phi``, the
 gradient shift ``F+(k)→F+(k+1)``, ``F−(k)→F−(k−1)``, ``F+(0) =
 conj(F−(0))`` after the shift.
 
-:func:`epg_spgr`, the MRF dictionary's train, has two routes
+:func:`epg_spgr`, the MRF dictionary's train, and :func:`epg_cpmg`, the
+spin-echo train of T2 mapping, have two routes each
 (:func:`mrphy_tpu_torch.ops.routing.route` says which a call takes):
 
-- the plain route, a Python loop over TRs of the primitives below (JAX's
-  ``lax.scan``), differentiable by torch autograd;
+- the plain route, a Python loop over TRs or echoes of the primitives
+  below (JAX's ``lax.scan``), differentiable by torch autograd;
 - the kernels of :mod:`mrphy_tpu_torch.kernels.epg` for a shared 1-D flip
-  train: ``spgr_fwd``, or ``spgr_fwd_chk`` with the hand-written adjoint
-  ``spgr_bwd`` when a gradient is needed.
+  train: ``spgr_fwd`` (``cpmg_fwd``), or ``spgr_fwd_chk`` with the
+  hand-written adjoint ``spgr_bwd`` (``cpmg_fwd_chk`` with ``cpmg_bwd``)
+  when a gradient is needed.
 
 ``backend='auto'`` takes the kernels for CUDA tensors and the plain route
 for CPU tensors; ``'cuda'`` insists on the kernels (and raises for CPU
@@ -25,7 +28,7 @@ flip trains run the plain route under ``'auto'`` on any device, as JAX's
 ``'xla-fallback'`` does, and raise under ``'cuda'``. ``mesh=`` raises
 (multi-device runs are not ported yet).
 
-CPMG and EPG-X trains (``epg_cpmg``, ``epgx_*``) are not ported yet.
+EPG-X trains (``epgx_*``) are not ported yet.
 """
 
 import math
@@ -36,7 +39,7 @@ import torch
 from mrphy_tpu_torch.kernels import epg as kepg
 
 __all__ = ['epg_state', 'epg_rf', 'epg_grad', 'epg_relax', 'epg_diffusion',
-           'epg_spgr', 'ir_prep', 'rf_spoil_phases']
+           'epg_cpmg', 'epg_spgr', 'ir_prep', 'rf_spoil_phases']
 
 
 def _t(x, like):
@@ -203,6 +206,161 @@ def _apply_b1(flips, b1):
     if b1 is None:
         return flips
     return _t(b1, flips)[..., None] * flips
+
+
+def epg_cpmg(flips, *, T1, T2, esp, M0=1.0, phi_ex=math.pi / 2,
+             alpha_ex=math.pi / 2, b1=None, mesh=None, D=None, dk=0.0,
+             backend: str = 'auto'):
+    r"""Echo amplitudes of a CPMG spin-echo train.
+
+    Sequence: ``alpha_ex`` excitation about ``phi_ex`` (defaults 90° about
+    +y, so the refocusing pulses about +x satisfy the CPMG condition), then
+    for each entry of ``flips``: [τ = esp/2 relax + dephase, refocusing
+    pulse, τ = esp/2 relax + dephase, echo].
+
+    Inputs:
+        - ``flips``: `(nEcho,)` or `(*batch, nEcho)`, "Rad", refocusing
+          flip angles.
+        - ``T1``/``T2``: `()` ⊻ `(*batch,)`, "Sec"; ``esp``: echo spacing,
+          "Sec", a scalar or a `(nEcho,)` per-echo train.
+        - ``M0``: `()` ⊻ `(*batch,)`; ``alpha_ex``/``phi_ex``: `()` ⊻
+          `(*batch,)`, "Rad", the excitation (per voxel: slice-profile-
+          resolved trains).
+        - ``b1``: `()` ⊻ `(*batch,)` transmit scale of the refocusing train.
+        - ``D``/``dk``: diffusion weighting (:func:`epg_diffusion`, one
+          unit shift per half): diffusivity `()` ⊻ `(*batch,)`, "cm²/Sec",
+          and the per-half-esp crusher dephasing, "Rad/cm".
+        - ``mesh``: multi-device runs are not ported yet (raises
+          :class:`NotImplementedError`).
+        - ``backend``: ``'auto'`` | ``'torch'`` | ``'cuda'`` (module
+          docstring).
+    Outputs:
+        - ``echoes``: `(*batch, nEcho, 2)` real ([re, im] of ``F+(0)`` at
+          each echo; for perfect 180° refocusing the magnitude is
+          ``exp(−(n+1)·esp/T2)·M0`` exactly).
+
+    Differentiable w.r.t. ``flips``/``T1``/``T2``/``esp``/``M0``/
+    ``alpha_ex``/``phi_ex``/``b1``/``D``/``dk`` on every route.
+    """
+    from mrphy_tpu_torch.ops.routing import route
+    if mesh is not None:
+        raise NotImplementedError('mesh= (multi-device runs) is not ported '
+                                  'to mrphy_tpu_torch yet')
+    kw = dict(T1=T1, T2=T2, esp=esp, M0=M0, phi_ex=phi_ex,
+              alpha_ex=alpha_ex, b1=b1, D=D, dk=dk)
+    path = route('epg_cpmg', backend=backend, flips=flips, **kw)['path']
+    if path.startswith('cuda'):
+        device = _common(flips, T1, T2, esp, M0, phi_ex, alpha_ex, b1,
+                         D)[1]
+        if backend == 'cuda' and device.type != 'cuda':
+            raise ValueError("backend='cuda' needs CUDA tensors, got "
+                             f'{device}')
+        return _cpmg_kernels(flips, **kw)
+    return _cpmg_scan(flips, **kw)
+
+
+def _cpmg_scan(flips, *, T1, T2, esp, M0=1.0, phi_ex=math.pi / 2,
+               alpha_ex=math.pi / 2, b1=None, D=None, dk=0.0):
+    r"""The plain route: JAX's ``_epg_cpmg_body`` (a ``lax.scan``) as a loop
+    over echoes."""
+    dtype, device = _common(flips, T1, T2)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    flips = _apply_b1(arr(flips), b1)
+    nE = flips.shape[-1]
+    T1b, T2b, M0, alpha = arr(T1), arr(T2), arr(M0), arr(alpha_ex)
+    esp = arr(esp)
+    batch = torch.broadcast_shapes(flips.shape[:-1], T1b.shape, T2b.shape,
+                                   M0.shape, alpha.shape)
+    s = epg_state(nE + 1, batch, M0=torch.broadcast_to(M0, batch),
+                  dtype=dtype, device=device)
+    s = epg_rf(s, torch.broadcast_to(alpha, batch), arr(phi_ex))
+    flips_t = torch.broadcast_to(flips, batch + (nE,)).movedim(-1, 0)
+    Db = None if D is None else arr(D)
+
+    def half(s, espn):
+        s = epg_relax(s, espn / 2, T1b, T2b, M0)
+        if Db is not None:
+            s = epg_diffusion(s, Db, dk, espn / 2, delta=1)
+        return epg_grad(s)
+
+    echoes = []
+    for n in range(nE):
+        espn = esp[n] if esp.ndim == 1 else esp
+        s = half(epg_rf(half(s, espn), flips_t[n], 0.0), espn)
+        echoes.append(s[..., 0, 0, :])
+    return torch.stack(echoes, dim=-2)                # (*batch, nE, 2)
+
+
+def _cpmg_rows(flips, *, T1, T2, esp, M0=1.0, phi_ex=math.pi / 2,
+               alpha_ex=math.pi / 2, b1=None, D=None, dk=0.0):
+    r"""The kernels' arguments for :func:`epg_cpmg`'s inputs
+    (``_cpmg_dispatch``, ``epg_pallas.py:362-411``): ``(coef, par, dq,
+    cdiff, cfg, batch)``, the per-echo rows ``[cos²(α/2), sin²(α/2), sin
+    α, cos α, α]`` (+ the esp train), the per-atom rows ``[E1h, E2h,
+    rech, e_ss, e_sc, e_ca, b1]`` (``[R1, R2, M0, …]`` under an esp train)
+    and the diffusion row, built by torch ops (whose autograd carries the
+    gradients of every input back from the rows'), in the call's dtype,
+    the atoms' batch shape flattened into the columns."""
+    dtype, device = _common(flips, T1, T2, esp, M0, phi_ex, alpha_ex, b1, D)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    flips = arr(flips)
+    if flips.ndim != 1:
+        raise ValueError('the kernels take a shared (nEcho,) flip train, got '
+                         f'{tuple(flips.shape)}')
+    nE = flips.shape[0]
+    batch = torch.broadcast_shapes(*(_shape(x) for x in
+                                     (T1, T2, M0, alpha_ex, phi_ex, b1, D)
+                                     if x is not None))
+    nA = math.prod(batch)
+
+    def atoms(x):
+        return torch.broadcast_to(arr(x), batch).reshape(nA)
+
+    esp = arr(esp)
+    varesp = esp.ndim == 1
+    if varesp and esp.shape != (nE,):
+        raise ValueError(f'esp {tuple(esp.shape)} is not a ({nE},) train')
+    coef = torch.stack([torch.cos(flips / 2) ** 2, torch.sin(flips / 2) ** 2,
+                        torch.sin(flips), torch.cos(flips), flips])
+    T1a, T2a, M0a = atoms(T1), atoms(T2), atoms(M0)
+    if varesp:
+        # the factors are formed per echo in the kernels from the rates
+        # and the esp row; the (E1h, E2h, rech) slots carry (R1, R2, M0)
+        coef = torch.cat([coef, esp[None]])
+        rows = [1 / T1a, 1 / T2a, M0a]
+    else:
+        rows = [torch.exp(-esp / 2 / T1a), torch.exp(-esp / 2 / T2a),
+                -torch.expm1(-esp / 2 / T1a) * M0a]
+    al, ph = atoms(alpha_ex), atoms(phi_ex)
+    rows += [torch.sin(al) * torch.sin(ph) * M0a,
+             torch.sin(al) * torch.cos(ph) * M0a, torch.cos(al) * M0a,
+             atoms(1.0 if b1 is None else b1)]
+    if D is not None:
+        # A(k) = exp(−dq·c(k)): dq is D·dk²·esp/2 at constant spacing, the
+        # rate D·dk² under an esp train (the kernels take each echo's esp/2)
+        dq = atoms(D) * arr(dk) ** 2
+        dq = dq if varesp else dq * (esp / 2)
+    else:
+        dq = torch.zeros_like(M0a)
+    cfg = kepg.CpmgCfg(nE=nE, has_b1=b1 is not None, varesp=varesp,
+                       has_d=D is not None)
+    return (coef, torch.stack(rows), dq[None],
+            kepg.diff_coef(cfg.K, 1, dtype, device), cfg, batch)
+
+
+def _cpmg_kernels(flips, **kw):
+    r"""The kernels' route: :func:`_cpmg_rows`, then
+    :func:`mrphy_tpu_torch.kernels.epg.cpmg` (the kernels' plain versions
+    on CPU tensors)."""
+    coef, par, dq, cdiff, cfg, batch = _cpmg_rows(flips, **kw)
+    er, ei = kepg.cpmg(coef, par, dq, cdiff, cfg)     # (nE, nA) each
+    return torch.stack([er.T, ei.T], -1).reshape(batch + (cfg.nE, 2))
 
 
 def rf_spoil_phases(n: int, phi0=117.0, *, dtype=None, device=None):

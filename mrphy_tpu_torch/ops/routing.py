@@ -2,14 +2,15 @@ r"""Backend-routing introspection: which path will a train family take?
 (counterpart of :mod:`mrphy_tpu.ops.routing`)
 
 :func:`route` answers, without running anything, which execution path
-``<family>(..., backend=..., mesh=...)`` takes and why; the dispatcher of
-:func:`mrphy_tpu_torch.ops.epg.epg_spgr` consults the same decision, so the
-reported path cannot drift from the one taken.
+``<family>(..., backend=..., mesh=...)`` takes and why; the dispatchers of
+:func:`mrphy_tpu_torch.ops.epg.epg_spgr` and :func:`~mrphy_tpu_torch.ops.
+epg.epg_cpmg` consult the same decision, so the reported path cannot drift
+from the one taken.
 
 Paths:
 
-- ``'torch'``: the plain route, a loop over TRs differentiable by torch
-  autograd (``backend='torch'``, or ``'auto'`` on CPU tensors);
+- ``'torch'``: the plain route, a loop over TRs (echoes) differentiable by
+  torch autograd (``backend='torch'``, or ``'auto'`` on CPU tensors);
 - ``'cuda-native-adjoint'``: the hand-written kernels, the forward and
   its hand-written adjoint (``backend='cuda'``, or ``'auto'`` on CUDA
   tensors);
@@ -22,13 +23,14 @@ Paths:
 The JAX package has a fourth path, ``'pallas-xla-vjp'``: a fused forward
 with a recompute-through-XLA reverse, taken when the TPU adjoint's VMEM
 scratch and HBM partials miss their budgets
-(``epg_pallas.spgr_bwd_is_available``). The port has no counterpart and no
-such gate: the H100 adjoint ``spgr_bwd`` keeps its per-chunk scratch in
-device memory and shortens the chunk to fit a fixed budget
-(:func:`mrphy_tpu_torch.kernels.epg.pick_tc`), so it takes every instance
-the forward takes.
+(``epg_pallas.spgr_bwd_is_available``, ``cpmg_bwd_is_available``). The
+port has no counterpart and no such gate: the H100 adjoints ``spgr_bwd``
+and ``cpmg_bwd`` keep their per-chunk scratch in device memory and shorten
+the chunk to fit a fixed budget
+(:func:`mrphy_tpu_torch.kernels.epg.pick_tc`), so each takes every instance
+its forward takes.
 
-Only ``epg_spgr`` is ported; the other families raise
+``epg_spgr`` and ``epg_cpmg`` are ported; the other families raise
 :class:`NotImplementedError` naming the slice of the port that brings
 them. ``mesh=`` raises too (multi-device runs are not ported yet).
 """
@@ -44,7 +46,7 @@ FAMILIES = ('epg_spgr', 'epg_cpmg', 'epgx_spgr', 'epgx_cpmg',
             'epgx_mt_spgr', 'bssfp_train')
 
 # The slice of the port (ROADMAP.md, queue 1) that brings each family.
-_SLICES = {'epg_cpmg': '10b', 'epgx_spgr': '10c-10d',
+_SLICES = {'epgx_spgr': '10c-10d',
            'epgx_cpmg': '10e-10f', 'epgx_mt_spgr': '10g-10h',
            'bssfp_train': '11'}
 
@@ -79,8 +81,10 @@ def _train_ndim(kw, name):
     return len(shape), (shape[-1] if shape else 1)
 
 
-def _decide_epg_spgr(kw, backend):
-    from mrphy_tpu_torch.kernels.epg import pick_tc
+def _per_voxel(kw, backend):
+    r"""``(decision, nT)``: for a per-voxel 2-D train the plain route
+    under ``'auto'`` (:class:`ValueError` under ``'cuda'``), for a shared
+    1-D one None, left to the family's decider."""
     nd, nT = _train_ndim(kw, 'flips')
     if nd != 1 and backend == 'cuda':
         raise ValueError("backend='cuda': per-voxel trains are outside the "
@@ -89,7 +93,15 @@ def _decide_epg_spgr(kw, backend):
     if nd != 1:
         return _mk('torch-fallback', 'per-voxel trains are outside the '
                    f'kernels (flips ndim={nd}); the dispatcher runs the '
-                   'plain route')
+                   'plain route'), nT
+    return None, nT
+
+
+def _decide_epg_spgr(kw, backend):
+    from mrphy_tpu_torch.kernels.epg import pick_tc
+    fallback, nT = _per_voxel(kw, backend)
+    if fallback:
+        return fallback
     nA = _n_atoms(kw, ('T1', 'T2', 'M0', 'b1', 'zinit', 'D'))
     K = _k_orders(kw, nT)
     varint = len(_shape(kw.get('tr'))) == 1 or len(_shape(kw.get('te'))) == 1
@@ -101,7 +113,21 @@ def _decide_epg_spgr(kw, backend):
                              else '', pick_tc(nT, K, nA, 4)))
 
 
-_DECIDERS = {'epg_spgr': _decide_epg_spgr}
+def _decide_epg_cpmg(kw, backend):
+    from mrphy_tpu_torch.kernels.epg import pick_tc
+    fallback, nE = _per_voxel(kw, backend)
+    if fallback:
+        return fallback
+    nA = _n_atoms(kw, ('T1', 'T2', 'M0', 'b1', 'phi_ex', 'alpha_ex', 'D'))
+    return _mk('cuda-native-adjoint',
+               'cpmg_fwd, and cpmg_fwd_chk + cpmg_bwd under a gradient '
+               '(nE=%d, nA=%d%s%s; the adjoint chunk tc=%d in float32)'
+               % (nE, nA, ', variable esp' if len(_shape(kw.get('esp'))) == 1
+                  else '', ', diffusion' if kw.get('D') is not None else '',
+                  pick_tc(nE, nE + 1, nA, 4)))
+
+
+_DECIDERS = {'epg_spgr': _decide_epg_spgr, 'epg_cpmg': _decide_epg_cpmg}
 
 
 def _on_cuda(kw) -> bool:

@@ -1,9 +1,10 @@
 r"""The CUDA kernels of :mod:`mrphy_tpu_torch.kernels` on the card (the
 Bloch kernels, the two-pool ``mc_fwd``/``mc_bwd``, the k-space signal
-kernels ``sig_fwd``/``sig_adj``/``sig_vjp`` and the gridding NUFFT's
-``nufft_sample``/``nufft_spread``/``nufft_dk``): each against its plain
-PyTorch version, the launch counts, the wrappers' refusals, and backward
-through the engines reaching the adjoint kernels.
+kernels ``sig_fwd``/``sig_adj``/``sig_vjp``, the gridding NUFFT's
+``nufft_sample``/``nufft_spread``/``nufft_dk``, the EPG trains'
+``spgr_*``/``cpmg_*`` and the matched filter ``match``): each against its
+plain PyTorch version, the launch counts, the wrappers' refusals, and
+backward through the engines reaching the adjoint kernels.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run them
@@ -667,7 +668,9 @@ def test_spgr_kernels_vs_plain_on_card(cuda, dtype, bar, rows, nA, nTR, K,
     g = torch.as_tensor(np.random.default_rng(3).standard_normal(
         sig.shape), dtype=dtype, device=cuda)
     dcoef, dpar = kepg.spgr_bwd(coef, par, cdiff, cfg, chk, g, tc=tc)
-    assert all(kepg.LAUNCHES[n] == n0[n] + 1 for n in kepg.LAUNCHES)
+    assert {n: kepg.LAUNCHES[n] - n0[n] for n in kepg.LAUNCHES} == dict(
+        dict.fromkeys(kepg.LAUNCHES, 0), spgr_fwd=1, spgr_fwd_chk=1,
+        spgr_bwd=1)
     sig_p, chk_p = kepg.spgr_fwd_chk_torch(coef, par, cdiff, cfg, tc=tc)
     dcoef_p, dpar_p = kepg.spgr_bwd_torch(coef, par, cdiff, cfg, chk_p, g,
                                           tc=tc)
@@ -701,9 +704,9 @@ def test_epg_spgr_gradients_cuda_vs_plain(cuda, dtype):
                            backend=backend)
         grads.append(torch.autograd.grad((w * out).sum(), list(xs.values())))
         launched = {n: kepg.LAUNCHES[n] - n0[n] for n in kepg.LAUNCHES}
-        assert launched == ({'spgr_fwd': 0, 'spgr_fwd_chk': 1, 'spgr_bwd': 1}
-                            if backend == 'auto' else
-                            dict.fromkeys(kepg.LAUNCHES, 0))
+        assert launched == dict(dict.fromkeys(kepg.LAUNCHES, 0),
+                                **({'spgr_fwd_chk': 1, 'spgr_bwd': 1}
+                                   if backend == 'auto' else {}))
     n0 = kepg.LAUNCHES['spgr_fwd']
     with torch.no_grad():
         epg.epg_spgr(**kw)
@@ -757,3 +760,107 @@ def test_match_kernel_vs_plain_on_card(cuda, dtype, bar, nA, nV, r, pair):
         assert kmrf.LAUNCHES['match'] == n0 + 2
         assert torch.equal(res.idx.cpu(), ref.idx)
         _rows_close(res.m0.cpu(), ref.m0, 1e2 * bar)
+
+
+def _cpmg_case(cuda, dtype, nA, nE, b1, varesp, D, ex, seed):
+    r"""``(flips, epg_cpmg keywords)`` (CUDA tensors): refocusing flips of
+    120-180° and, as asked, per-atom b1, an esp train, diffusion and a
+    per-voxel excitation with M0."""
+    rng = np.random.default_rng(seed)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=cuda)
+
+    kw = dict(T1=arr(rng.uniform(0.2, 3.0, nA)),
+              T2=arr(rng.uniform(0.02, 0.4, nA)),
+              esp=arr(rng.uniform(0.008, 0.012, nE)) if varesp else 0.01)
+    if b1:
+        kw['b1'] = arr(rng.uniform(0.7, 1.15, nA))
+    if D:
+        kw.update(D=arr(rng.uniform(0.5e-5, 3e-5, nA)), dk=450.0)
+    if ex:
+        kw.update(alpha_ex=arr(rng.uniform(1.0, 1.7, nA)),
+                  phi_ex=arr(rng.uniform(0, 6, nA)),
+                  M0=arr(rng.uniform(0.7, 1.2, nA)))
+    return arr(np.deg2rad(rng.uniform(120, 180, nE))), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows', [(torch.float32, 2e-6, 1e-4),
+                                            (torch.float64, 1e-12, 1e-12)])
+@pytest.mark.parametrize('nA,nE,b1,varesp,D,ex', [
+    (333, 24, False, False, False, False),
+    (200, 30, True, True, True, True), (129, 12, False, True, False, True),
+    (65, 330, True, False, True, False)],
+    ids=['plain-train', 'every-option', 'esp-train-excitation',
+         'device-memory-state'])
+def test_cpmg_kernels_vs_plain_on_card(cuda, dtype, bar, rows, nA, nE, b1,
+                                       varesp, D, ex):
+    r"""``cpmg_fwd``, ``cpmg_fwd_chk`` and ``cpmg_bwd`` against their plain
+    versions on the card (per-atom outputs at ``bar``, the adjoint's
+    per-echo rows, summed over atoms by warps, at ``rows`` of their largest
+    value), over several chunks; the launch counts; the refusals."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.ops import epg
+    from mrphy_tpu_torch.utils._shapes import largest_divisor_leq
+    flips, kw = _cpmg_case(cuda, dtype, nA, nE, b1, varesp, D, ex, 37)
+    coef, par, dq, cdiff, cfg, _ = epg._cpmg_rows(flips, **kw)
+    args = (coef.contiguous(), par.contiguous(), dq.contiguous(), cdiff, cfg)
+    tc = largest_divisor_leq(nE, nE // 3)            # three chunks or more
+    n0 = dict(kepg.LAUNCHES)
+    er, ei = kepg.cpmg_fwd(*args)
+    er2, ei2, chk = kepg.cpmg_fwd_chk(*args, tc=tc)
+    gr, gi = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (2, nE, nA)), dtype=dtype, device=cuda)
+    dcoef, dpar = kepg.cpmg_bwd(*args, chk, gr, gi, tc=tc)
+    assert {n: kepg.LAUNCHES[n] - n0[n] for n in kepg.LAUNCHES} == dict(
+        dict.fromkeys(kepg.LAUNCHES, 0), cpmg_fwd=1, cpmg_fwd_chk=1,
+        cpmg_bwd=1)
+    er_p, ei_p, chk_p = kepg.cpmg_fwd_chk_torch(*args, tc=tc)
+    dcoef_p, dpar_p = kepg.cpmg_bwd_torch(*args, chk_p, gr, gi, tc=tc)
+    for x, y in ((er, er_p), (ei, ei_p), (er2, er_p), (ei2, ei_p),
+                 (chk, chk_p), (dpar, dpar_p)):
+        _rows_close(x, y, bar)
+    _rows_close(dcoef, dcoef_p, rows)
+    with pytest.raises(ValueError, match='contiguous'):
+        kepg.cpmg_fwd(args[0].T.contiguous().T, *args[1:])
+    with pytest.raises(TypeError):
+        kepg.cpmg_fwd(*(x.half() for x in args[:4]), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_epg_cpmg_gradients_cuda_vs_plain(cuda, dtype):
+    r"""``epg_cpmg`` on CUDA tensors runs ``cpmg_fwd`` for a value and
+    ``cpmg_fwd_chk`` + ``cpmg_bwd`` under a gradient, whose gradients
+    w.r.t. every input meet the plain route's; ``backend='cuda'`` refuses
+    a per-voxel 2-D train, and CPU tensors."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.ops import epg
+    names = ('flips', 'T1', 'T2', 'esp', 'M0', 'alpha_ex', 'phi_ex', 'b1',
+             'D')
+    flips, kw = _cpmg_case(cuda, dtype, 70, 24, True, True, True, True, 41)
+    kw['flips'] = flips
+    w = torch.as_tensor(np.random.default_rng(5).standard_normal((70, 24, 2)),
+                        dtype=dtype, device=cuda)
+    grads = []
+    for backend in ('auto', 'torch'):
+        xs = {n: kw[n].detach().clone().requires_grad_() for n in names}
+        n0 = dict(kepg.LAUNCHES)
+        out = epg.epg_cpmg(**dict(kw, **xs), backend=backend)
+        grads.append(torch.autograd.grad((w * out).sum(), list(xs.values())))
+        launched = {n: kepg.LAUNCHES[n] - n0[n] for n in kepg.LAUNCHES}
+        assert launched == dict(dict.fromkeys(kepg.LAUNCHES, 0),
+                                **({'cpmg_fwd_chk': 1, 'cpmg_bwd': 1}
+                                   if backend == 'auto' else {}))
+    n0 = kepg.LAUNCHES['cpmg_fwd']
+    with torch.no_grad():
+        epg.epg_cpmg(**kw)
+    assert kepg.LAUNCHES['cpmg_fwd'] == n0 + 1
+    bar = 1e-4 if dtype == torch.float32 else 1e-10
+    for n, x, y in zip(names, *grads):
+        _rows_close(x, y, bar)
+    with pytest.raises(ValueError, match='per-voxel trains'):
+        epg.epg_cpmg(**dict(kw, flips=flips.expand(70, 24)), backend='cuda')
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        epg.epg_cpmg(flips.cpu(), T1=1.0, T2=0.1, esp=0.01, backend='cuda')

@@ -326,7 +326,8 @@ def test_kernel_sources_present():
                      'beff_bwd.cu', 'mc_fwd.cu', 'mc_bwd.cu', 'sig_fwd.cu',
                      'sig_adj.cu', 'sig_vjp.cu', 'nufft_sample.cu',
                      'nufft_spread.cu', 'nufft_dk.cu', 'spgr_fwd.cu',
-                     'spgr_bwd.cu', 'match.cu'}
+                     'spgr_bwd.cu', 'match.cu', 'cpmg_fwd.cu',
+                     'cpmg_bwd.cu'}
     assert '--use_fast_math' not in _build.NVCC_FLAGS
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
 
@@ -352,12 +353,12 @@ def test_top_level_names_and_flat_paths_match_jax():
 
 
 def test_epg_and_mrf_names():
-    r"""``epg.__all__`` and ``mrf.__all__`` are the names this slice ports,
-    each a name of the JAX module."""
+    r"""``epg.__all__`` and ``mrf.__all__`` are the names the slices so far
+    port, each a name of the JAX module."""
     from mrphy_tpu.ops import epg as jepg, mrf as jmrf
     from mrphy_tpu_torch.ops import epg as tepg, mrf as tmrf
     ported = {tepg: {'epg_state', 'epg_rf', 'epg_grad', 'epg_relax',
-                     'epg_diffusion', 'epg_spgr', 'ir_prep',
+                     'epg_diffusion', 'epg_spgr', 'epg_cpmg', 'ir_prep',
                      'rf_spoil_phases'},
               tmrf: {'Basis', 'MatchResult', 'pair_rotate', 'svd_basis',
                      'compress', 'dict_match', 'dict_match_compressed',
