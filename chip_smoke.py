@@ -205,6 +205,37 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     1e-8 (on an H100 the port met JAX at 4.5e-13 and 3.3e-16: these 400
     steps do not amplify the rounding, so 1e-8 leaves room for a change of
     summation order without hiding a wrong gradient).
+21. The two-pool EPG-X kernels ``xspgr_fwd``, ``xspgr_fwd_chk`` and
+    ``xspgr_bwd`` against their plain versions on the arguments
+    ``ops.epg.epgx_spgr`` gives them (``XSPGR_CASES``): ``bench_mrf``'s
+    two-pool dictionary (65,536 atoms × 400 TRs, K 48, tr 12 ms, float32),
+    timed, with its bound; float64, per-atom b1, per-atom dfb, kshift −1
+    with per-atom M0b, no detailed balance, a ragged atom count, the
+    default K with the state in device memory, and the segments phase 22a
+    gives the kernels (its dictionary's two, 65,536 atoms × 200 TRs at K
+    48, and its refinement's first step, 4096 grid atoms in one chunk).
+    Per-atom outputs (echoes,
+    checkpoints, the 17 per-atom gradient rows) at ``EPG_BAR`` of their
+    largest value (bit for bit expected; the rows that differ are named),
+    the adjoint's per-TR rows at ``XSPGR_ROW_BAR`` (5e-7 in float32, 1e-15
+    in float64).
+22. The exchange-MRF path through ``epgx_spgr``: (a) at full width
+    (``XMRF_PIPE``: ``examples/mrfx_exchange.py``'s pool and flips, two
+    200-TR segments at a scalar tr, a 256 × 256 (T1a, kab) dictionary of
+    65,536 atoms, 1,048,576 probe voxels), the dictionary timed in atoms
+    per second, the rank-16 compression and match in voxels per second
+    with the matched maps' median errors (bars 1.5 grid steps on T1a and
+    3 on kab; 1.5 on both axes for 4096 of the probes matched again in
+    float64, since float32 does not resolve the kab grid), 50 Adam steps of
+    ``match_refine(batched=True)`` on 4096 voxels
+    (s per step; both median errors must fall), peak memory and the
+    example's exchange-sensitivity check (> 2%); (b) the
+    ``examples/mrfx_exchange.py`` problem at a scalar tr in float64 through
+    the float64 kernels against the JAX package's results (literals below,
+    from ``tests/make_epgx_goldens.py``): the dictionary at 1e-10, the rank
+    and matched atom equal, the kab separation at 1e-10, the first loss and
+    its gradient at 1e-9, the 250 Adam steps' losses at 1e-8 of the first
+    and the fitted (T1a, kab) at rtol 1e-8.
 
 Launch counts are zeroed right before the forward path (phase 4) and read
 after it (``rfgr_fwd``, ``beff_fwd`` must have launched), zeroed again
@@ -217,9 +248,11 @@ the acquisition path (phase 13; ``sig_fwd``, ``sig_adj``, ``sig_vjp`` and
 launched), and again before the MRF path (phase 18; ``spgr_fwd``,
 ``spgr_fwd_chk``, ``spgr_bwd`` and ``match`` must have launched), and
 again before the T2-mapping path (phase 20; ``cpmg_fwd``, ``cpmg_fwd_chk``
-and ``cpmg_bwd`` must have launched). The comparisons with the plain
-versions (phases 2, 3, 5, 6, 9, 10, 12, 14, 16, 17, 19) run before and
-are not counted.
+and ``cpmg_bwd`` must have launched), and again before the exchange-MRF
+path (phase 22; ``xspgr_fwd``, ``xspgr_fwd_chk``, ``xspgr_bwd`` and
+``match`` must have launched). The comparisons with the plain versions
+(phases 2, 3, 5, 6, 9, 10, 12, 14, 16, 17, 19, 21) run before and are not
+counted.
 
 The line before the last is one JSON object with each kernel's launches
 on those paths, error, times and bound: ``bound_ms`` is the larger of the
@@ -669,6 +702,13 @@ KERNELS = {
                          replaces='mrphy_tpu/ops/epg_pallas.py:2029'),
     'cpmg_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/cpmg_bwd.cu',
                      replaces='mrphy_tpu/ops/epg_pallas.py:2063'),
+    'xspgr_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd.cu',
+                      replaces='mrphy_tpu/ops/epg_pallas.py:2512'),
+    'xspgr_fwd_chk': dict(
+        source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd.cu',
+        replaces='mrphy_tpu/ops/epg_pallas.py:2535'),
+    'xspgr_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xspgr_bwd.cu',
+                      replaces='mrphy_tpu/ops/epg_pallas.py:2567'),
 }
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
@@ -2742,6 +2782,57 @@ def spgr_args(kw):
     return coef.contiguous(), par.contiguous(), cdiff, cfg
 
 
+def sliced_err(a, b) -> float:
+    r""":func:`max_err` over slices of the leading axis of at most 2²⁸
+    elements each (the full-width checkpoints hold 13 GB in float32)."""
+    step = max(1, (1 << 28) // max(a[0].numel(), 1))
+    return max(max_err(a[i:i + step], b[i:i + step])
+               for i in range(0, a.shape[0], step))
+
+
+def compare_epg(name, run_kernel, run_plain, inputs, names, meta, dtype,
+                timed, row_bar):
+    r"""An EPG kernel against its plain version on the same arguments, their
+    outputs ``names`` compared slice by slice: the per-atom ones at
+    EPG_BAR of their largest value (bit for bit expected; the ``dpar`` rows
+    that differ are named), ``dcoef`` (per-step rows, sums over atoms that
+    the kernel takes by warps) at ``row_bar``; with ``timed``, the times,
+    the bound and ``library_ms`` (null: no single PyTorch call computes an
+    EPG train). Returns the row (``meta`` first)."""
+    kout, pout = run_kernel(), run_plain()
+    torch.cuda.synchronize()
+    if isinstance(kout, torch.Tensor):
+        kout, pout = (kout,), (pout,)
+    pairs = dict(zip(names, zip(kout, pout)))
+    abs_errs = {k: sliced_err(a, b) for k, (a, b) in pairs.items()}
+    errs = {k: e / max(float(pairs[k][1].abs().max()), 1e-30)
+            for k, e in abs_errs.items()}
+    atom = [k for k in pairs if k != 'dcoef']
+    row = dict(case=meta.pop('case'), dtype=str(dtype).replace('torch.', ''),
+               **meta, err=errs, bar=EPG_BAR[dtype], row_bar=row_bar[dtype],
+               per_atom_bit_identical=all(torch.equal(*pairs[k])
+                                          for k in atom),
+               max_abs_err=max(abs_errs[k] for k in atom),
+               max_rel_err=max(errs[k] for k in atom))
+    if 'dcoef' in pairs:
+        row['max_row_rel_err'] = errs['dcoef']
+        a, b = pairs['dpar']
+        row['dpar_rows_differing'] = [i for i in range(a.shape[0])
+                                      if not torch.equal(a[i], b[i])]
+    del kout, pairs
+    if timed:
+        row['ms'] = time_ms(run_kernel)
+        row['plain_ms'] = time_ms(run_plain, reps=2)
+        row.update(bound(run_plain, inputs, pout))
+        row['library_ms'] = None
+    del pout
+    print(f'{name} {row["case"]}: ' + json.dumps(row), flush=True)
+    for k, e in errs.items():
+        bar = row_bar[dtype] if k == 'dcoef' else EPG_BAR[dtype]
+        check(e <= bar, f'{name} {row["case"]} {k}: {e} > {bar}')
+    return row
+
+
 def phase_epg_kernels(dev):
     r"""Phase 16: ``spgr_fwd``, ``spgr_fwd_chk`` and ``spgr_bwd`` against
     their plain versions on EPG_CASES (the adjoint fed the kernel's
@@ -2775,43 +2866,16 @@ def phase_epg_kernels(dev):
                 lambda: kepg.spgr_bwd_torch(coef, par, cdiff, cfg, chk, g,
                                             tc=tc),
                 (coef, par, cdiff, chk, g))}
+        names = {'spgr_fwd': ('sig',), 'spgr_fwd_chk': ('sig', 'chk'),
+                 'spgr_bwd': ('dcoef', 'dpar')}
         for name, (run_kernel, run_plain, inputs) in runs.items():
-            kout, pout = run_kernel(), run_plain()
-            torch.cuda.synchronize()
-            # per-atom outputs; the adjoint's per-TR rows (summed over
-            # atoms) apart
-            if name == 'spgr_bwd':
-                pairs = dict(dpar=(kout[1], pout[1]),
-                             dcoef=(kout[0], pout[0]))
-            elif name == 'spgr_fwd':
-                pairs = dict(sig=(kout, pout))
-            else:
-                pairs = dict(sig=(kout[0], pout[0]), chk=(kout[1], pout[1]))
-            errs = {k: row_err(a, b) for k, (a, b) in pairs.items()}
-            atom = [k for k in pairs if k != 'dcoef']
-            row = dict(case=label, dtype=str(dtype).replace('torch.', ''),
-                       nA=nA, nTR=nTR, K=cfg.K, kshift=cfg.kshift, tc=tc,
-                       threads_state=kepg.launch_cfg(cfg.K,
-                                                     par.element_size()),
-                       err=errs, bar=EPG_BAR[dtype],
-                       row_bar=EPG_ROW_BAR[dtype],
-                       per_atom_bit_identical=all(
-                           torch.equal(*pairs[k]) for k in atom),
-                       max_abs_err=max(max_err(*pairs[k]) for k in atom),
-                       max_rel_err=max(errs[k] for k in atom))
-            if name == 'spgr_bwd':
-                row['max_row_rel_err'] = errs['dcoef']
-            if timed:
-                row['ms'] = time_ms(run_kernel)
-                row['plain_ms'] = time_ms(run_plain, reps=2)
-                row.update(bound(run_plain, inputs, pout))
-                row['library_ms'] = None
-            del kout, pout
-            rows[name].append(row)
-            print(f'{name} {label}: ' + json.dumps(row), flush=True)
-            for k, e in errs.items():
-                bar = EPG_ROW_BAR[dtype] if k == 'dcoef' else EPG_BAR[dtype]
-                check(e <= bar, f'{name} {label} {k}: {e} > {bar}')
+            meta = dict(case=label, nA=nA, nTR=nTR, K=cfg.K,
+                        kshift=cfg.kshift, tc=tc,
+                        threads_state=kepg.launch_cfg(cfg.K,
+                                                      par.element_size()))
+            rows[name].append(compare_epg(
+                name, run_kernel, run_plain, inputs, names[name], meta,
+                dtype, timed, EPG_ROW_BAR))
         del coef, par, cdiff, sig, chk, g
     out = {}
     for D in (False, True):
@@ -3273,12 +3337,6 @@ def cpmg_case(nA, nE, dtype, dev, *, t2map=False, b1=False, varesp=False,
     return flips, kw
 
 
-def sliced_err(a, b) -> float:
-    r""":func:`max_err` one slice of the leading axis at a time (the
-    full-width checkpoints hold 13 GB in float32)."""
-    return max(max_err(x, y) for x, y in zip(a, b))
-
-
 def phase_cpmg_kernels(dev):
     r"""Phase 19: ``cpmg_fwd``, ``cpmg_fwd_chk`` and ``cpmg_bwd`` against
     their plain versions on CPMG_CASES, the arguments ``epg_cpmg`` gives
@@ -3310,43 +3368,15 @@ def phase_cpmg_kernels(dev):
                 lambda: kepg.cpmg_bwd(*args, chk, gr, gi, tc=tc),
                 lambda: kepg.cpmg_bwd_torch(*args, chk, gr, gi, tc=tc),
                 args[:4] + (chk, gr, gi))}
+        names = {'cpmg_fwd': ('er', 'ei'), 'cpmg_fwd_chk': ('er', 'ei', 'chk'),
+                 'cpmg_bwd': ('dcoef', 'dpar')}
         for name, (run_kernel, run_plain, inputs) in runs.items():
-            kout, pout = run_kernel(), run_plain()
-            torch.cuda.synchronize()
-            # per-atom outputs; the adjoint's per-echo rows (summed over
-            # atoms) apart
-            names = (('dcoef', 'dpar') if name == 'cpmg_bwd' else
-                     ('er', 'ei', 'chk')[:len(kout)])
-            pairs = dict(zip(names, zip(kout, pout)))
-            abs_errs = {k: sliced_err(a, b) for k, (a, b) in pairs.items()}
-            errs = {k: e / max(float(pairs[k][1].abs().max()), 1e-30)
-                    for k, e in abs_errs.items()}
-            atom = [k for k in pairs if k != 'dcoef']
-            row = dict(case=label, dtype=str(dtype).replace('torch.', ''),
-                       nA=nA, nE=nE, K=cfg.K, tc=tc,
-                       threads_state=kepg.launch_cfg(cfg.K,
-                                                     par.element_size()),
-                       err=errs, bar=EPG_BAR[dtype],
-                       row_bar=EPG_ROW_BAR[dtype],
-                       per_atom_bit_identical=all(
-                           torch.equal(*pairs[k]) for k in atom),
-                       max_abs_err=max(abs_errs[k] for k in atom),
-                       max_rel_err=max(errs[k] for k in atom))
-            if name == 'cpmg_bwd':
-                row['max_row_rel_err'] = errs['dcoef']
-            del kout, pairs
-            if timed:
-                row['ms'] = time_ms(run_kernel)
-                row['plain_ms'] = time_ms(run_plain, reps=2)
-                row.update(bound(run_plain, inputs, pout))
-                # no single PyTorch call computes an EPG train
-                row['library_ms'] = None
-            del pout
-            rows[name].append(row)
-            print(f'{name} {label}: ' + json.dumps(row), flush=True)
-            for k, e in errs.items():
-                bar = EPG_ROW_BAR[dtype] if k == 'dcoef' else EPG_BAR[dtype]
-                check(e <= bar, f'{name} {label} {k}: {e} > {bar}')
+            meta = dict(case=label, nA=nA, nE=nE, K=cfg.K, tc=tc,
+                        threads_state=kepg.launch_cfg(cfg.K,
+                                                      par.element_size()))
+            rows[name].append(compare_epg(
+                name, run_kernel, run_plain, inputs, names[name], meta,
+                dtype, timed, EPG_ROW_BAR))
         del args, coef, par, dq, chk, gr, gi
     print(f'phase 19 took {time.perf_counter() - t0:.1f} s', flush=True)
     return rows
@@ -3549,6 +3579,509 @@ def cpmg_example(dev):
                                     .abs() / Dt).max()))
 
 
+# ==========================================================================
+# The exchange-MRF path (phases 21-22)
+# ==========================================================================
+
+# benchmarks/suite.py bench_mrf (lines 560-600): the two-pool (EPG-X)
+# dictionary, 65,536 atoms × 400 TRs, K 48, tr 12 ms, its flip train (10-60°
+# in smooth lobes plus 0.01 rad of noise, no phase), T1a ∈ [0.2, 3] s, T2a ∈
+# [0.02, 0.5] s, T1b ∈ [0.2, 0.6] s, T2b ∈ [5, 30] ms, kab ∈ [1, 10] /s, kba
+# ∈ [5, 40] /s, M0a 1 and M0b 0.1 (the defaults: no detailed balance); numpy
+# default_rng drawn in bench_mrf's order.
+XMRF = dict(nA=65536, nTR=400, K=48, tr=12e-3)
+# Bars on the adjoint's per-TR rows (sums over atoms, by warps and then over
+# warps in a fixed order, against torch.sum): max|Δ| / max|row|. Per-atom
+# outputs at EPG_BAR (bit for bit expected).
+XSPGR_ROW_BAR = {torch.float32: 5e-7, torch.float64: 1e-15}
+# The EPG-X kernels' cases (phase 21): label, atoms, TRs, K (None: the
+# default nTR·|kshift| + 1), dtype, xmrf_case keywords (or ``pipe=True``
+# and a flip ``scale``: mrfx_pipe_case, the segments phase 22a's
+# exchange-MRF path gives the kernels), timed.
+XSPGR_CASES = (
+    ('bench_mrf two-pool 64k x 400, K 48', 65536, 400, 48, torch.float32, {},
+     True),
+    ('f64 8192 x 200, K 32, b1, dfb, M0b, rf-spoiled', 8192, 200, 32,
+     torch.float64, dict(b1=True, dfb=True, M0b=True, phis=True), False),
+    ('16k x 200, K 32, b1', 16384, 200, 32, torch.float32, dict(b1=True),
+     False),
+    ('16k x 200, K 32, dfb -20..20 Hz, rf-spoiled', 16384, 200, 32,
+     torch.float32, dict(dfb=True, phis=True), False),
+    ('16k x 200, K 32, kshift -1, M0b', 16384, 200, 32, torch.float32,
+     dict(kshift=-1, M0b=True), False),
+    ('16k x 200, K 32, no detailed balance (kab 8, kba 3, M0b 0.4)', 16384,
+     200, 32, torch.float32, dict(ndb=True), False),
+    ('ragged 1001 x 200, K 32, b1, dfb', 1001, 200, 32, torch.float32,
+     dict(b1=True, dfb=True), False),
+    ('2048 x 200, default K 201 (device-memory state)', 2048, 200, None,
+     torch.float32, {}, False),
+    ('f64 1000 x 100, default K 101 (device-memory state), b1', 1000, 100,
+     None, torch.float64, dict(b1=True), False),
+    ('exchange-MRF dictionary segment 65,536 x 200, K 48, 0.5x flips',
+     65536, 200, 48, torch.float32, dict(pipe=True, scale=0.5), False),
+    ('exchange-MRF dictionary segment 65,536 x 200, K 48, 1.6x flips',
+     65536, 200, 48, torch.float32, dict(pipe=True, scale=1.6), False),
+    ('exchange-MRF refinement 4096 x 200, K 48, 1.6x flips (tc = nTR)',
+     4096, 200, 48, torch.float32, dict(pipe=True, scale=1.6), False),
+)
+XSPGR_KERNELS = ('xspgr_fwd', 'xspgr_fwd_chk', 'xspgr_bwd')
+
+
+def xmrf_case(nA, nTR, K, dtype, dev, *, b1=False, dfb=False, M0b=False,
+              phis=False, kshift=1, ndb=False, seed=0):
+    r"""``epgx_spgr`` keywords of bench_mrf's two-pool train at ``nA`` atoms
+    × ``nTR`` TRs from ``seed`` (the flips' noise and the maps drawn in
+    bench_mrf's order) and, as asked: per-atom b1 ∈ [0.8, 1.2], dfb ∈ [−20,
+    20] Hz, M0b ∈ [0.05, 0.3], rf-spoiled phases, ``kshift``, or no
+    detailed balance (kab 8, kba 3, M0b 0.4)."""
+    from mrphy_tpu_torch.ops import epg
+    rng = np.random.default_rng(seed)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    t = np.arange(nTR)
+    kw = dict(flips=arr(np.deg2rad(10 + 50 * np.abs(np.sin(t / 40.0)))
+                        + 0.01 * rng.standard_normal(nTR)),
+              phis=(epg.rf_spoil_phases(nTR, dtype=dtype, device=dev) if phis
+                    else None),
+              T1a=arr(rng.uniform(0.2, 3.0, nA)),
+              T2a=arr(rng.uniform(0.02, 0.5, nA)),
+              T1b=arr(rng.uniform(0.2, 0.6, nA)),
+              T2b=arr(rng.uniform(0.005, 0.03, nA)),
+              kab=arr(rng.uniform(1.0, 10.0, nA)),
+              kba=arr(rng.uniform(5.0, 40.0, nA)), tr=XMRF['tr'],
+              kshift=kshift, K=K)
+    if b1:
+        kw['b1'] = arr(rng.uniform(0.8, 1.2, nA))
+    if dfb:
+        kw['dfb'] = arr(rng.uniform(-20, 20, nA))
+    if M0b:
+        kw['M0b'] = arr(rng.uniform(0.05, 0.3, nA))
+    if ndb:
+        kw.update(kab=8.0, kba=3.0, M0a=1.0, M0b=0.4)
+    return kw
+
+
+def xspgr_args(kw):
+    r"""The kernels' arguments ``(coef, par, cfg)`` for ``epgx_spgr(**kw)``
+    (``ops.epg._xspgr_rows``)."""
+    from mrphy_tpu_torch.ops import epg
+    kw = dict(kw)
+    coef, par, cfg, _ = epg._xspgr_rows(kw.pop('flips'), kw.pop('phis'),
+                                        **kw)
+    return coef.contiguous(), par.contiguous(), cfg
+
+
+def phase_xspgr_kernels(dev):
+    r"""Phase 21: ``xspgr_fwd``, ``xspgr_fwd_chk`` and ``xspgr_bwd`` against
+    their plain versions on XSPGR_CASES, the arguments ``epgx_spgr`` gives
+    them (among them the dictionary segments and the refinement step of
+    phase 22a's path, at its chunk; the adjoint fed the kernel's
+    checkpoints and a cotangent drawn from a seed, the plain adjoint
+    written out, with no autograd graph); the
+    timed full-width case with its bound. Per-atom outputs (echoes,
+    checkpoints, the 17 per-atom gradient rows) at EPG_BAR of their largest
+    value (bit for bit expected), the per-TR rows at XSPGR_ROW_BAR. Returns
+    each kernel's rows."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    t0 = time.perf_counter()
+    rows = {name: [] for name in XSPGR_KERNELS}
+    for seed, (label, nA, nTR, K, dtype, kw, timed) in enumerate(
+            XSPGR_CASES, 210):
+        kw = dict(kw)
+        make = mrfx_pipe_case if kw.pop('pipe', False) else xmrf_case
+        coef, par, cfg = xspgr_args(make(nA, nTR, K, dtype, dev, seed=seed,
+                                         **kw))
+        tc = kepg.pick_tc(nTR, cfg.K, nA, par.element_size(), kx.PLANES)
+        chk = kx.xspgr_fwd_chk(coef, par, cfg, tc=tc)[1]
+        g = cotangent(torch.empty((nA, nTR, 2), dtype=dtype, device=dev),
+                      seed)
+        runs = {
+            'xspgr_fwd': (lambda: kx.xspgr_fwd(coef, par, cfg),
+                          lambda: kx.xspgr_fwd_torch(coef, par, cfg),
+                          (coef, par)),
+            'xspgr_fwd_chk': (
+                lambda: kx.xspgr_fwd_chk(coef, par, cfg, tc=tc),
+                lambda: kx.xspgr_fwd_chk_torch(coef, par, cfg, tc=tc),
+                (coef, par)),
+            'xspgr_bwd': (
+                lambda: kx.xspgr_bwd(coef, par, cfg, chk, g, tc=tc),
+                lambda: kx.xspgr_bwd_torch(coef, par, cfg, chk, g, tc=tc),
+                (coef, par, chk, g))}
+        names = {'xspgr_fwd': ('sig',), 'xspgr_fwd_chk': ('sig', 'chk'),
+                 'xspgr_bwd': ('dcoef', 'dpar')}
+        for name, (run_kernel, run_plain, inputs) in runs.items():
+            meta = dict(case=label, nA=nA, nTR=nTR, K=cfg.K,
+                        kshift=cfg.kshift, tc=tc,
+                        threads_state=kepg.launch_cfg(
+                            cfg.K, par.element_size(), kx.PLANES))
+            rows[name].append(compare_epg(
+                name, run_kernel, run_plain, inputs, names[name], meta,
+                dtype, timed, XSPGR_ROW_BAR))
+        del coef, par, chk, g
+    print(f'phase 21 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return rows
+
+
+# The exchange-MRF path at full width (phase 22a): examples/mrfx_exchange.py's
+# pool (T2a 80 ms, T1b 1 s, T2b 20 ms, M0a 1, M0b 0.15, kba = kab/M0b) and
+# flip train (8-63° in smooth lobes), in two segments at 0.5× and 1.6× the
+# train, each 200 TRs of rf-spoiled phases at a scalar tr of 15 ms (the
+# example's variable-TR train needs slice 10d's kernels), K 48, float32; a
+# 256 × 256 (T1a, kab) grid, T1a geometric 0.4-2.2 s, kab linear 1-15 /s:
+# 65,536 atoms; a rank-16 pair basis; 1,048,576 probe voxels at 4096
+# off-grid truths (T1a, kab uniform in log T1a and in kab inside the grid,
+# numpy default_rng(0)), 256 voxels a truth, each with a receive phase and
+# noise 1e-5 (a torch generator seeded 0 on the card); the probes of one
+# voxel per truth (4096) also matched in float64; 50 Adam steps (lr 0.02)
+# refine those 4096 voxels. The noise: at 1e-4 the maximum-likelihood kab
+# of a voxel lies further from its truth than the grid's half step, so no
+# refinement could lower the kab error.
+XMRF_PIPE = dict(ntr=200, ngrid=256, tr=0.015, K=48, rank=16, nV=1 << 20,
+                 ntruth=4096, noise=1e-5, iters=50, lr=0.02,
+                 T1a=(0.4, 2.2), kab=(1.0, 15.0), scales=(0.5, 1.6))
+XMRF_POOL = dict(T2a=0.08, T1b=1.0, T2b=0.02, M0a=1.0, M0b=0.15)
+
+
+def mrfx_grid(dev):
+    r"""XMRF_PIPE's (T1a, kab) grid: its axes ``(t1g, kg)`` (numpy) and its
+    atoms ``(T1a, kab)`` (float32 on ``dev``, T1a-major)."""
+    c = XMRF_PIPE
+    t1g = np.geomspace(*c['T1a'], c['ngrid'])
+    kg = np.linspace(*c['kab'], c['ngrid'])
+    T1g, Kg = np.meshgrid(t1g, kg, indexing='ij')
+    return (t1g, kg,
+            torch.tensor(T1g.ravel(), dtype=torch.float32, device=dev),
+            torch.tensor(Kg.ravel(), dtype=torch.float32, device=dev))
+
+
+def mrfx_pipe_case(nA, nTR, K, dtype, dev, *, scale, seed=0):
+    r"""``epgx_spgr`` keywords of one segment of phase 22a's path (the
+    train at ``scale`` of the example's flips, as :func:`mrfx_gen` gives
+    them) at the grid's atoms: all of them (the dictionary) or ``nA`` drawn
+    from ``seed`` (the refinement's first step: matched grid atoms)."""
+    c = XMRF_PIPE
+    _, _, T1a, kab = mrfx_grid(dev)
+    check(nTR == c['ntr'] and nA <= T1a.shape[0],
+          f'{nA} x {nTR} is not an exchange-MRF segment')
+    if nA < T1a.shape[0]:
+        sel = torch.as_tensor(np.random.default_rng(seed).choice(
+            T1a.shape[0], nA, replace=False), device=dev)
+        T1a, kab = T1a[sel], kab[sel]
+    flips, phis = mrfx_train(nTR, dtype, dev)
+    T1a, kab = T1a.to(dtype), kab.to(dtype)
+    return dict(XMRF_POOL, flips=flips * scale, phis=phis, T1a=T1a, kab=kab,
+                kba=kab / XMRF_POOL['M0b'], tr=c['tr'], K=K)
+
+
+def mrfx_train(ntr, dtype, dev):
+    r"""examples/mrfx_exchange.py's flip train and rf-spoiled phases."""
+    from mrphy_tpu_torch.ops import epg
+    t = np.arange(ntr)
+    flips = torch.tensor(np.deg2rad(8 + 55 * np.abs(np.sin(np.pi * t / 60))),
+                         dtype=dtype, device=dev)
+    return flips, epg.rf_spoil_phases(ntr, dtype=dtype, device=dev)
+
+
+def mrfx_gen(flips, phis, T1a, kab, *, tr, K, scales):
+    r"""The exchange-MRF signal of (T1a, kab): the two flip-scale segments
+    of ``epgx_spgr`` at the example's pool, concatenated along the TRs."""
+    from mrphy_tpu_torch.ops import epg
+    kw = dict(XMRF_POOL, T1a=T1a, kab=kab, kba=kab / XMRF_POOL['M0b'],
+              tr=tr, K=K)
+    return torch.cat([epg.epgx_spgr(flips * f, phis, **kw) for f in scales],
+                     dim=-2)
+
+
+def phase_mrfx_path(dev):
+    r"""Phase 22: the exchange-MRF path through the entry points. (a) At
+    XMRF_PIPE's full width: the ``epgx_spgr`` dictionary (``xspgr_fwd``),
+    timed in atoms per second; ``svd_basis``, ``compress`` and
+    ``dict_match_compressed`` of the 1M probe voxels (``match``), timed in
+    voxels per second, with the matched maps' median errors (relative, and
+    in grid steps: bars 1.5 on T1a and 3 on kab; float32 does not resolve
+    the kab grid, so the probes of 4096 voxels are matched again in
+    float64, bar 1.5 grid steps on both axes);
+    ``match_refine(batched=True)`` of 4096 voxels (``xspgr_fwd_chk`` +
+    ``xspgr_bwd`` per segment and step), s per step, with the refined
+    medians (both must fall); peak memory; the
+    example's exchange-sensitivity check (kab 1 against 15 moves the
+    signal by more than 2%). (b) The MRFX_EX problem in float64 against
+    JAX's literals (:func:`mrfx_example`)."""
+    from mrphy_tpu_torch.ops import mrf
+    t0 = time.perf_counter()
+    c = XMRF_PIPE
+    out, bars = {}, {}
+    flips, phis = mrfx_train(c['ntr'], torch.float32, dev)
+    seq = dict(tr=c['tr'], K=c['K'], scales=c['scales'])
+    n = c['ngrid']
+    t1g, kg, T1, Kab = mrfx_grid(dev)
+    # exchange sensitivity: kab must move the signal
+    one = torch.ones(1, device=dev)
+    s_lo = mrfx_gen(flips, phis, one, one, **seq)
+    s_hi = mrfx_gen(flips, phis, one, 15 * one, **seq)
+    out['kab_separation'] = float((s_lo - s_hi).abs().max()
+                                  / s_lo.abs().max())
+    check(out['kab_separation'] > 0.02,
+          f"kab separation {out['kab_separation']} <= 0.02")
+
+    def dictionary():
+        return mrfx_gen(flips, phis, T1, Kab, **seq)
+
+    D = dictionary()
+    torch.cuda.synchronize()
+    check(D.shape == (n * n, 2 * c['ntr'], 2)
+          and bool(torch.isfinite(D).all()), 'exchange-MRF dictionary')
+    tms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        dictionary()
+        torch.cuda.synchronize()
+        tms.append(time.perf_counter() - t1)
+    t_dict = statistics.median(tms)
+    # the probes: 4096 off-grid truths, 256 voxels each
+    rng = np.random.default_rng(0)
+    nt, nV = c['ntruth'], c['nV']
+    T1t = np.exp(rng.uniform(np.log(t1g[1]), np.log(t1g[-2]), nt))
+    Kt = rng.uniform(kg[1], kg[-2], nt)
+    ph = torch.as_tensor(rng.uniform(-np.pi, np.pi, nV), dtype=torch.float32,
+                         device=dev)[:, None, None]
+    truth = torch.arange(nV, device=dev) % nt
+    S = mrfx_gen(flips, phis, torch.tensor(T1t, dtype=torch.float32,
+                                           device=dev),
+                 torch.tensor(Kt, dtype=torch.float32, device=dev), **seq)
+    X = S[truth]
+    X = torch.cos(ph) * X + torch.sin(ph) * torch.stack(
+        [-X[..., 1], X[..., 0]], -1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    X += c['noise'] * torch.randn(X.shape, generator=gen, dtype=X.dtype,
+                                  device=dev)
+    del S
+
+    def match():
+        basis = mrf.svd_basis(D, rank=c['rank'])
+        return mrf.dict_match_compressed(mrf.compress(D, basis),
+                                         mrf.compress(X, basis), basis)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = match()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = match()
+    torch.cuda.synchronize()
+    t_match = time.perf_counter() - t1
+    idx = res.idx.long().cpu().numpy()
+    tt = truth.cpu().numpy()
+    i1, ik = idx // n, idx % n
+    step1 = np.abs(np.log(t1g[i1] / T1t[tt])) / np.log(t1g[1] / t1g[0])
+    stepk = np.abs(kg[ik] - Kt[tt]) / (kg[1] - kg[0])
+    out.update(
+        atoms=n * n, dict_ms=t_dict * 1e3, dict_atoms_per_s=n * n / t_dict,
+        match_ms=t_match * 1e3, match_voxels_per_s=nV / t_match,
+        match_median_T1a_relerr=float(np.median(np.abs(t1g[i1] / T1t[tt]
+                                                       - 1))),
+        match_median_kab_relerr=float(np.median(np.abs(kg[ik] / Kt[tt] - 1))),
+        match_median_T1a_steps=float(np.median(step1)),
+        match_median_kab_steps=float(np.median(stepk)),
+        match_p90_kab_steps=float(np.percentile(stepk, 90)))
+    # float32 resolves T1a to the grid but not kab: one of the 255 kab
+    # steps moves a normalized atom by ~1e-4, below what the float32
+    # dictionary and scores hold apart (on the H100 the same probes match
+    # kab to a median 1.76 steps in float32 and 0.30 in float64); the
+    # float32 kab match is held to 3 steps, and the same probes of one
+    # voxel per truth are matched in float64 (the float64 kernels) against
+    # the float64 dictionary, and held to 1.5 grid steps on both axes
+    sel = np.arange(nt)
+    f64 = dict(dtype=torch.float64, device=dev)
+    fl64, ph64 = mrfx_train(c['ntr'], torch.float64, dev)
+    D64 = mrfx_gen(fl64, ph64, T1.to(**f64), Kab.to(**f64), **seq)
+    basis64 = mrf.svd_basis(D64, rank=c['rank'])
+    res64 = mrf.dict_match_compressed(
+        mrf.compress(D64, basis64), mrf.compress(X[sel].to(**f64), basis64),
+        basis64)
+    del D64
+    j = res64.idx.long().cpu().numpy()
+    out.update(
+        match64_median_T1a_steps=float(np.median(
+            np.abs(np.log(t1g[j // n] / T1t)) / np.log(t1g[1] / t1g[0]))),
+        match64_median_kab_steps=float(np.median(
+            np.abs(kg[j % n] - Kt) / (kg[1] - kg[0]))))
+    bars.update(match_median_T1a_steps=1.5, match_median_kab_steps=3.0,
+                match64_median_T1a_steps=1.5, match64_median_kab_steps=1.5)
+    # refinement of one voxel of every truth, from its matched atom
+    p0 = torch.log(torch.stack([T1[idx[sel]], Kab[idx[sel]]], -1))
+
+    def sig_b(P):
+        return mrfx_gen(flips, phis, torch.exp(P[:, 0]), torch.exp(P[:, 1]),
+                        **seq)
+
+    def refine(iters):
+        return mrf.match_refine(sig_b, p0, X[sel], iters=iters, lr=c['lr'],
+                                batched=True)
+
+    refine(1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    P, score = refine(c['iters'])
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t1
+    check(bool(torch.isfinite(P).all()), 'refined parameters finite')
+    P = torch.exp(P).cpu().numpy()
+    out.update(
+        refine_voxels=nt, refine_s=t_ref,
+        refine_s_per_step=t_ref / c['iters'],
+        refine_voxels_per_s_per_step=nt / (t_ref / c['iters']),
+        refine_median_T1a_relerr=float(np.median(np.abs(P[:, 0] / T1t - 1))),
+        refine_median_kab_relerr=float(np.median(np.abs(P[:, 1] / Kt - 1))),
+        refine_start_median_T1a_relerr=float(np.median(np.abs(
+            t1g[i1[sel]] / T1t - 1))),
+        refine_start_median_kab_relerr=float(np.median(np.abs(
+            kg[ik[sel]] / Kt - 1))),
+        refine_min_score=float(score.min()),
+        peak_mem_GB=torch.cuda.max_memory_allocated(dev) / 1e9)
+    check(out['refine_median_T1a_relerr']
+          < out['refine_start_median_T1a_relerr']
+          and out['refine_median_kab_relerr']
+          < out['refine_start_median_kab_relerr'],
+          'refinement did not lower both medians: ' + json.dumps(out))
+    del D, X, res, P, score
+    # (b) examples/mrfx_exchange.py in float64 against JAX
+    out.update(mrfx_example(dev))
+    bars.update(example_D=1e-10, example_sep=1e-10, example_loss0=1e-9,
+                example_grad0=1e-9, example_losses=1e-8, example_p=1e-8)
+    print('exchange-MRF path: ' + json.dumps(dict(measured=out, bars=bars)),
+          flush=True)
+    for key, bar in bars.items():
+        check(out[key] <= bar, f'{key}: {out[key]} > {bar}')
+    print(f'phase 22 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return out
+
+
+# examples/mrfx_exchange.py's problem at its defaults, float64 here, with
+# one change: a scalar tr of 15 ms in place of its variable-TR train (which
+# needs slice 10d's kernels): 150 TRs a segment (two, at 0.5× and 1.6× the
+# flip train), K 16, a 10 × 8 (T1a, kab) grid, an SVD basis at energy 1 −
+# 1e-8, the off-grid probe (T1a 0.93 s, kab 11.3 /s) matched, then 250 Adam
+# steps (lr 0.02) of (log T1a, log kab) from the matched atom on 1 − the
+# real correlation.
+MRFX_EX = dict(ntr=150, nt1=10, nk=8, K=16, tr=0.015, T1a=0.93, kab=11.3,
+               iters=250, lr=0.02, energy=1 - 1e-8, scales=(0.5, 1.6))
+# the dictionary entries held to JAX: (atom, TR of the concatenated train)
+MRFX_EX_ENTRIES = [(0, 0), (0, 299), (17, 3), (40, 151), (63, 100),
+                   (79, 299)]
+MRFX_EX_LOSS_STEPS = [0, 1, 50, 100, 150, 200, 249]
+
+
+def mrfx_example_arrays():
+    r"""MRFX_EX's dictionary axes ``(T1a (nA,), kab (nA,))``, numpy
+    float64, T1a-major as the example's meshgrid."""
+    c = MRFX_EX
+    T1g, Kg = np.meshgrid(np.geomspace(0.4, 2.2, c['nt1']),
+                          np.linspace(1.0, 15.0, c['nk']), indexing='ij')
+    return T1g.ravel(), Kg.ravel()
+
+
+# mrphy_tpu (JAX, XLA route on the CPU), float64, on the MRFX_EX problem
+# (tests/make_epgx_goldens.py prints these): the dictionary at
+# MRFX_EX_ENTRIES (re, im) and its largest |value|, the basis rank, the
+# matched atom, the kab separation, the first loss and its gradient w.r.t.
+# (log T1a, log kab), the losses at MRFX_EX_LOSS_STEPS and the fitted
+# (T1a, kab).
+GOLDEN_MRFX = {
+    'D': [[0.0, -0.0802199448057441],
+          [-0.006695382268347502, -0.028735070895882158],
+          [-5.5868086038517835e-06, -0.1640720721573888],
+          [1.0654452704522338e-17, -0.3355787123058885],
+          [-0.010040901094602322, -0.04285965008561367],
+          [-0.0012989589194463357, -0.006510328371891296]],
+    'D_max': 0.4715652189210845, 'rank': 16, 'idx': 37,
+    'sep': 0.025792724039857003, 'loss0': 0.00033162577368928137,
+    'grad0': [-0.007797452379858386, 3.7780880782582227e-06],
+    'losses': [0.00033162577368928137,
+               0.00019427860960341548,
+               2.1449078291269075e-08,
+               3.233995404805512e-09,
+               2.794076081613639e-11,
+               7.771561172376096e-16,
+               2.220446049250313e-16],
+    'p': [0.9299999201121518, 11.29999474319172]}
+
+
+def mrfx_example(dev):
+    r"""The MRFX_EX problem in float64 on the card against GOLDEN_MRFX,
+    through ``epgx_spgr`` with shared ``(nTR,)`` trains at scalar tissue (so
+    the float64 kernels run): the dictionary entries relative to its
+    largest value, the basis rank, the matched atom and the kab separation
+    equal or at 1e-10, the first loss and its gradient at 1e-9, the losses
+    along the fit at 1e-8 of the first (they fall to 1 − a correlation of
+    1 to rounding, ~1e-16, where a relative bar would compare rounding),
+    the fitted (T1a, kab) at rtol 1e-8."""
+    from mrphy_tpu_torch.ops import mrf
+    c, gold = MRFX_EX, GOLDEN_MRFX
+    f64 = dict(dtype=torch.float64, device=dev)
+    flips, phis = mrfx_train(c['ntr'], torch.float64, dev)
+    seq = dict(tr=c['tr'], K=c['K'], scales=c['scales'])
+    T1, Kab = (torch.as_tensor(x, **f64) for x in mrfx_example_arrays())
+
+    def gen(t1a, kab):
+        return mrfx_gen(flips, phis, t1a, kab, **seq)
+
+    D = gen(T1, Kab)
+    basis = mrf.svd_basis(D, energy=c['energy'])
+    probe = gen(torch.tensor(c['T1a'], **f64), torch.tensor(c['kab'], **f64))
+    res = mrf.dict_match_compressed(mrf.compress(D, basis), probe[None],
+                                    basis)
+    i = int(res.idx[0])
+    s_lo = gen(torch.tensor(1.0, **f64), torch.tensor(1.0, **f64))
+    s_hi = gen(torch.tensor(1.0, **f64), torch.tensor(15.0, **f64))
+    sep = float((s_lo - s_hi).abs().max() / s_lo.abs().max())
+    check(i == gold['idx'], f"example match {i} != JAX's {gold['idx']}")
+    check(basis.B.shape[1] == gold['rank'],
+          f"example rank {basis.B.shape[1]} != JAX's {gold['rank']}")
+    pr = probe.reshape(-1)
+    p = {'l1': torch.log(T1[i]).clone().requires_grad_(),
+         'lk': torch.log(Kab[i]).clone().requires_grad_()}
+
+    def loss():
+        s = gen(torch.exp(p['l1']), torch.exp(p['lk'])).reshape(-1)
+        return 1.0 - torch.sum(s * pr) / torch.sqrt(torch.sum(s * s)
+                                                     * torch.sum(pr * pr))
+
+    opt = torch.optim.Adam(list(p.values()), lr=c['lr'])
+    losses = []
+    for it in range(c['iters']):
+        opt.zero_grad()
+        val = loss()
+        val.backward()
+        if it == 0:
+            g0 = [float(p[k].grad) for k in ('l1', 'lk')]
+        opt.step()
+        losses.append(float(val.detach()))
+    ents = torch.stack([D[a, t] for a, t in MRFX_EX_ENTRIES]).cpu().numpy()
+    fit = [float(torch.exp(p['l1'].detach())),
+           float(torch.exp(p['lk'].detach()))]
+
+    def rel(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+    return dict(
+        example_D=float(np.abs(ents - np.asarray(gold['D'])).max()
+                        / gold['D_max']),
+        example_sep=rel(sep, gold['sep']),
+        example_loss0=rel(losses[0], gold['loss0']),
+        example_grad0=float(np.max(np.abs(np.asarray(g0)
+                                          - gold['grad0']))
+                            / np.abs(gold['grad0']).max()),
+        example_losses=float(np.max(np.abs(
+            np.asarray([losses[k] for k in MRFX_EX_LOSS_STEPS])
+            - gold['losses'])) / gold['loss0']),
+        example_p=rel(fit, gold['p']), example_idx=i,
+        example_T1a_fit=fit[0], example_kab_fit=fit[1])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False',
@@ -3556,6 +4089,7 @@ def main() -> int:
         return 1
     from mrphy_tpu_torch.kernels import _build, bloch
     from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
     from mrphy_tpu_torch.kernels import mc as kmc
     from mrphy_tpu_torch.kernels import mrf as kmrf
     from mrphy_tpu_torch.kernels import nufft as knf
@@ -3601,16 +4135,18 @@ def main() -> int:
     epg_rows = phase_epg_kernels(dev)
     match_rows = phase_match_kernel(dev)
     cpmg_rows = phase_cpmg_kernels(dev)
+    xspgr_rows = phase_xspgr_kernels(dev)
 
     # the forward path, the gradient and design path, the two-pool path,
-    # the acquisition path, the gridding path, the MRF path and the
-    # T2-mapping path: each with the launch counts zeroed just before it
-    # and read just after
+    # the acquisition path, the gridding path, the MRF path, the T2-mapping
+    # path and the exchange-MRF path: each with the launch counts zeroed
+    # just before it and read just after
     counters = {**{k: bloch.LAUNCHES for k in bloch.LAUNCHES},
                 **{k: kmc.LAUNCHES for k in kmc.LAUNCHES},
                 **{k: ksig.LAUNCHES for k in ksig.LAUNCHES},
                 **{k: knf.LAUNCHES for k in knf.LAUNCHES},
                 **{k: kepg.LAUNCHES for k in kepg.LAUNCHES},
+                **{k: kx.LAUNCHES for k in kx.LAUNCHES},
                 **{k: kmrf.LAUNCHES for k in kmrf.LAUNCHES}}
     launches = {k: 0 for k in counters}
     for path, run, needs in (
@@ -3623,7 +4159,9 @@ def main() -> int:
              tuple(ksig.LAUNCHES) + ('rfgr_fwd',)),
             ('gridding', phase_nufft_path, tuple(knf.LAUNCHES)),
             ('mrf', phase_mrf_path, EPG_KERNELS + tuple(kmrf.LAUNCHES)),
-            ('T2-mapping', phase_t2map_path, CPMG_KERNELS)):
+            ('T2-mapping', phase_t2map_path, CPMG_KERNELS),
+            ('exchange-MRF', phase_mrfx_path,
+             XSPGR_KERNELS + tuple(kmrf.LAUNCHES))):
         for k, table in counters.items():
             table[k] = 0
         run(dev)
@@ -3645,7 +4183,8 @@ def main() -> int:
                        ('sig_vjp', sig_rows['sig_vjp']),
                        ('sig_adj', sig_rows['sig_adj']),
                        *nufft_rows.items(), *epg_rows.items(),
-                       ('match', match_rows), *cpmg_rows.items()):
+                       ('match', match_rows), *cpmg_rows.items(),
+                       *xspgr_rows.items()):
         # the first timed case: float32 at the main path's shape
         head = next(r for r in rows if 'ms' in r)
         err = ('max_abs_err_chk' if name in ('rfgr_fwd', 'beff_fwd', 'mc_fwd')
@@ -3663,11 +4202,12 @@ def main() -> int:
             # the NUFFT's sample and spread are one sparse product each,
             # the matched filter one matrix product per probe chunk
             library_ms=head.get('library_ms')))
-        if name in ('rfgr_bwd', 'mc_bwd', 'spgr_bwd', 'cpmg_bwd'):
+        if name in ('rfgr_bwd', 'mc_bwd', 'spgr_bwd', 'cpmg_bwd',
+                    'xspgr_bwd'):
             # the rows: max|Δ| / max|row|
             kernels[-1]['max_row_rel_err'] = max(
                 r['max_row_rel_err'] for r in f32)
-        if name.startswith(('sig', 'nufft', 'spgr', 'cpmg')) or \
+        if name.startswith(('sig', 'nufft', 'spgr', 'cpmg', 'xspgr')) or \
                 name == 'match':
             # the linear outputs: max|Δ| / max|plain|
             kernels[-1]['max_rel_err'] = max(r['max_rel_err'] for r in f32)

@@ -18,6 +18,10 @@ r"""Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
   ``spgr_bwd``, the SPGR / MRF-FISP EPG train, the same with chunk
   checkpoints, and its two-phase chunk adjoint, with their plain PyTorch
   versions, launch counts and the autograd Function of the train.
+- :mod:`mrphy_tpu_torch.kernels.epgx`: ``xspgr_fwd``, ``xspgr_fwd_chk``
+  and ``xspgr_bwd``, the two-pool EPG-X SPGR train at a fixed TR, the same
+  with chunk checkpoints, and its two-phase chunk adjoint, with their plain
+  PyTorch versions, launch counts and the autograd Function of the train.
 - :mod:`mrphy_tpu_torch.kernels.mrf`: ``match``, the fused matched filter
   of MRF dictionary matching, with its plain PyTorch version and launch
   count.
@@ -27,7 +31,7 @@ r"""Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
   :mod:`ctypes`. Importing this package builds nothing.
 """
 
-from mrphy_tpu_torch.kernels import (bloch, epg, mc, mrf, nufft,  # noqa: F401
-                                     signal)
+from mrphy_tpu_torch.kernels import (bloch, epg, epgx, mc, mrf,  # noqa: F401
+                                     nufft, signal)
 
-__all__ = ['bloch', 'epg', 'mc', 'mrf', 'nufft', 'signal']
+__all__ = ['bloch', 'epg', 'epgx', 'mc', 'mrf', 'nufft', 'signal']

@@ -106,6 +106,16 @@ _SIGNATURES = {
     # nC, flags, tc, threads, stream
     'mrphy_cpmg_bwd_f32': (_P,) * 11 + (_I64,) * 6 + (_P,),
     'mrphy_cpmg_bwd_f64': (_P,) * 11 + (_I64,) * 6 + (_P,),
+    # coef, par, sig, chk, gstate, nA, nTR, K, kshift, flags, tc, threads,
+    # stream
+    'mrphy_xspgr_fwd_f32': (_P,) * 5 + (_I64,) * 7 + (_P,),
+    'mrphy_xspgr_fwd_f64': (_P,) * 5 + (_I64,) * 7 + (_P,),
+    'mrphy_xspgr_fwd_chk_f32': (_P,) * 5 + (_I64,) * 7 + (_P,),
+    'mrphy_xspgr_fwd_chk_f64': (_P,) * 5 + (_I64,) * 7 + (_P,),
+    # coef, par, chk, g, scratch, hstate, dpar, dcf, nA, nTR, K, kshift,
+    # flags, tc, threads, stream
+    'mrphy_xspgr_bwd_f32': (_P,) * 8 + (_I64,) * 7 + (_P,),
+    'mrphy_xspgr_bwd_f64': (_P,) * 8 + (_I64,) * 7 + (_P,),
     # dre, dim, x, idx, best, nA, nV, r, stream
     'mrphy_match_f32': (_P,) * 5 + (_I64,) * 3 + (_P,),
     'mrphy_match_f64': (_P,) * 5 + (_I64,) * 3 + (_P,),

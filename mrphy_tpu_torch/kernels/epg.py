@@ -90,7 +90,7 @@ LAUNCHES = {'spgr_fwd': 0, 'spgr_fwd_chk': 0, 'spgr_bwd': 0,
             'cpmg_fwd': 0, 'cpmg_fwd_chk': 0, 'cpmg_bwd': 0}
 
 # The adjoint's scratch budget: the pre-RF states of one chunk of every
-# atom, (tc, 6, K, nA) values, stay within 2 GiB (pick_tc).
+# atom, (tc, planes, K, nA) values, stay within 2 GiB (pick_tc).
 SCRATCH_BYTES = 2 << 30
 # The card's shared memory: a block may use 227 KB, an SM holds 228 KB and
 # keeps 1 KB per resident block.
@@ -126,12 +126,15 @@ def diff_coef(K: int, kshift: int, dtype, device) -> torch.Tensor:
                         k * k])
 
 
-def pick_tc(nTR: int, K: int, nA: int, itemsize: int) -> int:
+def pick_tc(nTR: int, K: int, nA: int, itemsize: int,
+            planes: int = 6) -> int:
     r"""The adjoint's chunk length: the largest divisor of ``nTR`` whose
-    scratch of pre-RF states, ``tc·6·K·nA`` values, fits
-    ``SCRATCH_BYTES`` (at least 1). At 65,536 atoms × 400 TRs, K 48,
-    float32: tc 25, a 1.9 GB scratch and 16 checkpoints of 1.2 GB."""
-    per_tr = 6 * K * max(nA, 1) * itemsize
+    scratch of pre-RF states, ``tc·planes·K·nA`` values, fits
+    ``SCRATCH_BYTES`` (at least 1); ``planes`` is 6 for one pool's state,
+    12 for EPG-X's two. At 65,536 atoms × 400 TRs, K 48, float32: tc 25
+    for one pool (a 1.9 GB scratch and 16 checkpoints of 1.2 GB), tc 10
+    for two (1.51 GB and 40 checkpoints of 151 MB)."""
+    per_tr = planes * K * max(nA, 1) * itemsize
     return largest_divisor_leq(nTR, max(1, SCRATCH_BYTES // per_tr))
 
 
@@ -701,14 +704,15 @@ def cpmg_bwd_torch(coef, par, dq, cdiff, cfg: CpmgCfg, chk, gr, gi, *,
 # The kernels
 # ==========================================================================
 
-def launch_cfg(K: int, itemsize: int):
+def launch_cfg(K: int, itemsize: int, planes: int = 6):
     r"""``(threads per block, state in shared memory)``: a thread walks
-    one atom and keeps its ``6·K`` state values in shared memory; of 128,
-    64 and 32 threads per block the count that keeps the most threads
-    resident on an SM. When even 32 threads' states exceed a block's shared
-    memory (K > 295 in float32, K > 147 in float64), the states live in
+    one atom and keeps its ``planes·K`` state values (6 for one pool, 12
+    for EPG-X's two) in shared memory; of 128, 64 and 32 threads per block
+    the count that keeps the most threads resident on an SM. When even 32
+    threads' states exceed a block's shared memory (one pool: K > 295 in
+    float32, K > 147 in float64; two: K > 151, K > 75), the states live in
     device memory and blocks take 128 threads."""
-    per_thread = 6 * K * itemsize
+    per_thread = planes * K * itemsize
     best = None
     for th in (128, 64, 32):
         smem = th * per_thread

@@ -1,6 +1,6 @@
 r"""Extended Phase Graphs (EPG): differentiable echo-train simulation
-(counterpart of :mod:`mrphy_tpu.ops.epg`, its single-pool SPGR and CPMG
-parts).
+(counterpart of :mod:`mrphy_tpu.ops.epg`: its single-pool SPGR and CPMG
+parts and the two-pool EPG-X SPGR train).
 
 Magnetization is tracked in the Fourier domain of the dephasing angle as
 configuration states ``F+(k), F−(k), Z(k)``; the state is a real ``(...,
@@ -28,7 +28,17 @@ flip trains run the plain route under ``'auto'`` on any device, as JAX's
 ``'xla-fallback'`` does, and raise under ``'cuda'``. ``mesh=`` raises
 (multi-device runs are not ported yet).
 
-EPG-X trains (``epgx_*``) are not ported yet.
+The two-pool exchange trains (EPG-X, Malik et al. MRM 80(2):767, 2018; the
+"full Bloch–McConnell" variant: both pools carry F states, and every
+interval applies the exact exchange-relaxation propagator of each order)
+carry a ``(..., 2, 3, K, 2)`` state, the pool axis before the single-pool
+layout. :func:`epgx_spgr`, the exchange-sensitive MRF dictionary's train,
+has the same two routes; its kernels (:mod:`mrphy_tpu_torch.kernels.epgx`:
+``xspgr_fwd``, ``xspgr_fwd_chk``, ``xspgr_bwd``) take a shared 1-D flip
+train at a scalar ``tr``. A ``(nTR,)`` ``tr`` train on CUDA tensors raises
+:class:`NotImplementedError` under ``'auto'`` and ``'cuda'``: its kernels
+come with slice 10d of the port. The other EPG-X families (``epgx_cpmg``,
+the MT variant) are not ported yet.
 """
 
 import math
@@ -37,9 +47,12 @@ import numpy as np
 import torch
 
 from mrphy_tpu_torch.kernels import epg as kepg
+from mrphy_tpu_torch.kernels import epgx as kepgx
+from mrphy_tpu_torch.ops.slowsims import _expm2
 
 __all__ = ['epg_state', 'epg_rf', 'epg_grad', 'epg_relax', 'epg_diffusion',
-           'epg_cpmg', 'epg_spgr', 'ir_prep', 'rf_spoil_phases']
+           'epg_cpmg', 'epg_spgr', 'ir_prep', 'rf_spoil_phases',
+           'epgx_state', 'epgx_rf', 'epgx_relax', 'epgx_spgr']
 
 
 def _t(x, like):
@@ -134,6 +147,12 @@ def epg_grad(FpFmZ, k: int = 1):
     return FpFmZ
 
 
+def _add_z0(Z, r):
+    r"""``Z (..., K, 2)`` with ``r`` added to its order 0's real part."""
+    z0 = torch.stack([Z[..., 0, 0] + r, Z[..., 0, 1]], -1)[..., None, :]
+    return torch.cat([z0, Z[..., 1:, :]], dim=-2)
+
+
 def epg_relax(FpFmZ, tau, T1, T2, M0=1.0):
     r"""Relaxation over ``tau`` seconds: ``F·E2``, ``Z·E1``, with
     ``(1−E1)·M0`` recovery into ``Z(0)``. ``T1``/``T2``/``M0`` broadcast
@@ -143,10 +162,8 @@ def epg_relax(FpFmZ, tau, T1, T2, M0=1.0):
     E2 = torch.exp(-tau / _t(T2, FpFmZ))[..., None, None]
     Fp = FpFmZ[..., 0, :, :] * E2
     Fm = FpFmZ[..., 1, :, :] * E2
-    Z = FpFmZ[..., 2, :, :] * E1
-    z00 = Z[..., 0, 0] + (1 - E1[..., 0, 0]) * _t(M0, FpFmZ)
-    Z0 = torch.stack([z00, Z[..., 0, 1]], -1)[..., None, :]
-    Z = torch.cat([Z0, Z[..., 1:, :]], dim=-2)
+    Z = _add_z0(FpFmZ[..., 2, :, :] * E1,
+                (1 - E1[..., 0, 0]) * _t(M0, FpFmZ))
     return torch.stack(torch.broadcast_tensors(Fp, Fm, Z), dim=-3)
 
 
@@ -573,3 +590,319 @@ def _spgr_kernels(flips, phis=None, **kw):
         return sig.reshape(batch + sig.shape[1:])
     return _unbatch(sig, _scalar_batch(*(kw.get(n) for n in (
         'T1', 'T2', 'M0', 'zinit', 'b1', 'D'))))
+
+
+# ==========================================================================
+# EPG-X: two-pool exchange (Bloch–McConnell) extended phase graphs
+# ==========================================================================
+
+def _hypot(x, y):
+    r"""``sqrt(x² + y²)`` as ``max·sqrt(1 + (min/max)²)``, JAX's
+    ``jnp.hypot``: its gradient stays finite at ``x = y = 0``, where
+    ``torch.hypot``'s is NaN."""
+    ax, ay = x.abs(), y.abs()
+    hi, lo = torch.maximum(ax, ay), torch.minimum(ax, ay)
+    zero = hi == 0
+    return torch.where(zero, hi, hi * torch.sqrt(
+        1 + (lo / torch.where(zero, torch.ones_like(hi), hi)) ** 2))
+
+
+def _csqrt(x, y):
+    r"""Principal square root of ``x + iy`` in re/im pairs, differentiable
+    on the real axis: the naive ``v = sqrt((r − x)/2)`` has an infinite
+    derivative at ``y = 0, x > 0``; the smaller component comes instead from
+    the identity ``u·v = y/2`` against the larger one. Every ``where``
+    makes its untaken branch's argument safe first, so that no NaN reaches
+    the gradient."""
+    r = _hypot(x, y)
+    big = x >= 0
+    a = torch.clamp_min(torch.where(big, r + x, r - x) / 2, 0.0)
+    pos = a > 0
+    one = torch.ones_like(a)
+    s = torch.where(pos, torch.sqrt(torch.where(pos, a, one)), 0.0)
+    inv2s = torch.where(pos, 0.5 / torch.where(pos, s, one), 0.0)
+    sgn = torch.where(y < 0, -1.0, 1.0)
+    u = torch.where(big, s, y.abs() * inv2s)
+    v = torch.where(big, y * inv2s, sgn * s)
+    return u, v
+
+
+def _expm2c(ar, ai, b, c, dr, di):
+    r"""``expm([[a, b], [c, d]])`` with complex diagonal (``a``, ``d``) and
+    real off-diagonals, in re/im pairs: ``e^μ (cosh(q) I + sinh(q)/q (A −
+    μI))`` with complex ``μ = (a + d)/2``, ``q = sqrt(((a − d)/2)² + bc)``
+    (:func:`mrphy_tpu_torch.ops.slowsims._expm2`'s identity); near ``q =
+    0`` the Taylor ``sinh(q)/q = 1 + q²/6``. Returns the four entries
+    ``(E00, E01, E10, E11)``, each an ``(re, im)`` pair."""
+    mur, mui = (ar + dr) / 2, (ai + di) / 2
+    hr, hi = (ar - dr) / 2, (ai - di) / 2
+    q2r = hr * hr - hi * hi + b * c
+    q2i = 2 * hr * hi
+    qr, qi = _csqrt(q2r, q2i)
+    chr_, chi = torch.cosh(qr) * torch.cos(qi), torch.sinh(qr) * torch.sin(qi)
+    shr, shi = torch.sinh(qr) * torch.cos(qi), torch.cosh(qr) * torch.sin(qi)
+    # sinh(q)/q, the Taylor branch at small |q|
+    qn2 = qr * qr + qi * qi
+    safe = qn2 > 1e-12
+    qn2s = torch.where(safe, qn2, torch.ones_like(qn2))
+    sqr = torch.where(safe, (shr * qr + shi * qi) / qn2s, 1.0 + q2r / 6)
+    sqi = torch.where(safe, (shi * qr - shr * qi) / qn2s, q2i / 6)
+    em = torch.exp(mur)
+    emr, emi = em * torch.cos(mui), em * torch.sin(mui)
+
+    def cm(xr, xi, yr, yi):
+        return xr * yr - xi * yi, xr * yi + xi * yr
+
+    e00 = cm(*cm(sqr, sqi, hr, hi), emr, emi)
+    ch = cm(chr_, chi, emr, emi)
+    sb = cm(sqr, sqi, emr, emi)
+    return ((ch[0] + e00[0], ch[1] + e00[1]), (b * sb[0], b * sb[1]),
+            (c * sb[0], c * sb[1]), (ch[0] - e00[0], ch[1] - e00[1]))
+
+
+def _z_recovery(Z00, Z01, Z10, Z11, T1a, T1b, kab, kba, M0a, M0b):
+    r"""Exact affine recovery of the coupled longitudinal system over one
+    interval: ``rec = A⁻¹(E − I)·b``, ``A`` the rate matrix and ``b =
+    [M0a/T1a, M0b/T1b]`` the source (the closed form of
+    :func:`mrphy_tpu_torch.ops.slowsims.mc_propagators`). It equals ``(I −
+    E)[M0a, M0b]`` only under detailed balance (``kab·M0a = kba·M0b``)."""
+    a00, a01 = -1 / T1a - kab, kba
+    a10, a11 = kab, -1 / T1b - kba
+    det = a00 * a11 - a01 * a10
+    ba, bb = M0a / T1a, M0b / T1b
+    e00, e01, e10, e11 = Z00 - 1.0, Z01, Z10, Z11 - 1.0
+    ra = (a11 * (e00 * ba + e01 * bb) - a01 * (e10 * ba + e11 * bb)) / det
+    rb = (-a10 * (e00 * ba + e01 * bb) + a00 * (e10 * ba + e11 * bb)) / det
+    return ra, rb
+
+
+def epgx_state(K: int, batch=(), M0a=1.0, M0b=0.1, dtype=torch.float32,
+               device=None):
+    r"""Equilibrium two-pool EPG-X state: `(*batch, 2, 3, K, 2)` real (the
+    pool axis before the single-pool `(3, K, [re, im])` layout), with
+    ``Za(0) = M0a``, ``Zb(0) = M0b``."""
+    s = torch.zeros(tuple(batch) + (2, 3, K, 2), dtype=dtype, device=device)
+    s[..., 0, 2, 0, 0] = torch.broadcast_to(_t(M0a, s), tuple(batch))
+    s[..., 1, 2, 0, 0] = torch.broadcast_to(_t(M0b, s), tuple(batch))
+    return s
+
+
+def epgx_rf(s, alpha, phi=0.0, b1b=1.0):
+    r"""Ideal RF on both pools (flip ``alpha`` about ``phi``, rad); ``b1b``
+    scales pool b's flip (1.0 for water–water exchange). ``alpha``/``phi``
+    broadcast against the batch axes."""
+    alpha = _t(alpha, s)
+    phi = torch.broadcast_to(_t(phi, s), alpha.shape)
+    return epg_rf(s, torch.stack([alpha, b1b * alpha], -1),
+                  torch.stack([phi, phi], -1))
+
+
+def epgx_relax(s, tau, *, T1a, T2a, T1b, T2b, kab, kba, M0a=1.0, M0b=0.1,
+               dfb=0.0):
+    r"""Exact relaxation–exchange(–shift) propagation of every order over
+    ``tau`` seconds.
+
+    Transverse: ``d/dt [Fa, Fb] = [[−R2a − kab, kba], [kab, −R2b − kba −
+    i·2π·dfb]] [Fa, Fb]``, one complex 2×2 expm (``F−`` takes its
+    conjugate). Longitudinal: the real 2×2 expm plus the exact affine
+    recovery into ``Z(0)`` (:func:`_z_recovery`). All parameters broadcast
+    against the batch axes (per-voxel maps)."""
+    batch = s.shape[:-4]
+    (tau, T1a, T2a, T1b, T2b, kab, kba, M0a, M0b, dfb) = (
+        torch.broadcast_to(_t(x, s), batch) for x in
+        (tau, T1a, T2a, T1b, T2b, kab, kba, M0a, M0b, dfb))
+    w = 2 * math.pi * dfb
+    E00, E01, E10, E11 = _expm2c(
+        (-1 / T2a - kab) * tau, torch.zeros_like(tau), kba * tau, kab * tau,
+        (-1 / T2b - kba) * tau, -w * tau)
+
+    def capply(E, xr, xi):
+        return E[0] * xr - E[1] * xi, E[0] * xi + E[1] * xr
+
+    def tprop(Far, Fai, Fbr, Fbi, conj):
+        sg = -1.0 if conj else 1.0
+
+        def cc(E):
+            return E[0][..., None], sg * E[1][..., None]
+
+        ar, ai = capply(cc(E00), Far, Fai)
+        br, bi = capply(cc(E01), Fbr, Fbi)
+        cr, ci = capply(cc(E10), Far, Fai)
+        dr, di = capply(cc(E11), Fbr, Fbi)
+        return ar + br, ai + bi, cr + dr, ci + di
+
+    Fa, Fb = s[..., 0, :, :, :], s[..., 1, :, :, :]
+    pa_r, pa_i, pb_r, pb_i = tprop(Fa[..., 0, :, 0], Fa[..., 0, :, 1],
+                                   Fb[..., 0, :, 0], Fb[..., 0, :, 1], False)
+    ma_r, ma_i, mb_r, mb_i = tprop(Fa[..., 1, :, 0], Fa[..., 1, :, 1],
+                                   Fb[..., 1, :, 0], Fb[..., 1, :, 1], True)
+    Z00, Z01, Z10, Z11 = _expm2((-1 / T1a - kab) * tau, kba * tau,
+                                kab * tau, (-1 / T1b - kba) * tau)
+    Za, Zb = Fa[..., 2, :, :], Fb[..., 2, :, :]
+    Za1 = Z00[..., None, None] * Za + Z01[..., None, None] * Zb
+    Zb1 = Z10[..., None, None] * Za + Z11[..., None, None] * Zb
+    ra, rb = _z_recovery(Z00, Z01, Z10, Z11, T1a, T1b, kab, kba, M0a, M0b)
+    Za1, Zb1 = _add_z0(Za1, ra), _add_z0(Zb1, rb)
+    pool_a = torch.stack([torch.stack([pa_r, pa_i], -1),
+                          torch.stack([ma_r, ma_i], -1), Za1], dim=-3)
+    pool_b = torch.stack([torch.stack([pb_r, pb_i], -1),
+                          torch.stack([mb_r, mb_i], -1), Zb1], dim=-3)
+    return torch.stack([pool_a, pool_b], dim=-4)
+
+
+_XKEYS = ('T1a', 'T2a', 'T1b', 'T2b', 'kab', 'kba', 'M0a', 'M0b', 'dfb',
+          'b1')
+
+
+def epgx_spgr(flips, phis=None, *, T1a, T2a, T1b, T2b, kab, kba, tr,
+              M0a=1.0, M0b=0.1, dfb=0.0, b1=None, kshift: int = 1, K=None,
+              mesh=None, backend: str = 'auto'):
+    r"""Gradient-spoiled GRE train of a two-pool exchanging system: the
+    EPG-X dictionary of exchange-sensitive MRF.
+
+    Per TR: the RF pulse on both pools, the demodulated total ``F+(0)``
+    (``Fa+(0) + Fb+(0)``) read out, the exact exchange–relaxation over TR
+    (:func:`epgx_relax`), the spoiler's shift of ``kshift`` k-quanta. See
+    :func:`epg_spgr` for the single-pool conventions.
+
+    Inputs:
+        - ``flips``: `(nTR,)` or `(*batch, nTR)`, "Rad"; ``phis``: the same,
+          or None (zero phases).
+        - ``T1a``/``T2a``/``T1b``/``T2b``: `()` ⊻ `(*batch,)`, "Sec";
+          ``kab``/``kba``: exchange rates, "1/Sec"; ``M0a``/``M0b``: the
+          pools' equilibrium magnetizations; ``dfb``: pool b's frequency
+          offset, "Hz".
+        - ``tr``: `()` or a `(nTR,)` train, "Sec".
+        - ``b1``: `()` ⊻ `(*batch,)` transmit scale of the flip train (both
+          pools).
+        - ``K``: modelled orders (default: the exact ``nTR·|kshift| +
+          1``).
+        - ``mesh``: multi-device runs are not ported yet (raises
+          :class:`NotImplementedError`).
+        - ``backend``: ``'auto'`` | ``'torch'`` | ``'cuda'`` (module
+          docstring).
+    Outputs:
+        - ``signals``: `(*batch, nTR, 2)` real.
+
+    Differentiable w.r.t. ``flips``/``phis``/``T1a``/``T2a``/``T1b``/
+    ``T2b``/``kab``/``kba``/``tr``/``M0a``/``M0b``/``dfb``/``b1`` on every
+    route.
+    """
+    from mrphy_tpu_torch.ops.routing import route
+    if mesh is not None:
+        raise NotImplementedError('mesh= (multi-device runs) is not ported '
+                                  'to mrphy_tpu_torch yet')
+    if int(kshift) == 0:
+        raise ValueError('kshift must be a nonzero integer')
+    kw = dict(T1a=T1a, T2a=T2a, T1b=T1b, T2b=T2b, kab=kab, kba=kba, tr=tr,
+              M0a=M0a, M0b=M0b, dfb=dfb, b1=b1, kshift=int(kshift), K=K)
+    path = route('epgx_spgr', backend=backend, flips=flips, phis=phis,
+                 **kw)['path']
+    if path.startswith('cuda'):
+        device = _common(flips, phis, tr, *(kw[n] for n in _XKEYS))[1]
+        if backend == 'cuda' and device.type != 'cuda':
+            raise ValueError("backend='cuda' needs CUDA tensors, got "
+                             f'{device}')
+        return _xspgr_kernels(flips, phis, **kw)
+    return _xspgr_scan(flips, phis, **kw)
+
+
+def _xspgr_scan(flips, phis=None, *, T1a, T2a, T1b, T2b, kab, kba, tr,
+                M0a=1.0, M0b=0.1, dfb=0.0, b1=None, kshift=1, K=None):
+    r"""The plain route: JAX's ``lax.scan`` as a loop over TRs."""
+    kw = dict(T1a=T1a, T2a=T2a, T1b=T1b, T2b=T2b, kab=kab, kba=kba,
+              M0a=M0a, M0b=M0b, dfb=dfb)
+    dtype = _common(flips, phis, T2a)[0]
+    device = _common(flips, phis, tr, b1, *kw.values())[1]
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    flips = _apply_b1(arr(flips), b1)
+    nTR = flips.shape[-1]
+    phis = torch.zeros(nTR, dtype=dtype, device=device) if phis is None \
+        else arr(phis)
+    batch = torch.broadcast_shapes(flips.shape[:-1], phis.shape[:-1],
+                                   *(_shape(v) for v in kw.values()))
+    K = nTR * abs(kshift) + 1 if K is None else int(K)
+    s = epgx_state(K, batch, M0a=M0a, M0b=M0b, dtype=dtype, device=device)
+    flips_t = torch.broadcast_to(flips, batch + (nTR,)).movedim(-1, 0)
+    phis_t = torch.broadcast_to(phis, batch + (nTR,)).movedim(-1, 0)
+    trs = torch.broadcast_to(arr(tr), (nTR,))
+    sigs = []
+    for n in range(nTR):
+        phi = phis_t[n]
+        s = epgx_rf(s, flips_t[n], phi)
+        fr = s[..., 0, 0, 0].sum(-1)                 # total F+(0)
+        fi = s[..., 0, 0, 1].sum(-1)
+        c, si = torch.cos(phi), torch.sin(phi)
+        sigs.append(torch.stack([c * fr + si * fi, c * fi - si * fr], -1))
+        s = epg_grad(epgx_relax(s, trs[n], **kw), kshift)
+    return torch.stack(sigs, dim=-2)
+
+
+def _xspgr_rows(flips, phis=None, *, T1a, T2a, T1b, T2b, kab, kba, tr,
+                M0a=1.0, M0b=0.1, dfb=0.0, b1=None, kshift=1, K=None):
+    r"""The kernels' arguments for :func:`epgx_spgr`'s inputs
+    (``_epgx_dispatch``, ``epg_pallas.py:584-621``): ``(coef, par, cfg,
+    batch)``, SPGR's nine per-TR rows and the per-atom rows ``[E00r, E00i,
+    E01r, E01i, E10r, E10i, E11r, E11i, Z00, Z01, Z10, Z11, ra, rb, M0a,
+    M0b, b1]``, the exchange–relaxation propagator over ``tr`` built by
+    :func:`_expm2c`, :func:`~mrphy_tpu_torch.ops.slowsims._expm2` and
+    :func:`_z_recovery` in torch (whose autograd carries the gradients of
+    every input back from the rows'), the atoms' batch shape flattened into
+    the columns."""
+    kw = dict(T1a=T1a, T2a=T2a, T1b=T1b, T2b=T2b, kab=kab, kba=kba, M0a=M0a,
+              M0b=M0b, dfb=dfb, b1=b1)
+    dtype, device = _common(flips, phis, tr, *kw.values())
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    flips = arr(flips)
+    if flips.ndim != 1:
+        raise ValueError('the kernels take a shared (nTR,) flip train, got '
+                         f'{tuple(flips.shape)}')
+    nTR = flips.shape[0]
+    phis = torch.zeros_like(flips) if phis is None else arr(phis)
+    if phis.shape != flips.shape:
+        raise ValueError(f'phis {tuple(phis.shape)} and flips '
+                         f'{tuple(flips.shape)} differ')
+    tr = arr(tr)
+    if tr.ndim != 0:
+        raise NotImplementedError(
+            'epgx_spgr with a (nTR,) tr train has no kernels yet (slice 10d '
+            "of ROADMAP.md queue 1); use backend='torch'")
+    batch = torch.broadcast_shapes(*(_shape(x) for x in kw.values()
+                                     if x is not None))
+    nA = math.prod(batch)
+    T1a, T2a, T1b, T2b, kab, kba, M0a, M0b, dfb, b1v = (
+        torch.broadcast_to(arr(1.0 if x is None else x), batch).reshape(nA)
+        for x in kw.values())
+    coef = torch.stack([torch.cos(flips / 2) ** 2, torch.sin(flips / 2) ** 2,
+                        torch.sin(flips), torch.cos(flips),
+                        torch.cos(phis), torch.sin(phis),
+                        torch.cos(2 * phis), torch.sin(2 * phis), flips])
+    w = 2 * math.pi * dfb
+    E00, E01, E10, E11 = _expm2c(
+        (-1 / T2a - kab) * tr, torch.zeros_like(T2a), kba * tr, kab * tr,
+        (-1 / T2b - kba) * tr, -w * tr)
+    Z00, Z01, Z10, Z11 = _expm2((-1 / T1a - kab) * tr, kba * tr, kab * tr,
+                                (-1 / T1b - kba) * tr)
+    ra, rb = _z_recovery(Z00, Z01, Z10, Z11, T1a, T1b, kab, kba, M0a, M0b)
+    par = torch.stack([*E00, *E01, *E10, *E11, Z00, Z01, Z10, Z11, ra, rb,
+                       M0a, M0b, b1v])
+    K = nTR * abs(kshift) + 1 if K is None else int(K)
+    cfg = kepgx.XspgrCfg(K=K, kshift=kshift, has_b1=b1 is not None)
+    return coef, par, cfg, batch
+
+
+def _xspgr_kernels(flips, phis=None, **kw):
+    r"""The kernels' route: :func:`_xspgr_rows`, then
+    :func:`mrphy_tpu_torch.kernels.epgx.xspgr` (the kernels' plain versions
+    on CPU tensors)."""
+    coef, par, cfg, batch = _xspgr_rows(flips, phis, **kw)
+    sig = kepgx.xspgr(coef, par, cfg)              # (nA, nTR, 2)
+    if len(batch) > 1:
+        return sig.reshape(batch + sig.shape[1:])
+    return _unbatch(sig, _scalar_batch(*(kw.get(n) for n in _XKEYS)))

@@ -3,9 +3,9 @@ r"""Backend-routing introspection: which path will a train family take?
 
 :func:`route` answers, without running anything, which execution path
 ``<family>(..., backend=..., mesh=...)`` takes and why; the dispatchers of
-:func:`mrphy_tpu_torch.ops.epg.epg_spgr` and :func:`~mrphy_tpu_torch.ops.
-epg.epg_cpmg` consult the same decision, so the reported path cannot drift
-from the one taken.
+:func:`mrphy_tpu_torch.ops.epg.epg_spgr`, :func:`~mrphy_tpu_torch.ops.epg.
+epg_cpmg` and :func:`~mrphy_tpu_torch.ops.epg.epgx_spgr` consult the same
+decision, so the reported path cannot drift from the one taken.
 
 Paths:
 
@@ -28,11 +28,18 @@ port has no counterpart and no such gate: the H100 adjoints ``spgr_bwd``
 and ``cpmg_bwd`` keep their per-chunk scratch in device memory and shorten
 the chunk to fit a fixed budget
 (:func:`mrphy_tpu_torch.kernels.epg.pick_tc`), so each takes every instance
-its forward takes.
+its forward takes; so do ``xspgr_bwd``'s, its chunk fitted for the
+two-pool state's 12 planes.
 
-``epg_spgr`` and ``epg_cpmg`` are ported; the other families raise
-:class:`NotImplementedError` naming the slice of the port that brings
-them. ``mesh=`` raises too (multi-device runs are not ported yet).
+``epgx_spgr`` with a ``(nTR,)`` ``tr`` train on CUDA tensors raises
+:class:`NotImplementedError` under ``'auto'`` and ``'cuda'``: JAX runs it
+in fused kernels (K22–K24) that come with slice 10d of the port, and a
+silent plain route on the card would hide that (``'torch'`` runs it).
+
+``epg_spgr``, ``epg_cpmg`` and ``epgx_spgr`` are ported; the other
+families raise :class:`NotImplementedError` naming the slice of the port
+that brings them. ``mesh=`` raises too (multi-device runs are not ported
+yet).
 """
 
 import math
@@ -46,8 +53,7 @@ FAMILIES = ('epg_spgr', 'epg_cpmg', 'epgx_spgr', 'epgx_cpmg',
             'epgx_mt_spgr', 'bssfp_train')
 
 # The slice of the port (ROADMAP.md, queue 1) that brings each family.
-_SLICES = {'epgx_spgr': '10c-10d',
-           'epgx_cpmg': '10e-10f', 'epgx_mt_spgr': '10g-10h',
+_SLICES = {'epgx_cpmg': '10e-10f', 'epgx_mt_spgr': '10g-10h',
            'bssfp_train': '11'}
 
 
@@ -127,7 +133,28 @@ def _decide_epg_cpmg(kw, backend):
                   pick_tc(nE, nE + 1, nA, 4)))
 
 
-_DECIDERS = {'epg_spgr': _decide_epg_spgr, 'epg_cpmg': _decide_epg_cpmg}
+def _decide_epgx_spgr(kw, backend):
+    from mrphy_tpu_torch.kernels.epg import pick_tc
+    from mrphy_tpu_torch.kernels.epgx import PLANES
+    fallback, nT = _per_voxel(kw, backend)
+    if fallback:
+        return fallback
+    if len(_shape(kw.get('tr'))) == 1:
+        raise NotImplementedError(
+            'epgx_spgr with a (nTR,) tr train: its kernels (K22-K24) come '
+            "with slice 10d of ROADMAP.md queue 1; use backend='torch' for "
+            'the plain route')
+    nA = _n_atoms(kw, ('T1a', 'T2a', 'T1b', 'T2b', 'kab', 'kba', 'M0a',
+                       'M0b', 'dfb', 'b1'))
+    K = _k_orders(kw, nT)
+    return _mk('cuda-native-adjoint',
+               'xspgr_fwd, and xspgr_fwd_chk + xspgr_bwd under a gradient '
+               '(nTR=%d, K=%d, nA=%d; the adjoint chunk tc=%d in float32)'
+               % (nT, K, nA, pick_tc(nT, K, nA, 4, PLANES)))
+
+
+_DECIDERS = {'epg_spgr': _decide_epg_spgr, 'epg_cpmg': _decide_epg_cpmg,
+             'epgx_spgr': _decide_epgx_spgr}
 
 
 def _on_cuda(kw) -> bool:
@@ -144,7 +171,8 @@ def route(family: str, *, backend: str = 'auto', mesh=None, **kw):
     are inspected; nothing is computed). Returns ``{'path', 'fused',
     'reason'}`` with ``path`` one of ``'torch' | 'cuda-native-adjoint' |
     'torch-fallback'``. Raises :class:`ValueError` where the call would
-    (``backend='cuda'`` with a per-voxel train).
+    (``backend='cuda'`` with a per-voxel train), and
+    :class:`NotImplementedError` for a path not ported yet.
     """
     if family not in FAMILIES:
         raise ValueError(f'unknown family {family!r}; one of {FAMILIES}')

@@ -2,9 +2,10 @@ r"""The CUDA kernels of :mod:`mrphy_tpu_torch.kernels` on the card (the
 Bloch kernels, the two-pool ``mc_fwd``/``mc_bwd``, the k-space signal
 kernels ``sig_fwd``/``sig_adj``/``sig_vjp``, the gridding NUFFT's
 ``nufft_sample``/``nufft_spread``/``nufft_dk``, the EPG trains'
-``spgr_*``/``cpmg_*`` and the matched filter ``match``): each against its
-plain PyTorch version, the launch counts, the wrappers' refusals, and
-backward through the engines reaching the adjoint kernels.
+``spgr_*``/``cpmg_*``/``xspgr_*`` and the matched filter ``match``): each
+against its plain PyTorch version, the launch counts, the wrappers'
+refusals, and backward through the engines reaching the adjoint
+kernels.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run them
@@ -864,3 +865,111 @@ def test_epg_cpmg_gradients_cuda_vs_plain(cuda, dtype):
         epg.epg_cpmg(**dict(kw, flips=flips.expand(70, 24)), backend='cuda')
     with pytest.raises(ValueError, match='CUDA tensors'):
         epg.epg_cpmg(flips.cpu(), T1=1.0, T2=0.1, esp=0.01, backend='cuda')
+
+
+def _xspgr_case(cuda, dtype, nA, nTR, K, kshift, b1, seed):
+    r"""``epgx_spgr`` keywords (CUDA tensors): an rf-spoiled train over a
+    two-pool system with per-atom rates, M0b and dfb and, as asked, b1."""
+    from mrphy_tpu_torch.ops import epg
+    rng = np.random.default_rng(seed)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=cuda)
+
+    kw = dict(flips=arr(rng.uniform(0.1, 1.2, nTR)),
+              phis=epg.rf_spoil_phases(nTR, dtype=dtype, device=cuda),
+              T1a=arr(rng.uniform(0.2, 3.0, nA)),
+              T2a=arr(rng.uniform(0.02, 0.5, nA)),
+              T1b=arr(rng.uniform(0.2, 0.6, nA)),
+              T2b=arr(rng.uniform(0.005, 0.03, nA)),
+              kab=arr(rng.uniform(1.0, 10.0, nA)),
+              kba=arr(rng.uniform(5.0, 40.0, nA)),
+              M0a=arr(rng.uniform(0.8, 1.2, nA)),
+              M0b=arr(rng.uniform(0.05, 0.3, nA)),
+              dfb=arr(rng.uniform(-20, 20, nA)), tr=0.012, kshift=kshift,
+              K=K)
+    if b1:
+        kw['b1'] = arr(rng.uniform(0.8, 1.2, nA))
+    return kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows', [(torch.float32, 2e-6, 1e-4),
+                                            (torch.float64, 1e-12, 1e-12)])
+@pytest.mark.parametrize('nA,nTR,K,kshift,b1', [
+    (333, 40, 12, 1, False), (200, 36, 10, -1, True), (129, 30, 9, 2, True),
+    (65, 160, None, 1, False)],
+    ids=['plain-train', 'b1-kshift-1', 'b1-kshift2',
+         'default-K-device-memory-state'])
+def test_xspgr_kernels_vs_plain_on_card(cuda, dtype, bar, rows, nA, nTR, K,
+                                        kshift, b1):
+    r"""``xspgr_fwd``, ``xspgr_fwd_chk`` and ``xspgr_bwd`` against their
+    plain versions on the card (per-atom outputs at ``bar``, the adjoint's
+    per-TR rows, summed over atoms by warps, at ``rows`` of their largest
+    value), over several chunks; the launch counts; the refusals."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    from mrphy_tpu_torch.utils._shapes import largest_divisor_leq
+    kw = _xspgr_case(cuda, dtype, nA, nTR, K, kshift, b1, 37)
+    coef, par, cfg, _ = epg._xspgr_rows(kw.pop('flips'), kw.pop('phis'),
+                                        **kw)
+    coef, par = coef.contiguous(), par.contiguous()
+    tc = largest_divisor_leq(nTR, nTR // 3)          # three chunks or more
+    n0 = dict(kx.LAUNCHES)
+    sig = kx.xspgr_fwd(coef, par, cfg)
+    sig2, chk = kx.xspgr_fwd_chk(coef, par, cfg, tc=tc)
+    g = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        sig.shape), dtype=dtype, device=cuda)
+    dcoef, dpar = kx.xspgr_bwd(coef, par, cfg, chk, g, tc=tc)
+    assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+        xspgr_fwd=1, xspgr_fwd_chk=1, xspgr_bwd=1)
+    sig_p, chk_p = kx.xspgr_fwd_chk_torch(coef, par, cfg, tc=tc)
+    dcoef_p, dpar_p = kx.xspgr_bwd_torch(coef, par, cfg, chk_p, g, tc=tc)
+    for x, y in ((sig, sig_p), (sig2, sig_p), (chk, chk_p), (dpar, dpar_p)):
+        _rows_close(x, y, bar)
+    _rows_close(dcoef, dcoef_p, rows)
+    with pytest.raises(ValueError, match='contiguous'):
+        kx.xspgr_fwd(coef.T.contiguous().T, par, cfg)
+    with pytest.raises(TypeError):
+        kx.xspgr_fwd(coef.half(), par.half(), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_epgx_spgr_gradients_cuda_vs_plain(cuda, dtype):
+    r"""``epgx_spgr`` on CUDA tensors runs ``xspgr_fwd`` for a value and
+    ``xspgr_fwd_chk`` + ``xspgr_bwd`` under a gradient, whose gradients
+    w.r.t. every input meet the plain route's; ``backend='cuda'`` refuses
+    CPU tensors, and a ``(nTR,)`` tr train on the card raises naming slice
+    10d."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    names = ('flips', 'phis', 'T1a', 'T2a', 'T1b', 'T2b', 'kab', 'kba', 'tr',
+             'M0a', 'M0b', 'dfb', 'b1')
+    kw = _xspgr_case(cuda, dtype, 70, 24, 8, -1, True, 41)
+    kw['tr'] = torch.tensor(0.012, dtype=dtype, device=cuda)
+    w = torch.as_tensor(np.random.default_rng(5).standard_normal((70, 24, 2)),
+                        dtype=dtype, device=cuda)
+    grads = []
+    for backend in ('auto', 'torch'):
+        xs = {n: kw[n].detach().clone().requires_grad_() for n in names}
+        n0 = dict(kx.LAUNCHES)
+        out = epg.epgx_spgr(**dict(kw, **xs), backend=backend)
+        grads.append(torch.autograd.grad((w * out).sum(), list(xs.values())))
+        launched = {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES}
+        assert launched == dict(dict.fromkeys(kx.LAUNCHES, 0),
+                                **({'xspgr_fwd_chk': 1, 'xspgr_bwd': 1}
+                                   if backend == 'auto' else {}))
+    n0 = kx.LAUNCHES['xspgr_fwd']
+    with torch.no_grad():
+        epg.epgx_spgr(**kw)
+    assert kx.LAUNCHES['xspgr_fwd'] == n0 + 1
+    bar = 1e-4 if dtype == torch.float32 else 1e-10
+    for n, x, y in zip(names, *grads):
+        _rows_close(x, y, bar)
+    with pytest.raises(NotImplementedError, match='10d'):
+        epg.epgx_spgr(**dict(kw, tr=torch.full((24,), 0.012, dtype=dtype,
+                                               device=cuda)))
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        epg.epgx_spgr(kw['flips'].cpu(), T1a=1.0, T2a=0.08, T1b=1.0,
+                      T2b=0.02, kab=5.0, kba=20.0, tr=0.01, backend='cuda')
