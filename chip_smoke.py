@@ -236,6 +236,33 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     and matched atom equal, the kab separation at 1e-10, the first loss and
     its gradient at 1e-9, the 250 Adam steps' losses at 1e-8 of the first
     and the fitted (T1a, kab) at rtol 1e-8.
+23. The variable-TR EPG-X kernels ``xspgr_v_fwd``, ``xspgr_v_fwd_chk`` and
+    ``xspgr_v_bwd`` against their plain versions on the arguments
+    ``ops.epg.epgx_spgr`` gives them over a ``(nTR,)`` tr train
+    (``XSPGR_V_CASES``: ``coef``, ``pk`` and the per-step propagator planes
+    ``pkt``): ``bench_mrf``'s variable-TR two-pool train (65,536 atoms ×
+    400 TRs, K 24, tr 12 ms + 6 ms·U(0, 1), float32), timed, with its
+    bound; the trains phase 24a gives the kernels (its dictionary's two
+    segments, 65,536 × 200 at K 48 over the example's tr train and its
+    reverse, and its refinement's first step, 4096 grid atoms in one
+    chunk); float64 with b1, dfb, M0b and rf-spoiled phases, kshift −1
+    with M0b, no detailed balance, a ragged atom count, the default K with
+    the state in device memory (float32 and float64), and a constant train,
+    whose echoes must also equal ``xspgr_fwd``'s at the same scalar tr.
+    Per-atom outputs (echoes, checkpoints, ``dpar`` = [dM0a, dM0b, db1] and
+    the per-step entry gradients ``dpkt``) at ``EPG_BAR`` (bit for bit
+    expected; the rows that differ are named), the per-TR rows at
+    ``XSPGR_ROW_BAR``; then the full-width train through ``epgx_spgr``, the
+    forward and the gradient of Σ signals² w.r.t. (T1a, kab), timed, with
+    the gradient's peak memory.
+24. The exchange-MRF path through ``epgx_spgr`` over
+    ``examples/mrfx_exchange.py``'s variable-TR schedule (12–18 ms, the
+    second segment on the train reversed): (a) phase 22a's pipeline at the
+    same full width and bars (``xspgr_v_fwd`` for the dictionary and the
+    probes, ``xspgr_v_fwd_chk`` + ``xspgr_v_bwd`` for the refinement); (b)
+    the example's problem at its own schedule in float64 through the
+    float64 kernels against the JAX package's results (literals below, from
+    ``tests/make_epgxv_goldens.py``), at phase 22b's bars.
 
 Launch counts are zeroed right before the forward path (phase 4) and read
 after it (``rfgr_fwd``, ``beff_fwd`` must have launched), zeroed again
@@ -250,9 +277,11 @@ launched), and again before the MRF path (phase 18; ``spgr_fwd``,
 again before the T2-mapping path (phase 20; ``cpmg_fwd``, ``cpmg_fwd_chk``
 and ``cpmg_bwd`` must have launched), and again before the exchange-MRF
 path (phase 22; ``xspgr_fwd``, ``xspgr_fwd_chk``, ``xspgr_bwd`` and
-``match`` must have launched). The comparisons with the plain versions
-(phases 2, 3, 5, 6, 9, 10, 12, 14, 16, 17, 19, 21) run before and are not
-counted.
+``match`` must have launched), and again before the exchange-MRF path at
+variable TR (phase 24; ``xspgr_v_fwd``, ``xspgr_v_fwd_chk``,
+``xspgr_v_bwd`` and ``match`` must have launched). The comparisons with
+the plain versions (phases 2, 3, 5, 6, 9, 10, 12, 14, 16, 17, 19, 21, 23)
+run before and are not counted.
 
 The line before the last is one JSON object with each kernel's launches
 on those paths, error, times and bound: ``bound_ms`` is the larger of the
@@ -709,6 +738,13 @@ KERNELS = {
         replaces='mrphy_tpu/ops/epg_pallas.py:2535'),
     'xspgr_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xspgr_bwd.cu',
                       replaces='mrphy_tpu/ops/epg_pallas.py:2567'),
+    'xspgr_v_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd.cu',
+                        replaces='mrphy_tpu/ops/epg_pallas.py:2877'),
+    'xspgr_v_fwd_chk': dict(
+        source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd.cu',
+        replaces='mrphy_tpu/ops/epg_pallas.py:2902'),
+    'xspgr_v_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xspgr_bwd.cu',
+                        replaces='mrphy_tpu/ops/epg_pallas.py:2937'),
 }
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
@@ -2795,7 +2831,8 @@ def compare_epg(name, run_kernel, run_plain, inputs, names, meta, dtype,
     r"""An EPG kernel against its plain version on the same arguments, their
     outputs ``names`` compared slice by slice: the per-atom ones at
     EPG_BAR of their largest value (bit for bit expected; the ``dpar`` rows
-    that differ are named), ``dcoef`` (per-step rows, sums over atoms that
+    and the ``dpkt`` entries that differ are named), ``dcoef`` (per-step
+    rows, sums over atoms that
     the kernel takes by warps) at ``row_bar``; with ``timed``, the times,
     the bound and ``library_ms`` (null: no single PyTorch call computes an
     EPG train). Returns the row (``meta`` first)."""
@@ -2819,6 +2856,11 @@ def compare_epg(name, run_kernel, run_plain, inputs, names, meta, dtype,
         a, b = pairs['dpar']
         row['dpar_rows_differing'] = [i for i in range(a.shape[0])
                                       if not torch.equal(a[i], b[i])]
+    if 'dpkt' in pairs:
+        # the per-step entry gradients (nTR, 14, nA): the entries that differ
+        a, b = pairs['dpkt']
+        row['dpkt_rows_differing'] = [i for i in range(a.shape[1])
+                                      if not torch.equal(a[:, i], b[:, i])]
     del kout, pairs
     if timed:
         row['ms'] = time_ms(run_kernel)
@@ -3628,12 +3670,14 @@ XSPGR_KERNELS = ('xspgr_fwd', 'xspgr_fwd_chk', 'xspgr_bwd')
 
 
 def xmrf_case(nA, nTR, K, dtype, dev, *, b1=False, dfb=False, M0b=False,
-              phis=False, kshift=1, ndb=False, seed=0):
+              phis=False, kshift=1, ndb=False, vartr=False, seed=0):
     r"""``epgx_spgr`` keywords of bench_mrf's two-pool train at ``nA`` atoms
     × ``nTR`` TRs from ``seed`` (the flips' noise and the maps drawn in
     bench_mrf's order) and, as asked: per-atom b1 ∈ [0.8, 1.2], dfb ∈ [−20,
-    20] Hz, M0b ∈ [0.05, 0.3], rf-spoiled phases, ``kshift``, or no
-    detailed balance (kab 8, kba 3, M0b 0.4)."""
+    20] Hz, M0b ∈ [0.05, 0.3], rf-spoiled phases, ``kshift``, no detailed
+    balance (kab 8, kba 3, M0b 0.4), or in place of tr 12 ms bench_mrf's
+    variable-TR train ``12e-3 + 6e-3·U(0, 1)`` (drawn after the maps, as
+    bench_mrf draws it)."""
     from mrphy_tpu_torch.ops import epg
     rng = np.random.default_rng(seed)
 
@@ -3652,6 +3696,8 @@ def xmrf_case(nA, nTR, K, dtype, dev, *, b1=False, dfb=False, M0b=False,
               kab=arr(rng.uniform(1.0, 10.0, nA)),
               kba=arr(rng.uniform(5.0, 40.0, nA)), tr=XMRF['tr'],
               kshift=kshift, K=K)
+    if vartr:
+        kw['tr'] = arr(12e-3 + 6e-3 * rng.random(nTR))
     if b1:
         kw['b1'] = arr(rng.uniform(0.8, 1.2, nA))
     if dfb:
@@ -3725,11 +3771,168 @@ def phase_xspgr_kernels(dev):
     return rows
 
 
+# The variable-TR EPG-X kernels' cases (phase 23): label, atoms, TRs, K
+# (None: the default nTR·|kshift| + 1), dtype, xmrf_case keywords with a
+# tr train (or ``pipe=True`` and a flip ``scale``: mrfx_pipe_case over the
+# example's tr trains, the segments phase 24a's path gives the kernels; or
+# ``const=True``: a constant train, whose echoes must also equal
+# ``xspgr_fwd``'s at the same scalar tr), timed.
+XMRF_V = dict(nA=65536, nTR=400, K=24)
+XSPGR_V_CASES = (
+    ('bench_mrf variable-TR two-pool 64k x 400, K 24', 65536, 400, 24,
+     torch.float32, dict(vartr=True), True),
+    ('exchange-MRF dictionary segment 65,536 x 200, K 48, 0.5x flips, trs',
+     65536, 200, 48, torch.float32, dict(pipe=True, scale=0.5), False),
+    ('exchange-MRF dictionary segment 65,536 x 200, K 48, 1.6x flips, '
+     'trs reversed', 65536, 200, 48, torch.float32,
+     dict(pipe=True, scale=1.6), False),
+    ('exchange-MRF refinement 4096 x 200, K 48, 1.6x flips, trs reversed '
+     '(tc = nTR)', 4096, 200, 48, torch.float32, dict(pipe=True, scale=1.6),
+     False),
+    ('f64 8192 x 200, K 32, b1, dfb, M0b, rf-spoiled', 8192, 200, 32,
+     torch.float64, dict(b1=True, dfb=True, M0b=True, phis=True,
+                         vartr=True), False),
+    ('16k x 200, K 32, kshift -1, M0b', 16384, 200, 32, torch.float32,
+     dict(kshift=-1, M0b=True, vartr=True), False),
+    ('16k x 200, K 32, no detailed balance (kab 8, kba 3, M0b 0.4)', 16384,
+     200, 32, torch.float32, dict(ndb=True, vartr=True), False),
+    ('ragged 1001 x 200, K 32, b1, dfb', 1001, 200, 32, torch.float32,
+     dict(b1=True, dfb=True, vartr=True), False),
+    ('2048 x 200, default K 201 (device-memory state)', 2048, 200, None,
+     torch.float32, dict(vartr=True), False),
+    ('f64 1000 x 100, default K 101 (device-memory state), b1', 1000, 100,
+     None, torch.float64, dict(b1=True, vartr=True), False),
+    ('16k x 200, K 32, constant train (= xspgr_fwd at tr 12 ms)', 16384, 200,
+     32, torch.float32, dict(const=True), False),
+)
+XSPGR_V_KERNELS = ('xspgr_v_fwd', 'xspgr_v_fwd_chk', 'xspgr_v_bwd')
+
+
+def phase_xspgr_v_kernels(dev):
+    r"""Phase 23: ``xspgr_v_fwd``, ``xspgr_v_fwd_chk`` and ``xspgr_v_bwd``
+    against their plain versions on XSPGR_V_CASES, the arguments
+    ``epgx_spgr`` gives them over a ``(nTR,)`` tr train (``coef``, ``pk``
+    and the per-step planes ``pkt``; the adjoint fed the kernel's
+    checkpoints and a cotangent drawn from a seed, the plain adjoint
+    written out, with no autograd graph): the timed full-width case
+    (``bench_mrf``'s variable-TR train) with its bound, the segments and the
+    refinement step of phase 24a's path at its chunk, and the options.
+    Per-atom outputs (echoes, checkpoints, ``dpar`` = [dM0a, dM0b, db1] and
+    ``dpkt`` per atom and step) at EPG_BAR of their largest value (bit for
+    bit expected; the rows that differ named), the per-TR rows at
+    XSPGR_ROW_BAR; a constant train's echoes also against ``xspgr_fwd``'s
+    at the scalar tr. Then ``epgx_spgr`` at the full-width case through the
+    entry point: the forward and the gradient of Σ signals² w.r.t. (T1a,
+    kab), timed, with the peak memory. Returns each kernel's rows."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    t0 = time.perf_counter()
+    rows = {name: [] for name in XSPGR_V_KERNELS}
+    const = {}
+    for seed, (label, nA, nTR, K, dtype, kw, timed) in enumerate(
+            XSPGR_V_CASES, 230):
+        kw, fixed = dict(kw), None
+        if kw.pop('pipe', False):
+            case = mrfx_pipe_case(nA, nTR, K, dtype, dev, seed=seed,
+                                  vartr=True, **kw)
+        elif kw.pop('const', False):
+            case = xmrf_case(nA, nTR, K, dtype, dev, seed=seed, **kw)
+            fixed = xspgr_args(case)                 # at the scalar tr
+            case['tr'] = torch.full((nTR,), XMRF['tr'], dtype=dtype,
+                                    device=dev)
+        else:
+            case = xmrf_case(nA, nTR, K, dtype, dev, seed=seed, **kw)
+        coef, (pk, pkt), cfg, _ = epg._xspgr_rows(case.pop('flips'),
+                                                  case.pop('phis'), **case)
+        coef, pk, pkt = coef.contiguous(), pk.contiguous(), pkt.contiguous()
+        tc = kepg.pick_tc(nTR, cfg.K, nA, pk.element_size(), kx.PLANES)
+        chk = kx.xspgr_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)[1]
+        g = cotangent(torch.empty((nA, nTR, 2), dtype=dtype, device=dev),
+                      seed)
+        runs = {
+            'xspgr_v_fwd': (lambda: kx.xspgr_v_fwd(coef, pk, pkt, cfg),
+                            lambda: kx.xspgr_v_fwd_torch(coef, pk, pkt, cfg),
+                            (coef, pk, pkt)),
+            'xspgr_v_fwd_chk': (
+                lambda: kx.xspgr_v_fwd_chk(coef, pk, pkt, cfg, tc=tc),
+                lambda: kx.xspgr_v_fwd_chk_torch(coef, pk, pkt, cfg, tc=tc),
+                (coef, pk, pkt)),
+            'xspgr_v_bwd': (
+                lambda: kx.xspgr_v_bwd(coef, pk, pkt, cfg, chk, g, tc=tc),
+                lambda: kx.xspgr_v_bwd_torch(coef, pk, pkt, cfg, chk, g,
+                                             tc=tc),
+                (coef, pk, pkt, chk, g))}
+        names = {'xspgr_v_fwd': ('sig',), 'xspgr_v_fwd_chk': ('sig', 'chk'),
+                 'xspgr_v_bwd': ('dcoef', 'dpar', 'dpkt')}
+        for name, (run_kernel, run_plain, inputs) in runs.items():
+            meta = dict(case=label, nA=nA, nTR=nTR, K=cfg.K,
+                        kshift=cfg.kshift, tc=tc,
+                        threads_state=kepg.launch_cfg(
+                            cfg.K, pk.element_size(), kx.PLANES))
+            rows[name].append(compare_epg(
+                name, run_kernel, run_plain, inputs, names[name], meta,
+                dtype, timed, XSPGR_ROW_BAR))
+        if fixed is not None:
+            # a constant train: the fixed-TR kernel at the same scalar tr
+            sig = kx.xspgr_v_fwd(coef, pk, pkt, cfg)
+            sig0 = kx.xspgr_fwd(*fixed)
+            const = dict(case=label, bit_identical=torch.equal(sig, sig0),
+                         err=sliced_err(sig, sig0)
+                         / float(sig0.abs().max()))
+            print('xspgr_v_fwd constant train vs xspgr_fwd: '
+                  + json.dumps(const), flush=True)
+            check(const['err'] <= EPG_BAR[dtype],
+                  f"constant train vs xspgr_fwd: {const['err']}")
+            del sig, sig0
+        del coef, pk, pkt, chk, g, fixed
+    check(bool(const), 'no constant-train case ran')
+    out = xspgr_v_entry_timing(dev)
+    print('bench_mrf variable-TR two-pool through epgx_spgr: '
+          + json.dumps(out), flush=True)
+    print(f'phase 23 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return rows
+
+
+def xspgr_v_entry_timing(dev):
+    r"""bench_mrf's variable-TR two-pool train (XMRF_V) through
+    ``epgx_spgr``: the forward (``xspgr_v_fwd``), and the gradient of Σ
+    signals² w.r.t. (T1a, kab) (``xspgr_v_fwd_chk`` + ``xspgr_v_bwd`` and
+    autograd of the per-step planes) as bench_mrf's ``gxv``; times, atoms
+    per second and the gradient's peak memory."""
+    from mrphy_tpu_torch.ops import epg
+    c = XMRF_V
+    kw = xmrf_case(c['nA'], c['nTR'], c['K'], torch.float32, dev,
+                   vartr=True)
+    fl, ph = kw.pop('flips'), kw.pop('phis')
+
+    def fwd():
+        return epg.epgx_spgr(fl, ph, **kw)
+
+    def grad():
+        xs = {n: kw[n].clone().requires_grad_() for n in ('T1a', 'kab')}
+        sig = epg.epgx_spgr(fl, ph, **dict(kw, **xs))
+        return torch.autograd.grad((sig ** 2).sum(), list(xs.values()))
+
+    fwd_ms = time_ms(fwd)
+    gr = grad()
+    check(all(bool(torch.isfinite(x).all()) for x in gr),
+          'variable-TR gradient finite')
+    del gr
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    grad_ms = time_ms(grad, reps=3)
+    return dict(fwd_ms=fwd_ms, fwd_atoms_per_s=c['nA'] / (fwd_ms / 1e3),
+                grad_ms=grad_ms, grad_atoms_per_s=c['nA'] / (grad_ms / 1e3),
+                grad_peak_mem_GB=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
 # The exchange-MRF path at full width (phase 22a): examples/mrfx_exchange.py's
 # pool (T2a 80 ms, T1b 1 s, T2b 20 ms, M0a 1, M0b 0.15, kba = kab/M0b) and
 # flip train (8-63° in smooth lobes), in two segments at 0.5× and 1.6× the
-# train, each 200 TRs of rf-spoiled phases at a scalar tr of 15 ms (the
-# example's variable-TR train needs slice 10d's kernels), K 48, float32; a
+# train, each 200 TRs of rf-spoiled phases, at a scalar tr of 15 ms (phase
+# 22a) or over the example's variable-TR schedule, 12-18 ms, reversed for
+# the second segment (phase 24a, :func:`mrfx_trs`), K 48, float32; a
 # 256 × 256 (T1a, kab) grid, T1a geometric 0.4-2.2 s, kab linear 1-15 /s:
 # 65,536 atoms; a rank-16 pair basis; 1,048,576 probe voxels at 4096
 # off-grid truths (T1a, kab uniform in log T1a and in kab inside the grid,
@@ -3757,11 +3960,13 @@ def mrfx_grid(dev):
             torch.tensor(Kg.ravel(), dtype=torch.float32, device=dev))
 
 
-def mrfx_pipe_case(nA, nTR, K, dtype, dev, *, scale, seed=0):
+def mrfx_pipe_case(nA, nTR, K, dtype, dev, *, scale, vartr=False, seed=0):
     r"""``epgx_spgr`` keywords of one segment of phase 22a's path (the
     train at ``scale`` of the example's flips, as :func:`mrfx_gen` gives
-    them) at the grid's atoms: all of them (the dictionary) or ``nA`` drawn
-    from ``seed`` (the refinement's first step: matched grid atoms)."""
+    them; with ``vartr`` phase 24a's, over the example's tr train, reversed
+    for the second segment) at the grid's atoms: all of them (the
+    dictionary) or ``nA`` drawn from ``seed`` (the refinement's first step:
+    matched grid atoms)."""
     c = XMRF_PIPE
     _, _, T1a, kab = mrfx_grid(dev)
     check(nTR == c['ntr'] and nA <= T1a.shape[0],
@@ -3772,8 +3977,11 @@ def mrfx_pipe_case(nA, nTR, K, dtype, dev, *, scale, seed=0):
         T1a, kab = T1a[sel], kab[sel]
     flips, phis = mrfx_train(nTR, dtype, dev)
     T1a, kab = T1a.to(dtype), kab.to(dtype)
+    tr = c['tr']
+    if vartr:
+        tr = mrfx_trs(nTR, dtype, dev)[list(c['scales']).index(scale)]
     return dict(XMRF_POOL, flips=flips * scale, phis=phis, T1a=T1a, kab=kab,
-                kba=kab / XMRF_POOL['M0b'], tr=c['tr'], K=K)
+                kba=kab / XMRF_POOL['M0b'], tr=tr, K=K)
 
 
 def mrfx_train(ntr, dtype, dev):
@@ -3785,20 +3993,33 @@ def mrfx_train(ntr, dtype, dev):
     return flips, epg.rf_spoil_phases(ntr, dtype=dtype, device=dev)
 
 
+def mrfx_trs(ntr, dtype, dev):
+    r"""examples/mrfx_exchange.py's variable-TR schedule, one train per
+    segment: ``trs = 0.012 + 0.006·(0.5 + 0.5·sin(2πt/41))`` s, then
+    ``trs[::-1]``."""
+    t = np.arange(ntr)
+    trs = 0.012 + 0.006 * (0.5 + 0.5 * np.sin(2 * np.pi * t / 41))
+    return (torch.tensor(trs, dtype=dtype, device=dev),
+            torch.tensor(trs[::-1].copy(), dtype=dtype, device=dev))
+
+
 def mrfx_gen(flips, phis, T1a, kab, *, tr, K, scales):
     r"""The exchange-MRF signal of (T1a, kab): the two flip-scale segments
-    of ``epgx_spgr`` at the example's pool, concatenated along the TRs."""
+    of ``epgx_spgr`` at the example's pool, concatenated along the TRs;
+    ``tr`` a scalar, or one tr train per segment (:func:`mrfx_trs`)."""
     from mrphy_tpu_torch.ops import epg
-    kw = dict(XMRF_POOL, T1a=T1a, kab=kab, kba=kab / XMRF_POOL['M0b'],
-              tr=tr, K=K)
-    return torch.cat([epg.epgx_spgr(flips * f, phis, **kw) for f in scales],
-                     dim=-2)
+    kw = dict(XMRF_POOL, T1a=T1a, kab=kab, kba=kab / XMRF_POOL['M0b'], K=K)
+    trs = tr if isinstance(tr, tuple) else (tr,) * len(scales)
+    return torch.cat([epg.epgx_spgr(flips * f, phis, tr=t, **kw)
+                      for f, t in zip(scales, trs)], dim=-2)
 
 
-def phase_mrfx_path(dev):
-    r"""Phase 22: the exchange-MRF path through the entry points. (a) At
-    XMRF_PIPE's full width: the ``epgx_spgr`` dictionary (``xspgr_fwd``),
-    timed in atoms per second; ``svd_basis``, ``compress`` and
+def mrfx_pipeline(dev, vartr):
+    r"""The exchange-MRF pipeline through the entry points (phases 22a and
+    24a), at a scalar tr or, with ``vartr``, over the example's tr trains
+    (:func:`mrfx_trs`; the variable-TR kernels ``xspgr_v_*`` in place of
+    ``xspgr_*``). At XMRF_PIPE's full width: the ``epgx_spgr`` dictionary
+    (``xspgr_fwd``), timed in atoms per second; ``svd_basis``, ``compress`` and
     ``dict_match_compressed`` of the 1M probe voxels (``match``), timed in
     voxels per second, with the matched maps' median errors (relative, and
     in grid steps: bars 1.5 on T1a and 3 on kab; float32 does not resolve
@@ -3808,27 +4029,28 @@ def phase_mrfx_path(dev):
     ``xspgr_bwd`` per segment and step), s per step, with the refined
     medians (both must fall); peak memory; the
     example's exchange-sensitivity check (kab 1 against 15 moves the
-    signal by more than 2%). (b) The MRFX_EX problem in float64 against
-    JAX's literals (:func:`mrfx_example`)."""
+    signal by more than 2%). Returns ``(measured, bars)``."""
     from mrphy_tpu_torch.ops import mrf
-    t0 = time.perf_counter()
     c = XMRF_PIPE
     out, bars = {}, {}
     flips, phis = mrfx_train(c['ntr'], torch.float32, dev)
-    seq = dict(tr=c['tr'], K=c['K'], scales=c['scales'])
+
+    def seq(dtype):
+        return dict(tr=mrfx_trs(c['ntr'], dtype, dev) if vartr else c['tr'],
+                    K=c['K'], scales=c['scales'])
     n = c['ngrid']
     t1g, kg, T1, Kab = mrfx_grid(dev)
     # exchange sensitivity: kab must move the signal
     one = torch.ones(1, device=dev)
-    s_lo = mrfx_gen(flips, phis, one, one, **seq)
-    s_hi = mrfx_gen(flips, phis, one, 15 * one, **seq)
+    s_lo = mrfx_gen(flips, phis, one, one, **seq(torch.float32))
+    s_hi = mrfx_gen(flips, phis, one, 15 * one, **seq(torch.float32))
     out['kab_separation'] = float((s_lo - s_hi).abs().max()
                                   / s_lo.abs().max())
     check(out['kab_separation'] > 0.02,
           f"kab separation {out['kab_separation']} <= 0.02")
 
     def dictionary():
-        return mrfx_gen(flips, phis, T1, Kab, **seq)
+        return mrfx_gen(flips, phis, T1, Kab, **seq(torch.float32))
 
     D = dictionary()
     torch.cuda.synchronize()
@@ -3851,7 +4073,8 @@ def phase_mrfx_path(dev):
     truth = torch.arange(nV, device=dev) % nt
     S = mrfx_gen(flips, phis, torch.tensor(T1t, dtype=torch.float32,
                                            device=dev),
-                 torch.tensor(Kt, dtype=torch.float32, device=dev), **seq)
+                 torch.tensor(Kt, dtype=torch.float32, device=dev),
+                 **seq(torch.float32))
     X = S[truth]
     X = torch.cos(ph) * X + torch.sin(ph) * torch.stack(
         [-X[..., 1], X[..., 0]], -1)
@@ -3896,7 +4119,8 @@ def phase_mrfx_path(dev):
     sel = np.arange(nt)
     f64 = dict(dtype=torch.float64, device=dev)
     fl64, ph64 = mrfx_train(c['ntr'], torch.float64, dev)
-    D64 = mrfx_gen(fl64, ph64, T1.to(**f64), Kab.to(**f64), **seq)
+    D64 = mrfx_gen(fl64, ph64, T1.to(**f64), Kab.to(**f64),
+                   **seq(torch.float64))
     basis64 = mrf.svd_basis(D64, rank=c['rank'])
     res64 = mrf.dict_match_compressed(
         mrf.compress(D64, basis64), mrf.compress(X[sel].to(**f64), basis64),
@@ -3915,7 +4139,7 @@ def phase_mrfx_path(dev):
 
     def sig_b(P):
         return mrfx_gen(flips, phis, torch.exp(P[:, 0]), torch.exp(P[:, 1]),
-                        **seq)
+                        **seq(torch.float32))
 
     def refine(iters):
         return mrf.match_refine(sig_b, p0, X[sel], iters=iters, lr=c['lr'],
@@ -3947,25 +4171,47 @@ def phase_mrfx_path(dev):
           < out['refine_start_median_kab_relerr'],
           'refinement did not lower both medians: ' + json.dumps(out))
     del D, X, res, P, score
-    # (b) examples/mrfx_exchange.py in float64 against JAX
-    out.update(mrfx_example(dev))
+    return out, bars
+
+
+def mrfx_path(dev, vartr, label, phase):
+    r"""Phase 22 (at a scalar tr) or 24 (``vartr``): :func:`mrfx_pipeline`,
+    then (b) the MRFX_EX problem in float64 against JAX's literals
+    (:func:`mrfx_example`); prints the measurements and raises on a missed
+    bar."""
+    t0 = time.perf_counter()
+    out, bars = mrfx_pipeline(dev, vartr)
+    out.update(mrfx_example(dev, vartr))
     bars.update(example_D=1e-10, example_sep=1e-10, example_loss0=1e-9,
                 example_grad0=1e-9, example_losses=1e-8, example_p=1e-8)
-    print('exchange-MRF path: ' + json.dumps(dict(measured=out, bars=bars)),
+    print(f'{label}: ' + json.dumps(dict(measured=out, bars=bars)),
           flush=True)
     for key, bar in bars.items():
         check(out[key] <= bar, f'{key}: {out[key]} > {bar}')
-    print(f'phase 22 took {time.perf_counter() - t0:.1f} s', flush=True)
+    print(f'phase {phase} took {time.perf_counter() - t0:.1f} s', flush=True)
     return out
 
 
-# examples/mrfx_exchange.py's problem at its defaults, float64 here, with
-# one change: a scalar tr of 15 ms in place of its variable-TR train (which
-# needs slice 10d's kernels): 150 TRs a segment (two, at 0.5× and 1.6× the
-# flip train), K 16, a 10 × 8 (T1a, kab) grid, an SVD basis at energy 1 −
-# 1e-8, the off-grid probe (T1a 0.93 s, kab 11.3 /s) matched, then 250 Adam
-# steps (lr 0.02) of (log T1a, log kab) from the matched atom on 1 − the
-# real correlation.
+def phase_mrfx_path(dev):
+    r"""Phase 22: the exchange-MRF path at a scalar tr (:func:`mrfx_path`)."""
+    return mrfx_path(dev, False, 'exchange-MRF path', 22)
+
+
+def phase_mrfx_v_path(dev):
+    r"""Phase 24: the exchange-MRF path over the example's variable-TR
+    schedule (:func:`mrfx_path`; ``xspgr_v_fwd``, ``xspgr_v_fwd_chk``,
+    ``xspgr_v_bwd`` and ``match``), its example against
+    GOLDEN_MRFXV."""
+    return mrfx_path(dev, True, 'exchange-MRF path (variable TR)', 24)
+
+
+# examples/mrfx_exchange.py's problem at its defaults, float64 here: 150 TRs
+# a segment (two, at 0.5× and 1.6× the flip train) over its variable-TR
+# schedule (phase 24b, :func:`mrfx_trs`) or, in phase 22b, at a scalar tr
+# of 15 ms in its place; K 16, a 10 × 8 (T1a, kab) grid, an SVD basis at
+# energy 1 − 1e-8, the off-grid probe (T1a 0.93 s, kab 11.3 /s) matched,
+# then 250 Adam steps (lr 0.02) of (log T1a, log kab) from the matched atom
+# on 1 − the real correlation.
 MRFX_EX = dict(ntr=150, nt1=10, nk=8, K=16, tr=0.015, T1a=0.93, kab=11.3,
                iters=250, lr=0.02, energy=1 - 1e-8, scales=(0.5, 1.6))
 # the dictionary entries held to JAX: (atom, TR of the concatenated train)
@@ -3983,8 +4229,9 @@ def mrfx_example_arrays():
     return T1g.ravel(), Kg.ravel()
 
 
-# mrphy_tpu (JAX, XLA route on the CPU), float64, on the MRFX_EX problem
-# (tests/make_epgx_goldens.py prints these): the dictionary at
+# mrphy_tpu (JAX, XLA route on the CPU), float64, on the MRFX_EX problem at
+# a scalar tr of 15 ms (tests/make_epgx_goldens.py prints these): the
+# dictionary at
 # MRFX_EX_ENTRIES (re, im) and its largest |value|, the basis rank, the
 # matched atom, the kab separation, the first loss and its gradient w.r.t.
 # (log T1a, log kab), the losses at MRFX_EX_LOSS_STEPS and the fitted
@@ -4007,22 +4254,45 @@ GOLDEN_MRFX = {
                7.771561172376096e-16,
                2.220446049250313e-16],
     'p': [0.9299999201121518, 11.29999474319172]}
+# The same on the MRFX_EX problem over its variable-TR schedule
+# (tests/make_epgxv_goldens.py prints these).
+GOLDEN_MRFXV = {
+    'D': [[0.0, -0.0802199448057441],
+          [-0.005179044806084962, -0.029283777968519453],
+          [-6.728989913555943e-06, -0.16407163889335516],
+          [-3.3888353014035018e-18, -0.3355603211906728],
+          [-0.008050898659181656, -0.046832549464469804],
+          [-0.0009931243936187667, -0.0066249514317318]],
+    'D_max': 0.4709377290977258, 'rank': 16, 'idx': 37,
+    'sep': 0.02557251308115319, 'loss0': 0.00033167084118201906,
+    'grad0': [-0.007797303887235232, 3.602824888059408e-06],
+    'losses': [0.00033167084118201906,
+               0.00019432053364309976,
+               2.1235873171043806e-08,
+               3.257835223813288e-09,
+               2.8011259978200087e-11,
+               3.3306690738754696e-16,
+               2.220446049250313e-16],
+    'p': [0.929999919311585, 11.299995321631117]}
 
 
-def mrfx_example(dev):
-    r"""The MRFX_EX problem in float64 on the card against GOLDEN_MRFX,
-    through ``epgx_spgr`` with shared ``(nTR,)`` trains at scalar tissue (so
-    the float64 kernels run): the dictionary entries relative to its
+def mrfx_example(dev, vartr=False):
+    r"""The MRFX_EX problem in float64 on the card against GOLDEN_MRFX (at
+    a scalar tr) or, with ``vartr``, GOLDEN_MRFXV (over the example's tr
+    trains), through ``epgx_spgr`` with shared ``(nTR,)`` trains at scalar
+    tissue (so the float64 kernels run): the dictionary entries relative to
+    its
     largest value, the basis rank, the matched atom and the kab separation
     equal or at 1e-10, the first loss and its gradient at 1e-9, the losses
     along the fit at 1e-8 of the first (they fall to 1 − a correlation of
     1 to rounding, ~1e-16, where a relative bar would compare rounding),
     the fitted (T1a, kab) at rtol 1e-8."""
     from mrphy_tpu_torch.ops import mrf
-    c, gold = MRFX_EX, GOLDEN_MRFX
+    c, gold = MRFX_EX, (GOLDEN_MRFXV if vartr else GOLDEN_MRFX)
     f64 = dict(dtype=torch.float64, device=dev)
     flips, phis = mrfx_train(c['ntr'], torch.float64, dev)
-    seq = dict(tr=c['tr'], K=c['K'], scales=c['scales'])
+    seq = dict(tr=mrfx_trs(c['ntr'], torch.float64, dev) if vartr
+               else c['tr'], K=c['K'], scales=c['scales'])
     T1, Kab = (torch.as_tensor(x, **f64) for x in mrfx_example_arrays())
 
     def gen(t1a, kab):
@@ -4136,11 +4406,13 @@ def main() -> int:
     match_rows = phase_match_kernel(dev)
     cpmg_rows = phase_cpmg_kernels(dev)
     xspgr_rows = phase_xspgr_kernels(dev)
+    xspgr_v_rows = phase_xspgr_v_kernels(dev)
 
     # the forward path, the gradient and design path, the two-pool path,
     # the acquisition path, the gridding path, the MRF path, the T2-mapping
-    # path and the exchange-MRF path: each with the launch counts zeroed
-    # just before it and read just after
+    # path and the exchange-MRF paths at a scalar tr and over a variable-TR
+    # train: each with the launch counts zeroed just before it and read just
+    # after
     counters = {**{k: bloch.LAUNCHES for k in bloch.LAUNCHES},
                 **{k: kmc.LAUNCHES for k in kmc.LAUNCHES},
                 **{k: ksig.LAUNCHES for k in ksig.LAUNCHES},
@@ -4161,7 +4433,9 @@ def main() -> int:
             ('mrf', phase_mrf_path, EPG_KERNELS + tuple(kmrf.LAUNCHES)),
             ('T2-mapping', phase_t2map_path, CPMG_KERNELS),
             ('exchange-MRF', phase_mrfx_path,
-             XSPGR_KERNELS + tuple(kmrf.LAUNCHES))):
+             XSPGR_KERNELS + tuple(kmrf.LAUNCHES)),
+            ('exchange-MRF (variable TR)', phase_mrfx_v_path,
+             XSPGR_V_KERNELS + tuple(kmrf.LAUNCHES))):
         for k, table in counters.items():
             table[k] = 0
         run(dev)
@@ -4184,7 +4458,7 @@ def main() -> int:
                        ('sig_adj', sig_rows['sig_adj']),
                        *nufft_rows.items(), *epg_rows.items(),
                        ('match', match_rows), *cpmg_rows.items(),
-                       *xspgr_rows.items()):
+                       *xspgr_rows.items(), *xspgr_v_rows.items()):
         # the first timed case: float32 at the main path's shape
         head = next(r for r in rows if 'ms' in r)
         err = ('max_abs_err_chk' if name in ('rfgr_fwd', 'beff_fwd', 'mc_fwd')
@@ -4203,7 +4477,7 @@ def main() -> int:
             # the matched filter one matrix product per probe chunk
             library_ms=head.get('library_ms')))
         if name in ('rfgr_bwd', 'mc_bwd', 'spgr_bwd', 'cpmg_bwd',
-                    'xspgr_bwd'):
+                    'xspgr_bwd', 'xspgr_v_bwd'):
             # the rows: max|Δ| / max|row|
             kernels[-1]['max_row_rel_err'] = max(
                 r['max_row_rel_err'] for r in f32)

@@ -116,6 +116,16 @@ _SIGNATURES = {
     # flags, tc, threads, stream
     'mrphy_xspgr_bwd_f32': (_P,) * 8 + (_I64,) * 7 + (_P,),
     'mrphy_xspgr_bwd_f64': (_P,) * 8 + (_I64,) * 7 + (_P,),
+    # coef, pk, pkt, sig, chk, gstate, nA, nTR, K, kshift, flags, tc,
+    # threads, stream
+    'mrphy_xspgr_v_fwd_f32': (_P,) * 6 + (_I64,) * 7 + (_P,),
+    'mrphy_xspgr_v_fwd_f64': (_P,) * 6 + (_I64,) * 7 + (_P,),
+    'mrphy_xspgr_v_fwd_chk_f32': (_P,) * 6 + (_I64,) * 7 + (_P,),
+    'mrphy_xspgr_v_fwd_chk_f64': (_P,) * 6 + (_I64,) * 7 + (_P,),
+    # coef, pk, pkt, chk, g, scratch, hstate, dpar, dcf, dpkt, nA, nTR, K,
+    # kshift, flags, tc, threads, stream
+    'mrphy_xspgr_v_bwd_f32': (_P,) * 10 + (_I64,) * 7 + (_P,),
+    'mrphy_xspgr_v_bwd_f64': (_P,) * 10 + (_I64,) * 7 + (_P,),
     # dre, dim, x, idx, best, nA, nV, r, stream
     'mrphy_match_f32': (_P,) * 5 + (_I64,) * 3 + (_P,),
     'mrphy_match_f64': (_P,) * 5 + (_I64,) * 3 + (_P,),

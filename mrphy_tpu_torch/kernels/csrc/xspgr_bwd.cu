@@ -1,25 +1,34 @@
 // xspgr_bwd: the two-phase chunk adjoint of the two-pool EPG-X
-// gradient-spoiled train at a fixed TR on Hopper (sm_90a).
+// gradient-spoiled train on Hopper (sm_90a), at a fixed TR or over a
+// variable-TR train.
 //
-// Replaces the TPU kernel `_xspgr_bwd_kernel` (launched by
-// `_xspgr_core_bwd`, mrphy_tpu/ops/epg_pallas.py). Chunks of tc TRs are
-// visited newest first. Phase 1 re-runs the forward from the chunk's start
-// state (chk, written by xspgr_fwd_chk) and stores every pre-RF state;
-// phase 2 walks them backwards, per TR: the shift's transpose on both
-// pools, the exchange-relaxation transpose (conj(E)ᵀ on F+, Eᵀ on F−, Zᵀ
-// on Z) with the 14 propagator entries' contractions, the echo's cotangent
-// into both pools' F+(0), the RF mix's coefficient terms summed over the
-// pools, and the mix's transpose on both pools. Outputs: dpar (17, nA) =
-// [dE00r, dE00i, dE01r, dE01i, dE10r, dE10i, dE11r, dE11i, dZ00, dZ01,
-// dZ10, dZ11, dra, drb, dM0a, dM0b, db1] (dM0a and dM0b the final
-// cotangents of Za(0) and Zb(0)); dcf (ceil(nA/32), nTR, 9), each warp's
-// per-TR coefficient rows summed over its atoms, which the wrapper sums
-// over warps in a fixed order (no atomics).
+// Replaces two TPU kernels of mrphy_tpu/ops/epg_pallas.py:
+// `_xspgr_bwd_kernel` (launched by `_xspgr_core_bwd`), as the entry points
+// mrphy_xspgr_bwd_*, and its variable-TR counterpart `_xv_bwd_kernel`
+// (launched by `_xspgr_core_v_bwd`), as mrphy_xspgr_v_bwd_*. Chunks of tc
+// TRs are visited newest first. Phase 1 re-runs the forward from the
+// chunk's start state (chk, written by xspgr_fwd_chk or xspgr_v_fwd_chk)
+// and stores every pre-RF state; phase 2 walks them backwards, per TR: the
+// shift's transpose on both pools, the exchange-relaxation transpose
+// (conj(E)ᵀ on F+, Eᵀ on F−, Zᵀ on Z) with the 14 propagator entries'
+// contractions, the echo's cotangent into both pools' F+(0), the RF mix's
+// coefficient terms summed over the pools, and the mix's transpose on both
+// pools. Outputs at a fixed TR: dpar (17, nA) = [dE00r, dE00i, dE01r,
+// dE01i, dE10r, dE10i, dE11r, dE11i, dZ00, dZ01, dZ10, dZ11, dra, drb,
+// dM0a, dM0b, db1] (dM0a and dM0b the final cotangents of Za(0) and
+// Zb(0)). Over a variable-TR train the entries differ per step, so their
+// 14 contractions are written per step, dpkt (nTR, 14, nA), and dpar (3,
+// nA) = [dM0a, dM0b, db1] (the initial Z(0)'s; the recovery's share of M0a
+// and M0b comes back through dpkt's ra and rb rows). Both: dcf (ceil(nA/32),
+// nTR, 9), each warp's per-TR coefficient rows summed over its atoms,
+// which the wrapper sums over warps in a fixed order (no atomics).
 //
 // What bounds it on the H100: arithmetic and device memory. Phase 1 writes
 // and phase 2 reads every pre-RF state, 12·K values per atom and TR (121
 // GB at 65,536 atoms × 400 TRs × K 48 in float32, ~36 ms at the card's
-// rate), beside ~4× the forward's arithmetic.
+// rate), beside ~4× the forward's arithmetic. Over a variable-TR train
+// both phases also read the step's 14 entries and phase 2 writes its 14
+// contractions (1.47 GB each way at 65,536 atoms × 400 TRs in float32).
 //
 // Design. One thread per atom, as xspgr_fwd. Phase 1 runs from chk into a
 // device-memory scratch (tc − 1, 12, K, nA), orders in logical order, the
@@ -28,14 +37,16 @@
 // pool. The adjoint state h (12·K values) lives in shared memory as ring
 // buffers over the orders, as the forward's state does (in device memory
 // where the forward's would), so the shift's transpose is two offsets and
-// three slots a pool. The 15 per-atom accumulators (14 entries and b1) sit
-// in registers. Every sum over the orders is taken one order at a time in
-// the plain version's order (kernels/epgx.py `xspgr_bwd_torch`), so
+// three slots a pool. At a fixed TR the 15 per-atom accumulators (14
+// entries and b1) sit in registers; over a variable-TR train only b1's
+// does, and the step's 14 entry sums are stored as they are formed. Every
+// sum over the orders is taken one order at a time in the plain version's
+// order (kernels/epgx.py `xspgr_bwd_torch`, `xspgr_v_bwd_torch`), so
 // per-atom results agree bit for bit (built without FMA contraction). The
 // per-TR rows are reduced over a warp's atoms by shuffles; lanes past nA
-// add zeros. No fallback: every instance xspgr_fwd_chk takes, this kernel
-// takes, with the chunk length the wrapper chose for the scratch
-// (kernels/epg.py `pick_tc` with 12 planes).
+// add zeros. No fallback: every instance the forward with checkpoints
+// takes, this kernel takes, with the chunk length the wrapper chose for
+// the scratch (kernels/epg.py `pick_tc` with 12 planes).
 #include "epgx_common.cuh"
 
 namespace mrphy {
@@ -120,16 +131,21 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-template <typename T>
+// par: (17, nA) at a fixed TR; over a variable-TR train (VARTR) the rows
+// [M0a, M0b, b1] (3, nA), the entries of step t at pkt + t·14·nA and their
+// contractions at dpkt + t·14·nA.
+template <typename T, bool VARTR>
 __global__ void xspgr_bwd_kernel(const T* __restrict__ coef,
                                  const T* __restrict__ par,
+                                 const T* __restrict__ pkt,
                                  const T* __restrict__ chk,
                                  const T* __restrict__ gy,
                                  T* __restrict__ scratch,
                                  T* __restrict__ hstate,
                                  T* __restrict__ dpar, T* __restrict__ dcf,
-                                 int64_t nA, int64_t nTR, int K, int kshift,
-                                 int flags, int64_t tc) {
+                                 T* __restrict__ dpkt, int64_t nA,
+                                 int64_t nTR, int K, int kshift, int flags,
+                                 int64_t tc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int64_t a = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   // threads past nA take part in the warps' sums with zeros
@@ -145,8 +161,8 @@ __global__ void xspgr_bwd_kernel(const T* __restrict__ coef,
   Prop<T> e{};
   T b1 = 0;
   if (active) {
-    e = load_prop(par, nA, a);
-    b1 = par[16 * nA + a];
+    if constexpr (!VARTR) e = load_prop(par, nA, a);
+    b1 = par[(VARTR ? 2 : 16) * nA + a];
     for (int p = 0; p < kPlanes; ++p)
       for (int k = 0; k < K; ++k) h(p, k) = T(0);
   }
@@ -164,6 +180,7 @@ __global__ void xspgr_bwd_kernel(const T* __restrict__ coef,
       for (int64_t tl = 0; tl + 1 < tc; ++tl) {
         const int64_t t = j * tc + tl;
         const Trig<T> g = spgr::trig(coef, nTR, t, b1, has_b1);
+        if constexpr (VARTR) e = load_prop(pkt + t * 14 * nA, nA, a);
         xfwd_direct((tl == 0 ? c0 : scratch + (tl - 1) * plane) + a,
                     scratch + tl * plane + a, g, e, nA, K, kshift);
       }
@@ -174,6 +191,7 @@ __global__ void xspgr_bwd_kernel(const T* __restrict__ coef,
       if (active) {
         const T* x0 = (tl == 0 ? c0 : scratch + (tl - 1) * plane) + a;
         const Trig<T> g = spgr::trig(coef, nTR, t, b1, has_b1);
+        if constexpr (VARTR) e = load_prop(pkt + t * 14 * nA, nA, a);
         ring_shift2_T(h, op, om, kshift);
         // the sums over the orders, one order at a time
         T kE[12], km[8];
@@ -232,9 +250,17 @@ __global__ void xspgr_bwd_kernel(const T* __restrict__ coef,
           ip = spgr::wrap_inc(ip, K);
           im = spgr::wrap_inc(im, K);
         }
-        for (int i = 0; i < 12; ++i) acc[i] = acc[i] + kE[i];
-        acc[12] = acc[12] + d_ra;
-        acc[13] = acc[13] + d_rb;
+        if constexpr (VARTR) {
+          // this step's entry gradients, as they are
+          T* dp = dpkt + t * 14 * nA + a;
+          for (int i = 0; i < 12; ++i) dp[i * nA] = kE[i];
+          dp[12 * nA] = d_ra;
+          dp[13 * nA] = d_rb;
+        } else {
+          for (int i = 0; i < 12; ++i) acc[i] = acc[i] + kE[i];
+          acc[12] = acc[12] + d_ra;
+          acc[13] = acc[13] + d_rb;
+        }
         // km: [ca2, sc2, ss2, ss, sc, hs, hc, ca]
         const T d_sa2 = g.c2 * km[1] + g.s2 * km[2];
         const T d_sa = g.s1 * (km[3] + T(0.5) * km[5]) +
@@ -264,35 +290,41 @@ __global__ void xspgr_bwd_kernel(const T* __restrict__ coef,
     }
   }
   if (active) {
-    for (int i = 0; i < 14; ++i) dpar[i * nA + a] = acc[i];
+    T* dm = dpar;  // [dM0a, dM0b, db1]
+    if constexpr (!VARTR) {
+      for (int i = 0; i < 14; ++i) dpar[i * nA + a] = acc[i];
+      dm += 14 * nA;
+    }
     // the initial state: M0a on Za(0)'s real part, M0b on Zb(0)'s
-    dpar[14 * nA + a] = h(4, 0);
-    dpar[15 * nA + a] = hb(4, 0);
-    dpar[16 * nA + a] = ab1;
+    dm[a] = h(4, 0);
+    dm[nA + a] = hb(4, 0);
+    dm[2 * nA + a] = ab1;
   }
 }
 
-template <typename T>
-int launch_xspgr_bwd(const T* coef, const T* par, const T* chk, const T* gy,
-                     T* scratch, T* hstate, T* dpar, T* dcf, int64_t nA,
-                     int64_t nTR, int64_t K, int64_t kshift, int64_t flags,
-                     int64_t tc, int64_t threads, void* stream) {
+template <typename T, bool VARTR>
+int launch_xspgr_bwd(const T* coef, const T* par, const T* pkt, const T* chk,
+                     const T* gy, T* scratch, T* hstate, T* dpar, T* dcf,
+                     T* dpkt, int64_t nA, int64_t nTR, int64_t K,
+                     int64_t kshift, int64_t flags, int64_t tc,
+                     int64_t threads, void* stream) {
   if (nA <= 0 || nTR <= 0 || K <= 0 || kshift == 0 || tc <= 0 ||
-      nTR % tc != 0 || !spgr::valid_threads((int)threads))
+      nTR % tc != 0 || !spgr::valid_threads((int)threads) ||
+      (VARTR && (pkt == nullptr || dpkt == nullptr)))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       hstate ? 0 : (size_t)threads * kPlanes * (size_t)K * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        xspgr_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        xspgr_bwd_kernel<T, VARTR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const unsigned grid = (unsigned)((nA + threads - 1) / threads);
-  xspgr_bwd_kernel<T><<<grid, (unsigned)threads, smem,
-                        (cudaStream_t)stream>>>(
-      coef, par, chk, gy, scratch, hstate, dpar, dcf, nA, nTR, (int)K,
-      (int)kshift, (int)flags, tc);
+  xspgr_bwd_kernel<T, VARTR><<<grid, (unsigned)threads, smem,
+                               (cudaStream_t)stream>>>(
+      coef, par, pkt, chk, gy, scratch, hstate, dpar, dcf, dpkt, nA, nTR,
+      (int)K, (int)kshift, (int)flags, tc);
   return (int)cudaGetLastError();
 }
 
@@ -311,11 +343,30 @@ int launch_xspgr_bwd(const T* coef, const T* par, const T* chk, const T* gy,
                       void* dpar, void* dcf, int64_t nA, int64_t nTR,       \
                       int64_t K, int64_t kshift, int64_t flags, int64_t tc, \
                       int64_t threads, void* stream) {                       \
-    return mrphy::epgx::launch_xspgr_bwd<T>(                                 \
-        (const T*)coef, (const T*)par, (const T*)chk, (const T*)g,           \
-        (T*)scratch, (T*)hstate, (T*)dpar, (T*)dcf, nA, nTR, K, kshift,      \
-        flags, tc, threads, stream);                                         \
+    return mrphy::epgx::launch_xspgr_bwd<T, false>(                          \
+        (const T*)coef, (const T*)par, nullptr, (const T*)chk, (const T*)g,  \
+        (T*)scratch, (T*)hstate, (T*)dpar, (T*)dcf, nullptr, nA, nTR, K,     \
+        kshift, flags, tc, threads, stream);                                 \
   }
 
 MRPHY_XSPGR_BWD_ENTRY(mrphy_xspgr_bwd_f32, float)
 MRPHY_XSPGR_BWD_ENTRY(mrphy_xspgr_bwd_f64, double)
+
+// The variable-TR train: inputs coef (9, nTR), pk (3, nA) = [M0a, M0b, b1],
+// the planes pkt (nTR, 14, nA), chk and g as above; the outputs dpar (3,
+// nA) = [dM0a, dM0b, db1], dcf as above and dpkt (nTR, 14, nA).
+#define MRPHY_XSPGR_V_BWD_ENTRY(NAME, T)                                     \
+  extern "C" int NAME(const void* coef, const void* pk, const void* pkt,    \
+                      const void* chk, const void* g, void* scratch,        \
+                      void* hstate, void* dpar, void* dcf, void* dpkt,      \
+                      int64_t nA, int64_t nTR, int64_t K, int64_t kshift,   \
+                      int64_t flags, int64_t tc, int64_t threads,           \
+                      void* stream) {                                        \
+    return mrphy::epgx::launch_xspgr_bwd<T, true>(                           \
+        (const T*)coef, (const T*)pk, (const T*)pkt, (const T*)chk,          \
+        (const T*)g, (T*)scratch, (T*)hstate, (T*)dpar, (T*)dcf, (T*)dpkt,   \
+        nA, nTR, K, kshift, flags, tc, threads, stream);                     \
+  }
+
+MRPHY_XSPGR_V_BWD_ENTRY(mrphy_xspgr_v_bwd_f32, float)
+MRPHY_XSPGR_V_BWD_ENTRY(mrphy_xspgr_v_bwd_f64, double)

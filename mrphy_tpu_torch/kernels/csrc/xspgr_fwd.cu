@@ -1,24 +1,30 @@
 // xspgr_fwd: the two-pool EPG-X gradient-spoiled train (exchange-sensitive
-// MRF dictionaries) at a fixed TR on Hopper (sm_90a), with and without
-// chunk checkpoints.
+// MRF dictionaries) on Hopper (sm_90a), at a fixed TR or a variable-TR
+// train, with and without chunk checkpoints.
 //
-// Replaces two TPU kernels of mrphy_tpu/ops/epg_pallas.py: `_epgx_kernel`
-// (launched by `_xspgr_core`), the dictionary's forward, as the entry
-// points mrphy_xspgr_fwd_*; and `_xspgr_fwd_chk_kernel` (launched by
+// Replaces four TPU kernels of mrphy_tpu/ops/epg_pallas.py: `_epgx_kernel`
+// (launched by `_xspgr_core`), the dictionary's forward at a fixed TR, as
+// the entry points mrphy_xspgr_fwd_*; `_xspgr_fwd_chk_kernel` (launched by
 // `_xspgr_core_fwd`), the same train writing the state at the start of
-// every chunk of tc TRs for the adjoint xspgr_bwd, as
-// mrphy_xspgr_fwd_chk_*. Per atom and TR: the RF mix on pool a and on pool
-// b, the echo (the total Fa+(0) + Fb+(0) demodulated by the transmit
+// every chunk of tc TRs for the adjoint xspgr_bwd, as mrphy_xspgr_fwd_chk_*;
+// and their variable-TR counterparts `_epgx_v_kernel` (`_xspgr_core_v`) and
+// `_xv_fwd_chk_kernel` (`_xspgr_core_v_fwd`), as mrphy_xspgr_v_fwd_* and
+// mrphy_xspgr_v_fwd_chk_*. Per atom and TR: the RF mix on pool a and on
+// pool b, the echo (the total Fa+(0) + Fb+(0) demodulated by the transmit
 // phase), the exact exchange-relaxation of every order (the complex 2×2
 // propagator on F+, its conjugate on F−, the real 2×2 on Z with the affine
 // recovery into Z(0)), and |kshift| unit shifts of both pools. Options:
 // per-atom b1 (half-angle trig per atom and TR), any nonzero kshift, any K.
+// At a fixed TR the 14 propagator entries are per-atom rows of par; over a
+// variable-TR train they are read per step from the planes pkt (nTR, 14,
+// nA), one coalesced load of each entry across the atoms.
 //
 // What bounds it on the H100: arithmetic. Per atom, order and TR the two
 // mixes and the exchange-relaxation are ~155 multiplies and adds without
 // FMA contraction: ~2e11 operations at 65,536 atoms × 400 TRs × K 48, ~3
 // ms at the card's float32 peak. Device memory sees the per-atom rows
-// once, the echoes (210 MB there) and the checkpoints.
+// once (the variable-TR planes once: 1.47 GB at 65,536 atoms × 400 TRs in
+// float32, ~0.44 ms), the echoes (210 MB there) and the checkpoints.
 //
 // Design. One thread per atom walks the whole train, as spgr_fwd does; its
 // 12·K state values (2.3 KB at K 48 in float32) live in shared memory,
@@ -28,11 +34,13 @@
 // resident threads (kernels/epg.py `launch_cfg` with 12 planes); where
 // even 32 threads' states exceed a block's shared memory (K > 151 in
 // float32, K > 75 in float64) the state lives in device memory (stride
-// nA, coalesced). The 14 propagator entries sit in registers; per-TR
-// coefficients are read by every thread at one address (a broadcast).
-// Built without FMA contraction, in the plain version's order of
-// operations (kernels/epgx.py `xspgr_fwd_torch`): the two agree bit for
-// bit. Templated on the scalar type and on the checkpoints.
+// nA, coalesced). The 14 propagator entries sit in registers (reloaded
+// every step over a variable-TR train); per-TR coefficients are read by
+// every thread at one address (a broadcast). Built without FMA
+// contraction, in the plain version's order of operations
+// (kernels/epgx.py `xspgr_fwd_torch`, `xspgr_v_fwd_torch`): the two agree
+// bit for bit. Templated on the scalar type, on the checkpoints and on the
+// variable-TR train.
 #include "epgx_common.cuh"
 
 namespace mrphy {
@@ -40,9 +48,12 @@ namespace epgx {
 
 using spgr::Trig;
 
-template <typename T, bool CHK>
+// par: (17, nA) at a fixed TR; over a variable-TR train (VARTR) the rows
+// [M0a, M0b, b1] (3, nA), the entries of step t at pkt + t·14·nA.
+template <typename T, bool CHK, bool VARTR>
 __global__ void xspgr_fwd_kernel(const T* __restrict__ coef,
                                  const T* __restrict__ par,
+                                 const T* __restrict__ pkt,
                                  T* __restrict__ sig, T* __restrict__ chk,
                                  T* __restrict__ gstate, int64_t nA,
                                  int64_t nTR, int K, int kshift, int flags,
@@ -56,9 +67,10 @@ __global__ void xspgr_fwd_kernel(const T* __restrict__ coef,
              : Planes<T>{reinterpret_cast<T*>(smem_raw) + threadIdx.x,
                          (int64_t)blockDim.x, K};
   const Planes<T> sb = pool_b(st);
-  const Prop<T> e = load_prop(par, nA, a);
-  const T M0a = par[14 * nA + a], M0b = par[15 * nA + a],
-          b1 = par[16 * nA + a];
+  Prop<T> e{};
+  if constexpr (!VARTR) e = load_prop(par, nA, a);
+  const T* pm = VARTR ? par : par + 14 * nA;  // [M0a, M0b, b1]
+  const T M0a = pm[a], M0b = pm[nA + a], b1 = pm[2 * nA + a];
   for (int p = 0; p < kPlanes; ++p)
     for (int k = 0; k < K; ++k) st(p, k) = T(0);
   st(4, 0) = M0a;
@@ -85,6 +97,7 @@ __global__ void xspgr_fwd_kernel(const T* __restrict__ coef,
         im = spgr::wrap_inc(im, K);
       }
     }
+    if constexpr (VARTR) e = load_prop(pkt + t * 14 * nA, nA, a);
     const Trig<T> g = spgr::trig(coef, nTR, t, b1, has_b1);
     int ip = op, im = om;
     for (int k = 0; k < K; ++k) {
@@ -120,28 +133,28 @@ __global__ void xspgr_fwd_kernel(const T* __restrict__ coef,
   }
 }
 
-template <typename T, bool CHK>
-int launch_xspgr_fwd(const T* coef, const T* par, T* sig, T* chk, T* gstate,
-                     int64_t nA, int64_t nTR, int64_t K, int64_t kshift,
-                     int64_t flags, int64_t tc, int64_t threads,
-                     void* stream) {
+template <typename T, bool CHK, bool VARTR>
+int launch_xspgr_fwd(const T* coef, const T* par, const T* pkt, T* sig,
+                     T* chk, T* gstate, int64_t nA, int64_t nTR, int64_t K,
+                     int64_t kshift, int64_t flags, int64_t tc,
+                     int64_t threads, void* stream) {
   if (nA <= 0 || nTR <= 0 || K <= 0 || kshift == 0 || tc <= 0 ||
       nTR % tc != 0 || !spgr::valid_threads((int)threads) ||
-      (CHK && chk == nullptr))
+      (CHK && chk == nullptr) || (VARTR && pkt == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       gstate ? 0 : (size_t)threads * kPlanes * (size_t)K * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        xspgr_fwd_kernel<T, CHK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        xspgr_fwd_kernel<T, CHK, VARTR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const unsigned grid = (unsigned)((nA + threads - 1) / threads);
-  xspgr_fwd_kernel<T, CHK><<<grid, (unsigned)threads, smem,
-                             (cudaStream_t)stream>>>(
-      coef, par, sig, chk, gstate, nA, nTR, (int)K, (int)kshift, (int)flags,
-      tc);
+  xspgr_fwd_kernel<T, CHK, VARTR><<<grid, (unsigned)threads, smem,
+                                    (cudaStream_t)stream>>>(
+      coef, par, pkt, sig, chk, gstate, nA, nTR, (int)K, (int)kshift,
+      (int)flags, tc);
   return (int)cudaGetLastError();
 }
 
@@ -158,12 +171,29 @@ int launch_xspgr_fwd(const T* coef, const T* par, T* sig, T* chk, T* gstate,
                       void* chk, void* gstate, int64_t nA, int64_t nTR,     \
                       int64_t K, int64_t kshift, int64_t flags, int64_t tc, \
                       int64_t threads, void* stream) {                       \
-    return mrphy::epgx::launch_xspgr_fwd<T, CHK>(                            \
-        (const T*)coef, (const T*)par, (T*)sig, (T*)chk, (T*)gstate, nA,     \
-        nTR, K, kshift, flags, tc, threads, stream);                         \
+    return mrphy::epgx::launch_xspgr_fwd<T, CHK, false>(                     \
+        (const T*)coef, (const T*)par, nullptr, (T*)sig, (T*)chk,            \
+        (T*)gstate, nA, nTR, K, kshift, flags, tc, threads, stream);         \
   }
 
 MRPHY_XSPGR_FWD_ENTRY(mrphy_xspgr_fwd_f32, float, false)
 MRPHY_XSPGR_FWD_ENTRY(mrphy_xspgr_fwd_f64, double, false)
 MRPHY_XSPGR_FWD_ENTRY(mrphy_xspgr_fwd_chk_f32, float, true)
 MRPHY_XSPGR_FWD_ENTRY(mrphy_xspgr_fwd_chk_f64, double, true)
+
+// The variable-TR train: inputs coef (9, nTR), pk (3, nA) = [M0a, M0b, b1]
+// and the per-step propagator planes pkt (nTR, 14, nA); the rest as above.
+#define MRPHY_XSPGR_V_FWD_ENTRY(NAME, T, CHK)                                \
+  extern "C" int NAME(const void* coef, const void* pk, const void* pkt,    \
+                      void* sig, void* chk, void* gstate, int64_t nA,       \
+                      int64_t nTR, int64_t K, int64_t kshift, int64_t flags, \
+                      int64_t tc, int64_t threads, void* stream) {           \
+    return mrphy::epgx::launch_xspgr_fwd<T, CHK, true>(                      \
+        (const T*)coef, (const T*)pk, (const T*)pkt, (T*)sig, (T*)chk,       \
+        (T*)gstate, nA, nTR, K, kshift, flags, tc, threads, stream);         \
+  }
+
+MRPHY_XSPGR_V_FWD_ENTRY(mrphy_xspgr_v_fwd_f32, float, false)
+MRPHY_XSPGR_V_FWD_ENTRY(mrphy_xspgr_v_fwd_f64, double, false)
+MRPHY_XSPGR_V_FWD_ENTRY(mrphy_xspgr_v_fwd_chk_f32, float, true)
+MRPHY_XSPGR_V_FWD_ENTRY(mrphy_xspgr_v_fwd_chk_f64, double, true)

@@ -1,10 +1,10 @@
 r"""The two-pool EPG-X kernels: wrappers, plain PyTorch versions and launch
 counts.
 
-Three kernels, each the Hopper counterpart of a TPU kernel of
+Six kernels, each the Hopper counterpart of a TPU kernel of
 :mod:`mrphy_tpu.ops.epg_pallas`, for the gradient-spoiled train of a
-two-pool exchanging system at a fixed TR (:func:`mrphy_tpu_torch.ops.epg.
-epgx_spgr`):
+two-pool exchanging system (:func:`mrphy_tpu_torch.ops.epg.epgx_spgr`), at
+a fixed TR and over a variable-TR train:
 
 - ``xspgr_fwd`` (``csrc/xspgr_fwd.cu``, replaces ``_epgx_kernel``): per
   atom and TR, the RF mix on pool a and on pool b, the echo (the total
@@ -22,6 +22,12 @@ epgx_spgr`):
   exchange–relaxation transpose with its 14 entry gradients, the echo's
   cotangent into both pools' ``F+(0)``, the RF mix's coefficients and
   transpose on both pools).
+- ``xspgr_v_fwd``, ``xspgr_v_fwd_chk`` and ``xspgr_v_bwd`` (the same two
+  sources, instances for a variable-TR train; replace ``_epgx_v_kernel``,
+  ``_xv_fwd_chk_kernel`` and ``_xv_bwd_kernel``): the same recursions
+  with the 14 propagator entries of each step read from per-step planes,
+  and the adjoint writing each step's 14 entry gradients (``dpkt``)
+  instead of summing them over the train.
 
 Arguments, as ``_epgx_dispatch`` (``epg_pallas.py:584-621``) builds them:
 
@@ -34,15 +40,22 @@ Arguments, as ``_epgx_dispatch`` (``epg_pallas.py:584-621``) builds them:
   the transmit scale;
 - ``cfg``: :class:`XspgrCfg`, the static switches.
 
+Over a variable-TR train (``_epgx_v_dispatch``, ``epg_pallas.py:2972-2995``)
+``par`` splits in two: ``pk (3, nA) = [M0a, M0b, b1]`` and the per-step
+planes ``pkt (nTR, 14, nA)``, the propagator's 14 entries over each
+interval ``tr[t]``.
+
 An atom's state is 12 planes of K orders, pool a's rows ``[F+ re, F+ im,
 F− re, F− im, Z re, Z im]`` then pool b's. The forward returns the echoes
 ``sig (nA, nTR, 2)`` and, with ``tc``, the chunk-start states ``chk (nTR /
 tc, 12, K, nA)``. The adjoint takes ``chk`` and the echoes' cotangent and
 returns ``dcoef (9, nTR)`` (summed over atoms) and ``dpar (17, nA)``: the
 14 propagator entries' gradients, ``dM0a``/``dM0b`` (the cotangents of the
-initial ``Za(0)``/``Zb(0)``) and ``db1``. The gradients of T1a, T2a, T1b,
-T2b, kab, kba, tr, M0a, M0b, dfb and b1 w.r.t. these rows come from torch
-autograd of their construction (:func:`mrphy_tpu_torch.ops.epg.
+initial ``Za(0)``/``Zb(0)``) and ``db1``; over a variable-TR train ``dpk
+(3, nA) = [dM0a, dM0b, db1]`` and ``dpkt (nTR, 14, nA)``, each step's entry
+gradients. The gradients of T1a, T2a, T1b, T2b, kab, kba, tr (every
+element of a train), M0a, M0b, dfb and b1 w.r.t. these rows come from
+torch autograd of their construction (:func:`mrphy_tpu_torch.ops.epg.
 _xspgr_rows`); ``M0a``/``M0b`` reach the echoes twice, through ``Z(0)``
 and through the recovery, and autograd adds both.
 
@@ -54,7 +67,8 @@ adjoint's uses no autograd) and a launch count, ``LAUNCHES[name]``, raised
 by one at every launch of the kernel and nowhere else. :func:`xspgr` is
 their ``torch.autograd.Function``: ``xspgr_fwd`` with no gradient needed,
 otherwise ``xspgr_fwd_chk`` with ``xspgr_bwd`` as its backward (the
-kernels on CUDA tensors, no fallback; the plain versions on CPU tensors).
+kernels on CUDA tensors, no fallback; the plain versions on CPU tensors);
+:func:`xspgr_v` the same for the variable-TR kernels.
 The adjoint's per-chunk scratch lies in device memory, its chunk sized by
 :func:`mrphy_tpu_torch.kernels.epg.pick_tc` for 12 planes.
 """
@@ -72,13 +86,20 @@ from mrphy_tpu_torch.kernels.epg import (_at0, _entry, _ksum, _mix, _mix_T,
 
 __all__ = ['LAUNCHES', 'PLANES', 'XspgrCfg', 'xspgr', 'xspgr_fwd',
            'xspgr_fwd_torch', 'xspgr_fwd_chk', 'xspgr_fwd_chk_torch',
-           'xspgr_bwd', 'xspgr_bwd_torch']
+           'xspgr_bwd', 'xspgr_bwd_torch', 'xspgr_v', 'xspgr_v_fwd',
+           'xspgr_v_fwd_torch', 'xspgr_v_fwd_chk', 'xspgr_v_fwd_chk_torch',
+           'xspgr_v_bwd', 'xspgr_v_bwd_torch']
 
-LAUNCHES = {'xspgr_fwd': 0, 'xspgr_fwd_chk': 0, 'xspgr_bwd': 0}
+LAUNCHES = {'xspgr_fwd': 0, 'xspgr_fwd_chk': 0, 'xspgr_bwd': 0,
+            'xspgr_v_fwd': 0, 'xspgr_v_fwd_chk': 0, 'xspgr_v_bwd': 0}
 
 # The state planes of one atom: both pools' F+, F−, Z (re, im).
 PLANES = 12
 NPAR = 17
+# The propagator entries of one step, and the variable-TR train's other
+# per-atom rows [M0a, M0b, b1].
+NENT = 14
+NPK = 3
 
 
 class XspgrCfg(NamedTuple):
@@ -181,8 +202,8 @@ def _xmix(tg, s):
 
 
 def _xstep(coef, t, p, cfg, s):
-    r"""TR ``t`` from the pre-RF state ``s``: ``(next pre-RF state, echo
-    (nA, 2))``."""
+    r"""TR ``t`` from the pre-RF state ``s``, ``p`` the step's 17 rows:
+    ``(next pre-RF state, echo (nA, 2))``."""
     tg = _trig(coef, t, p[16], cfg.has_b1)
     s1 = _xmix(tg, s)
     c1, s1c = tg[4], tg[5]
@@ -193,55 +214,58 @@ def _xstep(coef, t, p, cfg, s):
     return _shift(s2[:6], cfg.kshift) + _shift(s2[6:], cfg.kshift), echo
 
 
-def _xfwd(coef, par, cfg, tc):
+def _fixed_rows(par):
+    r"""Every step's 17 rows at a fixed TR: ``par``'s, `(17, nA, 1)`."""
+    p = par.unsqueeze(-1)
+    return lambda t: p
+
+
+def _train_rows(pk, pkt):
+    r"""Step ``t``'s 17 rows over a variable-TR train: the planes' 14
+    entries of step ``t``, then ``pk``'s ``[M0a, M0b, b1]``, each `(nA,
+    1)`."""
+    pv, pt = tuple(pk.unsqueeze(-1)), pkt.unsqueeze(-1)
+    return lambda t: tuple(pt[t]) + pv
+
+
+def _xfwd(coef, rows, cfg, tc):
+    r"""The train from the equilibrium state, ``rows(t)`` step ``t``'s 17
+    rows: ``(echoes (nA, nTR, 2), chk or None)``."""
     nTR = coef.shape[1]
-    p = par.unsqueeze(-1)                              # (17, nA, 1)
-    z = torch.zeros(par.shape[1], cfg.K, dtype=par.dtype, device=par.device)
+    p = rows(0)
+    z = torch.zeros(p[14].shape[0], cfg.K, dtype=p[14].dtype,
+                    device=p[14].device)
     s = (z, z, z, z, _at0(z, p[14]), z, z, z, z, z, _at0(z, p[15]), z)
     echoes = []
-    chk = par.new_empty((nTR // tc, PLANES, cfg.K, par.shape[1])) if tc \
+    chk = z.new_empty((nTR // tc, PLANES, cfg.K, z.shape[0])) if tc \
         else None
     for t in range(nTR):
         if tc and t % tc == 0:
             chk[t // tc] = torch.stack(s).transpose(1, 2)  # (12, K, nA)
-        s, echo = _xstep(coef, t, p, cfg, s)
+        s, echo = _xstep(coef, t, rows(t), cfg, s)
         echoes.append(echo)
     return torch.stack(echoes, dim=1), chk             # (nA, nTR, 2)
 
 
-def xspgr_fwd_torch(coef, par, cfg: XspgrCfg):
-    r"""Plain PyTorch version of the ``xspgr_fwd`` kernel: ``sig (nA, nTR,
-    2)``. Differentiable by torch autograd (which then keeps every TR)."""
-    return _xfwd(coef, par, cfg, None)[0]
-
-
-def xspgr_fwd_chk_torch(coef, par, cfg: XspgrCfg, *, tc: int):
-    r"""Plain PyTorch version of the ``xspgr_fwd_chk`` kernel: ``(sig (nA,
-    nTR, 2), chk (nTR / tc, 12, K, nA))``."""
-    _check_tc(coef.shape[1], tc)
-    return _xfwd(coef, par, cfg, tc)
-
-
-def xspgr_bwd_torch(coef, par, cfg: XspgrCfg, chk, g, *, tc: int):
-    r"""Plain PyTorch version of the ``xspgr_bwd`` kernel: the two-phase
-    chunk adjoint of :func:`xspgr_fwd_chk_torch`, with no autograd.
-
-    ``chk``: its checkpoints at the same ``tc``; ``g``: the echoes'
-    cotangent `(nA, nTR, 2)`. Per TR, newest first: the shift's transpose
-    on both pools, the exchange–relaxation transpose (:func:`_xrelax_T`),
-    the echo's cotangent into both pools' ``F+(0)``, the mix's coefficient
+def _xbwd(coef, rows, cfg, chk, g, tc, take):
+    r"""The two-phase chunk adjoint of :func:`_xfwd` from its checkpoints
+    ``chk`` at chunk length ``tc`` and the echoes' cotangent ``g (nA, nTR,
+    2)``, with no autograd. Per TR, newest first: the shift's transpose on
+    both pools, the exchange–relaxation transpose (:func:`_xrelax_T`), the
+    echo's cotangent into both pools' ``F+(0)``, the mix's coefficient
     terms summed over the pools order by order, the mix's transpose.
-    Returns ``(dcoef (9, nTR), dpar (17, nA))``."""
+    ``take(t, d)`` receives step ``t``'s 14 entry gradients ``d`` (each
+    `(nA, 1)`). Returns ``(dcoef (9, nTR), dM0a, dM0b, db1)``, the last
+    three `(nA, 1)`: the cotangents of the initial ``Za(0)``/``Zb(0)`` and
+    the b1 gradient."""
     nTR = coef.shape[1]
     _check_tc(nTR, tc)
     ntc = chk.shape[0]
     if ntc != nTR // tc:
         raise ValueError(f'chk holds {ntc} states, but nTR={nTR} in chunks '
                          f'of tc={tc} gives {nTR // tc}')
-    p = par.unsqueeze(-1)
-    zero = torch.zeros_like(p[0])
+    zero = torch.zeros_like(rows(0)[0])
     h = (torch.zeros_like(chk[0, 0].T),) * PLANES
-    acc = [zero] * 14
     ab1 = zero
     dcoef = coef.new_zeros(XspgrCfg.nC, nTR)
     for j in reversed(range(ntc)):
@@ -250,10 +274,11 @@ def xspgr_bwd_torch(coef, par, cfg: XspgrCfg, chk, g, *, tc: int):
         states = []
         for t in range(j * tc, (j + 1) * tc):
             states.append(s)
-            s, _ = _xstep(coef, t, p, cfg, s)
+            s, _ = _xstep(coef, t, rows(t), cfg, s)
         # phase 2: the cotangent, backwards through the stored states
         for t in reversed(range(j * tc, (j + 1) * tc)):
             s = states.pop()
+            p = rows(t)
             tg = _trig(coef, t, p[16], cfg.has_b1)
             ca2, sa2, sa, ca, c1, s1c, c2, s2 = tg
             s1 = _xmix(tg, s)
@@ -276,10 +301,7 @@ def xspgr_bwd_torch(coef, par, cfg: XspgrCfg, chk, g, *, tc: int):
             terms += [a + b for a, b in zip(_mix_terms(h[:6], s[:6]),
                                             _mix_terms(h[6:], s[6:]))]
             sums = _ksum(torch.stack(terms)).unsqueeze(-1)   # (20, nA, 1)
-            for i in range(12):
-                acc[i] = acc[i] + sums[i]
-            acc[12] = acc[12] + d_ra
-            acc[13] = acc[13] + d_rb
+            take(t, list(sums[:12]) + [d_ra, d_rb])
             d_ca2, d_sc2, d_ss2, d_ss, d_sc, d_hs, d_hc, d_ca = sums[12:]
             d_sa2 = c2 * d_sc2 + s2 * d_ss2
             d_c2, d_s2 = sa2 * d_sc2, sa2 * d_ss2
@@ -290,40 +312,113 @@ def xspgr_bwd_torch(coef, par, cfg: XspgrCfg, chk, g, *, tc: int):
                 # α = flip·b1 through the half-angle trig
                 d_al = 0.5 * sa * (d_sa2 - d_ca2) + ca * d_sa - sa * d_ca
                 ab1 = ab1 + d_al * coef[8, t]
-                rows = [zero, zero, zero, zero, d_c1, d_s1, d_c2, d_s2,
-                        d_al * p[16]]
+                rows_t = [zero, zero, zero, zero, d_c1, d_s1, d_c2, d_s2,
+                          d_al * p[16]]
             else:
-                rows = [d_ca2, d_sa2, d_sa, d_ca, d_c1, d_s1, d_c2, d_s2,
-                        zero]
-            dcoef[:, t] = torch.cat(rows, dim=1).sum(dim=0)
+                rows_t = [d_ca2, d_sa2, d_sa, d_ca, d_c1, d_s1, d_c2, d_s2,
+                          zero]
+            dcoef[:, t] = torch.cat(rows_t, dim=1).sum(dim=0)
             h = _mix_T(tg, h[:6]) + _mix_T(tg, h[6:])
     # the initial state: M0a on Za(0)'s real part, M0b on Zb(0)'s
-    dpar = torch.cat(acc + [h[4][:, :1], h[10][:, :1], ab1], dim=1).T
+    return dcoef, h[4][:, :1], h[10][:, :1], ab1
+
+
+def xspgr_fwd_torch(coef, par, cfg: XspgrCfg):
+    r"""Plain PyTorch version of the ``xspgr_fwd`` kernel: ``sig (nA, nTR,
+    2)``. Differentiable by torch autograd (which then keeps every TR)."""
+    return _xfwd(coef, _fixed_rows(par), cfg, None)[0]
+
+
+def xspgr_fwd_chk_torch(coef, par, cfg: XspgrCfg, *, tc: int):
+    r"""Plain PyTorch version of the ``xspgr_fwd_chk`` kernel: ``(sig (nA,
+    nTR, 2), chk (nTR / tc, 12, K, nA))``."""
+    _check_tc(coef.shape[1], tc)
+    return _xfwd(coef, _fixed_rows(par), cfg, tc)
+
+
+def xspgr_bwd_torch(coef, par, cfg: XspgrCfg, chk, g, *, tc: int):
+    r"""Plain PyTorch version of the ``xspgr_bwd`` kernel: the two-phase
+    chunk adjoint of :func:`xspgr_fwd_chk_torch` (:func:`_xbwd`), with no
+    autograd, the entries' gradients summed over the train.
+
+    ``chk``: its checkpoints at the same ``tc``; ``g``: the echoes'
+    cotangent `(nA, nTR, 2)`. Returns ``(dcoef (9, nTR), dpar (17,
+    nA))``."""
+    acc = [torch.zeros_like(par[:1].T)] * NENT
+
+    def take(t, d):
+        for i in range(NENT):
+            acc[i] = acc[i] + d[i]
+
+    dcoef, dM0a, dM0b, db1 = _xbwd(coef, _fixed_rows(par), cfg, chk, g, tc,
+                                   take)
+    dpar = torch.cat(acc + [dM0a, dM0b, db1], dim=1).T
     return dcoef, dpar.contiguous()
+
+
+def xspgr_v_fwd_torch(coef, pk, pkt, cfg: XspgrCfg):
+    r"""Plain PyTorch version of the ``xspgr_v_fwd`` kernel: ``sig (nA,
+    nTR, 2)`` over the variable-TR train whose step ``t`` takes the
+    entries ``pkt[t]``. Differentiable by torch autograd (which then keeps
+    every TR)."""
+    return _xfwd(coef, _train_rows(pk, pkt), cfg, None)[0]
+
+
+def xspgr_v_fwd_chk_torch(coef, pk, pkt, cfg: XspgrCfg, *, tc: int):
+    r"""Plain PyTorch version of the ``xspgr_v_fwd_chk`` kernel: ``(sig
+    (nA, nTR, 2), chk (nTR / tc, 12, K, nA))``."""
+    _check_tc(coef.shape[1], tc)
+    return _xfwd(coef, _train_rows(pk, pkt), cfg, tc)
+
+
+def xspgr_v_bwd_torch(coef, pk, pkt, cfg: XspgrCfg, chk, g, *, tc: int):
+    r"""Plain PyTorch version of the ``xspgr_v_bwd`` kernel: the two-phase
+    chunk adjoint of :func:`xspgr_v_fwd_chk_torch` (:func:`_xbwd`), with
+    no autograd, each step's entry gradients written as they are formed.
+    Returns ``(dcoef (9, nTR), dpk (3, nA) = [dM0a, dM0b, db1], dpkt (nTR,
+    14, nA))``: ``dM0a``/``dM0b`` the cotangents of the initial
+    ``Za(0)``/``Zb(0)``, ``dpkt[t]`` the gradients of ``pkt[t]``."""
+    dpkt = torch.empty_like(pkt)
+
+    def take(t, d):
+        dpkt[t] = torch.cat(d, dim=1).T
+
+    dcoef, dM0a, dM0b, db1 = _xbwd(coef, _train_rows(pk, pkt), cfg, chk, g,
+                                   tc, take)
+    return dcoef, torch.cat([dM0a, dM0b, db1], dim=1).T.contiguous(), dpkt
 
 
 # ==========================================================================
 # The kernels
 # ==========================================================================
 
-def _sizes(name, coef, par, cfg):
+def _sizes(name, coef, par, cfg, pkt=None):
+    r"""Validate a kernel's arguments (``par`` is ``pk`` when the
+    variable-TR planes ``pkt`` are given); returns ``(nA, nTR)``."""
+    pname, rows = ('par', NPAR) if pkt is None else ('pk', NPK)
     if par.dtype not in (torch.float32, torch.float64):
         raise TypeError(f'{name} takes float32 or float64, not {par.dtype}')
-    if par.ndim != 2 or par.shape[0] != NPAR:
-        raise ValueError(f'par must be ({NPAR}, nA), got {tuple(par.shape)}')
+    if par.ndim != 2 or par.shape[0] != rows:
+        raise ValueError(f'{pname} must be ({rows}, nA), got '
+                         f'{tuple(par.shape)}')
     nA, nTR = par.shape[1], coef.shape[-1]
     if cfg.K < 1 or cfg.kshift == 0:
         raise ValueError(f'{name} needs K >= 1 and kshift != 0, got '
                          f'K={cfg.K}, kshift={cfg.kshift}')
     _check(coef, 'coef', (cfg.nC, nTR), par.dtype, par.device)
-    _check(par, 'par', (NPAR, nA), par.dtype, par.device)
+    _check(par, pname, (rows, nA), par.dtype, par.device)
+    if pkt is not None:
+        _check(pkt, 'pkt', (nTR, NENT, nA), par.dtype, par.device)
     return nA, nTR
 
 
-def _launch_fwd(coef, par, cfg, tc):
+def _launch_fwd(coef, par, cfg, tc, pkt=None):
+    r"""``xspgr_fwd`` (``tc`` None) or ``xspgr_fwd_chk``; with ``pkt``,
+    their variable-TR instances, ``par`` then ``pk``."""
     from mrphy_tpu_torch.kernels._build import library
-    name = 'xspgr_fwd' if tc is None else 'xspgr_fwd_chk'
-    nA, nTR = _sizes(name, coef, par, cfg)
+    name = (('xspgr_fwd' if pkt is None else 'xspgr_v_fwd')
+            + ('' if tc is None else '_chk'))
+    nA, nTR = _sizes(name, coef, par, cfg, pkt)
     dt, dev = par.dtype, par.device
     threads, in_smem = launch_cfg(cfg.K, par.element_size(), PLANES)
     sig = torch.empty((nA, nTR, 2), dtype=dt, device=dev)
@@ -334,19 +429,23 @@ def _launch_fwd(coef, par, cfg, tc):
                           device=dev)
     state = None if in_smem else torch.empty((PLANES, cfg.K, nA), dtype=dt,
                                              device=dev)
+    ins = (coef, par) if pkt is None else (coef, par, pkt)
     lib, _ = library()
     with torch.cuda.device(dev):
         err = _entry(lib, name, dt)(
-            *map(_ptr, (coef, par, sig, chk, state)), nA, nTR, cfg.K,
+            *map(_ptr, ins + (sig, chk, state)), nA, nTR, cfg.K,
             cfg.kshift, cfg.flags, tc or nTR, threads, _stream(dev))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return sig, chk
 
 
-def _launch_bwd(coef, par, cfg, chk, g, tc):
+def _launch_bwd(coef, par, cfg, chk, g, tc, pkt=None):
+    r"""``xspgr_bwd``: ``(dcoef, dpar)``; with ``pkt``, ``xspgr_v_bwd``,
+    ``par`` then ``pk``: ``(dcoef, dpk, dpkt)``."""
     from mrphy_tpu_torch.kernels._build import library
-    nA, nTR = _sizes('xspgr_bwd', coef, par, cfg)
+    name = 'xspgr_bwd' if pkt is None else 'xspgr_v_bwd'
+    nA, nTR = _sizes(name, coef, par, cfg, pkt)
     _check_tc(nTR, tc)
     dt, dev = par.dtype, par.device
     _check(chk, 'chk', (nTR // tc, PLANES, cfg.K, nA), dt, dev)
@@ -359,17 +458,23 @@ def _launch_bwd(coef, par, cfg, chk, g, tc):
                           device=dev)
     hstate = None if in_smem else torch.empty((PLANES, cfg.K, nA), dtype=dt,
                                               device=dev)
-    dpar = torch.empty((NPAR, nA), dtype=dt, device=dev)
+    dpar = torch.empty(par.shape, dtype=dt, device=dev)
     dcf = torch.empty((-(-nA // 32), nTR, cfg.nC), dtype=dt, device=dev)
+    if pkt is None:
+        ins, outs = (coef, par, chk, g), (dpar, dcf)
+    else:
+        dpkt = torch.empty((nTR, NENT, nA), dtype=dt, device=dev)
+        ins, outs = (coef, par, pkt, chk, g), (dpar, dcf, dpkt)
     lib, _ = library()
     with torch.cuda.device(dev):
-        err = _entry(lib, 'xspgr_bwd', dt)(
-            *map(_ptr, (coef, par, chk, g, scratch, hstate, dpar, dcf)), nA,
-            nTR, cfg.K, cfg.kshift, cfg.flags, tc, threads, _stream(dev))
-    _raise_on(err, 'xspgr_bwd')
-    LAUNCHES['xspgr_bwd'] += 1
+        err = _entry(lib, name, dt)(
+            *map(_ptr, ins + (scratch, hstate) + outs), nA, nTR, cfg.K,
+            cfg.kshift, cfg.flags, tc, threads, _stream(dev))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     # the warps' partial rows, summed in a fixed order
-    return dcf.sum(dim=0).T.contiguous(), dpar
+    dcoef = dcf.sum(dim=0).T.contiguous()
+    return (dcoef, dpar) if pkt is None else (dcoef, dpar, dpkt)
 
 
 def xspgr_fwd(coef, par, cfg: XspgrCfg):
@@ -396,6 +501,35 @@ def xspgr_bwd(coef, par, cfg: XspgrCfg, chk, g, *, tc: int):
     return _launch_bwd(coef, par, cfg, chk, g, tc)
 
 
+def xspgr_v_fwd(coef, pk, pkt, cfg: XspgrCfg):
+    r"""The ``xspgr_v_fwd`` kernel on CUDA tensors (contiguous, one dtype,
+    float32 or float64), :func:`xspgr_v_fwd_torch` on CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xspgr_v_fwd_torch(coef, pk, pkt, cfg)
+    return _launch_fwd(coef, pk, cfg, None, pkt)[0]
+
+
+def xspgr_v_fwd_chk(coef, pk, pkt, cfg: XspgrCfg, *, tc: int):
+    r"""The ``xspgr_v_fwd_chk`` kernel on CUDA tensors,
+    :func:`xspgr_v_fwd_chk_torch` on CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xspgr_v_fwd_chk_torch(coef, pk, pkt, cfg, tc=tc)
+    return _launch_fwd(coef, pk, cfg, tc, pkt)
+
+
+def xspgr_v_bwd(coef, pk, pkt, cfg: XspgrCfg, chk, g, *, tc: int):
+    r"""The ``xspgr_v_bwd`` kernel on CUDA tensors,
+    :func:`xspgr_v_bwd_torch` on CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xspgr_v_bwd_torch(coef, pk, pkt, cfg, chk, g, tc=tc)
+    return _launch_bwd(coef, pk, cfg, chk, g, tc, pkt)
+
+
+def _chunk(coef, par, cfg):
+    return pick_tc(coef.shape[1], cfg.K, par.shape[1], par.element_size(),
+                   PLANES)
+
+
 class _Xspgr(torch.autograd.Function):
 
     @staticmethod
@@ -403,8 +537,7 @@ class _Xspgr(torch.autograd.Function):
         ctx.cfg = cfg
         if not any(ctx.needs_input_grad[1:3]):
             return xspgr_fwd(coef, par, cfg)
-        tc = pick_tc(coef.shape[1], cfg.K, par.shape[1], par.element_size(),
-                     PLANES)
+        tc = _chunk(coef, par, cfg)
         sig, chk = xspgr_fwd_chk(coef, par, cfg, tc=tc)
         ctx.tc = tc
         ctx.save_for_backward(coef, par, chk)
@@ -419,9 +552,40 @@ class _Xspgr(torch.autograd.Function):
         return None, dcoef, dpar
 
 
+class _XspgrV(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, cfg, coef, pk, pkt):
+        ctx.cfg = cfg
+        if not any(ctx.needs_input_grad[1:4]):
+            return xspgr_v_fwd(coef, pk, pkt, cfg)
+        tc = _chunk(coef, pk, cfg)
+        sig, chk = xspgr_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)
+        ctx.tc = tc
+        ctx.save_for_backward(coef, pk, pkt, chk)
+        return sig
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        coef, pk, pkt, chk = ctx.saved_tensors
+        dcoef, dpk, dpkt = xspgr_v_bwd(coef, pk, pkt, ctx.cfg, chk,
+                                       g.contiguous(), tc=ctx.tc)
+        return None, dcoef, dpk, dpkt
+
+
 def xspgr(coef, par, cfg: XspgrCfg):
-    r"""The EPG-X SPGR train ``sig (nA, nTR, 2)``: the kernels on CUDA
-    tensors (``xspgr_fwd``, or ``xspgr_fwd_chk`` and ``xspgr_bwd`` when a
-    gradient is needed), their plain versions on CPU tensors.
-    Differentiable w.r.t. ``coef`` and ``par``."""
+    r"""The EPG-X SPGR train ``sig (nA, nTR, 2)`` at a fixed TR: the
+    kernels on CUDA tensors (``xspgr_fwd``, or ``xspgr_fwd_chk`` and
+    ``xspgr_bwd`` when a gradient is needed), their plain versions on CPU
+    tensors. Differentiable w.r.t. ``coef`` and ``par``."""
     return _Xspgr.apply(cfg, coef.contiguous(), par.contiguous())
+
+
+def xspgr_v(coef, pk, pkt, cfg: XspgrCfg):
+    r"""The EPG-X SPGR train ``sig (nA, nTR, 2)`` over a variable-TR train:
+    the kernels on CUDA tensors (``xspgr_v_fwd``, or ``xspgr_v_fwd_chk``
+    and ``xspgr_v_bwd`` when a gradient is needed), their plain versions on
+    CPU tensors. Differentiable w.r.t. ``coef``, ``pk`` and ``pkt``."""
+    return _XspgrV.apply(cfg, coef.contiguous(), pk.contiguous(),
+                         pkt.contiguous())

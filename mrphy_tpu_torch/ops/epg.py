@@ -33,11 +33,12 @@ The two-pool exchange trains (EPG-X, Malik et al. MRM 80(2):767, 2018; the
 interval applies the exact exchange-relaxation propagator of each order)
 carry a ``(..., 2, 3, K, 2)`` state, the pool axis before the single-pool
 layout. :func:`epgx_spgr`, the exchange-sensitive MRF dictionary's train,
-has the same two routes; its kernels (:mod:`mrphy_tpu_torch.kernels.epgx`:
-``xspgr_fwd``, ``xspgr_fwd_chk``, ``xspgr_bwd``) take a shared 1-D flip
-train at a scalar ``tr``. A ``(nTR,)`` ``tr`` train on CUDA tensors raises
-:class:`NotImplementedError` under ``'auto'`` and ``'cuda'``: its kernels
-come with slice 10d of the port. The other EPG-X families (``epgx_cpmg``,
+has the same two routes; its kernels (:mod:`mrphy_tpu_torch.kernels.epgx`)
+take a shared 1-D flip train: at a scalar ``tr`` ``xspgr_fwd``, or
+``xspgr_fwd_chk`` with ``xspgr_bwd`` under a gradient; over a ``(nTR,)``
+``tr`` train ``xspgr_v_fwd``, or ``xspgr_v_fwd_chk`` with ``xspgr_v_bwd``,
+which read the exchange–relaxation propagator of every step from per-step
+planes (:func:`_x_step_entries`). The other EPG-X families (``epgx_cpmg``,
 the MT variant) are not ported yet.
 """
 
@@ -45,6 +46,7 @@ import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from mrphy_tpu_torch.kernels import epg as kepg
 from mrphy_tpu_torch.kernels import epgx as kepgx
@@ -754,6 +756,32 @@ _XKEYS = ('T1a', 'T2a', 'T1b', 'T2b', 'kab', 'kba', 'M0a', 'M0b', 'dfb',
           'b1')
 
 
+def _x_entries(T1a, T2a, T1b, T2b, kab, kba, M0a, M0b, dfb, tau):
+    r"""The 14 entries ``[E00r, E00i, E01r, E01i, E10r, E10i, E11r, E11i,
+    Z00, Z01, Z10, Z11, ra, rb]`` of the exchange–relaxation propagator
+    over ``tau`` (:func:`epgx_relax`'s closed forms: :func:`_expm2c`,
+    :func:`~mrphy_tpu_torch.ops.slowsims._expm2`, :func:`_z_recovery`),
+    each of the broadcast shape of ``tau`` and the rates."""
+    w = 2 * math.pi * dfb
+    E00, E01, E10, E11 = _expm2c(
+        (-1 / T2a - kab) * tau, torch.zeros_like(T2a * tau), kba * tau,
+        kab * tau, (-1 / T2b - kba) * tau, -w * tau)
+    Z00, Z01, Z10, Z11 = _expm2((-1 / T1a - kab) * tau, kba * tau, kab * tau,
+                                (-1 / T1b - kba) * tau)
+    ra, rb = _z_recovery(Z00, Z01, Z10, Z11, T1a, T1b, kab, kba, M0a, M0b)
+    return [*E00, *E01, *E10, *E11, Z00, Z01, Z10, Z11, ra, rb]
+
+
+def _x_step_entries(T1a, T2a, T1b, T2b, kab, kba, M0a, M0b, dfb, trs):
+    r"""The per-step propagator planes ``pkt (nTR, 14, nA)`` of a
+    variable-TR train ``trs (nTR,)`` for the atoms' rates `(nA,)`
+    (``_x_step_entries``, ``epg_pallas.py:2608-2632``): :func:`_x_entries`
+    with ``trs[:, None]`` broadcast against the rates, no loop over the
+    steps."""
+    return torch.stack(_x_entries(T1a, T2a, T1b, T2b, kab, kba, M0a, M0b,
+                                  dfb, trs[:, None]), dim=1)
+
+
 def epgx_spgr(flips, phis=None, *, T1a, T2a, T1b, T2b, kab, kba, tr,
               M0a=1.0, M0b=0.1, dfb=0.0, b1=None, kshift: int = 1, K=None,
               mesh=None, backend: str = 'auto'):
@@ -843,15 +871,22 @@ def _xspgr_scan(flips, phis=None, *, T1a, T2a, T1b, T2b, kab, kba, tr,
 
 def _xspgr_rows(flips, phis=None, *, T1a, T2a, T1b, T2b, kab, kba, tr,
                 M0a=1.0, M0b=0.1, dfb=0.0, b1=None, kshift=1, K=None):
-    r"""The kernels' arguments for :func:`epgx_spgr`'s inputs
-    (``_epgx_dispatch``, ``epg_pallas.py:584-621``): ``(coef, par, cfg,
-    batch)``, SPGR's nine per-TR rows and the per-atom rows ``[E00r, E00i,
-    E01r, E01i, E10r, E10i, E11r, E11i, Z00, Z01, Z10, Z11, ra, rb, M0a,
-    M0b, b1]``, the exchange–relaxation propagator over ``tr`` built by
-    :func:`_expm2c`, :func:`~mrphy_tpu_torch.ops.slowsims._expm2` and
-    :func:`_z_recovery` in torch (whose autograd carries the gradients of
-    every input back from the rows'), the atoms' batch shape flattened into
-    the columns."""
+    r"""The kernels' arguments for :func:`epgx_spgr`'s inputs: ``(coef,
+    par, cfg, batch)``, SPGR's nine per-TR rows, the per-atom rows and the
+    atoms' batch shape, flattened into the columns.
+
+    At a scalar ``tr`` (``_epgx_dispatch``, ``epg_pallas.py:584-621``)
+    ``par (17, nA)`` is ``[E00r, E00i, E01r, E01i, E10r, E10i, E11r, E11i,
+    Z00, Z01, Z10, Z11, ra, rb, M0a, M0b, b1]``, the exchange–relaxation
+    propagator over ``tr`` (:func:`_x_entries`) and the rest. Over a
+    ``(nTR,)`` ``tr`` train (``_epgx_v_dispatch``,
+    ``epg_pallas.py:2972-2995``) ``par`` is the pair ``(pk (3, nA) = [M0a,
+    M0b, b1], pkt (nTR, 14, nA))``, the propagator over every step
+    (:func:`_x_step_entries`), its construction under
+    :func:`torch.utils.checkpoint.checkpoint` so that autograd keeps none
+    of its intermediates (it builds them again for the backward). Torch
+    autograd of the construction carries the gradients of every input,
+    each element of ``tr`` among them, back from the rows'."""
     kw = dict(T1a=T1a, T2a=T2a, T1b=T1b, T2b=T2b, kab=kab, kba=kba, M0a=M0a,
               M0b=M0b, dfb=dfb, b1=b1)
     dtype, device = _common(flips, phis, tr, *kw.values())
@@ -869,29 +904,25 @@ def _xspgr_rows(flips, phis=None, *, T1a, T2a, T1b, T2b, kab, kba, tr,
         raise ValueError(f'phis {tuple(phis.shape)} and flips '
                          f'{tuple(flips.shape)} differ')
     tr = arr(tr)
-    if tr.ndim != 0:
-        raise NotImplementedError(
-            'epgx_spgr with a (nTR,) tr train has no kernels yet (slice 10d '
-            "of ROADMAP.md queue 1); use backend='torch'")
+    if tr.ndim != 0 and tuple(tr.shape) != (nTR,):
+        raise ValueError(f'tr must be a scalar or a ({nTR},) train, got '
+                         f'{tuple(tr.shape)}')
     batch = torch.broadcast_shapes(*(_shape(x) for x in kw.values()
                                      if x is not None))
     nA = math.prod(batch)
-    T1a, T2a, T1b, T2b, kab, kba, M0a, M0b, dfb, b1v = (
-        torch.broadcast_to(arr(1.0 if x is None else x), batch).reshape(nA)
-        for x in kw.values())
+    rates = [torch.broadcast_to(arr(1.0 if x is None else x),
+                                batch).reshape(nA) for x in kw.values()]
     coef = torch.stack([torch.cos(flips / 2) ** 2, torch.sin(flips / 2) ** 2,
                         torch.sin(flips), torch.cos(flips),
                         torch.cos(phis), torch.sin(phis),
                         torch.cos(2 * phis), torch.sin(2 * phis), flips])
-    w = 2 * math.pi * dfb
-    E00, E01, E10, E11 = _expm2c(
-        (-1 / T2a - kab) * tr, torch.zeros_like(T2a), kba * tr, kab * tr,
-        (-1 / T2b - kba) * tr, -w * tr)
-    Z00, Z01, Z10, Z11 = _expm2((-1 / T1a - kab) * tr, kba * tr, kab * tr,
-                                (-1 / T1b - kba) * tr)
-    ra, rb = _z_recovery(Z00, Z01, Z10, Z11, T1a, T1b, kab, kba, M0a, M0b)
-    par = torch.stack([*E00, *E01, *E10, *E11, Z00, Z01, Z10, Z11, ra, rb,
-                       M0a, M0b, b1v])
+    M0a, M0b, b1v = rates[6], rates[7], rates[9]
+    if tr.ndim == 0:
+        par = torch.stack(_x_entries(*rates[:9], tr) + [M0a, M0b, b1v])
+    else:
+        pkt = torch.utils.checkpoint.checkpoint(
+            _x_step_entries, *rates[:9], tr, use_reentrant=False)
+        par = (torch.stack([M0a, M0b, b1v]), pkt)
     K = nTR * abs(kshift) + 1 if K is None else int(K)
     cfg = kepgx.XspgrCfg(K=K, kshift=kshift, has_b1=b1 is not None)
     return coef, par, cfg, batch
@@ -899,10 +930,14 @@ def _xspgr_rows(flips, phis=None, *, T1a, T2a, T1b, T2b, kab, kba, tr,
 
 def _xspgr_kernels(flips, phis=None, **kw):
     r"""The kernels' route: :func:`_xspgr_rows`, then
-    :func:`mrphy_tpu_torch.kernels.epgx.xspgr` (the kernels' plain versions
-    on CPU tensors)."""
+    :func:`mrphy_tpu_torch.kernels.epgx.xspgr` at a scalar ``tr`` or
+    :func:`~mrphy_tpu_torch.kernels.epgx.xspgr_v` over a ``(nTR,)`` train
+    (the kernels' plain versions on CPU tensors)."""
     coef, par, cfg, batch = _xspgr_rows(flips, phis, **kw)
-    sig = kepgx.xspgr(coef, par, cfg)              # (nA, nTR, 2)
+    if isinstance(par, tuple):
+        sig = kepgx.xspgr_v(coef, *par, cfg)       # (nA, nTR, 2)
+    else:
+        sig = kepgx.xspgr(coef, par, cfg)
     if len(batch) > 1:
         return sig.reshape(batch + sig.shape[1:])
     return _unbatch(sig, _scalar_batch(*(kw.get(n) for n in _XKEYS)))

@@ -28,13 +28,10 @@ port has no counterpart and no such gate: the H100 adjoints ``spgr_bwd``
 and ``cpmg_bwd`` keep their per-chunk scratch in device memory and shorten
 the chunk to fit a fixed budget
 (:func:`mrphy_tpu_torch.kernels.epg.pick_tc`), so each takes every instance
-its forward takes; so do ``xspgr_bwd``'s, its chunk fitted for the
-two-pool state's 12 planes.
-
-``epgx_spgr`` with a ``(nTR,)`` ``tr`` train on CUDA tensors raises
-:class:`NotImplementedError` under ``'auto'`` and ``'cuda'``: JAX runs it
-in fused kernels (K22–K24) that come with slice 10d of the port, and a
-silent plain route on the card would hide that (``'torch'`` runs it).
+its forward takes; so do ``xspgr_bwd``'s and ``xspgr_v_bwd``'s, their
+chunk fitted for the two-pool state's 12 planes. ``epgx_spgr`` takes its
+kernels at a scalar ``tr`` and over a ``(nTR,)`` ``tr`` train alike (the
+variable-TR instances ``xspgr_v_*`` stream each step's propagator).
 
 ``epg_spgr``, ``epg_cpmg`` and ``epgx_spgr`` are ported; the other
 families raise :class:`NotImplementedError` naming the slice of the port
@@ -139,18 +136,16 @@ def _decide_epgx_spgr(kw, backend):
     fallback, nT = _per_voxel(kw, backend)
     if fallback:
         return fallback
-    if len(_shape(kw.get('tr'))) == 1:
-        raise NotImplementedError(
-            'epgx_spgr with a (nTR,) tr train: its kernels (K22-K24) come '
-            "with slice 10d of ROADMAP.md queue 1; use backend='torch' for "
-            'the plain route')
     nA = _n_atoms(kw, ('T1a', 'T2a', 'T1b', 'T2b', 'kab', 'kba', 'M0a',
                        'M0b', 'dfb', 'b1'))
     K = _k_orders(kw, nT)
+    v = '_v' if len(_shape(kw.get('tr'))) == 1 else ''
     return _mk('cuda-native-adjoint',
-               'xspgr_fwd, and xspgr_fwd_chk + xspgr_bwd under a gradient '
-               '(nTR=%d, K=%d, nA=%d; the adjoint chunk tc=%d in float32)'
-               % (nT, K, nA, pick_tc(nT, K, nA, 4, PLANES)))
+               'xspgr%s_fwd, and xspgr%s_fwd_chk + xspgr%s_bwd under a '
+               'gradient (nTR=%d, K=%d, nA=%d%s; the adjoint chunk tc=%d in '
+               'float32)' % (v, v, v, nT, K, nA,
+                             ', variable tr (per-step propagators)' if v
+                             else '', pick_tc(nT, K, nA, 4, PLANES)))
 
 
 _DECIDERS = {'epg_spgr': _decide_epg_spgr, 'epg_cpmg': _decide_epg_cpmg,

@@ -2,7 +2,8 @@ r"""The CUDA kernels of :mod:`mrphy_tpu_torch.kernels` on the card (the
 Bloch kernels, the two-pool ``mc_fwd``/``mc_bwd``, the k-space signal
 kernels ``sig_fwd``/``sig_adj``/``sig_vjp``, the gridding NUFFT's
 ``nufft_sample``/``nufft_spread``/``nufft_dk``, the EPG trains'
-``spgr_*``/``cpmg_*``/``xspgr_*`` and the matched filter ``match``): each
+``spgr_*``/``cpmg_*``/``xspgr_*``/``xspgr_v_*`` and the matched filter
+``match``): each
 against its plain PyTorch version, the launch counts, the wrappers'
 refusals, and backward through the engines reaching the adjoint
 kernels.
@@ -867,9 +868,10 @@ def test_epg_cpmg_gradients_cuda_vs_plain(cuda, dtype):
         epg.epg_cpmg(flips.cpu(), T1=1.0, T2=0.1, esp=0.01, backend='cuda')
 
 
-def _xspgr_case(cuda, dtype, nA, nTR, K, kshift, b1, seed):
+def _xspgr_case(cuda, dtype, nA, nTR, K, kshift, b1, seed, vartr=False):
     r"""``epgx_spgr`` keywords (CUDA tensors): an rf-spoiled train over a
-    two-pool system with per-atom rates, M0b and dfb and, as asked, b1."""
+    two-pool system with per-atom rates, M0b and dfb and, as asked, b1 and
+    a ``(nTR,)`` tr train (8-16 ms) in place of tr 12 ms."""
     from mrphy_tpu_torch.ops import epg
     rng = np.random.default_rng(seed)
 
@@ -890,6 +892,8 @@ def _xspgr_case(cuda, dtype, nA, nTR, K, kshift, b1, seed):
               K=K)
     if b1:
         kw['b1'] = arr(rng.uniform(0.8, 1.2, nA))
+    if vartr:
+        kw['tr'] = arr(rng.uniform(0.008, 0.016, nTR))
     return kw
 
 
@@ -922,7 +926,8 @@ def test_xspgr_kernels_vs_plain_on_card(cuda, dtype, bar, rows, nA, nTR, K,
         sig.shape), dtype=dtype, device=cuda)
     dcoef, dpar = kx.xspgr_bwd(coef, par, cfg, chk, g, tc=tc)
     assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
-        xspgr_fwd=1, xspgr_fwd_chk=1, xspgr_bwd=1)
+        dict.fromkeys(kx.LAUNCHES, 0), xspgr_fwd=1, xspgr_fwd_chk=1,
+        xspgr_bwd=1)
     sig_p, chk_p = kx.xspgr_fwd_chk_torch(coef, par, cfg, tc=tc)
     dcoef_p, dpar_p = kx.xspgr_bwd_torch(coef, par, cfg, chk_p, g, tc=tc)
     for x, y in ((sig, sig_p), (sig2, sig_p), (chk, chk_p), (dpar, dpar_p)):
@@ -936,40 +941,115 @@ def test_xspgr_kernels_vs_plain_on_card(cuda, dtype, bar, rows, nA, nTR, K,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-def test_epgx_spgr_gradients_cuda_vs_plain(cuda, dtype):
+@pytest.mark.parametrize('vartr', [False, True], ids=['tr', 'tr-train'])
+def test_epgx_spgr_gradients_cuda_vs_plain(cuda, dtype, vartr):
     r"""``epgx_spgr`` on CUDA tensors runs ``xspgr_fwd`` for a value and
-    ``xspgr_fwd_chk`` + ``xspgr_bwd`` under a gradient, whose gradients
-    w.r.t. every input meet the plain route's; ``backend='cuda'`` refuses
-    CPU tensors, and a ``(nTR,)`` tr train on the card raises naming slice
-    10d."""
+    ``xspgr_fwd_chk`` + ``xspgr_bwd`` under a gradient at a scalar tr, and
+    ``xspgr_v_fwd``, or ``xspgr_v_fwd_chk`` + ``xspgr_v_bwd``, over a
+    ``(nTR,)`` tr train, under ``backend='auto'`` and ``'cuda'``; their
+    gradients w.r.t. every input (each element of the tr train among them)
+    meet the plain route's; ``backend='cuda'`` refuses CPU tensors."""
     from mrphy_tpu_torch.kernels import epgx as kx
     from mrphy_tpu_torch.ops import epg
     names = ('flips', 'phis', 'T1a', 'T2a', 'T1b', 'T2b', 'kab', 'kba', 'tr',
              'M0a', 'M0b', 'dfb', 'b1')
-    kw = _xspgr_case(cuda, dtype, 70, 24, 8, -1, True, 41)
-    kw['tr'] = torch.tensor(0.012, dtype=dtype, device=cuda)
+    kw = _xspgr_case(cuda, dtype, 70, 24, 8, -1, True, 41, vartr=vartr)
+    if not vartr:
+        kw['tr'] = torch.tensor(0.012, dtype=dtype, device=cuda)
+    v = '_v' if vartr else ''
     w = torch.as_tensor(np.random.default_rng(5).standard_normal((70, 24, 2)),
                         dtype=dtype, device=cuda)
     grads = []
-    for backend in ('auto', 'torch'):
+    for backend in ('auto', 'cuda', 'torch'):
         xs = {n: kw[n].detach().clone().requires_grad_() for n in names}
         n0 = dict(kx.LAUNCHES)
         out = epg.epgx_spgr(**dict(kw, **xs), backend=backend)
         grads.append(torch.autograd.grad((w * out).sum(), list(xs.values())))
         launched = {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES}
-        assert launched == dict(dict.fromkeys(kx.LAUNCHES, 0),
-                                **({'xspgr_fwd_chk': 1, 'xspgr_bwd': 1}
-                                   if backend == 'auto' else {}))
-    n0 = kx.LAUNCHES['xspgr_fwd']
+        assert launched == dict(
+            dict.fromkeys(kx.LAUNCHES, 0),
+            **({f'xspgr{v}_fwd_chk': 1, f'xspgr{v}_bwd': 1}
+               if backend != 'torch' else {}))
+    n0 = dict(kx.LAUNCHES)
     with torch.no_grad():
         epg.epgx_spgr(**kw)
-    assert kx.LAUNCHES['xspgr_fwd'] == n0 + 1
+    assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+        dict.fromkeys(kx.LAUNCHES, 0), **{f'xspgr{v}_fwd': 1})
     bar = 1e-4 if dtype == torch.float32 else 1e-10
-    for n, x, y in zip(names, *grads):
-        _rows_close(x, y, bar)
-    with pytest.raises(NotImplementedError, match='10d'):
-        epg.epgx_spgr(**dict(kw, tr=torch.full((24,), 0.012, dtype=dtype,
-                                               device=cuda)))
+    for g in grads[:2]:
+        for n, x, y in zip(names, g, grads[2]):
+            _rows_close(x, y, bar)
     with pytest.raises(ValueError, match='CUDA tensors'):
         epg.epgx_spgr(kw['flips'].cpu(), T1a=1.0, T2a=0.08, T1b=1.0,
-                      T2b=0.02, kab=5.0, kba=20.0, tr=0.01, backend='cuda')
+                      T2b=0.02, kab=5.0, kba=20.0,
+                      tr=kw['tr'].cpu() if vartr else 0.01, backend='cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows', [(torch.float32, 2e-6, 1e-4),
+                                            (torch.float64, 1e-12, 1e-12)])
+@pytest.mark.parametrize('nA,nTR,K,kshift,b1', [
+    (333, 40, 12, 1, False), (200, 36, 10, -1, True), (129, 30, 9, 2, True),
+    (65, 160, None, 1, False)],
+    ids=['plain-train', 'b1-kshift-1', 'b1-kshift2',
+         'default-K-device-memory-state'])
+def test_xspgr_v_kernels_vs_plain_on_card(cuda, dtype, bar, rows, nA, nTR, K,
+                                          kshift, b1):
+    r"""``xspgr_v_fwd``, ``xspgr_v_fwd_chk`` and ``xspgr_v_bwd`` against
+    their plain versions on the card over a ``(nTR,)`` tr train (per-atom
+    outputs, ``dpkt`` per atom and step among them, at ``bar``, the
+    adjoint's per-TR rows at ``rows`` of their largest value), over several
+    chunks; the launch counts; the refusals."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    from mrphy_tpu_torch.utils._shapes import largest_divisor_leq
+    kw = _xspgr_case(cuda, dtype, nA, nTR, K, kshift, b1, 37, vartr=True)
+    coef, (pk, pkt), cfg, _ = epg._xspgr_rows(kw.pop('flips'),
+                                              kw.pop('phis'), **kw)
+    coef, pk, pkt = coef.contiguous(), pk.contiguous(), pkt.contiguous()
+    tc = largest_divisor_leq(nTR, nTR // 3)          # three chunks or more
+    n0 = dict(kx.LAUNCHES)
+    sig = kx.xspgr_v_fwd(coef, pk, pkt, cfg)
+    sig2, chk = kx.xspgr_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)
+    g = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        sig.shape), dtype=dtype, device=cuda)
+    dcoef, dpk, dpkt = kx.xspgr_v_bwd(coef, pk, pkt, cfg, chk, g, tc=tc)
+    assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+        dict.fromkeys(kx.LAUNCHES, 0), xspgr_v_fwd=1, xspgr_v_fwd_chk=1,
+        xspgr_v_bwd=1)
+    sig_p, chk_p = kx.xspgr_v_fwd_chk_torch(coef, pk, pkt, cfg, tc=tc)
+    dcoef_p, dpk_p, dpkt_p = kx.xspgr_v_bwd_torch(coef, pk, pkt, cfg, chk_p,
+                                                  g, tc=tc)
+    assert dpk.shape == (3, nA) and dpkt.shape == (nTR, 14, nA)
+    for x, y in ((sig, sig_p), (sig2, sig_p), (chk, chk_p), (dpk, dpk_p),
+                 (dpkt, dpkt_p)):
+        _rows_close(x, y, bar)
+    _rows_close(dcoef, dcoef_p, rows)
+    with pytest.raises(ValueError, match='pkt'):
+        kx.xspgr_v_fwd(coef, pk, pkt[1:], cfg)
+    with pytest.raises(ValueError, match='pk'):
+        kx.xspgr_v_fwd(coef, pk[:2].contiguous(), pkt, cfg)
+    with pytest.raises(TypeError):
+        kx.xspgr_v_fwd(coef.half(), pk.half(), pkt.half(), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_xspgr_v_constant_train_equals_xspgr_on_card(cuda, dtype):
+    r"""Over a constant ``(nTR,)`` train the variable-TR kernels' echoes
+    equal the fixed-TR kernel's (``xspgr_fwd``) at the same scalar tr: the
+    per-step planes repeat the per-atom rows bit for bit."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    kw = _xspgr_case(cuda, dtype, 150, 30, 10, 1, True, 43)
+    fl, ph = kw.pop('flips'), kw.pop('phis')
+    coef, par, cfg, _ = epg._xspgr_rows(fl, ph, **kw)
+    coef_v, (pk, pkt), cfg_v, _ = epg._xspgr_rows(
+        fl, ph, **dict(kw, tr=torch.full((30,), 0.012, dtype=dtype,
+                                         device=cuda)))
+    assert cfg_v == cfg and torch.equal(pkt[7], par[:14])
+    sig = kx.xspgr_fwd(coef.contiguous(), par.contiguous(), cfg)
+    assert torch.equal(kx.xspgr_v_fwd(coef_v, pk.contiguous(), pkt, cfg),
+                       sig)
+    assert torch.equal(kx.xspgr_v_fwd_chk(coef_v, pk.contiguous(), pkt, cfg,
+                                          tc=10)[0], sig)

@@ -387,13 +387,22 @@ class TestRouting:
                   T2a=0.08, T1b=1.0, T2b=0.02, kab=big, kba=30.0, tr=0.012,
                   K=48)
         assert r['path'] == 'cuda-native-adjoint' and 'tc=10' in r['reason']
-        # a (nTR,) tr train: its kernels come with slice 10d
+        # a (nTR,) tr train: the variable-TR kernels, the chunk fitted to
+        # the scratch (tc 25 at bench_mrf's 65,536 x 400 train, K 24)
         for backend in ('cuda', 'auto'):
             monkeypatch.setattr(routing, '_on_cuda', lambda kw: True)
-            with pytest.raises(NotImplementedError, match='10d'):
-                route('epgx_spgr', flips=self.FL, **dict(kw, backend=backend),
+            r = route('epgx_spgr', flips=self.FL, **dict(kw, backend=backend),
                       tr=self.IV)
-        with pytest.raises(NotImplementedError, match='10d'):
+            assert r['path'] == 'cuda-native-adjoint' and r['fused']
+            assert r['reason'].startswith('xspgr_v_fwd, and xspgr_v_fwd_chk '
+                                          '+ xspgr_v_bwd')
+            assert 'variable tr' in r['reason'] and 'tc=32' in r['reason']
+        r = route('epgx_spgr', backend='cuda', flips=np.zeros(400), T1a=big,
+                  T2a=0.08, T1b=1.0, T2b=0.02, kab=big, kba=30.0,
+                  tr=np.full(400, 0.012), K=24)
+        assert 'nTR=400, K=24, nA=65536, variable tr' in r['reason']
+        assert 'tc=25' in r['reason']
+        with pytest.raises(ValueError, match='CUDA tensors'):
             tepg.epgx_spgr(torch.as_tensor(self.FL), T1a=1.0, T2a=0.08,
                            T1b=1.0, T2b=0.02, kab=5.0, kba=20.0,
                            tr=torch.as_tensor(self.IV), backend='cuda')
