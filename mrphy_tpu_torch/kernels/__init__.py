@@ -16,12 +16,18 @@ r"""Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
   versions, launch counts and the autograd Functions of the two stages.
 - :mod:`mrphy_tpu_torch.kernels.epg`: ``spgr_fwd``, ``spgr_fwd_chk`` and
   ``spgr_bwd``, the SPGR / MRF-FISP EPG train, the same with chunk
-  checkpoints, and its two-phase chunk adjoint, with their plain PyTorch
-  versions, launch counts and the autograd Function of the train.
+  checkpoints, and its two-phase chunk adjoint; ``cpmg_fwd``,
+  ``cpmg_fwd_chk`` and ``cpmg_bwd``, the same three for the CPMG echo
+  train; with their plain PyTorch versions, launch counts and the autograd
+  Functions of the trains.
 - :mod:`mrphy_tpu_torch.kernels.epgx`: ``xspgr_fwd``, ``xspgr_fwd_chk``
   and ``xspgr_bwd``, the two-pool EPG-X SPGR train at a fixed TR, the same
-  with chunk checkpoints, and its two-phase chunk adjoint, with their plain
-  PyTorch versions, launch counts and the autograd Function of the train.
+  with chunk checkpoints, and its two-phase chunk adjoint;
+  ``xspgr_v_fwd``, ``xspgr_v_fwd_chk`` and ``xspgr_v_bwd``, their
+  instances over a variable-TR train; ``xcpmg_fwd``, ``xcpmg_fwd_chk`` and
+  ``xcpmg_bwd``, the same three for the two-pool CPMG echo train at a fixed
+  echo spacing; with their plain PyTorch versions, launch counts and the
+  autograd Functions of the trains.
 - :mod:`mrphy_tpu_torch.kernels.mrf`: ``match``, the fused matched filter
   of MRF dictionary matching, with its plain PyTorch version and launch
   count.

@@ -162,13 +162,13 @@ __global__ void cpmg_bwd_kernel(const T* __restrict__ coef,
           T hv[6] = {h(0, ip), h(1, ip), h(2, im), h(3, im), h(4, k), h(5, k)};
           spgr::relax_T(f, K, k, has_d, cdiff, dqt, s1, hv, c2, e2_2, e1_2,
                         r2);
-          kca2 += ((hv[0] * sh[0] + hv[1] * sh[1]) + hv[2] * sh[2]) +
-                  hv[3] * sh[3];
-          ksc2 += ((hv[0] * sh[2] + hv[1] * sh[3]) + hv[2] * sh[0]) +
-                  hv[3] * sh[1];
-          ksc += (hv[0] - hv[2]) * sh[5] - (hv[1] - hv[3]) * sh[4];
-          khc += hv[4] * (sh[1] - sh[3]) + hv[5] * (sh[2] - sh[0]);
-          kca += hv[4] * sh[4] + hv[5] * sh[5];
+          T tm[5];
+          mix0_terms(hv, sh, tm);
+          kca2 += tm[0];
+          ksc2 += tm[1];
+          ksc += tm[2];
+          khc += tm[3];
+          kca += tm[4];
           T o[6];
           mix0_T(g, hv, o);
           h(0, ip) = o[0];

@@ -5,8 +5,10 @@
 //
 // Every function repeats, operation for operation, the plain PyTorch
 // versions of kernels/epg.py (`_flip_trig`, `_cpmg_factors`, `_mix` and
-// `_mix_T` about +x, `_cpmg_half`): with the build's -fmad=false, a kernel
-// and its plain version round alike.
+// `_mix_T` about +x, `_mix0_terms`, `_cpmg_half`): with the build's
+// -fmad=false, a kernel and its plain version round alike. The two-pool
+// CPMG kernels (xcpmg_fwd.cu, xcpmg_bwd.cu) take the trig, the mix, its
+// transpose and its coefficient terms from here too.
 //
 // Layout. coef (nC, nE) per-echo rows [cos²(α/2), sin²(α/2), sin α, cos α,
 // α] (+ the esp row under a spacing train, nC = 6); par (7, nA) per-atom
@@ -91,6 +93,19 @@ __device__ __forceinline__ void mix0_T(const Trig<T>& g, const T (&h)[6],
   o[3] = (g.sa2 * h[1] + g.ca2 * h[3]) - hc * h[4];
   o[4] = (g.sa * h[3] - g.sa * h[1]) + g.ca * h[4];
   o[5] = (g.sa * h[0] - g.sa * h[2]) + g.ca * h[5];
+}
+
+// The per-order terms of the refocusing mix's coefficient gradients [∂ca2,
+// ∂sa2, ∂sc, ∂hc, ∂ca] (∂sa = ∂sc + ∂hc/2): the cotangent h of the mixed
+// state against its input x.
+template <typename T>
+__device__ __forceinline__ void mix0_terms(const T (&h)[6], const T (&x)[6],
+                                           T (&o)[5]) {
+  o[0] = ((h[0] * x[0] + h[1] * x[1]) + h[2] * x[2]) + h[3] * x[3];
+  o[1] = ((h[0] * x[2] + h[1] * x[3]) + h[2] * x[0]) + h[3] * x[1];
+  o[2] = (h[0] - h[2]) * x[5] - (h[1] - h[3]) * x[4];
+  o[3] = h[4] * (x[1] - x[3]) + h[5] * (x[2] - x[0]);
+  o[4] = h[4] * x[4] + h[5] * x[5];
 }
 
 // Order k of a logical state src (element (p, q) at [(p·K + q)·nA]) after

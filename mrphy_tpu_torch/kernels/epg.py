@@ -560,6 +560,20 @@ def _cpmg_echo(coef, t, p, dq, cdiff, cfg, s):
     return _cpmg_half(f, s, att)
 
 
+def _mix0_terms(h, x):
+    r"""One pool's per-order terms of the refocusing mix's (about +x)
+    coefficient gradients ``(∂ca2, ∂sa2, ∂sc, ∂hc, ∂ca)``: the cotangent
+    ``h`` of the mixed state against its input ``x`` (``∂sa = ∂sc +
+    ∂hc/2``)."""
+    hFpr, hFpi, hFmr, hFmi, hZr, hZi = h
+    Fpr, Fpi, Fmr, Fmi, Zr, Zi = x
+    return [hFpr * Fpr + hFpi * Fpi + hFmr * Fmr + hFmi * Fmi,
+            hFpr * Fmr + hFpi * Fmi + hFmr * Fpr + hFmi * Fpi,
+            (hFpr - hFmr) * Zi - (hFpi - hFmi) * Zr,
+            hZr * (Fpi - Fmi) + hZi * (Fmr - Fpr),
+            hZr * Zr + hZi * Zi]
+
+
 def _cpmg_init(p, K):
     r"""The closed-form state after the excitation of equilibrium ``M0``:
     ``F± = sinα·(sinφ ∓ i·cosφ)·M0``, ``Z = cosα·M0`` (the rows ``e_ss,
@@ -646,13 +660,7 @@ def cpmg_bwd_torch(coef, par, dq, cdiff, cfg: CpmgCfg, chk, gr, gi, *,
                  _at0(h[1], h[1][:, :1] + gi[t][:, None])) + h[2:]
             h, t2, d_rec2 = _relax_T(_shift_T(h, 1), s1, f, att, cdiff)
             # the refocusing's coefficients (h: its output's cotangent)
-            hFpr, hFpi, hFmr, hFmi, hZr, hZi = h
-            Fpr, Fpi, Fmr, Fmi, Zr, Zi = sh1
-            tm = [hFpr * Fpr + hFpi * Fpi + hFmr * Fmr + hFmi * Fmi,
-                  hFpr * Fmr + hFpi * Fmi + hFmr * Fpr + hFmi * Fpi,
-                  (hFpr - hFmr) * Zi - (hFpi - hFmi) * Zr,
-                  hZr * (Fpi - Fmi) + hZi * (Fmr - Fpr),
-                  hZr * Zr + hZi * Zi]
+            tm = _mix0_terms(h, sh1)
             h = _mix_T(tg, h)
             h, t1, d_rec1 = _relax_T(_shift_T(h, 1), s, f, att, cdiff)
             sums = _ksum(torch.stack(t2 + tm + t1)).unsqueeze(-1)

@@ -1,10 +1,12 @@
 r"""The two-pool EPG-X kernels: wrappers, plain PyTorch versions and launch
 counts.
 
-Six kernels, each the Hopper counterpart of a TPU kernel of
-:mod:`mrphy_tpu.ops.epg_pallas`, for the gradient-spoiled train of a
+Nine kernels, each the Hopper counterpart of a TPU kernel of
+:mod:`mrphy_tpu.ops.epg_pallas`: six for the gradient-spoiled train of a
 two-pool exchanging system (:func:`mrphy_tpu_torch.ops.epg.epgx_spgr`), at
-a fixed TR and over a variable-TR train:
+a fixed TR and over a variable-TR train, and three for its CPMG echo train
+at a fixed echo spacing (:func:`mrphy_tpu_torch.ops.epg.epgx_cpmg`, last
+below):
 
 - ``xspgr_fwd`` (``csrc/xspgr_fwd.cu``, replaces ``_epgx_kernel``): per
   atom and TR, the RF mix on pool a and on pool b, the echo (the total
@@ -71,6 +73,24 @@ kernels on CUDA tensors, no fallback; the plain versions on CPU tensors);
 :func:`xspgr_v` the same for the variable-TR kernels.
 The adjoint's per-chunk scratch lies in device memory, its chunk sized by
 :func:`mrphy_tpu_torch.kernels.epg.pick_tc` for 12 planes.
+
+The two-pool CPMG kernels (``csrc/xcpmg_fwd.cu``, ``csrc/xcpmg_bwd.cu``)
+are the same three for the spin-echo train of myelin-water mapping:
+``xcpmg_fwd`` (replaces ``_xcpmg_kernel``), ``xcpmg_fwd_chk``
+(``_xcpmg_fwd_chk_kernel``) and ``xcpmg_bwd`` (``_xcpmg_bwd_kernel``). From
+the closed-form state a π/2 excitation about ``φ_ex`` leaves on the
+equilibrium (``F± = (sin φ_ex ∓ i·cos φ_ex)·M0p``, ``Z = 0``, per pool),
+per echo: the exchange–relaxation over esp/2 and a unit shift of both
+pools, the refocusing mix about +x on both pools (CPMG's single-pool
+``_mix``), the same half again, the echo ``Fa+(0) + Fb+(0)``. Arguments,
+as ``_xcpmg_dispatch`` (``epg_pallas.py:781-819``) builds them: ``coef (5,
+nE)`` ``[cos²(α/2), sin²(α/2), sin α, cos α, α]``, ``pk (19, nA)`` ``[E00r,
+…, Z11, ra, rb, cos φ_ex, sin φ_ex, M0a, M0b, b1]`` (the propagator over
+esp/2), ``cfg`` :class:`XcpmgCfg`. The echoes come as ``(er, ei)``, each
+``(nE, nA)``; the adjoint returns ``dcoef (5, nE)`` and ``dpk (19, nA)``
+(the 14 entries' gradients summed over both halves of every echo, then
+those of ``cos φ_ex``, ``sin φ_ex``, ``M0a``, ``M0b`` through the initial
+state, and ``db1``). :func:`xcpmg` is their autograd Function.
 """
 
 from typing import NamedTuple
@@ -80,18 +100,21 @@ from torch.autograd.function import once_differentiable
 
 from mrphy_tpu_torch.kernels.bloch import (_check, _check_tc, _device_kind,
                                            _ptr, _raise_on, _stream)
-from mrphy_tpu_torch.kernels.epg import (_at0, _entry, _ksum, _mix, _mix_T,
-                                         _shift, _shift_T, _trig, launch_cfg,
-                                         pick_tc)
+from mrphy_tpu_torch.kernels.epg import (_at0, _entry, _flip_trig, _ksum,
+                                         _mix, _mix0_terms, _mix_T, _shift,
+                                         _shift_T, _trig, launch_cfg, pick_tc)
 
 __all__ = ['LAUNCHES', 'PLANES', 'XspgrCfg', 'xspgr', 'xspgr_fwd',
            'xspgr_fwd_torch', 'xspgr_fwd_chk', 'xspgr_fwd_chk_torch',
            'xspgr_bwd', 'xspgr_bwd_torch', 'xspgr_v', 'xspgr_v_fwd',
            'xspgr_v_fwd_torch', 'xspgr_v_fwd_chk', 'xspgr_v_fwd_chk_torch',
-           'xspgr_v_bwd', 'xspgr_v_bwd_torch']
+           'xspgr_v_bwd', 'xspgr_v_bwd_torch', 'XcpmgCfg', 'xcpmg',
+           'xcpmg_fwd', 'xcpmg_fwd_torch', 'xcpmg_fwd_chk',
+           'xcpmg_fwd_chk_torch', 'xcpmg_bwd', 'xcpmg_bwd_torch']
 
 LAUNCHES = {'xspgr_fwd': 0, 'xspgr_fwd_chk': 0, 'xspgr_bwd': 0,
-            'xspgr_v_fwd': 0, 'xspgr_v_fwd_chk': 0, 'xspgr_v_bwd': 0}
+            'xspgr_v_fwd': 0, 'xspgr_v_fwd_chk': 0, 'xspgr_v_bwd': 0,
+            'xcpmg_fwd': 0, 'xcpmg_fwd_chk': 0, 'xcpmg_bwd': 0}
 
 # The state planes of one atom: both pools' F+, F−, Z (re, im).
 PLANES = 12
@@ -100,6 +123,9 @@ NPAR = 17
 # per-atom rows [M0a, M0b, b1].
 NENT = 14
 NPK = 3
+# The CPMG train's per-atom rows: the 14 entries, [cos φ_ex, sin φ_ex, M0a,
+# M0b, b1].
+NXC = 19
 
 
 class XspgrCfg(NamedTuple):
@@ -110,6 +136,20 @@ class XspgrCfg(NamedTuple):
     has_b1: bool
 
     nC = 9
+
+    @property
+    def flags(self) -> int:
+        return int(self.has_b1)
+
+
+class XcpmgCfg(NamedTuple):
+    r"""The static switches of one EPG-X CPMG train: ``K`` modelled orders
+    (``nE + 1`` from :func:`mrphy_tpu_torch.ops.epg.epgx_cpmg`, at least 2)
+    and per-atom ``b1``."""
+    K: int
+    has_b1: bool
+
+    nC = 5
 
     @property
     def flags(self) -> int:
@@ -589,3 +629,284 @@ def xspgr_v(coef, pk, pkt, cfg: XspgrCfg):
     CPU tensors. Differentiable w.r.t. ``coef``, ``pk`` and ``pkt``."""
     return _XspgrV.apply(cfg, coef.contiguous(), pk.contiguous(),
                          pkt.contiguous())
+
+
+# ==========================================================================
+# The two-pool CPMG train: the plain versions
+# ==========================================================================
+
+def _xcpmg_init(p, K):
+    r"""The closed-form state a π/2 excitation about ``φ_ex`` leaves on the
+    equilibrium: per pool ``F± = (sin φ_ex ∓ i·cos φ_ex)·M0p``, ``Z = 0``
+    (the rows ``cos φ_ex, sin φ_ex, M0a, M0b``)."""
+    exc, exs, M0a, M0b = p[14:18]
+    z = torch.zeros(exc.shape[0], K, dtype=exc.dtype, device=exc.device)
+
+    def pool(M0):
+        return (_at0(z, exs * M0), _at0(z, -exc * M0), _at0(z, exs * M0),
+                _at0(z, exc * M0), z, z)
+
+    return pool(M0a) + pool(M0b)
+
+
+def _xhalf(p, s):
+    r"""One half echo of both pools: the exchange–relaxation over esp/2,
+    then the crusher's unit shift."""
+    s = _xrelax(p, s)
+    return _shift(s[:6], 1) + _shift(s[6:], 1)
+
+
+def _xecho(coef, t, p, cfg, s):
+    r"""Echo ``t`` from its pre-echo state ``s``: half, the refocusing mix
+    about +x on both pools, half; returns the state whose ``Fa+(0) +
+    Fb+(0)`` is the echo."""
+    tg = _flip_trig(coef, t, 4, p[18], cfg.has_b1)
+    return _xhalf(p, _xmix(tg, _xhalf(p, s)))
+
+
+def _xcpmg_fwd(coef, pk, cfg, tc):
+    nE = coef.shape[1]
+    p = tuple(pk.unsqueeze(-1))
+    s = _xcpmg_init(p, cfg.K)
+    er, ei = [], []
+    chk = pk.new_empty((nE // tc, PLANES, cfg.K, pk.shape[1])) if tc \
+        else None
+    for t in range(nE):
+        if tc and t % tc == 0:
+            chk[t // tc] = torch.stack(s).transpose(1, 2)  # (12, K, nA)
+        s = _xecho(coef, t, p, cfg, s)
+        er.append(s[0][:, 0] + s[6][:, 0])
+        ei.append(s[1][:, 0] + s[7][:, 0])
+    return torch.stack(er), torch.stack(ei), chk
+
+
+def xcpmg_fwd_torch(coef, pk, cfg: XcpmgCfg):
+    r"""Plain PyTorch version of the ``xcpmg_fwd`` kernel: the echoes ``(er,
+    ei)``, each ``(nE, nA)``. Differentiable by torch autograd (which then
+    keeps every echo)."""
+    return _xcpmg_fwd(coef, pk, cfg, None)[:2]
+
+
+def xcpmg_fwd_chk_torch(coef, pk, cfg: XcpmgCfg, *, tc: int):
+    r"""Plain PyTorch version of the ``xcpmg_fwd_chk`` kernel: ``(er, ei,
+    chk (nE / tc, 12, K, nA))``, the pre-echo state at the start of every
+    chunk of ``tc`` echoes."""
+    _check_tc(coef.shape[1], tc)
+    return _xcpmg_fwd(coef, pk, cfg, tc)
+
+
+def xcpmg_bwd_torch(coef, pk, cfg: XcpmgCfg, chk, gr, gi, *, tc: int):
+    r"""Plain PyTorch version of the ``xcpmg_bwd`` kernel: the two-phase
+    chunk adjoint of :func:`xcpmg_fwd_chk_torch`, with no autograd.
+
+    ``chk``: its checkpoints at the same ``tc``; ``gr``/``gi``: the echoes'
+    cotangent, each ``(nE, nA)``. Per echo, newest first (``_xcpmg_bwd_
+    kernel``'s order, ``epg_pallas.py:3072-3201``): the cotangent into both
+    pools' ``F+(0)``, the shift's transpose, the exchange–relaxation's
+    transpose at the mixed state (its 14 entry terms), the refocusing mix's
+    coefficient terms (both pools, order by order) and transpose, the
+    shift's transpose, the exchange–relaxation's transpose at the stored
+    pre-echo state. Under ``b1`` the angle's gradient goes to ``db1`` and to
+    the flip row, the other coefficient rows stay 0. Returns ``(dcoef (5,
+    nE), dpk (19, nA))``: the 14 entries' gradients (second half, then
+    first, added per echo), ``[d cos φ_ex, d sin φ_ex, dM0a, dM0b]`` of the
+    initial state, ``db1``."""
+    nE = coef.shape[1]
+    _check_tc(nE, tc)
+    ntc = chk.shape[0]
+    if ntc != nE // tc:
+        raise ValueError(f'chk holds {ntc} states, but nE={nE} in chunks '
+                         f'of tc={tc} gives {nE // tc}')
+    p = tuple(pk.unsqueeze(-1))
+    zero = torch.zeros_like(p[0])
+    h = (torch.zeros_like(chk[0, 0].T),) * PLANES
+    acc = [zero] * NENT
+    ab1 = zero
+    dcoef = coef.new_zeros(XcpmgCfg.nC, nE)
+    for j in reversed(range(ntc)):
+        # phase 1: the forward from the chunk's start state, every state
+        s = tuple(chk[j, q].T for q in range(PLANES))
+        states = []
+        for t in range(j * tc, (j + 1) * tc):
+            states.append(s)
+            s = _xecho(coef, t, p, cfg, s)
+        # phase 2: the cotangent, backwards through the stored states
+        for t in reversed(range(j * tc, (j + 1) * tc)):
+            s = states.pop()
+            tg = _flip_trig(coef, t, 4, p[18], cfg.has_b1)
+            ca2, sa2, sa, ca = tg
+            sh1 = _xhalf(p, s)                 # the refocusing's input
+            s1 = _xmix(tg, sh1)
+            # the echo reads both pools' F+(0) after the second half
+            gyr, gyi = gr[t][:, None], gi[t][:, None]
+            h = ((_at0(h[0], h[0][:, :1] + gyr), _at0(h[1], h[1][:, :1] + gyi))
+                 + h[2:6]
+                 + (_at0(h[6], h[6][:, :1] + gyr),
+                    _at0(h[7], h[7][:, :1] + gyi))
+                 + h[8:])
+            h = _shift_T(h[:6], 1) + _shift_T(h[6:], 1)
+            h, t2, r2 = _xrelax_T(p, h, s1)
+            # the refocusing's coefficients (h: its output's cotangent)
+            tm = [a + b for a, b in zip(_mix0_terms(h[:6], sh1[:6]),
+                                        _mix0_terms(h[6:], sh1[6:]))]
+            h = _mix_T(tg, h[:6]) + _mix_T(tg, h[6:])
+            h = _shift_T(h[:6], 1) + _shift_T(h[6:], 1)
+            h, t1, r1 = _xrelax_T(p, h, s)
+            sums = _ksum(torch.stack(t2 + tm + t1)).unsqueeze(-1)  # (29,)
+            acc = [(a + x) + y for a, x, y in
+                   zip(acc, list(sums[:12]) + list(r2),
+                       list(sums[17:]) + list(r1))]
+            d_ca2, d_sa2, d_sc, d_hc, d_ca = sums[12:17]
+            d_sa = d_sc + 0.5 * d_hc
+            if cfg.has_b1:
+                # α = flip·b1 through the half-angle trig
+                d_al = 0.5 * sa * (d_sa2 - d_ca2) + ca * d_sa - sa * d_ca
+                ab1 = ab1 + d_al * coef[4, t]
+                rows = [zero, zero, zero, zero, d_al * p[18]]
+            else:
+                rows = [d_ca2, d_sa2, d_sa, d_ca, zero]
+            dcoef[:, t] = torch.cat(rows, dim=1).sum(dim=0)
+    # the excitation's state: per pool F+(0) = (exs, −exc)·M0p, F−(0) =
+    # (exs, exc)·M0p
+    exc, exs, M0a, M0b = p[14:18]
+    ra_ = h[0][:, :1] + h[2][:, :1]
+    ia_ = -h[1][:, :1] + h[3][:, :1]
+    rb_ = h[6][:, :1] + h[8][:, :1]
+    ib_ = -h[7][:, :1] + h[9][:, :1]
+    dpk = torch.cat(acc + [M0a * ia_ + M0b * ib_, M0a * ra_ + M0b * rb_,
+                           exs * ra_ + exc * ia_, exs * rb_ + exc * ib_, ab1],
+                    dim=1).T
+    return dcoef, dpk.contiguous()
+
+
+# ==========================================================================
+# The two-pool CPMG train: the kernels
+# ==========================================================================
+
+def _xcpmg_sizes(name, coef, pk, cfg):
+    r"""Validate a two-pool CPMG kernel's arguments; returns ``(nA,
+    nE)``."""
+    if pk.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'{name} takes float32 or float64, not {pk.dtype}')
+    if pk.ndim != 2 or pk.shape[0] != NXC:
+        raise ValueError(f'pk must be ({NXC}, nA), got {tuple(pk.shape)}')
+    nA, nE = pk.shape[1], coef.shape[-1]
+    if cfg.K < 2 or nE < 1:
+        raise ValueError(f'{name} needs K >= 2 and nE >= 1, got K={cfg.K}, '
+                         f'nE={nE}')
+    _check(coef, 'coef', (cfg.nC, nE), pk.dtype, pk.device)
+    _check(pk, 'pk', (NXC, nA), pk.dtype, pk.device)
+    return nA, nE
+
+
+def _launch_xcpmg_fwd(coef, pk, cfg, tc):
+    r"""``xcpmg_fwd`` (``tc`` None) or ``xcpmg_fwd_chk``: ``(er, ei,
+    chk)``."""
+    from mrphy_tpu_torch.kernels._build import library
+    name = 'xcpmg_fwd' if tc is None else 'xcpmg_fwd_chk'
+    nA, nE = _xcpmg_sizes(name, coef, pk, cfg)
+    dt, dev = pk.dtype, pk.device
+    threads, in_smem = launch_cfg(cfg.K, pk.element_size(), PLANES)
+    er = torch.empty((nE, nA), dtype=dt, device=dev)
+    ei = torch.empty((nE, nA), dtype=dt, device=dev)
+    chk = None
+    if tc is not None:
+        _check_tc(nE, tc)
+        chk = torch.empty((nE // tc, PLANES, cfg.K, nA), dtype=dt,
+                          device=dev)
+    state = None if in_smem else torch.empty((PLANES, cfg.K, nA), dtype=dt,
+                                             device=dev)
+    lib, _ = library()
+    with torch.cuda.device(dev):
+        err = _entry(lib, name, dt)(
+            *map(_ptr, (coef, pk, er, ei, chk, state)), nA, nE, cfg.K,
+            cfg.flags, tc or nE, threads, _stream(dev))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return er, ei, chk
+
+
+def _launch_xcpmg_bwd(coef, pk, cfg, chk, gr, gi, tc):
+    r"""``xcpmg_bwd``: ``(dcoef, dpk)``."""
+    from mrphy_tpu_torch.kernels._build import library
+    nA, nE = _xcpmg_sizes('xcpmg_bwd', coef, pk, cfg)
+    _check_tc(nE, tc)
+    dt, dev = pk.dtype, pk.device
+    _check(chk, 'chk', (nE // tc, PLANES, cfg.K, nA), dt, dev)
+    _check(gr, 'gr', (nE, nA), dt, dev)
+    _check(gi, 'gi', (nE, nA), dt, dev)
+    threads, in_smem = launch_cfg(cfg.K, pk.element_size(), PLANES)
+    # phase 1's pre-echo states of one chunk (the first is chk's own), the
+    # adjoint state when it does not fit in shared memory, and each warp's
+    # per-echo coefficient rows (summed over its atoms)
+    scratch = torch.empty((max(tc - 1, 1), PLANES, cfg.K, nA), dtype=dt,
+                          device=dev)
+    hstate = None if in_smem else torch.empty((PLANES, cfg.K, nA), dtype=dt,
+                                              device=dev)
+    dpk = torch.empty((NXC, nA), dtype=dt, device=dev)
+    dcf = torch.empty((-(-nA // 32), nE, cfg.nC), dtype=dt, device=dev)
+    lib, _ = library()
+    with torch.cuda.device(dev):
+        err = _entry(lib, 'xcpmg_bwd', dt)(
+            *map(_ptr, (coef, pk, chk, gr, gi, scratch, hstate, dpk, dcf)),
+            nA, nE, cfg.K, cfg.flags, tc, threads, _stream(dev))
+    _raise_on(err, 'xcpmg_bwd')
+    LAUNCHES['xcpmg_bwd'] += 1
+    # the warps' partial rows, summed in a fixed order
+    return dcf.sum(dim=0).T.contiguous(), dpk
+
+
+def xcpmg_fwd(coef, pk, cfg: XcpmgCfg):
+    r"""The ``xcpmg_fwd`` kernel on CUDA tensors (contiguous, one dtype,
+    float32 or float64), :func:`xcpmg_fwd_torch` on CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xcpmg_fwd_torch(coef, pk, cfg)
+    return _launch_xcpmg_fwd(coef, pk, cfg, None)[:2]
+
+
+def xcpmg_fwd_chk(coef, pk, cfg: XcpmgCfg, *, tc: int):
+    r"""The ``xcpmg_fwd_chk`` kernel on CUDA tensors,
+    :func:`xcpmg_fwd_chk_torch` on CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xcpmg_fwd_chk_torch(coef, pk, cfg, tc=tc)
+    return _launch_xcpmg_fwd(coef, pk, cfg, tc)
+
+
+def xcpmg_bwd(coef, pk, cfg: XcpmgCfg, chk, gr, gi, *, tc: int):
+    r"""The ``xcpmg_bwd`` kernel on CUDA tensors, :func:`xcpmg_bwd_torch` on
+    CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xcpmg_bwd_torch(coef, pk, cfg, chk, gr, gi, tc=tc)
+    return _launch_xcpmg_bwd(coef, pk, cfg, chk, gr, gi, tc)
+
+
+class _Xcpmg(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, cfg, coef, pk):
+        ctx.cfg = cfg
+        if not any(ctx.needs_input_grad[1:3]):
+            return xcpmg_fwd(coef, pk, cfg)
+        tc = pick_tc(coef.shape[1], cfg.K, pk.shape[1], pk.element_size(),
+                     PLANES)
+        er, ei, chk = xcpmg_fwd_chk(coef, pk, cfg, tc=tc)
+        ctx.tc = tc
+        ctx.save_for_backward(coef, pk, chk)
+        return er, ei
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gr, gi):
+        coef, pk, chk = ctx.saved_tensors
+        dcoef, dpk = xcpmg_bwd(coef, pk, ctx.cfg, chk, gr.contiguous(),
+                               gi.contiguous(), tc=ctx.tc)
+        return None, dcoef, dpk
+
+
+def xcpmg(coef, pk, cfg: XcpmgCfg):
+    r"""The EPG-X CPMG echoes ``(er, ei)``, each ``(nE, nA)``, at a fixed
+    echo spacing: the kernels on CUDA tensors (``xcpmg_fwd``, or
+    ``xcpmg_fwd_chk`` and ``xcpmg_bwd`` when a gradient is needed), their
+    plain versions on CPU tensors. Differentiable w.r.t. ``coef`` and
+    ``pk``."""
+    return _Xcpmg.apply(cfg, coef.contiguous(), pk.contiguous())

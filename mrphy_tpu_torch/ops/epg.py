@@ -1,6 +1,6 @@
 r"""Extended Phase Graphs (EPG): differentiable echo-train simulation
 (counterpart of :mod:`mrphy_tpu.ops.epg`: its single-pool SPGR and CPMG
-parts and the two-pool EPG-X SPGR train).
+parts and the two-pool EPG-X SPGR and CPMG trains).
 
 Magnetization is tracked in the Fourier domain of the dephasing angle as
 configuration states ``F+(k), F−(k), Z(k)``; the state is a real ``(...,
@@ -38,8 +38,13 @@ take a shared 1-D flip train: at a scalar ``tr`` ``xspgr_fwd``, or
 ``xspgr_fwd_chk`` with ``xspgr_bwd`` under a gradient; over a ``(nTR,)``
 ``tr`` train ``xspgr_v_fwd``, or ``xspgr_v_fwd_chk`` with ``xspgr_v_bwd``,
 which read the exchange–relaxation propagator of every step from per-step
-planes (:func:`_x_step_entries`). The other EPG-X families (``epgx_cpmg``,
-the MT variant) are not ported yet.
+planes (:func:`_x_step_entries`). :func:`epgx_cpmg`, the two-pool CPMG
+train of myelin-water mapping, has the same two routes; its kernels take a
+shared 1-D flip train at a scalar ``esp`` (``xcpmg_fwd``, or
+``xcpmg_fwd_chk`` with ``xcpmg_bwd`` under a gradient); over a ``(nE,)``
+``esp`` train it runs the plain route under ``backend='torch'`` and raises
+on CUDA tensors otherwise (slice 10f of ``ROADMAP.md`` queue 1). The MT
+variant is not ported yet.
 """
 
 import math
@@ -54,7 +59,7 @@ from mrphy_tpu_torch.ops.slowsims import _expm2
 
 __all__ = ['epg_state', 'epg_rf', 'epg_grad', 'epg_relax', 'epg_diffusion',
            'epg_cpmg', 'epg_spgr', 'ir_prep', 'rf_spoil_phases',
-           'epgx_state', 'epgx_rf', 'epgx_relax', 'epgx_spgr']
+           'epgx_state', 'epgx_rf', 'epgx_relax', 'epgx_spgr', 'epgx_cpmg']
 
 
 def _t(x, like):
@@ -941,3 +946,141 @@ def _xspgr_kernels(flips, phis=None, **kw):
     if len(batch) > 1:
         return sig.reshape(batch + sig.shape[1:])
     return _unbatch(sig, _scalar_batch(*(kw.get(n) for n in _XKEYS)))
+
+
+def epgx_cpmg(flips, *, T1a, T2a, T1b, T2b, kab, kba, esp, M0a=1.0,
+              M0b=0.1, dfb=0.0, phi_ex=math.pi / 2, b1=None, mesh=None,
+              backend: str = 'auto'):
+    r"""CPMG echo train of a two-pool exchanging system (myelin-water
+    fraction, exchange-sensitive T2 mapping).
+
+    The sequence of :func:`epg_cpmg` (a π/2 excitation about ``phi_ex``,
+    then per refocusing flip: esp/2 of exchange–relaxation and a unit
+    shift, the refocusing about +x on both pools, the same half again),
+    every half-interval one exact :func:`epgx_relax`. The receiver sees the
+    total transverse magnetization, so each echo is ``Fa+(0) + Fb+(0)``,
+    not demodulated.
+
+    Inputs:
+        - ``flips``: `(nEcho,)` or `(*batch, nEcho)`, "Rad", refocusing
+          flips.
+        - ``T1a``/``T2a``/``T1b``/``T2b``: `()` ⊻ `(*batch,)`, "Sec";
+          ``kab``/``kba``: exchange rates, "1/Sec"; ``M0a``/``M0b``: the
+          pools' equilibrium magnetizations; ``dfb``: pool b's frequency
+          offset, "Hz"; ``phi_ex``: the excitation's phase, "Rad".
+        - ``esp``: echo spacing, "Sec", a scalar or a `(nEcho,)` train.
+        - ``b1``: `()` ⊻ `(*batch,)` transmit scale of the refocusing
+          train (both pools).
+        - ``mesh``: multi-device runs are not ported yet (raises
+          :class:`NotImplementedError`).
+        - ``backend``: ``'auto'`` | ``'torch'`` | ``'cuda'`` (module
+          docstring); a ``(nEcho,)`` ``esp`` train on CUDA tensors raises
+          :class:`NotImplementedError` under ``'auto'`` and ``'cuda'``.
+    Outputs:
+        - ``echoes``: `(*batch, nEcho, 2)` real ([re, im]).
+
+    Differentiable w.r.t. ``flips``/``T1a``/``T2a``/``T1b``/``T2b``/
+    ``kab``/``kba``/``esp``/``M0a``/``M0b``/``dfb``/``phi_ex``/``b1`` on
+    every route.
+    """
+    from mrphy_tpu_torch.ops.routing import route
+    if mesh is not None:
+        raise NotImplementedError('mesh= (multi-device runs) is not ported '
+                                  'to mrphy_tpu_torch yet')
+    kw = dict(T1a=T1a, T2a=T2a, T1b=T1b, T2b=T2b, kab=kab, kba=kba, esp=esp,
+              M0a=M0a, M0b=M0b, dfb=dfb, phi_ex=phi_ex, b1=b1)
+    path = route('epgx_cpmg', backend=backend, flips=flips, **kw)['path']
+    if path.startswith('cuda'):
+        device = _common(flips, *kw.values())[1]
+        if backend == 'cuda' and device.type != 'cuda':
+            raise ValueError("backend='cuda' needs CUDA tensors, got "
+                             f'{device}')
+        return _xcpmg_kernels(flips, **kw)
+    return _xcpmg_scan(flips, **kw)
+
+
+def _xcpmg_scan(flips, *, T1a, T2a, T1b, T2b, kab, kba, esp, M0a=1.0,
+                M0b=0.1, dfb=0.0, phi_ex=math.pi / 2, b1=None):
+    r"""The plain route: JAX's XLA scan (``epg.py:767-789``) as a loop over
+    echoes; a scalar or ``(nE,)`` ``esp``, per-voxel 2-D flips and batched
+    maps."""
+    kw = dict(T1a=T1a, T2a=T2a, T1b=T1b, T2b=T2b, kab=kab, kba=kba,
+              M0a=M0a, M0b=M0b, dfb=dfb)
+    dtype = _common(flips, T2a)[0]
+    device = _common(flips, esp, phi_ex, b1, *kw.values())[1]
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    flips = _apply_b1(arr(flips), b1)
+    nE = flips.shape[-1]
+    phi_ex = arr(phi_ex)
+    batch = torch.broadcast_shapes(flips.shape[:-1], phi_ex.shape,
+                                   *(_shape(v) for v in kw.values()))
+    s = epgx_state(nE + 1, batch, M0a=M0a, M0b=M0b, dtype=dtype,
+                   device=device)
+    s = epgx_rf(s, math.pi / 2 * torch.ones(batch, dtype=dtype,
+                                            device=device), phi_ex)
+    flips_t = torch.broadcast_to(flips, batch + (nE,)).movedim(-1, 0)
+    esp = arr(esp)
+
+    def half(s, espn):
+        return epg_grad(epgx_relax(s, espn / 2, **kw))
+
+    echoes = []
+    for n in range(nE):
+        espn = esp[n] if esp.ndim == 1 else esp
+        s = half(epgx_rf(half(s, espn), flips_t[n], 0.0), espn)
+        echoes.append(s[..., 0, 0, :].sum(-2))       # Fa+(0) + Fb+(0)
+    return torch.stack(echoes, dim=-2)                # (*batch, nE, 2)
+
+
+def _xcpmg_rows(flips, *, T1a, T2a, T1b, T2b, kab, kba, esp, M0a=1.0,
+                M0b=0.1, dfb=0.0, phi_ex=math.pi / 2, b1=None):
+    r"""The kernels' arguments for :func:`epgx_cpmg`'s inputs
+    (``_xcpmg_dispatch``, ``epg_pallas.py:781-819``): ``(coef, pk, cfg,
+    batch)``, the per-echo rows ``[cos²(α/2), sin²(α/2), sin α, cos α,
+    α]``, the per-atom rows ``pk (19, nA) = [E00r, E00i, E01r, E01i, E10r,
+    E10i, E11r, E11i, Z00, Z01, Z10, Z11, ra, rb, cos φ_ex, sin φ_ex, M0a,
+    M0b, b1]`` (the exchange–relaxation propagator over esp/2,
+    :func:`_x_entries`, and the rest) and the atoms' batch shape, flattened
+    into the columns, in the call's dtype. Torch autograd of the
+    construction carries the gradients of every input (the rates, ``esp``,
+    ``M0a``/``M0b`` through the initial state and the recovery ``ra``/``rb``,
+    ``dfb``, ``phi_ex``, ``b1``) back from the rows'."""
+    kw = dict(T1a=T1a, T2a=T2a, T1b=T1b, T2b=T2b, kab=kab, kba=kba, M0a=M0a,
+              M0b=M0b, dfb=dfb, phi_ex=phi_ex, b1=b1)
+    dtype, device = _common(flips, esp, *kw.values())
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    flips = arr(flips)
+    if flips.ndim != 1:
+        raise ValueError('the kernels take a shared (nEcho,) flip train, got '
+                         f'{tuple(flips.shape)}')
+    esp = arr(esp)
+    if esp.ndim != 0:
+        raise ValueError('the kernels take a scalar esp, got '
+                         f'{tuple(esp.shape)}')
+    batch = torch.broadcast_shapes(*(_shape(x) for x in kw.values()
+                                     if x is not None))
+    nA = math.prod(batch)
+    rates = [torch.broadcast_to(arr(1.0 if x is None else x),
+                                batch).reshape(nA) for x in kw.values()]
+    coef = torch.stack([torch.cos(flips / 2) ** 2, torch.sin(flips / 2) ** 2,
+                        torch.sin(flips), torch.cos(flips), flips])
+    M0a, M0b, phi, b1v = rates[6], rates[7], rates[9], rates[10]
+    pk = torch.stack(_x_entries(*rates[:9], esp / 2)
+                     + [torch.cos(phi), torch.sin(phi), M0a, M0b, b1v])
+    cfg = kepgx.XcpmgCfg(K=flips.shape[0] + 1, has_b1=b1 is not None)
+    return coef, pk, cfg, batch
+
+
+def _xcpmg_kernels(flips, **kw):
+    r"""The kernels' route: :func:`_xcpmg_rows`, then
+    :func:`mrphy_tpu_torch.kernels.epgx.xcpmg` (the kernels' plain versions
+    on CPU tensors)."""
+    coef, pk, cfg, batch = _xcpmg_rows(flips, **kw)
+    er, ei = kepgx.xcpmg(coef, pk, cfg)               # (nE, nA) each
+    return torch.stack([er.T, ei.T], -1).reshape(batch + (cfg.K - 1, 2))

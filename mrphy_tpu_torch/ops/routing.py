@@ -4,8 +4,9 @@ r"""Backend-routing introspection: which path will a train family take?
 :func:`route` answers, without running anything, which execution path
 ``<family>(..., backend=..., mesh=...)`` takes and why; the dispatchers of
 :func:`mrphy_tpu_torch.ops.epg.epg_spgr`, :func:`~mrphy_tpu_torch.ops.epg.
-epg_cpmg` and :func:`~mrphy_tpu_torch.ops.epg.epgx_spgr` consult the same
-decision, so the reported path cannot drift from the one taken.
+epg_cpmg`, :func:`~mrphy_tpu_torch.ops.epg.epgx_spgr` and
+:func:`~mrphy_tpu_torch.ops.epg.epgx_cpmg` consult the same decision, so
+the reported path cannot drift from the one taken.
 
 Paths:
 
@@ -28,15 +29,19 @@ port has no counterpart and no such gate: the H100 adjoints ``spgr_bwd``
 and ``cpmg_bwd`` keep their per-chunk scratch in device memory and shorten
 the chunk to fit a fixed budget
 (:func:`mrphy_tpu_torch.kernels.epg.pick_tc`), so each takes every instance
-its forward takes; so do ``xspgr_bwd``'s and ``xspgr_v_bwd``'s, their
-chunk fitted for the two-pool state's 12 planes. ``epgx_spgr`` takes its
-kernels at a scalar ``tr`` and over a ``(nTR,)`` ``tr`` train alike (the
-variable-TR instances ``xspgr_v_*`` stream each step's propagator).
+its forward takes; so do ``xspgr_bwd``'s, ``xspgr_v_bwd``'s and
+``xcpmg_bwd``'s, their chunk fitted for the two-pool state's 12 planes.
+``epgx_spgr`` takes its kernels at a scalar ``tr`` and over a ``(nTR,)``
+``tr`` train alike (the variable-TR instances ``xspgr_v_*`` stream each
+step's propagator). ``epgx_cpmg`` takes its kernels at a scalar ``esp``;
+over a ``(nE,)`` ``esp`` train on CUDA tensors it raises
+:class:`NotImplementedError` under ``'auto'`` and ``'cuda'`` (its kernels
+are slice 10f), and ``'torch'`` runs the plain route on any device.
 
-``epg_spgr``, ``epg_cpmg`` and ``epgx_spgr`` are ported; the other
-families raise :class:`NotImplementedError` naming the slice of the port
-that brings them. ``mesh=`` raises too (multi-device runs are not ported
-yet).
+``epg_spgr``, ``epg_cpmg``, ``epgx_spgr`` and ``epgx_cpmg`` are ported;
+the other families raise :class:`NotImplementedError` naming the slice of
+the port that brings them. ``mesh=`` raises too (multi-device runs are not
+ported yet).
 """
 
 import math
@@ -50,8 +55,7 @@ FAMILIES = ('epg_spgr', 'epg_cpmg', 'epgx_spgr', 'epgx_cpmg',
             'epgx_mt_spgr', 'bssfp_train')
 
 # The slice of the port (ROADMAP.md, queue 1) that brings each family.
-_SLICES = {'epgx_cpmg': '10e-10f', 'epgx_mt_spgr': '10g-10h',
-           'bssfp_train': '11'}
+_SLICES = {'epgx_mt_spgr': '10g-10h', 'bssfp_train': '11'}
 
 
 def _shape(v) -> tuple:
@@ -148,8 +152,27 @@ def _decide_epgx_spgr(kw, backend):
                              else '', pick_tc(nT, K, nA, 4, PLANES)))
 
 
+def _decide_epgx_cpmg(kw, backend):
+    from mrphy_tpu_torch.kernels.epg import pick_tc
+    from mrphy_tpu_torch.kernels.epgx import PLANES
+    fallback, nE = _per_voxel(kw, backend)
+    if fallback:
+        return fallback
+    if len(_shape(kw.get('esp'))) == 1:
+        raise NotImplementedError(
+            "epgx_cpmg over a (nE,) esp train has no kernels in "
+            "mrphy_tpu_torch yet (slice 10f of ROADMAP.md queue 1); "
+            "backend='torch' runs its plain route on any device")
+    nA = _n_atoms(kw, ('T1a', 'T2a', 'T1b', 'T2b', 'kab', 'kba', 'M0a',
+                       'M0b', 'dfb', 'phi_ex', 'b1'))
+    return _mk('cuda-native-adjoint',
+               'xcpmg_fwd, and xcpmg_fwd_chk + xcpmg_bwd under a gradient '
+               '(nE=%d, K=%d, nA=%d; the adjoint chunk tc=%d in float32)'
+               % (nE, nE + 1, nA, pick_tc(nE, nE + 1, nA, 4, PLANES)))
+
+
 _DECIDERS = {'epg_spgr': _decide_epg_spgr, 'epg_cpmg': _decide_epg_cpmg,
-             'epgx_spgr': _decide_epgx_spgr}
+             'epgx_spgr': _decide_epgx_spgr, 'epgx_cpmg': _decide_epgx_cpmg}
 
 
 def _on_cuda(kw) -> bool:

@@ -2,11 +2,10 @@ r"""The CUDA kernels of :mod:`mrphy_tpu_torch.kernels` on the card (the
 Bloch kernels, the two-pool ``mc_fwd``/``mc_bwd``, the k-space signal
 kernels ``sig_fwd``/``sig_adj``/``sig_vjp``, the gridding NUFFT's
 ``nufft_sample``/``nufft_spread``/``nufft_dk``, the EPG trains'
-``spgr_*``/``cpmg_*``/``xspgr_*``/``xspgr_v_*`` and the matched filter
-``match``): each
-against its plain PyTorch version, the launch counts, the wrappers'
-refusals, and backward through the engines reaching the adjoint
-kernels.
+``spgr_*``/``cpmg_*``/``xspgr_*``/``xspgr_v_*``/``xcpmg_*`` and the matched
+filter ``match``): each against its plain PyTorch version, the launch
+counts, the wrappers' refusals, and backward through the engines reaching
+the adjoint kernels.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run them
@@ -1053,3 +1052,119 @@ def test_xspgr_v_constant_train_equals_xspgr_on_card(cuda, dtype):
                        sig)
     assert torch.equal(kx.xspgr_v_fwd_chk(coef_v, pk.contiguous(), pkt, cfg,
                                           tc=10)[0], sig)
+
+
+def _xcpmg_case(cuda, dtype, nA, nE, b1, seed):
+    r"""``epgx_cpmg`` keywords (CUDA tensors): refocusing flips 100-180° over
+    a two-pool system with per-atom rates, M0a, M0b, dfb and phi_ex (some
+    atoms with dfb = 0, some without exchange) and, as asked, b1."""
+    rng = np.random.default_rng(seed)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=cuda)
+
+    kw = dict(flips=rng.uniform(1.75, 3.14, nE),
+              T1a=rng.uniform(0.5, 2.0, nA), T2a=rng.uniform(0.05, 0.3, nA),
+              T1b=rng.uniform(0.2, 0.6, nA),
+              T2b=rng.uniform(0.005, 0.03, nA),
+              kab=rng.uniform(1.0, 10.0, nA), kba=rng.uniform(5.0, 40.0, nA),
+              M0a=rng.uniform(0.7, 1.0, nA), M0b=rng.uniform(0.05, 0.3, nA),
+              dfb=rng.uniform(-20, 20, nA), phi_ex=rng.uniform(0, 6, nA))
+    kw['dfb'][:7] = 0.0
+    kw['kab'][7:11] = kw['kba'][7:11] = 0.0
+    if b1:
+        kw['b1'] = rng.uniform(0.8, 1.2, nA)
+    return {n: arr(v) for n, v in kw.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows', [(torch.float32, 2e-6, 1e-4),
+                                            (torch.float64, 1e-12, 1e-12)])
+@pytest.mark.parametrize('nA,nE,b1,tc', [
+    (333, 32, True, 4), (200, 12, False, 3), (65, 24, True, 1),
+    (47, 160, False, 40)],
+    ids=['mwf-train-b1', 'plain-train', 'b1-tc1',
+         'long-train-device-memory-state'])
+def test_xcpmg_kernels_vs_plain_on_card(cuda, dtype, bar, rows, nA, nE, b1,
+                                        tc):
+    r"""``xcpmg_fwd``, ``xcpmg_fwd_chk`` and ``xcpmg_bwd`` against their
+    plain versions on the card (per-atom outputs at ``bar``: bit for bit
+    expected; the adjoint's per-echo rows, summed over atoms by warps, at
+    ``rows`` of their largest value), over several chunks; the launch
+    counts; the refusals."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    kw = _xcpmg_case(cuda, dtype, nA, nE, b1, 47)
+    coef, pk, cfg, _ = epg._xcpmg_rows(kw.pop('flips'), **kw, esp=0.01)
+    coef, pk = coef.contiguous(), pk.contiguous()
+    n0 = dict(kx.LAUNCHES)
+    er, ei = kx.xcpmg_fwd(coef, pk, cfg)
+    er2, ei2, chk = kx.xcpmg_fwd_chk(coef, pk, cfg, tc=tc)
+    rng = np.random.default_rng(3)
+    gr, gi = (torch.as_tensor(rng.standard_normal((nE, nA)), dtype=dtype,
+                              device=cuda) for _ in range(2))
+    dcoef, dpk = kx.xcpmg_bwd(coef, pk, cfg, chk, gr, gi, tc=tc)
+    torch.cuda.synchronize()
+    assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+        dict.fromkeys(kx.LAUNCHES, 0), xcpmg_fwd=1, xcpmg_fwd_chk=1,
+        xcpmg_bwd=1)
+    er_p, ei_p, chk_p = kx.xcpmg_fwd_chk_torch(coef, pk, cfg, tc=tc)
+    dcoef_p, dpk_p = kx.xcpmg_bwd_torch(coef, pk, cfg, chk_p, gr, gi, tc=tc)
+    for x, y in ((er, er_p), (ei, ei_p), (er2, er_p), (ei2, ei_p),
+                 (chk, chk_p), (dpk, dpk_p)):
+        _rows_close(x, y, bar)
+    _rows_close(dcoef, dcoef_p, rows)
+    with pytest.raises(ValueError, match='contiguous'):
+        kx.xcpmg_fwd(coef.T.contiguous().T, pk, cfg)
+    with pytest.raises(TypeError):
+        kx.xcpmg_fwd(coef.half(), pk.half(), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_epgx_cpmg_gradients_cuda_vs_plain(cuda, dtype):
+    r"""``epgx_cpmg`` on CUDA tensors runs ``xcpmg_fwd`` for a value and
+    ``xcpmg_fwd_chk`` + ``xcpmg_bwd`` under a gradient, under
+    ``backend='auto'`` and ``'cuda'``; their gradients w.r.t. every input
+    meet the plain route's; an ``(nE,)`` esp train raises naming slice 10f
+    and a per-voxel 2-D train is refused under ``'cuda'``;
+    ``backend='cuda'`` refuses CPU tensors."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    names = ('flips', 'T1a', 'T2a', 'T1b', 'T2b', 'kab', 'kba', 'esp', 'M0a',
+             'M0b', 'dfb', 'phi_ex', 'b1')
+    kw = _xcpmg_case(cuda, dtype, 70, 24, True, 41)
+    kw['esp'] = torch.tensor(0.012, dtype=dtype, device=cuda)
+    w = torch.as_tensor(np.random.default_rng(5).standard_normal((70, 24, 2)),
+                        dtype=dtype, device=cuda)
+    grads = []
+    for backend in ('auto', 'cuda', 'torch'):
+        xs = {n: kw[n].detach().clone().requires_grad_() for n in names}
+        n0 = dict(kx.LAUNCHES)
+        out = epg.epgx_cpmg(**dict(kw, **xs), backend=backend)
+        grads.append(torch.autograd.grad((w * out).sum(), list(xs.values())))
+        launched = {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES}
+        assert launched == dict(
+            dict.fromkeys(kx.LAUNCHES, 0),
+            **({'xcpmg_fwd_chk': 1, 'xcpmg_bwd': 1}
+               if backend != 'torch' else {}))
+    n0 = dict(kx.LAUNCHES)
+    with torch.no_grad():
+        epg.epgx_cpmg(**kw)
+    assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+        dict.fromkeys(kx.LAUNCHES, 0), xcpmg_fwd=1)
+    bar = 1e-4 if dtype == torch.float32 else 1e-10
+    for g in grads[:2]:
+        for n, x, y in zip(names, g, grads[2]):
+            _rows_close(x, y, bar)
+    esps = torch.full((24,), 0.012, dtype=dtype, device=cuda)
+    for backend in ('auto', 'cuda'):
+        with pytest.raises(NotImplementedError, match='10f'):
+            epg.epgx_cpmg(**dict(kw, esp=esps), backend=backend)
+    epg.epgx_cpmg(**dict(kw, esp=esps), backend='torch')
+    with pytest.raises(ValueError, match='per-voxel trains'):
+        epg.epgx_cpmg(**dict(kw, flips=kw['flips'].expand(70, 24)),
+                      backend='cuda')
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        epg.epgx_cpmg(kw['flips'].cpu(), T1a=1.0, T2a=0.08, T1b=0.4,
+                      T2b=0.015, kab=0.3, kba=3.0, esp=0.01, backend='cuda')

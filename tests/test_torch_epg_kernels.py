@@ -121,10 +121,10 @@ class TestRouting:
         with pytest.raises(ValueError, match='CUDA tensors'):
             tepg.epg_spgr(torch.as_tensor(self.FL), T1=1.0, T2=0.1, tr=0.01,
                           backend='cuda')
-        # the families still to port (epg_spgr, epg_cpmg and epgx_spgr
-        # are ported)
+        # the families still to port (epg_spgr, epg_cpmg, epgx_spgr and
+        # epgx_cpmg are ported)
         assert set(routing._SLICES) == set(FAMILIES) - {
-            'epg_spgr', 'epg_cpmg', 'epgx_spgr'}
+            'epg_spgr', 'epg_cpmg', 'epgx_spgr', 'epgx_cpmg'}
         for fam in routing._SLICES:
             with pytest.raises(NotImplementedError, match='slice'):
                 route(fam, backend='cuda', flips=self.FL)

@@ -327,7 +327,8 @@ def test_kernel_sources_present():
                      'sig_adj.cu', 'sig_vjp.cu', 'nufft_sample.cu',
                      'nufft_spread.cu', 'nufft_dk.cu', 'spgr_fwd.cu',
                      'spgr_bwd.cu', 'match.cu', 'cpmg_fwd.cu',
-                     'cpmg_bwd.cu', 'xspgr_fwd.cu', 'xspgr_bwd.cu'}
+                     'cpmg_bwd.cu', 'xspgr_fwd.cu', 'xspgr_bwd.cu',
+                     'xcpmg_fwd.cu', 'xcpmg_bwd.cu'}
     assert '--use_fast_math' not in _build.NVCC_FLAGS
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
 
@@ -360,7 +361,7 @@ def test_epg_and_mrf_names():
     ported = {tepg: {'epg_state', 'epg_rf', 'epg_grad', 'epg_relax',
                      'epg_diffusion', 'epg_spgr', 'epg_cpmg', 'ir_prep',
                      'rf_spoil_phases', 'epgx_state', 'epgx_rf',
-                     'epgx_relax', 'epgx_spgr'},
+                     'epgx_relax', 'epgx_spgr', 'epgx_cpmg'},
               tmrf: {'Basis', 'MatchResult', 'pair_rotate', 'svd_basis',
                      'compress', 'dict_match', 'dict_match_compressed',
                      'match_refine'}}
