@@ -290,6 +290,30 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     and its gradient at 1e-10, the losses and fitted MWF at 100× JAX's own
     response to a 1-ulp change of the data (``MWF_EX_ULP``), and the
     example's asserts.
+27. The echo-spacing EPG-X CPMG kernels ``xcpmg_v_fwd``,
+    ``xcpmg_v_fwd_chk`` and ``xcpmg_v_bwd`` against their plain versions
+    on the arguments ``ops.epg.epgx_cpmg`` gives them over a ``(nE,)`` esp
+    train (``XCPMG_V_CASES``: ``coef``, ``pk`` and the per-echo planes
+    ``pkt``, trains of 8–18 ms): the whole-brain map's forward (1,048,576 ×
+    32, K 33, b1; ``xcpmg_v_fwd`` only, as the path runs it), the fit's
+    262,144-voxel block and ``bench_mrf``'s EPG-X CPMG dictionary (65,536 ×
+    32), timed with their bounds; float64 with dfb, phi_ex, M0b and b1 at
+    tc 1 and 3 (ragged), no exchange, K 161 with the state in device
+    memory, and a constant 10 ms train, whose echoes must also equal
+    ``xcpmg_fwd``'s at the scalar esp. Per-atom outputs (echoes,
+    checkpoints, ``dpar`` = [d cos φ_ex, d sin φ_ex, dM0a, dM0b, db1] and
+    the per-echo entry gradients ``dpkt``) at ``EPG_BAR`` (bit for bit
+    expected), the per-echo rows at ``XCPMG_ROW_BAR``.
+28. The myelin-water path over an echo-spacing train (``MWF_V``: echoes
+    1–16 at 6 ms, 17–32 at 14 ms): (a) phase 26a's map and fit at the same
+    width through ``epgx_cpmg`` (``xcpmg_v_fwd``; ``xcpmg_v_fwd_chk`` +
+    ``xcpmg_v_bwd`` per block); (b) 24 voxels of the example's tissue in
+    float64 through the float64 kernels against the JAX package's results
+    (literals below, from ``tests/make_xcpmgv_goldens.py``): the echoes at
+    1e-10, the gradient of a weighted echo sum w.r.t. the esp train and
+    the log pools at 1e-9; (c) after the launch counts of (a) and (b) are
+    read, the forward's parts timed apart: the kernels' arguments, the
+    per-echo planes among them, and ``xcpmg_v_fwd`` alone.
 
 Launch counts are zeroed right before the forward path (phase 4) and read
 after it (``rfgr_fwd``, ``beff_fwd`` must have launched), zeroed again
@@ -308,9 +332,11 @@ path (phase 22; ``xspgr_fwd``, ``xspgr_fwd_chk``, ``xspgr_bwd`` and
 variable TR (phase 24; ``xspgr_v_fwd``, ``xspgr_v_fwd_chk``,
 ``xspgr_v_bwd`` and ``match`` must have launched), and again before the
 myelin-water path (phase 26; ``xcpmg_fwd``, ``xcpmg_fwd_chk`` and
-``xcpmg_bwd`` must have launched). The comparisons with the plain versions
-(phases 2, 3, 5, 6, 9, 10, 12, 14, 16, 17, 19, 21, 23, 25) run before and
-are not counted.
+``xcpmg_bwd`` must have launched), and again before the myelin-water path
+over an esp train (phase 28; ``xcpmg_v_fwd``, ``xcpmg_v_fwd_chk`` and
+``xcpmg_v_bwd`` must have launched). The comparisons with the plain
+versions (phases 2, 3, 5, 6, 9, 10, 12, 14, 16, 17, 19, 21, 23, 25, 27) run
+before and are not counted.
 
 The line before the last is one JSON object with each kernel's launches
 on those paths, error, times and bound: ``bound_ms`` is the larger of the
@@ -781,6 +807,13 @@ KERNELS = {
         replaces='mrphy_tpu/ops/epg_pallas.py:3256'),
     'xcpmg_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xcpmg_bwd.cu',
                       replaces='mrphy_tpu/ops/epg_pallas.py:3287'),
+    'xcpmg_v_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xcpmg_fwd.cu',
+                        replaces='mrphy_tpu/ops/epg_pallas.py:3561'),
+    'xcpmg_v_fwd_chk': dict(
+        source='mrphy_tpu_torch/kernels/csrc/xcpmg_fwd.cu',
+        replaces='mrphy_tpu/ops/epg_pallas.py:3586'),
+    'xcpmg_v_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xcpmg_bwd.cu',
+                        replaces='mrphy_tpu/ops/epg_pallas.py:3620'),
 }
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
@@ -4407,7 +4440,8 @@ MWF = dict(nE=32, esp=0.01, T1a=1.0, T1b=0.4, kba=3.0, noise=0.2, lr=0.03,
 # example's 800 iterations on the map's first 4096 voxels.
 MWF_MAP = dict(nV=1 << 20, block=1 << 18, steps=10, nfit=4096, iters=800)
 # Bars on the adjoint's per-echo rows (sums over atoms, by warps and then
-# over warps in a fixed order, against torch.sum): max|Δ| / max|row|.
+# over warps in a fixed order; the plain versions sum in the same order, so
+# bit for bit expected): max|Δ| / max|row|.
 XCPMG_ROW_BAR = {torch.float32: 5e-7, torch.float64: 1e-15}
 # The EPG-X CPMG kernels' cases (phase 25): label, atoms, echoes, dtype,
 # xcpmg_case keywords, the chunk (None: pick_tc's), the kernels run, timed.
@@ -4415,6 +4449,7 @@ XCPMG_ROW_BAR = {torch.float32: 5e-7, torch.float64: 1e-15}
 # dictionary (benchmarks/suite.py:588-596, 624-634); otherwise bench_mrf's
 # distributions with the options named.
 XCPMG_KERNELS = ('xcpmg_fwd', 'xcpmg_fwd_chk', 'xcpmg_bwd')
+XCPMG_V_KERNELS = ('xcpmg_v_fwd', 'xcpmg_v_fwd_chk', 'xcpmg_v_bwd')
 XCPMG_CASES = (
     ('MWF map 1M x 32, K 33, b1 (full width)', 1 << 20, 32, torch.float32,
      dict(mwf=True), None, ('xcpmg_fwd',), True),
@@ -4455,15 +4490,17 @@ def mwf_pools(mwf, T2a, T2b):
     return dict(M0a=1.0 - mwf, M0b=mwf, T2a=T2a, T2b=T2b)
 
 
-def mwf_train(flips, p, b1, **kw):
+def mwf_train(flips, p, b1, esp=None, **kw):
     r"""The example's echo model through ``epgx_cpmg``: the shared π train
-    ``flips`` with the b1 map as ``b1=``, the pools ``p``."""
+    ``flips`` with the b1 map as ``b1=``, the pools ``p``, at the example's
+    echo spacing or ``esp`` (a scalar or a ``(nE,)`` train)."""
     from mrphy_tpu_torch.ops import epg
     c = MWF
     return epg.epgx_cpmg(
         flips, T1a=c['T1a'], T2a=p['T2a'], T1b=c['T1b'], T2b=p['T2b'],
-        kab=c['kba'] * p['M0b'] / p['M0a'], kba=c['kba'], esp=c['esp'],
-        M0a=p['M0a'], M0b=p['M0b'], b1=b1, **kw)
+        kab=c['kba'] * p['M0b'] / p['M0a'], kba=c['kba'],
+        esp=c['esp'] if esp is None else esp, M0a=p['M0a'], M0b=p['M0b'],
+        b1=b1, **kw)
 
 
 def mwf_naive(ech):
@@ -4527,70 +4564,15 @@ def xcpmg_case(nA, nE, dtype, dev, *, mwf=False, bench=False, b1=False,
     return flips, kw
 
 
-def phase_xcpmg_kernels(dev):
-    r"""Phase 25: ``xcpmg_fwd``, ``xcpmg_fwd_chk`` and ``xcpmg_bwd`` against
-    their plain versions on XCPMG_CASES, the arguments ``epgx_cpmg`` gives
-    them (``ops.epg._xcpmg_rows``; the adjoint fed the kernel's checkpoints
-    and a cotangent drawn from a seed, the plain adjoint written out, with
-    no autograd graph): the MWF map's forward at full width, the fit's
-    block and ``bench_mrf``'s EPG-X CPMG dictionary timed with their bounds,
-    the accuracy fit's 4096 voxels, and the options. Per-atom outputs
-    (echoes, checkpoints, the 19 per-atom gradient rows) at EPG_BAR of their
-    largest value (bit for bit expected; the rows that differ are named),
-    the per-echo rows at XCPMG_ROW_BAR. Returns each kernel's rows."""
-    from mrphy_tpu_torch.kernels import epg as kepg
-    from mrphy_tpu_torch.kernels import epgx as kx
-    from mrphy_tpu_torch.ops import epg
-    t0 = time.perf_counter()
-    rows = {name: [] for name in XCPMG_KERNELS}
-    for seed, (label, nA, nE, dtype, kw, tc, run, timed) in enumerate(
-            XCPMG_CASES, 250):
-        flips, ckw = xcpmg_case(nA, nE, dtype, dev, seed=seed, **kw)
-        coef, pk, cfg, _ = epg._xcpmg_rows(flips, **ckw)
-        coef, pk = coef.contiguous(), pk.contiguous()
-        tc = tc or kepg.pick_tc(nE, cfg.K, nA, pk.element_size(), kx.PLANES)
-        chk = gr = gi = None
-        if 'xcpmg_bwd' in run:
-            chk = kx.xcpmg_fwd_chk(coef, pk, cfg, tc=tc)[2]
-            gr, gi = cotangent(torch.empty((2, nE, nA), dtype=dtype,
-                                           device=dev), seed)
-        runs = {
-            'xcpmg_fwd': (lambda: kx.xcpmg_fwd(coef, pk, cfg),
-                          lambda: kx.xcpmg_fwd_torch(coef, pk, cfg),
-                          (coef, pk), ('er', 'ei')),
-            'xcpmg_fwd_chk': (
-                lambda: kx.xcpmg_fwd_chk(coef, pk, cfg, tc=tc),
-                lambda: kx.xcpmg_fwd_chk_torch(coef, pk, cfg, tc=tc),
-                (coef, pk), ('er', 'ei', 'chk')),
-            'xcpmg_bwd': (
-                lambda: kx.xcpmg_bwd(coef, pk, cfg, chk, gr, gi, tc=tc),
-                lambda: kx.xcpmg_bwd_torch(coef, pk, cfg, chk, gr, gi, tc=tc),
-                (coef, pk, chk, gr, gi), ('dcoef', 'dpar'))}
-        for name in run:
-            run_kernel, run_plain, inputs, names = runs[name]
-            meta = dict(case=label, nA=nA, nE=nE, K=cfg.K, tc=tc,
-                        threads_state=kepg.launch_cfg(
-                            cfg.K, pk.element_size(), kx.PLANES))
-            rows[name].append(compare_epg(
-                name, run_kernel, run_plain, inputs, names, meta, dtype,
-                timed, XCPMG_ROW_BAR))
-        del coef, pk, chk, gr, gi
-    print(f'phase 25 took {time.perf_counter() - t0:.1f} s', flush=True)
-    return rows
-
-
-def phase_mwf_path(dev):
-    r"""Phase 26: the myelin-water path through ``epgx_cpmg``. (a) The
-    whole-brain map (MWF_MAP, float32, ``backend='auto'`` on CUDA tensors):
-    the forward at the truth (``xcpmg_fwd``), timed in voxels per second;
-    the noisy echoes; 10 Adam steps of the fit, each over the map in four
-    blocks (each block's loss and backward: ``xcpmg_fwd_chk`` +
-    ``xcpmg_bwd``), then one optimizer step: s per step, voxel-echoes per
-    second, peak memory, the loss must fall; the example's 800 iterations on
-    the map's first 4096 voxels: the median |MWF error| must be < 0.01 and <
-    0.5 × the naive baseline's. (b) ``examples/mwf_fit.py`` at its defaults
-    in float64 against JAX's literals (:func:`mwf_example`)."""
-    t0 = time.perf_counter()
+def mwf_map_fit(dev, esp=None):
+    r"""The whole-brain map (MWF_MAP, float32, ``backend='auto'`` on CUDA
+    tensors) at the example's echo spacing or ``esp`` (a ``(nE,)`` CUDA
+    train): the forward at the truth, timed in voxels per second; the noisy
+    echoes; 10 Adam steps of the fit, each over the map in four blocks (each
+    block's loss and backward, then one optimizer step): s per step,
+    voxel-echoes per second, peak memory, the loss must fall. Returns
+    ``(measured, truth's MWF, noisy echoes, block_loss, start)``, the last
+    two the fit's loss over a slice of voxels and its starting point."""
     c, m = MWF, MWF_MAP
     nV, nE, nb = m['nV'], c['nE'], m['block']
     mwf, T2a, T2b, b1n, _ = mwf_truth(nV)
@@ -4601,12 +4583,12 @@ def phase_mwf_path(dev):
     truth = {k: arr(v) for k, v in mwf_pools(mwf, T2a, T2b).items()}
     b1 = arr(b1n)
     flips = torch.full((nE,), np.pi, device=dev)
-    out, bars = {}, {}
+    out = {}
     with torch.no_grad():
-        ech = mwf_train(flips, truth, b1)
+        ech = mwf_train(flips, truth, b1, esp)
         check(ech.shape == (nV, nE, 2) and bool(torch.isfinite(ech).all()),
               'MWF map echoes')
-        fwd = time_ms(lambda: mwf_train(flips, truth, b1), reps=3)
+        fwd = time_ms(lambda: mwf_train(flips, truth, b1, esp), reps=3)
         sigma = c['noise'] / 100 * float(ech[:, 0].abs().max())
         gen = torch.Generator(device=dev).manual_seed(0)
         ech = ech + sigma * torch.randn(ech.shape, generator=gen,
@@ -4624,10 +4606,10 @@ def phase_mwf_path(dev):
         # error), summed over the voxels: each voxel's gradient, and so
         # Adam's step against its eps, is the example's at every size
         p = {k: torch.exp(v[sl]) for k, v in logp.items()}
-        return ((mwf_train(flips, p, b1[sl]) - ech[sl]) ** 2).mean(
+        return ((mwf_train(flips, p, b1[sl], esp) - ech[sl]) ** 2).mean(
             dim=(-2, -1)).sum()
 
-    # (a) the fit over the whole map, four blocks a step
+    # the fit over the whole map, four blocks a step
     logp = start(nV)
     opt = torch.optim.Adam(list(logp.values()), lr=c['lr'])
     torch.cuda.synchronize()
@@ -4652,7 +4634,22 @@ def phase_mwf_path(dev):
                fit_loss_first=losses[0], fit_loss_last=losses[-1])
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f'MWF map fit: loss {losses[0]} -> {losses[-1]}')
-    del logp, opt
+    return out, mwf, ech, block_loss, start
+
+
+def phase_mwf_path(dev):
+    r"""Phase 26: the myelin-water path through ``epgx_cpmg``. (a) The
+    whole-brain map at the example's echo spacing (:func:`mwf_map_fit`:
+    the forward, ``xcpmg_fwd``; the fit's steps, each block's loss and
+    backward ``xcpmg_fwd_chk`` + ``xcpmg_bwd``); the example's 800
+    iterations on the map's first 4096 voxels: the median |MWF error| must
+    be < 0.01 and < 0.5 × the naive baseline's. (b) ``examples/mwf_fit.py``
+    at its defaults in float64 against JAX's literals
+    (:func:`mwf_example`)."""
+    t0 = time.perf_counter()
+    c, m = MWF, MWF_MAP
+    out, mwf, ech, block_loss, start = mwf_map_fit(dev)
+    bars = {}
     # the example's 800 iterations on the map's first 4096 voxels
     n = m['nfit']
     sl = slice(0, n)
@@ -4674,7 +4671,7 @@ def phase_mwf_path(dev):
     out['acc_err_over_naive'] = out['acc_median_mwf_err'] / \
         out['acc_naive_median_mwf_err']
     bars.update(acc_median_mwf_err=0.01, acc_err_over_naive=0.5)
-    del logp, opt, ech
+    del ech
     # (b) examples/mwf_fit.py in float64 against JAX
     out.update(mwf_example(dev))
     bars.update(example_echoes=1e-10, example_loss0=1e-10,
@@ -4820,6 +4817,271 @@ def mwf_example(dev):
         example_naive_median_mwf_err=float(np.median(err_naive)))
 
 
+
+# ==========================================================================
+# The myelin-water path over an echo-spacing train (phases 27-28)
+# ==========================================================================
+
+# Phase 28's train: MWF's 32 refocusing pulses, echoes 1-16 at 6 ms and
+# 17-32 at 14 ms: the 320 ms of 32 × 10 ms, sampling the myelin pool's T2
+# (10-22 ms) more densely early on.
+MWF_V = dict(esps=(0.006,) * 16 + (0.014,) * 16)
+# The echo-spacing kernels' cases (phase 27): label, atoms, echoes, dtype,
+# xcpmg_case keywords (``const``: a constant 10 ms train, held also to
+# ``xcpmg_fwd`` at the scalar esp), the chunk (None: pick_tc's), the kernels
+# run, timed. Every other case runs over a train of 8-18 ms drawn from
+# numpy default_rng(seed) (benchmarks/tpu_checks.py:529's distribution).
+XCPMG_V_CASES = (
+    ('MWF map 1M x 32, K 33, b1, esp 8-18 ms (full width)', 1 << 20, 32,
+     torch.float32, dict(mwf=True), None, ('xcpmg_v_fwd',), True),
+    ('MWF fit block 262,144 x 32, K 33, b1, esp 8-18 ms', 1 << 18, 32,
+     torch.float32, dict(mwf=True), None, XCPMG_V_KERNELS, True),
+    ('bench_mrf EPG-X CPMG 65,536 x 32, flips 120-180, esp 8-18 ms', 65536,
+     32, torch.float32, dict(bench=True), None, XCPMG_V_KERNELS, True),
+    ('f64 4096 x 32, dfb, phi_ex, M0b, b1 (tc 1)', 4096, 32, torch.float64,
+     dict(dfb=True, phi=True, M0b=True, b1=True), 1, XCPMG_V_KERNELS, False),
+    ('f64 ragged 1001 x 24, dfb, phi_ex, M0b, b1 (tc 3)', 1001, 24,
+     torch.float64, dict(dfb=True, phi=True, M0b=True, b1=True), 3,
+     XCPMG_V_KERNELS, False),
+    ('ragged 1001 x 32, no exchange (kab = kba = 0), b1 (tc = nE)', 1001,
+     32, torch.float32, dict(nox=True, b1=True), 32, XCPMG_V_KERNELS, False),
+    ('2048 x 160, K 161 (device-memory state), b1', 2048, 160,
+     torch.float32, dict(b1=True), None, XCPMG_V_KERNELS, False),
+    ('16k x 32, constant 10 ms train (= xcpmg_fwd), b1', 16384, 32,
+     torch.float32, dict(const=True, b1=True), None, XCPMG_V_KERNELS, False),
+)
+
+
+def phase_xcpmg_kernels(dev, varesp=False):
+    r"""Phase 25: ``xcpmg_fwd``, ``xcpmg_fwd_chk`` and ``xcpmg_bwd`` against
+    their plain versions on XCPMG_CASES; phase 27 (``varesp``):
+    ``xcpmg_v_fwd``, ``xcpmg_v_fwd_chk`` and ``xcpmg_v_bwd`` on
+    XCPMG_V_CASES. The arguments are those ``epgx_cpmg`` gives them
+    (``ops.epg._xcpmg_rows``: ``coef`` and ``pk (19, nA)``; over an esp
+    train ``pk (5, nA)`` and the per-echo planes ``pkt``); the adjoint is
+    fed the kernel's checkpoints and a cotangent drawn from a seed, the
+    plain adjoint written out, with no autograd graph. The MWF map's
+    forward at full width, the fit's block and ``bench_mrf``'s EPG-X CPMG
+    dictionary are timed with their bounds (the planes read once). Per-atom
+    outputs (echoes, checkpoints, the per-atom gradient rows ``dpar`` and,
+    over a train, ``dpkt`` per atom and echo) at EPG_BAR of their largest
+    value (bit for bit expected; the rows that differ are named), the
+    per-echo rows at XCPMG_ROW_BAR; a constant train's echoes also against
+    ``xcpmg_fwd``'s at the scalar esp. Returns each kernel's rows."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    t0 = time.perf_counter()
+    v = '_v' if varesp else ''
+    cases, seed0 = (XCPMG_V_CASES, 270) if varesp else (XCPMG_CASES, 250)
+    fwd, fwd_chk, bwd = (getattr(kx, f'xcpmg{v}_{n}')
+                         for n in ('fwd', 'fwd_chk', 'bwd'))
+    fwd_t, fwd_chk_t, bwd_t = (getattr(kx, f'xcpmg{v}_{n}_torch')
+                               for n in ('fwd', 'fwd_chk', 'bwd'))
+    rows = {f'xcpmg{v}_{n}': [] for n in ('fwd', 'fwd_chk', 'bwd')}
+    const = {}
+    for seed, (label, nA, nE, dtype, kw, tc, run, timed) in enumerate(
+            cases, seed0):
+        kw = dict(kw)
+        is_const = kw.pop('const', False)
+        flips, ckw = xcpmg_case(nA, nE, dtype, dev, seed=seed, **kw)
+        fixed = None
+        if is_const:
+            fixed = epg._xcpmg_rows(flips, **ckw)[:3]    # at the scalar esp
+            ckw['esp'] = torch.full((nE,), MWF['esp'], dtype=dtype,
+                                    device=dev)
+        elif varesp:
+            ckw['esp'] = torch.as_tensor(np.random.default_rng(seed).uniform(
+                0.008, 0.018, nE), dtype=dtype, device=dev)
+        coef, pk, cfg, _ = epg._xcpmg_rows(flips, **ckw)
+        coef = coef.contiguous()
+        par = tuple(x.contiguous() for x in (pk if varesp else (pk,)))
+        tc = tc or kepg.pick_tc(nE, cfg.K, nA, coef.element_size(),
+                                kx.PLANES)
+        chk = gr = gi = None
+        if f'xcpmg{v}_bwd' in run:
+            chk = fwd_chk(coef, *par, cfg, tc=tc)[2]
+            gr, gi = cotangent(torch.empty((2, nE, nA), dtype=dtype,
+                                           device=dev), seed)
+        runs = {
+            f'xcpmg{v}_fwd': (lambda: fwd(coef, *par, cfg),
+                              lambda: fwd_t(coef, *par, cfg),
+                              (coef,) + par, ('er', 'ei')),
+            f'xcpmg{v}_fwd_chk': (
+                lambda: fwd_chk(coef, *par, cfg, tc=tc),
+                lambda: fwd_chk_t(coef, *par, cfg, tc=tc),
+                (coef,) + par, ('er', 'ei', 'chk')),
+            f'xcpmg{v}_bwd': (
+                lambda: bwd(coef, *par, cfg, chk, gr, gi, tc=tc),
+                lambda: bwd_t(coef, *par, cfg, chk, gr, gi, tc=tc),
+                (coef,) + par + (chk, gr, gi),
+                ('dcoef', 'dpar') + (('dpkt',) if varesp else ()))}
+        for name in run:
+            run_kernel, run_plain, inputs, names = runs[name]
+            meta = dict(case=label, nA=nA, nE=nE, K=cfg.K, tc=tc,
+                        threads_state=kepg.launch_cfg(
+                            cfg.K, coef.element_size(), kx.PLANES))
+            rows[name].append(compare_epg(
+                name, run_kernel, run_plain, inputs, names, meta, dtype,
+                timed, XCPMG_ROW_BAR))
+        if fixed is not None:
+            # a constant train: the fixed-spacing kernel at the scalar esp
+            er, ei = fwd(coef, *par, cfg)
+            er0, ei0 = kx.xcpmg_fwd(*(x.contiguous() if i < 2 else x
+                                      for i, x in enumerate(fixed)))
+            const = dict(case=label, bit_identical=torch.equal(er, er0)
+                         and torch.equal(ei, ei0),
+                         err=max(max_err(er, er0), max_err(ei, ei0))
+                         / float(er0.abs().max()))
+            print('xcpmg_v_fwd constant train vs xcpmg_fwd: '
+                  + json.dumps(const), flush=True)
+            check(const['err'] <= EPG_BAR[dtype],
+                  f"constant train vs xcpmg_fwd: {const['err']}")
+            del er, ei, er0, ei0
+        del coef, pk, par, chk, gr, gi, fixed
+    check(bool(const) or not varesp, 'no constant-train case ran')
+    print(f'phase {27 if varesp else 25} took '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    return rows
+
+
+def phase_mwf_v_path(dev):
+    r"""Phase 28: the myelin-water path over MWF_V's echo-spacing train
+    through ``epgx_cpmg``, and nothing else, so that the launch counts read
+    after it are the path's own. (a) The whole-brain map
+    (:func:`mwf_map_fit` at the train: the forward, ``xcpmg_v_fwd``; the
+    fit's steps, each block's loss and backward ``xcpmg_v_fwd_chk`` +
+    ``xcpmg_v_bwd`` and autograd of the per-echo planes). (b) MWF_V_EX in
+    float64 against JAX's literals (:func:`mwf_v_example`). Returns the
+    measurements; :func:`phase_mwf_v_parts` splits the forward's time
+    after the counts are read."""
+    t0 = time.perf_counter()
+    esps = torch.as_tensor(MWF_V['esps'], dtype=torch.float32, device=dev)
+    out, _, ech, _, _ = mwf_map_fit(dev, esps)
+    del ech
+    # (b) the echo-spacing model in float64 against JAX
+    out.update(mwf_v_example(dev))
+    bars = dict(example_echoes=1e-10, example_grad_esp=1e-9,
+                example_grad=1e-9)
+    print('myelin-water path over an esp train: '
+          + json.dumps(dict(measured=out, bars=bars)), flush=True)
+    for key, bar in bars.items():
+        check(out[key] < bar, f'{key}: {out[key]} >= {bar}')
+    print(f'phase 28 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return out
+
+
+def phase_mwf_v_parts(dev, fwd_ms):
+    r"""Phase 28c, after phase 28's launch counts are read: the parts of
+    that path's forward at the truth, timed apart against its whole
+    (``fwd_ms``): the kernels' arguments (``ops.epg._xcpmg_rows``), among
+    them the planes (``ops.epg._x_step_entries`` and its 14 passes over
+    (nE, nA)), and the kernel ``xcpmg_v_fwd`` alone."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    c = MWF
+    esps = torch.as_tensor(MWF_V['esps'], dtype=torch.float32, device=dev)
+    nV = MWF_MAP['nV']
+    mwf, T2a, T2b, b1n, _ = mwf_truth(nV)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    p = {k: arr(v) for k, v in mwf_pools(mwf, T2a, T2b).items()}
+    flips = torch.full((c['nE'],), np.pi, device=dev)
+    kw = dict(T1a=c['T1a'], T2a=p['T2a'], T1b=c['T1b'], T2b=p['T2b'],
+              kab=c['kba'] * p['M0b'] / p['M0a'], kba=c['kba'], esp=esps,
+              M0a=p['M0a'], M0b=p['M0b'], b1=arr(b1n))
+    with torch.no_grad():
+        coef, (pk, pkt), cfg, _ = epg._xcpmg_rows(flips, **kw)
+        rates = [torch.broadcast_to(torch.as_tensor(
+            kw[n], dtype=torch.float32, device=dev), (nV,))
+            for n in ('T1a', 'T2a', 'T1b', 'T2b', 'kab', 'kba', 'M0a',
+                      'M0b')] + [torch.zeros(nV, device=dev)]
+        rows_ms = time_ms(lambda: epg._xcpmg_rows(flips, **kw), reps=3)
+        planes_ms = time_ms(lambda: epg._x_step_entries(*rates, esps / 2),
+                            reps=3)
+        kernel_ms = time_ms(lambda: kx.xcpmg_v_fwd(coef, pk, pkt, cfg),
+                            reps=3)
+    out = dict(fwd_ms=fwd_ms, rows_ms=rows_ms, planes_ms=planes_ms,
+               kernel_ms=kernel_ms, planes_share=planes_ms / fwd_ms,
+               rows_share=rows_ms / fwd_ms, kernel_share=kernel_ms / fwd_ms)
+    print('myelin-water path over an esp train, the forward\'s parts: '
+          + json.dumps(out), flush=True)
+    return out
+
+
+# Phase 28b: 24 voxels of examples/mwf_fit.py's tissue (mwf_truth at seed 0)
+# over MWF_V's train in float64, the loss Σ w·echoes with w from numpy
+# default_rng(wseed); the echoes' entries (voxel, echo) and the voxels of
+# the log pools' gradient held to JAX.
+MWF_V_EX = dict(nv=24, wseed=1)
+MWF_V_EX_ENTRIES = [(0, 0), (0, 31), (5, 3), (11, 16), (17, 8), (23, 31)]
+MWF_V_EX_VOXELS = [0, 7, 15, 23]
+# mrphy_tpu (JAX, XLA route on the CPU), float64, on the MWF_V_EX problem
+# (tests/make_xcpmgv_goldens.py prints these): the noiseless echoes at
+# MWF_V_EX_ENTRIES (re, im) and their largest |value|, the loss's gradient
+# w.r.t. every element of the esp train and its largest magnitude, and
+# w.r.t. the log pools at MWF_V_EX_VOXELS and each one's largest magnitude.
+GOLDEN_MWF_V = {"echoes": [[0.8346288433943453, 5.1106277076947115e-17],
+    [0.014284476826021167, 1.840385342398165e-18], [0.5658114780245291,
+    -3.464469603971905e-17], [0.19741651474447153, -3.82534513659869e-18],
+    [0.38449139954111533, 1.0463271349548499e-17], [0.01301121960759071,
+    -1.5111507087848419e-19]], "echoes_max": 0.9123916756591574, "grad_esp":
+    [229.73269700733897, 240.91100854431943, 198.5691906457505,
+    130.63342694873285, 52.32322786091484, 65.82847731852924,
+    19.85436567292973, 33.34641460980145, 28.985349549273106,
+    19.282055185931558, -21.825482895748994, -40.00150930139186,
+    -35.97456205544108, -53.754529930513634, -14.830342973684264,
+    -4.853108803405071, 4.279676521604914, 1.624426223603718,
+    -2.2843227021031884, -0.5045669210902055, 0.6804782795207966,
+    0.5724874243416027, 6.530841731997833, 4.786155279794894,
+    1.0040804543895023, 2.295688138309922, 3.2714291748796245,
+    2.7298240048249034, -0.13089021734804807, -0.9915123536139517,
+    -0.752885897950247, 0.663270444278621], "grad_esp_max":
+    240.91100854431943, "grad": {"M0a": [0.14565312467188501,
+    2.8598337584504168, 0.4021327293658066, -2.998278966152469], "M0b":
+    [0.10038306283960223, 0.13498574421690718, 0.018308131870959667,
+    -0.567847536418217], "T2a": [-0.23083389936832566, 1.685191088150359,
+    -0.31437645934609965, 0.27387017397755214], "T2b": [0.05992536864984519,
+    0.21105329706486617, 0.02189331798476696, -0.3646505255938459]},
+    "grad_max": {"M0a": 3.740003986104475, "M0b": 0.567847536418217, "T2a":
+    2.6461364013320825, "T2b": 0.4615971368902937}}
+
+
+def mwf_v_example(dev):
+    r"""The MWF_V_EX problem in float64 on the card against GOLDEN_MWF_V,
+    through ``epgx_cpmg`` with the shared π train, the b1 map and the esp
+    train (so the float64 echo-spacing kernels run: ``xcpmg_v_fwd_chk`` +
+    ``xcpmg_v_bwd``): the noiseless echoes relative to their largest, the
+    gradients w.r.t. the esp train and the log pools relative to each one's
+    largest."""
+    c, ex, gold = MWF, MWF_V_EX, GOLDEN_MWF_V
+    f64 = dict(dtype=torch.float64, device=dev)
+    mwf, T2a, T2b, b1n, _ = mwf_truth(ex['nv'])
+    logp = {k: torch.log(torch.as_tensor(v, **f64)).requires_grad_()
+            for k, v in mwf_pools(mwf, T2a, T2b).items()}
+    esps = torch.as_tensor(MWF_V['esps'], **f64).requires_grad_()
+    flips = torch.full((c['nE'],), np.pi, **f64)
+    w = torch.as_tensor(np.random.default_rng(ex['wseed']).standard_normal(
+        (ex['nv'], c['nE'], 2)), **f64)
+    ech = mwf_train(flips, {k: torch.exp(v) for k, v in logp.items()},
+                    torch.as_tensor(b1n, **f64), esps)
+    gs = torch.autograd.grad((w * ech).sum(), [esps] + list(logp.values()))
+    e = ech.detach().cpu().numpy()
+    g_esp = gs[0].cpu().numpy()
+    g = {k: x.cpu().numpy() for k, x in zip(logp, gs[1:])}
+    ents = np.asarray([e[v, t] for v, t in MWF_V_EX_ENTRIES])
+    vox = MWF_V_EX_VOXELS
+    return dict(
+        example_echoes=float(np.max(np.abs(ents - gold['echoes'])))
+        / gold['echoes_max'],
+        example_grad_esp=float(np.max(np.abs(g_esp - gold['grad_esp'])))
+        / gold['grad_esp_max'],
+        example_grad=max(float(np.max(np.abs(g[k][vox] - gold['grad'][k])))
+                         / gold['grad_max'][k] for k in c['start']))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False',
@@ -4876,12 +5138,14 @@ def main() -> int:
     xspgr_rows = phase_xspgr_kernels(dev)
     xspgr_v_rows = phase_xspgr_v_kernels(dev)
     xcpmg_rows = phase_xcpmg_kernels(dev)
+    xcpmg_v_rows = phase_xcpmg_kernels(dev, varesp=True)
 
     # the forward path, the gradient and design path, the two-pool path,
     # the acquisition path, the gridding path, the MRF path, the T2-mapping
     # path, the exchange-MRF paths at a scalar tr and over a variable-TR
-    # train and the myelin-water path: each with the launch counts zeroed
-    # just before it and read just after
+    # train and the myelin-water paths at a scalar esp and over an esp
+    # train: each with the launch counts zeroed just before it and read just
+    # after
     counters = {**{k: bloch.LAUNCHES for k in bloch.LAUNCHES},
                 **{k: kmc.LAUNCHES for k in kmc.LAUNCHES},
                 **{k: ksig.LAUNCHES for k in ksig.LAUNCHES},
@@ -4905,10 +5169,12 @@ def main() -> int:
              XSPGR_KERNELS + tuple(kmrf.LAUNCHES)),
             ('exchange-MRF (variable TR)', phase_mrfx_v_path,
              XSPGR_V_KERNELS + tuple(kmrf.LAUNCHES)),
-            ('myelin-water', phase_mwf_path, XCPMG_KERNELS)):
+            ('myelin-water', phase_mwf_path, XCPMG_KERNELS),
+            ('myelin-water (variable esp)', phase_mwf_v_path,
+             XCPMG_V_KERNELS)):
         for k, table in counters.items():
             table[k] = 0
-        run(dev)
+        result = run(dev)
         counts = {k: table[k] for k, table in counters.items()}
         print(f'launches on the {path} path: {json.dumps(counts)}',
               flush=True)
@@ -4917,6 +5183,9 @@ def main() -> int:
                   f'{path} path')
         for k, n in counts.items():
             launches[k] += n
+    # outside every counted window: the last path's (phase 28's) forward,
+    # split into its parts
+    phase_mwf_v_parts(dev, result['fwd_ms'])
 
     kernels = []
     for name, rows in (('rfgr_fwd', rfgr_rows), ('beff_fwd', beff_rows),
@@ -4929,7 +5198,7 @@ def main() -> int:
                        *nufft_rows.items(), *epg_rows.items(),
                        ('match', match_rows), *cpmg_rows.items(),
                        *xspgr_rows.items(), *xspgr_v_rows.items(),
-                       *xcpmg_rows.items()):
+                       *xcpmg_rows.items(), *xcpmg_v_rows.items()):
         # the first timed case: float32 at the main path's shape
         head = next(r for r in rows if 'ms' in r)
         err = ('max_abs_err_chk' if name in ('rfgr_fwd', 'beff_fwd', 'mc_fwd')
@@ -4948,7 +5217,7 @@ def main() -> int:
             # the matched filter one matrix product per probe chunk
             library_ms=head.get('library_ms')))
         if name in ('rfgr_bwd', 'mc_bwd', 'spgr_bwd', 'cpmg_bwd',
-                    'xspgr_bwd', 'xspgr_v_bwd', 'xcpmg_bwd'):
+                    'xspgr_bwd', 'xspgr_v_bwd', 'xcpmg_bwd', 'xcpmg_v_bwd'):
             # the rows: max|Δ| / max|row|
             kernels[-1]['max_row_rel_err'] = max(
                 r['max_row_rel_err'] for r in f32)

@@ -26,8 +26,10 @@ r"""Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
   ``xspgr_v_fwd``, ``xspgr_v_fwd_chk`` and ``xspgr_v_bwd``, their
   instances over a variable-TR train; ``xcpmg_fwd``, ``xcpmg_fwd_chk`` and
   ``xcpmg_bwd``, the same three for the two-pool CPMG echo train at a fixed
-  echo spacing; with their plain PyTorch versions, launch counts and the
-  autograd Functions of the trains.
+  echo spacing, and ``xcpmg_v_fwd``, ``xcpmg_v_fwd_chk`` and
+  ``xcpmg_v_bwd``, their instances over an echo-spacing train; with their
+  plain PyTorch versions, launch counts and the autograd Functions of the
+  trains.
 - :mod:`mrphy_tpu_torch.kernels.mrf`: ``match``, the fused matched filter
   of MRF dictionary matching, with its plain PyTorch version and launch
   count.

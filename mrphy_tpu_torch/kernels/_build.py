@@ -135,6 +135,16 @@ _SIGNATURES = {
     # tc, threads, stream
     'mrphy_xcpmg_bwd_f32': (_P,) * 9 + (_I64,) * 6 + (_P,),
     'mrphy_xcpmg_bwd_f64': (_P,) * 9 + (_I64,) * 6 + (_P,),
+    # coef, pk, pkt, er, ei, chk, gstate, nA, nE, K, flags, tc, threads,
+    # stream
+    'mrphy_xcpmg_v_fwd_f32': (_P,) * 7 + (_I64,) * 6 + (_P,),
+    'mrphy_xcpmg_v_fwd_f64': (_P,) * 7 + (_I64,) * 6 + (_P,),
+    'mrphy_xcpmg_v_fwd_chk_f32': (_P,) * 7 + (_I64,) * 6 + (_P,),
+    'mrphy_xcpmg_v_fwd_chk_f64': (_P,) * 7 + (_I64,) * 6 + (_P,),
+    # coef, pk, pkt, chk, gr, gi, scratch, hstate, dpar, dcf, dpkt, nA, nE,
+    # K, flags, tc, threads, stream
+    'mrphy_xcpmg_v_bwd_f32': (_P,) * 11 + (_I64,) * 6 + (_P,),
+    'mrphy_xcpmg_v_bwd_f64': (_P,) * 11 + (_I64,) * 6 + (_P,),
     # dre, dim, x, idx, best, nA, nV, r, stream
     'mrphy_match_f32': (_P,) * 5 + (_I64,) * 3 + (_P,),
     'mrphy_match_f64': (_P,) * 5 + (_I64,) * 3 + (_P,),

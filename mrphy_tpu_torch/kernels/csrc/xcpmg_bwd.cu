@@ -1,10 +1,14 @@
 // xcpmg_bwd: the two-phase chunk adjoint of the two-pool EPG-X CPMG echo
-// train on Hopper (sm_90a), at a fixed echo spacing.
+// train on Hopper (sm_90a), at a fixed echo spacing or over an echo-spacing
+// train.
 //
-// Replaces the TPU kernel `_xcpmg_bwd_kernel` (launched by
-// `_xcpmg_core_bwd`, mrphy_tpu/ops/epg_pallas.py). Chunks of tc echoes are
-// visited newest first. Phase 1 re-runs the forward from the chunk's start
-// state (chk, written by xcpmg_fwd_chk) and stores every pre-echo state;
+// Replaces two TPU kernels of mrphy_tpu/ops/epg_pallas.py:
+// `_xcpmg_bwd_kernel` (launched by `_xcpmg_core_bwd`), as the entry points
+// mrphy_xcpmg_bwd_*, and its echo-spacing-train counterpart
+// `_xcv_bwd_kernel` (launched by `_xcpmg_core_v_bwd`), as
+// mrphy_xcpmg_v_bwd_*. Chunks of tc echoes are visited newest first.
+// Phase 1 re-runs the forward from the chunk's start state (chk, written
+// by xcpmg_fwd_chk or xcpmg_v_fwd_chk) and stores every pre-echo state;
 // phase 2 walks them backwards, per echo: the echo's cotangent into both
 // pools' F+(0), the shift's transpose, the exchange-relaxation's transpose
 // at the mixed state (conj(E)ᵀ on F+, Eᵀ on F−, Zᵀ on Z, with the 14
@@ -17,13 +21,20 @@
 // the final cotangent at order 0, and db1; dcf (ceil(nA/32), nE, 5), each
 // warp's per-echo coefficient rows summed over its atoms, which the wrapper
 // sums over warps in a fixed order (no atomics). Under b1 the angle's
-// gradient goes to db1 and to the flip row (rows 0-3 stay 0).
+// gradient goes to db1 and to the flip row (rows 0-3 stay 0). Over an
+// echo-spacing train the entries differ per echo, so each echo's 14
+// contractions, its second half's and its first's added, are written per
+// echo, dpkt (nE, 14, nA), and dpar (5, nA) = [d cos φ_ex, d sin φ_ex,
+// dM0a, dM0b, db1] (the initial state's: the recovery's share of M0a and
+// M0b comes back through dpkt's ra and rb rows).
 //
 // What bounds it on the H100: arithmetic and device memory. Phase 1 writes
 // and phase 2 reads the pre-echo states, 12·K values per atom and echo (36
 // GB at 262,144 atoms × 32 echoes × K 33 in float32, ~11 ms at the card's
 // rate; the state after the first half is formed again from them), beside
-// ~3× the forward's arithmetic.
+// ~3× the forward's arithmetic. Over an echo-spacing train both phases
+// also read each echo's 14 entries and phase 2 writes its 14 contractions
+// (470 MB each way at 262,144 atoms × 32 echoes in float32).
 //
 // Design. One thread per atom, as xcpmg_fwd. Phase 1 runs from chk into a
 // device-memory scratch (tc − 1, 12, K, nA), orders in logical order: each
@@ -35,11 +46,13 @@
 // is two offsets and three slots a pool. Per echo two passes over the
 // orders: the second half's and the mix's transposes together (the mix's
 // input formed again by `xhalf_at`), then the first half's. The 15 per-atom
-// accumulators (14 entries and b1) sit in registers. Every sum over the
-// orders is taken one order at a time in the plain version's order
-// (kernels/epgx.py `xcpmg_bwd_torch`), so per-atom results agree bit for
+// accumulators (14 entries and b1) sit in registers; over a train the 14
+// entries of the echo's second half wait there for its first half's. Every
+// sum over the orders is taken one order at a time in the plain version's
+// order (kernels/epgx.py `_xcpmg_bwd`), so per-atom results agree bit for
 // bit (built without FMA contraction). The per-echo rows are reduced over a
-// warp's atoms by shuffles; lanes past nA add zeros. No fallback: every
+// warp's atoms by shuffles, lanes past nA adding zeros, in the order the
+// plain version sums them (`_warp_sums`). No fallback: every
 // instance xcpmg_fwd_chk takes, this kernel takes, with the chunk length
 // the wrapper chose for the scratch (kernels/epg.py `pick_tc` with 12
 // planes).
@@ -149,17 +162,21 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-template <typename T>
+// pk: (19, nA) at a fixed echo spacing; over an echo-spacing train
+// (VARESP) the rows [cos φ_ex, sin φ_ex, M0a, M0b, b1] (5, nA), the entries
+// of echo t at pkt + t·14·nA and their contractions at dpkt + t·14·nA.
+template <typename T, bool VARESP>
 __global__ void xcpmg_bwd_kernel(const T* __restrict__ coef,
                                  const T* __restrict__ pk,
+                                 const T* __restrict__ pkt,
                                  const T* __restrict__ chk,
                                  const T* __restrict__ gr,
                                  const T* __restrict__ gi,
                                  T* __restrict__ scratch,
                                  T* __restrict__ hstate,
                                  T* __restrict__ dpar, T* __restrict__ dcf,
-                                 int64_t nA, int64_t nE, int K, int flags,
-                                 int64_t tc) {
+                                 T* __restrict__ dpkt, int64_t nA,
+                                 int64_t nE, int K, int flags, int64_t tc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int64_t a = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   // threads past nA take part in the warps' sums with zeros
@@ -172,11 +189,13 @@ __global__ void xcpmg_bwd_kernel(const T* __restrict__ coef,
              : Planes<T>{reinterpret_cast<T*>(smem_raw) + threadIdx.x,
                          (int64_t)blockDim.x, K};
   const Planes<T> hb = epgx::pool_b(h);
+  // [cos φ_ex, sin φ_ex, M0a, M0b, b1]
+  const T* pm = VARESP ? pk : pk + 14 * nA;
   Prop<T> e{};
   T b1 = 0;
   if (active) {
-    e = epgx::load_prop(pk, nA, a);
-    b1 = pk[18 * nA + a];
+    if constexpr (!VARESP) e = epgx::load_prop(pk, nA, a);
+    b1 = pm[4 * nA + a];
     for (int p = 0; p < kPlanes; ++p)
       for (int k = 0; k < K; ++k) h(p, k) = T(0);
   }
@@ -194,6 +213,7 @@ __global__ void xcpmg_bwd_kernel(const T* __restrict__ coef,
       for (int64_t tl = 0; tl + 1 < tc; ++tl) {
         const int64_t t = j * tc + tl;
         const cpmg::Trig<T> g = cpmg::trig(coef, nE, t, b1, has_b1);
+        if constexpr (VARESP) e = epgx::load_prop(pkt + t * 14 * nA, nA, a);
         xecho_direct((tl == 0 ? c0 : scratch + (tl - 1) * plane) + a,
                      scratch + tl * plane + a, g, e, nA, K);
       }
@@ -204,6 +224,7 @@ __global__ void xcpmg_bwd_kernel(const T* __restrict__ coef,
       if (active) {
         const T* x0 = (tl == 0 ? c0 : scratch + (tl - 1) * plane) + a;
         const cpmg::Trig<T> g = cpmg::trig(coef, nE, t, b1, has_b1);
+        if constexpr (VARESP) e = epgx::load_prop(pkt + t * 14 * nA, nA, a);
         // the echo reads both pools' F+(0) after the second half
         const T gyr = gr[t * nA + a], gyi = gi[t * nA + a];
         h(0, op) = h(0, op) + gyr;
@@ -250,10 +271,17 @@ __global__ void xcpmg_bwd_kernel(const T* __restrict__ coef,
           im = spgr::wrap_inc(im, K);
         }
         // the entries' gradients: the second half's, then (below) the
-        // first's
-        for (int i = 0; i < 12; ++i) acc[i] = acc[i] + kE[i];
-        acc[12] = acc[12] + dra;
-        acc[13] = acc[13] + drb;
+        // first's; over a train the second half's wait in d2
+        T d2[14];
+        if constexpr (VARESP) {
+          for (int i = 0; i < 12; ++i) d2[i] = kE[i];
+          d2[12] = dra;
+          d2[13] = drb;
+        } else {
+          for (int i = 0; i < 12; ++i) acc[i] = acc[i] + kE[i];
+          acc[12] = acc[12] + dra;
+          acc[13] = acc[13] + drb;
+        }
         for (int i = 0; i < 12; ++i) kE[i] = T(0);
         dra = drb = T(0);
         // the first half's transpose at the stored pre-echo state
@@ -285,9 +313,17 @@ __global__ void xcpmg_bwd_kernel(const T* __restrict__ coef,
           ip = spgr::wrap_inc(ip, K);
           im = spgr::wrap_inc(im, K);
         }
-        for (int i = 0; i < 12; ++i) acc[i] = acc[i] + kE[i];
-        acc[12] = acc[12] + dra;
-        acc[13] = acc[13] + drb;
+        if constexpr (VARESP) {
+          // this echo's entry gradients, both halves added
+          T* dp = dpkt + t * 14 * nA + a;
+          for (int i = 0; i < 12; ++i) dp[i * nA] = d2[i] + kE[i];
+          dp[12 * nA] = d2[12] + dra;
+          dp[13 * nA] = d2[13] + drb;
+        } else {
+          for (int i = 0; i < 12; ++i) acc[i] = acc[i] + kE[i];
+          acc[12] = acc[12] + dra;
+          acc[13] = acc[13] + drb;
+        }
         // km: [ca2, sa2, sc, hc, ca] of the refocusing about +x
         const T d_sa = km[2] + T(0.5) * km[3];
         if (has_b1) {
@@ -311,43 +347,49 @@ __global__ void xcpmg_bwd_kernel(const T* __restrict__ coef,
     }
   }
   if (active) {
-    for (int i = 0; i < 14; ++i) dpar[i * nA + a] = acc[i];
+    T* dm = dpar;  // [d cos φ_ex, d sin φ_ex, dM0a, dM0b, db1]
+    if constexpr (!VARESP) {
+      for (int i = 0; i < 14; ++i) dpar[i * nA + a] = acc[i];
+      dm += 14 * nA;
+    }
     // the excitation's state: per pool F+(0) = (exs, −exc)·M0p, F−(0) =
     // (exs, exc)·M0p
-    const T exc = pk[14 * nA + a], exs = pk[15 * nA + a],
-            M0a = pk[16 * nA + a], M0b = pk[17 * nA + a];
+    const T exc = pm[a], exs = pm[nA + a], M0a = pm[2 * nA + a],
+            M0b = pm[3 * nA + a];
     const T ra_ = h(0, op) + h(2, om), ia_ = -h(1, op) + h(3, om);
     const T rb_ = hb(0, op) + hb(2, om), ib_ = -hb(1, op) + hb(3, om);
-    dpar[14 * nA + a] = M0a * ia_ + M0b * ib_;
-    dpar[15 * nA + a] = M0a * ra_ + M0b * rb_;
-    dpar[16 * nA + a] = exs * ra_ + exc * ia_;
-    dpar[17 * nA + a] = exs * rb_ + exc * ib_;
-    dpar[18 * nA + a] = ab1;
+    dm[a] = M0a * ia_ + M0b * ib_;
+    dm[nA + a] = M0a * ra_ + M0b * rb_;
+    dm[2 * nA + a] = exs * ra_ + exc * ia_;
+    dm[3 * nA + a] = exs * rb_ + exc * ib_;
+    dm[4 * nA + a] = ab1;
   }
 }
 
-template <typename T>
-int launch_xcpmg_bwd(const T* coef, const T* pk, const T* chk, const T* gr,
-                     const T* gi, T* scratch, T* hstate, T* dpar, T* dcf,
-                     int64_t nA, int64_t nE, int64_t K, int64_t flags,
-                     int64_t tc, int64_t threads, void* stream) {
+template <typename T, bool VARESP>
+int launch_xcpmg_bwd(const T* coef, const T* pk, const T* pkt, const T* chk,
+                     const T* gr, const T* gi, T* scratch, T* hstate,
+                     T* dpar, T* dcf, T* dpkt, int64_t nA, int64_t nE,
+                     int64_t K, int64_t flags, int64_t tc, int64_t threads,
+                     void* stream) {
   if (nA <= 0 || nE <= 0 || K < 2 || tc <= 0 || nE % tc != 0 ||
       (flags & ~(int64_t)cpmg::kB1) != 0 ||
-      !spgr::valid_threads((int)threads))
+      !spgr::valid_threads((int)threads) ||
+      (VARESP && (pkt == nullptr || dpkt == nullptr)))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       hstate ? 0 : (size_t)threads * kPlanes * (size_t)K * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        xcpmg_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        xcpmg_bwd_kernel<T, VARESP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const unsigned grid = (unsigned)((nA + threads - 1) / threads);
-  xcpmg_bwd_kernel<T><<<grid, (unsigned)threads, smem,
-                        (cudaStream_t)stream>>>(
-      coef, pk, chk, gr, gi, scratch, hstate, dpar, dcf, nA, nE, (int)K,
-      (int)flags, tc);
+  xcpmg_bwd_kernel<T, VARESP><<<grid, (unsigned)threads, smem,
+                                (cudaStream_t)stream>>>(
+      coef, pk, pkt, chk, gr, gi, scratch, hstate, dpar, dcf, dpkt, nA, nE,
+      (int)K, (int)flags, tc);
   return (int)cudaGetLastError();
 }
 
@@ -366,11 +408,31 @@ int launch_xcpmg_bwd(const T* coef, const T* pk, const T* chk, const T* gr,
                       void* hstate, void* dpar, void* dcf, int64_t nA,       \
                       int64_t nE, int64_t K, int64_t flags, int64_t tc,      \
                       int64_t threads, void* stream) {                        \
-    return mrphy::xcpmg::launch_xcpmg_bwd<T>(                                 \
-        (const T*)coef, (const T*)pk, (const T*)chk, (const T*)gr,            \
-        (const T*)gi, (T*)scratch, (T*)hstate, (T*)dpar, (T*)dcf, nA, nE, K,  \
-        flags, tc, threads, stream);                                          \
+    return mrphy::xcpmg::launch_xcpmg_bwd<T, false>(                          \
+        (const T*)coef, (const T*)pk, nullptr, (const T*)chk, (const T*)gr,   \
+        (const T*)gi, (T*)scratch, (T*)hstate, (T*)dpar, (T*)dcf, nullptr,    \
+        nA, nE, K, flags, tc, threads, stream);                               \
   }
 
 MRPHY_XCPMG_BWD_ENTRY(mrphy_xcpmg_bwd_f32, float)
 MRPHY_XCPMG_BWD_ENTRY(mrphy_xcpmg_bwd_f64, double)
+
+// The echo-spacing train: inputs coef (5, nE), pk (5, nA) = [cos φ_ex,
+// sin φ_ex, M0a, M0b, b1], the planes pkt (nE, 14, nA), chk, gr and gi as
+// above; the outputs dpar (5, nA) = [d cos φ_ex, d sin φ_ex, dM0a, dM0b,
+// db1], dcf as above and dpkt (nE, 14, nA).
+#define MRPHY_XCPMG_V_BWD_ENTRY(NAME, T)                                      \
+  extern "C" int NAME(const void* coef, const void* pk, const void* pkt,     \
+                      const void* chk, const void* gr, const void* gi,       \
+                      void* scratch, void* hstate, void* dpar, void* dcf,    \
+                      void* dpkt, int64_t nA, int64_t nE, int64_t K,         \
+                      int64_t flags, int64_t tc, int64_t threads,            \
+                      void* stream) {                                         \
+    return mrphy::xcpmg::launch_xcpmg_bwd<T, true>(                           \
+        (const T*)coef, (const T*)pk, (const T*)pkt, (const T*)chk,           \
+        (const T*)gr, (const T*)gi, (T*)scratch, (T*)hstate, (T*)dpar,        \
+        (T*)dcf, (T*)dpkt, nA, nE, K, flags, tc, threads, stream);            \
+  }
+
+MRPHY_XCPMG_V_BWD_ENTRY(mrphy_xcpmg_v_bwd_f32, float)
+MRPHY_XCPMG_V_BWD_ENTRY(mrphy_xcpmg_v_bwd_f64, double)

@@ -1,13 +1,19 @@
 // xcpmg_fwd: the two-pool EPG-X CPMG echo train (myelin-water fraction,
 // exchange-sensitive T2 mapping) on Hopper (sm_90a), at a fixed echo
-// spacing, with and without chunk checkpoints.
+// spacing or over an echo-spacing train, with and without chunk
+// checkpoints.
 //
-// Replaces two TPU kernels of mrphy_tpu/ops/epg_pallas.py: `_xcpmg_kernel`
+// Replaces four TPU kernels of mrphy_tpu/ops/epg_pallas.py: `_xcpmg_kernel`
 // (launched by `_xcpmg_core`), the echo train of an MWF map, as the entry
-// points mrphy_xcpmg_fwd_*; and `_xcpmg_fwd_chk_kernel` (launched by
+// points mrphy_xcpmg_fwd_*; `_xcpmg_fwd_chk_kernel` (launched by
 // `_xcpmg_core_fwd`), the same train writing the pre-echo state at the
 // start of every chunk of tc echoes for the adjoint xcpmg_bwd, as
-// mrphy_xcpmg_fwd_chk_*. The π/2 excitation about φ_ex is the closed-form
+// mrphy_xcpmg_fwd_chk_*; and their counterparts over a per-echo spacing
+// `_xcpmg_v_kernel` (`_xcpmg_core_v`) and `_xcv_fwd_chk_kernel`
+// (`_xcpmg_core_v_fwd`), as mrphy_xcpmg_v_fwd_* and mrphy_xcpmg_v_fwd_chk_*,
+// which read the 14 propagator entries of echo t over esp_t/2 from the
+// per-echo planes pkt (nE, 14, nA) once, coalesced across atoms, for both
+// of its halves. The π/2 excitation about φ_ex is the closed-form
 // state it leaves on the equilibrium (per pool F± = (sin φ_ex ∓ i·cos
 // φ_ex)·M0p, Z = 0). Per atom and echo: the exact exchange-relaxation over
 // esp/2 of every order of both pools (epgx_common.cuh `xrelax`: the complex
@@ -22,7 +28,9 @@
 // adds without FMA contraction: ~1.4e11 operations at 1,048,576 atoms × 32
 // echoes × K 33, ~2.1 ms at the card's float32 peak. Device memory sees the
 // per-atom rows once, the echoes (268 MB there) and, for the checkpoints,
-// tc-spaced states (at 262,144 atoms, tc 4: 3.3 GB).
+// tc-spaced states (at 262,144 atoms, tc 4: 3.3 GB); over an echo-spacing
+// train also the planes, 14 values per atom and echo (1.9 GB at 1,048,576
+// atoms × 32 echoes, ~0.56 ms at the card's rate).
 //
 // Design, as xspgr_fwd.cu and cpmg_fwd.cu: one thread per atom walks the
 // whole train; its 12·K state values (1,584 B at K 33 in float32) live in
@@ -31,13 +39,14 @@
 // an SM at K 33 in float32), both pools' F± planes ring buffers over the
 // orders sharing one pair of offsets (the pools shift alike), or in device
 // memory where 32 threads' states would not fit (K > 151 in float32). The
-// 14 propagator entries over esp/2 sit in registers. Each half is one pass
-// over the orders: the first half's relaxes in place, the second mixes and
-// relaxes. The echoes are written (nE, nA), atoms fastest (coalesced).
+// 14 propagator entries over esp/2 sit in registers (over a train, echo
+// t's, loaded at its start). Each half is one pass over the orders: the
+// first half's relaxes in place, the second mixes and relaxes. The echoes
+// are written (nE, nA), atoms fastest (coalesced).
 // Built without FMA contraction, in the plain version's order of operations
-// (kernels/epgx.py `xcpmg_fwd_torch`): the two agree bit for bit. Templated
-// on the scalar type and on the checkpoints; a per-echo spacing train would
-// read the entries of echo t from per-step planes in place of `e`.
+// (kernels/epgx.py `xcpmg_fwd_torch`, `xcpmg_v_fwd_torch`): the two agree
+// bit for bit. Templated on the scalar type, on the checkpoints and on the
+// echo-spacing train (VARESP).
 #include "cpmg_common.cuh"
 #include "epgx_common.cuh"
 
@@ -49,10 +58,13 @@ using epgx::Prop;
 using spgr::Planes;
 
 // pk: (19, nA) per-atom rows [E00r, E00i, E01r, E01i, E10r, E10i, E11r,
-// E11i, Z00, Z01, Z10, Z11, ra, rb, cos φ_ex, sin φ_ex, M0a, M0b, b1].
-template <typename T, bool CHK>
+// E11i, Z00, Z01, Z10, Z11, ra, rb, cos φ_ex, sin φ_ex, M0a, M0b, b1]; over
+// an echo-spacing train (VARESP) the last five rows (5, nA), the entries of
+// echo t at pkt + t·14·nA.
+template <typename T, bool CHK, bool VARESP>
 __global__ void xcpmg_fwd_kernel(const T* __restrict__ coef,
                                  const T* __restrict__ pk,
+                                 const T* __restrict__ pkt,
                                  T* __restrict__ er, T* __restrict__ ei,
                                  T* __restrict__ chk, T* __restrict__ gstate,
                                  int64_t nA, int64_t nE, int K, int flags,
@@ -66,9 +78,11 @@ __global__ void xcpmg_fwd_kernel(const T* __restrict__ coef,
              : Planes<T>{reinterpret_cast<T*>(smem_raw) + threadIdx.x,
                          (int64_t)blockDim.x, K};
   const Planes<T> sb = epgx::pool_b(st);
-  const Prop<T> e = epgx::load_prop(pk, nA, a);
-  const T exc = pk[14 * nA + a], exs = pk[15 * nA + a],
-          M0a = pk[16 * nA + a], M0b = pk[17 * nA + a], b1 = pk[18 * nA + a];
+  Prop<T> e{};
+  if constexpr (!VARESP) e = epgx::load_prop(pk, nA, a);
+  const T* pm = VARESP ? pk : pk + 14 * nA;  // [exc, exs, M0a, M0b, b1]
+  const T exc = pm[a], exs = pm[nA + a], M0a = pm[2 * nA + a],
+          M0b = pm[3 * nA + a], b1 = pm[4 * nA + a];
   for (int p = 0; p < kPlanes; ++p)
     for (int k = 0; k < K; ++k) st(p, k) = T(0);
   // the excitation's state, per pool F+(0) = (exs, −exc)·M0p, F−(0) =
@@ -102,6 +116,8 @@ __global__ void xcpmg_fwd_kernel(const T* __restrict__ coef,
         im = spgr::wrap_inc(im, K);
       }
     }
+    // echo t's propagator over esp_t/2, both halves
+    if constexpr (VARESP) e = epgx::load_prop(pkt + t * 14 * nA, nA, a);
     const cpmg::Trig<T> g = cpmg::trig(coef, nE, t, b1, has_b1);
     // the first half: the exchange-relaxation of every order in place,
     // then the unit shift
@@ -163,27 +179,28 @@ __global__ void xcpmg_fwd_kernel(const T* __restrict__ coef,
   }
 }
 
-template <typename T, bool CHK>
-int launch_xcpmg_fwd(const T* coef, const T* pk, T* er, T* ei, T* chk,
-                     T* gstate, int64_t nA, int64_t nE, int64_t K,
+template <typename T, bool CHK, bool VARESP>
+int launch_xcpmg_fwd(const T* coef, const T* pk, const T* pkt, T* er, T* ei,
+                     T* chk, T* gstate, int64_t nA, int64_t nE, int64_t K,
                      int64_t flags, int64_t tc, int64_t threads,
                      void* stream) {
   if (nA <= 0 || nE <= 0 || K < 2 || tc <= 0 || nE % tc != 0 ||
       (flags & ~(int64_t)cpmg::kB1) != 0 ||
-      !spgr::valid_threads((int)threads) || (CHK && chk == nullptr))
+      !spgr::valid_threads((int)threads) || (CHK && chk == nullptr) ||
+      (VARESP && pkt == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       gstate ? 0 : (size_t)threads * kPlanes * (size_t)K * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        xcpmg_fwd_kernel<T, CHK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        xcpmg_fwd_kernel<T, CHK, VARESP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const unsigned grid = (unsigned)((nA + threads - 1) / threads);
-  xcpmg_fwd_kernel<T, CHK><<<grid, (unsigned)threads, smem,
-                             (cudaStream_t)stream>>>(
-      coef, pk, er, ei, chk, gstate, nA, nE, (int)K, (int)flags, tc);
+  xcpmg_fwd_kernel<T, CHK, VARESP><<<grid, (unsigned)threads, smem,
+                                     (cudaStream_t)stream>>>(
+      coef, pk, pkt, er, ei, chk, gstate, nA, nE, (int)K, (int)flags, tc);
   return (int)cudaGetLastError();
 }
 
@@ -200,12 +217,30 @@ int launch_xcpmg_fwd(const T* coef, const T* pk, T* er, T* ei, T* chk,
                       void* chk, void* gstate, int64_t nA, int64_t nE,      \
                       int64_t K, int64_t flags, int64_t tc, int64_t threads, \
                       void* stream) {                                        \
-    return mrphy::xcpmg::launch_xcpmg_fwd<T, CHK>(                           \
-        (const T*)coef, (const T*)pk, (T*)er, (T*)ei, (T*)chk, (T*)gstate,   \
-        nA, nE, K, flags, tc, threads, stream);                              \
+    return mrphy::xcpmg::launch_xcpmg_fwd<T, CHK, false>(                    \
+        (const T*)coef, (const T*)pk, nullptr, (T*)er, (T*)ei, (T*)chk,      \
+        (T*)gstate, nA, nE, K, flags, tc, threads, stream);                  \
   }
 
 MRPHY_XCPMG_FWD_ENTRY(mrphy_xcpmg_fwd_f32, float, false)
 MRPHY_XCPMG_FWD_ENTRY(mrphy_xcpmg_fwd_f64, double, false)
 MRPHY_XCPMG_FWD_ENTRY(mrphy_xcpmg_fwd_chk_f32, float, true)
 MRPHY_XCPMG_FWD_ENTRY(mrphy_xcpmg_fwd_chk_f64, double, true)
+
+// The echo-spacing train: inputs coef (5, nE), pk (5, nA) = [cos φ_ex,
+// sin φ_ex, M0a, M0b, b1] and the planes pkt (nE, 14, nA), each echo's
+// propagator over esp_t/2; the outputs as above.
+#define MRPHY_XCPMG_V_FWD_ENTRY(NAME, T, CHK)                                \
+  extern "C" int NAME(const void* coef, const void* pk, const void* pkt,    \
+                      void* er, void* ei, void* chk, void* gstate,          \
+                      int64_t nA, int64_t nE, int64_t K, int64_t flags,     \
+                      int64_t tc, int64_t threads, void* stream) {          \
+    return mrphy::xcpmg::launch_xcpmg_fwd<T, CHK, true>(                     \
+        (const T*)coef, (const T*)pk, (const T*)pkt, (T*)er, (T*)ei,         \
+        (T*)chk, (T*)gstate, nA, nE, K, flags, tc, threads, stream);         \
+  }
+
+MRPHY_XCPMG_V_FWD_ENTRY(mrphy_xcpmg_v_fwd_f32, float, false)
+MRPHY_XCPMG_V_FWD_ENTRY(mrphy_xcpmg_v_fwd_f64, double, false)
+MRPHY_XCPMG_V_FWD_ENTRY(mrphy_xcpmg_v_fwd_chk_f32, float, true)
+MRPHY_XCPMG_V_FWD_ENTRY(mrphy_xcpmg_v_fwd_chk_f64, double, true)

@@ -1,12 +1,12 @@
 r"""The two-pool EPG-X kernels: wrappers, plain PyTorch versions and launch
 counts.
 
-Nine kernels, each the Hopper counterpart of a TPU kernel of
+Twelve kernels, each the Hopper counterpart of a TPU kernel of
 :mod:`mrphy_tpu.ops.epg_pallas`: six for the gradient-spoiled train of a
 two-pool exchanging system (:func:`mrphy_tpu_torch.ops.epg.epgx_spgr`), at
-a fixed TR and over a variable-TR train, and three for its CPMG echo train
-at a fixed echo spacing (:func:`mrphy_tpu_torch.ops.epg.epgx_cpmg`, last
-below):
+a fixed TR and over a variable-TR train, and six for its CPMG echo train
+(:func:`mrphy_tpu_torch.ops.epg.epgx_cpmg`, last below), at a fixed echo
+spacing and over an echo-spacing train:
 
 - ``xspgr_fwd`` (``csrc/xspgr_fwd.cu``, replaces ``_epgx_kernel``): per
   atom and TR, the RF mix on pool a and on pool b, the echo (the total
@@ -91,6 +91,17 @@ esp/2), ``cfg`` :class:`XcpmgCfg`. The echoes come as ``(er, ei)``, each
 (the 14 entries' gradients summed over both halves of every echo, then
 those of ``cos φ_ex``, ``sin φ_ex``, ``M0a``, ``M0b`` through the initial
 state, and ``db1``). :func:`xcpmg` is their autograd Function.
+
+Over an echo-spacing train (``_xcpmg_v_dispatch``,
+``epg_pallas.py:3652-3674``) the same two sources give ``xcpmg_v_fwd``
+(replaces ``_xcpmg_v_kernel``), ``xcpmg_v_fwd_chk`` (``_xcv_fwd_chk_kernel``)
+and ``xcpmg_v_bwd`` (``_xcv_bwd_kernel``): ``pk (5, nA) = [cos φ_ex, sin
+φ_ex, M0a, M0b, b1]`` and the per-echo planes ``pkt (nE, 14, nA)``, the
+propagator over ``esp[t]/2``, which both halves of echo ``t`` apply; the
+adjoint returns ``dpk (5, nA)`` (``dM0a``/``dM0b`` through the initial
+state only) and ``dpkt (nE, 14, nA)``, each echo's entry gradients, its
+second half's and its first's added. :func:`xcpmg_v` is their autograd
+Function.
 """
 
 from typing import NamedTuple
@@ -110,11 +121,14 @@ __all__ = ['LAUNCHES', 'PLANES', 'XspgrCfg', 'xspgr', 'xspgr_fwd',
            'xspgr_v_fwd_torch', 'xspgr_v_fwd_chk', 'xspgr_v_fwd_chk_torch',
            'xspgr_v_bwd', 'xspgr_v_bwd_torch', 'XcpmgCfg', 'xcpmg',
            'xcpmg_fwd', 'xcpmg_fwd_torch', 'xcpmg_fwd_chk',
-           'xcpmg_fwd_chk_torch', 'xcpmg_bwd', 'xcpmg_bwd_torch']
+           'xcpmg_fwd_chk_torch', 'xcpmg_bwd', 'xcpmg_bwd_torch', 'xcpmg_v',
+           'xcpmg_v_fwd', 'xcpmg_v_fwd_torch', 'xcpmg_v_fwd_chk',
+           'xcpmg_v_fwd_chk_torch', 'xcpmg_v_bwd', 'xcpmg_v_bwd_torch']
 
 LAUNCHES = {'xspgr_fwd': 0, 'xspgr_fwd_chk': 0, 'xspgr_bwd': 0,
             'xspgr_v_fwd': 0, 'xspgr_v_fwd_chk': 0, 'xspgr_v_bwd': 0,
-            'xcpmg_fwd': 0, 'xcpmg_fwd_chk': 0, 'xcpmg_bwd': 0}
+            'xcpmg_fwd': 0, 'xcpmg_fwd_chk': 0, 'xcpmg_bwd': 0,
+            'xcpmg_v_fwd': 0, 'xcpmg_v_fwd_chk': 0, 'xcpmg_v_bwd': 0}
 
 # The state planes of one atom: both pools' F+, F−, Z (re, im).
 PLANES = 12
@@ -124,8 +138,9 @@ NPAR = 17
 NENT = 14
 NPK = 3
 # The CPMG train's per-atom rows: the 14 entries, [cos φ_ex, sin φ_ex, M0a,
-# M0b, b1].
+# M0b, b1]; over an echo-spacing train the last five.
 NXC = 19
+NXCV = 5
 
 
 class XspgrCfg(NamedTuple):
@@ -255,15 +270,16 @@ def _xstep(coef, t, p, cfg, s):
 
 
 def _fixed_rows(par):
-    r"""Every step's 17 rows at a fixed TR: ``par``'s, `(17, nA, 1)`."""
+    r"""Every step's rows at a fixed interval: ``par``'s (17 of SPGR, 19 of
+    CPMG), each `(nA, 1)`."""
     p = par.unsqueeze(-1)
     return lambda t: p
 
 
 def _train_rows(pk, pkt):
-    r"""Step ``t``'s 17 rows over a variable-TR train: the planes' 14
-    entries of step ``t``, then ``pk``'s ``[M0a, M0b, b1]``, each `(nA,
-    1)`."""
+    r"""Step ``t``'s rows over an interval train: the planes' 14 entries of
+    step ``t``, then ``pk``'s (SPGR's ``[M0a, M0b, b1]``, CPMG's ``[cos
+    φ_ex, sin φ_ex, M0a, M0b, b1]``), each `(nA, 1)`."""
     pv, pt = tuple(pk.unsqueeze(-1)), pkt.unsqueeze(-1)
     return lambda t: tuple(pt[t]) + pv
 
@@ -664,75 +680,76 @@ def _xecho(coef, t, p, cfg, s):
     return _xhalf(p, _xmix(tg, _xhalf(p, s)))
 
 
-def _xcpmg_fwd(coef, pk, cfg, tc):
+def _xcpmg_fwd(coef, rows, cfg, tc):
+    r"""The train from the excitation's state, ``rows(t)`` echo ``t``'s 19
+    rows: ``(er, ei, chk or None)``."""
     nE = coef.shape[1]
-    p = tuple(pk.unsqueeze(-1))
+    p = rows(0)
     s = _xcpmg_init(p, cfg.K)
     er, ei = [], []
-    chk = pk.new_empty((nE // tc, PLANES, cfg.K, pk.shape[1])) if tc \
+    chk = p[14].new_empty((nE // tc, PLANES, cfg.K, p[14].shape[0])) if tc \
         else None
     for t in range(nE):
         if tc and t % tc == 0:
             chk[t // tc] = torch.stack(s).transpose(1, 2)  # (12, K, nA)
-        s = _xecho(coef, t, p, cfg, s)
+        s = _xecho(coef, t, rows(t), cfg, s)
         er.append(s[0][:, 0] + s[6][:, 0])
         ei.append(s[1][:, 0] + s[7][:, 0])
     return torch.stack(er), torch.stack(ei), chk
 
 
-def xcpmg_fwd_torch(coef, pk, cfg: XcpmgCfg):
-    r"""Plain PyTorch version of the ``xcpmg_fwd`` kernel: the echoes ``(er,
-    ei)``, each ``(nE, nA)``. Differentiable by torch autograd (which then
-    keeps every echo)."""
-    return _xcpmg_fwd(coef, pk, cfg, None)[:2]
+def _warp_sums(r):
+    r"""The sums of ``r (nA, n)`` over each warp's 32 atoms in the order of
+    the kernels' shuffle tree (lane ``j`` adds lane ``j + o`` for ``o`` =
+    16, 8, 4, 2, 1; lanes past nA add zeros): `(ceil(nA / 32), n)`."""
+    nA = r.shape[0]
+    nW = -(-nA // 32)
+    x = torch.nn.functional.pad(r, (0, 0, 0, nW * 32 - nA)).reshape(
+        nW, 32, -1)
+    for o in (16, 8, 4, 2, 1):
+        x = x[:, :o] + x[:, o:2 * o]
+    return x[:, 0]
 
 
-def xcpmg_fwd_chk_torch(coef, pk, cfg: XcpmgCfg, *, tc: int):
-    r"""Plain PyTorch version of the ``xcpmg_fwd_chk`` kernel: ``(er, ei,
-    chk (nE / tc, 12, K, nA))``, the pre-echo state at the start of every
-    chunk of ``tc`` echoes."""
-    _check_tc(coef.shape[1], tc)
-    return _xcpmg_fwd(coef, pk, cfg, tc)
-
-
-def xcpmg_bwd_torch(coef, pk, cfg: XcpmgCfg, chk, gr, gi, *, tc: int):
-    r"""Plain PyTorch version of the ``xcpmg_bwd`` kernel: the two-phase
-    chunk adjoint of :func:`xcpmg_fwd_chk_torch`, with no autograd.
-
-    ``chk``: its checkpoints at the same ``tc``; ``gr``/``gi``: the echoes'
-    cotangent, each ``(nE, nA)``. Per echo, newest first (``_xcpmg_bwd_
-    kernel``'s order, ``epg_pallas.py:3072-3201``): the cotangent into both
-    pools' ``F+(0)``, the shift's transpose, the exchange–relaxation's
-    transpose at the mixed state (its 14 entry terms), the refocusing mix's
-    coefficient terms (both pools, order by order) and transpose, the
-    shift's transpose, the exchange–relaxation's transpose at the stored
-    pre-echo state. Under ``b1`` the angle's gradient goes to ``db1`` and to
-    the flip row, the other coefficient rows stay 0. Returns ``(dcoef (5,
-    nE), dpk (19, nA))``: the 14 entries' gradients (second half, then
-    first, added per echo), ``[d cos φ_ex, d sin φ_ex, dM0a, dM0b]`` of the
-    initial state, ``db1``."""
+def _xcpmg_bwd(coef, rows, cfg, chk, gr, gi, tc, take):
+    r"""The two-phase chunk adjoint of :func:`_xcpmg_fwd` from its
+    checkpoints ``chk`` at chunk length ``tc`` and the echoes' cotangent
+    ``gr``/``gi`` (each ``(nE, nA)``), with no autograd. Per echo, newest
+    first (``_xcpmg_bwd_kernel``'s order, ``epg_pallas.py:3072-3201``): the
+    cotangent into both pools' ``F+(0)``, the shift's transpose, the
+    exchange–relaxation's transpose at the mixed state (its 14 entry terms),
+    the refocusing mix's coefficient terms (both pools, order by order) and
+    transpose, the shift's transpose, the exchange–relaxation's transpose at
+    the stored pre-echo state. Under ``b1`` the angle's gradient goes to
+    ``db1`` and to the flip row, the other coefficient rows stay 0. The
+    per-echo rows are summed over the atoms in the kernels' order: by
+    warps of 32 (:func:`_warp_sums`), then over the warps by one
+    ``torch.sum``, as the wrappers sum the kernels' partial rows.
+    ``take(t, d2, d1)`` receives echo ``t``'s 14 entry gradients of the
+    second half ``d2`` and of the first ``d1`` (each `(nA, 1)`). Returns
+    ``(dcoef (5, nE), tail)``, ``tail`` the `(nA, 1)` gradients ``[d cos
+    φ_ex, d sin φ_ex, dM0a, dM0b]`` of the initial state and ``db1``."""
     nE = coef.shape[1]
     _check_tc(nE, tc)
     ntc = chk.shape[0]
     if ntc != nE // tc:
         raise ValueError(f'chk holds {ntc} states, but nE={nE} in chunks '
                          f'of tc={tc} gives {nE // tc}')
-    p = tuple(pk.unsqueeze(-1))
-    zero = torch.zeros_like(p[0])
+    zero = torch.zeros_like(rows(0)[0])
     h = (torch.zeros_like(chk[0, 0].T),) * PLANES
-    acc = [zero] * NENT
     ab1 = zero
-    dcoef = coef.new_zeros(XcpmgCfg.nC, nE)
+    dcf = coef.new_zeros((-(-zero.shape[0] // 32), nE, XcpmgCfg.nC))
     for j in reversed(range(ntc)):
         # phase 1: the forward from the chunk's start state, every state
         s = tuple(chk[j, q].T for q in range(PLANES))
         states = []
         for t in range(j * tc, (j + 1) * tc):
             states.append(s)
-            s = _xecho(coef, t, p, cfg, s)
+            s = _xecho(coef, t, rows(t), cfg, s)
         # phase 2: the cotangent, backwards through the stored states
         for t in reversed(range(j * tc, (j + 1) * tc)):
             s = states.pop()
+            p = rows(t)
             tg = _flip_trig(coef, t, 4, p[18], cfg.has_b1)
             ca2, sa2, sa, ca = tg
             sh1 = _xhalf(p, s)                 # the refocusing's input
@@ -753,58 +770,130 @@ def xcpmg_bwd_torch(coef, pk, cfg: XcpmgCfg, chk, gr, gi, *, tc: int):
             h = _shift_T(h[:6], 1) + _shift_T(h[6:], 1)
             h, t1, r1 = _xrelax_T(p, h, s)
             sums = _ksum(torch.stack(t2 + tm + t1)).unsqueeze(-1)  # (29,)
-            acc = [(a + x) + y for a, x, y in
-                   zip(acc, list(sums[:12]) + list(r2),
-                       list(sums[17:]) + list(r1))]
+            take(t, list(sums[:12]) + list(r2), list(sums[17:]) + list(r1))
             d_ca2, d_sa2, d_sc, d_hc, d_ca = sums[12:17]
             d_sa = d_sc + 0.5 * d_hc
             if cfg.has_b1:
                 # α = flip·b1 through the half-angle trig
                 d_al = 0.5 * sa * (d_sa2 - d_ca2) + ca * d_sa - sa * d_ca
                 ab1 = ab1 + d_al * coef[4, t]
-                rows = [zero, zero, zero, zero, d_al * p[18]]
+                rows_t = [zero, zero, zero, zero, d_al * p[18]]
             else:
-                rows = [d_ca2, d_sa2, d_sa, d_ca, zero]
-            dcoef[:, t] = torch.cat(rows, dim=1).sum(dim=0)
+                rows_t = [d_ca2, d_sa2, d_sa, d_ca, zero]
+            dcf[:, t] = _warp_sums(torch.cat(rows_t, dim=1))
     # the excitation's state: per pool F+(0) = (exs, −exc)·M0p, F−(0) =
     # (exs, exc)·M0p
-    exc, exs, M0a, M0b = p[14:18]
+    exc, exs, M0a, M0b = rows(0)[14:18]
     ra_ = h[0][:, :1] + h[2][:, :1]
     ia_ = -h[1][:, :1] + h[3][:, :1]
     rb_ = h[6][:, :1] + h[8][:, :1]
     ib_ = -h[7][:, :1] + h[9][:, :1]
-    dpk = torch.cat(acc + [M0a * ia_ + M0b * ib_, M0a * ra_ + M0b * rb_,
-                           exs * ra_ + exc * ia_, exs * rb_ + exc * ib_, ab1],
-                    dim=1).T
-    return dcoef, dpk.contiguous()
+    return dcf.sum(dim=0).T.contiguous(), [
+        M0a * ia_ + M0b * ib_, M0a * ra_ + M0b * rb_, exs * ra_ + exc * ia_,
+        exs * rb_ + exc * ib_, ab1]
+
+
+def xcpmg_fwd_torch(coef, pk, cfg: XcpmgCfg):
+    r"""Plain PyTorch version of the ``xcpmg_fwd`` kernel: the echoes ``(er,
+    ei)``, each ``(nE, nA)``. Differentiable by torch autograd (which then
+    keeps every echo)."""
+    return _xcpmg_fwd(coef, _fixed_rows(pk), cfg, None)[:2]
+
+
+def xcpmg_fwd_chk_torch(coef, pk, cfg: XcpmgCfg, *, tc: int):
+    r"""Plain PyTorch version of the ``xcpmg_fwd_chk`` kernel: ``(er, ei,
+    chk (nE / tc, 12, K, nA))``, the pre-echo state at the start of every
+    chunk of ``tc`` echoes."""
+    _check_tc(coef.shape[1], tc)
+    return _xcpmg_fwd(coef, _fixed_rows(pk), cfg, tc)
+
+
+def xcpmg_bwd_torch(coef, pk, cfg: XcpmgCfg, chk, gr, gi, *, tc: int):
+    r"""Plain PyTorch version of the ``xcpmg_bwd`` kernel: the two-phase
+    chunk adjoint of :func:`xcpmg_fwd_chk_torch` (:func:`_xcpmg_bwd`), with
+    no autograd.
+
+    ``chk``: its checkpoints at the same ``tc``; ``gr``/``gi``: the echoes'
+    cotangent, each ``(nE, nA)``. Returns ``(dcoef (5, nE), dpk (19,
+    nA))``: the 14 entries' gradients (second half, then first, added per
+    echo), ``[d cos φ_ex, d sin φ_ex, dM0a, dM0b]`` of the initial state,
+    ``db1``."""
+    acc = [torch.zeros_like(pk[:1].T)] * NENT
+
+    def take(t, d2, d1):
+        acc[:] = [(a + x) + y for a, x, y in zip(acc, d2, d1)]
+
+    dcoef, tail = _xcpmg_bwd(coef, _fixed_rows(pk), cfg, chk, gr, gi, tc,
+                             take)
+    return dcoef, torch.cat(acc + tail, dim=1).T.contiguous()
+
+
+def xcpmg_v_fwd_torch(coef, pk, pkt, cfg: XcpmgCfg):
+    r"""Plain PyTorch version of the ``xcpmg_v_fwd`` kernel: the echoes
+    ``(er, ei)``, each ``(nE, nA)``, over the echo-spacing train whose echo
+    ``t`` takes the entries ``pkt[t]`` in both halves. Differentiable by
+    torch autograd (which then keeps every echo)."""
+    return _xcpmg_fwd(coef, _train_rows(pk, pkt), cfg, None)[:2]
+
+
+def xcpmg_v_fwd_chk_torch(coef, pk, pkt, cfg: XcpmgCfg, *, tc: int):
+    r"""Plain PyTorch version of the ``xcpmg_v_fwd_chk`` kernel: ``(er, ei,
+    chk (nE / tc, 12, K, nA))``."""
+    _check_tc(coef.shape[1], tc)
+    return _xcpmg_fwd(coef, _train_rows(pk, pkt), cfg, tc)
+
+
+def xcpmg_v_bwd_torch(coef, pk, pkt, cfg: XcpmgCfg, chk, gr, gi, *,
+                      tc: int):
+    r"""Plain PyTorch version of the ``xcpmg_v_bwd`` kernel: the two-phase
+    chunk adjoint of :func:`xcpmg_v_fwd_chk_torch` (:func:`_xcpmg_bwd`),
+    with no autograd, each echo's entry gradients written as they are
+    formed. Returns ``(dcoef (5, nE), dpk (5, nA) = [d cos φ_ex, d sin φ_ex,
+    dM0a, dM0b, db1], dpkt (nE, 14, nA))``: ``dM0a``/``dM0b`` through the
+    initial state only (their share through the recovery ``ra``/``rb`` is in
+    ``dpkt``), ``dpkt[t]`` the gradients of ``pkt[t]``, the second half's
+    and the first's added."""
+    dpkt = torch.empty_like(pkt)
+
+    def take(t, d2, d1):
+        dpkt[t] = torch.cat([x + y for x, y in zip(d2, d1)], dim=1).T
+
+    dcoef, tail = _xcpmg_bwd(coef, _train_rows(pk, pkt), cfg, chk, gr, gi,
+                             tc, take)
+    return dcoef, torch.cat(tail, dim=1).T.contiguous(), dpkt
 
 
 # ==========================================================================
 # The two-pool CPMG train: the kernels
 # ==========================================================================
 
-def _xcpmg_sizes(name, coef, pk, cfg):
-    r"""Validate a two-pool CPMG kernel's arguments; returns ``(nA,
-    nE)``."""
+def _xcpmg_sizes(name, coef, pk, cfg, pkt=None):
+    r"""Validate a two-pool CPMG kernel's arguments (``pk`` the 5 rows of
+    an echo-spacing train when its planes ``pkt`` are given); returns
+    ``(nA, nE)``."""
+    rows = NXC if pkt is None else NXCV
     if pk.dtype not in (torch.float32, torch.float64):
         raise TypeError(f'{name} takes float32 or float64, not {pk.dtype}')
-    if pk.ndim != 2 or pk.shape[0] != NXC:
-        raise ValueError(f'pk must be ({NXC}, nA), got {tuple(pk.shape)}')
+    if pk.ndim != 2 or pk.shape[0] != rows:
+        raise ValueError(f'pk must be ({rows}, nA), got {tuple(pk.shape)}')
     nA, nE = pk.shape[1], coef.shape[-1]
     if cfg.K < 2 or nE < 1:
         raise ValueError(f'{name} needs K >= 2 and nE >= 1, got K={cfg.K}, '
                          f'nE={nE}')
     _check(coef, 'coef', (cfg.nC, nE), pk.dtype, pk.device)
-    _check(pk, 'pk', (NXC, nA), pk.dtype, pk.device)
+    _check(pk, 'pk', (rows, nA), pk.dtype, pk.device)
+    if pkt is not None:
+        _check(pkt, 'pkt', (nE, NENT, nA), pk.dtype, pk.device)
     return nA, nE
 
 
-def _launch_xcpmg_fwd(coef, pk, cfg, tc):
-    r"""``xcpmg_fwd`` (``tc`` None) or ``xcpmg_fwd_chk``: ``(er, ei,
-    chk)``."""
+def _launch_xcpmg_fwd(coef, pk, cfg, tc, pkt=None):
+    r"""``xcpmg_fwd`` (``tc`` None) or ``xcpmg_fwd_chk``; with ``pkt``,
+    their echo-spacing-train instances: ``(er, ei, chk)``."""
     from mrphy_tpu_torch.kernels._build import library
-    name = 'xcpmg_fwd' if tc is None else 'xcpmg_fwd_chk'
-    nA, nE = _xcpmg_sizes(name, coef, pk, cfg)
+    name = (('xcpmg_fwd' if pkt is None else 'xcpmg_v_fwd')
+            + ('' if tc is None else '_chk'))
+    nA, nE = _xcpmg_sizes(name, coef, pk, cfg, pkt)
     dt, dev = pk.dtype, pk.device
     threads, in_smem = launch_cfg(cfg.K, pk.element_size(), PLANES)
     er = torch.empty((nE, nA), dtype=dt, device=dev)
@@ -816,20 +905,23 @@ def _launch_xcpmg_fwd(coef, pk, cfg, tc):
                           device=dev)
     state = None if in_smem else torch.empty((PLANES, cfg.K, nA), dtype=dt,
                                              device=dev)
+    ins = (coef, pk) if pkt is None else (coef, pk, pkt)
     lib, _ = library()
     with torch.cuda.device(dev):
         err = _entry(lib, name, dt)(
-            *map(_ptr, (coef, pk, er, ei, chk, state)), nA, nE, cfg.K,
+            *map(_ptr, ins + (er, ei, chk, state)), nA, nE, cfg.K,
             cfg.flags, tc or nE, threads, _stream(dev))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return er, ei, chk
 
 
-def _launch_xcpmg_bwd(coef, pk, cfg, chk, gr, gi, tc):
-    r"""``xcpmg_bwd``: ``(dcoef, dpk)``."""
+def _launch_xcpmg_bwd(coef, pk, cfg, chk, gr, gi, tc, pkt=None):
+    r"""``xcpmg_bwd``: ``(dcoef, dpk)``; with ``pkt``, ``xcpmg_v_bwd``:
+    ``(dcoef, dpk, dpkt)``."""
     from mrphy_tpu_torch.kernels._build import library
-    nA, nE = _xcpmg_sizes('xcpmg_bwd', coef, pk, cfg)
+    name = 'xcpmg_bwd' if pkt is None else 'xcpmg_v_bwd'
+    nA, nE = _xcpmg_sizes(name, coef, pk, cfg, pkt)
     _check_tc(nE, tc)
     dt, dev = pk.dtype, pk.device
     _check(chk, 'chk', (nE // tc, PLANES, cfg.K, nA), dt, dev)
@@ -843,17 +935,23 @@ def _launch_xcpmg_bwd(coef, pk, cfg, chk, gr, gi, tc):
                           device=dev)
     hstate = None if in_smem else torch.empty((PLANES, cfg.K, nA), dtype=dt,
                                               device=dev)
-    dpk = torch.empty((NXC, nA), dtype=dt, device=dev)
+    dpk = torch.empty(pk.shape, dtype=dt, device=dev)
     dcf = torch.empty((-(-nA // 32), nE, cfg.nC), dtype=dt, device=dev)
+    if pkt is None:
+        ins, outs = (coef, pk, chk, gr, gi), (dpk, dcf)
+    else:
+        dpkt = torch.empty((nE, NENT, nA), dtype=dt, device=dev)
+        ins, outs = (coef, pk, pkt, chk, gr, gi), (dpk, dcf, dpkt)
     lib, _ = library()
     with torch.cuda.device(dev):
-        err = _entry(lib, 'xcpmg_bwd', dt)(
-            *map(_ptr, (coef, pk, chk, gr, gi, scratch, hstate, dpk, dcf)),
-            nA, nE, cfg.K, cfg.flags, tc, threads, _stream(dev))
-    _raise_on(err, 'xcpmg_bwd')
-    LAUNCHES['xcpmg_bwd'] += 1
+        err = _entry(lib, name, dt)(
+            *map(_ptr, ins + (scratch, hstate) + outs), nA, nE, cfg.K,
+            cfg.flags, tc, threads, _stream(dev))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     # the warps' partial rows, summed in a fixed order
-    return dcf.sum(dim=0).T.contiguous(), dpk
+    dcoef = dcf.sum(dim=0).T.contiguous()
+    return (dcoef, dpk) if pkt is None else (dcoef, dpk, dpkt)
 
 
 def xcpmg_fwd(coef, pk, cfg: XcpmgCfg):
@@ -880,6 +978,30 @@ def xcpmg_bwd(coef, pk, cfg: XcpmgCfg, chk, gr, gi, *, tc: int):
     return _launch_xcpmg_bwd(coef, pk, cfg, chk, gr, gi, tc)
 
 
+def xcpmg_v_fwd(coef, pk, pkt, cfg: XcpmgCfg):
+    r"""The ``xcpmg_v_fwd`` kernel on CUDA tensors (contiguous, one dtype,
+    float32 or float64), :func:`xcpmg_v_fwd_torch` on CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xcpmg_v_fwd_torch(coef, pk, pkt, cfg)
+    return _launch_xcpmg_fwd(coef, pk, cfg, None, pkt)[:2]
+
+
+def xcpmg_v_fwd_chk(coef, pk, pkt, cfg: XcpmgCfg, *, tc: int):
+    r"""The ``xcpmg_v_fwd_chk`` kernel on CUDA tensors,
+    :func:`xcpmg_v_fwd_chk_torch` on CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xcpmg_v_fwd_chk_torch(coef, pk, pkt, cfg, tc=tc)
+    return _launch_xcpmg_fwd(coef, pk, cfg, tc, pkt)
+
+
+def xcpmg_v_bwd(coef, pk, pkt, cfg: XcpmgCfg, chk, gr, gi, *, tc: int):
+    r"""The ``xcpmg_v_bwd`` kernel on CUDA tensors,
+    :func:`xcpmg_v_bwd_torch` on CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xcpmg_v_bwd_torch(coef, pk, pkt, cfg, chk, gr, gi, tc=tc)
+    return _launch_xcpmg_bwd(coef, pk, cfg, chk, gr, gi, tc, pkt)
+
+
 class _Xcpmg(torch.autograd.Function):
 
     @staticmethod
@@ -887,8 +1009,7 @@ class _Xcpmg(torch.autograd.Function):
         ctx.cfg = cfg
         if not any(ctx.needs_input_grad[1:3]):
             return xcpmg_fwd(coef, pk, cfg)
-        tc = pick_tc(coef.shape[1], cfg.K, pk.shape[1], pk.element_size(),
-                     PLANES)
+        tc = _chunk(coef, pk, cfg)
         er, ei, chk = xcpmg_fwd_chk(coef, pk, cfg, tc=tc)
         ctx.tc = tc
         ctx.save_for_backward(coef, pk, chk)
@@ -903,6 +1024,29 @@ class _Xcpmg(torch.autograd.Function):
         return None, dcoef, dpk
 
 
+class _XcpmgV(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, cfg, coef, pk, pkt):
+        ctx.cfg = cfg
+        if not any(ctx.needs_input_grad[1:4]):
+            return xcpmg_v_fwd(coef, pk, pkt, cfg)
+        tc = _chunk(coef, pk, cfg)
+        er, ei, chk = xcpmg_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)
+        ctx.tc = tc
+        ctx.save_for_backward(coef, pk, pkt, chk)
+        return er, ei
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gr, gi):
+        coef, pk, pkt, chk = ctx.saved_tensors
+        dcoef, dpk, dpkt = xcpmg_v_bwd(coef, pk, pkt, ctx.cfg, chk,
+                                       gr.contiguous(), gi.contiguous(),
+                                       tc=ctx.tc)
+        return None, dcoef, dpk, dpkt
+
+
 def xcpmg(coef, pk, cfg: XcpmgCfg):
     r"""The EPG-X CPMG echoes ``(er, ei)``, each ``(nE, nA)``, at a fixed
     echo spacing: the kernels on CUDA tensors (``xcpmg_fwd``, or
@@ -910,3 +1054,13 @@ def xcpmg(coef, pk, cfg: XcpmgCfg):
     plain versions on CPU tensors. Differentiable w.r.t. ``coef`` and
     ``pk``."""
     return _Xcpmg.apply(cfg, coef.contiguous(), pk.contiguous())
+
+
+def xcpmg_v(coef, pk, pkt, cfg: XcpmgCfg):
+    r"""The EPG-X CPMG echoes ``(er, ei)``, each ``(nE, nA)``, over an
+    echo-spacing train: the kernels on CUDA tensors (``xcpmg_v_fwd``, or
+    ``xcpmg_v_fwd_chk`` and ``xcpmg_v_bwd`` when a gradient is needed),
+    their plain versions on CPU tensors. Differentiable w.r.t. ``coef``,
+    ``pk`` and ``pkt``."""
+    return _XcpmgV.apply(cfg, coef.contiguous(), pk.contiguous(),
+                         pkt.contiguous())

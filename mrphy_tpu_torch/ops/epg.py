@@ -40,11 +40,11 @@ take a shared 1-D flip train: at a scalar ``tr`` ``xspgr_fwd``, or
 which read the exchange–relaxation propagator of every step from per-step
 planes (:func:`_x_step_entries`). :func:`epgx_cpmg`, the two-pool CPMG
 train of myelin-water mapping, has the same two routes; its kernels take a
-shared 1-D flip train at a scalar ``esp`` (``xcpmg_fwd``, or
-``xcpmg_fwd_chk`` with ``xcpmg_bwd`` under a gradient); over a ``(nE,)``
-``esp`` train it runs the plain route under ``backend='torch'`` and raises
-on CUDA tensors otherwise (slice 10f of ``ROADMAP.md`` queue 1). The MT
-variant is not ported yet.
+shared 1-D flip train: at a scalar ``esp`` ``xcpmg_fwd``, or
+``xcpmg_fwd_chk`` with ``xcpmg_bwd`` under a gradient; over a ``(nE,)``
+``esp`` train ``xcpmg_v_fwd``, or ``xcpmg_v_fwd_chk`` with
+``xcpmg_v_bwd``, which read each echo's propagator over its half interval
+from per-echo planes. The MT variant is not ported yet.
 """
 
 import math
@@ -974,8 +974,7 @@ def epgx_cpmg(flips, *, T1a, T2a, T1b, T2b, kab, kba, esp, M0a=1.0,
         - ``mesh``: multi-device runs are not ported yet (raises
           :class:`NotImplementedError`).
         - ``backend``: ``'auto'`` | ``'torch'`` | ``'cuda'`` (module
-          docstring); a ``(nEcho,)`` ``esp`` train on CUDA tensors raises
-          :class:`NotImplementedError` under ``'auto'`` and ``'cuda'``.
+          docstring).
     Outputs:
         - ``echoes``: `(*batch, nEcho, 2)` real ([re, im]).
 
@@ -1037,17 +1036,25 @@ def _xcpmg_scan(flips, *, T1a, T2a, T1b, T2b, kab, kba, esp, M0a=1.0,
 
 def _xcpmg_rows(flips, *, T1a, T2a, T1b, T2b, kab, kba, esp, M0a=1.0,
                 M0b=0.1, dfb=0.0, phi_ex=math.pi / 2, b1=None):
-    r"""The kernels' arguments for :func:`epgx_cpmg`'s inputs
-    (``_xcpmg_dispatch``, ``epg_pallas.py:781-819``): ``(coef, pk, cfg,
-    batch)``, the per-echo rows ``[cos²(α/2), sin²(α/2), sin α, cos α,
-    α]``, the per-atom rows ``pk (19, nA) = [E00r, E00i, E01r, E01i, E10r,
-    E10i, E11r, E11i, Z00, Z01, Z10, Z11, ra, rb, cos φ_ex, sin φ_ex, M0a,
-    M0b, b1]`` (the exchange–relaxation propagator over esp/2,
-    :func:`_x_entries`, and the rest) and the atoms' batch shape, flattened
-    into the columns, in the call's dtype. Torch autograd of the
-    construction carries the gradients of every input (the rates, ``esp``,
-    ``M0a``/``M0b`` through the initial state and the recovery ``ra``/``rb``,
-    ``dfb``, ``phi_ex``, ``b1``) back from the rows'."""
+    r"""The kernels' arguments for :func:`epgx_cpmg`'s inputs: ``(coef,
+    pk, cfg, batch)``, the per-echo rows ``[cos²(α/2), sin²(α/2), sin α,
+    cos α, α]``, the per-atom rows and the atoms' batch shape, flattened
+    into the columns, in the call's dtype.
+
+    At a scalar ``esp`` (``_xcpmg_dispatch``, ``epg_pallas.py:781-819``)
+    ``pk (19, nA)`` is ``[E00r, E00i, E01r, E01i, E10r, E10i, E11r, E11i,
+    Z00, Z01, Z10, Z11, ra, rb, cos φ_ex, sin φ_ex, M0a, M0b, b1]``, the
+    exchange–relaxation propagator over esp/2 (:func:`_x_entries`) and the
+    rest. Over a ``(nE,)`` ``esp`` train (``_xcpmg_v_dispatch``,
+    ``epg_pallas.py:3652-3674``) ``pk`` is the pair ``(pk (5, nA) = [cos
+    φ_ex, sin φ_ex, M0a, M0b, b1], pkt (nE, 14, nA))``, the propagator over
+    each echo's half interval ``esp[t]/2`` (:func:`_x_step_entries`), its
+    construction under :func:`torch.utils.checkpoint.checkpoint` so that
+    autograd keeps none of its intermediates. Torch autograd of the
+    construction carries the gradients of every input (the rates, ``esp``
+    and every element of a train, ``M0a``/``M0b`` through the initial state
+    and the recovery ``ra``/``rb``, ``dfb``, ``phi_ex``, ``b1``) back from
+    the rows'."""
     kw = dict(T1a=T1a, T2a=T2a, T1b=T1b, T2b=T2b, kab=kab, kba=kba, M0a=M0a,
               M0b=M0b, dfb=dfb, phi_ex=phi_ex, b1=b1)
     dtype, device = _common(flips, esp, *kw.values())
@@ -1059,9 +1066,10 @@ def _xcpmg_rows(flips, *, T1a, T2a, T1b, T2b, kab, kba, esp, M0a=1.0,
     if flips.ndim != 1:
         raise ValueError('the kernels take a shared (nEcho,) flip train, got '
                          f'{tuple(flips.shape)}')
+    nE = flips.shape[0]
     esp = arr(esp)
-    if esp.ndim != 0:
-        raise ValueError('the kernels take a scalar esp, got '
+    if esp.ndim != 0 and tuple(esp.shape) != (nE,):
+        raise ValueError(f'esp must be a scalar or a ({nE},) train, got '
                          f'{tuple(esp.shape)}')
     batch = torch.broadcast_shapes(*(_shape(x) for x in kw.values()
                                      if x is not None))
@@ -1071,16 +1079,25 @@ def _xcpmg_rows(flips, *, T1a, T2a, T1b, T2b, kab, kba, esp, M0a=1.0,
     coef = torch.stack([torch.cos(flips / 2) ** 2, torch.sin(flips / 2) ** 2,
                         torch.sin(flips), torch.cos(flips), flips])
     M0a, M0b, phi, b1v = rates[6], rates[7], rates[9], rates[10]
-    pk = torch.stack(_x_entries(*rates[:9], esp / 2)
-                     + [torch.cos(phi), torch.sin(phi), M0a, M0b, b1v])
-    cfg = kepgx.XcpmgCfg(K=flips.shape[0] + 1, has_b1=b1 is not None)
+    rest = [torch.cos(phi), torch.sin(phi), M0a, M0b, b1v]
+    if esp.ndim == 0:
+        pk = torch.stack(_x_entries(*rates[:9], esp / 2) + rest)
+    else:
+        pkt = torch.utils.checkpoint.checkpoint(
+            _x_step_entries, *rates[:9], esp / 2, use_reentrant=False)
+        pk = (torch.stack(rest), pkt)
+    cfg = kepgx.XcpmgCfg(K=nE + 1, has_b1=b1 is not None)
     return coef, pk, cfg, batch
 
 
 def _xcpmg_kernels(flips, **kw):
     r"""The kernels' route: :func:`_xcpmg_rows`, then
-    :func:`mrphy_tpu_torch.kernels.epgx.xcpmg` (the kernels' plain versions
-    on CPU tensors)."""
+    :func:`mrphy_tpu_torch.kernels.epgx.xcpmg` at a scalar ``esp`` or
+    :func:`~mrphy_tpu_torch.kernels.epgx.xcpmg_v` over a ``(nE,)`` train
+    (the kernels' plain versions on CPU tensors)."""
     coef, pk, cfg, batch = _xcpmg_rows(flips, **kw)
-    er, ei = kepgx.xcpmg(coef, pk, cfg)               # (nE, nA) each
+    if isinstance(pk, tuple):
+        er, ei = kepgx.xcpmg_v(coef, *pk, cfg)        # (nE, nA) each
+    else:
+        er, ei = kepgx.xcpmg(coef, pk, cfg)
     return torch.stack([er.T, ei.T], -1).reshape(batch + (cfg.K - 1, 2))

@@ -29,14 +29,12 @@ port has no counterpart and no such gate: the H100 adjoints ``spgr_bwd``
 and ``cpmg_bwd`` keep their per-chunk scratch in device memory and shorten
 the chunk to fit a fixed budget
 (:func:`mrphy_tpu_torch.kernels.epg.pick_tc`), so each takes every instance
-its forward takes; so do ``xspgr_bwd``'s, ``xspgr_v_bwd``'s and
-``xcpmg_bwd``'s, their chunk fitted for the two-pool state's 12 planes.
-``epgx_spgr`` takes its kernels at a scalar ``tr`` and over a ``(nTR,)``
-``tr`` train alike (the variable-TR instances ``xspgr_v_*`` stream each
-step's propagator). ``epgx_cpmg`` takes its kernels at a scalar ``esp``;
-over a ``(nE,)`` ``esp`` train on CUDA tensors it raises
-:class:`NotImplementedError` under ``'auto'`` and ``'cuda'`` (its kernels
-are slice 10f), and ``'torch'`` runs the plain route on any device.
+its forward takes; so do ``xspgr_bwd``'s, ``xspgr_v_bwd``'s,
+``xcpmg_bwd``'s and ``xcpmg_v_bwd``'s, their chunk fitted for the two-pool
+state's 12 planes. ``epgx_spgr`` takes its kernels at a scalar ``tr`` and
+over a ``(nTR,)`` ``tr`` train alike (the variable-TR instances
+``xspgr_v_*`` stream each step's propagator), and so does ``epgx_cpmg`` at
+a scalar ``esp`` and over a ``(nE,)`` ``esp`` train (``xcpmg_v_*``).
 
 ``epg_spgr``, ``epg_cpmg``, ``epgx_spgr`` and ``epgx_cpmg`` are ported;
 the other families raise :class:`NotImplementedError` naming the slice of
@@ -158,17 +156,15 @@ def _decide_epgx_cpmg(kw, backend):
     fallback, nE = _per_voxel(kw, backend)
     if fallback:
         return fallback
-    if len(_shape(kw.get('esp'))) == 1:
-        raise NotImplementedError(
-            "epgx_cpmg over a (nE,) esp train has no kernels in "
-            "mrphy_tpu_torch yet (slice 10f of ROADMAP.md queue 1); "
-            "backend='torch' runs its plain route on any device")
     nA = _n_atoms(kw, ('T1a', 'T2a', 'T1b', 'T2b', 'kab', 'kba', 'M0a',
                        'M0b', 'dfb', 'phi_ex', 'b1'))
+    v = '_v' if len(_shape(kw.get('esp'))) == 1 else ''
     return _mk('cuda-native-adjoint',
-               'xcpmg_fwd, and xcpmg_fwd_chk + xcpmg_bwd under a gradient '
-               '(nE=%d, K=%d, nA=%d; the adjoint chunk tc=%d in float32)'
-               % (nE, nE + 1, nA, pick_tc(nE, nE + 1, nA, 4, PLANES)))
+               'xcpmg%s_fwd, and xcpmg%s_fwd_chk + xcpmg%s_bwd under a '
+               'gradient (nE=%d, K=%d, nA=%d%s; the adjoint chunk tc=%d in '
+               'float32)' % (v, v, v, nE, nE + 1, nA,
+                             ', variable esp (per-step propagators)' if v
+                             else '', pick_tc(nE, nE + 1, nA, 4, PLANES)))
 
 
 _DECIDERS = {'epg_spgr': _decide_epg_spgr, 'epg_cpmg': _decide_epg_cpmg,

@@ -26,6 +26,12 @@ __all__ = ['blochsim_1step', 'blochsim', 'blochsim_ab',
            'mc_propagators', 'freeprec']
 
 
+def _refuse_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError('mesh= (multi-device runs) is not ported '
+                                  'to mrphy_tpu_torch yet')
+
+
 @kwalias(**{'γ2πdt': 'gam2pidt'})
 def blochsim_1step(M, M1, b, E1, E1_1, E2, gam2pidt):
     r"""Single Bloch step: rotation by B-effective + relaxation.
@@ -71,7 +77,8 @@ def _relaxation(M, Beff, T1, T2, dt):
 
 @kwalias(**{'γ': 'gam'})
 def blochsim(M, Beff, *, T1: Optional[torch.Tensor] = None,
-             T2: Optional[torch.Tensor] = None, gam=gamH, dt=dt0):
+             T2: Optional[torch.Tensor] = None, gam=gamH, dt=dt0,
+             mesh=None):
     r"""Bloch simulator with implicit (autograd) Jacobians.
 
     Inputs:
@@ -82,9 +89,12 @@ def blochsim(M, Beff, *, T1: Optional[torch.Tensor] = None,
           ``None`` to ignore relaxation.
         - ``gam`` (alias ``γ``): `()` ⊻ `(N ⊻ 1, *Nd ⊻ 1,)`, "Hz/Gauss".
         - ``dt``: `()` ⊻ `(N ⊻ 1,)`, "Sec".
+        - ``mesh``: multi-device runs are not ported yet (raises
+          :class:`NotImplementedError`).
     Outputs:
         - ``M``: `(N, *Nd, xyz)`, spins after the pulse.
     """
+    _refuse_mesh(mesh)
     M, Beff = torch.as_tensor(M), torch.as_tensor(Beff)
     E1, E2, E1_1 = _relaxation(M, Beff, T1, T2, dt)
     ndim = M.ndim - 1
@@ -201,7 +211,7 @@ def mc_propagators(T1a, T2a, T1b, T2b, kab, kba, Ma0, Mb0, dt):
 
 @kwalias(**{'γ': 'gam'})
 def blochsim_mc(Ma, Mb, Beff, *, T1a, T2a, T1b, T2b, kab, kba, Ma0=1.0,
-                Mb0=0.1, dfb=0.0, gam=gamH, dt=dt0):
+                Mb0=0.1, dfb=0.0, gam=gamH, dt=dt0, mesh=None):
     r"""Two-pool Bloch–McConnell simulator (magnetization transfer /
     CEST), the autograd oracle of
     :func:`mrphy_tpu_torch.ops.mc.blochsim_mc_rfgr`.
@@ -218,12 +228,15 @@ def blochsim_mc(Ma, Mb, Beff, *, T1a, T2a, T1b, T2b, kab, kba, Ma0=1.0,
         - ``T1a``/``T2a``/``T1b``/``T2b``: "Sec"; ``kab``/``kba``:
           "1/Sec"; ``Ma0``/``Mb0``: equilibria; ``dfb``: "Hz", pool-b
           chemical shift.
+        - ``mesh``: multi-device runs are not ported yet (raises
+          :class:`NotImplementedError`).
     Outputs:
         - ``(Ma, Mb)``: `(N, *Nd, xyz)` each, after all ``nT`` steps.
 
     Differentiable by autograd w.r.t. everything, the tissue and exchange
     parameters included.
     """
+    _refuse_mesh(mesh)
     Ma, Mb, Beff = (torch.as_tensor(x) for x in (Ma, Mb, Beff))
     if Ma.shape != Mb.shape:
         raise ValueError(f'Ma {tuple(Ma.shape)} and Mb {tuple(Mb.shape)} '
@@ -261,7 +274,7 @@ def blochsim_mc(Ma, Mb, Beff, *, T1a, T2a, T1b, T2b, kab, kba, Ma0=1.0,
 
 
 @kwalias(**{'Δf': 'df'})
-def freeprec(M, dur, *, T1=None, T2=None, df=None):
+def freeprec(M, dur, *, T1=None, T2=None, df=None, mesh=None):
     r"""Free precession with relaxation and off-resonance (closed form).
 
     Inputs:
@@ -271,9 +284,12 @@ def freeprec(M, dur, *, T1=None, T2=None, df=None):
         - ``T1``/``T2``: `()` ⊻ `(N ⊻ 1, *Nd ⊻ 1,)`, "Sec" (both or neither).
         - ``df`` (alias ``Δf``): `(N ⊻ 1, *Nd ⊻ 1,)`, "Hz"; positive ``df``
           dephases clockwise (negative φ).
+        - ``mesh``: multi-device runs are not ported yet (raises
+          :class:`NotImplementedError`).
     Outputs:
         - ``M``: `(N, *Nd, xyz)`.
     """
+    _refuse_mesh(mesh)
     M = torch.as_tensor(M)
     ndim = M.ndim
     dur = rshape(asarr(dur, M), ndim)

@@ -13,7 +13,7 @@ import torch
 __all__ = ['apply_girf', 'exp_decay_girf']
 
 
-def apply_girf(gr, girf):
+def apply_girf(gr, girf, *, axis_dim: int = 1):
     r"""Causally convolve gradients with per-axis impulse responses.
 
     Inputs:
@@ -21,6 +21,8 @@ def apply_girf(gr, girf):
         - ``girf``: `(3, nH)` ⊻ `(nH,)` per-axis (or shared) discrete
           impulse response at the dwell time of ``gr`` (identity:
           ``[1, 0, 0, ...]``).
+        - ``axis_dim``: accepted for the JAX package's signature and has no
+          effect (the JAX package does not use it either).
     Outputs:
         - `(N, 3, nT)`, the played gradients: ``out[..., t] =
           Σ_k girf[k]·gr[..., t-k]`` (the tail beyond nT is dropped).

@@ -127,12 +127,14 @@ def interp_matrix(t_o, t_n, kind: str = 'cubic') -> np.ndarray:
                                  kind)
 
 
-def interp1d_apply(C, y, axis: int = -1):
+def interp1d_apply(C, y, axis: int = -1, precision=None):
     r"""Apply a resampling matrix along ``axis`` of ``y``:
     ``out[..., n, ...] = Σ_t C[n, t]·y[..., t, ...]``, one matrix product
     in ``y``'s dtype on ``y``'s device (in full float32 as long as
     ``torch.backends.cuda.matmul.allow_tf32`` stays False, its default),
-    differentiable w.r.t. ``y``."""
+    differentiable w.r.t. ``y``. ``precision`` is accepted for the JAX
+    package's signature and has no effect: the product is always taken at
+    the full precision of ``y``'s dtype."""
     y = torch.as_tensor(y)
     Ct = torch.as_tensor(C, dtype=y.dtype, device=y.device)
     return torch.movedim(torch.movedim(y, axis, -1) @ Ct.T, -1, axis)

@@ -2,10 +2,10 @@ r"""The CUDA kernels of :mod:`mrphy_tpu_torch.kernels` on the card (the
 Bloch kernels, the two-pool ``mc_fwd``/``mc_bwd``, the k-space signal
 kernels ``sig_fwd``/``sig_adj``/``sig_vjp``, the gridding NUFFT's
 ``nufft_sample``/``nufft_spread``/``nufft_dk``, the EPG trains'
-``spgr_*``/``cpmg_*``/``xspgr_*``/``xspgr_v_*``/``xcpmg_*`` and the matched
-filter ``match``): each against its plain PyTorch version, the launch
-counts, the wrappers' refusals, and backward through the engines reaching
-the adjoint kernels.
+``spgr_*``/``cpmg_*``/``xspgr_*``/``xspgr_v_*``/``xcpmg_*``/``xcpmg_v_*``
+and the matched filter ``match``): each against its plain PyTorch version,
+the launch counts, the wrappers' refusals, and backward through the engines
+reaching the adjoint kernels.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.
 ``tests/conftest.py`` imports JAX; where JAX is not installed, run them
@@ -1126,8 +1126,9 @@ def test_epgx_cpmg_gradients_cuda_vs_plain(cuda, dtype):
     r"""``epgx_cpmg`` on CUDA tensors runs ``xcpmg_fwd`` for a value and
     ``xcpmg_fwd_chk`` + ``xcpmg_bwd`` under a gradient, under
     ``backend='auto'`` and ``'cuda'``; their gradients w.r.t. every input
-    meet the plain route's; an ``(nE,)`` esp train raises naming slice 10f
-    and a per-voxel 2-D train is refused under ``'cuda'``;
+    meet the plain route's; an ``(nE,)`` esp train runs the echo-spacing
+    kernels (``xcpmg_v_fwd``, or ``xcpmg_v_fwd_chk`` + ``xcpmg_v_bwd``)
+    under both, and a per-voxel 2-D train is refused under ``'cuda'``;
     ``backend='cuda'`` refuses CPU tensors."""
     from mrphy_tpu_torch.kernels import epgx as kx
     from mrphy_tpu_torch.ops import epg
@@ -1159,12 +1160,121 @@ def test_epgx_cpmg_gradients_cuda_vs_plain(cuda, dtype):
             _rows_close(x, y, bar)
     esps = torch.full((24,), 0.012, dtype=dtype, device=cuda)
     for backend in ('auto', 'cuda'):
-        with pytest.raises(NotImplementedError, match='10f'):
-            epg.epgx_cpmg(**dict(kw, esp=esps), backend=backend)
-    epg.epgx_cpmg(**dict(kw, esp=esps), backend='torch')
+        n0 = dict(kx.LAUNCHES)
+        with torch.no_grad():
+            out = epg.epgx_cpmg(**dict(kw, esp=esps), backend=backend)
+        assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+            dict.fromkeys(kx.LAUNCHES, 0), xcpmg_v_fwd=1)
+        _rows_close(out, epg.epgx_cpmg(**dict(kw, esp=esps),
+                                       backend='torch'), bar)
     with pytest.raises(ValueError, match='per-voxel trains'):
         epg.epgx_cpmg(**dict(kw, flips=kw['flips'].expand(70, 24)),
                       backend='cuda')
     with pytest.raises(ValueError, match='CUDA tensors'):
         epg.epgx_cpmg(kw['flips'].cpu(), T1a=1.0, T2a=0.08, T1b=0.4,
                       T2b=0.015, kab=0.3, kba=3.0, esp=0.01, backend='cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows', [(torch.float32, 2e-6, 1e-4),
+                                            (torch.float64, 1e-12, 1e-12)])
+@pytest.mark.parametrize('nA,nE,b1,tc', [
+    (333, 32, True, 4), (200, 12, False, 3), (65, 24, True, 1),
+    (47, 160, False, 40)],
+    ids=['mwf-train-b1', 'plain-train', 'b1-tc1',
+         'long-train-device-memory-state'])
+def test_xcpmg_v_kernels_vs_plain_on_card(cuda, dtype, bar, rows, nA, nE,
+                                          b1, tc):
+    r"""``xcpmg_v_fwd``, ``xcpmg_v_fwd_chk`` and ``xcpmg_v_bwd`` against
+    their plain versions on the card over an esp train of 8-18 ms (per-atom
+    outputs, ``dpkt`` per atom and echo among them, at ``bar``: bit for bit
+    expected; the adjoint's per-echo rows at ``rows`` of their largest
+    value), over several chunks; the launch counts; the refusals."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    kw = _xcpmg_case(cuda, dtype, nA, nE, b1, 53)
+    esps = torch.as_tensor(np.random.default_rng(8).uniform(0.008, 0.018, nE),
+                           dtype=dtype, device=cuda)
+    coef, (pk, pkt), cfg, _ = epg._xcpmg_rows(kw.pop('flips'), **kw,
+                                              esp=esps)
+    coef, pk, pkt = coef.contiguous(), pk.contiguous(), pkt.contiguous()
+    n0 = dict(kx.LAUNCHES)
+    er, ei = kx.xcpmg_v_fwd(coef, pk, pkt, cfg)
+    er2, ei2, chk = kx.xcpmg_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)
+    rng = np.random.default_rng(3)
+    gr, gi = (torch.as_tensor(rng.standard_normal((nE, nA)), dtype=dtype,
+                              device=cuda) for _ in range(2))
+    dcoef, dpk, dpkt = kx.xcpmg_v_bwd(coef, pk, pkt, cfg, chk, gr, gi, tc=tc)
+    torch.cuda.synchronize()
+    assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+        dict.fromkeys(kx.LAUNCHES, 0), xcpmg_v_fwd=1, xcpmg_v_fwd_chk=1,
+        xcpmg_v_bwd=1)
+    er_p, ei_p, chk_p = kx.xcpmg_v_fwd_chk_torch(coef, pk, pkt, cfg, tc=tc)
+    dcoef_p, dpk_p, dpkt_p = kx.xcpmg_v_bwd_torch(coef, pk, pkt, cfg, chk_p,
+                                                  gr, gi, tc=tc)
+    assert dpk.shape == (5, nA) and dpkt.shape == (nE, 14, nA)
+    for x, y in ((er, er_p), (ei, ei_p), (er2, er_p), (ei2, ei_p),
+                 (chk, chk_p), (dpk, dpk_p), (dpkt, dpkt_p)):
+        _rows_close(x, y, bar)
+    _rows_close(dcoef, dcoef_p, rows)
+    with pytest.raises(ValueError, match='pkt'):
+        kx.xcpmg_v_fwd(coef, pk, pkt[1:], cfg)
+    with pytest.raises(ValueError, match='pk'):
+        kx.xcpmg_v_fwd(coef, pk[:4].contiguous(), pkt, cfg)
+    with pytest.raises(TypeError):
+        kx.xcpmg_v_fwd(coef.half(), pk.half(), pkt.half(), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_xcpmg_v_constant_train_equals_xcpmg_on_card(cuda, dtype):
+    r"""Over a constant ``(nE,)`` train the echo-spacing kernels' echoes
+    equal the fixed-spacing kernel's (``xcpmg_fwd``) at the same scalar esp
+    (bit for bit expected: the planes repeat the per-atom rows)."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    kw = _xcpmg_case(cuda, dtype, 150, 32, True, 59)
+    fl = kw.pop('flips')
+    coef, pk, cfg, _ = epg._xcpmg_rows(fl, **kw, esp=0.01)
+    coef_v, (pk5, pkt), cfg_v, _ = epg._xcpmg_rows(
+        fl, **kw, esp=torch.full((32,), 0.01, dtype=dtype, device=cuda))
+    assert cfg_v == cfg
+    er, ei = kx.xcpmg_fwd(coef.contiguous(), pk.contiguous(), cfg)
+    er_v, ei_v = kx.xcpmg_v_fwd(coef_v, pk5.contiguous(), pkt, cfg)
+    _rows_close(er_v, er, 2e-6 if dtype == torch.float32 else 1e-12)
+    _rows_close(ei_v, ei, 2e-6 if dtype == torch.float32 else 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_epgx_cpmg_esp_train_gradients_cuda_vs_plain(cuda, dtype):
+    r"""``epgx_cpmg`` over an ``(nE,)`` esp train on CUDA tensors runs
+    ``xcpmg_v_fwd_chk`` + ``xcpmg_v_bwd`` under a gradient, under
+    ``backend='auto'`` and ``'cuda'``; the gradients w.r.t. every input,
+    each element of the train among them, meet the plain route's."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    names = ('flips', 'T1a', 'T2a', 'T1b', 'T2b', 'kab', 'kba', 'esp', 'M0a',
+             'M0b', 'dfb', 'phi_ex', 'b1')
+    kw = _xcpmg_case(cuda, dtype, 70, 24, True, 61)
+    kw['esp'] = torch.as_tensor(
+        np.random.default_rng(6).uniform(0.008, 0.018, 24), dtype=dtype,
+        device=cuda)
+    w = torch.as_tensor(np.random.default_rng(5).standard_normal((70, 24, 2)),
+                        dtype=dtype, device=cuda)
+    grads = []
+    for backend in ('auto', 'cuda', 'torch'):
+        xs = {n: kw[n].detach().clone().requires_grad_() for n in names}
+        n0 = dict(kx.LAUNCHES)
+        out = epg.epgx_cpmg(**dict(kw, **xs), backend=backend)
+        grads.append(torch.autograd.grad((w * out).sum(), list(xs.values())))
+        launched = {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES}
+        assert launched == dict(
+            dict.fromkeys(kx.LAUNCHES, 0),
+            **({'xcpmg_v_fwd_chk': 1, 'xcpmg_v_bwd': 1}
+               if backend != 'torch' else {}))
+    bar = 1e-4 if dtype == torch.float32 else 1e-10
+    assert grads[0][names.index('esp')].shape == (24,)
+    for g in grads[:2]:
+        for n, x, y in zip(names, g, grads[2]):
+            _rows_close(x, y, bar)

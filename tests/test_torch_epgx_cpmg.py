@@ -369,13 +369,17 @@ class TestRouting:
                       **dict(self.KW, T2a=np.zeros(nA)), esp=0.01)
             assert f'nA={nA}; the adjoint chunk tc={tc} ' in r['reason']
             assert kepg.pick_tc(32, 33, nA, 4, kepgx.PLANES) == tc
-        # an (nE,) esp train on the card: no kernels yet, under 'auto' and
-        # 'cuda' alike; 'torch' runs the plain route
+        # an (nE,) esp train on the card: the echo-spacing kernels under
+        # 'auto' and 'cuda' alike; 'torch' runs the plain route
         monkeypatch.setattr(routing, '_on_cuda', lambda kw: True)
         for backend in ('auto', 'cuda'):
-            with pytest.raises(NotImplementedError, match='10f'):
-                route('epgx_cpmg', backend=backend, flips=self.FL,
-                      **self.KW, esp=self.ESPS)
+            r = route('epgx_cpmg', backend=backend, flips=self.FL, **self.KW,
+                      esp=self.ESPS)
+            assert r['path'] == 'cuda-native-adjoint' and r['fused']
+            assert r['reason'].startswith(
+                'xcpmg_v_fwd, and xcpmg_v_fwd_chk + xcpmg_v_bwd under a '
+                'gradient (nE=32, K=33, nA=100, variable esp (per-step '
+                'propagators); the adjoint chunk tc=32 '), r['reason']
         assert route('epgx_cpmg', backend='torch', flips=self.FL, **self.KW,
                      esp=self.ESPS)['path'] == 'torch'
         # per-voxel 2-D trains: the plain route under 'auto' on the card,
@@ -394,7 +398,7 @@ class TestRouting:
         fl = torch.as_tensor(self.FL)
         with pytest.raises(ValueError, match='CUDA tensors'):
             tepg.epgx_cpmg(fl, **self.KW, esp=0.01, backend='cuda')
-        with pytest.raises(NotImplementedError, match='10f'):
+        with pytest.raises(ValueError, match='CUDA tensors'):
             tepg.epgx_cpmg(fl, **self.KW, esp=torch.as_tensor(self.ESPS),
                            backend='cuda')
         with pytest.raises(NotImplementedError, match='mesh'):
@@ -404,7 +408,9 @@ class TestRouting:
 
     def test_kernel_wrappers_refuse(self):
         r"""The kernels' arguments are checked before any launch: ``pk``'s
-        rows, ``K`` ≥ 2, a chunk that divides the train."""
+        rows, ``K`` ≥ 2, a chunk that divides the train; an ``(nE,)`` esp
+        gives the echo-spacing kernels' pair ``(pk (5, nA), pkt (nE, 14,
+        nA))``, the planes at half of each spacing."""
         coef, pk, cfg, _ = tepg._xcpmg_rows(torch.as_tensor(self.FL[:6]),
                                             **self.KW, esp=0.01)
         with pytest.raises(ValueError, match=r'pk must be \(19, nA\)'):
@@ -413,6 +419,14 @@ class TestRouting:
             kepgx._xcpmg_sizes('xcpmg_fwd', coef, pk, cfg._replace(K=1))
         with pytest.raises(ValueError, match='must divide'):
             kepgx.xcpmg_fwd_chk(coef, pk, cfg, tc=4)
-        with pytest.raises(ValueError, match='scalar esp'):
-            tepg._xcpmg_rows(torch.as_tensor(self.FL[:6]), **self.KW,
-                             esp=torch.as_tensor(self.ESPS[:6]))
+        esps = torch.as_tensor(self.ESPS[:6])
+        coef_v, (pk5, pkt), cfg_v, _ = tepg._xcpmg_rows(
+            torch.as_tensor(self.FL[:6]), **self.KW, esp=esps)
+        assert cfg_v == cfg and torch.equal(coef_v, coef)
+        assert pk5.shape == (5, 100) and torch.equal(pk5, pk[14:])
+        kw = {n: torch.broadcast_to(torch.as_tensor(v, dtype=torch.float64),
+                                    (100,))
+              for n, v in self.KW.items()}
+        zero = torch.zeros(100, dtype=torch.float64)
+        assert torch.equal(pkt, tepg._x_step_entries(
+            *kw.values(), pk[16], pk[17], zero, esps / 2))

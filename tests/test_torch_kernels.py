@@ -353,6 +353,168 @@ def test_top_level_names_and_flat_paths_match_jax():
                 getattr(tm, name), name
 
 
+# The deliberate differences of the port's public signatures from the JAX
+# package's (the port's name → the differences, as _sig_diffs spells them).
+# Everywhere: a constructor or entry point may add `device=` (the port's
+# objects and arrays default to the CUDA card) and drops the JAX-only
+# `_pallas_interpret` switch of the TPU kernels.
+SIG_DIFFS_EVERYWHERE = {'port only: device', 'JAX only: _pallas_interpret'}
+SIG_DIFFS = {
+    # the port's backends are 'auto' | 'torch' | 'cuda'; 'auto' takes the
+    # kernels on CUDA tensors, as JAX's 'xla' default does not
+    **{f'ops.epg.{n}': {'default: backend'}
+       for n in ('epg_spgr', 'epg_cpmg', 'epgx_spgr', 'epgx_cpmg')},
+    'ops.routing.route': {'default: backend'},
+    'models.mobjs.SpinArray.acquire': {'default: backend'},
+    'models.mobjs.SpinCube.acquire': {'default: backend'},
+    'ops.signal.signal': {'default: backend'},
+    'ops.signal.signal_adjoint': {'default: backend'},
+    # a port-only name: the kernels' argument planes of a signal call
+    'ops.signal.signal_planes': {'port only'},
+    # the gridding plan: 'auto' takes the kernels; the TPU's real-pair DFT
+    # matrices are not carried (torch.fft)
+    'ops.nufft.NufftPlan': {'default: interp', 'JAX only: dft_re',
+                            'JAX only: dft_im'},
+    # the kernels' geometry of a plan
+    'ops.nufft.NufftPlan.geom': {'port only'},
+    # the schedule's dtype (JAX's follows its x64 switch)
+    'ops.epg.rf_spoil_phases': {'port only: dtype'},
+    # torch.optim keeps its own state; an optimizer is built over its
+    # parameters; the loss's options ride in `args`
+    'design.joint.design_step': {'JAX only: opt_state', 'JAX only: kw'},
+    'design.joint.make_optimizer': {'port only: params'},
+    # torch.Generator in place of a JAX PRNG key
+    **{f'utils.coils.{n}': {'port only: generator', 'JAX only: key'}
+       for n in ('add_noise', 'gfactor_replica', 'replica_std')},
+    # passes every keyword of SpinArray.applypulse on through **kw
+    'models.mobjs.SpinBolus.applypulse': {
+        f'JAX only: {n}' for n in ('doEmbed', 'doRelax', 'doUpdate', 'mesh',
+                                   'loc', 'loc_', 'b1Map', 'b1Map_')},
+    # no TPU in the port (`is_cuda` stays)
+    'models.mobjs.Pulse.is_tpu': {'JAX only'},
+    'models.mobjs.SpinArray.is_tpu': {'JAX only'},
+}
+
+
+def _default(v):
+    r"""A parameter's default, dtypes by name (``torch.float32`` and
+    ``jnp.float32`` are both ``'float32'``)."""
+    if isinstance(v, torch.dtype):
+        return str(v).removeprefix('torch.')
+    if isinstance(v, type) and hasattr(v, 'dtype'):
+        return np.dtype(v).name
+    return v
+
+
+def _sig_diffs(t, j):
+    r"""The differences of two callables' parameters: names on one side
+    only, kinds, defaults and the order of the shared names."""
+    import inspect
+    tp, jp = (inspect.signature(f).parameters for f in (t, j))
+    out = {f'port only: {n}' for n in tp if n not in jp}
+    out |= {f'JAX only: {n}' for n in jp if n not in tp}
+    for n in set(tp) & set(jp):
+        if tp[n].kind != jp[n].kind:
+            out.add(f'kind: {n}')
+        a, b = _default(tp[n].default), _default(jp[n].default)
+        if type(a) is not type(b) or (a != b and a == a):  # NaN = NaN
+            out.add(f'default: {n}')
+    if [n for n in tp if n in jp] != [n for n in jp if n in tp]:
+        out.add('order')
+    return out
+
+
+def _public_callables():
+    r"""``(name, port object, JAX object or None)`` for every callable in
+    ``__all__`` of each module of the port that has a counterpart in the
+    JAX package (private modules and the port-only ``kernels`` and
+    ``interop`` aside; a name a package re-exports is held where it is
+    defined), and for each public method and property of the classes
+    among them."""
+    import importlib
+    import inspect
+    import pkgutil
+    import mrphy_tpu_torch as tm
+    for info in pkgutil.walk_packages(tm.__path__, 'mrphy_tpu_torch.'):
+        rel = info.name.removeprefix('mrphy_tpu_torch.')
+        if rel.split('.')[0] in ('kernels', 'interop') or any(
+                p.startswith('_') for p in rel.split('.')):
+            continue
+        tmod = importlib.import_module(info.name)
+        jmod = importlib.import_module(f'mrphy_tpu.{rel}')
+        for n in getattr(tmod, '__all__', ()):
+            t, j = getattr(tmod, n), getattr(jmod, n, None)
+            if not callable(t) or getattr(t, '__module__',
+                                          info.name) != info.name:
+                continue
+            yield f'{rel}.{n}', t, j
+            if inspect.isclass(t) and j is not None:
+                for m in sorted(set(vars(t)) | set(vars(j))):
+                    if m.startswith('_'):
+                        continue
+                    tm_, jm_ = getattr(t, m, None), getattr(j, m, None)
+                    if tm_ is None or jm_ is None or callable(tm_):
+                        yield f'{rel}.{n}.{m}', tm_, jm_
+
+
+def test_public_signatures_match_jax():
+    r"""Every public function, class and method of the port takes the JAX
+    package's parameters (names, kinds, defaults, order), less the
+    deliberate differences of SIG_DIFFS, each of which must still hold."""
+    seen, bad = set(), {}
+    for name, t, j in _public_callables():
+        if t is None or j is None:
+            diffs = {'port only' if j is None else 'JAX only'}
+        else:
+            try:
+                diffs = _sig_diffs(t, j) - SIG_DIFFS_EVERYWHERE
+            except (TypeError, ValueError):      # no signature: attributes
+                continue
+        if diffs != SIG_DIFFS.get(name, set()):
+            bad[name] = sorted(diffs)
+        seen.add(name)
+    assert not bad, bad
+    assert set(SIG_DIFFS) <= seen, set(SIG_DIFFS) - seen
+    assert {'ops.slowsims.blochsim', 'ops.slowsims.blochsim_mc',
+            'ops.slowsims.freeprec', 'utils.girf.apply_girf',
+            'utils.interp.interp1d_apply', 'models.mobjs.SpinCube'} <= seen
+
+
+@pytest.mark.parametrize('call', ['blochsim', 'blochsim_mc', 'freeprec'])
+def test_slowsims_take_mesh_none(call):
+    r"""The autodiff oracles take ``mesh=None`` as JAX's do and refuse a
+    mesh with the message of every other entry point."""
+    from mrphy_tpu_torch.ops import slowsims
+    M = torch.tensor([[0.0, 0.0, 1.0]], dtype=torch.float64)
+    B = torch.full((1, 3, 3), 0.01, dtype=torch.float64)
+    args = {'blochsim': ((M, B), {}),
+            'blochsim_mc': ((M, 0.1 * M, B),
+                            dict(T1a=1.0, T2a=0.1, T1b=1.0, T2b=0.01,
+                                 kab=1.0, kba=10.0)),
+            'freeprec': ((M, 0.01), dict(T1=1.0, T2=0.1))}[call]
+    fn = getattr(slowsims, call)
+    out = fn(*args[0], **args[1])
+    out2 = fn(*args[0], **args[1], mesh=None)
+    for a, b in zip(out if isinstance(out, tuple) else (out,),
+                    out2 if isinstance(out2, tuple) else (out2,)):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match='mesh'):
+        fn(*args[0], **args[1], mesh=object())
+
+
+def test_apply_girf_axis_dim_and_interp_precision_have_no_effect():
+    r"""``apply_girf(axis_dim=)`` and ``interp1d_apply(precision=)`` are
+    accepted, as JAX's, and change nothing."""
+    from mrphy_tpu_torch.utils import apply_girf, interp1d_apply
+    rng = np.random.default_rng(0)
+    gr = torch.as_tensor(rng.standard_normal((2, 3, 16)))
+    h = torch.as_tensor([0.7, 0.2, 0.1], dtype=torch.float64)
+    assert torch.equal(apply_girf(gr, h, axis_dim=1), apply_girf(gr, h))
+    C = torch.as_tensor(rng.standard_normal((5, 16)))
+    assert torch.equal(interp1d_apply(C, gr, -1, precision='highest'),
+                       interp1d_apply(C, gr))
+
+
 def test_epg_and_mrf_names():
     r"""``epg.__all__`` and ``mrf.__all__`` are the names the slices so far
     port, each a name of the JAX module."""
