@@ -314,6 +314,38 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     the log pools at 1e-9; (c) after the launch counts of (a) and (b) are
     read, the forward's parts timed apart: the kernels' arguments, the
     per-echo planes among them, and ``xcpmg_v_fwd`` alone.
+29. The balanced-SSFP kernels ``bssfp_fwd``, ``bssfp_fwd_chk`` and
+    ``bssfp_bwd`` against their plain versions on the arguments
+    ``ops.ssfp.bssfp_train`` gives them (``BSSFP_CASES``: ``coef`` and
+    ``pk``): ``bench_bssfp_fit``'s shape (1,048,576 voxels × 200 TRs at tr
+    4–6 ms, float32; all three timed with their bounds) and ``bench_mrf``'s
+    bSSFP dictionary (65,536 × 400, tr 10–13 ms, df ±80 Hz; ``bssfp_fwd``,
+    timed); a constant tr with per-atom b1, the α/2-catalysed 201-TR train
+    over three chunks, a ragged atom count with b1, tr and te trains and
+    explicit phases at tc 1, and float64 instances of the b1 and
+    catalysed cases. Per-atom outputs (echoes, checkpoints, ``dpk``) at
+    ``EPG_BAR`` (bit for bit expected), the per-TR rows at
+    ``BSSFP_ROW_BAR``.
+30. The balanced-SSFP path through ``bssfp_train``: (a) ``BSSFP_FIT``, the
+    direct bSSFP fit at ``bench_bssfp_fit``'s width: the forward at the
+    truth in voxels per second, the first step's gradients on 16,384
+    voxels against the plain route at 1e-5, 5 Adam steps of
+    ``examples/bssfp_fit.py``'s parameters (s per step, voxel-TRs per
+    second, peak memory; the loss must fall); (b) ``examples/bssfp_fit.py``
+    at its defaults in float64 through the float64 kernels against the JAX
+    package's results (literals below, from
+    ``tests/make_bssfp_goldens.py``): the data, the first loss and its
+    gradient at 1e-10, the 400 Adam steps' losses and fitted maps at 100×
+    JAX's own response to a 1-ulp change of the data (``BSSFP_EX_BAR``),
+    and the example's asserts; (c) ``examples/mrf_dictionary.py --seq
+    bssfp`` in float64 (the constant-TR kernels; ``match``; the refinement
+    through ``bssfp_fwd_chk`` + ``bssfp_bwd``) against JAX's results: the
+    dictionary and m0 at 1e-10, the rank and matched atoms equal, the
+    refined parameters and score at rtol 1e-8 and the fit as the example
+    prints it; ``bssfp_steady`` against the last echo of a 6000-TR train
+    over ``examples/bssfp_banding.py``'s tissue at 33 df (1e-10); (d)
+    after the launch counts are read, 30a's forward split into the
+    kernels' arguments, ``bssfp_fwd`` alone and the echoes' layout.
 
 Launch counts are zeroed right before the forward path (phase 4) and read
 after it (``rfgr_fwd``, ``beff_fwd`` must have launched), zeroed again
@@ -334,8 +366,10 @@ variable TR (phase 24; ``xspgr_v_fwd``, ``xspgr_v_fwd_chk``,
 myelin-water path (phase 26; ``xcpmg_fwd``, ``xcpmg_fwd_chk`` and
 ``xcpmg_bwd`` must have launched), and again before the myelin-water path
 over an esp train (phase 28; ``xcpmg_v_fwd``, ``xcpmg_v_fwd_chk`` and
-``xcpmg_v_bwd`` must have launched). The comparisons with the plain
-versions (phases 2, 3, 5, 6, 9, 10, 12, 14, 16, 17, 19, 21, 23, 25, 27) run
+``xcpmg_v_bwd`` must have launched), and again before the balanced-SSFP
+path (phase 30; ``bssfp_fwd``, ``bssfp_fwd_chk``, ``bssfp_bwd`` and
+``match`` must have launched). The comparisons with the plain versions
+(phases 2, 3, 5, 6, 9, 10, 12, 14, 16, 17, 19, 21, 23, 25, 27, 29) run
 before and are not counted.
 
 The line before the last is one JSON object with each kernel's launches
@@ -344,9 +378,9 @@ bytes of its timed float32 case (inputs read once, outputs written once)
 over 3.35 TB/s and the arithmetic of its plain version on the same
 inputs (:func:`count_ops`) over 67 TFLOP/s; ``library_ms`` is null, as no
 single PyTorch call computes a Bloch simulation, the off-resonance- and
-decay-weighted non-uniform encoding, the NUFFT's trajectory cotangent
-or an EPG train; for the NUFFT's sample and spread it is the time of
-``torch.sparse.mm`` of the interpolation matrix (cuSPARSE), for the
+decay-weighted non-uniform encoding, the NUFFT's trajectory cotangent,
+an EPG train or a bSSFP train; for the NUFFT's sample and spread it is the
+time of ``torch.sparse.mm`` of the interpolation matrix (cuSPARSE), for the
 matched filter that of one ``torch.matmul`` per probe chunk against the
 stacked atoms, then ``amax``/``argmax``; the port calls neither. The
 NUFFT rows add ``sector_ms``, the gather's 32-byte-sector traffic over
@@ -814,6 +848,13 @@ KERNELS = {
         replaces='mrphy_tpu/ops/epg_pallas.py:3586'),
     'xcpmg_v_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xcpmg_bwd.cu',
                         replaces='mrphy_tpu/ops/epg_pallas.py:3620'),
+    'bssfp_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/bssfp_fwd.cu',
+                      replaces='mrphy_tpu/ops/ssfp_pallas.py:227'),
+    'bssfp_fwd_chk': dict(
+        source='mrphy_tpu_torch/kernels/csrc/bssfp_fwd.cu',
+        replaces='mrphy_tpu/ops/ssfp_pallas.py:581'),
+    'bssfp_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/bssfp_bwd.cu',
+                      replaces='mrphy_tpu/ops/ssfp_pallas.py:619'),
 }
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
@@ -5082,6 +5123,570 @@ def mwf_v_example(dev):
                          / gold['grad_max'][k] for k in c['start']))
 
 
+# ==========================================================================
+# The balanced-SSFP family (phases 29-30)
+# ==========================================================================
+
+# benchmarks/suite.py bench_bssfp_fit (lines 914-966): whole-volume direct
+# bSSFP mapping, 1,048,576 voxels × 200 variable TRs, float32: flips 10 +
+# 50·|sin(πt/60)|°; from numpy default_rng(0) in this order tr 4-6 ms, then
+# the truth's T1 0.3-2 s, T2 30-300 ms, df ±80 Hz and M0 0.7-1.2. The fit
+# (30a) takes examples/bssfp_fit.py's parameters (log T1, log T2, df / 30
+# Hz, M0) from (1 s, 100 ms, 0 Hz, 1) and its Adam (lr 0.05) on the mean
+# squared error, 5 steps; the first step's gradients are held against the
+# plain route on the first 16,384 voxels at 1e-5 of each one's largest.
+BSSFP_FIT = dict(nV=1 << 20, nTR=200, steps=5, lr=0.05, df_scale=30.0,
+                 start=dict(T1=1.0, T2=0.1, df=0.0, M0=1.0), nslice=16384,
+                 grad_bar=1e-5)
+# The per-TR rows of bssfp_bwd are sums over atoms that the plain version
+# takes in the kernel's order (warp trees, then one torch.sum over the
+# warps): bit for bit expected; the bar of the two-pool CPMG rows.
+BSSFP_ROW_BAR = {torch.float32: 5e-7, torch.float64: 1e-15}
+BSSFP_KERNELS = ('bssfp_fwd', 'bssfp_fwd_chk', 'bssfp_bwd')
+# The kernels' cases (phase 29): label, atoms, TRs, dtype, bssfp_case
+# keywords, the chunk (None: the adjoint's own, kernels/ssfp.chunk), the
+# kernels run, timed.
+BSSFP_CASES = (
+    ('bench_bssfp_fit 1M x 200, tr 4-6 ms (full width)', 1 << 20, 200,
+     torch.float32, dict(fit=True), None, BSSFP_KERNELS, True),
+    ('bench_mrf bSSFP dictionary 65,536 x 400, tr 10-13 ms, df +-80 Hz',
+     65536, 400, torch.float32, dict(mrf=True), None, ('bssfp_fwd',), True),
+    ('65,536 x 200, constant tr 5 ms, b1', 65536, 200, torch.float32,
+     dict(b1=True), None, BSSFP_KERNELS, False),
+    ('4096 x 201, alpha/2-catalysed (tc 67)', 4096, 201, torch.float32,
+     dict(cat=True), 67, BSSFP_KERNELS, False),
+    ('ragged 1001 x 48, b1, tr and te trains, phases (tc 1)', 1001, 48,
+     torch.float32, dict(b1=True, vartr=True, te=True, phis=True), 1,
+     BSSFP_KERNELS, False),
+    ('f64 65,536 x 200, constant tr 5 ms, b1', 65536, 200, torch.float64,
+     dict(b1=True), None, BSSFP_KERNELS, False),
+    ('f64 4096 x 201, alpha/2-catalysed (tc 67)', 4096, 201, torch.float64,
+     dict(cat=True), 67, BSSFP_KERNELS, False),
+)
+
+
+def bssfp_fit_arrays(nV, dev):
+    r"""BSSFP_FIT's train and truth (numpy default_rng(0), as
+    bench_bssfp_fit draws them) as float32 tensors: ``(flips, trs, truth)``,
+    ``truth`` the maps T1, T2, df, M0."""
+    nTR = BSSFP_FIT['nTR']
+    rng = np.random.default_rng(0)
+    t = np.arange(nTR)
+    flips = np.deg2rad(10 + 50 * np.abs(np.sin(np.pi * t / 60)))
+    trs = 4e-3 + 2e-3 * rng.random(nTR)
+    truth = dict(T1=rng.uniform(0.3, 2.0, nV), T2=rng.uniform(0.03, 0.3, nV),
+                 df=rng.uniform(-80, 80, nV), M0=rng.uniform(0.7, 1.2, nV))
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    return arr(flips), arr(trs), {k: arr(v) for k, v in truth.items()}
+
+
+def bssfp_case(nA, nTR, dtype, dev, *, fit=False, mrf=False, cat=False,
+               b1=False, vartr=False, te=False, phis=False, seed=0):
+    r"""``bssfp_train`` arguments ``(flips, keywords)`` (CUDA tensors).
+    ``fit``: BSSFP_FIT's train and truth; ``mrf``: bench_mrf's bSSFP
+    dictionary (benchmarks/suite.py:560-575,636-646: flips 10 +
+    50·|sin(t/40)|° + 0.01 rad noise, T1 0.2-3 s, T2 20-500 ms, df ±80 Hz,
+    tr 10-13 ms); ``cat``: examples/bssfp_fit.py's α/2-catalysed 35° train
+    at tr 5 ms and tissue; otherwise flips 0.1-1.2 rad, T1 0.3-2 s, T2
+    30-300 ms, df ±80 Hz, M0 0.7-1.2 at tr 5 ms, and as asked per-atom b1
+    (0.8-1.2), a tr train (4-6 ms), a te train (1-3 ms) and explicit
+    phases; from numpy default_rng(seed)."""
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    if fit:
+        flips, trs, truth = bssfp_fit_arrays(nA, dev)
+        return flips.to(dtype), dict({k: v.to(dtype) for k, v in
+                                      truth.items()}, tr=trs.to(dtype))
+    rng = np.random.default_rng(seed)
+    if mrf:
+        t = np.arange(nTR)
+        flips = (np.deg2rad(10 + 50 * np.abs(np.sin(t / 40.0)))
+                 + 0.01 * rng.standard_normal(nTR))
+        kw = dict(T1=rng.uniform(0.2, 3.0, nA), T2=rng.uniform(0.02, 0.5, nA),
+                  df=rng.uniform(-80, 80, nA),
+                  tr=10e-3 + 3e-3 * rng.random(nTR))
+        return arr(flips), {k: arr(v) for k, v in kw.items()}
+    if cat:
+        a = np.deg2rad(35.0)
+        flips = np.r_[a / 2, np.full(nTR - 1, a)]
+        kw = dict(T1=rng.uniform(0.6, 1.8, nA), T2=rng.uniform(0.04, 0.25, nA),
+                  df=rng.uniform(-80, 80, nA), M0=rng.uniform(0.7, 1.2, nA),
+                  tr=np.r_[2.5e-3, np.full(nTR - 1, 5e-3)])
+        return arr(flips), {k: arr(v) for k, v in kw.items()}
+    flips = rng.uniform(0.1, 1.2, nTR)
+    kw = dict(T1=rng.uniform(0.3, 2.0, nA), T2=rng.uniform(0.03, 0.3, nA),
+              df=rng.uniform(-80, 80, nA), M0=rng.uniform(0.7, 1.2, nA),
+              tr=rng.uniform(4e-3, 6e-3, nTR) if vartr else 5e-3)
+    if te:
+        kw['te'] = rng.uniform(1e-3, 3e-3, nTR)
+    if phis:
+        kw['phis'] = rng.uniform(-3, 3, nTR)
+    if b1:
+        kw['b1'] = rng.uniform(0.8, 1.2, nA)
+    return arr(flips), {k: arr(v) for k, v in kw.items()}
+
+
+def phase_bssfp_kernels(dev):
+    r"""Phase 29: ``bssfp_fwd``, ``bssfp_fwd_chk`` and ``bssfp_bwd`` against
+    their plain versions on BSSFP_CASES, on the arguments ``bssfp_train``
+    gives them (``ops.ssfp._bssfp_rows``: ``coef`` and ``pk``); the adjoint
+    is fed the kernel's checkpoints and a cotangent drawn from a seed, the
+    plain adjoint written out, with no autograd graph. bench_bssfp_fit's
+    shape is timed with its bound, bench_mrf's bSSFP dictionary
+    (``bssfp_fwd``) too. Per-atom outputs (echoes, checkpoints, ``dpk``) at
+    EPG_BAR of their largest value (bit for bit expected; the ``dpk`` rows
+    that differ are named), the per-TR rows at BSSFP_ROW_BAR. Returns each
+    kernel's rows."""
+    from mrphy_tpu_torch.kernels import ssfp as ks
+    from mrphy_tpu_torch.ops import ssfp
+    t0 = time.perf_counter()
+    rows = {n: [] for n in BSSFP_KERNELS}
+    for seed, (label, nA, nTR, dtype, kw, tc, run, timed) in enumerate(
+            BSSFP_CASES, 290):
+        flips, ckw = bssfp_case(nA, nTR, dtype, dev, seed=seed, **kw)
+        coef, pk, cfg, _ = ssfp._bssfp_rows(flips, **ckw)
+        coef, pk = coef.contiguous(), pk.contiguous()
+        tc = tc or ks.chunk(nTR, nA, coef.element_size())
+        chk = gr = gi = None
+        if 'bssfp_bwd' in run:
+            chk = ks.bssfp_fwd_chk(coef, pk, cfg, tc=tc)[2]
+            gr, gi = cotangent(torch.empty((2, nTR, nA), dtype=dtype,
+                                           device=dev), seed)
+        runs = {
+            'bssfp_fwd': (lambda: ks.bssfp_fwd(coef, pk, cfg),
+                          lambda: ks.bssfp_fwd_torch(coef, pk, cfg),
+                          (coef, pk), ('er', 'ei')),
+            'bssfp_fwd_chk': (
+                lambda: ks.bssfp_fwd_chk(coef, pk, cfg, tc=tc),
+                lambda: ks.bssfp_fwd_chk_torch(coef, pk, cfg, tc=tc),
+                (coef, pk), ('er', 'ei', 'chk')),
+            'bssfp_bwd': (
+                lambda: ks.bssfp_bwd(coef, pk, cfg, chk, gr, gi, tc=tc),
+                lambda: ks.bssfp_bwd_torch(coef, pk, cfg, chk, gr, gi,
+                                           tc=tc),
+                (coef, pk, chk, gr, gi), ('dcoef', 'dpar'))}
+        for name in run:
+            run_kernel, run_plain, inputs, names = runs[name]
+            meta = dict(case=label, nA=nA, nTR=nTR, tc=tc, vartr=cfg.vartr,
+                        b1=cfg.has_b1)
+            rows[name].append(compare_epg(
+                name, run_kernel, run_plain, inputs, names, meta, dtype,
+                timed, BSSFP_ROW_BAR))
+        del coef, pk, chk, gr, gi, ckw, flips
+    print(f'phase 29 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return rows
+
+
+def phase_bssfp_path(dev):
+    r"""Phase 30a: the balanced-SSFP path through ``ssfp.bssfp_train``, and
+    nothing else, so that the launch counts read after it are the path's
+    own: BSSFP_FIT at full width on CUDA tensors under ``backend='auto'``.
+    The forward at the truth (``bssfp_fwd``), timed in voxels per second;
+    the first fit step's gradients on BSSFP_FIT['nslice'] voxels against
+    the plain route; the fit's steps (``bssfp_fwd_chk``, the loss,
+    ``bssfp_bwd``, autograd of the rows, Adam on 4 × 1M parameters): s per
+    step, voxel-TRs per second, peak memory, the loss must fall. The
+    whole-volume forward and every fit step must each launch their kernels
+    once (the counts read around them). Returns the measurements;
+    :func:`phase_bssfp_parts` splits the forward's time after the counts
+    are read, :func:`phase_bssfp_examples` runs 30b-c."""
+    from mrphy_tpu_torch.kernels import ssfp as ks
+    from mrphy_tpu_torch.ops import ssfp
+    t0 = time.perf_counter()
+    c = BSSFP_FIT
+    nV, nTR = c['nV'], c['nTR']
+    flips, trs, truth = bssfp_fit_arrays(nV, dev)
+
+    def forward():
+        return ssfp.bssfp_train(flips, tr=trs, **truth)
+
+    with torch.no_grad():
+        n0 = dict(ks.LAUNCHES)
+        data = forward()
+        fwd_launches = {k: ks.LAUNCHES[k] - n0[k] for k in ks.LAUNCHES}
+        fwd_ms = time_ms(forward)
+    check(fwd_launches == dict(bssfp_fwd=1, bssfp_fwd_chk=0, bssfp_bwd=0),
+          f'bSSFP forward: launches {fwd_launches}')
+    check(tuple(data.shape) == (nV, nTR, 2)
+          and bool(torch.isfinite(data).all()), 'bSSFP forward finite')
+    p = {k: torch.full((nV,), np.log(v) if k in ('T1', 'T2') else v,
+                       dtype=torch.float32, device=dev).requires_grad_()
+         for k, v in c['start'].items()}
+
+    def model(sl=slice(None), backend='auto'):
+        return ssfp.bssfp_train(
+            flips, T1=torch.exp(p['T1'][sl]), T2=torch.exp(p['T2'][sl]),
+            tr=trs, df=c['df_scale'] * p['df'][sl], M0=p['M0'][sl],
+            backend=backend)
+
+    # the first step's gradients on a slice: the kernels against the plain
+    # route (autograd of its loop over TRs)
+    sl = slice(0, c['nslice'])
+    gk, gp = (torch.autograd.grad(torch.mean((model(sl, b) - data[sl]) ** 2),
+                                  list(p.values()))
+              for b in ('auto', 'torch'))
+    grad_err = max(max_err(a[sl], b[sl]) / float(b[sl].abs().max())
+                   for a, b in zip(gk, gp))
+    del gk, gp
+    opt = torch.optim.Adam(list(p.values()), lr=c['lr'])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = [], []
+    n0 = dict(ks.LAUNCHES)
+    for _ in range(c['steps']):
+        t1 = time.perf_counter()
+        opt.zero_grad()
+        loss = torch.mean((model() - data) ** 2)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(loss.detach()))
+    peak = torch.cuda.max_memory_allocated(dev)
+    fit_launches = {k: ks.LAUNCHES[k] - n0[k] for k in ks.LAUNCHES}
+    check(fit_launches == dict(bssfp_fwd=0, bssfp_fwd_chk=c['steps'],
+                               bssfp_bwd=c['steps']),
+          f'bSSFP fit: launches over {c["steps"]} steps {fit_launches}')
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f'bSSFP fit: the loss did not fall: {losses}')
+    s = statistics.median(step_s)
+    out = dict(fwd_ms=fwd_ms, fwd_voxels_per_s=nV / fwd_ms * 1e3,
+               step_s=s, steps_s=step_s, voxel_trs_per_s=nV * nTR / s,
+               peak_gb=peak / 1e9, losses=losses, grad_slice_err=grad_err,
+               fit_launches=fit_launches)
+    print('bSSFP path: ' + json.dumps(dict(
+        measured=out, bars=dict(grad_slice_err=c['grad_bar']))), flush=True)
+    check(grad_err <= c['grad_bar'],
+          f'grad_slice_err: {grad_err} > {c["grad_bar"]}')
+    print(f'phase 30a took {time.perf_counter() - t0:.1f} s', flush=True)
+    return out
+
+
+def phase_bssfp_examples(dev):
+    r"""Phases 30b-c, after 30a's launch counts are read: (b) BSSFP_EX in
+    float64 against JAX's literals (:func:`bssfp_example`); (c)
+    MRF_BSSFP_EX in float64 against JAX's literals and ``bssfp_steady``
+    against a long train (:func:`mrf_bssfp_example`). Returns the
+    measurements."""
+    t0 = time.perf_counter()
+    out = bssfp_example(dev)
+    out.update(mrf_bssfp_example(dev))
+    bars = dict(example_data=1e-10, example_loss0=1e-10, example_grad0=1e-10,
+                example_losses=BSSFP_EX_BAR['losses'],
+                example_maps=BSSFP_EX_BAR['maps'], mrf_D=1e-10, mrf_m0=1e-10,
+                mrf_p=1e-8, mrf_score=1e-8, steady_vs_train=1e-10)
+    print('bSSFP examples: ' + json.dumps(dict(measured=out, bars=bars)),
+          flush=True)
+    for key, bar in bars.items():
+        check(out[key] <= bar, f'{key}: {out[key]} > {bar}')
+    print(f'phases 30b-c took {time.perf_counter() - t0:.1f} s', flush=True)
+    return out
+
+
+def phase_bssfp_parts(dev, fwd_ms):
+    r"""Phase 30d, after phase 30a's launch counts are read: the parts of
+    30a's forward at the truth, timed apart against its whole
+    (``fwd_ms``): the kernels' arguments (``ops.ssfp._bssfp_rows``), the
+    kernel ``bssfp_fwd`` alone, and the layout of its ``(nTR, nA)`` echo
+    planes as the public ``(nA, nTR, 2)``."""
+    from mrphy_tpu_torch.kernels import ssfp as ks
+    from mrphy_tpu_torch.ops import ssfp
+    flips, trs, truth = bssfp_fit_arrays(BSSFP_FIT['nV'], dev)
+    with torch.no_grad():
+        coef, pk, cfg, _ = ssfp._bssfp_rows(flips, tr=trs, **truth)
+        er, ei = ks.bssfp_fwd(coef, pk, cfg)
+        rows_ms = time_ms(lambda: ssfp._bssfp_rows(flips, tr=trs, **truth))
+        kernel_ms = time_ms(lambda: ks.bssfp_fwd(coef, pk, cfg))
+        layout_ms = time_ms(lambda: torch.stack([er.T, ei.T], -1))
+    out = dict(fwd_ms=fwd_ms, rows_ms=rows_ms, kernel_ms=kernel_ms,
+               layout_ms=layout_ms, kernel_share=kernel_ms / fwd_ms,
+               layout_share=layout_ms / fwd_ms)
+    print('bSSFP path, the forward\'s parts: ' + json.dumps(out), flush=True)
+    return out
+
+
+# Phase 30b: examples/bssfp_fit.py at its defaults in float64: 512 voxels
+# (numpy default_rng(5): T1 0.6-1.8 s, T2 40-250 ms, df ±0.4/tr, M0
+# 0.7-1.2), the α/2-catalysed 35° train (201 TRs: tr/2, then 200 at tr 5
+# ms), 4 phase-cycle increments 2π·c/4, the catalysation echo dropped, 400
+# Adam steps (lr 0.05) on (log T1, log T2, df / 30 Hz, M0) from (1 s, 100
+# ms, 0, 1). The data entries (cycle, voxel, TR) and the voxels whose
+# gradient and fitted maps are held to JAX.
+BSSFP_EX = dict(nv=512, ntr=200, ncycles=4, tr=5e-3, flip=35.0, iters=400,
+                lr=0.05, df_scale=30.0)
+BSSFP_EX_ENTRIES = [(0, 0, 0), (0, 511, 199), (1, 17, 3), (2, 100, 50),
+                    (3, 257, 120), (3, 400, 199)]
+BSSFP_EX_VOXELS = [0, 101, 257, 511]
+BSSFP_EX_LOSS_STEPS = [0, 1, 10, 100, 399]
+BSSFP_EX_MAPS = ('T1', 'T2', 'df', 'M0')
+
+
+def bssfp_example_arrays():
+    r"""The BSSFP_EX problem's numpy float64 inputs: ``(flips, trs, dphis,
+    truth)``, ``truth`` the maps T1, T2, df, M0."""
+    c = BSSFP_EX
+    nv = c['nv']
+    rng = np.random.default_rng(5)
+    truth = dict(T1=rng.uniform(0.6, 1.8, nv), T2=rng.uniform(0.04, 0.25, nv),
+                 df=rng.uniform(-0.4, 0.4, nv) / c['tr'],
+                 M0=rng.uniform(0.7, 1.2, nv))
+    a = np.deg2rad(c['flip'])
+    flips = np.r_[a / 2, np.full(c['ntr'], a)]
+    trs = np.r_[c['tr'] / 2, np.full(c['ntr'], c['tr'])]
+    dphis = 2 * np.pi * np.arange(c['ncycles']) / c['ncycles']
+    return flips, trs, dphis, truth
+
+
+# mrphy_tpu (JAX, XLA route on the CPU), float64, on the BSSFP_EX problem
+# (tests/make_bssfp_goldens.py prints these): the data at BSSFP_EX_ENTRIES
+# (re, im) and its largest |value|, the first loss, its gradient w.r.t. the
+# fit's parameters at BSSFP_EX_VOXELS and each one's largest magnitude, the
+# losses at BSSFP_EX_LOSS_STEPS, and the fitted maps at BSSFP_EX_VOXELS.
+GOLDEN_BSSFP_FIT = {'data': [[0.5195274895085231, 0.41248015821184647],
+                             [0.18310122597783204, 0.0034868058405611115],
+                             [0.3364374012448377, 0.06031665822175888],
+                             [-0.004505058714732104, 0.17014300349700368],
+                             [-0.06790268892839915, 0.0741669447245154],
+                             [-0.20443871502749278, 0.21572553208648984]],
+                    'data_max': 1.1427463486617202,
+                    'loss0': 0.02701065684054294,
+                    'grad0': {'T1': [-2.7136759959569293e-06,
+                                     4.2060993794494414e-06,
+                                     -3.84671467188785e-06,
+                                     -4.050455696694835e-06],
+                              'T2': [2.266850044355279e-05,
+                                     4.295902113498588e-06,
+                                     1.957640355417337e-05,
+                                     2.7179606218317324e-05],
+                              'df': [-3.474908241025219e-05,
+                                     3.949315783865614e-05,
+                                     -1.89991568530565e-05,
+                                     -3.3497397453539794e-05],
+                              'M0': [4.8675214011245016e-05,
+                                     -2.258563003168992e-06,
+                                     3.9200583179385795e-05,
+                                     6.383276875922478e-05]},
+                    'grad0_max': {'T1': 8.597453134365988e-06,
+                                  'T2': 3.735073435263469e-05,
+                                  'df': 6.0043460817272735e-05,
+                                  'M0': 9.334195649181941e-05},
+                    'losses': [0.02701065684054294, 0.0245879078367995,
+                               0.015418310788331514, 7.475232705271159e-05,
+                               8.587595976539992e-07],
+                    'maps': {'T1': [1.5660035390586826, 1.5945576789402658,
+                                    1.22890098200502, 0.8375684970631238],
+                             'T2': [0.12030853311174468, 0.147896454888864,
+                                    0.05980080073336688, 0.09446980036413762],
+                             'df': [42.00175624199835, -12.808418378532972,
+                                    3.7372067903448536, 59.837193727790265],
+                             'M0': [0.8917990101618458, 1.1919537628498824,
+                                    0.8521072381507631, 1.0192513446417504]}}
+# The same script's ULP_RESPONSE: JAX's own losses and fitted maps move by
+# this much (largest relative change) when the 400 steps run on the data
+# moved one ulp. The fit converges (median map errors ~1e-8 of the truth),
+# so the maps barely move; the last loss, ~1e-6 of the first, moves most.
+# Phase 30b holds the port's at 100× the response, as 26b does. A 0.1%
+# change of the learning rate (LR_RESPONSE) moves JAX's losses by 0.34 and
+# its maps by 6.1e-10, past these bars.
+BSSFP_EX_ULP = {'losses': 9.740554002074461e-07,
+                'maps': 2.7836151429858714e-15}
+BSSFP_EX_BAR = {k: 100 * v for k, v in BSSFP_EX_ULP.items()}
+
+
+def bssfp_example(dev):
+    r"""The BSSFP_EX problem in float64 on the card against
+    GOLDEN_BSSFP_FIT, through ``bssfp_train`` over the 201-TR train per
+    phase cycle (so the float64 kernels run: ``bssfp_fwd`` for the data,
+    ``bssfp_fwd_chk`` + ``bssfp_bwd`` per cycle and iteration): the data
+    relative to its largest, the first loss relative to itself, its
+    gradient relative to each one's largest, the losses along the fit and
+    the fitted maps relative to each value (at BSSFP_EX_BAR); and the
+    example's own asserts (the loss falls 100-fold, median T1, T2 and M0
+    errors < 5%, df < 1 Hz)."""
+    from mrphy_tpu_torch.ops import ssfp
+    c, gold = BSSFP_EX, GOLDEN_BSSFP_FIT
+    f64 = dict(dtype=torch.float64, device=dev)
+    flips, trs, dphis, truth = bssfp_example_arrays()
+    flips, trs = torch.as_tensor(flips, **f64), torch.as_tensor(trs, **f64)
+
+    def echoes(m):
+        return torch.stack([ssfp.bssfp_train(flips, tr=trs, dphi=float(dp),
+                                             **m)
+                            for dp in dphis])[:, :, 1:, :]
+
+    with torch.no_grad():
+        data = echoes({k: torch.as_tensor(v, **f64)
+                       for k, v in truth.items()})
+    p = {k: torch.full((c['nv'],), np.log(v) if k in ('T1', 'T2') else v,
+                       **f64).requires_grad_()
+         for k, v in BSSFP_FIT['start'].items()}
+
+    def maps():
+        return dict(T1=torch.exp(p['T1']), T2=torch.exp(p['T2']),
+                    df=c['df_scale'] * p['df'], M0=p['M0'])
+
+    opt = torch.optim.Adam(list(p.values()), lr=c['lr'])
+    losses = []
+    for i in range(c['iters']):
+        opt.zero_grad()
+        loss = torch.mean((echoes(maps()) - data) ** 2)
+        loss.backward()
+        if i == 0:
+            g0 = {k: x.grad.cpu().numpy().copy() for k, x in p.items()}
+        opt.step()
+        losses.append(float(loss.detach()))
+    with torch.no_grad():
+        fit = {k: v.cpu().numpy() for k, v in maps().items()}
+    err = {k: float(np.median(np.abs(fit[k] - truth[k])
+                              / (1.0 if k == 'df' else truth[k])))
+           for k in BSSFP_EX_MAPS}
+    check(losses[-1] < 1e-2 * losses[0] and err['T1'] < 0.05
+          and err['T2'] < 0.05 and err['df'] < 1.0 and err['M0'] < 0.05,
+          f'example: losses {losses[0]} -> {losses[-1]}, median errors '
+          f'{err}')
+    e = data.cpu().numpy()
+    vox = BSSFP_EX_VOXELS
+
+    def rel(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+    ents = np.asarray([e[cy, v, t] for cy, v, t in BSSFP_EX_ENTRIES])
+    return dict(
+        example_data=float(np.max(np.abs(ents - gold['data'])))
+        / gold['data_max'],
+        example_loss0=rel(losses[0], gold['loss0']),
+        example_grad0=max(float(np.max(np.abs(g0[k][vox] - gold['grad0'][k])))
+                          / gold['grad0_max'][k] for k in BSSFP_EX_MAPS),
+        example_losses=rel([losses[i] for i in BSSFP_EX_LOSS_STEPS],
+                           gold['losses']),
+        example_maps=max(rel(fit[k][vox], gold['maps'][k])
+                         for k in BSSFP_EX_MAPS),
+        example_median_err=err)
+
+
+# Phase 30c: examples/mrf_dictionary.py --seq bssfp at its defaults in
+# float64: MRF_EX's 150-TR flip train at tr 12 ms (te tr/2, the alternating
+# ±x cycle) over MRF_EX's (T1, T2) grid × 15 df from −40 to 40 Hz, the probe
+# (T1 830 ms, T2 67 ms, df 13 Hz) with receive phase 0.6 and unrotated,
+# matched in the compressed space, refined by 250 Adam steps (lr 0.02) on
+# (log T1, log T2, df / 100 Hz) from the matched atom. The dictionary
+# entries (atom, TR) held to JAX. BANDING: examples/bssfp_banding.py's
+# tissue and sequence (tr 5 ms, 35°, T1 1 s, T2 80 ms, te tr/2) over 33 df
+# across ±1.5/tr, the steady state against the last echo of a 6000-TR train
+# (30 T1: the transient is below e^-30).
+MRF_BSSFP_EX = dict(ndf=15, df_max=40.0, df=13.0)
+MRF_BSSFP_ENTRIES = [(0, 0), (0, 149), (17, 3), (400, 77), (2345, 100),
+                     (5014, 149)]
+BANDING = dict(tr=5e-3, alpha=35.0, T1=1.0, T2=0.08, nf=33, ntr=6000)
+# mrphy_tpu (JAX, XLA route on the CPU), float64, on the MRF_BSSFP_EX
+# problem (tests/make_bssfp_goldens.py prints these): the dictionary at
+# MRF_BSSFP_ENTRIES and its largest |value|, the basis rank, the matched
+# atoms of the two probes and their m0, the refined parameters [log T1,
+# log T2, df/100] and the final score, and the fit as the example prints
+# it.
+GOLDEN_MRF_BSSFP = {'D': [[-0.12838788892719052, 0.008077481311252755],
+                          [-0.11486586544153689, 0.025063045392246845],
+                          [-0.7141888821014934, 0.1663593704402763],
+                          [-0.034420171555139795, 0.02129678487661311],
+                          [-0.023210669867829523, 0.13753387613835605],
+                          [0.008210350027596828, 0.07465931914936633]],
+                    'D_max': 0.869861025434327,
+                    'rank': 208,
+                    'idx': [5271, 5271],
+                    'm0': [[0.842987280899465, 0.5688917650099716],
+                           [1.0169678791314944, -0.006459788636072748]],
+                    'p': [-0.18632965133774165, -2.703062628217108,
+                          0.1299999854861315],
+                    'score': 0.9999999999999987,
+                    'printed': 'T1=830 ms, T2=67.0 ms, df=13.00 Hz'}
+
+
+def mrf_bssfp_example(dev):
+    r"""The MRF_BSSFP_EX problem in float64 on the card against
+    GOLDEN_MRF_BSSFP, through ``bssfp_train`` (``bssfp_fwd`` for the
+    dictionary and the probe, ``bssfp_fwd_chk`` + ``bssfp_bwd`` per
+    refinement step) and ``ops.mrf`` (``match``): errors relative to each
+    quantity's largest value (parameters and score: relative to each
+    value), the rank and the matched atoms equal; then BANDING's steady
+    state (``bssfp_steady``) against the last echo of its train."""
+    from mrphy_tpu_torch.ops import mrf, ssfp
+    c, b, gold = MRF_EX, MRF_BSSFP_EX, GOLDEN_MRF_BSSFP
+    f64 = dict(dtype=torch.float64, device=dev)
+    flips, _, _, T1a, T2a = (torch.as_tensor(x, device=dev) for x in
+                             mrf_example_arrays())
+    nK = T1a.shape[0]
+    T1d, T2d = T1a.repeat(b['ndf']), T2a.repeat(b['ndf'])
+    dfd = torch.as_tensor(np.repeat(np.linspace(-b['df_max'], b['df_max'],
+                                                b['ndf']), nK), **f64)
+
+    def signals(T1, T2, df):
+        return ssfp.bssfp_train(flips, T1=T1, T2=T2, tr=c['tr'], df=df)
+
+    def one(x):
+        return torch.tensor(x, **f64)
+
+    with torch.no_grad():
+        D = signals(T1d, T2d, dfd)
+        probe0 = signals(one(c['T1']), one(c['T2']), one(b['df']))
+    basis = mrf.svd_basis(D, energy=c['energy'])
+    Dc = mrf.compress(D, basis)
+    cp, sp = np.cos(c['ph']), np.sin(c['ph'])
+    probe = torch.stack([cp * probe0[..., 0] - sp * probe0[..., 1],
+                         sp * probe0[..., 0] + cp * probe0[..., 1]], -1)
+    res = mrf.dict_match_compressed(Dc, torch.stack([probe, probe0]), basis)
+    best = int(res.idx[0])
+    check([int(i) for i in res.idx] == gold['idx'],
+          f"bSSFP MRF match {res.idx.tolist()} != JAX's {gold['idx']}")
+    check(basis.B.shape[1] == gold['rank'],
+          f"bSSFP MRF rank {basis.B.shape[1]} != JAX's {gold['rank']}")
+    ents = torch.stack([D[a, t] for a, t in MRF_BSSFP_ENTRIES]).cpu().numpy()
+
+    def sig(q):
+        return signals(torch.exp(q[0]), torch.exp(q[1]), 100.0 * q[2])
+
+    p0 = torch.stack([torch.log(T1d[best]), torch.log(T2d[best]),
+                      dfd[best] / 100.0])[None]
+    p, score = mrf.match_refine(sig, p0, probe[None], iters=c['iters'],
+                                lr=c['lr'])
+    p, score = p[0].detach().cpu().numpy(), float(score[0])
+    gp = np.asarray(gold['p'])
+    printed = mrf_bssfp_printed(p)
+    check(printed == gold['printed'],
+          f"bSSFP MRF fit printed {printed!r} != JAX's {gold['printed']!r}")
+    # the steady state against the last echo of a long train
+    bd = BANDING
+    dfb = torch.linspace(-1.5 / bd['tr'], 1.5 / bd['tr'], bd['nf'], **f64)
+    a = one(np.deg2rad(bd['alpha']))
+    with torch.no_grad():
+        train = ssfp.bssfp_train(a.expand(bd['ntr']), T1=bd['T1'],
+                                 T2=bd['T2'], tr=bd['tr'], df=dfb)
+        st = ssfp.bssfp_steady(a, T1=bd['T1'], T2=bd['T2'], tr=bd['tr'],
+                               df=dfb)
+    return dict(
+        mrf_D=float(np.abs(ents - np.asarray(gold['D'])).max()
+                    / gold['D_max']),
+        mrf_m0=float(np.abs(res.m0.cpu().numpy()
+                            - np.asarray(gold['m0'])).max()
+                     / np.abs(gold['m0']).max()),
+        mrf_p=float(np.max(np.abs(p - gp) / np.maximum(np.abs(gp), 1e-300))),
+        mrf_score=abs(score - gold['score']) / gold['score'],
+        mrf_printed=printed, mrf_idx=[int(i) for i in res.idx],
+        mrf_rank=int(basis.B.shape[1]),
+        steady_vs_train=max_err(train[:, -1], st) / float(st.abs().max()))
+
+
+def mrf_bssfp_printed(p) -> str:
+    r"""The refined ``p = [log T1, log T2, df/100]`` as
+    examples/mrf_dictionary.py prints it (without the relative errors)."""
+    return (f'T1={np.exp(p[0]) * 1e3:.0f} ms, T2={np.exp(p[1]) * 1e3:.1f} '
+            f'ms, df={100.0 * p[2]:.2f} Hz')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False',
@@ -5094,6 +5699,7 @@ def main() -> int:
     from mrphy_tpu_torch.kernels import mrf as kmrf
     from mrphy_tpu_torch.kernels import nufft as knf
     from mrphy_tpu_torch.kernels import signal as ksig
+    from mrphy_tpu_torch.kernels import ssfp as kssfp
 
     dev = device()
     smi = subprocess.run(
@@ -5139,21 +5745,37 @@ def main() -> int:
     xspgr_v_rows = phase_xspgr_v_kernels(dev)
     xcpmg_rows = phase_xcpmg_kernels(dev)
     xcpmg_v_rows = phase_xcpmg_kernels(dev, varesp=True)
+    bssfp_rows = phase_bssfp_kernels(dev)
 
     # the forward path, the gradient and design path, the two-pool path,
     # the acquisition path, the gridding path, the MRF path, the T2-mapping
     # path, the exchange-MRF paths at a scalar tr and over a variable-TR
-    # train and the myelin-water paths at a scalar esp and over an esp
-    # train: each with the launch counts zeroed just before it and read just
-    # after
+    # train, the myelin-water paths at a scalar esp and over an esp train
+    # and the balanced-SSFP path: each with the launch counts zeroed just
+    # before it and read just after
     counters = {**{k: bloch.LAUNCHES for k in bloch.LAUNCHES},
                 **{k: kmc.LAUNCHES for k in kmc.LAUNCHES},
                 **{k: ksig.LAUNCHES for k in ksig.LAUNCHES},
                 **{k: knf.LAUNCHES for k in knf.LAUNCHES},
                 **{k: kepg.LAUNCHES for k in kepg.LAUNCHES},
                 **{k: kx.LAUNCHES for k in kx.LAUNCHES},
+                **{k: kssfp.LAUNCHES for k in kssfp.LAUNCHES},
                 **{k: kmrf.LAUNCHES for k in kmrf.LAUNCHES}}
     launches = {k: 0 for k in counters}
+    results = {}
+
+    def counted(path, run, needs):
+        for k, table in counters.items():
+            table[k] = 0
+        results[path] = run(dev)
+        counts = {k: table[k] for k, table in counters.items()}
+        print(f'launches on the {path} path: {json.dumps(counts)}',
+              flush=True)
+        for k in needs:
+            check(counts[k] > 0, f'kernel {k} was not launched on the '
+                  f'{path} path')
+        return counts
+
     for path, run, needs in (
             ('forward', phase_main_path, ('rfgr_fwd', 'beff_fwd')),
             ('gradient+design', lambda d: (phase_gradients(d),
@@ -5171,21 +5793,18 @@ def main() -> int:
              XSPGR_V_KERNELS + tuple(kmrf.LAUNCHES)),
             ('myelin-water', phase_mwf_path, XCPMG_KERNELS),
             ('myelin-water (variable esp)', phase_mwf_v_path,
-             XCPMG_V_KERNELS)):
-        for k, table in counters.items():
-            table[k] = 0
-        result = run(dev)
-        counts = {k: table[k] for k, table in counters.items()}
-        print(f'launches on the {path} path: {json.dumps(counts)}',
-              flush=True)
-        for k in needs:
-            check(counts[k] > 0, f'kernel {k} was not launched on the '
-                  f'{path} path')
-        for k, n in counts.items():
+             XCPMG_V_KERNELS),
+            ('balanced-SSFP', phase_bssfp_path, BSSFP_KERNELS)):
+        for k, n in counted(path, run, needs).items():
             launches[k] += n
-    # outside every counted window: the last path's (phase 28's) forward,
-    # split into its parts
-    phase_mwf_v_parts(dev, result['fwd_ms'])
+    # phases 30b-c, the float64 examples of the balanced-SSFP family, in
+    # a window of their own whose counts stay out of the kernels line
+    counted('balanced-SSFP examples', phase_bssfp_examples,
+            BSSFP_KERNELS + tuple(kmrf.LAUNCHES))
+    # outside every counted window: phase 28's and phase 30a's forwards,
+    # split into their parts
+    phase_mwf_v_parts(dev, results['myelin-water (variable esp)']['fwd_ms'])
+    phase_bssfp_parts(dev, results['balanced-SSFP']['fwd_ms'])
 
     kernels = []
     for name, rows in (('rfgr_fwd', rfgr_rows), ('beff_fwd', beff_rows),
@@ -5198,7 +5817,8 @@ def main() -> int:
                        *nufft_rows.items(), *epg_rows.items(),
                        ('match', match_rows), *cpmg_rows.items(),
                        *xspgr_rows.items(), *xspgr_v_rows.items(),
-                       *xcpmg_rows.items(), *xcpmg_v_rows.items()):
+                       *xcpmg_rows.items(), *xcpmg_v_rows.items(),
+                       *bssfp_rows.items()):
         # the first timed case: float32 at the main path's shape
         head = next(r for r in rows if 'ms' in r)
         err = ('max_abs_err_chk' if name in ('rfgr_fwd', 'beff_fwd', 'mc_fwd')
@@ -5212,17 +5832,19 @@ def main() -> int:
             bound_ms=head['bound_ms'], bound_by=head['bound_by'],
             # no single PyTorch call computes a Bloch simulation, the
             # off-resonance- and decay-weighted non-uniform encoding, the
-            # trajectory cotangent of the interpolation or an EPG train;
+            # trajectory cotangent of the interpolation, an EPG train or a
+            # bSSFP train;
             # the NUFFT's sample and spread are one sparse product each,
             # the matched filter one matrix product per probe chunk
             library_ms=head.get('library_ms')))
         if name in ('rfgr_bwd', 'mc_bwd', 'spgr_bwd', 'cpmg_bwd',
-                    'xspgr_bwd', 'xspgr_v_bwd', 'xcpmg_bwd', 'xcpmg_v_bwd'):
+                    'xspgr_bwd', 'xspgr_v_bwd', 'xcpmg_bwd', 'xcpmg_v_bwd',
+                    'bssfp_bwd'):
             # the rows: max|Δ| / max|row|
             kernels[-1]['max_row_rel_err'] = max(
                 r['max_row_rel_err'] for r in f32)
         if name.startswith(('sig', 'nufft', 'spgr', 'cpmg', 'xspgr',
-                            'xcpmg')) or \
+                            'xcpmg', 'bssfp')) or \
                 name == 'match':
             # the linear outputs: max|Δ| / max|plain|
             kernels[-1]['max_rel_err'] = max(r['max_rel_err'] for r in f32)

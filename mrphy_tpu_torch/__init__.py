@@ -25,7 +25,10 @@ the trajectory and receive-coil utilities, and the gridding NUFFT
 ``nufft_sample``, ``nufft_spread``, ``nufft_dk``), and the MRF path: the
 SPGR / MRF-FISP EPG train ``ops.epg.epg_spgr`` (kernels ``spgr_fwd``,
 ``spgr_fwd_chk``, ``spgr_bwd``) with ``ops.routing.route``, and dictionary
-compression, matching and refinement ``ops.mrf`` (kernel ``match``).
+compression, matching and refinement ``ops.mrf`` (kernel ``match``),
+and the balanced-SSFP train ``ops.ssfp.bssfp_train`` (kernels
+``bssfp_fwd``, ``bssfp_fwd_chk``, ``bssfp_bwd``) with its steady state
+``bssfp_steady``.
 Kernels build with
 ``nvcc`` at their first CUDA call (see :mod:`mrphy_tpu_torch.kernels`);
 CPU tensors take each kernel's plain PyTorch version.
@@ -80,6 +83,7 @@ from mrphy_tpu_torch.ops import epg                # noqa: E402
 from mrphy_tpu_torch.ops import mrf                # noqa: E402
 from mrphy_tpu_torch.ops import signal             # noqa: E402
 from mrphy_tpu_torch.ops import nufft              # noqa: E402
+from mrphy_tpu_torch.ops import ssfp               # noqa: E402
 from mrphy_tpu_torch.models import mobjs           # noqa: E402
 from mrphy_tpu_torch import kernels                # noqa: E402
 from mrphy_tpu_torch import design                 # noqa: E402
@@ -89,11 +93,11 @@ import sys as _sys                                 # noqa: E402
 
 for _name, _mod in (('beffective', beffective), ('sims', sims),
                     ('slowsims', slowsims), ('epg', epg), ('mrf', mrf),
-                    ('signal', signal), ('nufft', nufft),
+                    ('signal', signal), ('nufft', nufft), ('ssfp', ssfp),
                     ('mobjs', mobjs)):
     _sys.modules[f'{__name__}.{_name}'] = _mod
 
 __all__ = ['gamH', 'γH', 'T1G', 'T2G', 'dt0', 'gmax0', 'smax0', 'rfmax0',
            'utils', 'beffective', 'sims', 'slowsims', 'epg', 'mrf',
-           'signal', 'nufft', 'mobjs', 'kernels', 'design',
+           'signal', 'nufft', 'ssfp', 'mobjs', 'kernels', 'design',
            'cuda_is_available', 'default_device']

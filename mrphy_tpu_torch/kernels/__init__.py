@@ -30,6 +30,10 @@ r"""Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
   ``xcpmg_v_bwd``, their instances over an echo-spacing train; with their
   plain PyTorch versions, launch counts and the autograd Functions of the
   trains.
+- :mod:`mrphy_tpu_torch.kernels.ssfp`: ``bssfp_fwd``, ``bssfp_fwd_chk``
+  and ``bssfp_bwd``, the transient balanced-SSFP train, the same with
+  chunk checkpoints, and its two-phase chunk adjoint, with their plain
+  PyTorch versions, launch counts and the autograd Function of the train.
 - :mod:`mrphy_tpu_torch.kernels.mrf`: ``match``, the fused matched filter
   of MRF dictionary matching, with its plain PyTorch version and launch
   count.
@@ -40,6 +44,6 @@ r"""Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
 """
 
 from mrphy_tpu_torch.kernels import (bloch, epg, epgx, mc, mrf,  # noqa: F401
-                                     nufft, signal)
+                                     nufft, signal, ssfp)
 
-__all__ = ['bloch', 'epg', 'epgx', 'mc', 'mrf', 'nufft', 'signal']
+__all__ = ['bloch', 'epg', 'epgx', 'mc', 'mrf', 'nufft', 'signal', 'ssfp']

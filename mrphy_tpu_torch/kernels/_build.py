@@ -145,6 +145,14 @@ _SIGNATURES = {
     # K, flags, tc, threads, stream
     'mrphy_xcpmg_v_bwd_f32': (_P,) * 11 + (_I64,) * 6 + (_P,),
     'mrphy_xcpmg_v_bwd_f64': (_P,) * 11 + (_I64,) * 6 + (_P,),
+    # coef, pk, er, ei, chk, nA, nTR, flags, tc, stream
+    'mrphy_bssfp_fwd_f32': (_P,) * 5 + (_I64,) * 4 + (_P,),
+    'mrphy_bssfp_fwd_f64': (_P,) * 5 + (_I64,) * 4 + (_P,),
+    'mrphy_bssfp_fwd_chk_f32': (_P,) * 5 + (_I64,) * 4 + (_P,),
+    'mrphy_bssfp_fwd_chk_f64': (_P,) * 5 + (_I64,) * 4 + (_P,),
+    # coef, pk, chk, gr, gi, scratch, dpk, dcf, nA, nTR, flags, tc, stream
+    'mrphy_bssfp_bwd_f32': (_P,) * 8 + (_I64,) * 4 + (_P,),
+    'mrphy_bssfp_bwd_f64': (_P,) * 8 + (_I64,) * 4 + (_P,),
     # dre, dim, x, idx, best, nA, nV, r, stream
     'mrphy_match_f32': (_P,) * 5 + (_I64,) * 3 + (_P,),
     'mrphy_match_f64': (_P,) * 5 + (_I64,) * 3 + (_P,),

@@ -4,8 +4,9 @@ r"""Backend-routing introspection: which path will a train family take?
 :func:`route` answers, without running anything, which execution path
 ``<family>(..., backend=..., mesh=...)`` takes and why; the dispatchers of
 :func:`mrphy_tpu_torch.ops.epg.epg_spgr`, :func:`~mrphy_tpu_torch.ops.epg.
-epg_cpmg`, :func:`~mrphy_tpu_torch.ops.epg.epgx_spgr` and
-:func:`~mrphy_tpu_torch.ops.epg.epgx_cpmg` consult the same decision, so
+epg_cpmg`, :func:`~mrphy_tpu_torch.ops.epg.epgx_spgr`,
+:func:`~mrphy_tpu_torch.ops.epg.epgx_cpmg` and
+:func:`mrphy_tpu_torch.ops.ssfp.bssfp_train` consult the same decision, so
 the reported path cannot drift from the one taken.
 
 Paths:
@@ -16,8 +17,9 @@ Paths:
   its hand-written adjoint (``backend='cuda'``, or ``'auto'`` on CUDA
   tensors);
 - ``'torch-fallback'``: outside the kernels' scope (per-voxel 2-D flip
-  trains) under ``backend='auto'``, so the dispatcher runs the plain route
-  on the card. Under ``backend='cuda'`` such a train raises
+  trains; for ``bssfp_train`` also a prepared ``Minit``) under
+  ``backend='auto'``, so the dispatcher runs the plain route on the
+  card. Under ``backend='cuda'`` such a train raises
   :class:`ValueError`: a caller who asks for the kernels is told that
   none would run.
 
@@ -31,15 +33,17 @@ the chunk to fit a fixed budget
 (:func:`mrphy_tpu_torch.kernels.epg.pick_tc`), so each takes every instance
 its forward takes; so do ``xspgr_bwd``'s, ``xspgr_v_bwd``'s,
 ``xcpmg_bwd``'s and ``xcpmg_v_bwd``'s, their chunk fitted for the two-pool
-state's 12 planes. ``epgx_spgr`` takes its kernels at a scalar ``tr`` and
-over a ``(nTR,)`` ``tr`` train alike (the variable-TR instances
-``xspgr_v_*`` stream each step's propagator), and so does ``epgx_cpmg`` at
-a scalar ``esp`` and over a ``(nE,)`` ``esp`` train (``xcpmg_v_*``).
+state's 12 planes, and ``bssfp_bwd``'s, for an isochromat's 3 (JAX's
+``bssfp_bwd_is_available`` only warns there, and is not carried).
+``epgx_spgr`` takes its kernels at a scalar ``tr`` and over a ``(nTR,)``
+``tr`` train alike (the variable-TR instances ``xspgr_v_*`` stream each
+step's propagator), and so does ``epgx_cpmg`` at a scalar ``esp`` and over
+a ``(nE,)`` ``esp`` train (``xcpmg_v_*``).
 
-``epg_spgr``, ``epg_cpmg``, ``epgx_spgr`` and ``epgx_cpmg`` are ported;
-the other families raise :class:`NotImplementedError` naming the slice of
-the port that brings them. ``mesh=`` raises too (multi-device runs are not
-ported yet).
+``epg_spgr``, ``epg_cpmg``, ``epgx_spgr``, ``epgx_cpmg`` and
+``bssfp_train`` are ported; the other families raise
+:class:`NotImplementedError` naming the slice of the port that brings them.
+``mesh=`` raises too (multi-device runs are not ported yet).
 """
 
 import math
@@ -53,7 +57,7 @@ FAMILIES = ('epg_spgr', 'epg_cpmg', 'epgx_spgr', 'epgx_cpmg',
             'epgx_mt_spgr', 'bssfp_train')
 
 # The slice of the port (ROADMAP.md, queue 1) that brings each family.
-_SLICES = {'epgx_mt_spgr': '10g-10h', 'bssfp_train': '11'}
+_SLICES = {'epgx_mt_spgr': '10g-10h'}
 
 
 def _shape(v) -> tuple:
@@ -167,8 +171,31 @@ def _decide_epgx_cpmg(kw, backend):
                              else '', pick_tc(nE, nE + 1, nA, 4, PLANES)))
 
 
+def _decide_bssfp_train(kw, backend):
+    from mrphy_tpu_torch.kernels.ssfp import chunk
+    fallback, nT = _per_voxel(kw, backend)
+    if fallback:
+        return fallback
+    if kw.get('Minit') is not None:
+        if backend == 'cuda':
+            raise ValueError("backend='cuda': the kernels start from "
+                             'equilibrium, a prepared Minit is outside them; '
+                             "use backend='auto' or 'torch' for the plain "
+                             'route')
+        return _mk('torch-fallback', 'the kernels start from equilibrium; a '
+                   'prepared Minit runs the plain route')
+    nA = _n_atoms(kw, ('T1', 'T2', 'df', 'M0', 'b1'))
+    vartr = len(_shape(kw.get('tr'))) == 1 or len(_shape(kw.get('te'))) == 1
+    return _mk('cuda-native-adjoint',
+               'bssfp_fwd, and bssfp_fwd_chk + bssfp_bwd under a gradient '
+               '(nTR=%d, nA=%d%s; the adjoint chunk tc=%d in float32)'
+               % (nT, nA, ', variable tr/te' if vartr else '',
+                  chunk(nT, nA, 4)))
+
+
 _DECIDERS = {'epg_spgr': _decide_epg_spgr, 'epg_cpmg': _decide_epg_cpmg,
-             'epgx_spgr': _decide_epgx_spgr, 'epgx_cpmg': _decide_epgx_cpmg}
+             'epgx_spgr': _decide_epgx_spgr, 'epgx_cpmg': _decide_epgx_cpmg,
+             'bssfp_train': _decide_bssfp_train}
 
 
 def _on_cuda(kw) -> bool:
@@ -185,7 +212,8 @@ def route(family: str, *, backend: str = 'auto', mesh=None, **kw):
     are inspected; nothing is computed). Returns ``{'path', 'fused',
     'reason'}`` with ``path`` one of ``'torch' | 'cuda-native-adjoint' |
     'torch-fallback'``. Raises :class:`ValueError` where the call would
-    (``backend='cuda'`` with a per-voxel train), and
+    (``backend='cuda'`` with a per-voxel train, or with ``bssfp_train``'s
+    ``Minit``), and
     :class:`NotImplementedError` for a path not ported yet.
     """
     if family not in FAMILIES:

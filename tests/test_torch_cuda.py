@@ -2,8 +2,8 @@ r"""The CUDA kernels of :mod:`mrphy_tpu_torch.kernels` on the card (the
 Bloch kernels, the two-pool ``mc_fwd``/``mc_bwd``, the k-space signal
 kernels ``sig_fwd``/``sig_adj``/``sig_vjp``, the gridding NUFFT's
 ``nufft_sample``/``nufft_spread``/``nufft_dk``, the EPG trains'
-``spgr_*``/``cpmg_*``/``xspgr_*``/``xspgr_v_*``/``xcpmg_*``/``xcpmg_v_*``
-and the matched filter ``match``): each against its plain PyTorch version,
+``spgr_*``/``cpmg_*``/``xspgr_*``/``xspgr_v_*``/``xcpmg_*``/``xcpmg_v_*``,
+the balanced-SSFP train's ``bssfp_*`` and the matched filter ``match``): each against its plain PyTorch version,
 the launch counts, the wrappers' refusals, and backward through the engines
 reaching the adjoint kernels.
 
@@ -1278,3 +1278,119 @@ def test_epgx_cpmg_esp_train_gradients_cuda_vs_plain(cuda, dtype):
     for g in grads[:2]:
         for n, x, y in zip(names, g, grads[2]):
             _rows_close(x, y, bar)
+
+
+def _bssfp_case(cuda, dtype, nA, nTR, vartr, b1, seed):
+    r"""``bssfp_train`` keywords (CUDA tensors): a flip and phase train,
+    per-atom T1, T2, df (±80 Hz) and M0, a 4-6 ms tr train (``vartr``) or
+    tr 5 ms and, as asked, b1."""
+    rng = np.random.default_rng(seed)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=cuda)
+
+    kw = dict(flips=rng.uniform(0.1, 1.2, nTR), phis=rng.uniform(-3, 3, nTR),
+              T1=rng.uniform(0.3, 2.0, nA), T2=rng.uniform(0.03, 0.3, nA),
+              df=rng.uniform(-80, 80, nA), M0=rng.uniform(0.7, 1.2, nA))
+    if vartr:
+        kw['tr'] = rng.uniform(0.004, 0.006, nTR)
+    if b1:
+        kw['b1'] = rng.uniform(0.8, 1.2, nA)
+    kw = {n: arr(v) for n, v in kw.items()}
+    kw.setdefault('tr', 0.005)
+    return kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar', [(torch.float32, 2e-6),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize('nA,nTR,vartr,b1,tc', [
+    (1000, 200, True, False, 100), (333, 48, False, True, 4),
+    (65, 201, True, True, 67), (4096, 16, False, False, 1)],
+    ids=['fit-train', 'const-b1', 'catalysed-b1-ragged', 'const-tc1'])
+def test_bssfp_kernels_vs_plain_on_card(cuda, dtype, bar, nA, nTR, vartr, b1,
+                                        tc):
+    r"""``bssfp_fwd``, ``bssfp_fwd_chk`` and ``bssfp_bwd`` against their
+    plain versions on the card (per-atom outputs and, as the plain version
+    sums them in the kernel's order, the per-TR rows at ``bar``: bit for
+    bit expected), over several chunks; the launch counts; the refusals."""
+    from mrphy_tpu_torch.kernels import ssfp as ks
+    from mrphy_tpu_torch.ops import ssfp
+    kw = _bssfp_case(cuda, dtype, nA, nTR, vartr, b1, 71)
+    coef, pk, cfg, _ = ssfp._bssfp_rows(kw.pop('flips'), **kw)
+    coef, pk = coef.contiguous(), pk.contiguous()
+    assert cfg == ks.BssfpCfg(has_b1=b1, vartr=vartr)
+    n0 = dict(ks.LAUNCHES)
+    er, ei = ks.bssfp_fwd(coef, pk, cfg)
+    er2, ei2, chk = ks.bssfp_fwd_chk(coef, pk, cfg, tc=tc)
+    rng = np.random.default_rng(3)
+    gr, gi = (torch.as_tensor(rng.standard_normal((nTR, nA)), dtype=dtype,
+                              device=cuda) for _ in range(2))
+    dcoef, dpk = ks.bssfp_bwd(coef, pk, cfg, chk, gr, gi, tc=tc)
+    torch.cuda.synchronize()
+    assert {n: ks.LAUNCHES[n] - n0[n] for n in ks.LAUNCHES} == dict(
+        bssfp_fwd=1, bssfp_fwd_chk=1, bssfp_bwd=1)
+    er_p, ei_p, chk_p = ks.bssfp_fwd_chk_torch(coef, pk, cfg, tc=tc)
+    dcoef_p, dpk_p = ks.bssfp_bwd_torch(coef, pk, cfg, chk_p, gr, gi, tc=tc)
+    for x, y in ((er, er_p), (ei, ei_p), (er2, er_p), (ei2, ei_p),
+                 (chk, chk_p), (dpk, dpk_p), (dcoef, dcoef_p)):
+        _rows_close(x, y, bar)
+    with pytest.raises(ValueError, match='contiguous'):
+        ks.bssfp_fwd(coef.T.contiguous().T, pk, cfg)
+    with pytest.raises(ValueError, match='pk must be'):
+        ks.bssfp_fwd(coef, pk[:4].contiguous(), cfg)
+    with pytest.raises(ValueError, match='is on cpu'):
+        ks.bssfp_fwd(coef.cpu(), pk, cfg)
+    with pytest.raises(TypeError):
+        ks.bssfp_fwd(coef.half(), pk.half(), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('vartr', [False, True], ids=['const', 'vartr'])
+def test_bssfp_train_gradients_cuda_vs_plain(cuda, dtype, vartr):
+    r"""``bssfp_train`` on CUDA tensors runs ``bssfp_fwd`` for a value and
+    ``bssfp_fwd_chk`` + ``bssfp_bwd`` under a gradient, under
+    ``backend='auto'`` and ``'cuda'``; their gradients w.r.t. every input
+    (flips, phis, T1, T2, df, M0, b1 and tr) meet the plain route's; a
+    per-voxel 2-D train and a prepared Minit are refused under ``'cuda'``
+    and take the plain route under ``'auto'``; ``backend='cuda'`` refuses
+    CPU tensors."""
+    from mrphy_tpu_torch.kernels import ssfp as ks
+    from mrphy_tpu_torch.ops import ssfp
+    kw = _bssfp_case(cuda, dtype, 70, 40, vartr, True, 73)
+    if not vartr:
+        kw['tr'] = torch.tensor(0.005, dtype=dtype, device=cuda)
+    names = tuple(kw)
+    w = torch.as_tensor(np.random.default_rng(5).standard_normal((70, 40, 2)),
+                        dtype=dtype, device=cuda)
+    grads = []
+    for backend in ('auto', 'cuda', 'torch'):
+        xs = {n: kw[n].detach().clone().requires_grad_() for n in names}
+        n0 = dict(ks.LAUNCHES)
+        out = ssfp.bssfp_train(**xs, backend=backend)
+        grads.append(torch.autograd.grad((w * out).sum(), list(xs.values())))
+        assert {n: ks.LAUNCHES[n] - n0[n] for n in ks.LAUNCHES} == (
+            dict(bssfp_fwd=0, bssfp_fwd_chk=1, bssfp_bwd=1)
+            if backend != 'torch' else dict.fromkeys(ks.LAUNCHES, 0))
+    n0 = dict(ks.LAUNCHES)
+    with torch.no_grad():
+        ssfp.bssfp_train(**kw)
+    assert {n: ks.LAUNCHES[n] - n0[n] for n in ks.LAUNCHES} == dict(
+        bssfp_fwd=1, bssfp_fwd_chk=0, bssfp_bwd=0)
+    bar = 1e-4 if dtype == torch.float32 else 1e-10
+    for g in grads[:2]:
+        for x, y in zip(g, grads[2]):
+            _rows_close(x, y, bar)
+    fl2 = kw['flips'].expand(70, 40)
+    minit = torch.zeros((70, 3), dtype=dtype, device=cuda)
+    for extra in (dict(flips=fl2), dict(Minit=minit)):
+        with pytest.raises(ValueError, match="backend='cuda'"):
+            ssfp.bssfp_train(**dict(kw, **extra), backend='cuda')
+        n0 = dict(ks.LAUNCHES)
+        with torch.no_grad():
+            out = ssfp.bssfp_train(**dict(kw, **extra))
+        assert dict(ks.LAUNCHES) == n0 and out.shape == (70, 40, 2)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        ssfp.bssfp_train(kw['flips'].cpu(), T1=1.0, T2=0.1, tr=0.005,
+                         backend='cuda')

@@ -328,13 +328,14 @@ def test_kernel_sources_present():
                      'nufft_spread.cu', 'nufft_dk.cu', 'spgr_fwd.cu',
                      'spgr_bwd.cu', 'match.cu', 'cpmg_fwd.cu',
                      'cpmg_bwd.cu', 'xspgr_fwd.cu', 'xspgr_bwd.cu',
-                     'xcpmg_fwd.cu', 'xcpmg_bwd.cu'}
+                     'xcpmg_fwd.cu', 'xcpmg_bwd.cu', 'bssfp_fwd.cu',
+                     'bssfp_bwd.cu'}
     assert '--use_fast_math' not in _build.NVCC_FLAGS
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
 
 
 # the JAX package's top-level names that wait for later slices of the port
-NOT_PORTED = {'ssfp', 'dixon', 'field', 'parallel', 'tpu_is_available'}
+NOT_PORTED = {'dixon', 'field', 'parallel', 'tpu_is_available'}
 
 
 def test_top_level_names_and_flat_paths_match_jax():
@@ -365,6 +366,7 @@ SIG_DIFFS = {
     **{f'ops.epg.{n}': {'default: backend'}
        for n in ('epg_spgr', 'epg_cpmg', 'epgx_spgr', 'epgx_cpmg')},
     'ops.routing.route': {'default: backend'},
+    'ops.ssfp.bssfp_train': {'default: backend'},
     'models.mobjs.SpinArray.acquire': {'default: backend'},
     'models.mobjs.SpinCube.acquire': {'default: backend'},
     'ops.signal.signal': {'default: backend'},
