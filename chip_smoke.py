@@ -346,6 +346,35 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     over ``examples/bssfp_banding.py``'s tissue at 33 df (1e-10); (d)
     after the launch counts are read, 30a's forward split into the
     kernels' arguments, ``bssfp_fwd`` alone and the echoes' layout.
+31. The EPG-X(MT) kernels ``xmt_fwd``, ``xmt_fwd_chk`` and ``xmt_bwd``
+    against their plain versions on the arguments ``kernels.epgx.xmt_spgr``
+    gives them (``XMT_CASES``: ``coef`` with the wt train, ``pk`` with the
+    per-atom ``wscale``): phase 32a's qMT dictionary (65,536 atoms × 400
+    TRs, K 48, float32; all three timed with their bounds); 16,384 × 200
+    with b1, with kshift −1 and without detailed balance; wt ≡ 0 without
+    exchange, whose echoes must also equal ``spgr_fwd``'s (pool a alone);
+    the default K 401 with the state in device memory; a ragged atom count
+    over three chunks of 67 TRs; float64 with b1 and ``wscale``. Per-atom
+    outputs (echoes, checkpoints, ``dpk``) at ``EPG_BAR`` (bit for bit
+    expected), the per-TR rows at ``XMT_ROW_BAR``.
+32. The qMT path: (a) ``QMT_DICT``, a 64 F × 32 kba × 32 T2b dictionary
+    at ``examples/qmt_fit.py``'s pool over 400 TRs with a cycling
+    saturation power, through ``xmt_spgr`` (``xmt_fwd``) in atoms per
+    second and against the plain route on 4096 atoms; ``svd_basis``,
+    ``compress`` and ``match`` of 1M probes drawn from the atoms with a
+    random phase and noise (the fractions within one grid step per axis);
+    the protocol gradient w.r.t. the flips, the wt train and the per-atom
+    (F, kba, T2b) at full width (``xmt_fwd_chk`` + ``xmt_bwd``; ms, peak
+    memory; against the plain route on 4096 atoms); 50 Adam steps of
+    ``match_refine(batched=True)`` on 4096 probes (the median errors of F,
+    kba and T2b); (b) ``examples/qmt_fit.py`` at its defaults in float64
+    against the JAX package's results (literals below, from
+    ``tests/make_qmt_goldens.py``): the data, the first loss and its
+    gradient w.r.t. the log maps at 1e-10 on the plain route (the
+    example's batched wt) and on the kernels' rank-1 form (a constant wt
+    train per power, ``wscale`` the lineshape); the 600 Adam steps through
+    the kernels: the losses and fitted maps at 100× JAX's own response to a
+    1-ulp change of the data (``QMT_EX_ULP``) and the example's asserts.
 
 Launch counts are zeroed right before the forward path (phase 4) and read
 after it (``rfgr_fwd``, ``beff_fwd`` must have launched), zeroed again
@@ -368,9 +397,13 @@ myelin-water path (phase 26; ``xcpmg_fwd``, ``xcpmg_fwd_chk`` and
 over an esp train (phase 28; ``xcpmg_v_fwd``, ``xcpmg_v_fwd_chk`` and
 ``xcpmg_v_bwd`` must have launched), and again before the balanced-SSFP
 path (phase 30; ``bssfp_fwd``, ``bssfp_fwd_chk``, ``bssfp_bwd`` and
-``match`` must have launched). The comparisons with the plain versions
-(phases 2, 3, 5, 6, 9, 10, 12, 14, 16, 17, 19, 21, 23, 25, 27, 29) run
-before and are not counted.
+``match`` must have launched), and again before the qMT path (phase 32a;
+``xmt_fwd``, ``xmt_fwd_chk``, ``xmt_bwd`` and ``match`` must have
+launched, each its exact count). Phases 30b–c and 32b, the float64
+examples, run in windows of their own, checked and left out of the
+``kernels`` line. The comparisons with the plain versions (phases 2, 3, 5,
+6, 9, 10, 12, 14, 16, 17, 19, 21, 23, 25, 27, 29, 31) run before and are
+not counted.
 
 The line before the last is one JSON object with each kernel's launches
 on those paths, error, times and bound: ``bound_ms`` is the larger of the
@@ -855,6 +888,12 @@ KERNELS = {
         replaces='mrphy_tpu/ops/ssfp_pallas.py:581'),
     'bssfp_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/bssfp_bwd.cu',
                       replaces='mrphy_tpu/ops/ssfp_pallas.py:619'),
+    'xmt_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xmt_fwd.cu',
+                    replaces='mrphy_tpu/ops/epg_pallas.py:3976'),
+    'xmt_fwd_chk': dict(source='mrphy_tpu_torch/kernels/csrc/xmt_fwd.cu',
+                        replaces='mrphy_tpu/ops/epg_pallas.py:3999'),
+    'xmt_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xmt_bwd.cu',
+                    replaces='mrphy_tpu/ops/epg_pallas.py:4031'),
 }
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
@@ -5687,6 +5726,683 @@ def mrf_bssfp_printed(p) -> str:
             f'ms, df={100.0 * p[2]:.2f} Hz')
 
 
+# ==========================================================================
+# The EPG-X(MT) bound-pool train: qMT (phases 31-32)
+# ==========================================================================
+
+# examples/qmt_fit.py (lines 51-62): the pool (T1a 1.1 s, T1b 1.0 s, T2a 60
+# ms, tr 30 ms), the saturation pulse of 15 ms each TR, its protocol
+# (offsets 2-32 kHz × ω1rms 350 and 700 Hz) and its 10° flips, K 48.
+QMT = dict(T1a=1.1, T1b=1.0, T2a=0.06, tr=0.03, tau=0.015, flip=10.0,
+           offs=(2e3, 4e3, 8e3, 16e3, 32e3), w1rms=(350.0, 700.0), K=48)
+# Phase 32a, the qMT dictionary path at the TPU kernel's dictionary shape
+# (benchmarks/RESULTS.md:584-592: 65,536 atoms × 400 TRs, K 48): a 64 F
+# (0.02-0.25) × 32 kba (5-40 /s) × 32 T2b (8-14 µs) grid, F-major, at QMT's
+# pool with M0a = 1 − F, M0b = F, kab = kba·F/(1 − F); 400 TRs of
+# bench_mrf's flips 10 + 50·|sin(t/40)|° with rf-spoiled phases; the
+# saturation at Δ 4 kHz with ω1rms cycling 0, 350, 700 Hz in blocks of 50
+# TRs: wt_t = π·(2π·ω1rms_t)²·τ_sat, wscale = mt_lineshape(4 kHz, T2b).
+# The plain route's check on the first 4096 atoms (4 F × 32 × 32); a
+# rank-16 basis; 1M probes drawn from the atoms (numpy default_rng(0)) with
+# a random phase and noise of 5e-4 (1.4% of the mean |signal|; a torch
+# generator seeded 0 on the card) matched by `match`, at least `within1` of
+# them within one grid step in F and in kba (one offset does not resolve
+# T2b: on the CPU, 8 F × 32 × 32 of this grid matched 4000 such probes
+# within one step at 1.0 in F, 0.98 in kba, 0.17 in T2b); 50 Adam steps of
+# match_refine(batched=True) on 4096 probes from their matched atoms, the
+# median relative errors against the truth within `refine_bar` and T2b's
+# lower than its matched atoms' (on the CPU, 64 probes of that grid went
+# from 0, 0, 0.10 to 0.016, 0.023, 0.086 in F, kba, T2b); the
+# protocol gradient (the neighbouring-kba separation of the dictionary
+# w.r.t. the flips, the wt train and the per-atom F, kba, T2b) at full
+# width in float32, and in float64 on the 4096 atoms against the plain
+# route at grad_bar (in float32 the two routes' sums over the slice differ
+# by ~1e-4 of the flips' row, as two float32 reductions do).
+QMT_DICT = dict(nF=64, nk=32, nt=32, F=(0.02, 0.25), kba=(5.0, 40.0),
+                T2b=(8e-6, 14e-6), ntr=400, delta=4e3,
+                w1_cycle=(0.0, 350.0, 700.0), block=50, nslice=4096,
+                rank=16, nV=1 << 20, noise=5e-4, nref=4096, iters=50,
+                lr=0.02, grad_bar=1e-9, within1=dict(F=0.95, kba=0.9),
+                refine_bar=dict(F=0.05, kba=0.1, T2b=0.2))
+# The per-TR rows of xmt_bwd are sums over atoms that the plain version
+# takes in the kernel's order (warp trees, then one torch.sum over the
+# warps): bit for bit expected; the bar of the two-pool CPMG rows.
+XMT_ROW_BAR = {torch.float32: 5e-7, torch.float64: 1e-15}
+XMT_KERNELS = ('xmt_fwd', 'xmt_fwd_chk', 'xmt_bwd')
+# The kernels' cases (phase 31): label, atoms, TRs, K (None: the default
+# nTR·|kshift| + 1), dtype, xmt_case keywords, the chunk (None: the
+# adjoint's own, kernels/epg.pick_tc at 8 planes), timed.
+XMT_CASES = (
+    ('qMT dictionary 65,536 x 400, K 48 (phase 32a)', 65536, 400, 48,
+     torch.float32, dict(qmt=True), None, True),
+    ('16k x 200, K 32, b1', 16384, 200, 32, torch.float32, dict(b1=True),
+     None, False),
+    ('16k x 200, K 32, kshift -1', 16384, 200, 32, torch.float32,
+     dict(kshift=-1), None, False),
+    ('16k x 200, K 32, no detailed balance (kab 8, kba 3, M0b 0.4)', 16384,
+     200, 32, torch.float32, dict(ndb=True), None, False),
+    ('16k x 200, K 32, wt = 0 and no exchange (= spgr_fwd at te 0)', 16384,
+     200, 32, torch.float32, dict(decoupled=True), None, False),
+    ('2048 x 400, default K 401 (device-memory state)', 2048, 400, None,
+     torch.float32, {}, None, False),
+    ('ragged 1001 x 201, K 32, b1 (three chunks of 67)', 1001, 201, 32,
+     torch.float32, dict(b1=True), 67, False),
+    ('f64 8192 x 200, K 32, b1, wscale', 8192, 200, 32, torch.float64,
+     dict(b1=True), None, False),
+)
+
+
+def qmt_truth(nv, seed=0):
+    r"""examples/qmt_fit.py's voxels, from numpy default_rng(``seed``) in its
+    order: ``(F, kba, T2b, rng)`` (F 0.06-0.22, kba 8-25 /s, T2b 9-13 µs),
+    ``rng`` left where the example draws its noise."""
+    rng = np.random.default_rng(seed)
+    F = rng.uniform(0.06, 0.22, nv)
+    kba = rng.uniform(8.0, 25.0, nv)
+    T2b = rng.uniform(9e-6, 13e-6, nv)
+    return F, kba, T2b, rng
+
+
+def qmt_train(nTR, dtype, dev):
+    r"""QMT_DICT's train over ``nTR`` TRs: ``(flips, phis, wt)``, each
+    ``(nTR,)``."""
+    from mrphy_tpu_torch.ops import epg
+    c = QMT_DICT
+    t = np.arange(nTR)
+    w1 = 2 * np.pi * np.asarray(c['w1_cycle'])[(t // c['block'])
+                                               % len(c['w1_cycle'])]
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    return (arr(np.deg2rad(10 + 50 * np.abs(np.sin(t / 40.0)))),
+            epg.rf_spoil_phases(nTR, dtype=dtype, device=dev),
+            arr(np.pi * w1 ** 2 * QMT['tau']))
+
+
+def qmt_grid(dtype, dev):
+    r"""QMT_DICT's grid: its axes (numpy) and its atoms ``(F, kba, T2b)``
+    (F-major, then kba, then T2b)."""
+    c = QMT_DICT
+    axes = tuple(np.linspace(*c[k], c[n]) for k, n in
+                 (('F', 'nF'), ('kba', 'nk'), ('T2b', 'nt')))
+    mesh = np.meshgrid(*axes, indexing='ij')
+    return axes, tuple(torch.as_tensor(m.ravel(), dtype=dtype, device=dev)
+                       for m in mesh)
+
+
+def qmt_kw(F, kba, T2b):
+    r"""``xmt_spgr``'s tissue keywords at QMT's pool for the maps ``(F,
+    kba, T2b)``: M0a = 1 − F, M0b = F, kab = kba·F/(1 − F), the saturation
+    scale the super-Lorentzian at QMT_DICT's offset."""
+    from mrphy_tpu_torch.ops import epg
+    return dict(T1a=QMT['T1a'], T2a=QMT['T2a'], T1b=QMT['T1b'],
+                kab=kba * F / (1 - F), kba=kba, tr=QMT['tr'], M0a=1 - F,
+                M0b=F, wscale=epg.mt_lineshape(QMT_DICT['delta'], T2b),
+                K=QMT['K'])
+
+
+def xmt_case(nA, nTR, K, dtype, dev, *, qmt=False, b1=False, kshift=1,
+             ndb=False, decoupled=False, seed=0):
+    r"""``xmt_spgr`` keywords (CUDA tensors): with ``qmt`` QMT_DICT's
+    dictionary (train and grid); otherwise ``nA`` atoms from ``seed`` at
+    ``nTR`` TRs of bench_mrf's flips with rf-spoiled phases, QMT_DICT's
+    saturation cycle, F ∈ [0.02, 0.25], kba ∈ [5, 40] /s, T2b ∈ [8, 14] µs,
+    and, as asked, per-atom b1 ∈ [0.8, 1.2], ``kshift``, no detailed
+    balance (kab 8, kba 3, M0a 1, M0b 0.4), or wt ≡ 0 without exchange."""
+    rng = np.random.default_rng(seed)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    flips, phis, wt = qmt_train(nTR, dtype, dev)
+    if qmt:
+        F, kba, T2b = qmt_grid(dtype, dev)[1]
+    else:
+        F, kba, T2b = (arr(rng.uniform(*QMT_DICT[k], nA))
+                       for k in ('F', 'kba', 'T2b'))
+    kw = dict(qmt_kw(F, kba, T2b), flips=flips, phis=phis, wt=wt,
+              kshift=kshift, K=K)
+    if b1:
+        kw['b1'] = arr(rng.uniform(0.8, 1.2, nA))
+    if ndb:
+        kw.update(kab=8.0, kba=3.0, M0a=1.0, M0b=0.4)
+    if decoupled:
+        kw.update(kab=0.0, kba=0.0, wt=torch.zeros_like(wt))
+    return kw
+
+
+def xmt_args(kw):
+    r"""The kernels' arguments ``(coef, pk, cfg)`` for ``xmt_spgr(**kw)``
+    (``ops.epg._xmt_rows``)."""
+    from mrphy_tpu_torch.ops import epg
+    kw = dict(kw)
+    coef, pk, cfg, _ = epg._xmt_rows(kw.pop('flips'), kw.pop('phis'), **kw)
+    return coef.contiguous(), pk.contiguous(), cfg
+
+
+def phase_xmt_kernels(dev):
+    r"""Phase 31: ``xmt_fwd``, ``xmt_fwd_chk`` and ``xmt_bwd`` against their
+    plain versions on XMT_CASES, on the arguments ``xmt_spgr`` gives them
+    (``ops.epg._xmt_rows``: ``coef`` with the wt train, ``pk`` with
+    ``wscale``); the adjoint fed the kernel's checkpoints and a cotangent
+    drawn from a seed, the plain adjoint written out, with no autograd
+    graph. The qMT dictionary of phase 32a is timed with its bound. Per-atom
+    outputs (echoes, checkpoints, ``dpk``) at EPG_BAR of their largest value
+    (bit for bit expected; the ``dpk`` rows that differ are named), the
+    per-TR rows at XMT_ROW_BAR; the case with wt ≡ 0 and no exchange also
+    against ``spgr_fwd`` (the single-pool train of pool a at te 0) at
+    EPG_ROW_BAR. Returns each kernel's rows."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.kernels.epg import launch_cfg, pick_tc
+    from mrphy_tpu_torch.ops import epg
+    t0 = time.perf_counter()
+    rows = {name: [] for name in XMT_KERNELS}
+    for seed, (label, nA, nTR, K, dtype, kw, tc, timed) in enumerate(
+            XMT_CASES, 310):
+        ckw = xmt_case(nA, nTR, K, dtype, dev, seed=seed, **kw)
+        coef, pk, cfg = xmt_args(ckw)
+        tc = tc or pick_tc(nTR, cfg.K, nA, pk.element_size(), kx.PLANES_MT)
+        chk = kx.xmt_fwd_chk(coef, pk, cfg, tc=tc)[1]
+        g = cotangent(torch.empty((nA, nTR, 2), dtype=dtype, device=dev),
+                      seed)
+        runs = {
+            'xmt_fwd': (lambda: kx.xmt_fwd(coef, pk, cfg),
+                        lambda: kx.xmt_fwd_torch(coef, pk, cfg), (coef, pk)),
+            'xmt_fwd_chk': (
+                lambda: kx.xmt_fwd_chk(coef, pk, cfg, tc=tc),
+                lambda: kx.xmt_fwd_chk_torch(coef, pk, cfg, tc=tc),
+                (coef, pk)),
+            'xmt_bwd': (
+                lambda: kx.xmt_bwd(coef, pk, cfg, chk, g, tc=tc),
+                lambda: kx.xmt_bwd_torch(coef, pk, cfg, chk, g, tc=tc),
+                (coef, pk, chk, g))}
+        names = {'xmt_fwd': ('sig',), 'xmt_fwd_chk': ('sig', 'chk'),
+                 'xmt_bwd': ('dcoef', 'dpar')}
+        for name, (run_kernel, run_plain, inputs) in runs.items():
+            meta = dict(case=label, nA=nA, nTR=nTR, K=cfg.K,
+                        kshift=cfg.kshift, tc=tc, b1=cfg.has_b1,
+                        threads_state=launch_cfg(cfg.K, pk.element_size(),
+                                                 kx.PLANES_MT))
+            rows[name].append(compare_epg(
+                name, run_kernel, run_plain, inputs, names[name], meta,
+                dtype, timed, XMT_ROW_BAR))
+        if kw.get('decoupled'):
+            # pool a alone: the single-pool SPGR train at te 0
+            sig = kx.xmt_fwd(coef, pk, cfg)
+            ref = epg.epg_spgr(ckw['flips'], ckw['phis'], T1=QMT['T1a'],
+                               T2=QMT['T2a'], M0=ckw['M0a'], tr=QMT['tr'],
+                               te=0.0, K=cfg.K)
+            err = row_err(sig, ref)
+            print(f'xmt_fwd {label} vs spgr_fwd: ' + json.dumps(dict(
+                err=err, bar=EPG_ROW_BAR[dtype])), flush=True)
+            check(err <= EPG_ROW_BAR[dtype],
+                  f'xmt_fwd {label} vs spgr_fwd: {err}')
+        del coef, pk, chk, g, ckw
+    print(f'phase 31 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return rows
+
+
+def qmt_separation(D):
+    r"""The protocol loss of a qMT dictionary ``D (nF·nk·nt, nTR, 2)`` on
+    QMT_DICT's grid: minus the mean squared difference of the atoms that
+    neighbour in kba (the exchange rate, the weakest map)."""
+    c = QMT_DICT
+    D = D.reshape(-1, c['nk'], c['nt'], D.shape[-2], 2)
+    return -torch.mean((D[:, 1:] - D[:, :-1]) ** 2)
+
+
+def phase_qmt_path(dev):
+    r"""Phase 32a: the qMT dictionary path through ``kernels.epgx.xmt_spgr``
+    and ``ops.mrf``, and nothing else, so that the launch counts read after
+    it are the path's own, at QMT_DICT's full width in float32: (1) the
+    dictionary (``xmt_fwd``), timed in atoms per second, and against the
+    plain route's batched ``wt[None]·wscale[:, None]`` (``epgx_mt_spgr``,
+    ``backend='torch'``) on the first ``nslice`` atoms at EPG_ROW_BAR; (2)
+    ``svd_basis``, ``compress`` and ``dict_match_compressed`` of 1M probes
+    (``match``), timed in voxels per second, with the fractions matched
+    within one grid step on each axis (at least ``within1`` in F and kba);
+    (3) ``match_refine(batched=True)`` of ``nref`` probes from their
+    matched atoms, 50 Adam steps of (log F, log kba, log T2b) through the
+    kernels (``wscale`` the lineshape of the continuous T2b): s per step
+    and the median relative errors against the truth (within
+    ``refine_bar``, T2b's below the matched atoms'); (4) the protocol
+    gradient (:func:`qmt_separation` w.r.t. the flips, the wt train and the
+    per-atom F, kba, T2b; ``xmt_fwd_chk`` + ``xmt_bwd``) at full width, ms
+    and peak memory, and on the slice in float64 against the plain route at
+    ``grad_bar``. The window's launches must be exactly ``xmt_fwd`` 9 (the
+    dictionary, its 6 timed calls, the refinement's first and last
+    signals), ``xmt_fwd_chk`` and ``xmt_bwd`` 53 (50 steps, the gradient
+    twice, its slice) and ``match`` 2. Returns the measurements."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.kernels import mrf as kmrf
+    from mrphy_tpu_torch.ops import epg, mrf
+    t0 = time.perf_counter()
+    c = QMT_DICT
+    n0 = {**dict(kx.LAUNCHES), **dict(kmrf.LAUNCHES)}
+    f32 = dict(dtype=torch.float32, device=dev)
+    flips, phis, wt = qmt_train(c['ntr'], torch.float32, dev)
+    F, kba, T2b = qmt_grid(torch.float32, dev)[1]
+    nA, sl = F.shape[0], slice(0, c['nslice'])
+    out, bars = {}, {}
+
+    def dictionary():
+        with torch.no_grad():
+            return kx.xmt_spgr(flips, phis, wt=wt, **qmt_kw(F, kba, T2b))
+
+    D = dictionary()
+    torch.cuda.synchronize()
+    check(D.shape == (nA, c['ntr'], 2) and bool(torch.isfinite(D).all()),
+          'qMT dictionary finite')
+    dict_ms = time_ms(dictionary)
+    with torch.no_grad():
+        kws = qmt_kw(F[sl], kba[sl], T2b[sl])
+        wsc = kws.pop('wscale')
+        Dp = epg.epgx_mt_spgr(flips, phis, wt=wt[None] * wsc[:, None], **kws,
+                              backend='torch')
+    out.update(atoms=nA, dict_ms=dict_ms, dict_atoms_per_s=nA / dict_ms * 1e3,
+               dict_vs_plain=row_err(D[sl], Dp))
+    bars['dict_vs_plain'] = EPG_ROW_BAR[torch.float32]
+    del Dp
+    # the probes: random atoms, a random receive phase, noise
+    rng = np.random.default_rng(0)
+    nV = c['nV']
+    truth = torch.as_tensor(rng.integers(0, nA, nV), device=dev)
+    ph = torch.as_tensor(rng.uniform(-np.pi, np.pi, nV), **f32)[:, None, None]
+    X = D[truth]
+    X = torch.cos(ph) * X + torch.sin(ph) * torch.stack(
+        [-X[..., 1], X[..., 0]], -1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    X += c['noise'] * torch.randn(X.shape, generator=gen, dtype=X.dtype,
+                                  device=dev)
+    del ph
+
+    def match():
+        basis = mrf.svd_basis(D, rank=c['rank'])
+        return mrf.dict_match_compressed(mrf.compress(D, basis),
+                                         mrf.compress(X, basis), basis)
+
+    res = match()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = match()
+    torch.cuda.synchronize()
+    t_match = time.perf_counter() - t1
+    nk, nt = c['nk'], c['nt']
+    idx, tt = res.idx.long(), truth
+
+    def steps(i, j):
+        return ((i // (nk * nt) - j // (nk * nt)).abs(),
+                ((i // nt) % nk - (j // nt) % nk).abs(),
+                (i % nt - j % nt).abs())
+
+    sF, sk, st = steps(idx, tt)
+    out.update(match_ms=t_match * 1e3, match_voxels_per_s=nV / t_match,
+               match_exact=float((idx == tt).double().mean()),
+               match_within1_F=float((sF <= 1).double().mean()),
+               match_within1_kba=float((sk <= 1).double().mean()),
+               match_within1_T2b=float((st <= 1).double().mean()))
+    del res, D
+    # refinement of nref probes from their matched atoms
+    sel = torch.arange(c['nref'], device=dev)
+    tr_, mi = tt[sel], idx[sel]
+    P0 = torch.log(torch.stack([F[mi], kba[mi], T2b[mi]], -1))
+
+    def sig_b(P):
+        Fp, kp, tp = torch.exp(P).unbind(-1)
+        return kx.xmt_spgr(flips, phis, wt=wt, **qmt_kw(Fp, kp, tp))
+
+    t1 = time.perf_counter()
+    P, score = mrf.match_refine(sig_b, P0, X[sel], iters=c['iters'],
+                                lr=c['lr'], batched=True)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t1
+    check(bool(torch.isfinite(P).all()), 'refined parameters finite')
+    Pt = torch.stack([F[tr_], kba[tr_], T2b[tr_]], -1)
+    rel = (torch.exp(P) / Pt - 1).abs().median(dim=0).values.tolist()
+    rel0 = (torch.exp(P0) / Pt - 1).abs().median(dim=0).values.tolist()
+    out.update(refine_voxels=c['nref'], refine_s=t_ref,
+               refine_s_per_step=t_ref / c['iters'],
+               refine_median_relerr=dict(zip(('F', 'kba', 'T2b'), rel)),
+               refine_start_median_relerr=dict(zip(('F', 'kba', 'T2b'),
+                                                   rel0)),
+               refine_min_score=float(score.min()))
+    del X, P, score
+    # the protocol gradient at full width (float32), then on the slice in
+    # float64 through the kernels against the plain route
+    xs = dict(flips=flips, wt=wt, F=F, kba=kba, T2b=T2b)
+
+    def grad(sel=slice(None), backend=None, dtype=torch.float32):
+        p = {k: v.detach().to(dtype).requires_grad_() for k, v in xs.items()}
+        kw = qmt_kw(p['F'][sel], p['kba'][sel], p['T2b'][sel])
+        ph = phis.to(dtype)
+        if backend is None:
+            Dg = kx.xmt_spgr(p['flips'], ph, wt=p['wt'], **kw)
+        else:
+            wsc = kw.pop('wscale')
+            Dg = epg.epgx_mt_spgr(p['flips'], ph, backend=backend,
+                                  wt=p['wt'][None] * wsc[:, None], **kw)
+        loss = qmt_separation(Dg)
+        return torch.autograd.grad(loss, list(p.values()))
+
+    grad()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    g_full = grad()
+    torch.cuda.synchronize()
+    out.update(grad_ms=(time.perf_counter() - t1) * 1e3,
+               grad_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    check(all(bool(torch.isfinite(x).all()) for x in g_full),
+          'qMT protocol gradient finite')
+    del g_full
+    gk = grad(sl, dtype=torch.float64)
+    gp = grad(sl, 'torch', torch.float64)
+    out['grad_slice_err'] = {k: row_err(a[:c['nslice']], b[:c['nslice']])
+                             for k, a, b in zip(xs, gk, gp)}
+    bars['grad_slice_err'] = c['grad_bar']
+    del gk, gp
+    out['peak_gb'] = torch.cuda.max_memory_allocated(dev) / 1e9
+    launched = {k: v - n0[k] for k, v in {**dict(kx.LAUNCHES),
+                                           **dict(kmrf.LAUNCHES)}.items()}
+    want = dict(dict.fromkeys(launched, 0), xmt_fwd=9, xmt_fwd_chk=53,
+                xmt_bwd=53, match=2)
+    out['launches'] = launched
+    print('qMT path: ' + json.dumps(dict(
+        measured=out, bars=dict(bars, match_within1_min=c['within1'],
+                                refine_median_relerr=c['refine_bar']))),
+        flush=True)
+    check(launched == want, f'qMT path launches {launched} != {want}')
+    for key, bar in bars.items():
+        v = out[key]
+        worst = max(v.values()) if isinstance(v, dict) else v
+        check(worst <= bar, f'{key}: {v} > {bar}')
+    for k, lo in c['within1'].items():
+        check(out[f'match_within1_{k}'] >= lo,
+              f"match_within1_{k}: {out[f'match_within1_{k}']} < {lo}")
+    for k, hi in c['refine_bar'].items():
+        check(out['refine_median_relerr'][k] <= hi,
+              f"refine_median_relerr {k}: {out['refine_median_relerr'][k]} "
+              f'> {hi}')
+    check(out['refine_median_relerr']['T2b']
+          < out['refine_start_median_relerr']['T2b'],
+          'the refinement did not lower the median T2b error')
+    print(f'phase 32a took {time.perf_counter() - t0:.1f} s', flush=True)
+    return out
+
+
+# Phase 32b: examples/qmt_fit.py at its defaults in float64 (QMT; 12
+# voxels, 300 TRs, 600 Adam steps at lr 0.05 from F 0.12, kba 15 /s, T2b 11
+# µs, noise 0.1% of the largest datum). Its losses are held at the steps
+# QMT_EX_LOSS_STEPS.
+QMT_EX = dict(nv=12, ntr=300, iters=600, lr=0.05, noise=0.1,
+              start=dict(F=0.12, kba=15.0, T2b=11e-6))
+QMT_EX_LOSS_STEPS = [0, 1, 10, 100, 300, 599]
+# mrphy_tpu (JAX, XLA route on the CPU), float64, on the QMT_EX problem
+# (tests/make_qmt_goldens.py prints these): the noiseless data of every
+# voxel and measurement (offsets outer, powers inner) and its largest value,
+# the first loss, its gradient w.r.t. the log maps and each one's largest
+# magnitude, the losses at QMT_EX_LOSS_STEPS and the fitted maps.
+GOLDEN_QMT = {'data': [[0.03201103070835223, 0.030821267630183953,
+                       0.034078148716870434, 0.03084831124362479,
+                       0.04194683398398291, 0.031771616675120254,
+                       0.07329632166846001, 0.04823919841997028,
+                       0.09865415173463639, 0.09471508244941194],
+                      [0.06404085790815775, 0.06330310609851984,
+                       0.06517452604688508, 0.06331944669840846,
+                       0.06917349738833105, 0.0637561518804155,
+                       0.08561862423931099, 0.07129968927068053,
+                       0.10298352667059193, 0.09924172653996896],
+                      [0.06150438168868532, 0.060414055418594,
+                       0.06374995810561349, 0.060441323412627784,
+                       0.07262363589276498, 0.061765450466038936,
+                       0.09724069833619856, 0.08143522380243218,
+                       0.10709925137396384, 0.10632311672398351],
+                      [0.07437141521278799, 0.0737530520361003,
+                       0.07565469970118155, 0.0737683654174305,
+                       0.08098016963511072, 0.07450607086200985,
+                       0.09863792595312193, 0.0866984498637786,
+                       0.10730501787677768, 0.10656652632566772],
+                      [0.02728045541070871, 0.02621342979731795,
+                       0.02921411712538838, 0.02623792903150512,
+                       0.03688141125385977, 0.027137116039419592,
+                       0.06934295644008776, 0.04375347389075501,
+                       0.09637953499899142, 0.09243754688655807],
+                      [0.02835460819080614, 0.027410919061698298,
+                       0.030040323336645084, 0.027432421986080254,
+                       0.0367270819532929, 0.028195256593029,
+                       0.06669611181924574, 0.042572557513834965,
+                       0.09478173771392857, 0.09032617169580173],
+                      [0.04133268155771116, 0.040431030966913896,
+                       0.04296821689585658, 0.040451748324261454,
+                       0.04944883304283002, 0.04121420052031562,
+                       0.0767033991621051, 0.05526335672892448,
+                       0.09913657617744799, 0.09589081287289183],
+                      [0.03506804654780395, 0.03398943793550787,
+                       0.03673583078837124, 0.034013305186144566,
+                       0.0426843037669136, 0.03465535826230415,
+                       0.06806212045222686, 0.04592154776514967,
+                       0.09640233419014416, 0.09018381118484146],
+                      [0.05210092611398953, 0.05122234908517416,
+                       0.05328135518011646, 0.05124173667274165,
+                       0.05712980991846388, 0.05163324240244804,
+                       0.07346362533390391, 0.057924166554817455,
+                       0.09784425418034969, 0.0904277503365744],
+                      [0.035783085081074424, 0.035067687801721634,
+                       0.03711526013969775, 0.035084178991359086,
+                       0.042615506257861056, 0.0357130603844581,
+                       0.0688875477051888, 0.047987734923324504,
+                       0.09448059957203979, 0.09065785303429214],
+                      [0.029186436050037616, 0.028101949138675777,
+                       0.030993160504797182, 0.028126243189832336,
+                       0.03777577192513835, 0.028883040307542563,
+                       0.06696236581012807, 0.04262672697059656,
+                       0.09576274251173887, 0.0904681062679774],
+                      [0.06602220482959531, 0.06466740969546339,
+                       0.06795737697698039, 0.0646977093112921,
+                       0.07407662976785584, 0.06543864200382744,
+                       0.09289355444543863, 0.07652476577145291,
+                       0.10679541259868462, 0.10399596323081338]],
+              'data_max': 0.10730501787677768,
+              'loss0': 0.00020837397105142013,
+              'grad0': {'F': [-6.447597686433486e-05, 6.0376194329907464e-05,
+                            6.821902933606777e-05, 0.00011266214985175275,
+                            -8.572827177446528e-05, -8.518295496243874e-05,
+                            -2.8734681591905755e-05, -6.10199634523819e-05,
+                            4.317140716821904e-06, -5.7335617761826644e-05,
+                            -8.213073298304334e-05, 7.545067939710249e-05],
+                       'kba': [-3.0163614410700237e-05, 2.940897094229546e-05,
+                              2.8772630446903844e-05, 5.128678790083455e-05,
+                              -3.9464603431033494e-05, -3.813224961958767e-05,
+                              -1.2977274215529821e-05, -2.6306243441434463e-05,
+                              5.392026400681456e-06, -2.4584909418642938e-05,
+                              -3.6754609051960206e-05, 3.4308709548410726e-05],
+                       'T2b': [1.4696802470691386e-05, -1.0339943231632967e-05,
+                              -2.683156921851135e-05, -3.137606505421612e-05,
+                              2.1458542433604883e-05, 2.4763587678702763e-05,
+                              7.743259274600545e-06, 2.1398785798439045e-05,
+                              1.0000138241152108e-05, 1.9652893926063412e-05,
+                              2.4230920729512774e-05, -2.038258073974252e-05]},
+              'grad0_max': {'F': 0.00011266214985175275,
+                           'kba': 5.128678790083455e-05,
+                           'T2b': 3.137606505421612e-05},
+              'losses': [0.00020837397105142013, 0.00014640222868099145,
+                        1.8790383758422048e-05, 3.001513447689706e-07,
+                        5.367830464802762e-08, 1.2407832110917215e-08],
+              'maps': {'F': [0.16284017345151905, 0.10253150870680305,
+                           0.06802479562699212, 0.06518511122754891,
+                           0.19070708878048265, 0.20557673777867427,
+                           0.1558920022710023, 0.17708216194000923,
+                           0.14583612269868804, 0.2106100286128142,
+                           0.19074979860732622, 0.06510963247637294],
+                      'kba': [22.21316701940129, 8.614129532345654,
+                             19.662952047133782, 10.290167935219863,
+                             22.44687004609265, 17.202191444537505,
+                             13.312969824815035, 15.154318492184906,
+                             8.566526758619947, 10.049020716039768,
+                             19.285280999943037, 16.705919852895324],
+                      'T2b': [1.1512350875145593e-05, 1.0491220128324018e-05,
+                             1.3123351876220218e-05, 1.315425535044131e-05,
+                             1.1746490054169508e-05, 1.1577326229596938e-05,
+                             1.1687033809511165e-05, 1.0566209350566849e-05,
+                             9.468551506568791e-06, 1.1955201997157558e-05,
+                             1.111059424380593e-05, 1.0569595254154595e-05]}}
+# The same script's ULP_RESPONSE: JAX's own losses and fitted maps move by
+# this much (largest relative change) when the 600 steps run on the noisy
+# data moved one ulp; phase 32b holds the port's at 100× it, as phase 26b.
+# This fit contracts rounding instead of amplifying it (26b's grows ~1e9
+# fold); a 0.1% change of the learning rate moves JAX's losses by 1.8e-3
+# and its maps by 2.3e-4 (its LR_RESPONSE), far past these bars.
+QMT_EX_ULP = {'losses': 5.868113371418988e-13, 'maps': 2.6454522646240966e-14}
+
+
+def qmt_model(logp, flips, phis, route):
+    r"""examples/qmt_fit.py's model of the log maps ``logp`` (``F``,
+    ``kba``, ``T2b``, each ``(nv,)``): the magnitude of the last TR's echo
+    per voxel and (offset, power), ``(nv, 10)``, offsets outer. ``route``
+    ``'plain'``: ``epgx_mt_spgr`` per (offset, power) with the example's
+    batched ``wt[:, None]`` (the router takes the plain route);
+    ``'kernels'``: ``kernels.epgx.xmt_spgr`` once per power over the
+    (offset, voxel) atoms, ``wt`` a constant train of π·ω1²·τ_sat and
+    ``wscale = G(Δ, T2b)``."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    c = QMT
+    F, kba, T2b = (torch.exp(logp[k]) for k in ('F', 'kba', 'T2b'))
+    M0b, M0a = F, 1.0 - F
+    kab = kba * M0b / M0a
+    pool = dict(T1a=c['T1a'], T2a=c['T2a'], T1b=c['T1b'], tr=c['tr'],
+                K=c['K'])
+    w1s = [2 * np.pi * w for w in c['w1rms']]
+    if route == 'plain':
+        outs = []
+        for d in c['offs']:
+            G = epg.mt_lineshape(d, T2b)
+            for w1 in w1s:
+                wt = np.pi * w1 ** 2 * G * c['tau']
+                s = epg.epgx_mt_spgr(flips, phis, kab=kab, kba=kba,
+                                     wt=wt[:, None], M0a=M0a, M0b=M0b,
+                                     **pool)
+                outs.append(torch.hypot(s[..., -1, 0], s[..., -1, 1]))
+        return torch.stack(outs, -1)
+    nO = len(c['offs'])
+    offs = torch.as_tensor(c['offs'], dtype=F.dtype, device=F.device)
+    G = epg.mt_lineshape(offs[:, None], T2b[None, :]).reshape(-1)
+    atoms = dict(kab=kab.repeat(nO), kba=kba.repeat(nO), M0a=M0a.repeat(nO),
+                 M0b=M0b.repeat(nO))
+    outs = []
+    for w1 in w1s:
+        s = kx.xmt_spgr(flips, phis, wt=torch.full_like(
+            flips, np.pi * w1 ** 2 * c['tau']), wscale=G, **atoms, **pool)
+        outs.append(torch.hypot(s[:, -1, 0], s[:, -1, 1]).reshape(nO, -1))
+    return torch.stack(outs, -1).permute(1, 0, 2).reshape(F.shape[0], -1)
+
+
+def qmt_example(dev):
+    r"""The QMT_EX problem in float64 on the card against GOLDEN_QMT: the
+    noiseless data, the first loss and its gradient w.r.t. the log maps on
+    both routes of :func:`qmt_model` (1e-10 of the largest datum, of the
+    loss, of each gradient's largest), then the example's 600 Adam steps
+    through the kernels' form (``xmt_fwd_chk`` + ``xmt_bwd`` per power and
+    step): the losses along the fit and the fitted maps relative to each
+    value, the median relative errors of the fitted maps against the truth
+    and the launches it made. Returns the measurements; the bars are
+    :func:`phase_qmt_example`'s."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    c, ex, gold = QMT, QMT_EX, GOLDEN_QMT
+    f64 = dict(dtype=torch.float64, device=dev)
+    nv, keys = ex['nv'], tuple(ex['start'])
+    n0 = dict(kx.LAUNCHES)
+    F, kba, T2b, rng = qmt_truth(nv)
+    truth_n = dict(F=F, kba=kba, T2b=T2b)
+    flips = torch.full((ex['ntr'],), np.deg2rad(c['flip']), **f64)
+    phis = epg.rf_spoil_phases(ex['ntr'], **f64)
+    truth = {k: torch.log(torch.as_tensor(truth_n[k], **f64)) for k in keys}
+    with torch.no_grad():
+        y0 = {r: qmt_model(truth, flips, phis, r)
+              for r in ('kernels', 'plain')}
+    sigma = ex['noise'] / 100 * float(y0['kernels'].max())
+    y = y0['kernels'] + sigma * torch.as_tensor(
+        rng.standard_normal(tuple(y0['kernels'].shape)), **f64)
+
+    def start():
+        return {k: torch.full((nv,), np.log(v), **f64).requires_grad_()
+                for k, v in ex['start'].items()}
+
+    def loss(logp, route):
+        return torch.mean((qmt_model(logp, flips, phis, route) - y) ** 2)
+
+    out = {}
+    for r in ('kernels', 'plain'):
+        logp = start()
+        val = loss(logp, r)
+        g = dict(zip(keys, torch.autograd.grad(val, list(logp.values()))))
+        out[f'example_data_{r}'] = max_err(
+            y0[r], torch.as_tensor(gold['data'], **f64)) / gold['data_max']
+        out[f'example_loss0_{r}'] = abs(float(val.detach())
+                                        - gold['loss0']) \
+            / gold['loss0']
+        out[f'example_grad0_{r}'] = max(
+            max_err(g[k], torch.as_tensor(gold['grad0'][k], **f64))
+            / gold['grad0_max'][k] for k in keys)
+    logp = start()
+    opt = torch.optim.Adam(list(logp.values()), lr=ex['lr'])
+    losses = []
+    for _ in range(ex['iters']):
+        opt.zero_grad()
+        val = loss(logp, 'kernels')
+        val.backward()
+        opt.step()
+        losses.append(float(val.detach()))
+    maps = {k: torch.exp(v.detach()).cpu().numpy() for k, v in logp.items()}
+    med = {k: float(np.median(np.abs(maps[k] / truth_n[k] - 1)))
+           for k in keys}
+
+    def rel(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+    out.update(
+        example_losses=rel([losses[i] for i in QMT_EX_LOSS_STEPS],
+                           gold['losses']),
+        example_maps=max(rel(maps[k], gold['maps'][k]) for k in keys),
+        example_median_relerr=med,
+        example_launches={k: kx.LAUNCHES[k] - n0[k] for k in XMT_KERNELS})
+    return out
+
+
+def phase_qmt_example(dev):
+    r"""Phase 32b, in a launch window of its own after 32a's counts are
+    read: :func:`qmt_example`, held to JAX at 1e-10 on the data, the first
+    loss and its gradient, at 100× QMT_EX_ULP on the losses and maps, to
+    the example's asserts (median relative error under 3% for F and T2b,
+    under 15% for kba) and to its launches: exactly ``xmt_fwd`` 2 (the
+    data) and ``xmt_fwd_chk``/``xmt_bwd`` 2 + 2·600. Returns the
+    measurements."""
+    t0 = time.perf_counter()
+    out = qmt_example(dev)
+    bars = dict(example_data_kernels=1e-10, example_data_plain=1e-10,
+                example_loss0_kernels=1e-10, example_loss0_plain=1e-10,
+                example_grad0_kernels=1e-10, example_grad0_plain=1e-10,
+                example_losses=100 * QMT_EX_ULP['losses'],
+                example_maps=100 * QMT_EX_ULP['maps'])
+    med_bar = dict(F=0.03, kba=0.15, T2b=0.03)
+    want = dict(xmt_fwd=2, xmt_fwd_chk=2 + 2 * QMT_EX['iters'],
+                xmt_bwd=2 + 2 * QMT_EX['iters'])
+    print('qMT example: ' + json.dumps(dict(
+        measured=out, bars=dict(bars, example_median_relerr=med_bar,
+                                example_launches=want))), flush=True)
+    for key, bar in bars.items():
+        check(out[key] <= bar, f'{key}: {out[key]} > {bar}')
+    check(all(out['example_median_relerr'][k] < b for k, b in med_bar.items()),
+          f"the example's asserts: {out['example_median_relerr']}")
+    check(out['example_launches'] == want,
+          f"qMT example launches {out['example_launches']} != {want}")
+    print(f'phase 32b took {time.perf_counter() - t0:.1f} s', flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False',
@@ -5746,13 +6462,14 @@ def main() -> int:
     xcpmg_rows = phase_xcpmg_kernels(dev)
     xcpmg_v_rows = phase_xcpmg_kernels(dev, varesp=True)
     bssfp_rows = phase_bssfp_kernels(dev)
+    xmt_rows = phase_xmt_kernels(dev)
 
     # the forward path, the gradient and design path, the two-pool path,
     # the acquisition path, the gridding path, the MRF path, the T2-mapping
     # path, the exchange-MRF paths at a scalar tr and over a variable-TR
-    # train, the myelin-water paths at a scalar esp and over an esp train
-    # and the balanced-SSFP path: each with the launch counts zeroed just
-    # before it and read just after
+    # train, the myelin-water paths at a scalar esp and over an esp train,
+    # the balanced-SSFP path and the qMT path: each with the launch counts
+    # zeroed just before it and read just after
     counters = {**{k: bloch.LAUNCHES for k in bloch.LAUNCHES},
                 **{k: kmc.LAUNCHES for k in kmc.LAUNCHES},
                 **{k: ksig.LAUNCHES for k in ksig.LAUNCHES},
@@ -5794,13 +6511,17 @@ def main() -> int:
             ('myelin-water', phase_mwf_path, XCPMG_KERNELS),
             ('myelin-water (variable esp)', phase_mwf_v_path,
              XCPMG_V_KERNELS),
-            ('balanced-SSFP', phase_bssfp_path, BSSFP_KERNELS)):
+            ('balanced-SSFP', phase_bssfp_path, BSSFP_KERNELS),
+            ('qMT', phase_qmt_path, XMT_KERNELS + tuple(kmrf.LAUNCHES))):
         for k, n in counted(path, run, needs).items():
             launches[k] += n
     # phases 30b-c, the float64 examples of the balanced-SSFP family, in
     # a window of their own whose counts stay out of the kernels line
     counted('balanced-SSFP examples', phase_bssfp_examples,
             BSSFP_KERNELS + tuple(kmrf.LAUNCHES))
+    # phase 32b, examples/qmt_fit.py in float64, likewise in a window of
+    # its own
+    counted('qMT example', phase_qmt_example, XMT_KERNELS)
     # outside every counted window: phase 28's and phase 30a's forwards,
     # split into their parts
     phase_mwf_v_parts(dev, results['myelin-water (variable esp)']['fwd_ms'])
@@ -5818,7 +6539,7 @@ def main() -> int:
                        ('match', match_rows), *cpmg_rows.items(),
                        *xspgr_rows.items(), *xspgr_v_rows.items(),
                        *xcpmg_rows.items(), *xcpmg_v_rows.items(),
-                       *bssfp_rows.items()):
+                       *bssfp_rows.items(), *xmt_rows.items()):
         # the first timed case: float32 at the main path's shape
         head = next(r for r in rows if 'ms' in r)
         err = ('max_abs_err_chk' if name in ('rfgr_fwd', 'beff_fwd', 'mc_fwd')
@@ -5839,12 +6560,12 @@ def main() -> int:
             library_ms=head.get('library_ms')))
         if name in ('rfgr_bwd', 'mc_bwd', 'spgr_bwd', 'cpmg_bwd',
                     'xspgr_bwd', 'xspgr_v_bwd', 'xcpmg_bwd', 'xcpmg_v_bwd',
-                    'bssfp_bwd'):
+                    'bssfp_bwd', 'xmt_bwd'):
             # the rows: max|Δ| / max|row|
             kernels[-1]['max_row_rel_err'] = max(
                 r['max_row_rel_err'] for r in f32)
         if name.startswith(('sig', 'nufft', 'spgr', 'cpmg', 'xspgr',
-                            'xcpmg', 'bssfp')) or \
+                            'xcpmg', 'bssfp', 'xmt')) or \
                 name == 'match':
             # the linear outputs: max|Δ| / max|plain|
             kernels[-1]['max_rel_err'] = max(r['max_rel_err'] for r in f32)

@@ -28,8 +28,8 @@ SPGR / MRF-FISP EPG train ``ops.epg.epg_spgr`` (kernels ``spgr_fwd``,
 compression, matching and refinement ``ops.mrf`` (kernel ``match``),
 and the balanced-SSFP train ``ops.ssfp.bssfp_train`` (kernels
 ``bssfp_fwd``, ``bssfp_fwd_chk``, ``bssfp_bwd``) with its steady state
-``bssfp_steady``.
-Kernels build with
+``bssfp_steady``, and the qMT train ``ops.epg.epgx_mt_spgr`` (kernels
+``xmt_fwd``, ``xmt_fwd_chk``, ``xmt_bwd``). Kernels build with
 ``nvcc`` at their first CUDA call (see :mod:`mrphy_tpu_torch.kernels`);
 CPU tensors take each kernel's plain PyTorch version.
 

@@ -3,8 +3,10 @@
 // K21 `xspgr_bwd`): the exact exchange-relaxation of one configuration
 // order and its transpose with the 14 propagator-entry contractions, the
 // RF mix's coefficient terms of one pool, and the two pools' ring shift.
-// The EPG-X trains at variable TR and the two-pool CPMG reuse them. Each
-// pool's RF mix and shift are the single-pool ones of spgr_common.cuh.
+// The EPG-X trains at variable TR and the two-pool CPMG reuse them, and the
+// adjoints' phase 1 the shifted store of one pool's order (xspgr_bwd.cu,
+// xmt_bwd.cu). Each pool's RF mix and shift are the single-pool ones of
+// spgr_common.cuh.
 //
 // Every function repeats, operation for operation, the plain PyTorch
 // versions of kernels/epgx.py (`_xrelax`, `_xrelax_T`, `_mix_terms`): with
@@ -152,6 +154,51 @@ __device__ __forceinline__ void mix_terms(const T (&h)[6], const T (&x)[6],
   o[5] = -h[4] * (x[0] + x[2]) - h[5] * (x[1] + x[3]);
   o[6] = h[4] * (x[1] - x[3]) + h[5] * (x[2] - x[0]);
   o[7] = h[4] * x[4] + h[5] * x[5];
+}
+
+// One pool's relaxed order k (n) written into dst shifted by s orders: up
+// (P = F+, M = F−) F+(k) → F+(k + s), F−(k) → F−(k − s), and for 1 ≤ k ≤ s
+// F−(k) → conj into F+(s − k); the mirror otherwise.
+template <typename T>
+__device__ __forceinline__ void store_shifted(T* __restrict__ dst,
+                                              int64_t nA, int K, int s,
+                                              int P, int M, const T (&n)[6],
+                                              int k) {
+  auto at = [&](int p, int kk) -> int64_t {
+    return ((int64_t)p * K + kk) * nA;
+  };
+  dst[at(4, k)] = n[4];
+  dst[at(5, k)] = n[5];
+  if (k + s < K) {
+    dst[at(P, k + s)] = n[P];
+    dst[at(P + 1, k + s)] = n[P + 1];
+  }
+  if (k >= s) {
+    dst[at(M, k - s)] = n[M];
+    dst[at(M + 1, k - s)] = n[M + 1];
+  }
+  if (k >= 1 && k <= s && s - k < K) {  // crossing k = 0: conjugated
+    dst[at(P, s - k)] = n[M];
+    dst[at(P + 1, s - k)] = -n[M + 1];
+  }
+}
+
+// The orders of one pool that the shift brings in from beyond K − 1.
+template <typename T>
+__device__ __forceinline__ void zero_shifted_in(T* __restrict__ dst,
+                                                int64_t nA, int K, int s,
+                                                int P, int M) {
+  auto at = [&](int p, int kk) -> int64_t {
+    return ((int64_t)p * K + kk) * nA;
+  };
+  for (int k = K - s > 0 ? K - s : 0; k < K; ++k) {
+    dst[at(M, k)] = T(0);
+    dst[at(M + 1, k)] = T(0);
+  }
+  for (int k = 0; k < s - K + 1 && k < K; ++k) {
+    dst[at(P, k)] = T(0);
+    dst[at(P + 1, k)] = T(0);
+  }
 }
 
 // |kshift| unit shifts of both pools' ring buffers (one pair of offsets:

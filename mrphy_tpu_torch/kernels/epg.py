@@ -715,11 +715,12 @@ def cpmg_bwd_torch(coef, par, dq, cdiff, cfg: CpmgCfg, chk, gr, gi, *,
 def launch_cfg(K: int, itemsize: int, planes: int = 6):
     r"""``(threads per block, state in shared memory)``: a thread walks
     one atom and keeps its ``planes·K`` state values (6 for one pool, 12
-    for EPG-X's two) in shared memory; of 128, 64 and 32 threads per block
-    the count that keeps the most threads resident on an SM. When even 32
-    threads' states exceed a block's shared memory (one pool: K > 295 in
-    float32, K > 147 in float64; two: K > 151, K > 75), the states live in
-    device memory and blocks take 128 threads."""
+    for EPG-X's two, 8 for EPG-X(MT)'s) in shared memory; of 128, 64 and
+    32 threads per block the count that keeps the most threads resident on
+    an SM. When even 32 threads' states exceed a block's shared memory (one
+    pool: K > 295 in float32, K > 147 in float64; two: K > 151, K > 75;
+    EPG-X(MT): K > 227, K > 113), the states live in device memory and
+    blocks take 128 threads."""
     per_thread = planes * K * itemsize
     best = None
     for th in (128, 64, 32):

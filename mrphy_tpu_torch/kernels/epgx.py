@@ -1,12 +1,14 @@
 r"""The two-pool EPG-X kernels: wrappers, plain PyTorch versions and launch
 counts.
 
-Twelve kernels, each the Hopper counterpart of a TPU kernel of
+Fifteen kernels, each the Hopper counterpart of a TPU kernel of
 :mod:`mrphy_tpu.ops.epg_pallas`: six for the gradient-spoiled train of a
 two-pool exchanging system (:func:`mrphy_tpu_torch.ops.epg.epgx_spgr`), at
-a fixed TR and over a variable-TR train, and six for its CPMG echo train
-(:func:`mrphy_tpu_torch.ops.epg.epgx_cpmg`, last below), at a fixed echo
-spacing and over an echo-spacing train:
+a fixed TR and over a variable-TR train, six for its CPMG echo train
+(:func:`mrphy_tpu_torch.ops.epg.epgx_cpmg`, below), at a fixed echo
+spacing and over an echo-spacing train, and three for the bound-pool
+EPG-X(MT) train of qMT (:func:`mrphy_tpu_torch.ops.epg.epgx_mt_spgr`, last
+below) at a fixed TR:
 
 - ``xspgr_fwd`` (``csrc/xspgr_fwd.cu``, replaces ``_epgx_kernel``): per
   atom and TR, the RF mix on pool a and on pool b, the echo (the total
@@ -102,6 +104,23 @@ adjoint returns ``dpk (5, nA)`` (``dM0a``/``dM0b`` through the initial
 state only) and ``dpkt (nE, 14, nA)``, each echo's entry gradients, its
 second half's and its first's added. :func:`xcpmg_v` is their autograd
 Function.
+
+The EPG-X(MT) kernels (``csrc/xmt_fwd.cu``, ``csrc/xmt_bwd.cu``) carry 8
+planes an atom: pool a's F+, F−, Z and the bound pool's Z, which has no F
+states. ``xmt_fwd`` (replaces ``_mt_kernel``), ``xmt_fwd_chk``
+(``_mt_fwd_chk_kernel``) and ``xmt_bwd`` (``_mt_bwd_kernel``): per atom and
+TR, the RF mix on pool a and the saturation ``Zb ← exp(−wt_t·wscale)·Zb``,
+the echo (pool a's ``F+(0)`` demodulated), pool a's transverse decay
+``E2a``, the real 2×2 exchange of the Z pair with the recovery into
+``Z(0)``, and ``|kshift|`` unit shifts of pool a. Arguments, as
+``_mt_dispatch`` (``epg_pallas.py:956-989``) builds them: ``coef (10,
+nTR)``, SPGR's nine rows and ``wt``; ``pk (11, nA) = [Z00, Z01, Z10, Z11,
+ra, rb, E2a, M0a, M0b, b1, wscale]``; ``cfg`` :class:`XmtCfg`. The forward
+returns ``sig (nA, nTR, 2)`` and, with ``tc``, ``chk (nTR / tc, 8, K,
+nA)``; the adjoint ``dcoef (10, nTR)`` (summed over atoms, the per-TR
+``∂wt`` among them) and ``dpk (11, nA)``. :func:`xmt` is their autograd
+Function, :func:`xmt_spgr` the qMT dictionary's entry point with a per-atom
+``wscale``.
 """
 
 from typing import NamedTuple
@@ -123,12 +142,16 @@ __all__ = ['LAUNCHES', 'PLANES', 'XspgrCfg', 'xspgr', 'xspgr_fwd',
            'xcpmg_fwd', 'xcpmg_fwd_torch', 'xcpmg_fwd_chk',
            'xcpmg_fwd_chk_torch', 'xcpmg_bwd', 'xcpmg_bwd_torch', 'xcpmg_v',
            'xcpmg_v_fwd', 'xcpmg_v_fwd_torch', 'xcpmg_v_fwd_chk',
-           'xcpmg_v_fwd_chk_torch', 'xcpmg_v_bwd', 'xcpmg_v_bwd_torch']
+           'xcpmg_v_fwd_chk_torch', 'xcpmg_v_bwd', 'xcpmg_v_bwd_torch',
+           'PLANES_MT', 'XmtCfg', 'xmt', 'xmt_spgr', 'xmt_fwd',
+           'xmt_fwd_torch', 'xmt_fwd_chk', 'xmt_fwd_chk_torch', 'xmt_bwd',
+           'xmt_bwd_torch']
 
 LAUNCHES = {'xspgr_fwd': 0, 'xspgr_fwd_chk': 0, 'xspgr_bwd': 0,
             'xspgr_v_fwd': 0, 'xspgr_v_fwd_chk': 0, 'xspgr_v_bwd': 0,
             'xcpmg_fwd': 0, 'xcpmg_fwd_chk': 0, 'xcpmg_bwd': 0,
-            'xcpmg_v_fwd': 0, 'xcpmg_v_fwd_chk': 0, 'xcpmg_v_bwd': 0}
+            'xcpmg_v_fwd': 0, 'xcpmg_v_fwd_chk': 0, 'xcpmg_v_bwd': 0,
+            'xmt_fwd': 0, 'xmt_fwd_chk': 0, 'xmt_bwd': 0}
 
 # The state planes of one atom: both pools' F+, F−, Z (re, im).
 PLANES = 12
@@ -141,6 +164,12 @@ NPK = 3
 # M0b, b1]; over an echo-spacing train the last five.
 NXC = 19
 NXCV = 5
+# The EPG-X(MT) train: an atom's state planes (pool a's F+, F−, Z and pool
+# b's Z, re and im), its per-atom rows [Z00, Z01, Z10, Z11, ra, rb, E2a,
+# M0a, M0b, b1, wscale] and its per-TR rows (SPGR's nine and wt).
+PLANES_MT = 8
+NPK_MT = 11
+NC_MT = 10
 
 
 class XspgrCfg(NamedTuple):
@@ -1064,3 +1093,341 @@ def xcpmg_v(coef, pk, pkt, cfg: XcpmgCfg):
     ``pk`` and ``pkt``."""
     return _XcpmgV.apply(cfg, coef.contiguous(), pk.contiguous(),
                          pkt.contiguous())
+
+
+# ==========================================================================
+# The EPG-X(MT) train (bound pool: Z states only): the plain versions
+# ==========================================================================
+
+class XmtCfg(NamedTuple):
+    r"""The static switches of one EPG-X(MT) SPGR train: ``K`` modelled
+    orders, the spoiler's ``kshift`` k-quanta per TR and per-atom ``b1``."""
+    K: int
+    kshift: int
+    has_b1: bool
+
+    nC = NC_MT
+
+    @property
+    def flags(self) -> int:
+        return int(self.has_b1)
+
+
+def _mt_relax(p, s):
+    r"""Pool a's transverse decay ``E2a`` and the exchange of the Z pair with
+    its recovery into order 0 (``_mt_relax``, ``epg_pallas.py:3688``), on a
+    mixed state ``s`` of 8 planes."""
+    Z00, Z01, Z10, Z11, ra, rb, E2a = p[:7]
+    Fpr, Fpi, Fmr, Fmi, Zr, Zi, Zbr, Zbi = s
+    Z2r = Z00 * Zr + Z01 * Zbr
+    Zb2r = Z10 * Zr + Z11 * Zbr
+    return (E2a * Fpr, E2a * Fpi, E2a * Fmr, E2a * Fmi,
+            _at0(Z2r, Z2r[:, :1] + ra), Z00 * Zi + Z01 * Zbi,
+            _at0(Zb2r, Zb2r[:, :1] + rb), Z10 * Zi + Z11 * Zbi)
+
+
+def _mt_mix(coef, t, p, cfg, s):
+    r"""TR ``t``'s RF event on the pre-RF state ``s``: ``(tg, sat, s1)``,
+    the pool-a factors (:func:`~mrphy_tpu_torch.kernels.epg._trig`), the
+    bound pool's saturation ``exp(−wt_t·wscale)`` `(nA, 1)` and the mixed
+    state (pool a mixed, ``Zb`` saturated)."""
+    tg = _trig(coef, t, p[9], cfg.has_b1)
+    sat = torch.exp(-coef[9, t] * p[10])
+    return tg, sat, _mix(tg, s[:6]) + (sat * s[6], sat * s[7])
+
+
+def _mt_next(p, cfg, s1):
+    r"""The pre-RF state of the next TR from the mixed state ``s1``: the
+    exchange–relaxation, then the shift of pool a's F states."""
+    s2 = _mt_relax(p, s1)
+    return _shift(s2[:6], cfg.kshift) + s2[6:]
+
+
+def _mt_fwd(coef, pk, cfg, tc):
+    r"""The train from the equilibrium state: ``(echoes (nA, nTR, 2), chk
+    or None)``, ``chk (nTR / tc, 8, K, nA)`` the chunk-start states."""
+    nTR = coef.shape[1]
+    p = pk.unsqueeze(-1)                             # (11, nA, 1)
+    z = torch.zeros(pk.shape[1], cfg.K, dtype=pk.dtype, device=pk.device)
+    s = (z, z, z, z, _at0(z, p[7]), z, _at0(z, p[8]), z)
+    echoes = []
+    chk = z.new_empty((nTR // tc, PLANES_MT, cfg.K, z.shape[0])) if tc \
+        else None
+    for t in range(nTR):
+        if tc and t % tc == 0:
+            chk[t // tc] = torch.stack(s).transpose(1, 2)  # (8, K, nA)
+        tg, _, s1 = _mt_mix(coef, t, p, cfg, s)
+        c1, s1c = tg[4], tg[5]
+        fr, fi = s1[0][:, :1], s1[1][:, :1]
+        echoes.append(torch.cat([c1 * fr + s1c * fi, c1 * fi - s1c * fr],
+                                dim=1))
+        s = _mt_next(p, cfg, s1)
+    return torch.stack(echoes, dim=1), chk
+
+
+def xmt_fwd_torch(coef, pk, cfg: XmtCfg):
+    r"""Plain PyTorch version of the ``xmt_fwd`` kernel: ``sig (nA, nTR,
+    2)``. Differentiable by torch autograd (which then keeps every TR)."""
+    return _mt_fwd(coef, pk, cfg, None)[0]
+
+
+def xmt_fwd_chk_torch(coef, pk, cfg: XmtCfg, *, tc: int):
+    r"""Plain PyTorch version of the ``xmt_fwd_chk`` kernel: ``(sig (nA,
+    nTR, 2), chk (nTR / tc, 8, K, nA))``."""
+    _check_tc(coef.shape[1], tc)
+    return _mt_fwd(coef, pk, cfg, tc)
+
+
+def xmt_bwd_torch(coef, pk, cfg: XmtCfg, chk, g, *, tc: int):
+    r"""Plain PyTorch version of the ``xmt_bwd`` kernel: the two-phase chunk
+    adjoint of :func:`xmt_fwd_chk_torch` from its checkpoints ``chk`` at
+    chunk length ``tc`` and the echoes' cotangent ``g (nA, nTR, 2)``, with
+    no autograd, in ``_mt_bwd_kernel``'s order (``epg_pallas.py:3793-3971``).
+
+    Per chunk, newest first, phase 1 runs the forward from the chunk's start
+    state and keeps each TR's pre-RF state, factors and mixed state; phase 2
+    walks them backwards: the shift's transpose (pool a's F), the
+    exchange–relaxation's transpose at the mixed state (its 7 entry terms),
+    the echo's cotangent into ``Fa+(0)``, the saturation's transpose
+    (``∂wt_t = −wscale·sat·Σ_k h·Zb``, ``∂wscale`` adds ``−wt_t·sat·Σ_k
+    h·Zb``), pool a's RF coefficient terms and transpose. Sums over the
+    orders are taken one order at a time, the per-TR rows summed over the
+    atoms by warps of 32 (:func:`_warp_sums`) and then over the warps, as
+    the wrapper sums the kernel's partial rows. Under ``b1`` the angle's
+    gradient goes to ``db1`` and to the flip row (rows 0–3 stay 0).
+
+    Returns ``(dcoef (10, nTR), dpk (11, nA))``: ``dpk`` the gradients of
+    ``[Z00, Z01, Z10, Z11, ra, rb, E2a]`` summed over the train, ``dM0a`` and
+    ``dM0b`` (the cotangents of the initial ``Za(0)``/``Zb(0)``), ``db1`` and
+    ``dwscale``."""
+    nTR = coef.shape[1]
+    _check_tc(nTR, tc)
+    ntc = chk.shape[0]
+    if ntc != nTR // tc:
+        raise ValueError(f'chk holds {ntc} states, but nTR={nTR} in chunks '
+                         f'of tc={tc} gives {nTR // tc}')
+    p = pk.unsqueeze(-1)
+    wsc = p[10]
+    zero = torch.zeros_like(wsc)
+    h = (torch.zeros_like(chk[0, 0].T),) * PLANES_MT
+    acc = [zero] * 7
+    ab1 = awsc = zero
+    dcf = coef.new_zeros((-(-zero.shape[0] // 32), nTR, NC_MT))
+    for j in reversed(range(ntc)):
+        # phase 1: the forward from the chunk's start state, every pre-RF
+        # state with its TR's factors and mixed state
+        s = tuple(chk[j, q].T for q in range(PLANES_MT))
+        steps = []
+        for t in range(j * tc, (j + 1) * tc):
+            tg, sat, s1 = _mt_mix(coef, t, p, cfg, s)
+            steps.append((s, tg, sat, s1))
+            if t + 1 < (j + 1) * tc:
+                s = _mt_next(p, cfg, s1)
+        # phase 2: the cotangent, backwards through the stored TRs
+        for t in reversed(range(j * tc, (j + 1) * tc)):
+            s, tg, sat, s1 = steps.pop()
+            ca2, sa2, sa, ca, c1, s1c, c2, s2 = tg
+            h = _shift_T(h[:6], cfg.kshift) + h[6:]
+            # the exchange-relaxation's transpose at the mixed state
+            hFpr, hFpi, hFmr, hFmi, hZr, hZi, hZbr, hZbi = h
+            Fpr, Fpi, Fmr, Fmi, Zr, Zi, Zbr, Zbi = s1
+            terms = [hZr * Zr + hZi * Zi, hZr * Zbr + hZi * Zbi,
+                     hZbr * Zr + hZbi * Zi, hZbr * Zbr + hZbi * Zbi,
+                     hFpr * Fpr + hFpi * Fpi + hFmr * Fmr + hFmi * Fmi]
+            d_ra, d_rb = hZr[:, :1], hZbr[:, :1]
+            Z00, Z01, Z10, Z11, _, _, E2a = p[:7]
+            h = (E2a * hFpr, E2a * hFpi, E2a * hFmr, E2a * hFmi,
+                 Z00 * hZr + Z10 * hZbr, Z00 * hZi + Z10 * hZbi,
+                 Z01 * hZr + Z11 * hZbr, Z01 * hZi + Z11 * hZbi)
+            # the echo's cotangent into Fa+(0) (the echo reads the mixed
+            # state)
+            gyr, gyi = g[:, t, 0:1], g[:, t, 1:2]
+            fr, fi = s1[0][:, :1], s1[1][:, :1]
+            h = (_at0(h[0], h[0][:, :1] + (c1 * gyr - s1c * gyi)),
+                 _at0(h[1], h[1][:, :1] + (s1c * gyr + c1 * gyi))) + h[2:]
+            d_c1e = gyr * fr + gyi * fi
+            d_s1e = gyr * fi - gyi * fr
+            # the saturation's terms, then pool a's mix coefficients
+            terms += [h[6] * s[6] + h[7] * s[7]] + _mix_terms(h[:6], s[:6])
+            sums = _ksum(torch.stack(terms)).unsqueeze(-1)   # (14, nA, 1)
+            for i in range(4):
+                acc[i] = acc[i] + sums[i]
+            acc[4], acc[5] = acc[4] + d_ra, acc[5] + d_rb
+            acc[6] = acc[6] + sums[4]
+            dsat = sums[5]
+            d_wt = -wsc * sat * dsat
+            awsc = awsc + (-coef[9, t]) * sat * dsat
+            d_ca2, d_sc2, d_ss2, d_ss, d_sc, d_hs, d_hc, d_ca = sums[6:]
+            d_sa2 = c2 * d_sc2 + s2 * d_ss2
+            d_sa = s1c * (d_ss + 0.5 * d_hs) + c1 * (d_sc + 0.5 * d_hc)
+            rows = [d_ca2, d_sa2, d_sa, d_ca,
+                    sa * (d_sc + 0.5 * d_hc) + d_c1e,
+                    sa * (d_ss + 0.5 * d_hs) + d_s1e,
+                    sa2 * d_sc2, sa2 * d_ss2, zero, d_wt]
+            if cfg.has_b1:
+                # α = flip·b1 through the half-angle trig
+                d_al = 0.5 * sa * (d_sa2 - d_ca2) + ca * d_sa - sa * d_ca
+                ab1 = ab1 + d_al * coef[8, t]
+                rows[:4] = [zero] * 4
+                rows[8] = d_al * p[9]
+            dcf[:, t] = _warp_sums(torch.cat(rows, dim=1))
+            h = _mix_T(tg, h[:6]) + (sat * h[6], sat * h[7])
+    # the initial state: M0a on Za(0)'s real part, M0b on Zb(0)'s
+    dpk = torch.cat(acc + [h[4][:, :1], h[6][:, :1], ab1, awsc], dim=1).T
+    return dcf.sum(dim=0).T.contiguous(), dpk.contiguous()
+
+
+# ==========================================================================
+# The EPG-X(MT) train: the kernels
+# ==========================================================================
+
+def _mt_sizes(name, coef, pk, cfg):
+    r"""Validate an EPG-X(MT) kernel's arguments; returns ``(nA, nTR)``."""
+    if pk.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'{name} takes float32 or float64, not {pk.dtype}')
+    if pk.ndim != 2 or pk.shape[0] != NPK_MT:
+        raise ValueError(f'pk must be ({NPK_MT}, nA), got {tuple(pk.shape)}')
+    nA, nTR = pk.shape[1], coef.shape[-1]
+    if cfg.K < 1 or cfg.kshift == 0:
+        raise ValueError(f'{name} needs K >= 1 and kshift != 0, got '
+                         f'K={cfg.K}, kshift={cfg.kshift}')
+    _check(coef, 'coef', (NC_MT, nTR), pk.dtype, pk.device)
+    _check(pk, 'pk', (NPK_MT, nA), pk.dtype, pk.device)
+    return nA, nTR
+
+
+def _launch_xmt_fwd(coef, pk, cfg, tc):
+    r"""``xmt_fwd`` (``tc`` None) or ``xmt_fwd_chk``: ``(sig, chk)``."""
+    from mrphy_tpu_torch.kernels._build import library
+    name = 'xmt_fwd' if tc is None else 'xmt_fwd_chk'
+    nA, nTR = _mt_sizes(name, coef, pk, cfg)
+    dt, dev = pk.dtype, pk.device
+    threads, in_smem = launch_cfg(cfg.K, pk.element_size(), PLANES_MT)
+    sig = torch.empty((nA, nTR, 2), dtype=dt, device=dev)
+    chk = None
+    if tc is not None:
+        _check_tc(nTR, tc)
+        chk = torch.empty((nTR // tc, PLANES_MT, cfg.K, nA), dtype=dt,
+                          device=dev)
+    state = None if in_smem else torch.empty((PLANES_MT, cfg.K, nA),
+                                             dtype=dt, device=dev)
+    lib, _ = library()
+    with torch.cuda.device(dev):
+        err = _entry(lib, name, dt)(
+            *map(_ptr, (coef, pk, sig, chk, state)), nA, nTR, cfg.K,
+            cfg.kshift, cfg.flags, tc or nTR, threads, _stream(dev))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return sig, chk
+
+
+def _launch_xmt_bwd(coef, pk, cfg, chk, g, tc):
+    r"""``xmt_bwd``: ``(dcoef, dpk)``."""
+    from mrphy_tpu_torch.kernels._build import library
+    name = 'xmt_bwd'
+    nA, nTR = _mt_sizes(name, coef, pk, cfg)
+    _check_tc(nTR, tc)
+    dt, dev = pk.dtype, pk.device
+    _check(chk, 'chk', (nTR // tc, PLANES_MT, cfg.K, nA), dt, dev)
+    _check(g, 'g', (nA, nTR, 2), dt, dev)
+    threads, in_smem = launch_cfg(cfg.K, pk.element_size(), PLANES_MT)
+    # phase 1's pre-RF states of one chunk (the first is chk's own), the
+    # adjoint state when it does not fit in shared memory, and each warp's
+    # per-TR coefficient rows (summed over its atoms)
+    scratch = torch.empty((max(tc - 1, 1), PLANES_MT, cfg.K, nA), dtype=dt,
+                          device=dev)
+    hstate = None if in_smem else torch.empty((PLANES_MT, cfg.K, nA),
+                                              dtype=dt, device=dev)
+    dpk = torch.empty(pk.shape, dtype=dt, device=dev)
+    dcf = torch.empty((-(-nA // 32), nTR, NC_MT), dtype=dt, device=dev)
+    lib, _ = library()
+    with torch.cuda.device(dev):
+        err = _entry(lib, name, dt)(
+            *map(_ptr, (coef, pk, chk, g, scratch, hstate, dpk, dcf)), nA,
+            nTR, cfg.K, cfg.kshift, cfg.flags, tc, threads, _stream(dev))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    # the warps' partial rows, summed in a fixed order
+    return dcf.sum(dim=0).T.contiguous(), dpk
+
+
+def xmt_fwd(coef, pk, cfg: XmtCfg):
+    r"""The ``xmt_fwd`` kernel on CUDA tensors (contiguous, one dtype,
+    float32 or float64), :func:`xmt_fwd_torch` on CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xmt_fwd_torch(coef, pk, cfg)
+    return _launch_xmt_fwd(coef, pk, cfg, None)[0]
+
+
+def xmt_fwd_chk(coef, pk, cfg: XmtCfg, *, tc: int):
+    r"""The ``xmt_fwd_chk`` kernel on CUDA tensors, :func:`xmt_fwd_chk_torch`
+    on CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xmt_fwd_chk_torch(coef, pk, cfg, tc=tc)
+    return _launch_xmt_fwd(coef, pk, cfg, tc)
+
+
+def xmt_bwd(coef, pk, cfg: XmtCfg, chk, g, *, tc: int):
+    r"""The ``xmt_bwd`` kernel on CUDA tensors, :func:`xmt_bwd_torch` on CPU
+    tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xmt_bwd_torch(coef, pk, cfg, chk, g, tc=tc)
+    return _launch_xmt_bwd(coef, pk, cfg, chk, g, tc)
+
+
+class _Xmt(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, cfg, coef, pk):
+        ctx.cfg = cfg
+        if not any(ctx.needs_input_grad[1:3]):
+            return xmt_fwd(coef, pk, cfg)
+        tc = pick_tc(coef.shape[1], cfg.K, pk.shape[1], pk.element_size(),
+                     PLANES_MT)
+        sig, chk = xmt_fwd_chk(coef, pk, cfg, tc=tc)
+        ctx.tc = tc
+        ctx.save_for_backward(coef, pk, chk)
+        return sig
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        coef, pk, chk = ctx.saved_tensors
+        dcoef, dpk = xmt_bwd(coef, pk, ctx.cfg, chk, g.contiguous(),
+                             tc=ctx.tc)
+        return None, dcoef, dpk
+
+
+def xmt(coef, pk, cfg: XmtCfg):
+    r"""The EPG-X(MT) SPGR train ``sig (nA, nTR, 2)`` at a fixed TR: the
+    kernels on CUDA tensors (``xmt_fwd``, or ``xmt_fwd_chk`` and ``xmt_bwd``
+    when a gradient is needed), their plain versions on CPU tensors.
+    Differentiable w.r.t. ``coef`` and ``pk``."""
+    return _Xmt.apply(cfg, coef.contiguous(), pk.contiguous())
+
+
+def xmt_spgr(flips, phis=None, *, T1a, T2a, T1b, kab, kba, tr, wt=0.0,
+             wscale=None, M0a=1.0, M0b=0.1, b1=None, kshift: int = 1,
+             K=None):
+    r"""The EPG-X(MT) gradient-spoiled train of a qMT dictionary through the
+    kernels (counterpart of ``epg_pallas.epgx_mt_spgr_pallas``).
+
+    The semantics of :func:`mrphy_tpu_torch.ops.epg.epgx_mt_spgr` for the
+    dictionary workload: a shared `(nTR,)` flip (and phase) train, a shared
+    ``wt`` `()` or `(nTR,)` saturation train, a scalar ``tr``, the tissue
+    and exchange maps per atom, flattened into one atom axis. The per-atom
+    saturation scale ``wscale`` (the bound pool's lineshape ``G(Δ, T2b)``)
+    multiplies the shared ``wt``: the effective saturation equals the plain
+    route's batched ``wt[None]·wscale[:, None]``. ``b1`` scales the flips
+    per atom. Returns ``(nAtoms, nTR, 2)``: the kernels (``xmt_fwd``, or
+    ``xmt_fwd_chk`` and ``xmt_bwd`` under a gradient) on CUDA tensors, their
+    plain versions on CPU tensors. Differentiable w.r.t. every input,
+    ``wt`` and ``wscale`` among them."""
+    from mrphy_tpu_torch.ops.epg import _xmt_rows
+    if int(kshift) == 0:
+        raise ValueError('kshift must be a nonzero integer')
+    coef, pk, cfg, _ = _xmt_rows(flips, phis, T1a=T1a, T2a=T2a, T1b=T1b,
+                                 kab=kab, kba=kba, tr=tr, wt=wt,
+                                 wscale=wscale, M0a=M0a, M0b=M0b, b1=b1,
+                                 kshift=int(kshift), K=K)
+    return xmt(coef, pk, cfg)

@@ -1,6 +1,7 @@
 r"""Extended Phase Graphs (EPG): differentiable echo-train simulation
 (counterpart of :mod:`mrphy_tpu.ops.epg`: its single-pool SPGR and CPMG
-parts and the two-pool EPG-X SPGR and CPMG trains).
+parts, the two-pool EPG-X SPGR and CPMG trains and the bound-pool EPG-X(MT)
+SPGR train).
 
 Magnetization is tracked in the Fourier domain of the dephasing angle as
 configuration states ``F+(k), F−(k), Z(k)``; the state is a real ``(...,
@@ -44,7 +45,17 @@ shared 1-D flip train: at a scalar ``esp`` ``xcpmg_fwd``, or
 ``xcpmg_fwd_chk`` with ``xcpmg_bwd`` under a gradient; over a ``(nE,)``
 ``esp`` train ``xcpmg_v_fwd``, or ``xcpmg_v_fwd_chk`` with
 ``xcpmg_v_bwd``, which read each echo's propagator over its half interval
-from per-echo planes. The MT variant is not ported yet.
+from per-echo planes.
+
+The EPG-X(MT) variant (:func:`epgx_mt_spgr`, the qMT-SPGR train) keeps pool
+b's Z states only and saturates them at every RF event by ``exp(−wt)``
+(:func:`mt_lineshape`). Its kernels take a shared 1-D flip train, a scalar
+or ``(nTR,)`` ``wt`` and a scalar ``tr``: ``xmt_fwd``, or ``xmt_fwd_chk``
+with ``xmt_bwd`` under a gradient (:mod:`mrphy_tpu_torch.kernels.epgx`,
+whose :func:`~mrphy_tpu_torch.kernels.epgx.xmt_spgr` also takes a per-atom
+saturation scale ``wscale`` for qMT dictionaries). A batched ``wt`` runs the
+plain route; a ``(nTR,)`` ``tr`` train does too, its kernels not being
+ported yet.
 """
 
 import math
@@ -59,7 +70,8 @@ from mrphy_tpu_torch.ops.slowsims import _expm2
 
 __all__ = ['epg_state', 'epg_rf', 'epg_grad', 'epg_relax', 'epg_diffusion',
            'epg_cpmg', 'epg_spgr', 'ir_prep', 'rf_spoil_phases',
-           'epgx_state', 'epgx_rf', 'epgx_relax', 'epgx_spgr', 'epgx_cpmg']
+           'epgx_state', 'epgx_rf', 'epgx_relax', 'epgx_spgr', 'epgx_cpmg',
+           'mt_lineshape', 'epgx_mt_relax', 'epgx_mt_rf', 'epgx_mt_spgr']
 
 
 def _t(x, like):
@@ -1101,3 +1113,238 @@ def _xcpmg_kernels(flips, **kw):
     else:
         er, ei = kepgx.xcpmg(coef, pk, cfg)
     return torch.stack([er.T, ei.T], -1).reshape(batch + (cfg.K - 1, 2))
+
+
+# ==========================================================================
+# EPG-X(MT): the bound pool of magnetization transfer (Z states only)
+# ==========================================================================
+# The macromolecular pool has T2b ~ 10 µs: its transverse magnetization is
+# gone between any two events, so it carries only Z states, and RF acts on it
+# as saturation of Zb at the rate W = π·ω1rms²·G(Δ) (absorption lineshape G)
+# — Malik et al. MRM 80(2):767, 2018, the "EPG-X(MT)" case.
+
+_MTKEYS = ('T1a', 'T2a', 'T1b', 'kab', 'kba', 'M0a', 'M0b', 'b1')
+
+
+def mt_lineshape(delta, T2b, kind: str = 'superlorentzian', nq: int = 256):
+    r"""Macromolecular absorption lineshape ``G(Δ)``, "Sec" (the value that
+    makes ``W = π·ω1²·G`` a rate for ω1 in rad/s).
+
+    Inputs:
+        - ``delta``: `(...)`, "Hz", the saturation's offset from the bound
+          pool's centre.
+        - ``T2b``: `()` or per-voxel, broadcast against ``delta``, "Sec"
+          (~10–12 µs in white matter).
+        - ``kind``: ``'superlorentzian'`` (the tissue standard: a fixed
+          ``nq``-node midpoint quadrature over the fibre angle; its Δ → 0
+          divergence is the physical one, evaluate at |Δ| ≳ 1 kHz) ⊻
+          ``'gaussian'`` ⊻ ``'lorentzian'``.
+    """
+    dtype, device = _common(delta, T2b)
+    delta, T2b = torch.broadcast_tensors(
+        torch.as_tensor(delta, dtype=dtype, device=device),
+        torch.as_tensor(T2b, dtype=dtype, device=device))
+    if kind == 'lorentzian':
+        return (T2b / math.pi) / (1 + (2 * math.pi * delta * T2b) ** 2)
+    if kind == 'gaussian':
+        return T2b / math.sqrt(2 * math.pi) * torch.exp(
+            -(2 * math.pi * delta * T2b) ** 2 / 2)
+    if kind != 'superlorentzian':
+        raise ValueError(f'unknown lineshape {kind!r}')
+    # G(Δ) = ∫_0^1 du  sqrt(2/π) · T2b/|3u²−1| · exp(−2(2πΔT2b/(3u²−1))²)
+    u = (torch.arange(nq, dtype=dtype, device=device) + 0.5) / nq
+    denom = torch.clamp_min(torch.abs(3 * u ** 2 - 1), 1e-8)
+    arg = (2 * math.pi * (delta * T2b)[..., None] / denom) ** 2
+    integ = math.sqrt(2 / math.pi) * (T2b[..., None] / denom) \
+        * torch.exp(-2 * arg)
+    return (integ * (1.0 / nq)).sum(-1)
+
+
+def epgx_mt_relax(s, tau, *, T1a, T2a, T1b, kab, kba, M0a=1.0, M0b=0.1):
+    r"""EPG-X(MT) interval of ``tau`` seconds: pool a's F states decay with
+    ``T2a`` (the bound pool has no F states), and the longitudinal pair
+    exchanges and recovers exactly as in :func:`epgx_relax`. State layout
+    `(*batch, 2, 3, K, 2)` with pool b's F rows kept at zero."""
+    batch = s.shape[:-4]
+    (tau, T1a, T2a, T1b, kab, kba, M0a, M0b) = (
+        torch.broadcast_to(_t(x, s), batch) for x in
+        (tau, T1a, T2a, T1b, kab, kba, M0a, M0b))
+    E2 = torch.exp(-tau / T2a)[..., None, None, None]
+    Fa = s[..., 0, :2, :, :] * E2                    # (..., 2, K, 2)
+    Z00, Z01, Z10, Z11 = _expm2((-1 / T1a - kab) * tau, kba * tau,
+                                kab * tau, (-1 / T1b - kba) * tau)
+    Za, Zb = s[..., 0, 2, :, :], s[..., 1, 2, :, :]  # (..., K, 2)
+    Za1 = Z00[..., None, None] * Za + Z01[..., None, None] * Zb
+    Zb1 = Z10[..., None, None] * Za + Z11[..., None, None] * Zb
+    ra, rb = _z_recovery(Z00, Z01, Z10, Z11, T1a, T1b, kab, kba, M0a, M0b)
+    Za1, Zb1 = _add_z0(Za1, ra), _add_z0(Zb1, rb)
+    pool_a = torch.cat([Fa, Za1[..., None, :, :]], dim=-3)
+    pool_b = torch.cat([torch.zeros_like(Fa), Zb1[..., None, :, :]], dim=-3)
+    return torch.stack([pool_a, pool_b], dim=-4)
+
+
+def epgx_mt_rf(s, alpha, phi=0.0, wt=0.0):
+    r"""EPG-X(MT) RF event: pool a rotated by ``alpha`` about ``phi``
+    (rad); the bound pool's Z states saturated by ``exp(−wt)``, ``wt =
+    W·τ_rf = π∫ω1²(t)dt·G(Δ)`` the pulse's dimensionless saturation integral
+    (:func:`mt_lineshape` gives ``G``). Broadcasts against the batch axes."""
+    a = epg_rf(s[..., 0, :, :, :], alpha, phi)
+    wt = _t(wt, s)[..., None, None]
+    b = s[..., 1, :, :, :]
+    Zb = b[..., 2, :, :] * torch.exp(-wt)
+    b = torch.cat([b[..., :2, :, :] * 0.0, Zb[..., None, :, :]], dim=-3)
+    return torch.stack([a, b], dim=-4)
+
+
+def epgx_mt_spgr(flips, phis=None, *, T1a, T2a, T1b, kab, kba, tr, wt=0.0,
+                 M0a=1.0, M0b=0.1, b1=None, kshift: int = 1, K=None,
+                 mesh=None, backend: str = 'auto'):
+    r"""MT-weighted gradient-spoiled GRE train (qMT-SPGR): per TR an
+    on-resonance excitation of the free pool (flip ``flips[n]`` about
+    ``phis[n]``) and the bound pool's saturation ``wt[n]`` (from the
+    saturation pulse's power integral and :func:`mt_lineshape`), the
+    demodulated ``Fa+(0)`` read out, the exact exchange–relaxation over TR
+    (:func:`epgx_mt_relax`), the spoiler's shift of pool a.
+
+    Inputs: as :func:`epg_spgr`, plus ``T1b``, ``kab``/``kba`` ("1/Sec"),
+    ``M0a``/``M0b`` and ``wt`` `()` ⊻ `(nTR,)` ⊻ `(*batch, nTR)`; ``tr`` a
+    scalar or a `(nTR,)` train, "Sec"; ``K`` the modelled orders (default
+    the exact ``nTR·|kshift| + 1``); ``mesh`` raises
+    (:class:`NotImplementedError`); ``backend`` ``'auto'`` | ``'torch'`` |
+    ``'cuda'`` (the module docstring). Outputs: ``signals`` `(*batch, nTR,
+    2)`.
+
+    A shared `(nTR,)` flip train with a scalar or `(nTR,)` ``wt`` and a
+    scalar ``tr`` runs the kernels ``xmt_fwd``, or ``xmt_fwd_chk`` with
+    ``xmt_bwd`` under a gradient, on CUDA tensors
+    (:mod:`mrphy_tpu_torch.kernels.epgx`; a per-atom saturation scale goes
+    through :func:`mrphy_tpu_torch.kernels.epgx.xmt_spgr`'s ``wscale``). A
+    batched ``wt`` or a per-voxel 2-D train runs the plain route under
+    ``'auto'`` and raises under ``'cuda'``; a `(nTR,)` ``tr`` train runs the
+    plain route under ``'auto'`` (its kernels are not ported yet) and raises
+    :class:`NotImplementedError` under ``'cuda'``. Differentiable w.r.t.
+    every input on every route.
+    """
+    from mrphy_tpu_torch.ops.routing import route
+    if mesh is not None:
+        raise NotImplementedError('mesh= (multi-device runs) is not ported '
+                                  'to mrphy_tpu_torch yet')
+    if int(kshift) == 0:
+        raise ValueError('kshift must be a nonzero integer')
+    kw = dict(T1a=T1a, T2a=T2a, T1b=T1b, kab=kab, kba=kba, tr=tr, wt=wt,
+              M0a=M0a, M0b=M0b, b1=b1, kshift=int(kshift), K=K)
+    path = route('epgx_mt_spgr', backend=backend, flips=flips, phis=phis,
+                 **kw)['path']
+    if path.startswith('cuda'):
+        device = _common(flips, phis, tr, wt, *(kw[n] for n in _MTKEYS))[1]
+        if backend == 'cuda' and device.type != 'cuda':
+            raise ValueError("backend='cuda' needs CUDA tensors, got "
+                             f'{device}')
+        return _xmt_kernels(flips, phis, **kw)
+    return _xmt_scan(flips, phis, **kw)
+
+
+def _xmt_scan(flips, phis=None, *, T1a, T2a, T1b, kab, kba, tr, wt=0.0,
+              M0a=1.0, M0b=0.1, b1=None, kshift=1, K=None):
+    r"""The plain route: JAX's ``lax.scan`` as a loop over TRs."""
+    kw = dict(T1a=T1a, T2a=T2a, T1b=T1b, kab=kab, kba=kba, M0a=M0a, M0b=M0b)
+    dtype = _common(flips, phis, T2a)[0]
+    device = _common(flips, phis, tr, wt, b1, *kw.values())[1]
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    flips = _apply_b1(arr(flips), b1)
+    nTR = flips.shape[-1]
+    phis = torch.zeros(nTR, dtype=dtype, device=device) if phis is None \
+        else arr(phis)
+    wt = arr(wt)
+    wt = torch.broadcast_to(wt, torch.broadcast_shapes(wt.shape, (nTR,)))
+    batch = torch.broadcast_shapes(flips.shape[:-1], phis.shape[:-1],
+                                   wt.shape[:-1],
+                                   *(_shape(v) for v in kw.values()))
+    K = nTR * abs(kshift) + 1 if K is None else int(K)
+    s = epgx_state(K, batch, M0a=M0a, M0b=M0b, dtype=dtype, device=device)
+    flips_t, phis_t, wt_t = (torch.broadcast_to(x, batch + (nTR,)).movedim(
+        -1, 0) for x in (flips, phis, wt))
+    trs = torch.broadcast_to(arr(tr), (nTR,))
+    sigs = []
+    for n in range(nTR):
+        phi = phis_t[n]
+        s = epgx_mt_rf(s, flips_t[n], phi, wt_t[n])
+        fr, fi = s[..., 0, 0, 0, 0], s[..., 0, 0, 0, 1]
+        c, si = torch.cos(phi), torch.sin(phi)
+        sigs.append(torch.stack([c * fr + si * fi, c * fi - si * fr], -1))
+        s = epg_grad(epgx_mt_relax(s, trs[n], **kw), kshift)
+    return torch.stack(sigs, dim=-2)
+
+
+def _xmt_rows(flips, phis=None, *, T1a, T2a, T1b, kab, kba, tr, wt=0.0,
+              wscale=None, M0a=1.0, M0b=0.1, b1=None, kshift=1, K=None):
+    r"""The kernels' arguments for :func:`epgx_mt_spgr`'s inputs (and a
+    per-atom saturation scale ``wscale``): ``(coef, pk, cfg, batch)``
+    (``_mt_dispatch``, ``epg_pallas.py:956-989``).
+
+    ``coef (10, nTR) = [cos²(α/2), sin²(α/2), sin α, cos α, cos φ, sin φ,
+    cos 2φ, sin 2φ, α, wt]``; ``pk (11, nA) = [Z00, Z01, Z10, Z11, ra, rb,
+    E2a, M0a, M0b, b1, wscale]``, the longitudinal exchange–relaxation
+    propagator over ``tr`` with its recovery (:func:`_expm2`,
+    :func:`_z_recovery`), pool a's transverse decay and the rest; ``batch``
+    the atoms' shape, flattened into the columns. Torch autograd of the
+    construction carries the gradients of every input back from the rows'.
+    The effective saturation of atom ``a`` at TR ``t`` is ``wt[t]·wscale[a]``
+    (the plain route's batched ``wt[None]·wscale[:, None]``)."""
+    kw = dict(T1a=T1a, T2a=T2a, T1b=T1b, kab=kab, kba=kba, M0a=M0a, M0b=M0b,
+              b1=b1, wscale=wscale)
+    dtype, device = _common(flips, phis, tr, wt, *kw.values())
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    flips = arr(flips)
+    if flips.ndim != 1:
+        raise ValueError('the kernels take a shared (nTR,) flip train, got '
+                         f'{tuple(flips.shape)}')
+    nTR = flips.shape[0]
+    phis = torch.zeros_like(flips) if phis is None else arr(phis)
+    if phis.shape != flips.shape:
+        raise ValueError(f'phis {tuple(phis.shape)} and flips '
+                         f'{tuple(flips.shape)} differ')
+    tr, wt = arr(tr), arr(wt)
+    if tr.ndim != 0:
+        raise NotImplementedError(
+            'a (nTR,) tr train of the EPG-X(MT) kernels (xmt_v_*) is slice '
+            '10h of ROADMAP.md queue 1, not ported yet')
+    if wt.ndim > 1 or (wt.ndim == 1 and tuple(wt.shape) != (nTR,)):
+        raise ValueError(f'the kernels take a shared () or ({nTR},) wt '
+                         f'train, got {tuple(wt.shape)}; express a per-atom '
+                         'saturation through wscale')
+    batch = torch.broadcast_shapes(*(_shape(x) for x in kw.values()
+                                     if x is not None))
+    nA = math.prod(batch)
+    T1a, T2a, T1b, kab, kba, M0a, M0b, b1v, wsc = (
+        torch.broadcast_to(arr(1.0 if x is None else x), batch).reshape(nA)
+        for x in kw.values())
+    coef = torch.stack([torch.cos(flips / 2) ** 2, torch.sin(flips / 2) ** 2,
+                        torch.sin(flips), torch.cos(flips),
+                        torch.cos(phis), torch.sin(phis),
+                        torch.cos(2 * phis), torch.sin(2 * phis), flips,
+                        torch.broadcast_to(wt, (nTR,))])
+    Z = _expm2((-1 / T1a - kab) * tr, kba * tr, kab * tr,
+               (-1 / T1b - kba) * tr)
+    ra, rb = _z_recovery(*Z, T1a, T1b, kab, kba, M0a, M0b)
+    pk = torch.stack([*Z, ra, rb, torch.exp(-tr / T2a), M0a, M0b, b1v, wsc])
+    K = nTR * abs(kshift) + 1 if K is None else int(K)
+    cfg = kepgx.XmtCfg(K=K, kshift=kshift, has_b1=b1 is not None)
+    return coef, pk, cfg, batch
+
+
+def _xmt_kernels(flips, phis=None, **kw):
+    r"""The kernels' route: :func:`_xmt_rows`, then
+    :func:`mrphy_tpu_torch.kernels.epgx.xmt` (the kernels' plain versions
+    on CPU tensors)."""
+    coef, pk, cfg, batch = _xmt_rows(flips, phis, **kw)
+    sig = kepgx.xmt(coef, pk, cfg)                  # (nA, nTR, 2)
+    if len(batch) > 1:
+        return sig.reshape(batch + sig.shape[1:])
+    return _unbatch(sig, _scalar_batch(*(kw.get(n) for n in _MTKEYS)))

@@ -5,7 +5,8 @@ r"""Backend-routing introspection: which path will a train family take?
 ``<family>(..., backend=..., mesh=...)`` takes and why; the dispatchers of
 :func:`mrphy_tpu_torch.ops.epg.epg_spgr`, :func:`~mrphy_tpu_torch.ops.epg.
 epg_cpmg`, :func:`~mrphy_tpu_torch.ops.epg.epgx_spgr`,
-:func:`~mrphy_tpu_torch.ops.epg.epgx_cpmg` and
+:func:`~mrphy_tpu_torch.ops.epg.epgx_cpmg`,
+:func:`~mrphy_tpu_torch.ops.epg.epgx_mt_spgr` and
 :func:`mrphy_tpu_torch.ops.ssfp.bssfp_train` consult the same decision, so
 the reported path cannot drift from the one taken.
 
@@ -17,11 +18,13 @@ Paths:
   its hand-written adjoint (``backend='cuda'``, or ``'auto'`` on CUDA
   tensors);
 - ``'torch-fallback'``: outside the kernels' scope (per-voxel 2-D flip
-  trains; for ``bssfp_train`` also a prepared ``Minit``) under
-  ``backend='auto'``, so the dispatcher runs the plain route on the
-  card. Under ``backend='cuda'`` such a train raises
-  :class:`ValueError`: a caller who asks for the kernels is told that
-  none would run.
+  trains; for ``bssfp_train`` also a prepared ``Minit``, for
+  ``epgx_mt_spgr`` a batched ``wt``) under ``backend='auto'``, so the
+  dispatcher runs the plain route on the card. Under ``backend='cuda'``
+  such a train raises :class:`ValueError`: a caller who asks for the
+  kernels is told that none would run. ``epgx_mt_spgr`` over a ``(nTR,)``
+  ``tr`` train takes this path too, its kernels not being ported yet
+  (:class:`NotImplementedError` under ``'cuda'``).
 
 The JAX package has a fourth path, ``'pallas-xla-vjp'``: a fused forward
 with a recompute-through-XLA reverse, taken when the TPU adjoint's VMEM
@@ -40,10 +43,11 @@ state's 12 planes, and ``bssfp_bwd``'s, for an isochromat's 3 (JAX's
 step's propagator), and so does ``epgx_cpmg`` at a scalar ``esp`` and over
 a ``(nE,)`` ``esp`` train (``xcpmg_v_*``).
 
-``epg_spgr``, ``epg_cpmg``, ``epgx_spgr``, ``epgx_cpmg`` and
-``bssfp_train`` are ported; the other families raise
-:class:`NotImplementedError` naming the slice of the port that brings them.
-``mesh=`` raises too (multi-device runs are not ported yet).
+Every family is ported; ``epgx_mt_spgr`` takes its kernels (``xmt_*``,
+their chunk fitted for the bound-pool state's 8 planes) at a scalar ``tr``,
+and its ``(nTR,)`` tr train waits for the slice of the port named in
+``_SLICES``. ``mesh=`` raises :class:`NotImplementedError` (multi-device runs
+are not ported yet).
 """
 
 import math
@@ -56,8 +60,9 @@ __all__ = ['route', 'FAMILIES']
 FAMILIES = ('epg_spgr', 'epg_cpmg', 'epgx_spgr', 'epgx_cpmg',
             'epgx_mt_spgr', 'bssfp_train')
 
-# The slice of the port (ROADMAP.md, queue 1) that brings each family.
-_SLICES = {'epgx_mt_spgr': '10g-10h'}
+# The slice of the port (ROADMAP.md, queue 1) that brings the kernels of a
+# family's case still to port: epgx_mt_spgr over a (nTR,) tr train.
+_SLICES = {'epgx_mt_spgr': '10h'}
 
 
 def _shape(v) -> tuple:
@@ -171,6 +176,39 @@ def _decide_epgx_cpmg(kw, backend):
                              else '', pick_tc(nE, nE + 1, nA, 4, PLANES)))
 
 
+def _decide_epgx_mt_spgr(kw, backend):
+    from mrphy_tpu_torch.kernels.epg import pick_tc
+    from mrphy_tpu_torch.kernels.epgx import PLANES_MT
+    fallback, nT = _per_voxel(kw, backend)
+    if fallback:
+        return fallback
+    if len(_shape(kw.get('wt'))) > 1:
+        if backend == 'cuda':
+            raise ValueError("backend='cuda': a batched wt is outside the "
+                             'kernels (express a per-atom saturation through '
+                             'wscale: kernels.epgx.xmt_spgr); use '
+                             "backend='auto' or 'torch' for the plain route")
+        return _mk('torch-fallback', 'a batched wt is outside the kernels '
+                   '(express a per-atom saturation through wscale: '
+                   'kernels.epgx.xmt_spgr); the dispatcher runs the plain '
+                   'route')
+    if len(_shape(kw.get('tr'))) == 1:
+        msg = ('a (nTR,) tr train: its kernels (xmt_v_*) are slice '
+               f"{_SLICES['epgx_mt_spgr']} of ROADMAP.md queue 1, not "
+               'ported yet')
+        if backend == 'cuda':
+            raise NotImplementedError(f"backend='cuda': {msg}")
+        return _mk('torch-fallback', f'{msg}; the dispatcher runs the plain '
+                   'route')
+    nA = _n_atoms(kw, ('T1a', 'T2a', 'T1b', 'kab', 'kba', 'M0a', 'M0b', 'b1',
+                       'wscale'))
+    K = _k_orders(kw, nT)
+    return _mk('cuda-native-adjoint',
+               'xmt_fwd, and xmt_fwd_chk + xmt_bwd under a gradient (nTR=%d, '
+               'K=%d, nA=%d; the adjoint chunk tc=%d in float32)'
+               % (nT, K, nA, pick_tc(nT, K, nA, 4, PLANES_MT)))
+
+
 def _decide_bssfp_train(kw, backend):
     from mrphy_tpu_torch.kernels.ssfp import chunk
     fallback, nT = _per_voxel(kw, backend)
@@ -195,6 +233,7 @@ def _decide_bssfp_train(kw, backend):
 
 _DECIDERS = {'epg_spgr': _decide_epg_spgr, 'epg_cpmg': _decide_epg_cpmg,
              'epgx_spgr': _decide_epgx_spgr, 'epgx_cpmg': _decide_epgx_cpmg,
+             'epgx_mt_spgr': _decide_epgx_mt_spgr,
              'bssfp_train': _decide_bssfp_train}
 
 
@@ -212,16 +251,13 @@ def route(family: str, *, backend: str = 'auto', mesh=None, **kw):
     are inspected; nothing is computed). Returns ``{'path', 'fused',
     'reason'}`` with ``path`` one of ``'torch' | 'cuda-native-adjoint' |
     'torch-fallback'``. Raises :class:`ValueError` where the call would
-    (``backend='cuda'`` with a per-voxel train, or with ``bssfp_train``'s
-    ``Minit``), and
-    :class:`NotImplementedError` for a path not ported yet.
+    (``backend='cuda'`` with a per-voxel train, with ``bssfp_train``'s
+    ``Minit`` or with ``epgx_mt_spgr``'s batched ``wt``), and
+    :class:`NotImplementedError` for kernels not ported yet
+    (``backend='cuda'`` with ``epgx_mt_spgr``'s ``(nTR,)`` tr train).
     """
     if family not in FAMILIES:
         raise ValueError(f'unknown family {family!r}; one of {FAMILIES}')
-    if family not in _DECIDERS:
-        raise NotImplementedError(
-            f'{family} is not ported to mrphy_tpu_torch yet (slice '
-            f'{_SLICES[family]} of ROADMAP.md queue 1)')
     if mesh is not None:
         raise NotImplementedError('mesh= (multi-device runs) is not ported '
                                   'to mrphy_tpu_torch yet')

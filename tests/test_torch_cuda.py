@@ -2,8 +2,9 @@ r"""The CUDA kernels of :mod:`mrphy_tpu_torch.kernels` on the card (the
 Bloch kernels, the two-pool ``mc_fwd``/``mc_bwd``, the k-space signal
 kernels ``sig_fwd``/``sig_adj``/``sig_vjp``, the gridding NUFFT's
 ``nufft_sample``/``nufft_spread``/``nufft_dk``, the EPG trains'
-``spgr_*``/``cpmg_*``/``xspgr_*``/``xspgr_v_*``/``xcpmg_*``/``xcpmg_v_*``,
-the balanced-SSFP train's ``bssfp_*`` and the matched filter ``match``): each against its plain PyTorch version,
+``spgr_*``/``cpmg_*``/``xspgr_*``/``xspgr_v_*``/``xcpmg_*``/``xcpmg_v_*``/
+``xmt_*``, the balanced-SSFP train's ``bssfp_*`` and the matched filter
+``match``): each against its plain PyTorch version,
 the launch counts, the wrappers' refusals, and backward through the engines
 reaching the adjoint kernels.
 
@@ -1394,3 +1395,145 @@ def test_bssfp_train_gradients_cuda_vs_plain(cuda, dtype, vartr):
     with pytest.raises(ValueError, match='CUDA tensors'):
         ssfp.bssfp_train(kw['flips'].cpu(), T1=1.0, T2=0.1, tr=0.005,
                          backend='cuda')
+
+
+def _xmt_case(cuda, dtype, nA, nTR, K, kshift, b1, seed, wscale=True):
+    r"""``xmt_spgr`` keywords (CUDA tensors): an rf-spoiled train with a
+    per-TR saturation train ``wt`` (0–1.5) over a qMT system with per-atom
+    rates, M0a and M0b, no detailed balance, and, as asked, b1 and a
+    per-atom saturation scale ``wscale`` (0.5–1.5)."""
+    from mrphy_tpu_torch.ops import epg
+    rng = np.random.default_rng(seed)
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=cuda)
+
+    kw = dict(flips=arr(rng.uniform(0.1, 1.2, nTR)),
+              phis=epg.rf_spoil_phases(nTR, dtype=dtype, device=cuda),
+              wt=arr(rng.uniform(0.0, 1.5, nTR)),
+              T1a=arr(rng.uniform(0.5, 2.0, nA)),
+              T2a=arr(rng.uniform(0.03, 0.1, nA)),
+              T1b=arr(rng.uniform(0.5, 1.5, nA)),
+              kab=arr(rng.uniform(0.5, 5.0, nA)),
+              kba=arr(rng.uniform(5.0, 40.0, nA)),
+              M0a=arr(rng.uniform(0.8, 1.0, nA)),
+              M0b=arr(rng.uniform(0.05, 0.25, nA)), tr=0.03,
+              kshift=kshift, K=K)
+    if b1:
+        kw['b1'] = arr(rng.uniform(0.8, 1.2, nA))
+    if wscale:
+        kw['wscale'] = arr(rng.uniform(0.5, 1.5, nA))
+    return kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar', [(torch.float32, 2e-6),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize('nA,nTR,K,kshift,b1', [
+    (333, 40, 12, 1, False), (200, 36, 10, -1, True), (129, 30, 9, 2, True),
+    (65, 160, None, 1, False)],
+    ids=['plain-train', 'b1-kshift-1', 'b1-kshift2',
+         'default-K-device-memory-state'])
+def test_xmt_kernels_vs_plain_on_card(cuda, dtype, bar, nA, nTR, K, kshift,
+                                      b1):
+    r"""``xmt_fwd``, ``xmt_fwd_chk`` and ``xmt_bwd`` against their plain
+    versions on the card (per-atom outputs and, as the plain version sums
+    them in the kernel's order, the per-TR rows at ``bar``: bit for bit
+    expected), over several chunks; the launch counts; the refusals."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    from mrphy_tpu_torch.utils._shapes import largest_divisor_leq
+    kw = _xmt_case(cuda, dtype, nA, nTR, K, kshift, b1, 43)
+    coef, pk, cfg, _ = epg._xmt_rows(kw.pop('flips'), kw.pop('phis'), **kw)
+    coef, pk = coef.contiguous(), pk.contiguous()
+    tc = largest_divisor_leq(nTR, nTR // 3)          # three chunks or more
+    n0 = dict(kx.LAUNCHES)
+    sig = kx.xmt_fwd(coef, pk, cfg)
+    sig2, chk = kx.xmt_fwd_chk(coef, pk, cfg, tc=tc)
+    g = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        sig.shape), dtype=dtype, device=cuda)
+    dcoef, dpk = kx.xmt_bwd(coef, pk, cfg, chk, g, tc=tc)
+    torch.cuda.synchronize()
+    assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+        dict.fromkeys(kx.LAUNCHES, 0), xmt_fwd=1, xmt_fwd_chk=1, xmt_bwd=1)
+    sig_p, chk_p = kx.xmt_fwd_chk_torch(coef, pk, cfg, tc=tc)
+    dcoef_p, dpk_p = kx.xmt_bwd_torch(coef, pk, cfg, chk_p, g, tc=tc)
+    for x, y in ((sig, sig_p), (sig2, sig_p), (chk, chk_p), (dpk, dpk_p),
+                 (dcoef, dcoef_p)):
+        _rows_close(x, y, bar)
+    with pytest.raises(ValueError, match='contiguous'):
+        kx.xmt_fwd(coef.T.contiguous().T, pk, cfg)
+    with pytest.raises(ValueError, match='pk must be'):
+        kx.xmt_fwd(coef, pk[:7].contiguous(), cfg)
+    with pytest.raises(TypeError):
+        kx.xmt_fwd(coef.half(), pk.half(), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_epgx_mt_spgr_gradients_cuda_vs_plain(cuda, dtype):
+    r"""``epgx_mt_spgr`` on CUDA tensors with a shared train and a scalar tr
+    runs ``xmt_fwd`` for a value and ``xmt_fwd_chk`` + ``xmt_bwd`` under a
+    gradient, under ``backend='auto'`` and ``'cuda'``; their gradients
+    w.r.t. every input (the wt train among them) meet the plain route's;
+    ``xmt_spgr`` with ``wscale`` meets the plain route's batched
+    ``wt[None]·wscale[:, None]``; a batched wt and a ``(nTR,)`` tr train
+    take the plain route under ``'auto'`` and are refused under ``'cuda'``;
+    ``backend='cuda'`` refuses CPU tensors."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    names = ('flips', 'phis', 'T1a', 'T2a', 'T1b', 'kab', 'kba', 'tr', 'wt',
+             'M0a', 'M0b', 'b1')
+    kw = _xmt_case(cuda, dtype, 70, 24, 8, -1, True, 47)
+    wsc = kw.pop('wscale')
+    kw['tr'] = torch.tensor(0.03, dtype=dtype, device=cuda)
+    w = torch.as_tensor(np.random.default_rng(5).standard_normal((70, 24, 2)),
+                        dtype=dtype, device=cuda)
+    grads = []
+    for backend in ('auto', 'cuda', 'torch'):
+        xs = {n: kw[n].detach().clone().requires_grad_() for n in names}
+        n0 = dict(kx.LAUNCHES)
+        out = epg.epgx_mt_spgr(**dict(kw, **xs), backend=backend)
+        grads.append(torch.autograd.grad((w * out).sum(), list(xs.values())))
+        assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+            dict.fromkeys(kx.LAUNCHES, 0),
+            **({'xmt_fwd_chk': 1, 'xmt_bwd': 1} if backend != 'torch'
+               else {}))
+    n0 = dict(kx.LAUNCHES)
+    with torch.no_grad():
+        epg.epgx_mt_spgr(**kw)
+    assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+        dict.fromkeys(kx.LAUNCHES, 0), xmt_fwd=1)
+    bar = 1e-4 if dtype == torch.float32 else 1e-10
+    for g in grads[:2]:
+        for x, y in zip(g, grads[2]):
+            _rows_close(x, y, bar)
+    # the per-atom saturation scale against the plain route's batched wt
+    xs = {n: kw[n].detach().clone().requires_grad_() for n in names}
+    wsc_ = wsc.detach().clone().requires_grad_()
+    out = kx.xmt_spgr(**dict(kw, **xs), wscale=wsc_)
+    ga = torch.autograd.grad((w * out).sum(), list(xs.values()) + [wsc_])
+    xs2 = {n: kw[n].detach().clone().requires_grad_() for n in names}
+    wsc2 = wsc.detach().clone().requires_grad_()
+    kw2 = dict(kw, **xs2)
+    kw2['wt'] = xs2['wt'][None] * wsc2[:, None]
+    out2 = epg.epgx_mt_spgr(**kw2)
+    gb = torch.autograd.grad((w * out2).sum(), list(xs2.values()) + [wsc2])
+    _rows_close(out.detach(), out2.detach(), bar)
+    for x, y in zip(ga, gb):
+        _rows_close(x, y, bar)
+    # outside the kernels: a batched wt, a (nTR,) tr train
+    wt2 = kw['wt'][None] * wsc[:, None]
+    trs = torch.full((24,), 0.03, dtype=dtype, device=cuda)
+    with pytest.raises(ValueError, match='wscale'):
+        epg.epgx_mt_spgr(**dict(kw, wt=wt2), backend='cuda')
+    with pytest.raises(NotImplementedError, match='10h'):
+        epg.epgx_mt_spgr(**dict(kw, tr=trs), backend='cuda')
+    for extra in (dict(wt=wt2), dict(tr=trs)):
+        n0 = dict(kx.LAUNCHES)
+        with torch.no_grad():
+            out = epg.epgx_mt_spgr(**dict(kw, **extra))
+        assert dict(kx.LAUNCHES) == n0 and out.shape == (70, 24, 2)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        epg.epgx_mt_spgr(kw['flips'].cpu(), T1a=1.0, T2a=0.06, T1b=1.0,
+                         kab=2.0, kba=20.0, tr=0.03, backend='cuda')

@@ -121,13 +121,14 @@ class TestRouting:
         with pytest.raises(ValueError, match='CUDA tensors'):
             tepg.epg_spgr(torch.as_tensor(self.FL), T1=1.0, T2=0.1, tr=0.01,
                           backend='cuda')
-        # the families still to port (epg_spgr, epg_cpmg, epgx_spgr,
-        # epgx_cpmg and bssfp_train are ported)
-        assert set(routing._SLICES) == set(FAMILIES) - {
-            'epg_spgr', 'epg_cpmg', 'epgx_spgr', 'epgx_cpmg', 'bssfp_train'}
+        # every family is ported; the kernels still to port are those of
+        # epgx_mt_spgr over a (nTR,) tr train, which raise under 'cuda'
+        assert set(routing._SLICES) == {'epgx_mt_spgr'}
+        assert set(routing._DECIDERS) == set(FAMILIES)
         for fam in routing._SLICES:
             with pytest.raises(NotImplementedError, match='slice'):
-                route(fam, backend='cuda', flips=self.FL)
+                route(fam, backend='cuda', flips=self.FL,
+                      tr=np.full(self.FL.shape, 0.01))
         with pytest.raises(NotImplementedError, match='mesh'):
             route('epg_spgr', mesh=object(), **kw)
         with pytest.raises(NotImplementedError, match='mesh'):

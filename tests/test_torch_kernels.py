@@ -329,7 +329,7 @@ def test_kernel_sources_present():
                      'spgr_bwd.cu', 'match.cu', 'cpmg_fwd.cu',
                      'cpmg_bwd.cu', 'xspgr_fwd.cu', 'xspgr_bwd.cu',
                      'xcpmg_fwd.cu', 'xcpmg_bwd.cu', 'bssfp_fwd.cu',
-                     'bssfp_bwd.cu'}
+                     'bssfp_bwd.cu', 'xmt_fwd.cu', 'xmt_bwd.cu'}
     assert '--use_fast_math' not in _build.NVCC_FLAGS
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
 
@@ -364,7 +364,8 @@ SIG_DIFFS = {
     # the port's backends are 'auto' | 'torch' | 'cuda'; 'auto' takes the
     # kernels on CUDA tensors, as JAX's 'xla' default does not
     **{f'ops.epg.{n}': {'default: backend'}
-       for n in ('epg_spgr', 'epg_cpmg', 'epgx_spgr', 'epgx_cpmg')},
+       for n in ('epg_spgr', 'epg_cpmg', 'epgx_spgr', 'epgx_cpmg',
+                 'epgx_mt_spgr')},
     'ops.routing.route': {'default: backend'},
     'ops.ssfp.bssfp_train': {'default: backend'},
     'models.mobjs.SpinArray.acquire': {'default: backend'},
@@ -525,7 +526,8 @@ def test_epg_and_mrf_names():
     ported = {tepg: {'epg_state', 'epg_rf', 'epg_grad', 'epg_relax',
                      'epg_diffusion', 'epg_spgr', 'epg_cpmg', 'ir_prep',
                      'rf_spoil_phases', 'epgx_state', 'epgx_rf',
-                     'epgx_relax', 'epgx_spgr', 'epgx_cpmg'},
+                     'epgx_relax', 'epgx_spgr', 'epgx_cpmg', 'mt_lineshape',
+                     'epgx_mt_relax', 'epgx_mt_rf', 'epgx_mt_spgr'},
               tmrf: {'Basis', 'MatchResult', 'pair_rotate', 'svd_basis',
                      'compress', 'dict_match', 'dict_match_compressed',
                      'match_refine'}}
