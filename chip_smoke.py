@@ -375,6 +375,33 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     train per power, ``wscale`` the lineshape); the 600 Adam steps through
     the kernels: the losses and fitted maps at 100× JAX's own response to a
     1-ulp change of the data (``QMT_EX_ULP``) and the example's asserts.
+33. The variable-TR EPG-X(MT) kernels ``xmt_v_fwd``, ``xmt_v_fwd_chk`` and
+    ``xmt_v_bwd`` against their plain versions on the arguments
+    ``xmt_spgr`` gives them over a ``(nTR,)`` tr train (``XMT_V_CASES``:
+    ``pk`` = [M0a, M0b, b1, wscale] and the per-TR planes ``pkt``): phase
+    34a's fingerprinting dictionary (65,536 × 400, K 48, float32; all three
+    timed with their bounds); the refinement's 4096 atoms in one chunk;
+    16,384 × 200 with b1, kshift −1, without detailed balance, and wt ≡ 0
+    without exchange (also against ``spgr_fwd`` over the train); a constant
+    30 ms train, also against the scalar-tr kernels ``xmt_fwd``,
+    ``xmt_fwd_chk`` and ``xmt_bwd``; the default K 401 with the state in
+    device memory; a ragged atom count over three chunks; float64 with b1
+    and ``wscale``. Per-atom outputs (echoes, checkpoints, ``dpk``, ``dpkt``)
+    at ``EPG_BAR``, the per-TR rows at ``XMT_ROW_BAR``.
+34. The qMT fingerprinting path over a variable-TR train: (a) phase 32a's
+    path (``QMT_DICT``) over ``QMT_V``'s train tr_t = 12 ms + 6 ms·u_t
+    through the variable-TR kernels: the dictionary in atoms per second,
+    1M probes matched, 50 refinement steps and the protocol gradient w.r.t.
+    the flips, the wt train, the tr train and the per-atom (F, kba, T2b)
+    at full width and, in float64 on 4096 atoms, against the plain route;
+    (b) ``examples/qmt_fit.py``'s problem over the train 30 ms + 5
+    ms·sin(2πt/37) in float64 against the JAX package's results (literals
+    below, from ``tests/make_qmtv_goldens.py``): the echoes, the data, the
+    first loss and its gradient w.r.t. the log maps and the tr train at
+    1e-10, 20 Adam steps' losses at 1e-9; (c) after the launch counts are
+    read, 34a's dictionary split into the rows, the per-TR planes and
+    ``xmt_v_fwd``, and the memory the planes keep for the backward with and
+    without ``torch.utils.checkpoint``.
 
 Launch counts are zeroed right before the forward path (phase 4) and read
 after it (``rfgr_fwd``, ``beff_fwd`` must have launched), zeroed again
@@ -399,11 +426,13 @@ over an esp train (phase 28; ``xcpmg_v_fwd``, ``xcpmg_v_fwd_chk`` and
 path (phase 30; ``bssfp_fwd``, ``bssfp_fwd_chk``, ``bssfp_bwd`` and
 ``match`` must have launched), and again before the qMT path (phase 32a;
 ``xmt_fwd``, ``xmt_fwd_chk``, ``xmt_bwd`` and ``match`` must have
-launched, each its exact count). Phases 30b–c and 32b, the float64
-examples, run in windows of their own, checked and left out of the
-``kernels`` line. The comparisons with the plain versions (phases 2, 3, 5,
-6, 9, 10, 12, 14, 16, 17, 19, 21, 23, 25, 27, 29, 31) run before and are
-not counted.
+launched, each its exact count), and again before the qMT path over a tr
+train (phase 34a; ``xmt_v_fwd``, ``xmt_v_fwd_chk``, ``xmt_v_bwd`` and
+``match``, each its exact count, and ``xmt_*`` none). Phases 30b–c, 32b and
+34b, the float64 examples, run in windows of their own, checked and left
+out of the ``kernels`` line. The comparisons with the plain versions
+(phases 2, 3, 5, 6, 9, 10, 12, 14, 16, 17, 19, 21, 23, 25, 27, 29, 31, 33)
+run before and are not counted.
 
 The line before the last is one JSON object with each kernel's launches
 on those paths, error, times and bound: ``bound_ms`` is the larger of the
@@ -894,6 +923,12 @@ KERNELS = {
                         replaces='mrphy_tpu/ops/epg_pallas.py:3999'),
     'xmt_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xmt_bwd.cu',
                     replaces='mrphy_tpu/ops/epg_pallas.py:4031'),
+    'xmt_v_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xmt_fwd.cu',
+                      replaces='mrphy_tpu/ops/epg_pallas.py:4337'),
+    'xmt_v_fwd_chk': dict(source='mrphy_tpu_torch/kernels/csrc/xmt_fwd.cu',
+                          replaces='mrphy_tpu/ops/epg_pallas.py:4362'),
+    'xmt_v_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xmt_bwd.cu',
+                      replaces='mrphy_tpu/ops/epg_pallas.py:4397'),
 }
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
@@ -5874,10 +5909,13 @@ def xmt_case(nA, nTR, K, dtype, dev, *, qmt=False, b1=False, kshift=1,
 
 def xmt_args(kw):
     r"""The kernels' arguments ``(coef, pk, cfg)`` for ``xmt_spgr(**kw)``
-    (``ops.epg._xmt_rows``)."""
+    (``ops.epg._xmt_rows``; over a tr train ``pk`` the pair ``(pk,
+    pkt)``)."""
     from mrphy_tpu_torch.ops import epg
     kw = dict(kw)
     coef, pk, cfg, _ = epg._xmt_rows(kw.pop('flips'), kw.pop('phis'), **kw)
+    if isinstance(pk, tuple):
+        return coef.contiguous(), tuple(x.contiguous() for x in pk), cfg
     return coef.contiguous(), pk.contiguous(), cfg
 
 
@@ -5952,10 +5990,13 @@ def qmt_separation(D):
     return -torch.mean((D[:, 1:] - D[:, :-1]) ** 2)
 
 
-def phase_qmt_path(dev):
-    r"""Phase 32a: the qMT dictionary path through ``kernels.epgx.xmt_spgr``
-    and ``ops.mrf``, and nothing else, so that the launch counts read after
-    it are the path's own, at QMT_DICT's full width in float32: (1) the
+def phase_qmt_path(dev, vartr=False):
+    r"""Phase 32a (34a with ``vartr``): the qMT dictionary path through
+    ``kernels.epgx.xmt_spgr`` and ``ops.mrf``, and nothing else, so that the
+    launch counts read after it are the path's own, at QMT_DICT's full width
+    in float32, at its scalar tr or, with ``vartr``, over QMT_V's
+    fingerprinting train (the kernels ``xmt_v_*`` in place of ``xmt_*``,
+    the bars of QMT_V): (1) the
     dictionary (``xmt_fwd``), timed in atoms per second, and against the
     plain route's batched ``wt[None]·wscale[:, None]`` (``epgx_mt_spgr``,
     ``backend='torch'``) on the first ``nslice`` atoms at EPG_ROW_BAR; (2)
@@ -5967,28 +6008,38 @@ def phase_qmt_path(dev):
     kernels (``wscale`` the lineshape of the continuous T2b): s per step
     and the median relative errors against the truth (within
     ``refine_bar``, T2b's below the matched atoms'); (4) the protocol
-    gradient (:func:`qmt_separation` w.r.t. the flips, the wt train and the
-    per-atom F, kba, T2b; ``xmt_fwd_chk`` + ``xmt_bwd``) at full width, ms
-    and peak memory, and on the slice in float64 against the plain route at
-    ``grad_bar``. The window's launches must be exactly ``xmt_fwd`` 9 (the
-    dictionary, its 6 timed calls, the refinement's first and last
-    signals), ``xmt_fwd_chk`` and ``xmt_bwd`` 53 (50 steps, the gradient
-    twice, its slice) and ``match`` 2. Returns the measurements."""
+    gradient (:func:`qmt_separation` w.r.t. the flips, the wt train, with
+    ``vartr`` the tr train, and the per-atom F, kba, T2b; ``xmt_fwd_chk`` +
+    ``xmt_bwd``) at full width, ms and peak memory, and on the slice in
+    float64 against the plain route at ``grad_bar``. The window's launches
+    must be exactly ``xmt_fwd`` 9 (the dictionary, its 6 timed calls, the
+    refinement's first and last signals), ``xmt_fwd_chk`` and ``xmt_bwd`` 53
+    (50 steps, the gradient twice, its slice) and ``match`` 2 (with
+    ``vartr`` the same of ``xmt_v_*``, and no other kernel: ``xmt_*`` 0).
+    Returns the measurements."""
     from mrphy_tpu_torch.kernels import epgx as kx
     from mrphy_tpu_torch.kernels import mrf as kmrf
     from mrphy_tpu_torch.ops import epg, mrf
     t0 = time.perf_counter()
-    c = QMT_DICT
+    c = dict(QMT_DICT, **QMT_V) if vartr else QMT_DICT
+    phase, v = ('34a', '_v') if vartr else ('32a', '')
     n0 = {**dict(kx.LAUNCHES), **dict(kmrf.LAUNCHES)}
     f32 = dict(dtype=torch.float32, device=dev)
     flips, phis, wt = qmt_train(c['ntr'], torch.float32, dev)
+    trs = qmtv_dict_trs(c['ntr'], torch.float32, dev) if vartr else None
     F, kba, T2b = qmt_grid(torch.float32, dev)[1]
     nA, sl = F.shape[0], slice(0, c['nslice'])
     out, bars = {}, {}
 
+    def tissue(F, kba, T2b, tr=trs):
+        kw = qmt_kw(F, kba, T2b)
+        if tr is not None:
+            kw['tr'] = tr
+        return kw
+
     def dictionary():
         with torch.no_grad():
-            return kx.xmt_spgr(flips, phis, wt=wt, **qmt_kw(F, kba, T2b))
+            return kx.xmt_spgr(flips, phis, wt=wt, **tissue(F, kba, T2b))
 
     D = dictionary()
     torch.cuda.synchronize()
@@ -5996,7 +6047,7 @@ def phase_qmt_path(dev):
           'qMT dictionary finite')
     dict_ms = time_ms(dictionary)
     with torch.no_grad():
-        kws = qmt_kw(F[sl], kba[sl], T2b[sl])
+        kws = tissue(F[sl], kba[sl], T2b[sl])
         wsc = kws.pop('wscale')
         Dp = epg.epgx_mt_spgr(flips, phis, wt=wt[None] * wsc[:, None], **kws,
                               backend='torch')
@@ -6050,7 +6101,7 @@ def phase_qmt_path(dev):
 
     def sig_b(P):
         Fp, kp, tp = torch.exp(P).unbind(-1)
-        return kx.xmt_spgr(flips, phis, wt=wt, **qmt_kw(Fp, kp, tp))
+        return kx.xmt_spgr(flips, phis, wt=wt, **tissue(Fp, kp, tp))
 
     t1 = time.perf_counter()
     P, score = mrf.match_refine(sig_b, P0, X[sel], iters=c['iters'],
@@ -6071,10 +6122,12 @@ def phase_qmt_path(dev):
     # the protocol gradient at full width (float32), then on the slice in
     # float64 through the kernels against the plain route
     xs = dict(flips=flips, wt=wt, F=F, kba=kba, T2b=T2b)
+    if vartr:
+        xs['tr'] = trs
 
     def grad(sel=slice(None), backend=None, dtype=torch.float32):
         p = {k: v.detach().to(dtype).requires_grad_() for k, v in xs.items()}
-        kw = qmt_kw(p['F'][sel], p['kba'][sel], p['T2b'][sel])
+        kw = tissue(p['F'][sel], p['kba'][sel], p['T2b'][sel], p.get('tr'))
         ph = phis.to(dtype)
         if backend is None:
             Dg = kx.xmt_spgr(p['flips'], ph, wt=p['wt'], **kw)
@@ -6105,14 +6158,16 @@ def phase_qmt_path(dev):
     out['peak_gb'] = torch.cuda.max_memory_allocated(dev) / 1e9
     launched = {k: v - n0[k] for k, v in {**dict(kx.LAUNCHES),
                                            **dict(kmrf.LAUNCHES)}.items()}
-    want = dict(dict.fromkeys(launched, 0), xmt_fwd=9, xmt_fwd_chk=53,
-                xmt_bwd=53, match=2)
+    want = dict(dict.fromkeys(launched, 0), match=2,
+                **{f'xmt{v}_fwd': 9, f'xmt{v}_fwd_chk': c['iters'] + 3,
+                   f'xmt{v}_bwd': c['iters'] + 3})
     out['launches'] = launched
-    print('qMT path: ' + json.dumps(dict(
+    label = 'qMT fingerprinting path (variable TR)' if vartr else 'qMT path'
+    print(f'{label}: ' + json.dumps(dict(
         measured=out, bars=dict(bars, match_within1_min=c['within1'],
                                 refine_median_relerr=c['refine_bar']))),
         flush=True)
-    check(launched == want, f'qMT path launches {launched} != {want}')
+    check(launched == want, f'{label} launches {launched} != {want}')
     for key, bar in bars.items():
         v = out[key]
         worst = max(v.values()) if isinstance(v, dict) else v
@@ -6127,7 +6182,7 @@ def phase_qmt_path(dev):
     check(out['refine_median_relerr']['T2b']
           < out['refine_start_median_relerr']['T2b'],
           'the refinement did not lower the median T2b error')
-    print(f'phase 32a took {time.perf_counter() - t0:.1f} s', flush=True)
+    print(f'phase {phase} took {time.perf_counter() - t0:.1f} s', flush=True)
     return out
 
 
@@ -6256,10 +6311,11 @@ GOLDEN_QMT = {'data': [[0.03201103070835223, 0.030821267630183953,
 QMT_EX_ULP = {'losses': 5.868113371418988e-13, 'maps': 2.6454522646240966e-14}
 
 
-def qmt_model(logp, flips, phis, route):
+def qmt_model(logp, flips, phis, route, tr=None):
     r"""examples/qmt_fit.py's model of the log maps ``logp`` (``F``,
     ``kba``, ``T2b``, each ``(nv,)``): the magnitude of the last TR's echo
-    per voxel and (offset, power), ``(nv, 10)``, offsets outer. ``route``
+    per voxel and (offset, power), ``(nv, 10)``, offsets outer; at QMT's tr,
+    or over the train ``tr`` (``(nTR,)``) when given. ``route``
     ``'plain'``: ``epgx_mt_spgr`` per (offset, power) with the example's
     batched ``wt[:, None]`` (the router takes the plain route);
     ``'kernels'``: ``kernels.epgx.xmt_spgr`` once per power over the
@@ -6271,8 +6327,8 @@ def qmt_model(logp, flips, phis, route):
     F, kba, T2b = (torch.exp(logp[k]) for k in ('F', 'kba', 'T2b'))
     M0b, M0a = F, 1.0 - F
     kab = kba * M0b / M0a
-    pool = dict(T1a=c['T1a'], T2a=c['T2a'], T1b=c['T1b'], tr=c['tr'],
-                K=c['K'])
+    pool = dict(T1a=c['T1a'], T2a=c['T2a'], T1b=c['T1b'],
+                tr=c['tr'] if tr is None else tr, K=c['K'])
     w1s = [2 * np.pi * w for w in c['w1rms']]
     if route == 'plain':
         outs = []
@@ -6403,6 +6459,522 @@ def phase_qmt_example(dev):
     return out
 
 
+# ==========================================================================
+# The EPG-X(MT) train over a variable-TR train: qMT fingerprinting (phases
+# 33-34)
+# ==========================================================================
+
+# Phase 34b: examples/qmt_fit.py's pool and protocol (QMT; 12 voxels, 300
+# TRs of 10° with rf-spoiled phases, 5 offsets × 2 powers, the noise at 0.1%
+# of the largest datum) with its 30 ms TR replaced by the train tr_t = 30 ms
+# + 5 ms·sin(2πt/37): the data, the first loss of the fit and its gradient
+# w.r.t. the log maps and every element of the tr train, then 20 Adam steps
+# (lr 0.05, from F 0.12, kba 15 /s, T2b 11 µs). The echoes of the 4 kHz,
+# 700 Hz measurement are held at QMT_V_EX_ENTRIES (voxel, TR).
+QMT_V_EX = dict(nv=12, ntr=300, iters=20, lr=0.05, noise=0.1, tr_amp=5e-3,
+                tr_period=37.0, start=dict(F=0.12, kba=15.0, T2b=11e-6))
+QMT_V_EX_ENTRIES = [(0, 0), (3, 37), (5, 101), (7, 150), (11, 299)]
+
+# mrphy_tpu (JAX, XLA route on the CPU), float64, on the QMT_V_EX problem
+# (tests/make_qmtv_goldens.py prints these): the echoes of the 4 kHz, 700 Hz
+# measurement at QMT_V_EX_ENTRIES (re, im) and their largest |value|, the
+# noiseless data of every voxel and measurement and its largest value, the
+# first loss, its gradient w.r.t. the log maps and every element of the tr
+# train with each one's largest magnitude, and the losses of the 20 steps.
+GOLDEN_QMTV = {"echoes": [[0.0, -0.14553212920739073], [-0.0006625936027548311,
+    -0.08202374696311193], [-0.00012617936452600774, -0.0270038191087922],
+    [-0.0001832927167415887, -0.033391958606025354], [-0.0004107269963115932,
+    -0.0638121294502617]], "echoes_max": 0.1631532013166606, "data":
+    [[0.031435833454385984, 0.030315718652890976, 0.03338631569164834,
+    0.030341163317058197, 0.040884745563765944, 0.031210309558937343,
+    0.07187692207229765, 0.046975936188659105, 0.09765525035704277,
+    0.09362875136076815], [0.06326372479754078, 0.0625599793461417,
+    0.06434638050800381, 0.06257556065290691, 0.06818121255784715,
+    0.06299207341477728, 0.08430207541379653, 0.07023235113642524,
+    0.10186817880262482, 0.0980477291479322], [0.06059791349842605,
+    0.059553548112025935, 0.0627549657926427, 0.059579643588352965,
+    0.07136359442181633, 0.06084826181452147, 0.09590007320489023,
+    0.08004397823263347, 0.10594217410317236, 0.10514796710770914],
+    [0.07346324587064228, 0.07287063096080033, 0.07469481922876169,
+    0.07288530066900833, 0.0798363207987883, 0.07359236296500474,
+    0.09732325231455521, 0.08542306678061266, 0.10613993846096952,
+    0.10538365575714301], [0.026800638638938383, 0.02579893183199831,
+    0.02861820839247526, 0.025821926839227276, 0.03588957962902566,
+    0.026666041164169492, 0.06794054013315431, 0.042519877803972025,
+    0.09543347058618577, 0.09140335522554544], [0.027906672424243707,
+    0.02702071046953269, 0.029490644198909576, 0.027040895961324876,
+    0.035818820963621906, 0.027757047542369018, 0.06531207025998413,
+    0.04143372169420249, 0.09386243615039752, 0.08930461896824242],
+    [0.04074536529132078, 0.03989357647683229, 0.04229308831010256,
+    0.03991313833205008, 0.04847150121657628, 0.04063338347418974,
+    0.07533486402602631, 0.05408839876997748, 0.0981360613453385,
+    0.09481404982150803], [0.03452967906075433, 0.033513841787463826,
+    0.03610302882154798, 0.03353630903777159, 0.041754011309158304,
+    0.03414087805506279, 0.06666116441404583, 0.04486075581620147,
+    0.09541069269343425, 0.08905471205056337], [0.05145074932010596,
+    0.050617036036905115, 0.05257222362774685, 0.05063542604743002,
+    0.05624308433156111, 0.05100685664760036, 0.07216619248654056,
+    0.05700414783840564, 0.09677455668586944, 0.08921510122564716],
+    [0.03531128792759339, 0.03463786090906948, 0.03656631761545888,
+    0.034653381978869045, 0.04177662493635331, 0.03524535896957607,
+    0.06756507848670677, 0.04692970077072076, 0.09357191062417572,
+    0.08965855130062816], [0.028697459507124774, 0.02767867795132949,
+    0.030396996966504213, 0.027701493861957745, 0.03682727516516856,
+    0.02841237479305554, 0.06555044218747531, 0.04148897796550145,
+    0.09480605039665317, 0.0893935166709688], [0.06508391571017776,
+    0.06378442005400974, 0.06694528437495106, 0.063813451259452,
+    0.0728736272499571, 0.06452381459603558, 0.09150643397200495,
+    0.07526392479513838, 0.10560880428366377, 0.10274945910503254]],
+    "data_max": 0.10613993846096952, "loss0": 0.00020483826554126846, "grad0":
+    {"F": [-6.354162791728153e-05, 5.9685642831805956e-05,
+    6.683331375656428e-05, 0.00011094673623127034, -8.425924551886463e-05,
+    -8.353834115475233e-05, -2.8065774236070905e-05, -5.986090446409172e-05,
+    4.639159334287317e-06, -5.591333493723676e-05, -8.067191150945465e-05,
+    7.395442448366903e-05], "T2b": [1.4544943214052201e-05,
+    -1.026489348691595e-05, -2.6491056257909953e-05, -3.10241823150241e-05,
+    2.119567439027437e-05, 2.4434897339454238e-05, 7.604249289779529e-06,
+    2.116041440991813e-05, 9.865133603746625e-06, 1.9321097131630623e-05,
+    2.3952912191021117e-05, -2.0091717909950042e-05], "kba":
+    [-3.0130748437850047e-05, 2.9450110720460396e-05, 2.855987573696628e-05,
+    5.11910080834409e-05, -3.9320200961864916e-05, -3.791231973439884e-05,
+    -1.285444548592057e-05, -2.615536465640022e-05, 5.547540649480648e-06,
+    -2.4310936026748707e-05, -3.6594184432656724e-05, 3.4085970017584814e-05],
+    "tr": [3.841105174579935e-11, -2.6521455407192257e-11,
+    1.1923658773063608e-11, 5.6161570530810147e-11, -1.3384271249979859e-11,
+    3.063021882447493e-11, 8.720730648485083e-11, 5.010616376929755e-12,
+    5.379300123270879e-11, 1.2477060168575248e-10, 2.9533309959195036e-11,
+    8.27068869918378e-11, 1.687144895939652e-10, 6.106863543234876e-11,
+    1.1691585883511722e-10, 2.1763626379822183e-10, 1.0014966015235327e-10,
+    1.5489504896154133e-10, 2.681164276168401e-10, 1.4663815766250618e-10,
+    1.9418109301270224e-10, 3.1582608388686095e-10, 2.0046414512481306e-10,
+    2.3309163982742633e-10, 3.5856964582011355e-10, 2.6309455486617065e-10,
+    2.726171765510147e-10, 3.986075775570256e-10, 3.3661708573935597e-10,
+    3.1510687716623046e-10, 4.407481824156622e-10, 4.2095059902464793e-10,
+    3.612171482008443e-10, 4.884697932487568e-10, 5.145692405349736e-10,
+    4.104115391809132e-10, 5.438431273731896e-10, 6.182973361218754e-10,
+    4.642009594508762e-10, 6.100183851638291e-10, 7.367574549564057e-10,
+    5.268713717765256e-10, 6.916384619163997e-10, 8.770768156910145e-10,
+    6.041165300814436e-10, 7.940569844889468e-10, 1.0473341072549482e-09,
+    7.029924304251713e-10, 9.232231436222103e-10, 1.2548240056316159e-09,
+    8.329481879337299e-10, 1.0847984565475226e-09, 1.5020803581469037e-09,
+    1.004419472601961e-09, 1.2801125959041567e-09, 1.780464446789732e-09,
+    1.2230335125726477e-09, 1.5006593308566578e-09, 2.0673310820218465e-09,
+    1.4857220761931652e-09, 1.7297831789281996e-09, 2.336099151882243e-09,
+    1.7884140938934559e-09, 1.956664378982196e-09, 2.5771331762689765e-09,
+    2.136164490542037e-09, 2.1869069286856344e-09, 2.8073720237713975e-09,
+    2.536259092457422e-09, 2.4316875568073014e-09, 3.0535941033241635e-09,
+    2.988329415293882e-09, 2.6946287725242268e-09, 3.333761927903996e-09,
+    3.49288929088458e-09, 2.9773112017061612e-09, 3.659657854451808e-09,
+    4.0628944498951234e-09, 3.2875478498342206e-09, 4.045207152100383e-09,
+    4.725192904763451e-09, 3.6400383295155315e-09, 4.510053894291111e-09,
+    5.518539595042225e-09, 4.059694164495427e-09, 5.084792099922636e-09,
+    6.492406372560982e-09, 4.594268969367092e-09, 5.8168284300616575e-09,
+    7.697338656137767e-09, 5.3237343079150455e-09, 6.759957961403933e-09,
+    9.150759751909297e-09, 6.334747172595518e-09, 7.930338426065466e-09,
+    1.0785468915040793e-08, 7.655471004004248e-09, 9.257346101224622e-09,
+    1.2439423605207925e-08, 9.23178287269381e-09, 1.0612267173748652e-08,
+    1.3947393244630575e-08, 1.1009282745901506e-08, 1.192546726009397e-08,
+    1.528175258236344e-08, 1.3001964465179145e-08, 1.3239095062375434e-08,
+    1.6573857753052988e-08, 1.5244133191652153e-08, 1.4621069556826811e-08,
+    1.79819927977875e-08, 1.7757604263947658e-08, 1.6104969648039098e-08,
+    1.9604001031094677e-08, 2.0591000252026857e-08, 1.7712680281094013e-08,
+    2.1498959447402273e-08, 2.3843877525459786e-08, 1.9471398199003784e-08,
+    2.372320357678328e-08, 2.7668023396531355e-08, 2.1427852403423278e-08,
+    2.6371193829326432e-08, 3.22851774814987e-08, 2.3719569626503964e-08,
+    2.965163923186578e-08, 3.80152618436242e-08, 2.6718991011613973e-08,
+    3.395229353982439e-08, 4.520923745638739e-08, 3.1088041425719954e-08,
+    3.9709683487928556e-08, 5.3950455865656706e-08, 3.743182973563205e-08,
+    4.69705108641126e-08, 6.367113447362211e-08, 4.5711440021859815e-08,
+    5.50624795037956e-08, 7.322139809069088e-08, 5.5296048044093474e-08,
+    6.305164629497915e-08, 8.168214543677656e-08, 6.577929345007358e-08,
+    7.064218073992569e-08, 8.920601597804274e-08, 7.731634983151704e-08,
+    7.825305566160349e-08, 9.677339376081751e-08, 9.021980497689025e-08,
+    8.634164142500306e-08, 1.0526808287785966e-07, 1.0480320177304888e-07,
+    9.512531595090034e-08, 1.1514770941235369e-07, 1.215018525736976e-07,
+    1.0467966330662688e-07, 1.266258370454322e-07, 1.409139543449302e-07,
+    1.1501377333019006e-07, 1.3989857838413606e-07, 1.6385762607758168e-07,
+    1.262628069597717e-07, 1.5552732689377146e-07, 1.9166815726224683e-07,
+    1.3943066184679847e-07, 1.7517042696292078e-07, 2.2657473250594314e-07,
+    1.5768721536614827e-07, 2.0201957942936633e-07, 2.710230561677668e-07,
+    1.8620458724132043e-07, 2.391189612545106e-07, 3.2504411162923435e-07,
+    2.2823001739584132e-07, 2.855974686756649e-07, 3.839124325667335e-07,
+    2.8134168949015456e-07, 3.357031188348798e-07, 4.402169841280168e-07,
+    3.4056637441991554e-07, 3.84018166081233e-07, 4.901314044151356e-07,
+    4.044027084051929e-07, 4.3056758346730087e-07, 5.368884022052929e-07,
+    4.7496866547272686e-07, 4.788081380045729e-07, 5.867736286792123e-07,
+    5.549674927496066e-07, 5.313431192641726e-07, 6.440699189203484e-07,
+    6.469988957405124e-07, 5.890440322169558e-07, 7.10472188544538e-07,
+    7.539292650279739e-07, 6.516921226764346e-07, 7.864050174115056e-07,
+    8.789913536600331e-07, 7.185575898975911e-07, 8.72601594500167e-07,
+    1.0266584187301362e-06, 7.903211207346481e-07, 9.73598828843987e-07,
+    1.2061754499686325e-06, 8.763374606228107e-07, 1.1042394605686032e-06,
+    1.4349908603514879e-06, 1.0048329174276542e-06, 1.2907403932466078e-06,
+    1.730540363125253e-06, 1.21355312899819e-06, 1.5516606164940965e-06,
+    2.0888365519956884e-06, 1.5142788063142126e-06, 1.872199088771035e-06,
+    2.475379096855971e-06, 1.8809256213086967e-06, 2.2130011635819823e-06,
+    2.85027095847157e-06, 2.287048467911095e-06, 2.551850909524992e-06,
+    3.2067378439896694e-06, 2.7360957426331156e-06, 2.9012817505744143e-06,
+    3.5754719417933722e-06, 3.2492082447756586e-06, 3.2844674813215563e-06,
+    3.992021844517122e-06, 3.847781876256405e-06, 3.713970961885252e-06,
+    4.474865584622218e-06, 4.550691561840194e-06, 4.190105282407901e-06,
+    5.027152887656683e-06, 5.374910046816177e-06, 4.705117157208878e-06,
+    5.645555846656861e-06, 6.336873725960328e-06, 5.249363896557062e-06,
+    6.335437677280331e-06, 7.4675127009576605e-06, 5.834505140107462e-06,
+    7.1502655483626605e-06, 8.858404447143857e-06, 6.574312395555107e-06,
+    8.253918567989447e-06, 1.0688714181170027e-05, 7.757292736649092e-06,
+    9.897050980144399e-06, 1.3123591463965137e-05, 9.688283080834538e-06,
+    1.2219816691052223e-05, 1.6146691121069988e-05, 1.2414443952803488e-05,
+    1.5106723043944432e-05, 1.9557996460126956e-05, 1.5773831137718707e-05,
+    1.8350263568672085e-05, 2.3196899220758638e-05, 1.9702666006686906e-05,
+    2.1921251075935513e-05, 2.7147282713265663e-05, 2.434539997512909e-05,
+    2.597864038686308e-05, 3.166671994214775e-05, 2.9923921701719228e-05,
+    3.067677047154777e-05, 3.695975301041365e-05, 3.662909842287691e-05,
+    3.6044746464107014e-05, 4.306668004820393e-05, 4.458980026211267e-05,
+    4.197726956661076e-05, 4.9895074537948156e-05, 5.388699377244294e-05,
+    4.831280501283185e-05, 5.736055544491765e-05, 6.465756043537213e-05,
+    5.4994754365866054e-05, 6.569712403856122e-05, 7.749705092973933e-05,
+    6.253633461748724e-05, 7.612865511830628e-05, 9.423271811938363e-05,
+    7.324317602769721e-05, 9.151704882981606e-05, 0.00011789534439909211,
+    9.152809831354479e-05, 0.00011557250032257445, 0.00015080318833060277,
+    0.00012085362981918041, 0.00014934999425333348, 0.0001923578061005019,
+    0.00015774090926665003, 0.00018641834752714147, 0.00023381160255929906,
+    0.00020147167603223084, 0.00022392106828874152, 0.00022145839228548958,
+    0.0]}, "grad0_max": {"F": 0.00011094673623127034, "T2b":
+    3.10241823150241e-05, "kba": 5.11910080834409e-05, "tr":
+    0.00023381160255929906}, "losses": [0.00020483826554126846,
+    0.00014370968200976263, 9.624192217755971e-05, 6.181487805002513e-05,
+    3.905158517354976e-05, 2.5762129043247914e-05, 1.9333407212252687e-05,
+    1.723016821864942e-05, 1.7327213866684574e-05, 1.804941412311984e-05,
+    1.8406879065750933e-05, 1.795676161181085e-05, 1.6655325842803154e-05,
+    1.4702614520597126e-05, 1.2437336241373702e-05, 1.0252104595200664e-05,
+    8.480783726214836e-06, 7.304216374412835e-06, 6.733956704563564e-06,
+    6.661426963790957e-06]}
+# The same script's ULP_RESPONSE: JAX's own 20 losses move by at most
+# 8.581110077173081e-15 (relative) when the steps run on the noisy data moved
+# one ulp. The steps are held at 1e-9 relative, far above 100× that.
+QMT_V_EX_LOSS_BAR = 1e-9
+
+
+def qmtv_trs(ntr):
+    r"""QMT_V_EX's tr train (numpy, s): QMT's tr + tr_amp·sin(2πt/period)."""
+    t = np.arange(ntr)
+    return QMT['tr'] + QMT_V_EX['tr_amp'] * np.sin(
+        2 * np.pi * t / QMT_V_EX['tr_period'])
+
+
+# Phase 34a, the qMT fingerprinting path: QMT_DICT's dictionary, probes,
+# refinement and protocol gradient (phase 32a's path) over a variable-TR
+# train tr_t = 12 ms + 6 ms·u_t, u_t from numpy default_rng(0).random(400)
+# (bench_mrf's variable-TR rule, benchmarks/suite.py:603-605), the gradient
+# w.r.t. that train among the protocol's. QMT_DICT's bars hold there: on
+# the CPU, an 8 F × 32 × 32 cut of the grid (its lowest F) over this train
+# matched 4000 probes within one grid step at 1.0 in F, 0.957 in kba, 0.096
+# in T2b, and 50 Adam steps took 64 of them from 0, 0, 0.193 to 0.025,
+# 0.032, 0.191 in F, kba, T2b (keys here would override QMT_DICT's).
+QMT_V = dict(tr0=12e-3, tr_span=6e-3)
+XMT_V_KERNELS = ('xmt_v_fwd', 'xmt_v_fwd_chk', 'xmt_v_bwd')
+# The variable-TR kernels' cases (phase 33): label, atoms, TRs, K (None:
+# the default nTR·|kshift| + 1), dtype, xmt_case keywords (``const``: a
+# constant 30 ms train, also against the scalar-tr kernels at tr 30 ms),
+# the chunk (None: the adjoint's own, kernels/epg.pick_tc at 8 planes),
+# timed. Every case runs over QMT_V's train (its first nTR TRs).
+XMT_V_CASES = (
+    ('qMT fingerprinting dictionary 65,536 x 400, K 48, tr train '
+     '(phase 34a)', 65536, 400, 48, torch.float32, dict(qmt=True), None,
+     True),
+    ("qMT refinement's shape 4096 x 400, K 48, tr train, one chunk "
+     '(tc = nTR)', 4096, 400, 48, torch.float32, {}, 400, False),
+    ('16k x 200, K 32, b1', 16384, 200, 32, torch.float32, dict(b1=True),
+     None, False),
+    ('16k x 200, K 32, kshift -1', 16384, 200, 32, torch.float32,
+     dict(kshift=-1), None, False),
+    ('16k x 200, K 32, no detailed balance (kab 8, kba 3, M0b 0.4)', 16384,
+     200, 32, torch.float32, dict(ndb=True), None, False),
+    ('16k x 200, K 32, wt = 0 and no exchange (= spgr_fwd at te 0)', 16384,
+     200, 32, torch.float32, dict(decoupled=True), None, False),
+    ('16k x 200, K 32, constant 30 ms train (= xmt_fwd, xmt_fwd_chk, '
+     'xmt_bwd at tr 30 ms)', 16384, 200, 32, torch.float32,
+     dict(const=True), None, False),
+    ('1024 x 400, default K 401 (device-memory state)', 1024, 400, None,
+     torch.float32, {}, None, False),
+    ('ragged 1001 x 201, K 32, b1 (three chunks of 67)', 1001, 201, 32,
+     torch.float32, dict(b1=True), 67, False),
+    ('f64 8192 x 200, K 32, b1, wscale', 8192, 200, 32, torch.float64,
+     dict(b1=True), None, False),
+)
+
+
+def qmtv_dict_trs(nTR, dtype, dev):
+    r"""QMT_V's fingerprinting train over its first ``nTR`` TRs, ``(nTR,)``
+    (s)."""
+    u = np.random.default_rng(0).random(QMT_DICT['ntr'])[:nTR]
+    return torch.as_tensor(QMT_V['tr0'] + QMT_V['tr_span'] * u, dtype=dtype,
+                           device=dev)
+
+
+def phase_xmt_v_kernels(dev):
+    r"""Phase 33: ``xmt_v_fwd``, ``xmt_v_fwd_chk`` and ``xmt_v_bwd`` against
+    their plain versions on XMT_V_CASES, on the arguments ``xmt_spgr``
+    gives them over a ``(nTR,)`` tr train (``ops.epg._xmt_rows``: ``coef``
+    with the wt train, ``pk`` = [M0a, M0b, b1, wscale] and the per-TR planes
+    ``pkt``); the adjoint fed the kernel's checkpoints and a cotangent drawn
+    from a seed, the plain adjoint written out, with no autograd graph. The
+    fingerprinting dictionary of phase 34a is timed with its bound.
+    Per-atom outputs (echoes, checkpoints, ``dpk`` and ``dpkt`` per atom and
+    TR) at EPG_BAR of their largest value (bit for bit expected; the rows
+    that differ named), the per-TR rows at XMT_ROW_BAR; the case with wt ≡ 0
+    and no exchange also against ``spgr_fwd`` over the same train at
+    EPG_ROW_BAR; a constant train against the scalar-tr kernels (echoes,
+    checkpoints, ``dcoef``, ``dpk``'s last four rows and ``dpkt`` summed
+    over the train, newest TR first, against ``dpk``'s first seven) at
+    XMT_ROW_BAR (bit for bit expected). Returns each kernel's rows."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.kernels.epg import launch_cfg, pick_tc
+    from mrphy_tpu_torch.ops import epg
+    t0 = time.perf_counter()
+    rows = {name: [] for name in XMT_V_KERNELS}
+    const = {}
+    for seed, (label, nA, nTR, K, dtype, kw, tc, timed) in enumerate(
+            XMT_V_CASES, 330):
+        kw = dict(kw)
+        is_const = kw.pop('const', False)
+        ckw = xmt_case(nA, nTR, K, dtype, dev, seed=seed, **kw)
+        fixed = xmt_args(ckw) if is_const else None   # at tr 30 ms
+        ckw['tr'] = (torch.full((nTR,), QMT['tr'], dtype=dtype, device=dev)
+                     if is_const else qmtv_dict_trs(nTR, dtype, dev))
+        coef, (pk, pkt), cfg = xmt_args(ckw)
+        tc = tc or pick_tc(nTR, cfg.K, nA, pk.element_size(), kx.PLANES_MT)
+        chk = kx.xmt_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)[1]
+        g = cotangent(torch.empty((nA, nTR, 2), dtype=dtype, device=dev),
+                      seed)
+        runs = {
+            'xmt_v_fwd': (lambda: kx.xmt_v_fwd(coef, pk, pkt, cfg),
+                          lambda: kx.xmt_v_fwd_torch(coef, pk, pkt, cfg),
+                          (coef, pk, pkt)),
+            'xmt_v_fwd_chk': (
+                lambda: kx.xmt_v_fwd_chk(coef, pk, pkt, cfg, tc=tc),
+                lambda: kx.xmt_v_fwd_chk_torch(coef, pk, pkt, cfg, tc=tc),
+                (coef, pk, pkt)),
+            'xmt_v_bwd': (
+                lambda: kx.xmt_v_bwd(coef, pk, pkt, cfg, chk, g, tc=tc),
+                lambda: kx.xmt_v_bwd_torch(coef, pk, pkt, cfg, chk, g,
+                                           tc=tc),
+                (coef, pk, pkt, chk, g))}
+        names = {'xmt_v_fwd': ('sig',), 'xmt_v_fwd_chk': ('sig', 'chk'),
+                 'xmt_v_bwd': ('dcoef', 'dpar', 'dpkt')}
+        for name, (run_kernel, run_plain, inputs) in runs.items():
+            meta = dict(case=label, nA=nA, nTR=nTR, K=cfg.K,
+                        kshift=cfg.kshift, tc=tc, b1=cfg.has_b1,
+                        threads_state=launch_cfg(cfg.K, pk.element_size(),
+                                                 kx.PLANES_MT))
+            rows[name].append(compare_epg(
+                name, run_kernel, run_plain, inputs, names[name], meta,
+                dtype, timed, XMT_ROW_BAR))
+        if kw.get('decoupled'):
+            # pool a alone: the single-pool SPGR train at te 0, same train
+            sig = kx.xmt_v_fwd(coef, pk, pkt, cfg)
+            ref = epg.epg_spgr(ckw['flips'], ckw['phis'], T1=QMT['T1a'],
+                               T2=QMT['T2a'], M0=ckw['M0a'], tr=ckw['tr'],
+                               te=0.0, K=cfg.K)
+            err = row_err(sig, ref)
+            print(f'xmt_v_fwd {label} vs spgr_fwd: ' + json.dumps(dict(
+                err=err, bar=EPG_ROW_BAR[dtype])), flush=True)
+            check(err <= EPG_ROW_BAR[dtype],
+                  f'xmt_v_fwd {label} vs spgr_fwd: {err}')
+        if fixed is not None:
+            # a constant train: the scalar-tr kernels at the same tr
+            f_coef, f_pk, f_cfg = fixed
+            sig, chk_v = kx.xmt_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)
+            sig0, chk0 = kx.xmt_fwd_chk(f_coef, f_pk, f_cfg, tc=tc)
+            dcoef, dpk, dpkt = kx.xmt_v_bwd(coef, pk, pkt, cfg, chk_v, g,
+                                            tc=tc)
+            dcoef0, dpk0 = kx.xmt_bwd(f_coef, f_pk, f_cfg, chk0, g, tc=tc)
+            # dpkt summed over the train newest first, as xmt_bwd
+            # accumulates its entry gradients
+            acc = torch.zeros_like(dpkt[0])
+            for t in reversed(range(nTR)):
+                acc = acc + dpkt[t]
+            errs = dict(sig=row_err(sig, sig0), chk=row_err(chk_v, chk0),
+                        dcoef=row_err(dcoef, dcoef0),
+                        dpk=row_err(dpk, dpk0[7:]),
+                        dpkt_sum=row_err(acc, dpk0[:7]))
+            const = dict(case=label, echoes_bit_identical=torch.equal(
+                sig, sig0), err=errs, bar=XMT_ROW_BAR[dtype])
+            print('xmt_v_* constant train vs xmt_*: ' + json.dumps(const),
+                  flush=True)
+            for k, e in errs.items():
+                check(e <= XMT_ROW_BAR[dtype],
+                      f'constant train vs xmt_* {k}: {e}')
+            del sig, sig0, chk_v, chk0, dcoef, dcoef0, dpk, dpk0, dpkt, acc
+        del coef, pk, pkt, chk, g, ckw, fixed
+    check(bool(const), 'no constant-train case ran')
+    print(f'phase 33 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return rows
+
+
+def phase_qmtv_parts(dev, dict_ms):
+    r"""Phase 34c, after phase 34a's launch counts are read: that path's
+    dictionary (``dict_ms``, through ``xmt_spgr``) split into its parts,
+    timed apart: the kernels' arguments (``ops.epg._xmt_rows``, the
+    lineshape and the rows), among them the per-TR planes
+    (``ops.epg._mt_step_entries``), and ``xmt_v_fwd`` alone; and the memory
+    the planes keep for the backward under a gradient, built as the path
+    builds them (under ``torch.utils.checkpoint``) and without it."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    c = QMT_DICT
+    flips, phis, wt = qmt_train(c['ntr'], torch.float32, dev)
+    trs = qmtv_dict_trs(c['ntr'], torch.float32, dev)
+    F, kba, T2b = qmt_grid(torch.float32, dev)[1]
+
+    def kw():
+        return dict(qmt_kw(F, kba, T2b), tr=trs)
+
+    def rates(kw):
+        return [torch.broadcast_to(torch.as_tensor(
+            kw[n], dtype=torch.float32, device=dev), F.shape)
+            for n in ('T1a', 'T2a', 'T1b', 'kab', 'kba', 'M0a', 'M0b')]
+
+    with torch.no_grad():
+        coef, (pk, pkt), cfg, _ = epg._xmt_rows(flips, phis, wt=wt, **kw())
+        r = rates(kw())
+        rows_ms = time_ms(lambda: epg._xmt_rows(flips, phis, wt=wt, **kw()),
+                          reps=3)
+        planes_ms = time_ms(lambda: epg._mt_step_entries(*r, trs), reps=3)
+        kernel_ms = time_ms(lambda: kx.xmt_v_fwd(coef, pk, pkt, cfg),
+                            reps=3)
+    del coef, pk, pkt, r
+    # the memory kept for the backward by the planes: allocated after their
+    # construction under a gradient of the rates and the train, the planes
+    # themselves included
+    kept = {}
+    for how in ('checkpoint', 'autograd'):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        xs = [x.detach().clone().requires_grad_() for x in rates(kw())]
+        tr_ = trs.detach().clone().requires_grad_()
+        base += sum(x.numel() * x.element_size() for x in xs + [tr_])
+        if how == 'checkpoint':
+            out = torch.utils.checkpoint.checkpoint(
+                epg._mt_step_entries, *xs, tr_, use_reentrant=False)
+        else:
+            out = epg._mt_step_entries(*xs, tr_)
+        torch.cuda.synchronize()
+        kept[how] = (torch.cuda.memory_allocated(dev) - base) / 1e9
+        del out, xs, tr_
+    res = dict(dict_ms=dict_ms, rows_ms=rows_ms, planes_ms=planes_ms,
+               kernel_ms=kernel_ms, rows_share=rows_ms / dict_ms,
+               planes_share=planes_ms / dict_ms,
+               kernel_share=kernel_ms / dict_ms,
+               planes_kept_gb_checkpoint=kept['checkpoint'],
+               planes_kept_gb_autograd=kept['autograd'])
+    print("qMT fingerprinting path, the dictionary's parts: "
+          + json.dumps(res), flush=True)
+    return res
+
+
+def qmtv_example(dev):
+    r"""The QMT_V_EX problem in float64 on the card against GOLDEN_QMTV,
+    through the kernels' rank-1 form of :func:`qmt_model` over the tr train
+    (``xmt_v_fwd``; under a gradient ``xmt_v_fwd_chk`` + ``xmt_v_bwd``):
+    the echoes of the 4 kHz, 700 Hz measurement at QMT_V_EX_ENTRIES, the
+    noiseless data, the first loss and its gradient w.r.t. the log maps and
+    every element of the tr train (relative to the largest of each), then
+    20 Adam steps' losses (relative to each) and the launches made. Returns
+    the measurements; the bars are :func:`phase_qmtv_example`'s."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    c, ex, gold = QMT, QMT_V_EX, GOLDEN_QMTV
+    f64 = dict(dtype=torch.float64, device=dev)
+    nv, keys = ex['nv'], tuple(ex['start'])
+    n0 = dict(kx.LAUNCHES)
+    F, kba, T2b, rng = qmt_truth(nv)
+    flips = torch.full((ex['ntr'],), np.deg2rad(c['flip']), **f64)
+    phis = epg.rf_spoil_phases(ex['ntr'], **f64)
+    trs = torch.as_tensor(qmtv_trs(ex['ntr']), **f64)
+    truth = {k: torch.log(torch.as_tensor(v, **f64))
+             for k, v in zip(keys, (F, kba, T2b))}
+    out = {}
+    with torch.no_grad():
+        y0 = qmt_model(truth, flips, phis, 'kernels', tr=trs)
+        # the 4 kHz, 700 Hz measurement's echoes (atoms offset-major)
+        Ft, kt, tt = (torch.exp(truth[k]) for k in keys)
+        s = kx.xmt_spgr(flips, phis, wt=torch.full_like(
+            flips, np.pi * (2 * np.pi * c['w1rms'][1]) ** 2 * c['tau']),
+            wscale=epg.mt_lineshape(torch.as_tensor(c['offs'][1], **f64),
+                                    tt), T1a=c['T1a'],
+            T2a=c['T2a'], T1b=c['T1b'], kab=kt * Ft / (1 - Ft), kba=kt,
+            tr=trs, M0a=1 - Ft, M0b=Ft, K=c['K'])
+    ent = torch.stack([s[v, t] for v, t in QMT_V_EX_ENTRIES])
+    out['example_echoes'] = max_err(
+        ent, torch.as_tensor(gold['echoes'], **f64)) / gold['echoes_max']
+    out['example_data'] = max_err(
+        y0, torch.as_tensor(gold['data'], **f64)) / gold['data_max']
+    sigma = ex['noise'] / 100 * float(y0.max())
+    y = y0 + sigma * torch.as_tensor(rng.standard_normal(tuple(y0.shape)),
+                                     **f64)
+
+    def start():
+        return {k: torch.full((nv,), np.log(v), **f64).requires_grad_()
+                for k, v in ex['start'].items()}
+
+    def loss(logp, tr):
+        return torch.mean((qmt_model(logp, flips, phis, 'kernels', tr=tr)
+                           - y) ** 2)
+
+    logp, tr_ = start(), trs.clone().requires_grad_()
+    val = loss(logp, tr_)
+    g = dict(zip(keys + ('tr',), torch.autograd.grad(
+        val, list(logp.values()) + [tr_])))
+    out['example_loss0'] = abs(float(val.detach()) - gold['loss0']) \
+        / gold['loss0']
+    out['example_grad0'] = {k: max_err(g[k], torch.as_tensor(
+        gold['grad0'][k], **f64)) / gold['grad0_max'][k] for k in g}
+    logp = start()
+    opt = torch.optim.Adam(list(logp.values()), lr=ex['lr'])
+    losses = []
+    for _ in range(ex['iters']):
+        opt.zero_grad()
+        val = loss(logp, trs)
+        val.backward()
+        opt.step()
+        losses.append(float(val.detach()))
+    out['example_losses'] = max(abs(a - b) / abs(b)
+                                for a, b in zip(losses, gold['losses']))
+    out['example_launches'] = {k: kx.LAUNCHES[k] - n0[k]
+                               for k in XMT_KERNELS + XMT_V_KERNELS}
+    return out
+
+
+def phase_qmtv_example(dev):
+    r"""Phase 34b, in a launch window of its own after 34a's counts are
+    read: :func:`qmtv_example`, held to JAX at 1e-10 on the echoes, the
+    data, the first loss and its gradient (the tr train's among them), at
+    QMT_V_EX_LOSS_BAR on the 20 steps' losses, and to its launches: exactly
+    ``xmt_v_fwd`` 3 (the data per power, the echoes) and
+    ``xmt_v_fwd_chk``/``xmt_v_bwd`` 2 + 2·20, and no scalar-tr kernel.
+    Returns the measurements."""
+    t0 = time.perf_counter()
+    out = qmtv_example(dev)
+    bars = dict(example_echoes=1e-10, example_data=1e-10,
+                example_loss0=1e-10, example_grad0=1e-10,
+                example_losses=QMT_V_EX_LOSS_BAR)
+    want = dict(dict.fromkeys(XMT_KERNELS, 0), xmt_v_fwd=3,
+                xmt_v_fwd_chk=2 + 2 * QMT_V_EX['iters'],
+                xmt_v_bwd=2 + 2 * QMT_V_EX['iters'])
+    print('qMT example over a tr train: ' + json.dumps(dict(
+        measured=out, bars=dict(bars, example_launches=want))), flush=True)
+    for key, bar in bars.items():
+        v = out[key]
+        worst = max(v.values()) if isinstance(v, dict) else v
+        check(worst <= bar, f'{key}: {v} > {bar}')
+    check(out['example_launches'] == want,
+          f"qMT example (variable TR) launches {out['example_launches']} "
+          f'!= {want}')
+    print(f'phase 34b took {time.perf_counter() - t0:.1f} s', flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False',
@@ -6463,13 +7035,15 @@ def main() -> int:
     xcpmg_v_rows = phase_xcpmg_kernels(dev, varesp=True)
     bssfp_rows = phase_bssfp_kernels(dev)
     xmt_rows = phase_xmt_kernels(dev)
+    xmt_v_rows = phase_xmt_v_kernels(dev)
 
     # the forward path, the gradient and design path, the two-pool path,
     # the acquisition path, the gridding path, the MRF path, the T2-mapping
     # path, the exchange-MRF paths at a scalar tr and over a variable-TR
     # train, the myelin-water paths at a scalar esp and over an esp train,
-    # the balanced-SSFP path and the qMT path: each with the launch counts
-    # zeroed just before it and read just after
+    # the balanced-SSFP path and the qMT paths at a scalar tr and over a
+    # fingerprinting tr train: each with the launch counts zeroed just
+    # before it and read just after
     counters = {**{k: bloch.LAUNCHES for k in bloch.LAUNCHES},
                 **{k: kmc.LAUNCHES for k in kmc.LAUNCHES},
                 **{k: ksig.LAUNCHES for k in ksig.LAUNCHES},
@@ -6512,7 +7086,9 @@ def main() -> int:
             ('myelin-water (variable esp)', phase_mwf_v_path,
              XCPMG_V_KERNELS),
             ('balanced-SSFP', phase_bssfp_path, BSSFP_KERNELS),
-            ('qMT', phase_qmt_path, XMT_KERNELS + tuple(kmrf.LAUNCHES))):
+            ('qMT', phase_qmt_path, XMT_KERNELS + tuple(kmrf.LAUNCHES)),
+            ('qMT (variable TR)', lambda d: phase_qmt_path(d, vartr=True),
+             XMT_V_KERNELS + tuple(kmrf.LAUNCHES))):
         for k, n in counted(path, run, needs).items():
             launches[k] += n
     # phases 30b-c, the float64 examples of the balanced-SSFP family, in
@@ -6522,10 +7098,13 @@ def main() -> int:
     # phase 32b, examples/qmt_fit.py in float64, likewise in a window of
     # its own
     counted('qMT example', phase_qmt_example, XMT_KERNELS)
-    # outside every counted window: phase 28's and phase 30a's forwards,
+    # phase 34b, the same over a tr train, likewise
+    counted('qMT example (variable TR)', phase_qmtv_example, XMT_V_KERNELS)
+    # outside every counted window: phase 28's, 30a's and 34a's forwards,
     # split into their parts
     phase_mwf_v_parts(dev, results['myelin-water (variable esp)']['fwd_ms'])
     phase_bssfp_parts(dev, results['balanced-SSFP']['fwd_ms'])
+    phase_qmtv_parts(dev, results['qMT (variable TR)']['dict_ms'])
 
     kernels = []
     for name, rows in (('rfgr_fwd', rfgr_rows), ('beff_fwd', beff_rows),
@@ -6539,7 +7118,8 @@ def main() -> int:
                        ('match', match_rows), *cpmg_rows.items(),
                        *xspgr_rows.items(), *xspgr_v_rows.items(),
                        *xcpmg_rows.items(), *xcpmg_v_rows.items(),
-                       *bssfp_rows.items(), *xmt_rows.items()):
+                       *bssfp_rows.items(), *xmt_rows.items(),
+                       *xmt_v_rows.items()):
         # the first timed case: float32 at the main path's shape
         head = next(r for r in rows if 'ms' in r)
         err = ('max_abs_err_chk' if name in ('rfgr_fwd', 'beff_fwd', 'mc_fwd')
@@ -6560,7 +7140,7 @@ def main() -> int:
             library_ms=head.get('library_ms')))
         if name in ('rfgr_bwd', 'mc_bwd', 'spgr_bwd', 'cpmg_bwd',
                     'xspgr_bwd', 'xspgr_v_bwd', 'xcpmg_bwd', 'xcpmg_v_bwd',
-                    'bssfp_bwd', 'xmt_bwd'):
+                    'bssfp_bwd', 'xmt_bwd', 'xmt_v_bwd'):
             # the rows: max|Δ| / max|row|
             kernels[-1]['max_row_rel_err'] = max(
                 r['max_row_rel_err'] for r in f32)

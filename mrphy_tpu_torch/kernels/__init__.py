@@ -29,8 +29,10 @@ r"""Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
   echo spacing, and ``xcpmg_v_fwd``, ``xcpmg_v_fwd_chk`` and
   ``xcpmg_v_bwd``, their instances over an echo-spacing train; ``xmt_fwd``,
   ``xmt_fwd_chk`` and ``xmt_bwd``, the same three for the bound-pool
-  EPG-X(MT) SPGR train of qMT at a fixed TR; with their plain PyTorch
-  versions, launch counts and the autograd Functions of the trains.
+  EPG-X(MT) SPGR train of qMT at a fixed TR, and ``xmt_v_fwd``,
+  ``xmt_v_fwd_chk`` and ``xmt_v_bwd``, their instances over a variable-TR
+  train; with their plain PyTorch versions, launch counts and the autograd
+  Functions of the trains.
 - :mod:`mrphy_tpu_torch.kernels.ssfp`: ``bssfp_fwd``, ``bssfp_fwd_chk``
   and ``bssfp_bwd``, the transient balanced-SSFP train, the same with
   chunk checkpoints, and its two-phase chunk adjoint, with their plain

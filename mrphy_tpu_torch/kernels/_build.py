@@ -155,6 +155,16 @@ _SIGNATURES = {
     # flags, tc, threads, stream
     'mrphy_xmt_bwd_f32': (_P,) * 8 + (_I64,) * 7 + (_P,),
     'mrphy_xmt_bwd_f64': (_P,) * 8 + (_I64,) * 7 + (_P,),
+    # coef, pk, pkt, sig, chk, gstate, nA, nTR, K, kshift, flags, tc,
+    # threads, stream
+    'mrphy_xmt_v_fwd_f32': (_P,) * 6 + (_I64,) * 7 + (_P,),
+    'mrphy_xmt_v_fwd_f64': (_P,) * 6 + (_I64,) * 7 + (_P,),
+    'mrphy_xmt_v_fwd_chk_f32': (_P,) * 6 + (_I64,) * 7 + (_P,),
+    'mrphy_xmt_v_fwd_chk_f64': (_P,) * 6 + (_I64,) * 7 + (_P,),
+    # coef, pk, pkt, chk, g, scratch, hstate, dpk, dcf, dpkt, nA, nTR, K,
+    # kshift, flags, tc, threads, stream
+    'mrphy_xmt_v_bwd_f32': (_P,) * 10 + (_I64,) * 7 + (_P,),
+    'mrphy_xmt_v_bwd_f64': (_P,) * 10 + (_I64,) * 7 + (_P,),
     # coef, pk, er, ei, chk, nA, nTR, flags, tc, stream
     'mrphy_bssfp_fwd_f32': (_P,) * 5 + (_I64,) * 4 + (_P,),
     'mrphy_bssfp_fwd_f64': (_P,) * 5 + (_I64,) * 4 + (_P,),

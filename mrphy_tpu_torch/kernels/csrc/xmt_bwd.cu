@@ -1,8 +1,12 @@
 // xmt_bwd: the two-phase chunk adjoint of the EPG-X(MT) gradient-spoiled
-// train on Hopper (sm_90a) at a fixed TR.
+// train on Hopper (sm_90a) at a fixed TR and over a variable-TR train.
 //
-// Replaces the TPU kernel `_mt_bwd_kernel` of mrphy_tpu/ops/epg_pallas.py
-// (launched by `_mt_core_bwd`), as the entry points mrphy_xmt_bwd_*. Chunks
+// Replaces two TPU kernels of mrphy_tpu/ops/epg_pallas.py: `_mt_bwd_kernel`
+// (launched by `_mt_core_bwd`), as the entry points mrphy_xmt_bwd_*, and
+// its variable-TR form `_mtv_bwd_kernel` (launched by `_mt_core_v_bwd`), as
+// mrphy_xmt_v_bwd_*, which reads TR t's 7 entries from the per-TR planes
+// pkt (nTR, 7, nA) and writes their 7 contractions per atom and TR into
+// dpkt (nTR, 7, nA) instead of summing them over the train. Chunks
 // of tc TRs are visited newest first. Phase 1 re-runs the forward from the
 // chunk's start state (chk, written by xmt_fwd_chk) and stores every pre-RF
 // state; phase 2 walks them backwards, per TR: the shift's transpose (pool
@@ -12,7 +16,10 @@
 // −wscale·sat·Σ_k h·Zb, and ∂wscale adds −wt_t·sat·Σ_k h·Zb), pool a's RF
 // mix coefficient terms and transpose. Outputs: dpk (11, nA) = [dZ00, dZ01,
 // dZ10, dZ11, dra, drb, dE2a, dM0a, dM0b, db1, dwscale] (dM0a and dM0b the
-// final cotangents of Za(0) and Zb(0)); dcf (ceil(nA/32), nTR, 10), each
+// final cotangents of Za(0) and Zb(0)); over a variable-TR train dpar (4,
+// nA) = [dM0a, dM0b, db1, dwscale] and dpkt, M0a and M0b reaching the
+// echoes through the recovery rows of dpkt as well (autograd of the planes
+// adds both); both: dcf (ceil(nA/32), nTR, 10), each
 // warp's per-TR coefficient rows (the per-TR ∂wt the last) summed over its
 // atoms, which the wrapper sums over warps in a fixed order (no atomics).
 // With b1 the angle's chain to d/dα happens here, as in the TPU kernel:
@@ -21,7 +28,8 @@
 // What bounds it on the H100: arithmetic and device memory. Phase 1 writes
 // and phase 2 reads every pre-RF state, 8·K values per atom and TR (~80 GB
 // at 65,536 atoms × 400 TRs × K 48 in float32, ~24 ms at the card's rate),
-// beside ~4× the forward's arithmetic.
+// beside ~4× the forward's arithmetic; over a variable-TR train pkt is read
+// twice (phase 1 and phase 2) and dpkt written once, 734 MB each there.
 //
 // Design. One thread per atom, as xmt_fwd. Phase 1 runs from chk into a
 // device-memory scratch (tc − 1, 8, K, nA), orders in logical order, pool
@@ -30,8 +38,10 @@
 // values) lives in shared memory, pool a's F planes as ring buffers over
 // the orders, as the forward's state does (in device memory where the
 // forward's would). The 9 per-atom accumulators (7 entries, b1 and wscale)
-// sit in registers. Every sum over the orders is taken one order at a time
-// in the plain version's order (kernels/epgx.py `xmt_bwd_torch`), so
+// sit in registers (over a variable-TR train the 7 entries' sums of one TR
+// go to dpkt, coalesced over the atoms). Every sum over the orders is taken
+// one order at a time in the plain version's order (kernels/epgx.py
+// `xmt_bwd_torch`, `xmt_v_bwd_torch`), so
 // per-atom results agree bit for bit (built without FMA contraction); the
 // per-TR rows are reduced over a warp's atoms by shuffles, lanes past nA
 // adding zeros, in the order the plain version's `_warp_sums` takes. No
@@ -72,15 +82,20 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-template <typename T>
+// pk: (11, nA) at a fixed TR; over a variable-TR train (VARTR) the rows
+// [M0a, M0b, b1, wscale] (4, nA), the entries of TR t at pkt + t·7·nA and
+// their contractions at dpkt + t·7·nA; dpk likewise (11 or 4 rows).
+template <typename T, bool VARTR>
 __global__ void xmt_bwd_kernel(const T* __restrict__ coef,
                                const T* __restrict__ pk,
+                               const T* __restrict__ pkt,
                                const T* __restrict__ chk,
                                const T* __restrict__ gy,
                                T* __restrict__ scratch,
                                T* __restrict__ hstate, T* __restrict__ dpk,
-                               T* __restrict__ dcf, int64_t nA, int64_t nTR,
-                               int K, int kshift, int flags, int64_t tc) {
+                               T* __restrict__ dcf, T* __restrict__ dpkt,
+                               int64_t nA, int64_t nTR, int K, int kshift,
+                               int flags, int64_t tc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int64_t a = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   // threads past nA take part in the warps' sums with zeros
@@ -95,9 +110,10 @@ __global__ void xmt_bwd_kernel(const T* __restrict__ coef,
   Prop<T> e{};
   T b1 = 0, wsc = 0;
   if (active) {
-    e = load_prop(pk, nA, a);
-    b1 = pk[9 * nA + a];
-    wsc = pk[10 * nA + a];
+    if constexpr (!VARTR) e = load_prop(pk, nA, a);
+    const T* pm = VARTR ? pk : pk + 7 * nA;  // [M0a, M0b, b1, wscale]
+    b1 = pm[2 * nA + a];
+    wsc = pm[3 * nA + a];
     for (int p = 0; p < kPlanes; ++p)
       for (int k = 0; k < K; ++k) h(p, k) = T(0);
   }
@@ -114,6 +130,7 @@ __global__ void xmt_bwd_kernel(const T* __restrict__ coef,
     if (active)
       for (int64_t tl = 0; tl + 1 < tc; ++tl) {
         const int64_t t = j * tc + tl;
+        if constexpr (VARTR) e = load_prop(pkt + t * 7 * nA, nA, a);
         const Trig<T> g = spgr::trig(coef, nTR, t, b1, has_b1);
         const T sat = saturation(coef, nTR, t, wsc);
         xmt_fwd_direct((tl == 0 ? c0 : scratch + (tl - 1) * plane) + a,
@@ -125,6 +142,7 @@ __global__ void xmt_bwd_kernel(const T* __restrict__ coef,
       T rows[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
       if (active) {
         const T* x0 = (tl == 0 ? c0 : scratch + (tl - 1) * plane) + a;
+        if constexpr (VARTR) e = load_prop(pkt + t * 7 * nA, nA, a);
         const Trig<T> g = spgr::trig(coef, nTR, t, b1, has_b1);
         const T wtt = coef[9 * nTR + t];
         const T sat = saturation(coef, nTR, t, wsc);
@@ -173,10 +191,19 @@ __global__ void xmt_bwd_kernel(const T* __restrict__ coef,
           ip = spgr::wrap_inc(ip, K);
           im = spgr::wrap_inc(im, K);
         }
-        for (int i = 0; i < 4; ++i) acc[i] = acc[i] + kE[i];
-        acc[4] = acc[4] + d_ra;
-        acc[5] = acc[5] + d_rb;
-        acc[6] = acc[6] + kE[4];
+        if constexpr (VARTR) {
+          // this TR's entry gradients, as they are
+          T* dp = dpkt + t * 7 * nA + a;
+          for (int i = 0; i < 4; ++i) dp[i * nA] = kE[i];
+          dp[4 * nA] = d_ra;
+          dp[5 * nA] = d_rb;
+          dp[6 * nA] = kE[4];
+        } else {
+          for (int i = 0; i < 4; ++i) acc[i] = acc[i] + kE[i];
+          acc[4] = acc[4] + d_ra;
+          acc[5] = acc[5] + d_rb;
+          acc[6] = acc[6] + kE[4];
+        }
         awsc = awsc + (-wtt * sat) * ksat;
         // km: [ca2, sc2, ss2, ss, sc, hs, hc, ca]
         const T d_sa2 = g.c2 * km[1] + g.s2 * km[2];
@@ -208,35 +235,42 @@ __global__ void xmt_bwd_kernel(const T* __restrict__ coef,
     }
   }
   if (active) {
-    for (int i = 0; i < 7; ++i) dpk[i * nA + a] = acc[i];
+    T* dm = dpk;  // [dM0a, dM0b, db1, dwscale]
+    if constexpr (!VARTR) {
+      for (int i = 0; i < 7; ++i) dpk[i * nA + a] = acc[i];
+      dm += 7 * nA;
+    }
     // the initial state: M0a on Za(0)'s real part, M0b on Zb(0)'s
-    dpk[7 * nA + a] = h(4, 0);
-    dpk[8 * nA + a] = h(6, 0);
-    dpk[9 * nA + a] = ab1;
-    dpk[10 * nA + a] = awsc;
+    dm[a] = h(4, 0);
+    dm[nA + a] = h(6, 0);
+    dm[2 * nA + a] = ab1;
+    dm[3 * nA + a] = awsc;
   }
 }
 
-template <typename T>
-int launch_xmt_bwd(const T* coef, const T* pk, const T* chk, const T* gy,
-                   T* scratch, T* hstate, T* dpk, T* dcf, int64_t nA,
-                   int64_t nTR, int64_t K, int64_t kshift, int64_t flags,
-                   int64_t tc, int64_t threads, void* stream) {
+template <typename T, bool VARTR>
+int launch_xmt_bwd(const T* coef, const T* pk, const T* pkt, const T* chk,
+                   const T* gy, T* scratch, T* hstate, T* dpk, T* dcf,
+                   T* dpkt, int64_t nA, int64_t nTR, int64_t K,
+                   int64_t kshift, int64_t flags, int64_t tc,
+                   int64_t threads, void* stream) {
   if (nA <= 0 || nTR <= 0 || K <= 0 || kshift == 0 || tc <= 0 ||
-      nTR % tc != 0 || !spgr::valid_threads((int)threads))
+      nTR % tc != 0 || !spgr::valid_threads((int)threads) ||
+      (VARTR && (pkt == nullptr || dpkt == nullptr)))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       hstate ? 0 : (size_t)threads * kPlanes * (size_t)K * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        xmt_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        xmt_bwd_kernel<T, VARTR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const unsigned grid = (unsigned)((nA + threads - 1) / threads);
-  xmt_bwd_kernel<T><<<grid, (unsigned)threads, smem, (cudaStream_t)stream>>>(
-      coef, pk, chk, gy, scratch, hstate, dpk, dcf, nA, nTR, (int)K,
-      (int)kshift, (int)flags, tc);
+  xmt_bwd_kernel<T, VARTR><<<grid, (unsigned)threads, smem,
+                              (cudaStream_t)stream>>>(
+      coef, pk, pkt, chk, gy, scratch, hstate, dpk, dcf, dpkt, nA, nTR,
+      (int)K, (int)kshift, (int)flags, tc);
   return (int)cudaGetLastError();
 }
 
@@ -255,11 +289,30 @@ int launch_xmt_bwd(const T* coef, const T* pk, const T* chk, const T* gy,
                       void* dcf, int64_t nA, int64_t nTR, int64_t K,        \
                       int64_t kshift, int64_t flags, int64_t tc,            \
                       int64_t threads, void* stream) {                       \
-    return mrphy::xmt::launch_xmt_bwd<T>(                                    \
-        (const T*)coef, (const T*)pk, (const T*)chk, (const T*)g,            \
-        (T*)scratch, (T*)hstate, (T*)dpk, (T*)dcf, nA, nTR, K, kshift,       \
-        flags, tc, threads, stream);                                         \
+    return mrphy::xmt::launch_xmt_bwd<T, false>(                             \
+        (const T*)coef, (const T*)pk, nullptr, (const T*)chk, (const T*)g,   \
+        (T*)scratch, (T*)hstate, (T*)dpk, (T*)dcf, nullptr, nA, nTR, K,      \
+        kshift, flags, tc, threads, stream);                                 \
   }
 
 MRPHY_XMT_BWD_ENTRY(mrphy_xmt_bwd_f32, float)
 MRPHY_XMT_BWD_ENTRY(mrphy_xmt_bwd_f64, double)
+
+// The variable-TR instances: pk (4, nA) = [M0a, M0b, b1, wscale], the
+// planes pkt (nTR, 7, nA), chk and g as above; the outputs dpk (4, nA) =
+// [dM0a, dM0b, db1, dwscale], dcf as above and dpkt (nTR, 7, nA).
+#define MRPHY_XMT_V_BWD_ENTRY(NAME, T)                                       \
+  extern "C" int NAME(const void* coef, const void* pk, const void* pkt,    \
+                      const void* chk, const void* g, void* scratch,        \
+                      void* hstate, void* dpk, void* dcf, void* dpkt,       \
+                      int64_t nA, int64_t nTR, int64_t K, int64_t kshift,   \
+                      int64_t flags, int64_t tc, int64_t threads,           \
+                      void* stream) {                                        \
+    return mrphy::xmt::launch_xmt_bwd<T, true>(                              \
+        (const T*)coef, (const T*)pk, (const T*)pkt, (const T*)chk,          \
+        (const T*)g, (T*)scratch, (T*)hstate, (T*)dpk, (T*)dcf, (T*)dpkt,    \
+        nA, nTR, K, kshift, flags, tc, threads, stream);                     \
+  }
+
+MRPHY_XMT_V_BWD_ENTRY(mrphy_xmt_v_bwd_f32, float)
+MRPHY_XMT_V_BWD_ENTRY(mrphy_xmt_v_bwd_f64, double)

@@ -1,11 +1,13 @@
 // xmt_common.cuh: the per-order arithmetic of the EPG-X(MT) kernels
-// (xmt_fwd.cu: K31 `xmt_fwd` and K32 `xmt_fwd_chk`; xmt_bwd.cu: K33
-// `xmt_bwd`): the bound pool's saturation, pool a's transverse decay with
-// the exchange of the Z pair and its transpose with the 7 row contractions.
+// (xmt_fwd.cu: K31 `xmt_fwd`, K32 `xmt_fwd_chk` and their variable-TR
+// instances K34 `xmt_v_fwd`, K35 `xmt_v_fwd_chk`; xmt_bwd.cu: K33 `xmt_bwd`
+// and K36 `xmt_v_bwd`): the bound pool's saturation, pool a's transverse
+// decay with the exchange of the Z pair and its transpose with the 7 row
+// contractions.
 // Pool a's RF mix and shift are the single-pool ones of spgr_common.cuh.
 //
 // Every function repeats, operation for operation, the plain PyTorch
-// versions of kernels/epgx.py (`_mt_mix`, `_mt_relax`, `xmt_bwd_torch`):
+// versions of kernels/epgx.py (`_mt_mix`, `_mt_relax`, `_mt_bwd`):
 // with the build's -fmad=false, a kernel and its plain version round alike.
 //
 // Layout. coef (10, nTR) per-TR rows [cos²(α/2), sin²(α/2), sin α, cos α,
@@ -13,9 +15,11 @@
 // Z01, Z10, Z11, ra, rb, E2a, M0a, M0b, b1, wscale]: the longitudinal
 // exchange-relaxation propagator over TR with its recovery into Za(0) and
 // Zb(0), pool a's transverse decay, the initial Z(0) of each pool, the
-// transmit scale and the saturation scale. An atom's state is 8 planes of
-// K orders: pool a's [F+ re, F+ im, F− re, F− im, Z re, Z im], then pool
-// b's [Z re, Z im] (the bound pool has no F states).
+// transmit scale and the saturation scale. Over a variable-TR train the
+// first 7 rows are per TR, pkt (nTR, 7, nA), and pk keeps the last 4
+// (4, nA). An atom's state is 8 planes of K orders: pool a's [F+ re, F+
+// im, F− re, F− im, Z re, Z im], then pool b's [Z re, Z im] (the bound pool
+// has no F states).
 #pragma once
 
 #include "epgx_common.cuh"
@@ -34,6 +38,7 @@ struct Prop {
   T Z00, Z01, Z10, Z11, ra, rb, E2a;
 };
 
+// Atom a's 7 entries from 7 rows of stride nA (pk, or one TR's plane).
 template <typename T>
 __device__ __forceinline__ Prop<T> load_prop(const T* __restrict__ pk,
                                              int64_t nA, int64_t a) {

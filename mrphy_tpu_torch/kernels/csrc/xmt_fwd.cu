@@ -1,11 +1,18 @@
 // xmt_fwd: the EPG-X(MT) gradient-spoiled train (qMT dictionaries) on
-// Hopper (sm_90a) at a fixed TR, with and without chunk checkpoints.
+// Hopper (sm_90a) at a fixed TR and over a variable-TR train, with and
+// without chunk checkpoints.
 //
-// Replaces two TPU kernels of mrphy_tpu/ops/epg_pallas.py: `_mt_kernel`
+// Replaces four TPU kernels of mrphy_tpu/ops/epg_pallas.py: `_mt_kernel`
 // (launched by `_mt_core`), the dictionary's forward, as the entry points
-// mrphy_xmt_fwd_*; and `_mt_fwd_chk_kernel` (launched by `_mt_core_fwd`),
-// the same train writing the state at the start of every chunk of tc TRs
-// for the adjoint xmt_bwd, as mrphy_xmt_fwd_chk_*. Per atom and TR: the RF
+// mrphy_xmt_fwd_*; `_mt_fwd_chk_kernel` (launched by `_mt_core_fwd`), the
+// same train writing the state at the start of every chunk of tc TRs for
+// the adjoint xmt_bwd, as mrphy_xmt_fwd_chk_*; and their variable-TR forms
+// `_mtv_kernel` (launched by `_mt_core_v`) and `_mtv_fwd_chk_kernel`
+// (launched by `_mt_core_v_fwd`), as mrphy_xmt_v_fwd_* and
+// mrphy_xmt_v_fwd_chk_*, which read TR t's 7 propagator entries from the
+// per-TR planes pkt (nTR, 7, nA) in place of the per-atom rows (the
+// exchange-relaxation over each interval tr[t], built in torch by
+// ops/epg.py `_mt_step_entries`). Per atom and TR: the RF
 // mix on pool a and the bound pool's saturation Zb ← exp(−wt_t·wscale)·Zb
 // (the rank-1 structure of W = π∫ω1²·G(Δ, T2b) over a qMT dictionary: a
 // per-TR power train times a per-atom lineshape), the echo (pool a's F+(0)
@@ -18,7 +25,8 @@
 // mix, the saturation and the relaxation-exchange are ~65 multiplies and
 // adds without FMA contraction: ~8e10 operations at 65,536 atoms × 400 TRs ×
 // K 48, ~1.2 ms at the card's float32 peak. Device memory sees the
-// per-atom rows once, the echoes (210 MB there) and the checkpoints.
+// per-atom rows once, the echoes (210 MB there) and the checkpoints; over
+// a variable-TR train also the planes pkt once (734 MB there).
 //
 // Design. One thread per atom walks the whole train, as xspgr_fwd does; its
 // 8·K state values (1.5 KB at K 48 in float32) live in shared memory,
@@ -28,20 +36,24 @@
 // threads (kernels/epg.py `launch_cfg` with 8 planes); where even 32
 // threads' states exceed a block's shared memory (K > 227 in float32, K >
 // 113 in float64) the state lives in device memory (stride nA, coalesced).
-// The 7 entries sit in registers; per-TR coefficients are read by every
-// thread at one address (a broadcast); one precise exp per atom and TR.
-// Built without FMA contraction, in the plain version's order of operations
-// (kernels/epgx.py `xmt_fwd_torch`): the two agree bit for bit. Templated
-// on the scalar type and on the checkpoints; a variable-TR train would be a
-// third switch reading the 7 entries per step, as xspgr_fwd.cu's VARTR.
+// The 7 entries sit in registers (over a variable-TR train loaded at the
+// start of every TR, coalesced over the atoms); per-TR coefficients are
+// read by every thread at one address (a broadcast); one precise exp per
+// atom and TR. Built without FMA contraction, in the plain version's order
+// of operations (kernels/epgx.py `xmt_fwd_torch`, `xmt_v_fwd_torch`): the
+// two agree bit for bit. Templated on the scalar type, on the checkpoints
+// and on the variable-TR train (VARTR, as xspgr_fwd.cu's).
 #include "xmt_common.cuh"
 
 namespace mrphy {
 namespace xmt {
 
-template <typename T, bool CHK>
+// pk: (11, nA) at a fixed TR; over a variable-TR train (VARTR) the rows
+// [M0a, M0b, b1, wscale] (4, nA), the entries of TR t at pkt + t·7·nA.
+template <typename T, bool CHK, bool VARTR>
 __global__ void xmt_fwd_kernel(const T* __restrict__ coef,
-                               const T* __restrict__ pk, T* __restrict__ sig,
+                               const T* __restrict__ pk,
+                               const T* __restrict__ pkt, T* __restrict__ sig,
                                T* __restrict__ chk, T* __restrict__ gstate,
                                int64_t nA, int64_t nTR, int K, int kshift,
                                int flags, int64_t tc) {
@@ -53,9 +65,11 @@ __global__ void xmt_fwd_kernel(const T* __restrict__ coef,
       gstate ? Planes<T>{gstate + a, nA, K}
              : Planes<T>{reinterpret_cast<T*>(smem_raw) + threadIdx.x,
                          (int64_t)blockDim.x, K};
-  const Prop<T> e = load_prop(pk, nA, a);
-  const T M0a = pk[7 * nA + a], M0b = pk[8 * nA + a], b1 = pk[9 * nA + a],
-          wsc = pk[10 * nA + a];
+  Prop<T> e{};
+  if constexpr (!VARTR) e = load_prop(pk, nA, a);
+  const T* pm = VARTR ? pk : pk + 7 * nA;  // [M0a, M0b, b1, wscale]
+  const T M0a = pm[a], M0b = pm[nA + a], b1 = pm[2 * nA + a],
+          wsc = pm[3 * nA + a];
   for (int p = 0; p < kPlanes; ++p)
     for (int k = 0; k < K; ++k) st(p, k) = T(0);
   st(4, 0) = M0a;
@@ -78,6 +92,7 @@ __global__ void xmt_fwd_kernel(const T* __restrict__ coef,
         im = spgr::wrap_inc(im, K);
       }
     }
+    if constexpr (VARTR) e = load_prop(pkt + t * 7 * nA, nA, a);
     const Trig<T> g = spgr::trig(coef, nTR, t, b1, has_b1);
     const T sat = saturation(coef, nTR, t, wsc);
     int ip = op, im = om;
@@ -104,28 +119,28 @@ __global__ void xmt_fwd_kernel(const T* __restrict__ coef,
   }
 }
 
-template <typename T, bool CHK>
-int launch_xmt_fwd(const T* coef, const T* pk, T* sig, T* chk, T* gstate,
-                   int64_t nA, int64_t nTR, int64_t K, int64_t kshift,
-                   int64_t flags, int64_t tc, int64_t threads,
+template <typename T, bool CHK, bool VARTR>
+int launch_xmt_fwd(const T* coef, const T* pk, const T* pkt, T* sig, T* chk,
+                   T* gstate, int64_t nA, int64_t nTR, int64_t K,
+                   int64_t kshift, int64_t flags, int64_t tc, int64_t threads,
                    void* stream) {
   if (nA <= 0 || nTR <= 0 || K <= 0 || kshift == 0 || tc <= 0 ||
       nTR % tc != 0 || !spgr::valid_threads((int)threads) ||
-      (CHK && chk == nullptr))
+      (CHK && chk == nullptr) || (VARTR && pkt == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       gstate ? 0 : (size_t)threads * kPlanes * (size_t)K * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        xmt_fwd_kernel<T, CHK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        xmt_fwd_kernel<T, CHK, VARTR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const unsigned grid = (unsigned)((nA + threads - 1) / threads);
-  xmt_fwd_kernel<T, CHK><<<grid, (unsigned)threads, smem,
-                           (cudaStream_t)stream>>>(
-      coef, pk, sig, chk, gstate, nA, nTR, (int)K, (int)kshift, (int)flags,
-      tc);
+  xmt_fwd_kernel<T, CHK, VARTR><<<grid, (unsigned)threads, smem,
+                                  (cudaStream_t)stream>>>(
+      coef, pk, pkt, sig, chk, gstate, nA, nTR, (int)K, (int)kshift,
+      (int)flags, tc);
   return (int)cudaGetLastError();
 }
 
@@ -142,12 +157,29 @@ int launch_xmt_fwd(const T* coef, const T* pk, T* sig, T* chk, T* gstate,
                       void* chk, void* gstate, int64_t nA, int64_t nTR,     \
                       int64_t K, int64_t kshift, int64_t flags, int64_t tc, \
                       int64_t threads, void* stream) {                       \
-    return mrphy::xmt::launch_xmt_fwd<T, CHK>(                               \
-        (const T*)coef, (const T*)pk, (T*)sig, (T*)chk, (T*)gstate, nA, nTR, \
-        K, kshift, flags, tc, threads, stream);                              \
+    return mrphy::xmt::launch_xmt_fwd<T, CHK, false>(                        \
+        (const T*)coef, (const T*)pk, nullptr, (T*)sig, (T*)chk, (T*)gstate, \
+        nA, nTR, K, kshift, flags, tc, threads, stream);                     \
   }
 
 MRPHY_XMT_FWD_ENTRY(mrphy_xmt_fwd_f32, float, false)
 MRPHY_XMT_FWD_ENTRY(mrphy_xmt_fwd_f64, double, false)
 MRPHY_XMT_FWD_ENTRY(mrphy_xmt_fwd_chk_f32, float, true)
 MRPHY_XMT_FWD_ENTRY(mrphy_xmt_fwd_chk_f64, double, true)
+
+// The variable-TR instances: pk (4, nA) = [M0a, M0b, b1, wscale] and the
+// per-TR planes pkt (nTR, 7, nA); the rest as above.
+#define MRPHY_XMT_V_FWD_ENTRY(NAME, T, CHK)                                  \
+  extern "C" int NAME(const void* coef, const void* pk, const void* pkt,    \
+                      void* sig, void* chk, void* gstate, int64_t nA,       \
+                      int64_t nTR, int64_t K, int64_t kshift, int64_t flags, \
+                      int64_t tc, int64_t threads, void* stream) {           \
+    return mrphy::xmt::launch_xmt_fwd<T, CHK, true>(                         \
+        (const T*)coef, (const T*)pk, (const T*)pkt, (T*)sig, (T*)chk,       \
+        (T*)gstate, nA, nTR, K, kshift, flags, tc, threads, stream);         \
+  }
+
+MRPHY_XMT_V_FWD_ENTRY(mrphy_xmt_v_fwd_f32, float, false)
+MRPHY_XMT_V_FWD_ENTRY(mrphy_xmt_v_fwd_f64, double, false)
+MRPHY_XMT_V_FWD_ENTRY(mrphy_xmt_v_fwd_chk_f32, float, true)
+MRPHY_XMT_V_FWD_ENTRY(mrphy_xmt_v_fwd_chk_f64, double, true)

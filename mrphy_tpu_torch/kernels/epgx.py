@@ -1,14 +1,14 @@
 r"""The two-pool EPG-X kernels: wrappers, plain PyTorch versions and launch
 counts.
 
-Fifteen kernels, each the Hopper counterpart of a TPU kernel of
+Eighteen kernels, each the Hopper counterpart of a TPU kernel of
 :mod:`mrphy_tpu.ops.epg_pallas`: six for the gradient-spoiled train of a
 two-pool exchanging system (:func:`mrphy_tpu_torch.ops.epg.epgx_spgr`), at
 a fixed TR and over a variable-TR train, six for its CPMG echo train
 (:func:`mrphy_tpu_torch.ops.epg.epgx_cpmg`, below), at a fixed echo
-spacing and over an echo-spacing train, and three for the bound-pool
+spacing and over an echo-spacing train, and six for the bound-pool
 EPG-X(MT) train of qMT (:func:`mrphy_tpu_torch.ops.epg.epgx_mt_spgr`, last
-below) at a fixed TR:
+below) at a fixed TR and over a variable-TR train:
 
 - ``xspgr_fwd`` (``csrc/xspgr_fwd.cu``, replaces ``_epgx_kernel``): per
   atom and TR, the RF mix on pool a and on pool b, the echo (the total
@@ -121,6 +121,19 @@ nA)``; the adjoint ``dcoef (10, nTR)`` (summed over atoms, the per-TR
 ``∂wt`` among them) and ``dpk (11, nA)``. :func:`xmt` is their autograd
 Function, :func:`xmt_spgr` the qMT dictionary's entry point with a per-atom
 ``wscale``.
+
+Over a variable-TR train (``_mt_v_dispatch``, ``epg_pallas.py:4432-4459``)
+the same two sources give ``xmt_v_fwd`` (replaces ``_mtv_kernel``),
+``xmt_v_fwd_chk`` (``_mtv_fwd_chk_kernel``) and ``xmt_v_bwd``
+(``_mtv_bwd_kernel``): ``pk (4, nA) = [M0a, M0b, b1, wscale]`` and the
+per-TR planes ``pkt (nTR, 7, nA)``, the entries ``[Z00, Z01, Z10, Z11, ra,
+rb, E2a]`` over each interval ``tr[t]``
+(:func:`mrphy_tpu_torch.ops.epg._mt_step_entries`); the adjoint returns
+``dcoef (10, nTR)``, ``dpk (4, nA) = [dM0a, dM0b, db1, dwscale]``
+(``dM0a``/``dM0b`` through the initial state only; autograd of the planes
+adds their share through the recovery) and ``dpkt (nTR, 7, nA)``, each TR's
+entry gradients. :func:`xmt_v` is their autograd Function; :func:`xmt_spgr`
+takes it for a ``(nTR,)`` ``tr``.
 """
 
 from typing import NamedTuple
@@ -145,13 +158,16 @@ __all__ = ['LAUNCHES', 'PLANES', 'XspgrCfg', 'xspgr', 'xspgr_fwd',
            'xcpmg_v_fwd_chk_torch', 'xcpmg_v_bwd', 'xcpmg_v_bwd_torch',
            'PLANES_MT', 'XmtCfg', 'xmt', 'xmt_spgr', 'xmt_fwd',
            'xmt_fwd_torch', 'xmt_fwd_chk', 'xmt_fwd_chk_torch', 'xmt_bwd',
-           'xmt_bwd_torch']
+           'xmt_bwd_torch', 'xmt_v', 'xmt_v_fwd', 'xmt_v_fwd_torch',
+           'xmt_v_fwd_chk', 'xmt_v_fwd_chk_torch', 'xmt_v_bwd',
+           'xmt_v_bwd_torch']
 
 LAUNCHES = {'xspgr_fwd': 0, 'xspgr_fwd_chk': 0, 'xspgr_bwd': 0,
             'xspgr_v_fwd': 0, 'xspgr_v_fwd_chk': 0, 'xspgr_v_bwd': 0,
             'xcpmg_fwd': 0, 'xcpmg_fwd_chk': 0, 'xcpmg_bwd': 0,
             'xcpmg_v_fwd': 0, 'xcpmg_v_fwd_chk': 0, 'xcpmg_v_bwd': 0,
-            'xmt_fwd': 0, 'xmt_fwd_chk': 0, 'xmt_bwd': 0}
+            'xmt_fwd': 0, 'xmt_fwd_chk': 0, 'xmt_bwd': 0,
+            'xmt_v_fwd': 0, 'xmt_v_fwd_chk': 0, 'xmt_v_bwd': 0}
 
 # The state planes of one atom: both pools' F+, F−, Z (re, im).
 PLANES = 12
@@ -166,10 +182,14 @@ NXC = 19
 NXCV = 5
 # The EPG-X(MT) train: an atom's state planes (pool a's F+, F−, Z and pool
 # b's Z, re and im), its per-atom rows [Z00, Z01, Z10, Z11, ra, rb, E2a,
-# M0a, M0b, b1, wscale] and its per-TR rows (SPGR's nine and wt).
+# M0a, M0b, b1, wscale] and its per-TR rows (SPGR's nine and wt); over a
+# variable-TR train the propagator entries of one TR (the first 7 rows) and
+# the other per-atom rows [M0a, M0b, b1, wscale].
 PLANES_MT = 8
 NPK_MT = 11
 NC_MT = 10
+NENT_MT = 7
+NPK_MTV = 4
 
 
 class XspgrCfg(NamedTuple):
@@ -300,15 +320,16 @@ def _xstep(coef, t, p, cfg, s):
 
 def _fixed_rows(par):
     r"""Every step's rows at a fixed interval: ``par``'s (17 of SPGR, 19 of
-    CPMG), each `(nA, 1)`."""
+    CPMG, 11 of EPG-X(MT)), each `(nA, 1)`."""
     p = par.unsqueeze(-1)
     return lambda t: p
 
 
 def _train_rows(pk, pkt):
-    r"""Step ``t``'s rows over an interval train: the planes' 14 entries of
-    step ``t``, then ``pk``'s (SPGR's ``[M0a, M0b, b1]``, CPMG's ``[cos
-    φ_ex, sin φ_ex, M0a, M0b, b1]``), each `(nA, 1)`."""
+    r"""Step ``t``'s rows over an interval train: the planes' entries of
+    step ``t`` (the two-pool trains' 14, EPG-X(MT)'s 7), then ``pk``'s
+    (SPGR's ``[M0a, M0b, b1]``, CPMG's ``[cos φ_ex, sin φ_ex, M0a, M0b,
+    b1]``, EPG-X(MT)'s ``[M0a, M0b, b1, wscale]``), each `(nA, 1)`."""
     pv, pt = tuple(pk.unsqueeze(-1)), pkt.unsqueeze(-1)
     return lambda t: tuple(pt[t]) + pv
 
@@ -1143,12 +1164,14 @@ def _mt_next(p, cfg, s1):
     return _shift(s2[:6], cfg.kshift) + s2[6:]
 
 
-def _mt_fwd(coef, pk, cfg, tc):
-    r"""The train from the equilibrium state: ``(echoes (nA, nTR, 2), chk
+def _mt_fwd(coef, rows, cfg, tc):
+    r"""The train from the equilibrium state, ``rows(t)`` TR ``t``'s 11 rows
+    (:func:`_fixed_rows`, :func:`_train_rows`): ``(echoes (nA, nTR, 2), chk
     or None)``, ``chk (nTR / tc, 8, K, nA)`` the chunk-start states."""
     nTR = coef.shape[1]
-    p = pk.unsqueeze(-1)                             # (11, nA, 1)
-    z = torch.zeros(pk.shape[1], cfg.K, dtype=pk.dtype, device=pk.device)
+    p = rows(0)
+    z = torch.zeros(p[7].shape[0], cfg.K, dtype=p[7].dtype,
+                    device=p[7].device)
     s = (z, z, z, z, _at0(z, p[7]), z, _at0(z, p[8]), z)
     echoes = []
     chk = z.new_empty((nTR // tc, PLANES_MT, cfg.K, z.shape[0])) if tc \
@@ -1156,6 +1179,7 @@ def _mt_fwd(coef, pk, cfg, tc):
     for t in range(nTR):
         if tc and t % tc == 0:
             chk[t // tc] = torch.stack(s).transpose(1, 2)  # (8, K, nA)
+        p = rows(t)
         tg, _, s1 = _mt_mix(coef, t, p, cfg, s)
         c1, s1c = tg[4], tg[5]
         fr, fi = s1[0][:, :1], s1[1][:, :1]
@@ -1165,24 +1189,11 @@ def _mt_fwd(coef, pk, cfg, tc):
     return torch.stack(echoes, dim=1), chk
 
 
-def xmt_fwd_torch(coef, pk, cfg: XmtCfg):
-    r"""Plain PyTorch version of the ``xmt_fwd`` kernel: ``sig (nA, nTR,
-    2)``. Differentiable by torch autograd (which then keeps every TR)."""
-    return _mt_fwd(coef, pk, cfg, None)[0]
-
-
-def xmt_fwd_chk_torch(coef, pk, cfg: XmtCfg, *, tc: int):
-    r"""Plain PyTorch version of the ``xmt_fwd_chk`` kernel: ``(sig (nA,
-    nTR, 2), chk (nTR / tc, 8, K, nA))``."""
-    _check_tc(coef.shape[1], tc)
-    return _mt_fwd(coef, pk, cfg, tc)
-
-
-def xmt_bwd_torch(coef, pk, cfg: XmtCfg, chk, g, *, tc: int):
-    r"""Plain PyTorch version of the ``xmt_bwd`` kernel: the two-phase chunk
-    adjoint of :func:`xmt_fwd_chk_torch` from its checkpoints ``chk`` at
-    chunk length ``tc`` and the echoes' cotangent ``g (nA, nTR, 2)``, with
-    no autograd, in ``_mt_bwd_kernel``'s order (``epg_pallas.py:3793-3971``).
+def _mt_bwd(coef, rows, cfg, chk, g, tc, take):
+    r"""The two-phase chunk adjoint of :func:`_mt_fwd` from its checkpoints
+    ``chk`` at chunk length ``tc`` and the echoes' cotangent ``g (nA, nTR,
+    2)``, with no autograd, in ``_mt_bwd_kernel``'s order
+    (``epg_pallas.py:3793-3971``; ``_mtv_bwd_kernel``'s, ``:4183-4328``).
 
     Per chunk, newest first, phase 1 runs the forward from the chunk's start
     state and keeps each TR's pre-RF state, factors and mixed state; phase 2
@@ -1195,22 +1206,21 @@ def xmt_bwd_torch(coef, pk, cfg: XmtCfg, chk, g, *, tc: int):
     atoms by warps of 32 (:func:`_warp_sums`) and then over the warps, as
     the wrapper sums the kernel's partial rows. Under ``b1`` the angle's
     gradient goes to ``db1`` and to the flip row (rows 0–3 stay 0).
+    ``take(t, d)`` receives TR ``t``'s 7 entry gradients ``d`` (each `(nA,
+    1)`, in the rows' order ``[Z00, Z01, Z10, Z11, ra, rb, E2a]``).
 
-    Returns ``(dcoef (10, nTR), dpk (11, nA))``: ``dpk`` the gradients of
-    ``[Z00, Z01, Z10, Z11, ra, rb, E2a]`` summed over the train, ``dM0a`` and
-    ``dM0b`` (the cotangents of the initial ``Za(0)``/``Zb(0)``), ``db1`` and
-    ``dwscale``."""
+    Returns ``(dcoef (10, nTR), dM0a, dM0b, db1, dwscale)``, the last four
+    `(nA, 1)`: the cotangents of the initial ``Za(0)``/``Zb(0)``, the b1 and
+    the saturation scale's gradients."""
     nTR = coef.shape[1]
     _check_tc(nTR, tc)
     ntc = chk.shape[0]
     if ntc != nTR // tc:
         raise ValueError(f'chk holds {ntc} states, but nTR={nTR} in chunks '
                          f'of tc={tc} gives {nTR // tc}')
-    p = pk.unsqueeze(-1)
-    wsc = p[10]
+    wsc = rows(0)[10]
     zero = torch.zeros_like(wsc)
     h = (torch.zeros_like(chk[0, 0].T),) * PLANES_MT
-    acc = [zero] * 7
     ab1 = awsc = zero
     dcf = coef.new_zeros((-(-zero.shape[0] // 32), nTR, NC_MT))
     for j in reversed(range(ntc)):
@@ -1219,6 +1229,7 @@ def xmt_bwd_torch(coef, pk, cfg: XmtCfg, chk, g, *, tc: int):
         s = tuple(chk[j, q].T for q in range(PLANES_MT))
         steps = []
         for t in range(j * tc, (j + 1) * tc):
+            p = rows(t)
             tg, sat, s1 = _mt_mix(coef, t, p, cfg, s)
             steps.append((s, tg, sat, s1))
             if t + 1 < (j + 1) * tc:
@@ -1226,6 +1237,7 @@ def xmt_bwd_torch(coef, pk, cfg: XmtCfg, chk, g, *, tc: int):
         # phase 2: the cotangent, backwards through the stored TRs
         for t in reversed(range(j * tc, (j + 1) * tc)):
             s, tg, sat, s1 = steps.pop()
+            p = rows(t)
             ca2, sa2, sa, ca, c1, s1c, c2, s2 = tg
             h = _shift_T(h[:6], cfg.kshift) + h[6:]
             # the exchange-relaxation's transpose at the mixed state
@@ -1250,57 +1262,126 @@ def xmt_bwd_torch(coef, pk, cfg: XmtCfg, chk, g, *, tc: int):
             # the saturation's terms, then pool a's mix coefficients
             terms += [h[6] * s[6] + h[7] * s[7]] + _mix_terms(h[:6], s[:6])
             sums = _ksum(torch.stack(terms)).unsqueeze(-1)   # (14, nA, 1)
-            for i in range(4):
-                acc[i] = acc[i] + sums[i]
-            acc[4], acc[5] = acc[4] + d_ra, acc[5] + d_rb
-            acc[6] = acc[6] + sums[4]
+            take(t, list(sums[:4]) + [d_ra, d_rb, sums[4]])
             dsat = sums[5]
             d_wt = -wsc * sat * dsat
             awsc = awsc + (-coef[9, t]) * sat * dsat
             d_ca2, d_sc2, d_ss2, d_ss, d_sc, d_hs, d_hc, d_ca = sums[6:]
             d_sa2 = c2 * d_sc2 + s2 * d_ss2
             d_sa = s1c * (d_ss + 0.5 * d_hs) + c1 * (d_sc + 0.5 * d_hc)
-            rows = [d_ca2, d_sa2, d_sa, d_ca,
-                    sa * (d_sc + 0.5 * d_hc) + d_c1e,
-                    sa * (d_ss + 0.5 * d_hs) + d_s1e,
-                    sa2 * d_sc2, sa2 * d_ss2, zero, d_wt]
+            rows_t = [d_ca2, d_sa2, d_sa, d_ca,
+                      sa * (d_sc + 0.5 * d_hc) + d_c1e,
+                      sa * (d_ss + 0.5 * d_hs) + d_s1e,
+                      sa2 * d_sc2, sa2 * d_ss2, zero, d_wt]
             if cfg.has_b1:
                 # α = flip·b1 through the half-angle trig
                 d_al = 0.5 * sa * (d_sa2 - d_ca2) + ca * d_sa - sa * d_ca
                 ab1 = ab1 + d_al * coef[8, t]
-                rows[:4] = [zero] * 4
-                rows[8] = d_al * p[9]
-            dcf[:, t] = _warp_sums(torch.cat(rows, dim=1))
+                rows_t[:4] = [zero] * 4
+                rows_t[8] = d_al * p[9]
+            dcf[:, t] = _warp_sums(torch.cat(rows_t, dim=1))
             h = _mix_T(tg, h[:6]) + (sat * h[6], sat * h[7])
     # the initial state: M0a on Za(0)'s real part, M0b on Zb(0)'s
-    dpk = torch.cat(acc + [h[4][:, :1], h[6][:, :1], ab1, awsc], dim=1).T
-    return dcf.sum(dim=0).T.contiguous(), dpk.contiguous()
+    return (dcf.sum(dim=0).T.contiguous(), h[4][:, :1], h[6][:, :1], ab1,
+            awsc)
+
+
+def xmt_fwd_torch(coef, pk, cfg: XmtCfg):
+    r"""Plain PyTorch version of the ``xmt_fwd`` kernel: ``sig (nA, nTR,
+    2)``. Differentiable by torch autograd (which then keeps every TR)."""
+    return _mt_fwd(coef, _fixed_rows(pk), cfg, None)[0]
+
+
+def xmt_fwd_chk_torch(coef, pk, cfg: XmtCfg, *, tc: int):
+    r"""Plain PyTorch version of the ``xmt_fwd_chk`` kernel: ``(sig (nA,
+    nTR, 2), chk (nTR / tc, 8, K, nA))``."""
+    _check_tc(coef.shape[1], tc)
+    return _mt_fwd(coef, _fixed_rows(pk), cfg, tc)
+
+
+def xmt_bwd_torch(coef, pk, cfg: XmtCfg, chk, g, *, tc: int):
+    r"""Plain PyTorch version of the ``xmt_bwd`` kernel: the two-phase chunk
+    adjoint of :func:`xmt_fwd_chk_torch` (:func:`_mt_bwd`), with no
+    autograd, the entries' gradients summed over the train.
+
+    ``chk``: its checkpoints at the same ``tc``; ``g``: the echoes'
+    cotangent `(nA, nTR, 2)`. Returns ``(dcoef (10, nTR), dpk (11, nA))``:
+    ``dpk`` the gradients of ``[Z00, Z01, Z10, Z11, ra, rb, E2a]`` summed
+    over the train, ``dM0a`` and ``dM0b`` (the cotangents of the initial
+    ``Za(0)``/``Zb(0)``), ``db1`` and ``dwscale``."""
+    acc = [torch.zeros_like(pk[:1].T)] * 7
+
+    def take(t, d):
+        for i in range(7):
+            acc[i] = acc[i] + d[i]
+
+    dcoef, *dm = _mt_bwd(coef, _fixed_rows(pk), cfg, chk, g, tc, take)
+    return dcoef, torch.cat(acc + dm, dim=1).T.contiguous()
+
+
+def xmt_v_fwd_torch(coef, pk, pkt, cfg: XmtCfg):
+    r"""Plain PyTorch version of the ``xmt_v_fwd`` kernel: ``sig (nA, nTR,
+    2)`` over the variable-TR train whose TR ``t`` takes the entries
+    ``pkt[t]`` (``pk (4, nA) = [M0a, M0b, b1, wscale]``). Differentiable by
+    torch autograd (which then keeps every TR)."""
+    return _mt_fwd(coef, _train_rows(pk, pkt), cfg, None)[0]
+
+
+def xmt_v_fwd_chk_torch(coef, pk, pkt, cfg: XmtCfg, *, tc: int):
+    r"""Plain PyTorch version of the ``xmt_v_fwd_chk`` kernel: ``(sig (nA,
+    nTR, 2), chk (nTR / tc, 8, K, nA))``."""
+    _check_tc(coef.shape[1], tc)
+    return _mt_fwd(coef, _train_rows(pk, pkt), cfg, tc)
+
+
+def xmt_v_bwd_torch(coef, pk, pkt, cfg: XmtCfg, chk, g, *, tc: int):
+    r"""Plain PyTorch version of the ``xmt_v_bwd`` kernel: the two-phase
+    chunk adjoint of :func:`xmt_v_fwd_chk_torch` (:func:`_mt_bwd`), with no
+    autograd, each TR's entry gradients written as they are formed.
+    Returns ``(dcoef (10, nTR), dpk (4, nA) = [dM0a, dM0b, db1, dwscale],
+    dpkt (nTR, 7, nA))``: ``dM0a``/``dM0b`` the cotangents of the initial
+    ``Za(0)``/``Zb(0)`` (``_mtv_bwd_kernel``'s ``dpar``), ``dpkt[t]`` the
+    gradients of ``pkt[t]``."""
+    dpkt = torch.empty_like(pkt)
+
+    def take(t, d):
+        dpkt[t] = torch.cat(d, dim=1).T
+
+    dcoef, *dm = _mt_bwd(coef, _train_rows(pk, pkt), cfg, chk, g, tc, take)
+    return dcoef, torch.cat(dm, dim=1).T.contiguous(), dpkt
 
 
 # ==========================================================================
 # The EPG-X(MT) train: the kernels
 # ==========================================================================
 
-def _mt_sizes(name, coef, pk, cfg):
-    r"""Validate an EPG-X(MT) kernel's arguments; returns ``(nA, nTR)``."""
+def _mt_sizes(name, coef, pk, cfg, pkt=None):
+    r"""Validate an EPG-X(MT) kernel's arguments (over a variable-TR train
+    ``pk`` has 4 rows and ``pkt`` holds the per-TR planes); returns ``(nA,
+    nTR)``."""
+    rows = NPK_MT if pkt is None else NPK_MTV
     if pk.dtype not in (torch.float32, torch.float64):
         raise TypeError(f'{name} takes float32 or float64, not {pk.dtype}')
-    if pk.ndim != 2 or pk.shape[0] != NPK_MT:
-        raise ValueError(f'pk must be ({NPK_MT}, nA), got {tuple(pk.shape)}')
+    if pk.ndim != 2 or pk.shape[0] != rows:
+        raise ValueError(f'pk must be ({rows}, nA), got {tuple(pk.shape)}')
     nA, nTR = pk.shape[1], coef.shape[-1]
     if cfg.K < 1 or cfg.kshift == 0:
         raise ValueError(f'{name} needs K >= 1 and kshift != 0, got '
                          f'K={cfg.K}, kshift={cfg.kshift}')
     _check(coef, 'coef', (NC_MT, nTR), pk.dtype, pk.device)
-    _check(pk, 'pk', (NPK_MT, nA), pk.dtype, pk.device)
+    _check(pk, 'pk', (rows, nA), pk.dtype, pk.device)
+    if pkt is not None:
+        _check(pkt, 'pkt', (nTR, NENT_MT, nA), pk.dtype, pk.device)
     return nA, nTR
 
 
-def _launch_xmt_fwd(coef, pk, cfg, tc):
-    r"""``xmt_fwd`` (``tc`` None) or ``xmt_fwd_chk``: ``(sig, chk)``."""
+def _launch_xmt_fwd(coef, pk, cfg, tc, pkt=None):
+    r"""``xmt_fwd`` (``tc`` None) or ``xmt_fwd_chk``: ``(sig, chk)``; with
+    ``pkt``, their variable-TR instances."""
     from mrphy_tpu_torch.kernels._build import library
-    name = 'xmt_fwd' if tc is None else 'xmt_fwd_chk'
-    nA, nTR = _mt_sizes(name, coef, pk, cfg)
+    name = (('xmt_fwd' if pkt is None else 'xmt_v_fwd')
+            + ('' if tc is None else '_chk'))
+    nA, nTR = _mt_sizes(name, coef, pk, cfg, pkt)
     dt, dev = pk.dtype, pk.device
     threads, in_smem = launch_cfg(cfg.K, pk.element_size(), PLANES_MT)
     sig = torch.empty((nA, nTR, 2), dtype=dt, device=dev)
@@ -1311,21 +1392,23 @@ def _launch_xmt_fwd(coef, pk, cfg, tc):
                           device=dev)
     state = None if in_smem else torch.empty((PLANES_MT, cfg.K, nA),
                                              dtype=dt, device=dev)
+    ins = (coef, pk) if pkt is None else (coef, pk, pkt)
     lib, _ = library()
     with torch.cuda.device(dev):
         err = _entry(lib, name, dt)(
-            *map(_ptr, (coef, pk, sig, chk, state)), nA, nTR, cfg.K,
+            *map(_ptr, ins + (sig, chk, state)), nA, nTR, cfg.K,
             cfg.kshift, cfg.flags, tc or nTR, threads, _stream(dev))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return sig, chk
 
 
-def _launch_xmt_bwd(coef, pk, cfg, chk, g, tc):
-    r"""``xmt_bwd``: ``(dcoef, dpk)``."""
+def _launch_xmt_bwd(coef, pk, cfg, chk, g, tc, pkt=None):
+    r"""``xmt_bwd``: ``(dcoef, dpk)``; with ``pkt``, ``xmt_v_bwd``:
+    ``(dcoef, dpk, dpkt)``."""
     from mrphy_tpu_torch.kernels._build import library
-    name = 'xmt_bwd'
-    nA, nTR = _mt_sizes(name, coef, pk, cfg)
+    name = 'xmt_bwd' if pkt is None else 'xmt_v_bwd'
+    nA, nTR = _mt_sizes(name, coef, pk, cfg, pkt)
     _check_tc(nTR, tc)
     dt, dev = pk.dtype, pk.device
     _check(chk, 'chk', (nTR // tc, PLANES_MT, cfg.K, nA), dt, dev)
@@ -1340,15 +1423,21 @@ def _launch_xmt_bwd(coef, pk, cfg, chk, g, tc):
                                               dtype=dt, device=dev)
     dpk = torch.empty(pk.shape, dtype=dt, device=dev)
     dcf = torch.empty((-(-nA // 32), nTR, NC_MT), dtype=dt, device=dev)
+    if pkt is None:
+        ins, outs = (coef, pk, chk, g), (dpk, dcf)
+    else:
+        dpkt = torch.empty((nTR, NENT_MT, nA), dtype=dt, device=dev)
+        ins, outs = (coef, pk, pkt, chk, g), (dpk, dcf, dpkt)
     lib, _ = library()
     with torch.cuda.device(dev):
         err = _entry(lib, name, dt)(
-            *map(_ptr, (coef, pk, chk, g, scratch, hstate, dpk, dcf)), nA,
-            nTR, cfg.K, cfg.kshift, cfg.flags, tc, threads, _stream(dev))
+            *map(_ptr, ins + (scratch, hstate) + outs), nA, nTR, cfg.K,
+            cfg.kshift, cfg.flags, tc, threads, _stream(dev))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     # the warps' partial rows, summed in a fixed order
-    return dcf.sum(dim=0).T.contiguous(), dpk
+    dcoef = dcf.sum(dim=0).T.contiguous()
+    return (dcoef, dpk) if pkt is None else (dcoef, dpk, dpkt)
 
 
 def xmt_fwd(coef, pk, cfg: XmtCfg):
@@ -1375,6 +1464,35 @@ def xmt_bwd(coef, pk, cfg: XmtCfg, chk, g, *, tc: int):
     return _launch_xmt_bwd(coef, pk, cfg, chk, g, tc)
 
 
+def xmt_v_fwd(coef, pk, pkt, cfg: XmtCfg):
+    r"""The ``xmt_v_fwd`` kernel on CUDA tensors (contiguous, one dtype,
+    float32 or float64), :func:`xmt_v_fwd_torch` on CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xmt_v_fwd_torch(coef, pk, pkt, cfg)
+    return _launch_xmt_fwd(coef, pk, cfg, None, pkt)[0]
+
+
+def xmt_v_fwd_chk(coef, pk, pkt, cfg: XmtCfg, *, tc: int):
+    r"""The ``xmt_v_fwd_chk`` kernel on CUDA tensors,
+    :func:`xmt_v_fwd_chk_torch` on CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xmt_v_fwd_chk_torch(coef, pk, pkt, cfg, tc=tc)
+    return _launch_xmt_fwd(coef, pk, cfg, tc, pkt)
+
+
+def xmt_v_bwd(coef, pk, pkt, cfg: XmtCfg, chk, g, *, tc: int):
+    r"""The ``xmt_v_bwd`` kernel on CUDA tensors, :func:`xmt_v_bwd_torch` on
+    CPU tensors."""
+    if _device_kind(pk) == 'cpu':
+        return xmt_v_bwd_torch(coef, pk, pkt, cfg, chk, g, tc=tc)
+    return _launch_xmt_bwd(coef, pk, cfg, chk, g, tc, pkt)
+
+
+def _mt_chunk(coef, pk, cfg):
+    return pick_tc(coef.shape[1], cfg.K, pk.shape[1], pk.element_size(),
+                   PLANES_MT)
+
+
 class _Xmt(torch.autograd.Function):
 
     @staticmethod
@@ -1382,8 +1500,7 @@ class _Xmt(torch.autograd.Function):
         ctx.cfg = cfg
         if not any(ctx.needs_input_grad[1:3]):
             return xmt_fwd(coef, pk, cfg)
-        tc = pick_tc(coef.shape[1], cfg.K, pk.shape[1], pk.element_size(),
-                     PLANES_MT)
+        tc = _mt_chunk(coef, pk, cfg)
         sig, chk = xmt_fwd_chk(coef, pk, cfg, tc=tc)
         ctx.tc = tc
         ctx.save_for_backward(coef, pk, chk)
@@ -1398,12 +1515,43 @@ class _Xmt(torch.autograd.Function):
         return None, dcoef, dpk
 
 
+class _XmtV(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, cfg, coef, pk, pkt):
+        ctx.cfg = cfg
+        if not any(ctx.needs_input_grad[1:4]):
+            return xmt_v_fwd(coef, pk, pkt, cfg)
+        tc = _mt_chunk(coef, pk, cfg)
+        sig, chk = xmt_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)
+        ctx.tc = tc
+        ctx.save_for_backward(coef, pk, pkt, chk)
+        return sig
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        coef, pk, pkt, chk = ctx.saved_tensors
+        dcoef, dpk, dpkt = xmt_v_bwd(coef, pk, pkt, ctx.cfg, chk,
+                                     g.contiguous(), tc=ctx.tc)
+        return None, dcoef, dpk, dpkt
+
+
 def xmt(coef, pk, cfg: XmtCfg):
     r"""The EPG-X(MT) SPGR train ``sig (nA, nTR, 2)`` at a fixed TR: the
     kernels on CUDA tensors (``xmt_fwd``, or ``xmt_fwd_chk`` and ``xmt_bwd``
     when a gradient is needed), their plain versions on CPU tensors.
     Differentiable w.r.t. ``coef`` and ``pk``."""
     return _Xmt.apply(cfg, coef.contiguous(), pk.contiguous())
+
+
+def xmt_v(coef, pk, pkt, cfg: XmtCfg):
+    r"""The EPG-X(MT) SPGR train ``sig (nA, nTR, 2)`` over a variable-TR
+    train: the kernels on CUDA tensors (``xmt_v_fwd``, or ``xmt_v_fwd_chk``
+    and ``xmt_v_bwd`` when a gradient is needed), their plain versions on
+    CPU tensors. Differentiable w.r.t. ``coef``, ``pk`` and ``pkt``."""
+    return _XmtV.apply(cfg, coef.contiguous(), pk.contiguous(),
+                       pkt.contiguous())
 
 
 def xmt_spgr(flips, phis=None, *, T1a, T2a, T1b, kab, kba, tr, wt=0.0,
@@ -1414,15 +1562,18 @@ def xmt_spgr(flips, phis=None, *, T1a, T2a, T1b, kab, kba, tr, wt=0.0,
 
     The semantics of :func:`mrphy_tpu_torch.ops.epg.epgx_mt_spgr` for the
     dictionary workload: a shared `(nTR,)` flip (and phase) train, a shared
-    ``wt`` `()` or `(nTR,)` saturation train, a scalar ``tr``, the tissue
-    and exchange maps per atom, flattened into one atom axis. The per-atom
+    ``wt`` `()` or `(nTR,)` saturation train, a scalar ``tr`` or a shared
+    `(nTR,)` ``tr`` train (a fingerprinting schedule: the variable-TR
+    kernels over the per-TR planes), the tissue and exchange maps per atom,
+    flattened into one atom axis. The per-atom
     saturation scale ``wscale`` (the bound pool's lineshape ``G(Δ, T2b)``)
     multiplies the shared ``wt``: the effective saturation equals the plain
     route's batched ``wt[None]·wscale[:, None]``. ``b1`` scales the flips
     per atom. Returns ``(nAtoms, nTR, 2)``: the kernels (``xmt_fwd``, or
-    ``xmt_fwd_chk`` and ``xmt_bwd`` under a gradient) on CUDA tensors, their
-    plain versions on CPU tensors. Differentiable w.r.t. every input,
-    ``wt`` and ``wscale`` among them."""
+    ``xmt_fwd_chk`` and ``xmt_bwd`` under a gradient; over a ``tr`` train
+    ``xmt_v_fwd``, or ``xmt_v_fwd_chk`` and ``xmt_v_bwd``) on CUDA tensors,
+    their plain versions on CPU tensors. Differentiable w.r.t. every input,
+    ``wt``, ``wscale`` and every element of a ``tr`` train among them."""
     from mrphy_tpu_torch.ops.epg import _xmt_rows
     if int(kshift) == 0:
         raise ValueError('kshift must be a nonzero integer')
@@ -1430,4 +1581,6 @@ def xmt_spgr(flips, phis=None, *, T1a, T2a, T1b, kab, kba, tr, wt=0.0,
                                  kab=kab, kba=kba, tr=tr, wt=wt,
                                  wscale=wscale, M0a=M0a, M0b=M0b, b1=b1,
                                  kshift=int(kshift), K=K)
+    if isinstance(pk, tuple):
+        return xmt_v(coef, *pk, cfg)
     return xmt(coef, pk, cfg)

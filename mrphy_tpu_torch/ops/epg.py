@@ -49,13 +49,15 @@ from per-echo planes.
 
 The EPG-X(MT) variant (:func:`epgx_mt_spgr`, the qMT-SPGR train) keeps pool
 b's Z states only and saturates them at every RF event by ``exp(−wt)``
-(:func:`mt_lineshape`). Its kernels take a shared 1-D flip train, a scalar
-or ``(nTR,)`` ``wt`` and a scalar ``tr``: ``xmt_fwd``, or ``xmt_fwd_chk``
-with ``xmt_bwd`` under a gradient (:mod:`mrphy_tpu_torch.kernels.epgx`,
-whose :func:`~mrphy_tpu_torch.kernels.epgx.xmt_spgr` also takes a per-atom
+(:func:`mt_lineshape`). Its kernels take a shared 1-D flip train and a
+scalar or ``(nTR,)`` ``wt``: at a scalar ``tr`` ``xmt_fwd``, or
+``xmt_fwd_chk`` with ``xmt_bwd`` under a gradient; over a ``(nTR,)``
+``tr`` train ``xmt_v_fwd``, or ``xmt_v_fwd_chk`` with ``xmt_v_bwd``, which
+read each TR's exchange–relaxation entries from per-TR planes
+(:func:`_mt_step_entries`) (:mod:`mrphy_tpu_torch.kernels.epgx`, whose
+:func:`~mrphy_tpu_torch.kernels.epgx.xmt_spgr` also takes a per-atom
 saturation scale ``wscale`` for qMT dictionaries). A batched ``wt`` runs the
-plain route; a ``(nTR,)`` ``tr`` train does too, its kernels not being
-ported yet.
+plain route.
 """
 
 import math
@@ -1214,16 +1216,17 @@ def epgx_mt_spgr(flips, phis=None, *, T1a, T2a, T1b, kab, kba, tr, wt=0.0,
     ``'cuda'`` (the module docstring). Outputs: ``signals`` `(*batch, nTR,
     2)`.
 
-    A shared `(nTR,)` flip train with a scalar or `(nTR,)` ``wt`` and a
-    scalar ``tr`` runs the kernels ``xmt_fwd``, or ``xmt_fwd_chk`` with
-    ``xmt_bwd`` under a gradient, on CUDA tensors
-    (:mod:`mrphy_tpu_torch.kernels.epgx`; a per-atom saturation scale goes
-    through :func:`mrphy_tpu_torch.kernels.epgx.xmt_spgr`'s ``wscale``). A
-    batched ``wt`` or a per-voxel 2-D train runs the plain route under
-    ``'auto'`` and raises under ``'cuda'``; a `(nTR,)` ``tr`` train runs the
-    plain route under ``'auto'`` (its kernels are not ported yet) and raises
-    :class:`NotImplementedError` under ``'cuda'``. Differentiable w.r.t.
-    every input on every route.
+    A shared `(nTR,)` flip train with a scalar or `(nTR,)` ``wt`` runs the
+    kernels on CUDA tensors (:mod:`mrphy_tpu_torch.kernels.epgx`; a per-atom
+    saturation scale goes through
+    :func:`mrphy_tpu_torch.kernels.epgx.xmt_spgr`'s ``wscale``): at a scalar
+    ``tr`` ``xmt_fwd``, or ``xmt_fwd_chk`` with ``xmt_bwd`` under a
+    gradient; over a `(nTR,)` ``tr`` train ``xmt_v_fwd``, or
+    ``xmt_v_fwd_chk`` with ``xmt_v_bwd``, on the per-TR planes of
+    :func:`_mt_step_entries` (autograd of the planes chains their gradients
+    to the rates and to every element of ``tr``). A batched ``wt`` or a
+    per-voxel 2-D train runs the plain route under ``'auto'`` and raises
+    under ``'cuda'``. Differentiable w.r.t. every input on every route.
     """
     from mrphy_tpu_torch.ops.routing import route
     if mesh is not None:
@@ -1279,19 +1282,40 @@ def _xmt_scan(flips, phis=None, *, T1a, T2a, T1b, kab, kba, tr, wt=0.0,
     return torch.stack(sigs, dim=-2)
 
 
+def _mt_step_entries(T1a, T2a, T1b, kab, kba, M0a, M0b, trs):
+    r"""The per-TR propagator planes ``pkt (nTR, 7, nA)`` of a variable-TR
+    train ``trs (nTR,)`` for the atoms' rates `(nA,)` (rows ``[Z00, Z01,
+    Z10, Z11, ra, rb, E2a]``; ``_mt_step_entries``,
+    ``epg_pallas.py:4064-4082``): the longitudinal exchange–relaxation
+    propagator over each interval (:func:`_expm2`), its recovery
+    (:func:`_z_recovery`) and pool a's transverse decay, with ``trs[:,
+    None]`` broadcast against the rates, no loop over the TRs."""
+    tau = trs[:, None]
+    Z = _expm2((-1 / T1a - kab) * tau, kba * tau, kab * tau,
+               (-1 / T1b - kba) * tau)
+    ra, rb = _z_recovery(*Z, T1a, T1b, kab, kba, M0a, M0b)
+    E2a = torch.exp(-tau / T2a) * torch.ones_like(Z[0])
+    return torch.stack([*Z, ra, rb, E2a], dim=1)
+
+
 def _xmt_rows(flips, phis=None, *, T1a, T2a, T1b, kab, kba, tr, wt=0.0,
               wscale=None, M0a=1.0, M0b=0.1, b1=None, kshift=1, K=None):
     r"""The kernels' arguments for :func:`epgx_mt_spgr`'s inputs (and a
-    per-atom saturation scale ``wscale``): ``(coef, pk, cfg, batch)``
-    (``_mt_dispatch``, ``epg_pallas.py:956-989``).
+    per-atom saturation scale ``wscale``): ``(coef, pk, cfg, batch)``.
 
     ``coef (10, nTR) = [cos²(α/2), sin²(α/2), sin α, cos α, cos φ, sin φ,
-    cos 2φ, sin 2φ, α, wt]``; ``pk (11, nA) = [Z00, Z01, Z10, Z11, ra, rb,
-    E2a, M0a, M0b, b1, wscale]``, the longitudinal exchange–relaxation
-    propagator over ``tr`` with its recovery (:func:`_expm2`,
-    :func:`_z_recovery`), pool a's transverse decay and the rest; ``batch``
-    the atoms' shape, flattened into the columns. Torch autograd of the
-    construction carries the gradients of every input back from the rows'.
+    cos 2φ, sin 2φ, α, wt]``; ``batch`` the atoms' shape, flattened into
+    the columns. At a scalar ``tr`` (``_mt_dispatch``,
+    ``epg_pallas.py:956-989``) ``pk (11, nA) = [Z00, Z01, Z10, Z11, ra, rb,
+    E2a, M0a, M0b, b1, wscale]``, the entries over ``tr``
+    (:func:`_mt_step_entries` of the one interval) and the rest. Over a
+    ``(nTR,)`` ``tr`` train (``_mt_v_dispatch``, ``epg_pallas.py:4432-4459``)
+    ``pk`` is the pair ``(pk (4, nA) = [M0a, M0b, b1, wscale], pkt (nTR, 7,
+    nA))``, the entries over every interval (:func:`_mt_step_entries`), its
+    construction under :func:`torch.utils.checkpoint.checkpoint` so that
+    autograd keeps none of its intermediates (it builds them again for the
+    backward). Torch autograd of the construction carries the gradients of
+    every input, each element of ``tr`` among them, back from the rows'.
     The effective saturation of atom ``a`` at TR ``t`` is ``wt[t]·wscale[a]``
     (the plain route's batched ``wt[None]·wscale[:, None]``)."""
     kw = dict(T1a=T1a, T2a=T2a, T1b=T1b, kab=kab, kba=kba, M0a=M0a, M0b=M0b,
@@ -1311,10 +1335,9 @@ def _xmt_rows(flips, phis=None, *, T1a, T2a, T1b, kab, kba, tr, wt=0.0,
         raise ValueError(f'phis {tuple(phis.shape)} and flips '
                          f'{tuple(flips.shape)} differ')
     tr, wt = arr(tr), arr(wt)
-    if tr.ndim != 0:
-        raise NotImplementedError(
-            'a (nTR,) tr train of the EPG-X(MT) kernels (xmt_v_*) is slice '
-            '10h of ROADMAP.md queue 1, not ported yet')
+    if tr.ndim != 0 and tuple(tr.shape) != (nTR,):
+        raise ValueError(f'tr must be a scalar or a ({nTR},) train, got '
+                         f'{tuple(tr.shape)}')
     if wt.ndim > 1 or (wt.ndim == 1 and tuple(wt.shape) != (nTR,)):
         raise ValueError(f'the kernels take a shared () or ({nTR},) wt '
                          f'train, got {tuple(wt.shape)}; express a per-atom '
@@ -1330,10 +1353,13 @@ def _xmt_rows(flips, phis=None, *, T1a, T2a, T1b, kab, kba, tr, wt=0.0,
                         torch.cos(phis), torch.sin(phis),
                         torch.cos(2 * phis), torch.sin(2 * phis), flips,
                         torch.broadcast_to(wt, (nTR,))])
-    Z = _expm2((-1 / T1a - kab) * tr, kba * tr, kab * tr,
-               (-1 / T1b - kba) * tr)
-    ra, rb = _z_recovery(*Z, T1a, T1b, kab, kba, M0a, M0b)
-    pk = torch.stack([*Z, ra, rb, torch.exp(-tr / T2a), M0a, M0b, b1v, wsc])
+    rates, rest = (T1a, T2a, T1b, kab, kba, M0a, M0b), torch.stack(
+        [M0a, M0b, b1v, wsc])
+    if tr.ndim == 0:
+        pk = torch.cat([_mt_step_entries(*rates, tr.reshape(1))[0], rest])
+    else:
+        pk = (rest, torch.utils.checkpoint.checkpoint(
+            _mt_step_entries, *rates, tr, use_reentrant=False))
     K = nTR * abs(kshift) + 1 if K is None else int(K)
     cfg = kepgx.XmtCfg(K=K, kshift=kshift, has_b1=b1 is not None)
     return coef, pk, cfg, batch
@@ -1341,10 +1367,14 @@ def _xmt_rows(flips, phis=None, *, T1a, T2a, T1b, kab, kba, tr, wt=0.0,
 
 def _xmt_kernels(flips, phis=None, **kw):
     r"""The kernels' route: :func:`_xmt_rows`, then
-    :func:`mrphy_tpu_torch.kernels.epgx.xmt` (the kernels' plain versions
-    on CPU tensors)."""
+    :func:`mrphy_tpu_torch.kernels.epgx.xmt` at a scalar ``tr`` or
+    :func:`~mrphy_tpu_torch.kernels.epgx.xmt_v` over a ``(nTR,)`` train
+    (the kernels' plain versions on CPU tensors)."""
     coef, pk, cfg, batch = _xmt_rows(flips, phis, **kw)
-    sig = kepgx.xmt(coef, pk, cfg)                  # (nA, nTR, 2)
+    if isinstance(pk, tuple):
+        sig = kepgx.xmt_v(coef, *pk, cfg)           # (nA, nTR, 2)
+    else:
+        sig = kepgx.xmt(coef, pk, cfg)
     if len(batch) > 1:
         return sig.reshape(batch + sig.shape[1:])
     return _unbatch(sig, _scalar_batch(*(kw.get(n) for n in _MTKEYS)))

@@ -22,9 +22,7 @@ Paths:
   ``epgx_mt_spgr`` a batched ``wt``) under ``backend='auto'``, so the
   dispatcher runs the plain route on the card. Under ``backend='cuda'``
   such a train raises :class:`ValueError`: a caller who asks for the
-  kernels is told that none would run. ``epgx_mt_spgr`` over a ``(nTR,)``
-  ``tr`` train takes this path too, its kernels not being ported yet
-  (:class:`NotImplementedError` under ``'cuda'``).
+  kernels is told that none would run.
 
 The JAX package has a fourth path, ``'pallas-xla-vjp'``: a fused forward
 with a recompute-through-XLA reverse, taken when the TPU adjoint's VMEM
@@ -41,13 +39,12 @@ state's 12 planes, and ``bssfp_bwd``'s, for an isochromat's 3 (JAX's
 ``epgx_spgr`` takes its kernels at a scalar ``tr`` and over a ``(nTR,)``
 ``tr`` train alike (the variable-TR instances ``xspgr_v_*`` stream each
 step's propagator), and so does ``epgx_cpmg`` at a scalar ``esp`` and over
-a ``(nE,)`` ``esp`` train (``xcpmg_v_*``).
+a ``(nE,)`` ``esp`` train (``xcpmg_v_*``), and ``epgx_mt_spgr`` at a scalar
+``tr`` and over a ``(nTR,)`` ``tr`` train (``xmt_*`` and ``xmt_v_*``, their
+chunk fitted for the bound-pool state's 8 planes).
 
-Every family is ported; ``epgx_mt_spgr`` takes its kernels (``xmt_*``,
-their chunk fitted for the bound-pool state's 8 planes) at a scalar ``tr``,
-and its ``(nTR,)`` tr train waits for the slice of the port named in
-``_SLICES``. ``mesh=`` raises :class:`NotImplementedError` (multi-device runs
-are not ported yet).
+Every family is ported. ``mesh=`` raises :class:`NotImplementedError`
+(multi-device runs are not ported yet).
 """
 
 import math
@@ -59,10 +56,6 @@ __all__ = ['route', 'FAMILIES']
 
 FAMILIES = ('epg_spgr', 'epg_cpmg', 'epgx_spgr', 'epgx_cpmg',
             'epgx_mt_spgr', 'bssfp_train')
-
-# The slice of the port (ROADMAP.md, queue 1) that brings the kernels of a
-# family's case still to port: epgx_mt_spgr over a (nTR,) tr train.
-_SLICES = {'epgx_mt_spgr': '10h'}
 
 
 def _shape(v) -> tuple:
@@ -192,21 +185,16 @@ def _decide_epgx_mt_spgr(kw, backend):
                    '(express a per-atom saturation through wscale: '
                    'kernels.epgx.xmt_spgr); the dispatcher runs the plain '
                    'route')
-    if len(_shape(kw.get('tr'))) == 1:
-        msg = ('a (nTR,) tr train: its kernels (xmt_v_*) are slice '
-               f"{_SLICES['epgx_mt_spgr']} of ROADMAP.md queue 1, not "
-               'ported yet')
-        if backend == 'cuda':
-            raise NotImplementedError(f"backend='cuda': {msg}")
-        return _mk('torch-fallback', f'{msg}; the dispatcher runs the plain '
-                   'route')
     nA = _n_atoms(kw, ('T1a', 'T2a', 'T1b', 'kab', 'kba', 'M0a', 'M0b', 'b1',
                        'wscale'))
     K = _k_orders(kw, nT)
+    v = '_v' if len(_shape(kw.get('tr'))) == 1 else ''
     return _mk('cuda-native-adjoint',
-               'xmt_fwd, and xmt_fwd_chk + xmt_bwd under a gradient (nTR=%d, '
-               'K=%d, nA=%d; the adjoint chunk tc=%d in float32)'
-               % (nT, K, nA, pick_tc(nT, K, nA, 4, PLANES_MT)))
+               'xmt%s_fwd, and xmt%s_fwd_chk + xmt%s_bwd under a gradient '
+               '(nTR=%d, K=%d, nA=%d%s; the adjoint chunk tc=%d in float32)'
+               % (v, v, v, nT, K, nA,
+                  ', variable tr (per-TR propagators)' if v else '',
+                  pick_tc(nT, K, nA, 4, PLANES_MT)))
 
 
 def _decide_bssfp_train(kw, backend):
@@ -252,9 +240,7 @@ def route(family: str, *, backend: str = 'auto', mesh=None, **kw):
     'reason'}`` with ``path`` one of ``'torch' | 'cuda-native-adjoint' |
     'torch-fallback'``. Raises :class:`ValueError` where the call would
     (``backend='cuda'`` with a per-voxel train, with ``bssfp_train``'s
-    ``Minit`` or with ``epgx_mt_spgr``'s batched ``wt``), and
-    :class:`NotImplementedError` for kernels not ported yet
-    (``backend='cuda'`` with ``epgx_mt_spgr``'s ``(nTR,)`` tr train).
+    ``Minit`` or with ``epgx_mt_spgr``'s batched ``wt``).
     """
     if family not in FAMILIES:
         raise ValueError(f'unknown family {family!r}; one of {FAMILIES}')

@@ -3,8 +3,8 @@ Bloch kernels, the two-pool ``mc_fwd``/``mc_bwd``, the k-space signal
 kernels ``sig_fwd``/``sig_adj``/``sig_vjp``, the gridding NUFFT's
 ``nufft_sample``/``nufft_spread``/``nufft_dk``, the EPG trains'
 ``spgr_*``/``cpmg_*``/``xspgr_*``/``xspgr_v_*``/``xcpmg_*``/``xcpmg_v_*``/
-``xmt_*``, the balanced-SSFP train's ``bssfp_*`` and the matched filter
-``match``): each against its plain PyTorch version,
+``xmt_*``/``xmt_v_*``, the balanced-SSFP train's ``bssfp_*`` and the
+matched filter ``match``): each against its plain PyTorch version,
 the launch counts, the wrappers' refusals, and backward through the engines
 reaching the adjoint kernels.
 
@@ -1470,6 +1470,92 @@ def test_xmt_kernels_vs_plain_on_card(cuda, dtype, bar, nA, nTR, K, kshift,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar', [(torch.float32, 2e-6),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize('nA,nTR,K,kshift,b1', [
+    (333, 40, 12, 1, False), (200, 36, 10, -1, True), (129, 30, 9, 2, True),
+    (65, 160, None, 1, False)],
+    ids=['plain-train', 'b1-kshift-1', 'b1-kshift2',
+         'default-K-device-memory-state'])
+def test_xmt_v_kernels_vs_plain_on_card(cuda, dtype, bar, nA, nTR, K, kshift,
+                                        b1):
+    r"""``xmt_v_fwd``, ``xmt_v_fwd_chk`` and ``xmt_v_bwd`` over a ``(nTR,)``
+    tr train (25–35 ms) against their plain versions on the card (per-atom
+    outputs, ``dpkt`` per atom and TR among them, and the per-TR rows at
+    ``bar``: bit for bit expected), over several chunks; the launch counts;
+    the refusals."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    from mrphy_tpu_torch.utils._shapes import largest_divisor_leq
+    kw = _xmt_case(cuda, dtype, nA, nTR, K, kshift, b1, 53)
+    kw['tr'] = torch.as_tensor(np.random.default_rng(7).uniform(
+        0.025, 0.035, nTR), dtype=dtype, device=cuda)
+    coef, (pk, pkt), cfg, _ = epg._xmt_rows(kw.pop('flips'), kw.pop('phis'),
+                                            **kw)
+    coef, pk, pkt = coef.contiguous(), pk.contiguous(), pkt.contiguous()
+    assert pk.shape == (4, nA) and pkt.shape == (nTR, 7, nA)
+    tc = largest_divisor_leq(nTR, nTR // 3)          # three chunks or more
+    n0 = dict(kx.LAUNCHES)
+    sig = kx.xmt_v_fwd(coef, pk, pkt, cfg)
+    sig2, chk = kx.xmt_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)
+    g = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        sig.shape), dtype=dtype, device=cuda)
+    dcoef, dpk, dpkt = kx.xmt_v_bwd(coef, pk, pkt, cfg, chk, g, tc=tc)
+    torch.cuda.synchronize()
+    assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+        dict.fromkeys(kx.LAUNCHES, 0), xmt_v_fwd=1, xmt_v_fwd_chk=1,
+        xmt_v_bwd=1)
+    sig_p, chk_p = kx.xmt_v_fwd_chk_torch(coef, pk, pkt, cfg, tc=tc)
+    dcoef_p, dpk_p, dpkt_p = kx.xmt_v_bwd_torch(coef, pk, pkt, cfg, chk_p,
+                                                g, tc=tc)
+    for x, y in ((sig, sig_p), (sig2, sig_p), (chk, chk_p), (dpk, dpk_p),
+                 (dpkt, dpkt_p), (dcoef, dcoef_p)):
+        _rows_close(x, y, bar)
+    with pytest.raises(ValueError, match='contiguous'):
+        kx.xmt_v_fwd(coef, pk, pkt.transpose(0, 1).contiguous()
+                     .transpose(0, 1), cfg)
+    with pytest.raises(ValueError, match='pk must be'):
+        kx.xmt_v_fwd(coef, pk[:3].contiguous(), pkt, cfg)
+    with pytest.raises(ValueError, match='pkt'):
+        kx.xmt_v_fwd(coef, pk, pkt[:, :6].contiguous(), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_xmt_spgr_tr_train_gradients_cuda_vs_plain(cuda, dtype):
+    r"""``kernels.epgx.xmt_spgr`` with a per-atom ``wscale`` over a ``(nTR,)``
+    tr train runs ``xmt_v_fwd_chk`` + ``xmt_v_bwd`` under a gradient; the
+    echoes and the gradients w.r.t. every input (every element of the tr
+    train, the wt train and ``wscale`` among them) meet the plain route's
+    batched ``wt[None]·wscale[:, None]`` over the same train."""
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    names = ('flips', 'phis', 'T1a', 'T2a', 'T1b', 'kab', 'kba', 'tr', 'wt',
+             'M0a', 'M0b', 'b1', 'wscale')
+    kw = _xmt_case(cuda, dtype, 70, 24, 8, -1, True, 59)
+    kw['tr'] = torch.as_tensor(np.random.default_rng(9).uniform(
+        0.025, 0.035, 24), dtype=dtype, device=cuda)
+    w = torch.as_tensor(np.random.default_rng(5).standard_normal((70, 24, 2)),
+                        dtype=dtype, device=cuda)
+    xs = {n: kw[n].detach().clone().requires_grad_() for n in names}
+    n0 = dict(kx.LAUNCHES)
+    out = kx.xmt_spgr(**dict(kw, **xs))
+    ga = torch.autograd.grad((w * out).sum(), list(xs.values()))
+    assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+        dict.fromkeys(kx.LAUNCHES, 0), xmt_v_fwd_chk=1, xmt_v_bwd=1)
+    xs2 = {n: kw[n].detach().clone().requires_grad_() for n in names}
+    kw2 = dict(kw, **xs2)
+    kw2['wt'] = xs2['wt'][None] * kw2.pop('wscale')[:, None]
+    out2 = epg.epgx_mt_spgr(**kw2, backend='torch')
+    gb = torch.autograd.grad((w * out2).sum(), list(xs2.values()))
+    bar = 1e-4 if dtype == torch.float32 else 1e-10
+    _rows_close(out.detach(), out2.detach(), bar)
+    for n, x, y in zip(names, ga, gb):
+        assert x.shape == y.shape, n
+        _rows_close(x, y, bar)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_epgx_mt_spgr_gradients_cuda_vs_plain(cuda, dtype):
     r"""``epgx_mt_spgr`` on CUDA tensors with a shared train and a scalar tr
@@ -1477,9 +1563,11 @@ def test_epgx_mt_spgr_gradients_cuda_vs_plain(cuda, dtype):
     gradient, under ``backend='auto'`` and ``'cuda'``; their gradients
     w.r.t. every input (the wt train among them) meet the plain route's;
     ``xmt_spgr`` with ``wscale`` meets the plain route's batched
-    ``wt[None]·wscale[:, None]``; a batched wt and a ``(nTR,)`` tr train
-    take the plain route under ``'auto'`` and are refused under ``'cuda'``;
-    ``backend='cuda'`` refuses CPU tensors."""
+    ``wt[None]·wscale[:, None]``; a batched wt takes the plain route under
+    ``'auto'`` and is refused under ``'cuda'``; a ``(nTR,)`` tr train runs
+    the variable-TR kernel ``xmt_v_fwd`` under ``'cuda'`` and ``'auto'``,
+    its echoes those of the plain route; ``backend='cuda'`` refuses CPU
+    tensors."""
     from mrphy_tpu_torch.kernels import epgx as kx
     from mrphy_tpu_torch.ops import epg
     names = ('flips', 'phis', 'T1a', 'T2a', 'T1b', 'kab', 'kba', 'tr', 'wt',
@@ -1522,18 +1610,24 @@ def test_epgx_mt_spgr_gradients_cuda_vs_plain(cuda, dtype):
     _rows_close(out.detach(), out2.detach(), bar)
     for x, y in zip(ga, gb):
         _rows_close(x, y, bar)
-    # outside the kernels: a batched wt, a (nTR,) tr train
+    # outside the kernels: a batched wt
     wt2 = kw['wt'][None] * wsc[:, None]
-    trs = torch.full((24,), 0.03, dtype=dtype, device=cuda)
     with pytest.raises(ValueError, match='wscale'):
         epg.epgx_mt_spgr(**dict(kw, wt=wt2), backend='cuda')
-    with pytest.raises(NotImplementedError, match='10h'):
-        epg.epgx_mt_spgr(**dict(kw, tr=trs), backend='cuda')
-    for extra in (dict(wt=wt2), dict(tr=trs)):
-        n0 = dict(kx.LAUNCHES)
-        with torch.no_grad():
-            out = epg.epgx_mt_spgr(**dict(kw, **extra))
-        assert dict(kx.LAUNCHES) == n0 and out.shape == (70, 24, 2)
+    n0 = dict(kx.LAUNCHES)
+    with torch.no_grad():
+        out = epg.epgx_mt_spgr(**dict(kw, wt=wt2))
+    assert dict(kx.LAUNCHES) == n0 and out.shape == (70, 24, 2)
+    # a (nTR,) tr train: the variable-TR kernel, under 'cuda' and 'auto'
+    trs = torch.linspace(0.025, 0.035, 24, dtype=dtype, device=cuda)
+    with torch.no_grad():
+        ref = epg.epgx_mt_spgr(**dict(kw, tr=trs), backend='torch')
+        for backend in ('cuda', 'auto'):
+            n0 = dict(kx.LAUNCHES)
+            out = epg.epgx_mt_spgr(**dict(kw, tr=trs), backend=backend)
+            assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+                dict.fromkeys(kx.LAUNCHES, 0), xmt_v_fwd=1)
+            _rows_close(out, ref, bar)
     with pytest.raises(ValueError, match='CUDA tensors'):
         epg.epgx_mt_spgr(kw['flips'].cpu(), T1a=1.0, T2a=0.06, T1b=1.0,
                          kab=2.0, kba=20.0, tr=0.03, backend='cuda')

@@ -121,14 +121,13 @@ class TestRouting:
         with pytest.raises(ValueError, match='CUDA tensors'):
             tepg.epg_spgr(torch.as_tensor(self.FL), T1=1.0, T2=0.1, tr=0.01,
                           backend='cuda')
-        # every family is ported; the kernels still to port are those of
-        # epgx_mt_spgr over a (nTR,) tr train, which raise under 'cuda'
-        assert set(routing._SLICES) == {'epgx_mt_spgr'}
+        # every family is ported, its kernels too: a (nTR,) tr train takes
+        # them under 'cuda' in each family that has a tr
         assert set(routing._DECIDERS) == set(FAMILIES)
-        for fam in routing._SLICES:
-            with pytest.raises(NotImplementedError, match='slice'):
-                route(fam, backend='cuda', flips=self.FL,
+        for fam in ('epg_spgr', 'epgx_spgr', 'epgx_mt_spgr', 'bssfp_train'):
+            r = route(fam, backend='cuda', flips=self.FL,
                       tr=np.full(self.FL.shape, 0.01))
+            assert r['path'] == 'cuda-native-adjoint', fam
         with pytest.raises(NotImplementedError, match='mesh'):
             route('epg_spgr', mesh=object(), **kw)
         with pytest.raises(NotImplementedError, match='mesh'):

@@ -179,11 +179,13 @@ def test_epgx_mt_spgr_vs_jax(ci, route_):
     to the plain route at 1e-12."""
     _, kw, kshift, Kc, kernels = CASES[ci]
     if route_ == 'kernels' and not kernels:
-        # a batched wt and a (nTR,) tr train: the kernels' rows refuse them
+        # a batched wt: the kernels' rows refuse it (a per-atom saturation
+        # goes through wscale), the (nTR,) tr train beside it
+        # notwithstanding
         inp = _inputs()
         base, _ = _case(inp, kw)
         kwt = _tt(base)
-        with pytest.raises((ValueError, NotImplementedError)):
+        with pytest.raises(ValueError, match='wscale'):
             tepg._xmt_rows(kwt.pop('flips'), kwt.pop('phis'), **kwt)
         return
     inp = _inputs()
@@ -341,8 +343,8 @@ def test_saturation_off_decoupled_is_single_pool(route_):
 
 class TestRouting:
     r"""``tests/test_routing.py``'s ``epgx_mt_spgr`` row in the port's path
-    names; a ``(nTR,)`` tr train, whose kernels are slice 10h, takes the
-    plain route under ``'auto'`` and raises under ``'cuda'``."""
+    names; a ``(nTR,)`` tr train takes the variable-TR kernels
+    (``xmt_v_*``) under ``'auto'`` and ``'cuda'``."""
 
     RNG = np.random.default_rng(0)
     FL = RNG.uniform(0.2, 1.2, 32)
@@ -379,13 +381,13 @@ class TestRouting:
                               flips=self.FL, **bw)['path'] == 'xla-fallback'
         with pytest.raises(ValueError, match='wscale'):
             route('epgx_mt_spgr', backend='cuda', flips=self.FL, **bw)
-        # a (nTR,) tr train: slice 10h
-        r = route('epgx_mt_spgr', backend='auto', flips=self.FL, **kw,
-                  tr=self.IV)
-        assert r['path'] == 'torch-fallback' and '10h' in r['reason']
-        with pytest.raises(NotImplementedError, match='slice 10h'):
-            route('epgx_mt_spgr', backend='cuda', flips=self.FL, **kw,
-                  tr=self.IV)
+        # a (nTR,) tr train: the variable-TR kernels
+        for backend in ('auto', 'cuda'):
+            r = route('epgx_mt_spgr', backend=backend, flips=self.FL, **kw,
+                      tr=self.IV)
+            assert r['path'] == 'cuda-native-adjoint' and r['fused']
+            assert r['reason'].startswith('xmt_v_fwd, and xmt_v_fwd_chk + '
+                                          'xmt_v_bwd')
         # per-voxel 2-D trains
         fl2 = np.broadcast_to(self.FL, (4, 32))
         r = route('epgx_mt_spgr', backend='auto', flips=fl2, **kw, tr=0.01)
