@@ -3494,7 +3494,10 @@ T2MAP = dict(nV=1 << 20, nE=32, esp=0.01, flip=150.0, T1=1.0, T2=(0.02, 0.3),
 # The CPMG kernels' cases (phase 19): label, atoms, echoes, dtype,
 # cpmg_case keywords, timed. ``t2map``: T2MAP's train and tissue; otherwise
 # bench_mrf's CPMG dictionary train (benchmarks/suite.py:626-630: flips
-# uniform(120°, 180°), esp 10 ms) with the options named.
+# uniform(120°, 180°), esp 10 ms) with the options named. The chunk is the
+# entry point's (kernels.epg.adjoint_tc: pick_tc capped at the states the
+# adjoint's lane route keeps in shared memory), or with ``tc='pick'``
+# pick_tc's own.
 CPMG_CASES = (
     ('T2 map 1M x 32, K 33, b1 (full width)', 1 << 20, 32, torch.float32,
      dict(t2map=True), True),
@@ -3507,6 +3510,8 @@ CPMG_CASES = (
     ('64k x 32, b1', 65536, 32, torch.float32, dict(b1=True), False),
     ('ragged 1001 x 32, every option', 1001, 32, torch.float32,
      dict(b1=True, varesp=True, D=True, ex=True), False),
+    ('64k x 32 at pick_tc 32 (beyond the 4 shared states: one thread per '
+     'atom)', 65536, 32, torch.float32, dict(tc='pick'), False),
     ('2048 x 400, K 401 (device-memory state), diffusion', 2048, 400,
      torch.float32, dict(D=True), False),
     ('f64 65,536 x 32, every option', 65536, 32, torch.float64,
@@ -3563,6 +3568,15 @@ def cpmg_case(nA, nE, dtype, dev, *, t2map=False, b1=False, varesp=False,
     return flips, kw
 
 
+def adjoint_meta(K, par, planes, tc) -> dict:
+    r"""The route K18 (``planes`` 6) or K21/K24 (12) takes at chunk ``tc``
+    (``kernels.epg.adjoint_cfg``): the lanes per atom G, the order slots a
+    lane M, the chunk states an atom keeps in shared memory S (the chunk's
+    tc of them are used), or one thread per atom."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    return kepg.adjoint_cfg(K, par.element_size(), planes, tc)._asdict()
+
+
 def phase_cpmg_kernels(dev):
     r"""Phase 19: ``cpmg_fwd``, ``cpmg_fwd_chk`` and ``cpmg_bwd`` against
     their plain versions on CPMG_CASES, the arguments ``epg_cpmg`` gives
@@ -3576,11 +3590,14 @@ def phase_cpmg_kernels(dev):
     rows = {name: [] for name in CPMG_KERNELS}
     for seed, (label, nA, nE, dtype, kw, timed) in enumerate(CPMG_CASES,
                                                              190):
+        kw = dict(kw)
+        choose = kepg.pick_tc if kw.pop('tc', None) == 'pick' \
+            else kepg.adjoint_tc
         flips, ckw = cpmg_case(nA, nE, dtype, dev, seed=seed, **kw)
         coef, par, dq, cdiff, cfg, _ = epg._cpmg_rows(flips, **ckw)
         args = (coef.contiguous(), par.contiguous(), dq.contiguous(), cdiff,
                 cfg)
-        tc = kepg.pick_tc(nE, cfg.K, nA, par.element_size())
+        tc = choose(nE, cfg.K, nA, par.element_size())
         chk = kepg.cpmg_fwd_chk(*args, tc=tc)[2]
         gr, gi = cotangent(torch.empty((2, nE, nA), dtype=dtype, device=dev),
                            seed)
@@ -3598,8 +3615,11 @@ def phase_cpmg_kernels(dev):
                  'cpmg_bwd': ('dcoef', 'dpar')}
         for name, (run_kernel, run_plain, inputs) in runs.items():
             meta = dict(case=label, nA=nA, nE=nE, K=cfg.K, tc=tc,
+                        pick_tc=kepg.pick_tc(nE, cfg.K, nA,
+                                             par.element_size()),
                         threads_state=kepg.launch_cfg(cfg.K,
-                                                      par.element_size()))
+                                                      par.element_size()),
+                        adjoint=adjoint_meta(cfg.K, par, 6, tc))
             rows[name].append(compare_epg(
                 name, run_kernel, run_plain, inputs, names[name], meta,
                 dtype, timed, EPG_ROW_BAR))
@@ -3835,6 +3855,8 @@ XSPGR_CASES = (
      torch.float32, dict(dfb=True, phis=True), False),
     ('16k x 200, K 32, kshift -1, M0b', 16384, 200, 32, torch.float32,
      dict(kshift=-1, M0b=True), False),
+    ('16k x 100, K 37, kshift 2 (K not a multiple of the lanes)', 16384, 100,
+     37, torch.float32, dict(kshift=2), False),
     ('16k x 200, K 32, no detailed balance (kab 8, kba 3, M0b 0.4)', 16384,
      200, 32, torch.float32, dict(ndb=True), False),
     ('ragged 1001 x 200, K 32, b1, dfb', 1001, 200, 32, torch.float32,
@@ -3924,7 +3946,7 @@ def phase_xspgr_kernels(dev):
         make = mrfx_pipe_case if kw.pop('pipe', False) else xmrf_case
         coef, par, cfg = xspgr_args(make(nA, nTR, K, dtype, dev, seed=seed,
                                          **kw))
-        tc = kepg.pick_tc(nTR, cfg.K, nA, par.element_size(), kx.PLANES)
+        tc = kepg.adjoint_tc(nTR, cfg.K, nA, par.element_size(), kx.PLANES)
         chk = kx.xspgr_fwd_chk(coef, par, cfg, tc=tc)[1]
         g = cotangent(torch.empty((nA, nTR, 2), dtype=dtype, device=dev),
                       seed)
@@ -3945,8 +3967,11 @@ def phase_xspgr_kernels(dev):
         for name, (run_kernel, run_plain, inputs) in runs.items():
             meta = dict(case=label, nA=nA, nTR=nTR, K=cfg.K,
                         kshift=cfg.kshift, tc=tc,
+                        pick_tc=kepg.pick_tc(nTR, cfg.K, nA,
+                                             par.element_size(), kx.PLANES),
                         threads_state=kepg.launch_cfg(
-                            cfg.K, par.element_size(), kx.PLANES))
+                            cfg.K, par.element_size(), kx.PLANES),
+                        adjoint=adjoint_meta(cfg.K, par, kx.PLANES, tc))
             rows[name].append(compare_epg(
                 name, run_kernel, run_plain, inputs, names[name], meta,
                 dtype, timed, XSPGR_ROW_BAR))
@@ -4030,7 +4055,7 @@ def phase_xspgr_v_kernels(dev):
         coef, (pk, pkt), cfg, _ = epg._xspgr_rows(case.pop('flips'),
                                                   case.pop('phis'), **case)
         coef, pk, pkt = coef.contiguous(), pk.contiguous(), pkt.contiguous()
-        tc = kepg.pick_tc(nTR, cfg.K, nA, pk.element_size(), kx.PLANES)
+        tc = kepg.adjoint_tc(nTR, cfg.K, nA, pk.element_size(), kx.PLANES)
         chk = kx.xspgr_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)[1]
         g = cotangent(torch.empty((nA, nTR, 2), dtype=dtype, device=dev),
                       seed)
@@ -4052,8 +4077,11 @@ def phase_xspgr_v_kernels(dev):
         for name, (run_kernel, run_plain, inputs) in runs.items():
             meta = dict(case=label, nA=nA, nTR=nTR, K=cfg.K,
                         kshift=cfg.kshift, tc=tc,
+                        pick_tc=kepg.pick_tc(nTR, cfg.K, nA,
+                                             pk.element_size(), kx.PLANES),
                         threads_state=kepg.launch_cfg(
-                            cfg.K, pk.element_size(), kx.PLANES))
+                            cfg.K, pk.element_size(), kx.PLANES),
+                        adjoint=adjoint_meta(cfg.K, pk, kx.PLANES, tc))
             rows[name].append(compare_epg(
                 name, run_kernel, run_plain, inputs, names[name], meta,
                 dtype, timed, XSPGR_ROW_BAR))

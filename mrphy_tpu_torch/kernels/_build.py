@@ -106,6 +106,10 @@ _SIGNATURES = {
     # nC, flags, tc, threads, stream
     'mrphy_cpmg_bwd_f32': (_P,) * 11 + (_I64,) * 6 + (_P,),
     'mrphy_cpmg_bwd_f64': (_P,) * 11 + (_I64,) * 6 + (_P,),
+    # the lane route: coef, par, dq, cdiff, chk, gr, gi, dpar, dcf, nA, nE,
+    # nC, flags, tc, G, M, stream
+    'mrphy_cpmg_bwd_lanes_f32': (_P,) * 9 + (_I64,) * 7 + (_P,),
+    'mrphy_cpmg_bwd_lanes_f64': (_P,) * 9 + (_I64,) * 7 + (_P,),
     # coef, par, sig, chk, gstate, nA, nTR, K, kshift, flags, tc, threads,
     # stream
     'mrphy_xspgr_fwd_f32': (_P,) * 5 + (_I64,) * 7 + (_P,),
@@ -116,6 +120,10 @@ _SIGNATURES = {
     # flags, tc, threads, stream
     'mrphy_xspgr_bwd_f32': (_P,) * 8 + (_I64,) * 7 + (_P,),
     'mrphy_xspgr_bwd_f64': (_P,) * 8 + (_I64,) * 7 + (_P,),
+    # the lane route: coef, par, chk, g, dpar, dcf, nA, nTR, K, kshift,
+    # flags, tc, G, M, stream
+    'mrphy_xspgr_bwd_lanes_f32': (_P,) * 6 + (_I64,) * 8 + (_P,),
+    'mrphy_xspgr_bwd_lanes_f64': (_P,) * 6 + (_I64,) * 8 + (_P,),
     # coef, pk, pkt, sig, chk, gstate, nA, nTR, K, kshift, flags, tc,
     # threads, stream
     'mrphy_xspgr_v_fwd_f32': (_P,) * 6 + (_I64,) * 7 + (_P,),
@@ -126,6 +134,10 @@ _SIGNATURES = {
     # kshift, flags, tc, threads, stream
     'mrphy_xspgr_v_bwd_f32': (_P,) * 10 + (_I64,) * 7 + (_P,),
     'mrphy_xspgr_v_bwd_f64': (_P,) * 10 + (_I64,) * 7 + (_P,),
+    # the lane route: coef, pk, pkt, chk, g, dpar, dcf, dpkt, nA, nTR, K,
+    # kshift, flags, tc, G, M, stream
+    'mrphy_xspgr_v_bwd_lanes_f32': (_P,) * 8 + (_I64,) * 8 + (_P,),
+    'mrphy_xspgr_v_bwd_lanes_f64': (_P,) * 8 + (_I64,) * 8 + (_P,),
     # coef, pk, er, ei, chk, gstate, nA, nE, K, flags, tc, threads, stream
     'mrphy_xcpmg_fwd_f32': (_P,) * 6 + (_I64,) * 6 + (_P,),
     'mrphy_xcpmg_fwd_f64': (_P,) * 6 + (_I64,) * 6 + (_P,),

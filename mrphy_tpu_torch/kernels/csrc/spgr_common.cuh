@@ -136,20 +136,18 @@ __device__ __forceinline__ void relax(const Factors<T>& f, int k, bool has_d,
 }
 
 // The transpose of relax on order k at its input x, given the
-// cotangent hv of its output (after the shift's transpose): under
-// diffusion hv ← A·hv, adding c·A·(hv·s2) to kcontr (s2: x relaxed; −Σ is
-// ∂dq); the sums ∂E2 and ∂E1 over the orders one order at a time, ∂rec at
-// order 0; then hv ← E·hv.
+// cotangent hv of its output (after the shift's transpose) and the order's
+// attenuations A (`attenuation`): under diffusion hv ← A·hv, adding
+// c·A·(hv·s2) to kcontr (s2: x relaxed; −Σ is ∂dq); the sums ∂E2 and ∂E1
+// over the orders one order at a time, ∂rec at order 0; then hv ← E·hv.
 template <typename T>
-__device__ __forceinline__ void relax_T(const Factors<T>& f, int K, int k,
-                                        bool has_d,
-                                        const T* __restrict__ cdiff, T dqt,
-                                        const T (&x)[6], T (&hv)[6],
-                                        T& kcontr, T& kE2, T& kE1,
-                                        T& d_rec) {
+__device__ __forceinline__ void relax_T_att(const Factors<T>& f, int K, int k,
+                                            bool has_d,
+                                            const T* __restrict__ cdiff,
+                                            const T (&A)[3], const T (&x)[6],
+                                            T (&hv)[6], T& kcontr, T& kE2,
+                                            T& kE1, T& d_rec) {
   if (has_d) {
-    T A[3];
-    attenuation(cdiff, K, k, dqt, A);
     T s2Zr = f.E1 * x[4];
     if (k == 0) s2Zr = s2Zr + f.rec;
     kcontr += ((cdiff[k] * A[0]) *
@@ -173,6 +171,19 @@ __device__ __forceinline__ void relax_T(const Factors<T>& f, int K, int k,
   hv[3] = f.E2 * hv[3];
   hv[4] = f.E1 * hv[4];
   hv[5] = f.E1 * hv[5];
+}
+
+// relax_T with the order's attenuations formed here (under diffusion).
+template <typename T>
+__device__ __forceinline__ void relax_T(const Factors<T>& f, int K, int k,
+                                        bool has_d,
+                                        const T* __restrict__ cdiff, T dqt,
+                                        const T (&x)[6], T (&hv)[6],
+                                        T& kcontr, T& kE2, T& kE1,
+                                        T& d_rec) {
+  T A[3] = {T(1), T(1), T(1)};
+  if (has_d) attenuation(cdiff, K, k, dqt, A);
+  relax_T_att(f, K, k, has_d, cdiff, A, x, hv, kcontr, kE2, kE1, d_rec);
 }
 
 // One atom's 6·K state values, strided: in shared memory (stride = the

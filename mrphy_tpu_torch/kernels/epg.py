@@ -69,6 +69,18 @@ rech, e_ss, e_sc, e_ca, b1]`` (``[R1, R2, M0, …]`` under ``varesp``),
 nE + 1). The echoes come as ``(er, ei)``, each ``(nE, nA)``; the adjoint
 returns ``dcoef (nC, nE)`` and ``dpar (8, nA)`` (the seven rows' and
 ``dq``'s). :func:`cpmg` is their autograd Function, as :func:`spgr`.
+
+``cpmg_bwd`` has two hand-written routes, chosen by shape alone
+(:func:`adjoint_cfg`): the lane route (``csrc/cpmg_bwd_lanes.cu``: a group
+of 8, 16 or 32 lanes per atom over the orders, state and adjoint in
+registers, the chunk's states in shared memory, the checkpoints read once)
+where an atom's orders fit its register slots and the chunk its shared
+states, and ``csrc/cpmg_bwd.cu`` (one thread per atom, the chunk's states
+in a device-memory scratch) otherwise. :func:`cpmg` takes the chunk
+:func:`adjoint_tc`, :func:`pick_tc` capped at the lane route's shared
+states while the extra checkpoints fit ``LANE_CHK_BYTES``. The plain version sums over the orders in the chosen route's order
+(:func:`_lane_sum`). The two-pool ``xspgr_bwd``/``xspgr_v_bwd`` share the
+lane route's chooser (``kernels/epgx.py``).
 """
 
 from typing import NamedTuple
@@ -84,7 +96,8 @@ __all__ = ['LAUNCHES', 'SpgrCfg', 'diff_coef', 'pick_tc', 'spgr',
            'spgr_fwd', 'spgr_fwd_torch', 'spgr_fwd_chk',
            'spgr_fwd_chk_torch', 'spgr_bwd', 'spgr_bwd_torch', 'CpmgCfg',
            'cpmg', 'cpmg_fwd', 'cpmg_fwd_torch', 'cpmg_fwd_chk',
-           'cpmg_fwd_chk_torch', 'cpmg_bwd', 'cpmg_bwd_torch']
+           'cpmg_fwd_chk_torch', 'cpmg_bwd', 'cpmg_bwd_torch', 'AdjointCfg',
+           'adjoint_cfg', 'adjoint_tc', 'lane_capacity']
 
 LAUNCHES = {'spgr_fwd': 0, 'spgr_fwd_chk': 0, 'spgr_bwd': 0,
             'cpmg_fwd': 0, 'cpmg_fwd_chk': 0, 'cpmg_bwd': 0}
@@ -366,6 +379,44 @@ def _ksum(x):
     return acc
 
 
+def _lane_sum(x, G):
+    r"""``x (..., K)`` summed over its last axis in the order of the
+    adjoints' lane route (``csrc/epg_lanes.cuh``): lane ``l`` of a group of
+    ``G`` adds orders ``l, l + G, …`` in turn, then the group adds its lanes
+    at offsets ``G/2, …, 1`` (lane ``l`` takes lane ``l + o``). ``G`` 1 is
+    the one-thread route's order, one order at a time (:func:`_ksum`)."""
+    if G == 1:
+        return _ksum(x)
+    K = x.shape[-1]
+    M = -(-K // G)
+    xs = torch.nn.functional.pad(x, (0, M * G - K)).unflatten(-1, (M, G))
+    acc = xs[..., 0, :]
+    for i in range(1, M):
+        acc = acc + xs[..., i, :]
+    o = G // 2
+    while o:
+        acc = acc[..., :o] + acc[..., o:2 * o]
+        o //= 2
+    return acc[..., 0]
+
+
+def _warp_sums(r, W=32):
+    r"""The sums of ``r (nA, n)`` over each warp's ``W`` atoms in the order
+    of the kernels' shuffle tree (atom ``j`` adds atom ``j + o`` for ``o``
+    = W/2, …, 1; atoms past nA add zeros): `(ceil(nA / W), n)`. A warp
+    holds 32 atoms on the one-thread routes, ``32 / G`` on the adjoints'
+    lane route."""
+    nA = r.shape[0]
+    nW = -(-nA // W)
+    x = torch.nn.functional.pad(r, (0, 0, 0, nW * W - nA)).reshape(
+        nW, W, -1)
+    o = W // 2
+    while o:
+        x = x[:, :o] + x[:, o:2 * o]
+        o //= 2
+    return x[:, 0]
+
+
 def _relax_T(h, x, f, att, cdiff):
     r"""The transpose of :func:`_relax` at its input ``x``, given the
     cotangent ``h`` of its output: ``(the cotangent of x, terms, ∂rec)``.
@@ -625,19 +676,26 @@ def cpmg_bwd_torch(coef, par, dq, cdiff, cfg: CpmgCfg, chk, gr, gi, *,
     transpose, the first half's transpose. Returns ``(dcoef (nC, nE),
     dpar (8, nA))``: ``dpar`` rows ``[dE1h, dE2h, drech, d_ss, d_sc, d_ca,
     db1, ddq]`` (under ``varesp`` the first three ``[dR1, dR2, dM0]``, and
-    ``dcoef``'s row 5 the esp train's)."""
+    ``dcoef``'s row 5 the esp train's). Every sum over the orders is taken
+    in the order of the route the kernel takes at this shape
+    (:func:`adjoint_cfg`, :func:`_lane_sum`), and the per-echo rows by
+    warps (:func:`_warp_sums`), then over the warps, as the kernel and its
+    wrapper sum them."""
     nE = coef.shape[1]
     _check_tc(nE, tc)
     ntc, K = chk.shape[0], cfg.K
     if ntc != nE // tc:
         raise ValueError(f'chk holds {ntc} states, but nE={nE} in chunks '
                          f'of tc={tc} gives {nE // tc}')
+    # the sums over the orders in the order of the kernel's route
+    G = adjoint_cfg(K, par.element_size(), 6, tc).G
     p, dqc = par.unsqueeze(-1), dq.reshape(-1, 1)
     R1, R2, M0 = p[0], p[1], p[2]
     zero = torch.zeros_like(p[0])
     h = (torch.zeros_like(chk[0, 0].T),) * 6
     aE1 = aE2 = arec = ab1 = aDq = zero
-    dcoef = coef.new_zeros(cfg.nC, nE)
+    # each warp's per-echo rows (a warp holds 32 / G atoms), as the kernel's
+    dcf = coef.new_zeros((-(-par.shape[1] * G // 32), nE, cfg.nC))
     for j in reversed(range(ntc)):
         # phase 1: the forward from the chunk's start state, every state
         s = tuple(chk[j, q].T for q in range(6))
@@ -663,7 +721,7 @@ def cpmg_bwd_torch(coef, par, dq, cdiff, cfg: CpmgCfg, chk, gr, gi, *,
             tm = _mix0_terms(h, sh1)
             h = _mix_T(tg, h)
             h, t1, d_rec1 = _relax_T(_shift_T(h, 1), s, f, att, cdiff)
-            sums = _ksum(torch.stack(t2 + tm + t1)).unsqueeze(-1)
+            sums = _lane_sum(torch.stack(t2 + tm + t1), G).unsqueeze(-1)
             n2 = len(t2)
             d_esp = zero
             # each half's factors (and diffusion), the second half first
@@ -698,14 +756,15 @@ def cpmg_bwd_torch(coef, par, dq, cdiff, cfg: CpmgCfg, chk, gr, gi, *,
                 rows = [d_ca2, d_sa2, d_sa, d_ca, zero]
             if cfg.varesp:
                 rows.append(d_esp)
-            dcoef[:, t] = torch.cat(rows, dim=1).sum(dim=0)
+            dcf[:, t] = _warp_sums(torch.cat(rows, dim=1), 32 // G)
     # the excitation's state: F+(0) = (e_ss, −e_sc), F−(0) = (e_ss, e_sc),
     # Z(0) = e_ca
     d_ss = h[0][:, :1] + h[2][:, :1]
     d_sc = -h[1][:, :1] + h[3][:, :1]
     dpar = torch.cat([aE1, aE2, arec, d_ss, d_sc, h[4][:, :1], ab1, aDq],
                      dim=1).T
-    return dcoef, dpar.contiguous()
+    # the warps' rows summed as the wrapper sums the kernel's
+    return dcf.sum(dim=0).T.contiguous(), dpar.contiguous()
 
 
 # ==========================================================================
@@ -731,6 +790,92 @@ def launch_cfg(K: int, itemsize: int, planes: int = 6):
         if best is None or resident > best[1]:
             best = (th, resident)
     return (best[0], True) if best else (128, False)
+
+
+# The adjoints K18 (cpmg_bwd), K21 (xspgr_bwd) and K24 (xspgr_v_bwd) on
+# their lane route: 128 threads a block, a group of G lanes per atom, at
+# most LANE_SLOTS_MAX order slots a lane (their registers: one pool's 6
+# planes, two pools' 12; by itemsize), at most LANE_STATES_MAX chunk
+# states an atom in shared memory, sized so LANE_BLOCKS blocks fit an SM.
+LANE_THREADS = 128
+LANE_WIDTHS = (8, 16, 32)
+LANE_SLOTS_MAX = {(6, 4): 5, (6, 8): 2, (12, 4): 3, (12, 8): 1}
+LANE_STATES_MAX = 8
+LANE_BLOCKS = 3
+# The capped chunk (adjoint_tc) makes the forwards write nTR/tc checkpoints
+# of planes·K·nA values; it is taken while they fit 16 GiB, a fifth of the
+# card, and pick_tc's chunk (the one-thread route) past that.
+LANE_CHK_BYTES = 16 << 30
+
+
+class AdjointCfg(NamedTuple):
+    r"""How K18, K21 or K24 runs: ``route`` ``'lanes'``
+    (``csrc/cpmg_bwd_lanes.cu``, ``csrc/xspgr_bwd_lanes.cu``: ``G`` lanes
+    per atom, ``M`` order slots a lane, at most ``S`` chunk states an atom
+    in shared memory, a block using tc of them) or ``'thread'``
+    (``csrc/cpmg_bwd.cu``, ``csrc/xspgr_bwd.cu``: one thread per atom,
+    :func:`launch_cfg`; ``G`` 1)."""
+    route: str
+    G: int
+    M: int
+    S: int
+
+
+def lane_capacity(K: int, itemsize: int, planes: int = 6):
+    r"""The lane route's :class:`AdjointCfg` for ``K`` orders of ``planes``
+    planes (6: K18; 12: K21, K24) at ``itemsize``, or None where an atom's
+    orders do not fit: the narrowest group of 8, 16 or 32 lanes whose
+    ``M = ⌈K/G⌉`` slots fit ``LANE_SLOTS_MAX``, and ``S`` the states of
+    ``M·G`` orders that shared memory holds for ``LANE_BLOCKS`` blocks an
+    SM (at most ``LANE_STATES_MAX``). Float32: K ≤ 160 for one pool
+    (K 33: G 8, M 5, S 4), K ≤ 96 for two (K 48: G 16, M 3, S 4; K 24: G 8,
+    M 3, S 4); float64: K ≤ 64 and K ≤ 32."""
+    mmax = LANE_SLOTS_MAX[(planes, itemsize)]
+    for G in LANE_WIDTHS:
+        M = -(-K // G)
+        if M > mmax:
+            continue
+        stride = planes * M * G + (G if G < 32 else 0)
+        slot = LANE_THREADS // G * stride * itemsize
+        S = min(LANE_STATES_MAX,
+                (SMEM_SM // LANE_BLOCKS - SMEM_RESERVED) // slot)
+        if S >= 1:
+            return AdjointCfg('lanes', G, M, S)
+    return None
+
+
+def adjoint_cfg(K: int, itemsize: int, planes: int, tc: int) -> AdjointCfg:
+    r"""The route of K18 (``planes`` 6) or K21/K24 (12) at chunk length
+    ``tc``, by shape alone: the lanes where :func:`lane_capacity` fits and
+    ``tc`` ≤ its ``S``, else one thread per atom (K 401 and float64 K 201 of
+    one pool; K 201 and float64 K 101 of two; or a ``tc`` past ``S``, which
+    :func:`adjoint_tc` gives where the capped chunk's checkpoints would
+    pass ``LANE_CHK_BYTES``)."""
+    cap = lane_capacity(K, itemsize, planes)
+    if cap is not None and tc <= cap.S:
+        return cap
+    return AdjointCfg('thread', 1, 0, 0)
+
+
+def adjoint_tc(nTR: int, K: int, nA: int, itemsize: int,
+               planes: int = 6) -> int:
+    r"""The chunk length of K18 and K21/K24 (and so of their forwards K17,
+    K20, K23): :func:`pick_tc`, capped where the lane route takes the
+    shape by the ``S`` states its shared memory keeps, to the largest
+    divisor of ``nTR`` within both (more checkpoints, each read once), as
+    long as those ``nTR/tc`` checkpoints of ``planes·K·nA`` values fit
+    ``LANE_CHK_BYTES``; past that, :func:`pick_tc`'s (one thread per atom).
+    T2 map 1,048,576 × 32: 2 (pick_tc's); bench_mrf CPMG 65,536 × 32: 4
+    (pick_tc 32; 0.42 GB); two-pool 65,536 × 400, K 48: 4 (pick_tc 10;
+    15.1 GB against 6.0); at 131,072 atoms 5 (pick_tc's: 30.2 GB would
+    pass the budget)."""
+    tc = pick_tc(nTR, K, nA, itemsize, planes)
+    cap = lane_capacity(K, itemsize, planes)
+    if cap is None or tc <= cap.S:
+        return tc
+    lane_tc = largest_divisor_leq(nTR, cap.S)
+    chk = nTR // lane_tc * planes * K * max(nA, 1) * itemsize
+    return lane_tc if chk <= LANE_CHK_BYTES else tc
 
 
 def _sizes(name, coef, par, cdiff, cfg):
@@ -926,22 +1071,31 @@ def _launch_cpmg_bwd(coef, par, dq, cdiff, cfg, chk, gr, gi, tc):
     _check(chk, 'chk', (nE // tc, 6, cfg.K, nA), dt, dev)
     _check(gr, 'gr', (nE, nA), dt, dev)
     _check(gi, 'gi', (nE, nA), dt, dev)
-    threads, in_smem = launch_cfg(cfg.K, par.element_size())
-    # phase 1's pre-echo states of one chunk (the first is chk's own), the
-    # adjoint state when it does not fit in shared memory, and each warp's
-    # per-echo coefficient rows (summed over its atoms)
-    scratch = torch.empty((max(tc - 1, 1), 6, cfg.K, nA), dtype=dt,
-                          device=dev)
-    hstate = None if in_smem else torch.empty((6, cfg.K, nA), dtype=dt,
-                                              device=dev)
+    route = adjoint_cfg(cfg.K, par.element_size(), 6, tc)
     dpar = torch.empty((8, nA), dtype=dt, device=dev)
-    dcf = torch.empty((-(-nA // 32), nE, cfg.nC), dtype=dt, device=dev)
+    # each warp's per-echo coefficient rows (summed over its atoms)
+    dcf = torch.empty((-(-nA * route.G // 32), nE, cfg.nC), dtype=dt,
+                      device=dev)
     lib, _ = library()
-    with torch.cuda.device(dev):
-        err = _entry(lib, 'cpmg_bwd', dt)(
-            *map(_ptr, (coef, par, dq, cdiff, chk, gr, gi, scratch, hstate,
-                        dpar, dcf)), nA, nE, cfg.nC, cfg.flags, tc, threads,
-            _stream(dev))
+    if route.route == 'lanes':
+        with torch.cuda.device(dev):
+            err = _entry(lib, 'cpmg_bwd_lanes', dt)(
+                *map(_ptr, (coef, par, dq, cdiff, chk, gr, gi, dpar, dcf)),
+                nA, nE, cfg.nC, cfg.flags, tc, route.G, route.M,
+                _stream(dev))
+    else:
+        threads, in_smem = launch_cfg(cfg.K, par.element_size())
+        # phase 1's pre-echo states of one chunk (the first is chk's own)
+        # and the adjoint state when it does not fit in shared memory
+        scratch = torch.empty((max(tc - 1, 1), 6, cfg.K, nA), dtype=dt,
+                              device=dev)
+        hstate = None if in_smem else torch.empty((6, cfg.K, nA), dtype=dt,
+                                                  device=dev)
+        with torch.cuda.device(dev):
+            err = _entry(lib, 'cpmg_bwd', dt)(
+                *map(_ptr, (coef, par, dq, cdiff, chk, gr, gi, scratch,
+                            hstate, dpar, dcf)), nA, nE, cfg.nC, cfg.flags,
+                tc, threads, _stream(dev))
     _raise_on(err, 'cpmg_bwd')
     LAUNCHES['cpmg_bwd'] += 1
     # the warps' partial rows, summed in a fixed order
@@ -981,7 +1135,7 @@ class _Cpmg(torch.autograd.Function):
             if plain:
                 return cpmg_fwd_torch(coef, par, dq, cdiff, cfg)
             return _launch_cpmg_fwd(coef, par, dq, cdiff, cfg, None)[:2]
-        tc = pick_tc(cfg.nE, cfg.K, par.shape[1], par.element_size())
+        tc = adjoint_tc(cfg.nE, cfg.K, par.shape[1], par.element_size())
         if plain:
             er, ei, chk = cpmg_fwd_chk_torch(coef, par, dq, cdiff, cfg,
                                              tc=tc)

@@ -19,13 +19,17 @@ below) at a fixed TR and over a variable-TR train:
 - ``xspgr_fwd_chk`` (the same source, replaces ``_xspgr_fwd_chk_kernel``):
   the same train, also writing the state at the start of every chunk of
   ``tc`` TRs.
-- ``xspgr_bwd`` (``csrc/xspgr_bwd.cu``, replaces ``_xspgr_bwd_kernel``):
-  the two-phase chunk adjoint. Per chunk, newest first, phase 1 re-runs the
-  forward from the chunk's start state and stores every pre-RF state;
-  phase 2 walks them backwards (the shift's transpose, the
-  exchange–relaxation transpose with its 14 entry gradients, the echo's
-  cotangent into both pools' ``F+(0)``, the RF mix's coefficients and
-  transpose on both pools).
+- ``xspgr_bwd`` (``csrc/xspgr_bwd_lanes.cu`` and ``csrc/xspgr_bwd.cu``,
+  replaces ``_xspgr_bwd_kernel``): the two-phase chunk adjoint. Per chunk,
+  newest first, phase 1 re-runs the forward from the chunk's start state
+  and stores every pre-RF state; phase 2 walks them backwards (the shift's
+  transpose, the exchange–relaxation transpose with its 14 entry
+  gradients, the echo's cotangent into both pools' ``F+(0)``, the RF mix's
+  coefficients and transpose on both pools). Two hand-written routes,
+  chosen by shape alone (:func:`mrphy_tpu_torch.kernels.epg.adjoint_cfg`):
+  a group of lanes per atom over the orders with the chunk's states in
+  shared memory where they fit (the entry points' chunk,
+  :func:`_xspgr_chunk`, is capped so), one thread per atom otherwise.
 - ``xspgr_v_fwd``, ``xspgr_v_fwd_chk`` and ``xspgr_v_bwd`` (the same two
   sources, instances for a variable-TR train; replace ``_epgx_v_kernel``,
   ``_xv_fwd_chk_kernel`` and ``_xv_bwd_kernel``): the same recursions
@@ -144,8 +148,10 @@ from torch.autograd.function import once_differentiable
 from mrphy_tpu_torch.kernels.bloch import (_check, _check_tc, _device_kind,
                                            _ptr, _raise_on, _stream)
 from mrphy_tpu_torch.kernels.epg import (_at0, _entry, _flip_trig, _ksum,
-                                         _mix, _mix0_terms, _mix_T, _shift,
-                                         _shift_T, _trig, launch_cfg, pick_tc)
+                                         _lane_sum, _mix, _mix0_terms, _mix_T,
+                                         _shift, _shift_T, _trig, _warp_sums,
+                                         adjoint_cfg, adjoint_tc, launch_cfg,
+                                         pick_tc)
 
 __all__ = ['LAUNCHES', 'PLANES', 'XspgrCfg', 'xspgr', 'xspgr_fwd',
            'xspgr_fwd_torch', 'xspgr_fwd_chk', 'xspgr_fwd_chk_torch',
@@ -359,8 +365,12 @@ def _xbwd(coef, rows, cfg, chk, g, tc, take):
     2)``, with no autograd. Per TR, newest first: the shift's transpose on
     both pools, the exchange–relaxation transpose (:func:`_xrelax_T`), the
     echo's cotangent into both pools' ``F+(0)``, the mix's coefficient
-    terms summed over the pools order by order, the mix's transpose.
-    ``take(t, d)`` receives step ``t``'s 14 entry gradients ``d`` (each
+    terms summed over the pools order by order, the mix's transpose. Every
+    sum over the orders is taken in the order of the route the kernel takes
+    at this shape (:func:`~mrphy_tpu_torch.kernels.epg.adjoint_cfg`,
+    ``_lane_sum``), and the per-TR rows by warps of ``32 / G`` atoms
+    (:func:`~mrphy_tpu_torch.kernels.epg._warp_sums`), then over the warps,
+    as the kernel and its wrapper sum them. ``take(t, d)`` receives step ``t``'s 14 entry gradients ``d`` (each
     `(nA, 1)`). Returns ``(dcoef (9, nTR), dM0a, dM0b, db1)``, the last
     three `(nA, 1)`: the cotangents of the initial ``Za(0)``/``Zb(0)`` and
     the b1 gradient."""
@@ -372,8 +382,10 @@ def _xbwd(coef, rows, cfg, chk, g, tc, take):
                          f'of tc={tc} gives {nTR // tc}')
     zero = torch.zeros_like(rows(0)[0])
     h = (torch.zeros_like(chk[0, 0].T),) * PLANES
+    G = adjoint_cfg(cfg.K, chk.element_size(), PLANES, tc).G
     ab1 = zero
-    dcoef = coef.new_zeros(XspgrCfg.nC, nTR)
+    # each warp's per-TR rows (a warp holds 32 / G atoms), as the kernel's
+    dcf = coef.new_zeros((-(-zero.shape[0] * G // 32), nTR, XspgrCfg.nC))
     for j in reversed(range(ntc)):
         # phase 1: the forward from the chunk's start state, every state
         s = tuple(chk[j, q].T for q in range(PLANES))
@@ -406,7 +418,7 @@ def _xbwd(coef, rows, cfg, chk, g, tc, take):
             # the mix's coefficients, both pools' terms summed order by order
             terms += [a + b for a, b in zip(_mix_terms(h[:6], s[:6]),
                                             _mix_terms(h[6:], s[6:]))]
-            sums = _ksum(torch.stack(terms)).unsqueeze(-1)   # (20, nA, 1)
+            sums = _lane_sum(torch.stack(terms), G).unsqueeze(-1)  # (20, nA, 1)
             take(t, list(sums[:12]) + [d_ra, d_rb])
             d_ca2, d_sc2, d_ss2, d_ss, d_sc, d_hs, d_hc, d_ca = sums[12:]
             d_sa2 = c2 * d_sc2 + s2 * d_ss2
@@ -423,10 +435,11 @@ def _xbwd(coef, rows, cfg, chk, g, tc, take):
             else:
                 rows_t = [d_ca2, d_sa2, d_sa, d_ca, d_c1, d_s1, d_c2, d_s2,
                           zero]
-            dcoef[:, t] = torch.cat(rows_t, dim=1).sum(dim=0)
+            dcf[:, t] = _warp_sums(torch.cat(rows_t, dim=1), 32 // G)
             h = _mix_T(tg, h[:6]) + _mix_T(tg, h[6:])
-    # the initial state: M0a on Za(0)'s real part, M0b on Zb(0)'s
-    return dcoef, h[4][:, :1], h[10][:, :1], ab1
+    # the initial state: M0a on Za(0)'s real part, M0b on Zb(0)'s; the
+    # warps' rows summed as the wrapper sums the kernel's
+    return (dcf.sum(dim=0).T.contiguous(), h[4][:, :1], h[10][:, :1], ab1)
 
 
 def xspgr_fwd_torch(coef, par, cfg: XspgrCfg):
@@ -556,26 +569,34 @@ def _launch_bwd(coef, par, cfg, chk, g, tc, pkt=None):
     dt, dev = par.dtype, par.device
     _check(chk, 'chk', (nTR // tc, PLANES, cfg.K, nA), dt, dev)
     _check(g, 'g', (nA, nTR, 2), dt, dev)
-    threads, in_smem = launch_cfg(cfg.K, par.element_size(), PLANES)
-    # phase 1's pre-RF states of one chunk (the first is chk's own), the
-    # adjoint state when it does not fit in shared memory, and each warp's
-    # per-TR coefficient rows (summed over its atoms)
-    scratch = torch.empty((max(tc - 1, 1), PLANES, cfg.K, nA), dtype=dt,
-                          device=dev)
-    hstate = None if in_smem else torch.empty((PLANES, cfg.K, nA), dtype=dt,
-                                              device=dev)
+    route = adjoint_cfg(cfg.K, par.element_size(), PLANES, tc)
     dpar = torch.empty(par.shape, dtype=dt, device=dev)
-    dcf = torch.empty((-(-nA // 32), nTR, cfg.nC), dtype=dt, device=dev)
+    # each warp's per-TR coefficient rows (summed over its atoms)
+    dcf = torch.empty((-(-nA * route.G // 32), nTR, cfg.nC), dtype=dt,
+                      device=dev)
     if pkt is None:
         ins, outs = (coef, par, chk, g), (dpar, dcf)
     else:
         dpkt = torch.empty((nTR, NENT, nA), dtype=dt, device=dev)
         ins, outs = (coef, par, pkt, chk, g), (dpar, dcf, dpkt)
     lib, _ = library()
-    with torch.cuda.device(dev):
-        err = _entry(lib, name, dt)(
-            *map(_ptr, ins + (scratch, hstate) + outs), nA, nTR, cfg.K,
-            cfg.kshift, cfg.flags, tc, threads, _stream(dev))
+    if route.route == 'lanes':
+        with torch.cuda.device(dev):
+            err = _entry(lib, name + '_lanes', dt)(
+                *map(_ptr, ins + outs), nA, nTR, cfg.K, cfg.kshift,
+                cfg.flags, tc, route.G, route.M, _stream(dev))
+    else:
+        threads, in_smem = launch_cfg(cfg.K, par.element_size(), PLANES)
+        # phase 1's pre-RF states of one chunk (the first is chk's own) and
+        # the adjoint state when it does not fit in shared memory
+        scratch = torch.empty((max(tc - 1, 1), PLANES, cfg.K, nA), dtype=dt,
+                              device=dev)
+        hstate = None if in_smem else torch.empty((PLANES, cfg.K, nA),
+                                                  dtype=dt, device=dev)
+        with torch.cuda.device(dev):
+            err = _entry(lib, name, dt)(
+                *map(_ptr, ins + (scratch, hstate) + outs), nA, nTR, cfg.K,
+                cfg.kshift, cfg.flags, tc, threads, _stream(dev))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     # the warps' partial rows, summed in a fixed order
@@ -636,6 +657,13 @@ def _chunk(coef, par, cfg):
                    PLANES)
 
 
+def _xspgr_chunk(coef, par, cfg):
+    r"""The EPG-X SPGR adjoint's chunk, capped for its lane route
+    (:func:`~mrphy_tpu_torch.kernels.epg.adjoint_tc`)."""
+    return adjoint_tc(coef.shape[1], cfg.K, par.shape[1], par.element_size(),
+                      PLANES)
+
+
 class _Xspgr(torch.autograd.Function):
 
     @staticmethod
@@ -643,7 +671,7 @@ class _Xspgr(torch.autograd.Function):
         ctx.cfg = cfg
         if not any(ctx.needs_input_grad[1:3]):
             return xspgr_fwd(coef, par, cfg)
-        tc = _chunk(coef, par, cfg)
+        tc = _xspgr_chunk(coef, par, cfg)
         sig, chk = xspgr_fwd_chk(coef, par, cfg, tc=tc)
         ctx.tc = tc
         ctx.save_for_backward(coef, par, chk)
@@ -665,7 +693,7 @@ class _XspgrV(torch.autograd.Function):
         ctx.cfg = cfg
         if not any(ctx.needs_input_grad[1:4]):
             return xspgr_v_fwd(coef, pk, pkt, cfg)
-        tc = _chunk(coef, pk, cfg)
+        tc = _xspgr_chunk(coef, pk, cfg)
         sig, chk = xspgr_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)
         ctx.tc = tc
         ctx.save_for_backward(coef, pk, pkt, chk)
@@ -746,19 +774,6 @@ def _xcpmg_fwd(coef, rows, cfg, tc):
         er.append(s[0][:, 0] + s[6][:, 0])
         ei.append(s[1][:, 0] + s[7][:, 0])
     return torch.stack(er), torch.stack(ei), chk
-
-
-def _warp_sums(r):
-    r"""The sums of ``r (nA, n)`` over each warp's 32 atoms in the order of
-    the kernels' shuffle tree (lane ``j`` adds lane ``j + o`` for ``o`` =
-    16, 8, 4, 2, 1; lanes past nA add zeros): `(ceil(nA / 32), n)`."""
-    nA = r.shape[0]
-    nW = -(-nA // 32)
-    x = torch.nn.functional.pad(r, (0, 0, 0, nW * 32 - nA)).reshape(
-        nW, 32, -1)
-    for o in (16, 8, 4, 2, 1):
-        x = x[:, :o] + x[:, o:2 * o]
-    return x[:, 0]
 
 
 def _xcpmg_bwd(coef, rows, cfg, chk, gr, gi, tc, take):

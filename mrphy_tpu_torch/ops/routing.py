@@ -31,7 +31,10 @@ scratch and HBM partials miss their budgets
 port has no counterpart and no such gate: the H100 adjoints ``spgr_bwd``
 and ``cpmg_bwd`` keep their per-chunk scratch in device memory and shorten
 the chunk to fit a fixed budget
-(:func:`mrphy_tpu_torch.kernels.epg.pick_tc`), so each takes every instance
+(:func:`mrphy_tpu_torch.kernels.epg.pick_tc`; ``cpmg_bwd``'s and
+``xspgr_bwd``'s chunk is capped further for their lane route while its
+checkpoints fit a budget, :func:`mrphy_tpu_torch.kernels.epg.adjoint_tc`),
+so each takes every instance
 its forward takes; so do ``xspgr_bwd``'s, ``xspgr_v_bwd``'s,
 ``xcpmg_bwd``'s and ``xcpmg_v_bwd``'s, their chunk fitted for the two-pool
 state's 12 planes, and ``bssfp_bwd``'s, for an isochromat's 3 (JAX's
@@ -121,7 +124,7 @@ def _decide_epg_spgr(kw, backend):
 
 
 def _decide_epg_cpmg(kw, backend):
-    from mrphy_tpu_torch.kernels.epg import pick_tc
+    from mrphy_tpu_torch.kernels.epg import adjoint_tc
     fallback, nE = _per_voxel(kw, backend)
     if fallback:
         return fallback
@@ -131,11 +134,11 @@ def _decide_epg_cpmg(kw, backend):
                '(nE=%d, nA=%d%s%s; the adjoint chunk tc=%d in float32)'
                % (nE, nA, ', variable esp' if len(_shape(kw.get('esp'))) == 1
                   else '', ', diffusion' if kw.get('D') is not None else '',
-                  pick_tc(nE, nE + 1, nA, 4)))
+                  adjoint_tc(nE, nE + 1, nA, 4)))
 
 
 def _decide_epgx_spgr(kw, backend):
-    from mrphy_tpu_torch.kernels.epg import pick_tc
+    from mrphy_tpu_torch.kernels.epg import adjoint_tc
     from mrphy_tpu_torch.kernels.epgx import PLANES
     fallback, nT = _per_voxel(kw, backend)
     if fallback:
@@ -149,7 +152,7 @@ def _decide_epgx_spgr(kw, backend):
                'gradient (nTR=%d, K=%d, nA=%d%s; the adjoint chunk tc=%d in '
                'float32)' % (v, v, v, nT, K, nA,
                              ', variable tr (per-step propagators)' if v
-                             else '', pick_tc(nT, K, nA, 4, PLANES)))
+                             else '', adjoint_tc(nT, K, nA, 4, PLANES)))
 
 
 def _decide_epgx_cpmg(kw, backend):

@@ -1055,6 +1055,129 @@ def test_xspgr_v_constant_train_equals_xspgr_on_card(cuda, dtype):
                                           tc=10)[0], sig)
 
 
+# The adjoints' two routes (kernels/epg.py adjoint_cfg): the lanes where an
+# atom's orders fit the slots and the chunk the shared states, one thread
+# per atom otherwise; at a ragged nA, K not a multiple of the group's
+# lanes, and in float64.
+ADJOINT_ROUTE_CASES = [
+    (torch.float32, 2e-6, 1e-4, 2, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 16, 'thread'),
+    (torch.float64, 1e-12, 1e-12, 4, 'lanes'),
+    (torch.float64, 1e-12, 1e-12, 16, 'thread')]
+ADJOINT_ROUTE_IDS = ['f32-lanes', 'f32-thread', 'f64-lanes', 'f64-thread']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows,tc,route', ADJOINT_ROUTE_CASES,
+                         ids=ADJOINT_ROUTE_IDS)
+def test_cpmg_bwd_routes_on_card(cuda, dtype, bar, rows, tc, route):
+    r"""``cpmg_bwd`` on both routes against its plain version (which sums
+    over the orders in the route's order) at 1,001 atoms × 32 echoes (K 33:
+    8 lanes of 5 slots in float32, 32 of 2 in float64), every option; one
+    launch each."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.ops import epg
+    flips, kw = _cpmg_case(cuda, dtype, 1001, 32, True, True, True, True, 47)
+    coef, par, dq, cdiff, cfg, _ = epg._cpmg_rows(flips, **kw)
+    args = (coef.contiguous(), par.contiguous(), dq.contiguous(), cdiff, cfg)
+    assert kepg.adjoint_cfg(cfg.K, par.element_size(), 6,
+                            tc).route == route
+    chk = kepg.cpmg_fwd_chk(*args, tc=tc)[2]
+    gr, gi = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (2, 32, 1001)), dtype=dtype, device=cuda)
+    n0 = kepg.LAUNCHES['cpmg_bwd']
+    dcoef, dpar = kepg.cpmg_bwd(*args, chk, gr, gi, tc=tc)
+    assert kepg.LAUNCHES['cpmg_bwd'] == n0 + 1
+    dcoef_p, dpar_p = kepg.cpmg_bwd_torch(*args, chk, gr, gi, tc=tc)
+    _rows_close(dpar, dpar_p, bar)
+    _rows_close(dcoef, dcoef_p, rows)
+
+
+# K21's cases add (K, kshift): K 37 / 29 at kshift 2, and the lane route
+# at shifts of more orders than the group has lanes (K 24 in float32: 8
+# lanes of 3 slots), which run in pieces of at most 7 lanes.
+XSPGR_ROUTE_CASES = [c + ((37 if c[0] == torch.float32 else 29), 2)
+                     for c in ADJOINT_ROUTE_CASES] + [
+    (torch.float32, 2e-6, 1e-4, 4, 'lanes', 24, ks) for ks in (-9, 9, -17)]
+XSPGR_ROUTE_IDS = ADJOINT_ROUTE_IDS + [
+    f'f32-lanes-K24-kshift{ks}' for ks in (-9, 9, -17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows,tc,route,K,kshift',
+                         XSPGR_ROUTE_CASES, ids=XSPGR_ROUTE_IDS)
+@pytest.mark.parametrize('vartr', [False, True], ids=['tr', 'tr-train'])
+def test_xspgr_bwd_routes_on_card(cuda, dtype, bar, rows, tc, route, K,
+                                  kshift, vartr):
+    r"""``xspgr_bwd`` and ``xspgr_v_bwd`` on both routes against their plain
+    versions at 1,001 atoms × 32 TRs, b1: kshift 2 (K 37 in float32: 16
+    lanes of 3 slots; K 29 in float64: 32 lanes of 1), and the lane route
+    at kshift ±9 and −17 (K 24: 8 lanes of 3); one launch each."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    kw = _xspgr_case(cuda, dtype, 1001, 32, K, kshift, True, 49, vartr=vartr)
+    coef, par, cfg, _ = epg._xspgr_rows(kw.pop('flips'), kw.pop('phis'),
+                                        **kw)
+    assert kepg.adjoint_cfg(K, coef.element_size(), 12, tc).route == route
+    g = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (1001, 32, 2)), dtype=dtype, device=cuda)
+    coef = coef.contiguous()
+    name = 'xspgr_v_bwd' if vartr else 'xspgr_bwd'
+    n0 = kx.LAUNCHES[name]
+    if vartr:
+        pk, pkt = par[0].contiguous(), par[1].contiguous()
+        chk = kx.xspgr_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)[1]
+        out = kx.xspgr_v_bwd(coef, pk, pkt, cfg, chk, g, tc=tc)
+        ref = kx.xspgr_v_bwd_torch(coef, pk, pkt, cfg, chk, g, tc=tc)
+    else:
+        par = par.contiguous()
+        chk = kx.xspgr_fwd_chk(coef, par, cfg, tc=tc)[1]
+        out = kx.xspgr_bwd(coef, par, cfg, chk, g, tc=tc)
+        ref = kx.xspgr_bwd_torch(coef, par, cfg, chk, g, tc=tc)
+    assert kx.LAUNCHES[name] == n0 + 1
+    _rows_close(out[0], ref[0], rows)
+    for x, y in zip(out[1:], ref[1:]):
+        _rows_close(x, y, bar)
+
+
+@pytest.mark.cuda
+def test_fit_paths_take_the_lane_route_once_on_card(cuda):
+    r"""A T2 fit's and an exchange-MRF refinement's gradient, at a chunk
+    the lane route takes (:func:`adjoint_tc`), launch ``cpmg_bwd`` and
+    ``xspgr_bwd`` (and over a tr train ``xspgr_v_bwd``) once per
+    backward."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    flips, kw = _cpmg_case(cuda, torch.float32, 4096, 32, True, False, False,
+                           False, 51)
+    assert kepg.adjoint_cfg(33, 4, 6, kepg.adjoint_tc(
+        32, 33, 4096, 4)).route == 'lanes'
+    T2 = kw['T2'].clone().requires_grad_()
+    for _ in range(2):
+        n0 = dict(kepg.LAUNCHES)
+        loss = epg.epg_cpmg(flips, **dict(kw, T2=T2)).square().sum()
+        (gT2,) = torch.autograd.grad(loss, T2)
+        assert {n: kepg.LAUNCHES[n] - n0[n] for n in kepg.LAUNCHES} == dict(
+            dict.fromkeys(kepg.LAUNCHES, 0), cpmg_fwd_chk=1, cpmg_bwd=1)
+        assert bool(torch.isfinite(gT2).all())
+    for vartr in (False, True):
+        kw = _xspgr_case(cuda, torch.float32, 4096, 200, 48, 1, False, 53,
+                         vartr=vartr)
+        assert kepg.adjoint_cfg(48, 4, 12, kepg.adjoint_tc(
+            200, 48, 4096, 4, 12)).route == 'lanes'
+        T1a = kw['T1a'].clone().requires_grad_()
+        v = '_v' if vartr else ''
+        n0 = dict(kx.LAUNCHES)
+        loss = epg.epgx_spgr(**dict(kw, T1a=T1a)).square().sum()
+        (gT1a,) = torch.autograd.grad(loss, T1a)
+        assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+            dict.fromkeys(kx.LAUNCHES, 0),
+            **{f'xspgr{v}_fwd_chk': 1, f'xspgr{v}_bwd': 1})
+        assert bool(torch.isfinite(gT1a).all())
+
+
 def _xcpmg_case(cuda, dtype, nA, nE, b1, seed):
     r"""``epgx_cpmg`` keywords (CUDA tensors): refocusing flips 100-180° over
     a two-pool system with per-atom rates, M0a, M0b, dfb and phi_ex (some

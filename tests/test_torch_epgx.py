@@ -381,14 +381,16 @@ class TestRouting:
             assert r['path'] == 'cuda-native-adjoint' and r['fused'], extra
             assert 'nTR=32, K=33, nA=100' in r['reason']
         # the canonical exchange-MRF dictionary: no budget gate, the chunk
-        # fitted to the scratch (tc 10 at K 48)
+        # fitted to the scratch (pick_tc 10 at K 48) and capped at the 4
+        # states the adjoint's lane route keeps in shared memory
         big = np.zeros(65536)
         r = route('epgx_spgr', backend='cuda', flips=np.zeros(400), T1a=big,
                   T2a=0.08, T1b=1.0, T2b=0.02, kab=big, kba=30.0, tr=0.012,
                   K=48)
-        assert r['path'] == 'cuda-native-adjoint' and 'tc=10' in r['reason']
+        assert r['path'] == 'cuda-native-adjoint' and 'tc=4' in r['reason']
         # a (nTR,) tr train: the variable-TR kernels, the chunk fitted to
-        # the scratch (tc 25 at bench_mrf's 65,536 x 400 train, K 24)
+        # the scratch (pick_tc 25 at bench_mrf's 65,536 x 400 train, K 24;
+        # 32 at 100 atoms) and capped at the lane route's 4 states
         for backend in ('cuda', 'auto'):
             monkeypatch.setattr(routing, '_on_cuda', lambda kw: True)
             r = route('epgx_spgr', flips=self.FL, **dict(kw, backend=backend),
@@ -396,12 +398,12 @@ class TestRouting:
             assert r['path'] == 'cuda-native-adjoint' and r['fused']
             assert r['reason'].startswith('xspgr_v_fwd, and xspgr_v_fwd_chk '
                                           '+ xspgr_v_bwd')
-            assert 'variable tr' in r['reason'] and 'tc=32' in r['reason']
+            assert 'variable tr' in r['reason'] and 'tc=4' in r['reason']
         r = route('epgx_spgr', backend='cuda', flips=np.zeros(400), T1a=big,
                   T2a=0.08, T1b=1.0, T2b=0.02, kab=big, kba=30.0,
                   tr=np.full(400, 0.012), K=24)
         assert 'nTR=400, K=24, nA=65536, variable tr' in r['reason']
-        assert 'tc=25' in r['reason']
+        assert 'tc=4' in r['reason']
         with pytest.raises(ValueError, match='CUDA tensors'):
             tepg.epgx_spgr(torch.as_tensor(self.FL), T1a=1.0, T2a=0.08,
                            T1b=1.0, T2b=0.02, kab=5.0, kba=20.0,
@@ -443,3 +445,8 @@ class TestRouting:
         assert kepg.launch_cfg(152, 4, 12) == (128, False)
         assert kepg.launch_cfg(75, 8, 12) == (32, True)
         assert kepg.launch_cfg(76, 8, 12) == (128, False)
+        # the one-pool and EPG-X(MT) kernels' blocks, beside the adjoints'
+        # own chooser (kernels.epg.adjoint_cfg)
+        assert kepg.launch_cfg(33, 4) == (128, True)
+        assert kepg.launch_cfg(401, 4) == (128, False)
+        assert kepg.launch_cfg(48, 4, 8) == (128, True)

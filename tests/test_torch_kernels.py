@@ -329,7 +329,8 @@ def test_kernel_sources_present():
                      'spgr_bwd.cu', 'match.cu', 'cpmg_fwd.cu',
                      'cpmg_bwd.cu', 'xspgr_fwd.cu', 'xspgr_bwd.cu',
                      'xcpmg_fwd.cu', 'xcpmg_bwd.cu', 'bssfp_fwd.cu',
-                     'bssfp_bwd.cu', 'xmt_fwd.cu', 'xmt_bwd.cu'}
+                     'bssfp_bwd.cu', 'xmt_fwd.cu', 'xmt_bwd.cu',
+                     'cpmg_bwd_lanes.cu', 'xspgr_bwd_lanes.cu'}
     assert '--use_fast_math' not in _build.NVCC_FLAGS
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
 
