@@ -155,13 +155,16 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     48, rf-spoiled phases, IR prep, variable TR, float32), without and with
     spoiler diffusion, timed; the trains phase 18 gives the kernels (the
     ``bench_mrf_pipeline`` dictionary, 62,325 atoms × 400 TRs at K 48 with
-    constant TR, and its refinement's 4096 atoms at K 16, in one chunk of
-    400 TRs); constant TR with b1, kshift −1 and 2, the
-    default K (the state in device memory), a ragged atom count and float64
-    cases. Per-atom outputs (echoes, checkpoints, per-atom gradient rows) at
-    ``EPG_BAR`` of their largest value, the adjoint's per-TR rows (sums over
-    atoms) at ``EPG_ROW_BAR``; then the forward and the full gradient
-    (w.r.t. T1, T2, tr, and D) through ``epg_spgr`` at full width, timed.
+    constant TR, and its refinement's 4096 atoms at K 16); constant TR with
+    b1, kshift −1 and 2, the default K (the state in device memory, on the
+    adjoint's one-thread route), a ragged atom count and float64 cases, all
+    at the entry point's chunk (``adjoint_tc``: 5 TRs at bench_mrf_fisp,
+    the adjoint on its lane route, whose G, M, S each row reports), and
+    ``spgr_fwd_chk`` timed also at ``pick_tc``'s chunk (25 there). Per-atom
+    outputs (echoes, checkpoints, per-atom gradient rows) at ``EPG_BAR`` of
+    their largest value, the adjoint's per-TR rows (sums over atoms) at
+    ``EPG_ROW_BAR``; then the forward and the full gradient (w.r.t. T1, T2,
+    tr, and D) through ``epg_spgr`` at full width, timed.
 17. The matched filter ``match`` against its plain version at
     ``bench_mrf_pipeline`` width (62,325 compressed atoms and their
     rotation, 1,048,576 compressed probes, rank 16, float32), timed beside
@@ -270,12 +273,16 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     by a b1 map, float32; ``xcpmg_fwd`` only, as the path runs it), the
     fit's 262,144-voxel block (tc 4) and ``bench_mrf``'s EPG-X CPMG
     dictionary uncut (65,536 atoms × 32 echoes, flips 120–180°), timed with
-    their bounds; the accuracy fit's 4096 voxels (one chunk); float64 with
-    dfb, phi_ex, M0b and b1 at tc 1 and 3, no exchange (kab = kba = 0) at
-    tc = nE, ragged atom counts, and K 161 (float32) and 81 (float64) with
-    the state in device memory. Per-atom outputs (echoes, checkpoints, the
-    19 per-atom gradient rows) at ``EPG_BAR`` (bit for bit expected; the
-    rows that differ are named), the per-echo rows at ``XCPMG_ROW_BAR``.
+    their bounds; the accuracy fit's 4096 voxels; float64 with dfb, phi_ex,
+    M0b and b1 at tc 1 and 3, no exchange (kab = kba = 0) at tc = nE,
+    ragged atom counts, and K 161 (float32) and 81 (float64) with the state
+    in device memory. The chunk is the entry point's (``adjoint_tc``: 4
+    echoes at the block, the adjoint on its lane route) where none is
+    named; each adjoint row reports its route (float64 at K 33, tc = nE and
+    K 161/81 keep one thread per atom). Per-atom outputs (echoes,
+    checkpoints, the 19 per-atom gradient rows) at ``EPG_BAR`` (bit for
+    bit expected; the rows that differ are named), the per-echo rows at
+    ``XCPMG_ROW_BAR``.
 26. The myelin-water path through ``epgx_cpmg`` (``examples/mwf_fit.py``'s
     protocol, ``MWF``): (a) at whole-brain width (``MWF_MAP``, 1,048,576
     voxels, float32, ``backend='auto'`` on CUDA tensors) the forward at the
@@ -300,7 +307,8 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     32), timed with their bounds; float64 with dfb, phi_ex, M0b and b1 at
     tc 1 and 3 (ragged), no exchange, K 161 with the state in device
     memory, and a constant 10 ms train, whose echoes must also equal
-    ``xcpmg_fwd``'s at the scalar esp. Per-atom outputs (echoes,
+    ``xcpmg_fwd``'s at the scalar esp; chunks and routes as phase 25's.
+    Per-atom outputs (echoes,
     checkpoints, ``dpar`` = [d cos φ_ex, d sin φ_ex, dM0a, dM0b, db1] and
     the per-echo entry gradients ``dpkt``) at ``EPG_BAR`` (bit for bit
     expected), the per-echo rows at ``XCPMG_ROW_BAR``.
@@ -872,44 +880,50 @@ KERNELS = {
                      replaces='mrphy_tpu/ops/epg_pallas.py:1644'),
     'spgr_fwd_chk': dict(source='mrphy_tpu_torch/kernels/csrc/spgr_fwd.cu',
                          replaces='mrphy_tpu/ops/epg_pallas.py:1558'),
-    'spgr_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/spgr_bwd.cu',
-                     replaces='mrphy_tpu/ops/epg_pallas.py:1593'),
+    'spgr_bwd': dict(
+        source='mrphy_tpu_torch/kernels/csrc/spgr_bwd_lanes.cu',
+        replaces='mrphy_tpu/ops/epg_pallas.py:1593'),
     'match': dict(source='mrphy_tpu_torch/kernels/csrc/match.cu',
                   replaces='mrphy_tpu/ops/mrf_pallas.py:142'),
     'cpmg_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/cpmg_fwd.cu',
                      replaces='mrphy_tpu/ops/epg_pallas.py:2003'),
     'cpmg_fwd_chk': dict(source='mrphy_tpu_torch/kernels/csrc/cpmg_fwd.cu',
                          replaces='mrphy_tpu/ops/epg_pallas.py:2029'),
-    'cpmg_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/cpmg_bwd.cu',
-                     replaces='mrphy_tpu/ops/epg_pallas.py:2063'),
+    'cpmg_bwd': dict(
+        source='mrphy_tpu_torch/kernels/csrc/cpmg_bwd_lanes.cu',
+        replaces='mrphy_tpu/ops/epg_pallas.py:2063'),
     'xspgr_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd.cu',
                       replaces='mrphy_tpu/ops/epg_pallas.py:2512'),
     'xspgr_fwd_chk': dict(
         source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd.cu',
         replaces='mrphy_tpu/ops/epg_pallas.py:2535'),
-    'xspgr_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xspgr_bwd.cu',
-                      replaces='mrphy_tpu/ops/epg_pallas.py:2567'),
+    'xspgr_bwd': dict(
+        source='mrphy_tpu_torch/kernels/csrc/xspgr_bwd_lanes.cu',
+        replaces='mrphy_tpu/ops/epg_pallas.py:2567'),
     'xspgr_v_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd.cu',
                         replaces='mrphy_tpu/ops/epg_pallas.py:2877'),
     'xspgr_v_fwd_chk': dict(
         source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd.cu',
         replaces='mrphy_tpu/ops/epg_pallas.py:2902'),
-    'xspgr_v_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xspgr_bwd.cu',
-                        replaces='mrphy_tpu/ops/epg_pallas.py:2937'),
+    'xspgr_v_bwd': dict(
+        source='mrphy_tpu_torch/kernels/csrc/xspgr_bwd_lanes.cu',
+        replaces='mrphy_tpu/ops/epg_pallas.py:2937'),
     'xcpmg_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xcpmg_fwd.cu',
                       replaces='mrphy_tpu/ops/epg_pallas.py:3233'),
     'xcpmg_fwd_chk': dict(
         source='mrphy_tpu_torch/kernels/csrc/xcpmg_fwd.cu',
         replaces='mrphy_tpu/ops/epg_pallas.py:3256'),
-    'xcpmg_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xcpmg_bwd.cu',
-                      replaces='mrphy_tpu/ops/epg_pallas.py:3287'),
+    'xcpmg_bwd': dict(
+        source='mrphy_tpu_torch/kernels/csrc/xcpmg_bwd_lanes.cu',
+        replaces='mrphy_tpu/ops/epg_pallas.py:3287'),
     'xcpmg_v_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xcpmg_fwd.cu',
                         replaces='mrphy_tpu/ops/epg_pallas.py:3561'),
     'xcpmg_v_fwd_chk': dict(
         source='mrphy_tpu_torch/kernels/csrc/xcpmg_fwd.cu',
         replaces='mrphy_tpu/ops/epg_pallas.py:3586'),
-    'xcpmg_v_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xcpmg_bwd.cu',
-                        replaces='mrphy_tpu/ops/epg_pallas.py:3620'),
+    'xcpmg_v_bwd': dict(
+        source='mrphy_tpu_torch/kernels/csrc/xcpmg_bwd_lanes.cu',
+        replaces='mrphy_tpu/ops/epg_pallas.py:3620'),
     'bssfp_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/bssfp_fwd.cu',
                       replaces='mrphy_tpu/ops/ssfp_pallas.py:227'),
     'bssfp_fwd_chk': dict(
@@ -947,10 +961,12 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn, reps: int = 5) -> float:
+def time_ms(fn, reps: int = 5, warm: bool = True) -> float:
     r"""Median of ``reps`` CUDA-event timings of ``fn()`` after one
-    warm-up call."""
-    fn()
+    warm-up call (none with ``warm`` False: the caller ran ``fn`` just
+    before)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(reps):
@@ -2925,8 +2941,8 @@ EPG_ROW_BAR = {torch.float32: 1e-4, torch.float64: 1e-12}
 EPG_CASES = (
     ('bench_mrf_pipeline dictionary 62,325 x 400, K 48, const TR', 62325,
      400, 48, torch.float32, dict(pipe=True), False),
-    ('bench_mrf_pipeline refinement 4096 x 400, K 16 (tc = nTR)', 4096, 400,
-     16, torch.float32, dict(pipe=True), False),
+    ('bench_mrf_pipeline refinement 4096 x 400, K 16', 4096, 400, 16,
+     torch.float32, dict(pipe=True), False),
     ('bench_mrf_fisp 64k x 400, K 48', 65536, 400, 48, torch.float32, {},
      True),
     ('bench_mrf_fisp + diffusion', 65536, 400, 48, torch.float32,
@@ -3048,7 +3064,8 @@ def compare_epg(name, run_kernel, run_plain, inputs, names, meta, dtype,
     del kout, pairs
     if timed:
         row['ms'] = time_ms(run_kernel)
-        row['plain_ms'] = time_ms(run_plain, reps=2)
+        # the plain version ran once above: one more run, timed
+        row['plain_ms'] = time_ms(run_plain, reps=1, warm=False)
         row.update(bound(run_plain, inputs, pout))
         row['library_ms'] = None
     del pout
@@ -3061,11 +3078,13 @@ def compare_epg(name, run_kernel, run_plain, inputs, names, meta, dtype,
 
 def phase_epg_kernels(dev):
     r"""Phase 16: ``spgr_fwd``, ``spgr_fwd_chk`` and ``spgr_bwd`` against
-    their plain versions on EPG_CASES (the adjoint fed the kernel's
-    checkpoints and a cotangent drawn from a seed); the timed full-width
-    cases with their bounds; then, at bench_mrf_fisp width, the forward and
-    the full gradient through ``epg_spgr`` (w.r.t. T1, T2, tr, and D).
-    Returns each kernel's rows."""
+    their plain versions on EPG_CASES at the entry point's chunk
+    (``kernels.epg.adjoint_tc``; the adjoint fed the kernel's checkpoints
+    and a cotangent drawn from a seed, its route reported); the timed
+    full-width cases with their bounds, ``spgr_fwd_chk`` also at
+    ``pick_tc``'s chunk (``ms_pick_tc``); then, at bench_mrf_fisp width,
+    the forward and the full gradient through ``epg_spgr`` (w.r.t. T1, T2,
+    tr, and D). Returns each kernel's rows."""
     from mrphy_tpu_torch.kernels import epg as kepg
     rows = {name: [] for name in EPG_KERNELS}
     for seed, (label, nA, nTR, K, dtype, kw, timed) in enumerate(EPG_CASES,
@@ -3074,7 +3093,8 @@ def phase_epg_kernels(dev):
         make = mrf_pipe_case if kw.pop('pipe', False) else mrf_fisp_case
         coef, par, cdiff, cfg = spgr_args(make(nA, nTR, K, dtype, dev,
                                                seed=seed, **kw))
-        tc = kepg.pick_tc(nTR, cfg.K, nA, par.element_size())
+        tc = kepg.adjoint_tc(nTR, cfg.K, nA, par.element_size())
+        pick = kepg.pick_tc(nTR, cfg.K, nA, par.element_size())
         sig = kepg.spgr_fwd(coef, par, cdiff, cfg)
         _, chk = kepg.spgr_fwd_chk(coef, par, cdiff, cfg, tc=tc)
         g = cotangent(sig, seed)
@@ -3096,12 +3116,23 @@ def phase_epg_kernels(dev):
                  'spgr_bwd': ('dcoef', 'dpar')}
         for name, (run_kernel, run_plain, inputs) in runs.items():
             meta = dict(case=label, nA=nA, nTR=nTR, K=cfg.K,
-                        kshift=cfg.kshift, tc=tc,
-                        threads_state=kepg.launch_cfg(cfg.K,
-                                                      par.element_size()))
+                        kshift=cfg.kshift, tc=tc, pick_tc=pick)
+            if name == 'spgr_bwd':
+                meta['adjoint'] = adjoint_meta(cfg.K, par, 6, tc)
+            else:
+                meta['threads_state'] = kepg.launch_cfg(cfg.K,
+                                                        par.element_size())
             rows[name].append(compare_epg(
                 name, run_kernel, run_plain, inputs, names[name], meta,
                 dtype, timed, EPG_ROW_BAR))
+            if name == 'spgr_fwd_chk' and timed:
+                # the chunk the one-thread route took (pick_tc's)
+                rows[name][-1]['ms_pick_tc'] = time_ms(
+                    lambda: kepg.spgr_fwd_chk(coef, par, cdiff, cfg,
+                                              tc=pick))
+                print(f'spgr_fwd_chk {label}: tc {tc} ' + json.dumps(dict(
+                    ms=rows[name][-1]['ms'], pick_tc=pick,
+                    ms_pick_tc=rows[name][-1]['ms_pick_tc'])), flush=True)
         del coef, par, cdiff, sig, chk, g
     out = {}
     for D in (False, True):
@@ -3569,7 +3600,8 @@ def cpmg_case(nA, nE, dtype, dev, *, t2map=False, b1=False, varesp=False,
 
 
 def adjoint_meta(K, par, planes, tc) -> dict:
-    r"""The route K18 (``planes`` 6) or K21/K24 (12) takes at chunk ``tc``
+    r"""The route K15/K18 (``planes`` 6) or K21/K24/K27/K30 (12) takes at
+    chunk ``tc``
     (``kernels.epg.adjoint_cfg``): the lanes per atom G, the order slots a
     lane M, the chunk states an atom keeps in shared memory S (the chunk's
     tc of them are used), or one thread per atom."""
@@ -4587,7 +4619,8 @@ MWF_MAP = dict(nV=1 << 20, block=1 << 18, steps=10, nfit=4096, iters=800)
 # bit for bit expected): max|Δ| / max|row|.
 XCPMG_ROW_BAR = {torch.float32: 5e-7, torch.float64: 1e-15}
 # The EPG-X CPMG kernels' cases (phase 25): label, atoms, echoes, dtype,
-# xcpmg_case keywords, the chunk (None: pick_tc's), the kernels run, timed.
+# xcpmg_case keywords, the chunk (None: the entry point's,
+# kernels.epg.adjoint_tc), the kernels run, timed.
 # ``mwf``: MWF_MAP's train and tissue; ``bench``: bench_mrf's EPG-X CPMG
 # dictionary (benchmarks/suite.py:588-596, 624-634); otherwise bench_mrf's
 # distributions with the options named.
@@ -4600,7 +4633,7 @@ XCPMG_CASES = (
      dict(mwf=True), None, XCPMG_KERNELS, True),
     ('bench_mrf EPG-X CPMG 65,536 x 32, flips 120-180', 65536, 32,
      torch.float32, dict(bench=True), None, XCPMG_KERNELS, True),
-    ('MWF fit accuracy 4096 x 32, K 33, b1 (tc = nE)', 4096, 32,
+    ('MWF fit accuracy 4096 x 32, K 33, b1', 4096, 32,
      torch.float32, dict(mwf=True), None, XCPMG_KERNELS, False),
     ('f64 4096 x 32, dfb, phi_ex, M0b, b1 (tc 1)', 4096, 32, torch.float64,
      dict(dfb=True, phi=True, M0b=True, b1=True), 1, XCPMG_KERNELS, False),
@@ -4971,9 +5004,10 @@ def mwf_example(dev):
 MWF_V = dict(esps=(0.006,) * 16 + (0.014,) * 16)
 # The echo-spacing kernels' cases (phase 27): label, atoms, echoes, dtype,
 # xcpmg_case keywords (``const``: a constant 10 ms train, held also to
-# ``xcpmg_fwd`` at the scalar esp), the chunk (None: pick_tc's), the kernels
-# run, timed. Every other case runs over a train of 8-18 ms drawn from
-# numpy default_rng(seed) (benchmarks/tpu_checks.py:529's distribution).
+# ``xcpmg_fwd`` at the scalar esp), the chunk (None: the entry point's,
+# kernels.epg.adjoint_tc), the kernels run, timed. Every other case runs
+# over a train of 8-18 ms drawn from numpy default_rng(seed)
+# (benchmarks/tpu_checks.py:529's distribution).
 XCPMG_V_CASES = (
     ('MWF map 1M x 32, K 33, b1, esp 8-18 ms (full width)', 1 << 20, 32,
      torch.float32, dict(mwf=True), None, ('xcpmg_v_fwd',), True),
@@ -5003,7 +5037,9 @@ def phase_xcpmg_kernels(dev, varesp=False):
     (``ops.epg._xcpmg_rows``: ``coef`` and ``pk (19, nA)``; over an esp
     train ``pk (5, nA)`` and the per-echo planes ``pkt``); the adjoint is
     fed the kernel's checkpoints and a cotangent drawn from a seed, the
-    plain adjoint written out, with no autograd graph. The MWF map's
+    plain adjoint written out, with no autograd graph, at the case's chunk
+    or the entry point's (``kernels.epg.adjoint_tc``), each adjoint row
+    with its route. The MWF map's
     forward at full width, the fit's block and ``bench_mrf``'s EPG-X CPMG
     dictionary are timed with their bounds (the planes read once). Per-atom
     outputs (echoes, checkpoints, the per-atom gradient rows ``dpar`` and,
@@ -5039,8 +5075,8 @@ def phase_xcpmg_kernels(dev, varesp=False):
         coef, pk, cfg, _ = epg._xcpmg_rows(flips, **ckw)
         coef = coef.contiguous()
         par = tuple(x.contiguous() for x in (pk if varesp else (pk,)))
-        tc = tc or kepg.pick_tc(nE, cfg.K, nA, coef.element_size(),
-                                kx.PLANES)
+        tc = tc or kepg.adjoint_tc(nE, cfg.K, nA, coef.element_size(),
+                                   kx.PLANES)
         chk = gr = gi = None
         if f'xcpmg{v}_bwd' in run:
             chk = fwd_chk(coef, *par, cfg, tc=tc)[2]
@@ -5061,9 +5097,12 @@ def phase_xcpmg_kernels(dev, varesp=False):
                 ('dcoef', 'dpar') + (('dpkt',) if varesp else ()))}
         for name in run:
             run_kernel, run_plain, inputs, names = runs[name]
-            meta = dict(case=label, nA=nA, nE=nE, K=cfg.K, tc=tc,
-                        threads_state=kepg.launch_cfg(
-                            cfg.K, coef.element_size(), kx.PLANES))
+            meta = dict(case=label, nA=nA, nE=nE, K=cfg.K, tc=tc)
+            if name.endswith('_bwd'):
+                meta['adjoint'] = adjoint_meta(cfg.K, coef, kx.PLANES, tc)
+            else:
+                meta['threads_state'] = kepg.launch_cfg(
+                    cfg.K, coef.element_size(), kx.PLANES)
             rows[name].append(compare_epg(
                 name, run_kernel, run_plain, inputs, names, meta, dtype,
                 timed, XCPMG_ROW_BAR))

@@ -96,6 +96,10 @@ _SIGNATURES = {
     # kshift, flags, tc, threads, stream
     'mrphy_spgr_bwd_f32': (_P,) * 9 + (_I64,) * 8 + (_P,),
     'mrphy_spgr_bwd_f64': (_P,) * 9 + (_I64,) * 8 + (_P,),
+    # the lane route: coef, par, cdiff, chk, g, dpar, dcf, nA, nTR, nC, K,
+    # kshift, flags, tc, G, M, stream
+    'mrphy_spgr_bwd_lanes_f32': (_P,) * 7 + (_I64,) * 9 + (_P,),
+    'mrphy_spgr_bwd_lanes_f64': (_P,) * 7 + (_I64,) * 9 + (_P,),
     # coef, par, dq, cdiff, er, ei, chk, gstate, nA, nE, nC, flags, tc,
     # threads, stream
     'mrphy_cpmg_fwd_f32': (_P,) * 8 + (_I64,) * 6 + (_P,),
@@ -147,6 +151,10 @@ _SIGNATURES = {
     # tc, threads, stream
     'mrphy_xcpmg_bwd_f32': (_P,) * 9 + (_I64,) * 6 + (_P,),
     'mrphy_xcpmg_bwd_f64': (_P,) * 9 + (_I64,) * 6 + (_P,),
+    # the lane route: coef, pk, chk, gr, gi, dpar, dcf, nA, nE, K, flags,
+    # tc, G, M, stream
+    'mrphy_xcpmg_bwd_lanes_f32': (_P,) * 7 + (_I64,) * 7 + (_P,),
+    'mrphy_xcpmg_bwd_lanes_f64': (_P,) * 7 + (_I64,) * 7 + (_P,),
     # coef, pk, pkt, er, ei, chk, gstate, nA, nE, K, flags, tc, threads,
     # stream
     'mrphy_xcpmg_v_fwd_f32': (_P,) * 7 + (_I64,) * 6 + (_P,),
@@ -157,6 +165,10 @@ _SIGNATURES = {
     # K, flags, tc, threads, stream
     'mrphy_xcpmg_v_bwd_f32': (_P,) * 11 + (_I64,) * 6 + (_P,),
     'mrphy_xcpmg_v_bwd_f64': (_P,) * 11 + (_I64,) * 6 + (_P,),
+    # the lane route: coef, pk, pkt, chk, gr, gi, dpar, dcf, dpkt, nA, nE,
+    # K, flags, tc, G, M, stream
+    'mrphy_xcpmg_v_bwd_lanes_f32': (_P,) * 9 + (_I64,) * 7 + (_P,),
+    'mrphy_xcpmg_v_bwd_lanes_f64': (_P,) * 9 + (_I64,) * 7 + (_P,),
     # coef, pk, sig, chk, gstate, nA, nTR, K, kshift, flags, tc, threads,
     # stream
     'mrphy_xmt_fwd_f32': (_P,) * 5 + (_I64,) * 7 + (_P,),

@@ -1,7 +1,8 @@
 // epg_lanes.cuh: a group of G lanes of a warp per atom, over the
 // configuration orders, for the EPG adjoints on their lane route
-// (cpmg_bwd_lanes.cu: K18 `cpmg_bwd`; xspgr_bwd_lanes.cu: K21 `xspgr_bwd`
-// and K24 `xspgr_v_bwd`).
+// (spgr_bwd_lanes.cu: K15 `spgr_bwd`; cpmg_bwd_lanes.cu: K18 `cpmg_bwd`;
+// xspgr_bwd_lanes.cu: K21 `xspgr_bwd` and K24 `xspgr_v_bwd`;
+// xcpmg_bwd_lanes.cu: K27 `xcpmg_bwd` and K30 `xcpmg_v_bwd`).
 //
 // Layout. Lane l of a group (G = 8, 16 or 32, a power of two) holds orders
 // k = l + i·G in slot i of each plane, i < M (M = ⌈K/G⌉, a template
@@ -241,6 +242,16 @@ __host__ __device__ constexpr int log2i(int v) {
 inline bool valid_cfg(int64_t G, int64_t M, int64_t K) {
   return (G == 8 || G == 16 || G == 32) && M >= 1 && M * G >= K &&
          (M - 1) * G < K;
+}
+
+// S, the chunk states an atom keeps in shared memory (kernels/epg.py
+// `lane_capacity`): those that fit 3 blocks an SM of 228 KB, 1 KB of each
+// block reserved, at most 8.
+inline int64_t max_states(int planes, int M, int G, int itemsize) {
+  const int64_t slot = (int64_t)(kThreads / G) * stride(planes, M, G) *
+                       itemsize;
+  const int64_t s = (233472 / 3 - 1024) / slot;
+  return s < 8 ? s : 8;
 }
 
 // Whether a block's dynamic shared memory fits the current device's

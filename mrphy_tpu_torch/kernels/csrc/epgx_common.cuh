@@ -5,7 +5,8 @@
 // RF mix's coefficient terms of one pool, and the two pools' ring shift.
 // The EPG-X trains at variable TR and the two-pool CPMG reuse them, and the
 // adjoints' phase 1 the shifted store of one pool's order (xspgr_bwd.cu,
-// xmt_bwd.cu). Each pool's RF mix and shift are the single-pool ones of
+// xmt_bwd.cu); the two-pool CPMG adjoints the half echo of one order
+// (`xhalf_at`). Each pool's RF mix and shift are the single-pool ones of
 // spgr_common.cuh.
 //
 // Every function repeats, operation for operation, the plain PyTorch
@@ -199,6 +200,53 @@ __device__ __forceinline__ void zero_shifted_in(T* __restrict__ dst,
     dst[at(P, k)] = T(0);
     dst[at(P + 1, k)] = T(0);
   }
+}
+
+// Order k of both pools of a state src after one half echo of the
+// two-pool CPMG train (xcpmg_bwd.cu, xcpmg_bwd_lanes.cu): the
+// exchange-relaxation, then the unit shift up, so F+(k) comes from F+(k −
+// 1), F−(k) from F−(k + 1) (F−(K − 1) from beyond: 0), F+(0) = conj(the
+// new F−(0)) and Z stays; the expressions are xrelax's. Element (p, q) of
+// pool a at src[p·ps + q·qs] (pool b's planes 6-11): a logical state in
+// device memory (ps = K·nA, qs = nA) or an atom's slot of the lane route
+// in shared memory (ps = M·G, qs = 1, in int arithmetic).
+template <typename T, typename I>
+__device__ __forceinline__ void xhalf_at(const T* __restrict__ src, I ps,
+                                         I qs, int K, int k,
+                                         const Prop<T>& e, T (&na)[6],
+                                         T (&nb)[6]) {
+  auto at = [&](int p, int q) -> T { return src[p * ps + q * qs]; };
+  if (k >= 1) {
+    const T Par = at(0, k - 1), Pai = at(1, k - 1), Pbr = at(6, k - 1),
+            Pbi = at(7, k - 1);
+    na[0] = (e.E00r * Par - e.E00i * Pai) + (e.E01r * Pbr - e.E01i * Pbi);
+    na[1] = (e.E00r * Pai + e.E00i * Par) + (e.E01r * Pbi + e.E01i * Pbr);
+    nb[0] = (e.E10r * Par - e.E10i * Pai) + (e.E11r * Pbr - e.E11i * Pbi);
+    nb[1] = (e.E10r * Pai + e.E10i * Par) + (e.E11r * Pbi + e.E11i * Pbr);
+  } else {
+    const T Mar = at(2, 1), Mai = at(3, 1), Mbr = at(8, 1), Mbi = at(9, 1);
+    na[0] = (e.E00r * Mar + e.E00i * Mai) + (e.E01r * Mbr + e.E01i * Mbi);
+    na[1] = -((e.E00r * Mai - e.E00i * Mar) + (e.E01r * Mbi - e.E01i * Mbr));
+    nb[0] = (e.E10r * Mar + e.E10i * Mai) + (e.E11r * Mbr + e.E11i * Mbi);
+    nb[1] = -((e.E10r * Mai - e.E10i * Mar) + (e.E11r * Mbi - e.E11i * Mbr));
+  }
+  if (k + 1 < K) {
+    const T Mar = at(2, k + 1), Mai = at(3, k + 1), Mbr = at(8, k + 1),
+            Mbi = at(9, k + 1);
+    na[2] = (e.E00r * Mar + e.E00i * Mai) + (e.E01r * Mbr + e.E01i * Mbi);
+    na[3] = (e.E00r * Mai - e.E00i * Mar) + (e.E01r * Mbi - e.E01i * Mbr);
+    nb[2] = (e.E10r * Mar + e.E10i * Mai) + (e.E11r * Mbr + e.E11i * Mbi);
+    nb[3] = (e.E10r * Mai - e.E10i * Mar) + (e.E11r * Mbi - e.E11i * Mbr);
+  } else {
+    na[2] = na[3] = nb[2] = nb[3] = T(0);
+  }
+  const T Zar = at(4, k), Zai = at(5, k), Zbr = at(10, k), Zbi = at(11, k);
+  na[4] = e.Z00 * Zar + e.Z01 * Zbr;
+  if (k == 0) na[4] = na[4] + e.ra;
+  na[5] = e.Z00 * Zai + e.Z01 * Zbi;
+  nb[4] = e.Z10 * Zar + e.Z11 * Zbr;
+  if (k == 0) nb[4] = nb[4] + e.rb;
+  nb[5] = e.Z10 * Zai + e.Z11 * Zbi;
 }
 
 // |kshift| unit shifts of both pools' ring buffers (one pair of offsets:

@@ -27,13 +27,13 @@
 // values) lives in shared memory as a ring buffer over the orders, as the
 // forward's state does (in device memory where the forward's would), so the
 // shift's transpose is two offsets and three slots. Every sum over the
-// orders is taken one order at a time in the plain version's order
-// (kernels/epg.py `spgr_bwd_torch`), so per-atom results agree bit for bit
-// (built without FMA contraction). The per-TR rows are reduced over a
-// warp's atoms by shuffles; lanes past nA add zeros. No fallback: every
-// instance spgr_fwd_chk takes, this kernel takes, at any K, with the
-// chunk length the wrapper chose for the scratch (kernels/epg.py
-// `pick_tc`).
+// orders is taken one order at a time in the plain version's order on this
+// route (kernels/epg.py `spgr_bwd_torch`), so per-atom results agree bit
+// for bit (built without FMA contraction). The per-TR rows are reduced over
+// a warp's atoms by shuffles; lanes past nA add zeros. The wrapper takes
+// this route where the lane route (spgr_bwd_lanes.cu) does not fit the
+// shape (kernels/epg.py `adjoint_cfg`): every instance spgr_fwd_chk takes,
+// this kernel takes, at any K and chunk length.
 #include "spgr_common.cuh"
 
 namespace mrphy {

@@ -1,6 +1,6 @@
 // spgr_common.cuh: the per-TR arithmetic shared by the SPGR / MRF-FISP
 // EPG kernels (spgr_fwd.cu: K13 `spgr_fwd` and K14 `spgr_fwd_chk`;
-// spgr_bwd.cu: K15 `spgr_bwd`).
+// spgr_bwd.cu and spgr_bwd_lanes.cu: K15 `spgr_bwd`).
 //
 // Every function repeats, operation for operation, the plain PyTorch
 // versions of kernels/epg.py (`_trig`, `_factors`, `_mix`, `_mix_T`,
@@ -136,25 +136,25 @@ __device__ __forceinline__ void relax(const Factors<T>& f, int k, bool has_d,
 }
 
 // The transpose of relax on order k at its input x, given the
-// cotangent hv of its output (after the shift's transpose) and the order's
-// attenuations A (`attenuation`): under diffusion hv ← A·hv, adding
-// c·A·(hv·s2) to kcontr (s2: x relaxed; −Σ is ∂dq); the sums ∂E2 and ∂E1
-// over the orders one order at a time, ∂rec at order 0; then hv ← E·hv.
+// cotangent hv of its output (after the shift's transpose), the order's
+// b-factor coefficients c (cdiff's column k) and attenuations A
+// (`attenuation`): under diffusion hv ← A·hv, adding c·A·(hv·s2) to kcontr
+// (s2: x relaxed; −Σ is ∂dq); the sums ∂E2 and ∂E1 over the orders one
+// order at a time, ∂rec at order 0; then hv ← E·hv.
 template <typename T>
-__device__ __forceinline__ void relax_T_att(const Factors<T>& f, int K, int k,
-                                            bool has_d,
-                                            const T* __restrict__ cdiff,
-                                            const T (&A)[3], const T (&x)[6],
-                                            T (&hv)[6], T& kcontr, T& kE2,
-                                            T& kE1, T& d_rec) {
+__device__ __forceinline__ void relax_T_c(const Factors<T>& f, int k,
+                                          bool has_d, const T (&c)[3],
+                                          const T (&A)[3], const T (&x)[6],
+                                          T (&hv)[6], T& kcontr, T& kE2,
+                                          T& kE1, T& d_rec) {
   if (has_d) {
     T s2Zr = f.E1 * x[4];
     if (k == 0) s2Zr = s2Zr + f.rec;
-    kcontr += ((cdiff[k] * A[0]) *
+    kcontr += ((c[0] * A[0]) *
                    (hv[0] * (f.E2 * x[0]) + hv[1] * (f.E2 * x[1])) +
-               (cdiff[K + k] * A[1]) *
+               (c[1] * A[1]) *
                    (hv[2] * (f.E2 * x[2]) + hv[3] * (f.E2 * x[3]))) +
-              (cdiff[2 * K + k] * A[2]) * (hv[4] * s2Zr + hv[5] * (f.E1 * x[5]));
+              (c[2] * A[2]) * (hv[4] * s2Zr + hv[5] * (f.E1 * x[5]));
     hv[0] = A[0] * hv[0];
     hv[1] = A[0] * hv[1];
     hv[2] = A[1] * hv[2];
@@ -171,6 +171,23 @@ __device__ __forceinline__ void relax_T_att(const Factors<T>& f, int K, int k,
   hv[3] = f.E2 * hv[3];
   hv[4] = f.E1 * hv[4];
   hv[5] = f.E1 * hv[5];
+}
+
+// relax_T_c with order k's coefficients read from cdiff (3, K).
+template <typename T>
+__device__ __forceinline__ void relax_T_att(const Factors<T>& f, int K, int k,
+                                            bool has_d,
+                                            const T* __restrict__ cdiff,
+                                            const T (&A)[3], const T (&x)[6],
+                                            T (&hv)[6], T& kcontr, T& kE2,
+                                            T& kE1, T& d_rec) {
+  T c[3] = {T(0), T(0), T(0)};
+  if (has_d) {
+    c[0] = cdiff[k];
+    c[1] = cdiff[K + k];
+    c[2] = cdiff[2 * K + k];
+  }
+  relax_T_c(f, k, has_d, c, A, x, hv, kcontr, kE2, kE1, d_rec);
 }
 
 // relax_T with the order's attenuations formed here (under diffusion).

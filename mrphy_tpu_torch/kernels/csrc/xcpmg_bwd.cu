@@ -39,23 +39,23 @@
 // Design. One thread per atom, as xcpmg_fwd. Phase 1 runs from chk into a
 // device-memory scratch (tc − 1, 12, K, nA), orders in logical order: each
 // order of the state after the first half is read from its neighbours
-// (`xhalf_at`), mixed and relaxed, and written with the second unit shift
-// as an index offset. The adjoint state h (12·K values) lives in shared
-// memory as ring buffers over the orders, as the forward's state does (in
-// device memory where the forward's would), so each unit shift's transpose
-// is two offsets and three slots a pool. Per echo two passes over the
-// orders: the second half's and the mix's transposes together (the mix's
-// input formed again by `xhalf_at`), then the first half's. The 15 per-atom
-// accumulators (14 entries and b1) sit in registers; over a train the 14
-// entries of the echo's second half wait there for its first half's. Every
-// sum over the orders is taken one order at a time in the plain version's
-// order (kernels/epgx.py `_xcpmg_bwd`), so per-atom results agree bit for
-// bit (built without FMA contraction). The per-echo rows are reduced over a
-// warp's atoms by shuffles, lanes past nA adding zeros, in the order the
-// plain version sums them (`_warp_sums`). No fallback: every
-// instance xcpmg_fwd_chk takes, this kernel takes, with the chunk length
-// the wrapper chose for the scratch (kernels/epg.py `pick_tc` with 12
-// planes).
+// (`epgx::xhalf_at`), mixed and relaxed, and written with the second unit
+// shift as an index offset. The adjoint state h (12·K values) lives in
+// shared memory as ring buffers over the orders, as the forward's state does
+// (in device memory where the forward's would), so each unit shift's
+// transpose is two offsets and three slots a pool. Per echo two passes over
+// the orders: the second half's and the mix's transposes together (the
+// mix's input formed again by `epgx::xhalf_at`), then the first half's. The
+// 15 per-atom accumulators (14 entries and b1) sit in registers; over a
+// train the 14 entries of the echo's second half wait there for its first
+// half's. Every sum over the orders is taken one order at a time in the
+// plain version's order on this route (kernels/epgx.py `_xcpmg_bwd`), so
+// per-atom results agree bit for bit (built without FMA contraction). The
+// per-echo rows are reduced over a warp's atoms by shuffles, lanes past nA
+// adding zeros, in the order the plain version sums them (`_warp_sums`).
+// The wrapper takes this route where the lane route (xcpmg_bwd_lanes.cu)
+// does not fit the shape (kernels/epg.py `adjoint_cfg`): every instance
+// xcpmg_fwd_chk takes, this kernel takes, at any chunk length.
 #include "cpmg_common.cuh"
 #include "epgx_common.cuh"
 
@@ -65,50 +65,6 @@ namespace xcpmg {
 using epgx::kPlanes;
 using epgx::Prop;
 using spgr::Planes;
-
-// Order k of both pools of a logical state src (element (p, q) of pool a at
-// [(p·K + q)·nA], pool b's planes 6-11) after one half echo: the
-// exchange-relaxation, then the unit shift up, so F+(k) comes from F+(k −
-// 1), F−(k) from F−(k + 1) (F−(K − 1) from beyond: 0), F+(0) = conj(the new
-// F−(0)) and Z stays. The expressions are xrelax's.
-template <typename T>
-__device__ __forceinline__ void xhalf_at(const T* __restrict__ src,
-                                         int64_t nA, int K, int k,
-                                         const Prop<T>& e, T (&na)[6],
-                                         T (&nb)[6]) {
-  auto at = [&](int p, int q) -> T { return src[((int64_t)p * K + q) * nA]; };
-  if (k >= 1) {
-    const T Par = at(0, k - 1), Pai = at(1, k - 1), Pbr = at(6, k - 1),
-            Pbi = at(7, k - 1);
-    na[0] = (e.E00r * Par - e.E00i * Pai) + (e.E01r * Pbr - e.E01i * Pbi);
-    na[1] = (e.E00r * Pai + e.E00i * Par) + (e.E01r * Pbi + e.E01i * Pbr);
-    nb[0] = (e.E10r * Par - e.E10i * Pai) + (e.E11r * Pbr - e.E11i * Pbi);
-    nb[1] = (e.E10r * Pai + e.E10i * Par) + (e.E11r * Pbi + e.E11i * Pbr);
-  } else {
-    const T Mar = at(2, 1), Mai = at(3, 1), Mbr = at(8, 1), Mbi = at(9, 1);
-    na[0] = (e.E00r * Mar + e.E00i * Mai) + (e.E01r * Mbr + e.E01i * Mbi);
-    na[1] = -((e.E00r * Mai - e.E00i * Mar) + (e.E01r * Mbi - e.E01i * Mbr));
-    nb[0] = (e.E10r * Mar + e.E10i * Mai) + (e.E11r * Mbr + e.E11i * Mbi);
-    nb[1] = -((e.E10r * Mai - e.E10i * Mar) + (e.E11r * Mbi - e.E11i * Mbr));
-  }
-  if (k + 1 < K) {
-    const T Mar = at(2, k + 1), Mai = at(3, k + 1), Mbr = at(8, k + 1),
-            Mbi = at(9, k + 1);
-    na[2] = (e.E00r * Mar + e.E00i * Mai) + (e.E01r * Mbr + e.E01i * Mbi);
-    na[3] = (e.E00r * Mai - e.E00i * Mar) + (e.E01r * Mbi - e.E01i * Mbr);
-    nb[2] = (e.E10r * Mar + e.E10i * Mai) + (e.E11r * Mbr + e.E11i * Mbi);
-    nb[3] = (e.E10r * Mai - e.E10i * Mar) + (e.E11r * Mbi - e.E11i * Mbr);
-  } else {
-    na[2] = na[3] = nb[2] = nb[3] = T(0);
-  }
-  const T Zar = at(4, k), Zai = at(5, k), Zbr = at(10, k), Zbi = at(11, k);
-  na[4] = e.Z00 * Zar + e.Z01 * Zbr;
-  if (k == 0) na[4] = na[4] + e.ra;
-  na[5] = e.Z00 * Zai + e.Z01 * Zbi;
-  nb[4] = e.Z10 * Zar + e.Z11 * Zbr;
-  if (k == 0) nb[4] = nb[4] + e.rb;
-  nb[5] = e.Z10 * Zai + e.Z11 * Zbi;
-}
 
 // One pool's relaxed order k (n) written into dst with the unit shift up:
 // F+(k) → F+(k + 1), F−(k) → F−(k − 1), F−(1) → conj into F+(0).
@@ -141,7 +97,7 @@ __device__ void xecho_direct(const T* __restrict__ src, T* __restrict__ dst,
   const int64_t pool = (int64_t)6 * K * nA;
   for (int k = 0; k < K; ++k) {
     T sha[6], shb[6];
-    xhalf_at(src, nA, K, k, e, sha, shb);
+    epgx::xhalf_at(src, (int64_t)K * nA, nA, K, k, e, sha, shb);
     T na[6], nb[6];
     cpmg::mix0(g, sha, na);
     cpmg::mix0(g, shb, nb);
@@ -240,7 +196,7 @@ __global__ void xcpmg_bwd_kernel(const T* __restrict__ coef,
         int ip = op, im = om;
         for (int k = 0; k < K; ++k) {
           T sha[6], shb[6];
-          xhalf_at(x0, nA, K, k, e, sha, shb);
+          epgx::xhalf_at(x0, (int64_t)K * nA, nA, K, k, e, sha, shb);
           T s1a[6], s1b[6];
           cpmg::mix0(g, sha, s1a);
           cpmg::mix0(g, shb, s1b);

@@ -11,7 +11,7 @@
 // M ≤ 3 slots a lane (float32; 1 in float64) of G = 8, 16 or 32 lanes and
 // the chunk's tc states fit the S that shared memory holds, and
 // xspgr_bwd.cu's one-thread-per-atom route otherwise (default K 201, float64
-// K 101). The entry points (kernels/epgx.py `_xspgr_chunk`) cap tc at S.
+// K 101). The entry points (kernels/epgx.py `_adjoint_chunk`) cap tc at S.
 //
 // What bounds it on the H100: arithmetic (~4× the forward's per order and
 // TR), then reading the checkpoints once (15.1 GB at 65,536 atoms × 400

@@ -12,11 +12,11 @@ Six kernels, each the Hopper counterpart of a TPU kernel of
 - ``spgr_fwd_chk`` (the same source, replaces ``_spgr_fwd_chk_kernel``):
   the same train, also writing the state at the start of every chunk of
   ``tc`` TRs.
-- ``spgr_bwd`` (``csrc/spgr_bwd.cu``, replaces ``_spgr_bwd_kernel``): the
-  two-phase chunk adjoint. Per chunk, newest first, phase 1 re-runs the
-  forward from the chunk's start state and stores every pre-RF state;
-  phase 2 walks them backwards (shift transpose, diffusion and relaxation
-  transposes, the echo's cotangent, the RF-mix transpose).
+- ``spgr_bwd`` (``csrc/spgr_bwd_lanes.cu`` and ``csrc/spgr_bwd.cu``, replaces
+  ``_spgr_bwd_kernel``): the two-phase chunk adjoint. Per chunk, newest first,
+  phase 1 re-runs the forward from the chunk's start state and stores every
+  pre-RF state; phase 2 walks them backwards (shift transpose, diffusion and
+  relaxation transposes, the echo's cotangent, the RF-mix transpose).
 
 Arguments, as ``_spgr_dispatch`` (``epg_pallas.py:219-273``) builds them:
 
@@ -43,16 +43,16 @@ autograd of their construction (:func:`mrphy_tpu_torch.ops.epg.epg_spgr`).
 
 Each kernel has beside it its plain PyTorch version (``*_torch``: a Python
 loop over TRs on ``(nA, K)`` planes in the kernel's order of operations,
-sums over the orders taken one order at a time, as the kernels take them;
-the adjoint's uses no autograd) and a launch count, ``LAUNCHES[name]``,
+sums over the orders taken in the order the kernels take them; the
+adjoint's uses no autograd) and a launch count, ``LAUNCHES[name]``,
 raised by one at every launch of the kernel and nowhere else.
 
 :func:`spgr` is a ``torch.autograd.Function``: with no gradient needed it
 runs ``spgr_fwd``; otherwise ``spgr_fwd_chk``, and ``spgr_bwd`` as its
 backward (the kernels on CUDA tensors, no fallback; the plain versions on
 CPU tensors). The adjoint takes every instance the
-forward takes: its per-chunk scratch lies in device memory, sized by
-:func:`pick_tc`, so no budget sends a call elsewhere.
+forward takes, on one of two hand-written routes chosen by shape alone, as
+``cpmg_bwd``'s below; :func:`spgr` takes the chunk :func:`adjoint_tc`.
 
 The CPMG kernels (``csrc/cpmg_fwd.cu``, ``csrc/cpmg_bwd.cu``) are the same
 three for the spin-echo train of T2 mapping: ``cpmg_fwd`` (replaces
@@ -70,17 +70,21 @@ nE + 1). The echoes come as ``(er, ei)``, each ``(nE, nA)``; the adjoint
 returns ``dcoef (nC, nE)`` and ``dpar (8, nA)`` (the seven rows' and
 ``dq``'s). :func:`cpmg` is their autograd Function, as :func:`spgr`.
 
-``cpmg_bwd`` has two hand-written routes, chosen by shape alone
-(:func:`adjoint_cfg`): the lane route (``csrc/cpmg_bwd_lanes.cu``: a group
+``spgr_bwd`` and ``cpmg_bwd`` have two hand-written routes each, chosen by
+shape alone (:func:`adjoint_cfg`): the lane route
+(``csrc/spgr_bwd_lanes.cu``, ``csrc/cpmg_bwd_lanes.cu``: a group
 of 8, 16 or 32 lanes per atom over the orders, state and adjoint in
 registers, the chunk's states in shared memory, the checkpoints read once)
 where an atom's orders fit its register slots and the chunk its shared
-states, and ``csrc/cpmg_bwd.cu`` (one thread per atom, the chunk's states
-in a device-memory scratch) otherwise. :func:`cpmg` takes the chunk
+states, and ``csrc/spgr_bwd.cu``, ``csrc/cpmg_bwd.cu`` (one thread per
+atom, the chunk's states in a device-memory scratch sized by
+:func:`pick_tc`) otherwise. :func:`spgr` and :func:`cpmg` take the chunk
 :func:`adjoint_tc`, :func:`pick_tc` capped at the lane route's shared
-states while the extra checkpoints fit ``LANE_CHK_BYTES``. The plain version sums over the orders in the chosen route's order
-(:func:`_lane_sum`). The two-pool ``xspgr_bwd``/``xspgr_v_bwd`` share the
-lane route's chooser (``kernels/epgx.py``).
+states while the extra checkpoints fit ``LANE_CHK_BYTES``. The plain
+versions sum over the orders in the chosen route's order
+(:func:`_lane_sum`). The two-pool ``xspgr_bwd``/``xspgr_v_bwd`` and
+``xcpmg_bwd``/``xcpmg_v_bwd`` share the lane route's chooser
+(``kernels/epgx.py``).
 """
 
 from typing import NamedTuple
@@ -379,25 +383,44 @@ def _ksum(x):
     return acc
 
 
-def _lane_sum(x, G):
-    r"""``x (..., K)`` summed over its last axis in the order of the
-    adjoints' lane route (``csrc/epg_lanes.cuh``): lane ``l`` of a group of
-    ``G`` adds orders ``l, l + G, …`` in turn, then the group adds its lanes
-    at offsets ``G/2, …, 1`` (lane ``l`` takes lane ``l + o``). ``G`` 1 is
-    the one-thread route's order, one order at a time (:func:`_ksum`)."""
-    if G == 1:
-        return _ksum(x)
+def _lane_parts(x, G, acc=None):
+    r"""``x (..., K)`` summed per lane of a group of ``G`` in the order of
+    the adjoints' lane route (``csrc/epg_lanes.cuh``): lane ``l`` adds
+    orders ``l, l + G, …`` in turn onto ``acc (..., G)`` (nothing when
+    None: lane ``l`` starts from order ``l``, or 0 past K − 1). Returns
+    ``(..., G)``; only the orders' own additions are made, as the kernels
+    skip the slots past K − 1."""
     K = x.shape[-1]
-    M = -(-K // G)
-    xs = torch.nn.functional.pad(x, (0, M * G - K)).unflatten(-1, (M, G))
-    acc = xs[..., 0, :]
-    for i in range(1, M):
-        acc = acc + xs[..., i, :]
-    o = G // 2
+    start = 0
+    if acc is None:
+        acc = torch.nn.functional.pad(x[..., :G], (0, max(G - K, 0)))
+        start = G
+    for lo in range(start, K, G):
+        n = min(G, K - lo)
+        acc = torch.cat([acc[..., :n] + x[..., lo:lo + n], acc[..., n:]],
+                        dim=-1)
+    return acc
+
+
+def _group_sum(acc):
+    r"""The sum of ``acc (..., G)`` over its lanes in the order of the
+    group's shuffle tree: lane ``l`` adds lane ``l + o`` for ``o`` = G/2,
+    …, 1."""
+    o = acc.shape[-1] // 2
     while o:
         acc = acc[..., :o] + acc[..., o:2 * o]
         o //= 2
     return acc[..., 0]
+
+
+def _lane_sum(x, G):
+    r"""``x (..., K)`` summed over its last axis in the order of the
+    adjoints' lane route: each lane's orders in turn (:func:`_lane_parts`),
+    then the group's lanes (:func:`_group_sum`). ``G`` 1 is the one-thread
+    route's order, one order at a time (:func:`_ksum`)."""
+    if G == 1:
+        return _ksum(x)
+    return _group_sum(_lane_parts(x, G))
 
 
 def _warp_sums(r, W=32):
@@ -449,19 +472,25 @@ def spgr_bwd_torch(coef, par, cdiff, cfg: SpgrCfg, chk, g, *, tc: int):
 
     ``chk``: its checkpoints at the same ``tc``; ``g``: the echoes'
     cotangent `(nA, nTR, 2)`. Returns ``(dcoef (nC, nTR), dpar (7,
-    nA))``."""
+    nA))``. Every sum over the orders is taken in the order of the route
+    the kernel takes at this shape (:func:`adjoint_cfg`,
+    :func:`_lane_sum`), and the per-TR rows by warps (:func:`_warp_sums`),
+    then over the warps, as the kernel and its wrapper sum them."""
     nTR = coef.shape[1]
     _check_tc(nTR, tc)
     ntc, K = chk.shape[0], cfg.K
     if ntc != nTR // tc:
         raise ValueError(f'chk holds {ntc} states, but nTR={nTR} in chunks '
                          f'of tc={tc} gives {nTR // tc}')
+    # the sums over the orders in the order of the kernel's route
+    G = adjoint_cfg(K, par.element_size(), 6, tc).G
     p = par.unsqueeze(-1)
     E1, E2, M0 = p[0], p[1], p[2]
     zero = torch.zeros_like(p[0])
     h = (torch.zeros_like(chk[0, 0].T),) * 6
     aE1 = aE2 = aE2te = arec = ab1 = aDq = zero
-    dcoef = coef.new_zeros(cfg.nC, nTR)
+    # each warp's per-TR rows (a warp holds 32 / G atoms), as the kernel's
+    dcf = coef.new_zeros((-(-par.shape[1] * G // 32), nTR, cfg.nC))
     for j in reversed(range(ntc)):
         # phase 1: the forward from the chunk's start state, every state
         s = tuple(chk[j, q].T for q in range(6))
@@ -503,7 +532,7 @@ def spgr_bwd_torch(coef, par, cdiff, cfg: SpgrCfg, chk, g, *, tc: int):
                       -h1Zr * (Fpr + Fmr) - h1Zi * (Fpi + Fmi),
                       h1Zr * (Fpi - Fmi) + h1Zi * (Fmr - Fpr),
                       h1Zr * Zr + h1Zi * Zi]
-            sums = _ksum(torch.stack(terms)).unsqueeze(-1)   # (n, nA, 1)
+            sums = _lane_sum(torch.stack(terms), G).unsqueeze(-1)  # (n,)
             if att is not None:
                 contr, sums = -sums[0], sums[1:]
             (d_E2_t, d_E1_t, d_ca2, d_sc2, d_ss2, d_ss, d_sc, d_hs, d_hc,
@@ -540,12 +569,13 @@ def spgr_bwd_torch(coef, par, cdiff, cfg: SpgrCfg, chk, g, *, tc: int):
                         zero]
             if cfg.vartr:
                 rows += [d_tr_row, d_te_row]
-            dcoef[:, t] = torch.cat(rows, dim=1).sum(dim=0)
+            dcf[:, t] = _warp_sums(torch.cat(rows, dim=1), 32 // G)
             h = _mix_T(tg, h)
     # the initial state is z0 on Z(0)'s real part
     dz0 = h[4][:, :1]
     dpar = torch.cat([aE1, aE2, aE2te, arec, dz0, ab1, aDq], dim=1).T
-    return dcoef, dpar.contiguous()
+    # the warps' rows summed as the wrapper sums the kernel's
+    return dcf.sum(dim=0).T.contiguous(), dpar.contiguous()
 
 
 # ==========================================================================
@@ -792,11 +822,12 @@ def launch_cfg(K: int, itemsize: int, planes: int = 6):
     return (best[0], True) if best else (128, False)
 
 
-# The adjoints K18 (cpmg_bwd), K21 (xspgr_bwd) and K24 (xspgr_v_bwd) on
-# their lane route: 128 threads a block, a group of G lanes per atom, at
-# most LANE_SLOTS_MAX order slots a lane (their registers: one pool's 6
-# planes, two pools' 12; by itemsize), at most LANE_STATES_MAX chunk
-# states an atom in shared memory, sized so LANE_BLOCKS blocks fit an SM.
+# The adjoints K15 (spgr_bwd), K18 (cpmg_bwd), K21 (xspgr_bwd), K24
+# (xspgr_v_bwd), K27 (xcpmg_bwd) and K30 (xcpmg_v_bwd) on their lane route: 128
+# threads a block, a group of G lanes per atom, at most LANE_SLOTS_MAX order
+# slots a lane (their registers: one pool's 6 planes, two pools' 12; by
+# itemsize), at most LANE_STATES_MAX chunk states an atom in shared memory,
+# sized so LANE_BLOCKS blocks fit an SM.
 LANE_THREADS = 128
 LANE_WIDTHS = (8, 16, 32)
 LANE_SLOTS_MAX = {(6, 4): 5, (6, 8): 2, (12, 4): 3, (12, 8): 1}
@@ -809,12 +840,12 @@ LANE_CHK_BYTES = 16 << 30
 
 
 class AdjointCfg(NamedTuple):
-    r"""How K18, K21 or K24 runs: ``route`` ``'lanes'``
-    (``csrc/cpmg_bwd_lanes.cu``, ``csrc/xspgr_bwd_lanes.cu``: ``G`` lanes
-    per atom, ``M`` order slots a lane, at most ``S`` chunk states an atom
-    in shared memory, a block using tc of them) or ``'thread'``
-    (``csrc/cpmg_bwd.cu``, ``csrc/xspgr_bwd.cu``: one thread per atom,
-    :func:`launch_cfg`; ``G`` 1)."""
+    r"""How K15, K18, K21, K24, K27 or K30 runs: ``route`` ``'lanes'``
+    (``csrc/*_bwd_lanes.cu``: ``G`` lanes per atom, ``M`` order slots a
+    lane, at most ``S`` chunk states an atom in shared memory, a block
+    using tc of them) or ``'thread'`` (``csrc/spgr_bwd.cu``,
+    ``cpmg_bwd.cu``, ``xspgr_bwd.cu``, ``xcpmg_bwd.cu``: one thread per
+    atom, :func:`launch_cfg`; ``G`` 1)."""
     route: str
     G: int
     M: int
@@ -823,13 +854,14 @@ class AdjointCfg(NamedTuple):
 
 def lane_capacity(K: int, itemsize: int, planes: int = 6):
     r"""The lane route's :class:`AdjointCfg` for ``K`` orders of ``planes``
-    planes (6: K18; 12: K21, K24) at ``itemsize``, or None where an atom's
-    orders do not fit: the narrowest group of 8, 16 or 32 lanes whose
-    ``M = ⌈K/G⌉`` slots fit ``LANE_SLOTS_MAX``, and ``S`` the states of
-    ``M·G`` orders that shared memory holds for ``LANE_BLOCKS`` blocks an
-    SM (at most ``LANE_STATES_MAX``). Float32: K ≤ 160 for one pool
-    (K 33: G 8, M 5, S 4), K ≤ 96 for two (K 48: G 16, M 3, S 4; K 24: G 8,
-    M 3, S 4); float64: K ≤ 64 and K ≤ 32."""
+    planes (6: K15, K18; 12: K21, K24, K27, K30) at ``itemsize``, or None
+    where an atom's orders do not fit: the narrowest group of 8, 16 or 32
+    lanes whose ``M = ⌈K/G⌉`` slots fit ``LANE_SLOTS_MAX``, and ``S`` the
+    states of ``M·G`` orders that shared memory holds for ``LANE_BLOCKS``
+    blocks an SM (at most ``LANE_STATES_MAX``). Float32: K ≤ 160 for one
+    pool (K 33: G 8, M 5, S 4; K 48: G 16, M 3, S 7; K 16: G 8, M 2, S 8),
+    K ≤ 96 for two (K 48: G 16, M 3, S 4; K 33: G 16, M 3, S 4; K 24: G 8,
+    M 3, S 4); float64: K ≤ 64 (K 32: G 16, M 2, S 5) and K ≤ 32."""
     mmax = LANE_SLOTS_MAX[(planes, itemsize)]
     for G in LANE_WIDTHS:
         M = -(-K // G)
@@ -845,12 +877,13 @@ def lane_capacity(K: int, itemsize: int, planes: int = 6):
 
 
 def adjoint_cfg(K: int, itemsize: int, planes: int, tc: int) -> AdjointCfg:
-    r"""The route of K18 (``planes`` 6) or K21/K24 (12) at chunk length
-    ``tc``, by shape alone: the lanes where :func:`lane_capacity` fits and
-    ``tc`` ≤ its ``S``, else one thread per atom (K 401 and float64 K 201 of
-    one pool; K 201 and float64 K 101 of two; or a ``tc`` past ``S``, which
-    :func:`adjoint_tc` gives where the capped chunk's checkpoints would
-    pass ``LANE_CHK_BYTES``)."""
+    r"""The route of K15/K18 (``planes`` 6) or K21/K24/K27/K30 (12) at chunk
+    length ``tc``, by shape alone: the lanes where :func:`lane_capacity`
+    fits and ``tc`` ≤ its ``S``, else one thread per atom (K > 160 and
+    float64 K > 64 of one pool; K > 96 and float64 K > 32 of two, the
+    32-echo train's K 33 in float64 among them; or a ``tc`` past ``S``,
+    which :func:`adjoint_tc` gives where the capped chunk's checkpoints
+    would pass ``LANE_CHK_BYTES``)."""
     cap = lane_capacity(K, itemsize, planes)
     if cap is not None and tc <= cap.S:
         return cap
@@ -859,16 +892,18 @@ def adjoint_cfg(K: int, itemsize: int, planes: int, tc: int) -> AdjointCfg:
 
 def adjoint_tc(nTR: int, K: int, nA: int, itemsize: int,
                planes: int = 6) -> int:
-    r"""The chunk length of K18 and K21/K24 (and so of their forwards K17,
-    K20, K23): :func:`pick_tc`, capped where the lane route takes the
-    shape by the ``S`` states its shared memory keeps, to the largest
-    divisor of ``nTR`` within both (more checkpoints, each read once), as
-    long as those ``nTR/tc`` checkpoints of ``planes·K·nA`` values fit
-    ``LANE_CHK_BYTES``; past that, :func:`pick_tc`'s (one thread per atom).
-    T2 map 1,048,576 × 32: 2 (pick_tc's); bench_mrf CPMG 65,536 × 32: 4
-    (pick_tc 32; 0.42 GB); two-pool 65,536 × 400, K 48: 4 (pick_tc 10;
-    15.1 GB against 6.0); at 131,072 atoms 5 (pick_tc's: 30.2 GB would
-    pass the budget)."""
+    r"""The chunk length of the adjoints K15, K18, K21/K24 and K27/K30 (and so
+    of their forwards K14, K17, K20, K23, K26, K29): :func:`pick_tc`,
+    capped where the lane route takes the shape by the ``S`` states its
+    shared memory keeps, to the largest divisor of ``nTR`` within both
+    (more checkpoints, each read once), as long as those ``nTR/tc``
+    checkpoints of ``planes·K·nA`` values fit ``LANE_CHK_BYTES``; past
+    that, :func:`pick_tc`'s (one thread per atom). T2 map 1,048,576 × 32: 2
+    (pick_tc's); bench_mrf CPMG 65,536 × 32: 4 (pick_tc 32; 0.42 GB); two-
+    pool 65,536 × 400, K 48: 4 (pick_tc 10; 15.1 GB against 6.0); at
+    131,072 atoms 5 (pick_tc's: 30.2 GB would pass the budget); one pool
+    65,536 × 400, K 48: 5 (pick_tc 25; 6.04 GB against 1.21); the MWF fit's
+    block 262,144 × 32, K 33, two pools: 4 (pick_tc's)."""
     tc = pick_tc(nTR, K, nA, itemsize, planes)
     cap = lane_capacity(K, itemsize, planes)
     if cap is None or tc <= cap.S:
@@ -931,23 +966,31 @@ def _launch_bwd(coef, par, cdiff, cfg, chk, g, tc):
     dt, dev = par.dtype, par.device
     _check(chk, 'chk', (nTR // tc, 6, cfg.K, nA), dt, dev)
     _check(g, 'g', (nA, nTR, 2), dt, dev)
-    threads, in_smem = launch_cfg(cfg.K, par.element_size())
-    nwarp = -(-nA // 32)
-    # phase 1's pre-RF states of one chunk (the first is chk's own), the
-    # adjoint state when it does not fit in shared memory, and each warp's
-    # per-TR coefficient rows (summed over its atoms)
-    scratch = torch.empty((max(tc - 1, 1), 6, cfg.K, nA), dtype=dt,
-                          device=dev)
-    hstate = None if in_smem else torch.empty((6, cfg.K, nA), dtype=dt,
-                                              device=dev)
+    route = adjoint_cfg(cfg.K, par.element_size(), 6, tc)
     dpar = torch.empty((7, nA), dtype=dt, device=dev)
-    dcf = torch.empty((nwarp, nTR, cfg.nC), dtype=dt, device=dev)
+    # each warp's per-TR coefficient rows (summed over its atoms)
+    dcf = torch.empty((-(-nA * route.G // 32), nTR, cfg.nC), dtype=dt,
+                      device=dev)
     lib, _ = library()
-    with torch.cuda.device(dev):
-        err = _entry(lib, 'spgr_bwd', dt)(
-            *map(_ptr, (coef, par, cdiff, chk, g, scratch, hstate, dpar,
-                        dcf)), nA, nTR, cfg.nC, cfg.K, cfg.kshift, cfg.flags,
-            tc, threads, _stream(dev))
+    if route.route == 'lanes':
+        with torch.cuda.device(dev):
+            err = _entry(lib, 'spgr_bwd_lanes', dt)(
+                *map(_ptr, (coef, par, cdiff, chk, g, dpar, dcf)), nA, nTR,
+                cfg.nC, cfg.K, cfg.kshift, cfg.flags, tc, route.G, route.M,
+                _stream(dev))
+    else:
+        threads, in_smem = launch_cfg(cfg.K, par.element_size())
+        # phase 1's pre-RF states of one chunk (the first is chk's own) and
+        # the adjoint state when it does not fit in shared memory
+        scratch = torch.empty((max(tc - 1, 1), 6, cfg.K, nA), dtype=dt,
+                              device=dev)
+        hstate = None if in_smem else torch.empty((6, cfg.K, nA), dtype=dt,
+                                                  device=dev)
+        with torch.cuda.device(dev):
+            err = _entry(lib, 'spgr_bwd', dt)(
+                *map(_ptr, (coef, par, cdiff, chk, g, scratch, hstate, dpar,
+                            dcf)), nA, nTR, cfg.nC, cfg.K, cfg.kshift,
+                cfg.flags, tc, threads, _stream(dev))
     _raise_on(err, 'spgr_bwd')
     LAUNCHES['spgr_bwd'] += 1
     # the warps' partial rows, summed in a fixed order
@@ -987,7 +1030,8 @@ class _Spgr(torch.autograd.Function):
             if plain:
                 return spgr_fwd_torch(coef, par, cdiff, cfg)
             return _launch_fwd(coef, par, cdiff, cfg, None)[0]
-        tc = pick_tc(coef.shape[1], cfg.K, par.shape[1], par.element_size())
+        tc = adjoint_tc(coef.shape[1], cfg.K, par.shape[1],
+                        par.element_size())
         if plain:
             sig, chk = spgr_fwd_chk_torch(coef, par, cdiff, cfg, tc=tc)
         else:

@@ -29,7 +29,7 @@ below) at a fixed TR and over a variable-TR train:
   chosen by shape alone (:func:`mrphy_tpu_torch.kernels.epg.adjoint_cfg`):
   a group of lanes per atom over the orders with the chunk's states in
   shared memory where they fit (the entry points' chunk,
-  :func:`_xspgr_chunk`, is capped so), one thread per atom otherwise.
+  :func:`_adjoint_chunk`, is capped so), one thread per atom otherwise.
 - ``xspgr_v_fwd``, ``xspgr_v_fwd_chk`` and ``xspgr_v_bwd`` (the same two
   sources, instances for a variable-TR train; replace ``_epgx_v_kernel``,
   ``_xv_fwd_chk_kernel`` and ``_xv_bwd_kernel``): the same recursions
@@ -67,39 +67,40 @@ torch autograd of their construction (:func:`mrphy_tpu_torch.ops.epg.
 _xspgr_rows`); ``M0a``/``M0b`` reach the echoes twice, through ``Z(0)``
 and through the recovery, and autograd adds both.
 
-Each kernel has beside it its plain PyTorch version (``*_torch``: a loop
-over TRs on ``(nA, K)`` planes in the kernel's order of operations, the
-single-pool SPGR step functions of :mod:`mrphy_tpu_torch.kernels.epg` for
-each pool's mix and shift, sums over the orders one order at a time; the
-adjoint's uses no autograd) and a launch count, ``LAUNCHES[name]``, raised
-by one at every launch of the kernel and nowhere else. :func:`xspgr` is
-their ``torch.autograd.Function``: ``xspgr_fwd`` with no gradient needed,
-otherwise ``xspgr_fwd_chk`` with ``xspgr_bwd`` as its backward (the
-kernels on CUDA tensors, no fallback; the plain versions on CPU tensors);
-:func:`xspgr_v` the same for the variable-TR kernels.
-The adjoint's per-chunk scratch lies in device memory, its chunk sized by
-:func:`mrphy_tpu_torch.kernels.epg.pick_tc` for 12 planes.
+Each kernel has beside it its plain PyTorch version (``*_torch``: a loop over
+TRs on ``(nA, K)`` planes in the kernel's order of operations, the single-pool
+SPGR step functions of :mod:`mrphy_tpu_torch.kernels.epg` for each pool's mix
+and shift, sums over the orders in the order of the kernel's route; the
+adjoint's uses no autograd) and a launch count, ``LAUNCHES[name]``, raised by
+one at every launch of the kernel and nowhere else. :func:`xspgr` is their
+``torch.autograd.Function``: ``xspgr_fwd`` with no gradient needed, otherwise
+``xspgr_fwd_chk`` with ``xspgr_bwd`` as its backward (the kernels on CUDA
+tensors, no fallback; the plain versions on CPU tensors); :func:`xspgr_v` the
+same for the variable-TR kernels. Their chunk is :func:`_adjoint_chunk`'s
+(``adjoint_tc`` for 12 planes); the one-thread route's per-chunk scratch lies
+in device memory.
 
-The two-pool CPMG kernels (``csrc/xcpmg_fwd.cu``, ``csrc/xcpmg_bwd.cu``)
-are the same three for the spin-echo train of myelin-water mapping:
-``xcpmg_fwd`` (replaces ``_xcpmg_kernel``), ``xcpmg_fwd_chk``
-(``_xcpmg_fwd_chk_kernel``) and ``xcpmg_bwd`` (``_xcpmg_bwd_kernel``). From
-the closed-form state a π/2 excitation about ``φ_ex`` leaves on the
-equilibrium (``F± = (sin φ_ex ∓ i·cos φ_ex)·M0p``, ``Z = 0``, per pool),
-per echo: the exchange–relaxation over esp/2 and a unit shift of both
-pools, the refocusing mix about +x on both pools (CPMG's single-pool
-``_mix``), the same half again, the echo ``Fa+(0) + Fb+(0)``. Arguments,
-as ``_xcpmg_dispatch`` (``epg_pallas.py:781-819``) builds them: ``coef (5,
-nE)`` ``[cos²(α/2), sin²(α/2), sin α, cos α, α]``, ``pk (19, nA)`` ``[E00r,
-…, Z11, ra, rb, cos φ_ex, sin φ_ex, M0a, M0b, b1]`` (the propagator over
-esp/2), ``cfg`` :class:`XcpmgCfg`. The echoes come as ``(er, ei)``, each
-``(nE, nA)``; the adjoint returns ``dcoef (5, nE)`` and ``dpk (19, nA)``
-(the 14 entries' gradients summed over both halves of every echo, then
-those of ``cos φ_ex``, ``sin φ_ex``, ``M0a``, ``M0b`` through the initial
-state, and ``db1``). :func:`xcpmg` is their autograd Function.
+The two-pool CPMG kernels (``csrc/xcpmg_fwd.cu``; the adjoint's two routes
+``csrc/xcpmg_bwd_lanes.cu`` and ``csrc/xcpmg_bwd.cu``, chosen by shape alone as
+``xspgr_bwd``'s) are the same three for the spin-echo train of myelin-water
+mapping: ``xcpmg_fwd`` (replaces ``_xcpmg_kernel``), ``xcpmg_fwd_chk``
+(``_xcpmg_fwd_chk_kernel``) and ``xcpmg_bwd`` (``_xcpmg_bwd_kernel``). From the
+closed-form state a π/2 excitation about ``φ_ex`` leaves on the equilibrium
+(``F± = (sin φ_ex ∓ i·cos φ_ex)·M0p``, ``Z = 0``, per pool), per echo: the
+exchange–relaxation over esp/2 and a unit shift of both pools, the refocusing
+mix about +x on both pools (CPMG's single-pool ``_mix``), the same half again,
+the echo ``Fa+(0) + Fb+(0)``. Arguments, as ``_xcpmg_dispatch``
+(``epg_pallas.py:781-819``) builds them: ``coef (5, nE)`` ``[cos²(α/2),
+sin²(α/2), sin α, cos α, α]``, ``pk (19, nA)`` ``[E00r, …, Z11, ra, rb, cos
+φ_ex, sin φ_ex, M0a, M0b, b1]`` (the propagator over esp/2), ``cfg``
+:class:`XcpmgCfg`. The echoes come as ``(er, ei)``, each ``(nE, nA)``; the
+adjoint returns ``dcoef (5, nE)`` and ``dpk (19, nA)`` (the 14 entries'
+gradients summed over both halves of every echo, then those of ``cos φ_ex``,
+``sin φ_ex``, ``M0a``, ``M0b`` through the initial state, and ``db1``).
+:func:`xcpmg` is their autograd Function.
 
 Over an echo-spacing train (``_xcpmg_v_dispatch``,
-``epg_pallas.py:3652-3674``) the same two sources give ``xcpmg_v_fwd``
+``epg_pallas.py:3652-3674``) the same sources give ``xcpmg_v_fwd``
 (replaces ``_xcpmg_v_kernel``), ``xcpmg_v_fwd_chk`` (``_xcv_fwd_chk_kernel``)
 and ``xcpmg_v_bwd`` (``_xcv_bwd_kernel``): ``pk (5, nA) = [cos φ_ex, sin
 φ_ex, M0a, M0b, b1]`` and the per-echo planes ``pkt (nE, 14, nA)``, the
@@ -147,7 +148,8 @@ from torch.autograd.function import once_differentiable
 
 from mrphy_tpu_torch.kernels.bloch import (_check, _check_tc, _device_kind,
                                            _ptr, _raise_on, _stream)
-from mrphy_tpu_torch.kernels.epg import (_at0, _entry, _flip_trig, _ksum,
+from mrphy_tpu_torch.kernels.epg import (_at0, _entry, _flip_trig,
+                                         _group_sum, _ksum, _lane_parts,
                                          _lane_sum, _mix, _mix0_terms, _mix_T,
                                          _shift, _shift_T, _trig, _warp_sums,
                                          adjoint_cfg, adjoint_tc, launch_cfg,
@@ -652,14 +654,9 @@ def xspgr_v_bwd(coef, pk, pkt, cfg: XspgrCfg, chk, g, *, tc: int):
     return _launch_bwd(coef, pk, cfg, chk, g, tc, pkt)
 
 
-def _chunk(coef, par, cfg):
-    return pick_tc(coef.shape[1], cfg.K, par.shape[1], par.element_size(),
-                   PLANES)
-
-
-def _xspgr_chunk(coef, par, cfg):
-    r"""The EPG-X SPGR adjoint's chunk, capped for its lane route
-    (:func:`~mrphy_tpu_torch.kernels.epg.adjoint_tc`)."""
+def _adjoint_chunk(coef, par, cfg):
+    r"""The two-pool adjoints' chunk (EPG-X SPGR and CPMG), capped for their
+    lane route (:func:`~mrphy_tpu_torch.kernels.epg.adjoint_tc`)."""
     return adjoint_tc(coef.shape[1], cfg.K, par.shape[1], par.element_size(),
                       PLANES)
 
@@ -671,7 +668,7 @@ class _Xspgr(torch.autograd.Function):
         ctx.cfg = cfg
         if not any(ctx.needs_input_grad[1:3]):
             return xspgr_fwd(coef, par, cfg)
-        tc = _xspgr_chunk(coef, par, cfg)
+        tc = _adjoint_chunk(coef, par, cfg)
         sig, chk = xspgr_fwd_chk(coef, par, cfg, tc=tc)
         ctx.tc = tc
         ctx.save_for_backward(coef, par, chk)
@@ -693,7 +690,7 @@ class _XspgrV(torch.autograd.Function):
         ctx.cfg = cfg
         if not any(ctx.needs_input_grad[1:4]):
             return xspgr_v_fwd(coef, pk, pkt, cfg)
-        tc = _xspgr_chunk(coef, pk, cfg)
+        tc = _adjoint_chunk(coef, pk, cfg)
         sig, chk = xspgr_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)
         ctx.tc = tc
         ctx.save_for_backward(coef, pk, pkt, chk)
@@ -776,7 +773,7 @@ def _xcpmg_fwd(coef, rows, cfg, tc):
     return torch.stack(er), torch.stack(ei), chk
 
 
-def _xcpmg_bwd(coef, rows, cfg, chk, gr, gi, tc, take):
+def _xcpmg_bwd(coef, rows, cfg, chk, gr, gi, tc, per_echo):
     r"""The two-phase chunk adjoint of :func:`_xcpmg_fwd` from its
     checkpoints ``chk`` at chunk length ``tc`` and the echoes' cotangent
     ``gr``/``gi`` (each ``(nE, nA)``), with no autograd. Per echo, newest
@@ -786,14 +783,24 @@ def _xcpmg_bwd(coef, rows, cfg, chk, gr, gi, tc, take):
     the refocusing mix's coefficient terms (both pools, order by order) and
     transpose, the shift's transpose, the exchange–relaxation's transpose at
     the stored pre-echo state. Under ``b1`` the angle's gradient goes to
-    ``db1`` and to the flip row, the other coefficient rows stay 0. The
-    per-echo rows are summed over the atoms in the kernels' order: by
-    warps of 32 (:func:`_warp_sums`), then over the warps by one
-    ``torch.sum``, as the wrappers sum the kernels' partial rows.
-    ``take(t, d2, d1)`` receives echo ``t``'s 14 entry gradients of the
-    second half ``d2`` and of the first ``d1`` (each `(nA, 1)`). Returns
-    ``(dcoef (5, nE), tail)``, ``tail`` the `(nA, 1)` gradients ``[d cos
-    φ_ex, d sin φ_ex, dM0a, dM0b]`` of the initial state and ``db1``."""
+    ``db1`` and to the flip row, the other coefficient rows stay 0.
+
+    Every sum is taken in the order of the route the kernel takes at this
+    shape (:func:`~mrphy_tpu_torch.kernels.epg.adjoint_cfg`): the mix's
+    terms over the orders by ``_lane_sum``; the 12 entry terms on the
+    one-thread route (``G`` 1) over each half's orders one order at a
+    time, the second half's sum then the first's added, and on the lane
+    route each lane's orders in turn over the second half then the first
+    (``_lane_parts``), over the whole train at a fixed spacing and per echo
+    with ``per_echo``, the group's lanes added last (``_group_sum``); ∂ra and
+    ∂rb (order 0's) the second half's then the first's. The per-echo rows
+    are summed over the atoms by warps of ``32 / G``
+    (:func:`_warp_sums`), then over the warps by one ``torch.sum``, as the
+    wrappers sum the kernels' partial rows. Returns ``(dcoef (5, nE),
+    tail, ents)``: ``tail`` the `(nA, 1)` gradients ``[d cos φ_ex, d sin
+    φ_ex, dM0a, dM0b]`` of the initial state and ``db1``; ``ents`` the 14
+    entries' gradients summed over the train (each `(nA, 1)`), or with
+    ``per_echo`` each echo's, both halves', ``(nE, 14, nA)``."""
     nE = coef.shape[1]
     _check_tc(nE, tc)
     ntc = chk.shape[0]
@@ -801,9 +808,17 @@ def _xcpmg_bwd(coef, rows, cfg, chk, gr, gi, tc, take):
         raise ValueError(f'chk holds {ntc} states, but nE={nE} in chunks '
                          f'of tc={tc} gives {nE // tc}')
     zero = torch.zeros_like(rows(0)[0])
+    nA = zero.shape[0]
     h = (torch.zeros_like(chk[0, 0].T),) * PLANES
+    G = adjoint_cfg(cfg.K, chk.element_size(), PLANES, tc).G
     ab1 = zero
-    dcf = coef.new_zeros((-(-zero.shape[0] // 32), nE, XcpmgCfg.nC))
+    # the entries' sums: 14 on the one-thread route; each lane's 12 and
+    # lane 0's ∂ra, ∂rb on the lane route
+    acc = [zero] * NENT
+    lanes = chk.new_zeros((12, nA, G))
+    dpkt = chk.new_empty((nE, NENT, nA)) if per_echo else None
+    # each warp's per-echo rows (a warp holds 32 / G atoms), as the kernel's
+    dcf = coef.new_zeros((-(-nA * G // 32), nE, XcpmgCfg.nC))
     for j in reversed(range(ntc)):
         # phase 1: the forward from the chunk's start state, every state
         s = tuple(chk[j, q].T for q in range(PLANES))
@@ -834,9 +849,24 @@ def _xcpmg_bwd(coef, rows, cfg, chk, gr, gi, tc, take):
             h = _mix_T(tg, h[:6]) + _mix_T(tg, h[6:])
             h = _shift_T(h[:6], 1) + _shift_T(h[6:], 1)
             h, t1, r1 = _xrelax_T(p, h, s)
-            sums = _ksum(torch.stack(t2 + tm + t1)).unsqueeze(-1)  # (29,)
-            take(t, list(sums[:12]) + list(r2), list(sums[17:]) + list(r1))
-            d_ca2, d_sa2, d_sc, d_hc, d_ca = sums[12:17]
+            t2, t1 = torch.stack(t2), torch.stack(t1)
+            if G == 1:
+                d2 = list(_ksum(t2).unsqueeze(-1)) + list(r2)
+                d1 = list(_ksum(t1).unsqueeze(-1)) + list(r1)
+                if per_echo:
+                    dpkt[t] = torch.cat([x + y for x, y in zip(d2, d1)],
+                                        dim=1).T
+                else:
+                    acc = [(a + x) + y for a, x, y in zip(acc, d2, d1)]
+            elif per_echo:
+                ents = _group_sum(_lane_parts(t1, G, _lane_parts(t2, G)))
+                dpkt[t] = torch.cat([ents.T] + [x + y for x, y in
+                                                zip(r2, r1)], dim=1).T
+            else:
+                lanes = _lane_parts(t1, G, _lane_parts(t2, G, lanes))
+                acc[12:] = [(a + x) + y for a, x, y in zip(acc[12:], r2, r1)]
+            d_ca2, d_sa2, d_sc, d_hc, d_ca = _lane_sum(
+                torch.stack(tm), G).unsqueeze(-1)
             d_sa = d_sc + 0.5 * d_hc
             if cfg.has_b1:
                 # α = flip·b1 through the half-angle trig
@@ -845,7 +875,9 @@ def _xcpmg_bwd(coef, rows, cfg, chk, gr, gi, tc, take):
                 rows_t = [zero, zero, zero, zero, d_al * p[18]]
             else:
                 rows_t = [d_ca2, d_sa2, d_sa, d_ca, zero]
-            dcf[:, t] = _warp_sums(torch.cat(rows_t, dim=1))
+            dcf[:, t] = _warp_sums(torch.cat(rows_t, dim=1), 32 // G)
+    if G > 1 and not per_echo:
+        acc[:12] = list(_group_sum(lanes).unsqueeze(-1))
     # the excitation's state: per pool F+(0) = (exs, −exc)·M0p, F−(0) =
     # (exs, exc)·M0p
     exc, exs, M0a, M0b = rows(0)[14:18]
@@ -855,7 +887,7 @@ def _xcpmg_bwd(coef, rows, cfg, chk, gr, gi, tc, take):
     ib_ = -h[7][:, :1] + h[9][:, :1]
     return dcf.sum(dim=0).T.contiguous(), [
         M0a * ia_ + M0b * ib_, M0a * ra_ + M0b * rb_, exs * ra_ + exc * ia_,
-        exs * rb_ + exc * ib_, ab1]
+        exs * rb_ + exc * ib_, ab1], (dpkt if per_echo else acc)
 
 
 def xcpmg_fwd_torch(coef, pk, cfg: XcpmgCfg):
@@ -880,17 +912,11 @@ def xcpmg_bwd_torch(coef, pk, cfg: XcpmgCfg, chk, gr, gi, *, tc: int):
 
     ``chk``: its checkpoints at the same ``tc``; ``gr``/``gi``: the echoes'
     cotangent, each ``(nE, nA)``. Returns ``(dcoef (5, nE), dpk (19,
-    nA))``: the 14 entries' gradients (second half, then first, added per
-    echo), ``[d cos φ_ex, d sin φ_ex, dM0a, dM0b]`` of the initial state,
-    ``db1``."""
-    acc = [torch.zeros_like(pk[:1].T)] * NENT
-
-    def take(t, d2, d1):
-        acc[:] = [(a + x) + y for a, x, y in zip(acc, d2, d1)]
-
-    dcoef, tail = _xcpmg_bwd(coef, _fixed_rows(pk), cfg, chk, gr, gi, tc,
-                             take)
-    return dcoef, torch.cat(acc + tail, dim=1).T.contiguous()
+    nA))``: the 14 entries' gradients (both halves of every echo), ``[d cos
+    φ_ex, d sin φ_ex, dM0a, dM0b]`` of the initial state, ``db1``."""
+    dcoef, tail, ents = _xcpmg_bwd(coef, _fixed_rows(pk), cfg, chk, gr, gi,
+                                   tc, False)
+    return dcoef, torch.cat(ents + tail, dim=1).T.contiguous()
 
 
 def xcpmg_v_fwd_torch(coef, pk, pkt, cfg: XcpmgCfg):
@@ -918,13 +944,8 @@ def xcpmg_v_bwd_torch(coef, pk, pkt, cfg: XcpmgCfg, chk, gr, gi, *,
     initial state only (their share through the recovery ``ra``/``rb`` is in
     ``dpkt``), ``dpkt[t]`` the gradients of ``pkt[t]``, the second half's
     and the first's added."""
-    dpkt = torch.empty_like(pkt)
-
-    def take(t, d2, d1):
-        dpkt[t] = torch.cat([x + y for x, y in zip(d2, d1)], dim=1).T
-
-    dcoef, tail = _xcpmg_bwd(coef, _train_rows(pk, pkt), cfg, chk, gr, gi,
-                             tc, take)
+    dcoef, tail, dpkt = _xcpmg_bwd(coef, _train_rows(pk, pkt), cfg, chk, gr,
+                                   gi, tc, True)
     return dcoef, torch.cat(tail, dim=1).T.contiguous(), dpkt
 
 
@@ -992,26 +1013,34 @@ def _launch_xcpmg_bwd(coef, pk, cfg, chk, gr, gi, tc, pkt=None):
     _check(chk, 'chk', (nE // tc, PLANES, cfg.K, nA), dt, dev)
     _check(gr, 'gr', (nE, nA), dt, dev)
     _check(gi, 'gi', (nE, nA), dt, dev)
-    threads, in_smem = launch_cfg(cfg.K, pk.element_size(), PLANES)
-    # phase 1's pre-echo states of one chunk (the first is chk's own), the
-    # adjoint state when it does not fit in shared memory, and each warp's
-    # per-echo coefficient rows (summed over its atoms)
-    scratch = torch.empty((max(tc - 1, 1), PLANES, cfg.K, nA), dtype=dt,
-                          device=dev)
-    hstate = None if in_smem else torch.empty((PLANES, cfg.K, nA), dtype=dt,
-                                              device=dev)
+    route = adjoint_cfg(cfg.K, pk.element_size(), PLANES, tc)
     dpk = torch.empty(pk.shape, dtype=dt, device=dev)
-    dcf = torch.empty((-(-nA // 32), nE, cfg.nC), dtype=dt, device=dev)
+    # each warp's per-echo coefficient rows (summed over its atoms)
+    dcf = torch.empty((-(-nA * route.G // 32), nE, cfg.nC), dtype=dt,
+                      device=dev)
     if pkt is None:
         ins, outs = (coef, pk, chk, gr, gi), (dpk, dcf)
     else:
         dpkt = torch.empty((nE, NENT, nA), dtype=dt, device=dev)
         ins, outs = (coef, pk, pkt, chk, gr, gi), (dpk, dcf, dpkt)
     lib, _ = library()
-    with torch.cuda.device(dev):
-        err = _entry(lib, name, dt)(
-            *map(_ptr, ins + (scratch, hstate) + outs), nA, nE, cfg.K,
-            cfg.flags, tc, threads, _stream(dev))
+    if route.route == 'lanes':
+        with torch.cuda.device(dev):
+            err = _entry(lib, name + '_lanes', dt)(
+                *map(_ptr, ins + outs), nA, nE, cfg.K, cfg.flags, tc,
+                route.G, route.M, _stream(dev))
+    else:
+        threads, in_smem = launch_cfg(cfg.K, pk.element_size(), PLANES)
+        # phase 1's pre-echo states of one chunk (the first is chk's own)
+        # and the adjoint state when it does not fit in shared memory
+        scratch = torch.empty((max(tc - 1, 1), PLANES, cfg.K, nA), dtype=dt,
+                              device=dev)
+        hstate = None if in_smem else torch.empty((PLANES, cfg.K, nA),
+                                                  dtype=dt, device=dev)
+        with torch.cuda.device(dev):
+            err = _entry(lib, name, dt)(
+                *map(_ptr, ins + (scratch, hstate) + outs), nA, nE, cfg.K,
+                cfg.flags, tc, threads, _stream(dev))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     # the warps' partial rows, summed in a fixed order
@@ -1074,7 +1103,7 @@ class _Xcpmg(torch.autograd.Function):
         ctx.cfg = cfg
         if not any(ctx.needs_input_grad[1:3]):
             return xcpmg_fwd(coef, pk, cfg)
-        tc = _chunk(coef, pk, cfg)
+        tc = _adjoint_chunk(coef, pk, cfg)
         er, ei, chk = xcpmg_fwd_chk(coef, pk, cfg, tc=tc)
         ctx.tc = tc
         ctx.save_for_backward(coef, pk, chk)
@@ -1096,7 +1125,7 @@ class _XcpmgV(torch.autograd.Function):
         ctx.cfg = cfg
         if not any(ctx.needs_input_grad[1:4]):
             return xcpmg_v_fwd(coef, pk, pkt, cfg)
-        tc = _chunk(coef, pk, cfg)
+        tc = _adjoint_chunk(coef, pk, cfg)
         er, ei, chk = xcpmg_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)
         ctx.tc = tc
         ctx.save_for_backward(coef, pk, pkt, chk)

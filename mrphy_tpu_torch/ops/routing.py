@@ -29,15 +29,15 @@ with a recompute-through-XLA reverse, taken when the TPU adjoint's VMEM
 scratch and HBM partials miss their budgets
 (``epg_pallas.spgr_bwd_is_available``, ``cpmg_bwd_is_available``). The
 port has no counterpart and no such gate: the H100 adjoints ``spgr_bwd``
-and ``cpmg_bwd`` keep their per-chunk scratch in device memory and shorten
-the chunk to fit a fixed budget
-(:func:`mrphy_tpu_torch.kernels.epg.pick_tc`; ``cpmg_bwd``'s and
-``xspgr_bwd``'s chunk is capped further for their lane route while its
-checkpoints fit a budget, :func:`mrphy_tpu_torch.kernels.epg.adjoint_tc`),
-so each takes every instance
-its forward takes; so do ``xspgr_bwd``'s, ``xspgr_v_bwd``'s,
-``xcpmg_bwd``'s and ``xcpmg_v_bwd``'s, their chunk fitted for the two-pool
-state's 12 planes, and ``bssfp_bwd``'s, for an isochromat's 3 (JAX's
+and ``cpmg_bwd`` shorten the chunk to fit a fixed budget of per-chunk
+scratch in device memory (:func:`mrphy_tpu_torch.kernels.epg.pick_tc`),
+capped further for their lane route, which keeps the chunk's states on
+chip, while its checkpoints fit a budget
+(:func:`mrphy_tpu_torch.kernels.epg.adjoint_tc`), so each takes every
+instance its forward takes; so do ``xspgr_bwd``'s, ``xspgr_v_bwd``'s,
+``xcpmg_bwd``'s and ``xcpmg_v_bwd``'s, their chunk fitted and capped alike
+for the two-pool state's 12 planes, and ``bssfp_bwd``'s, for an
+isochromat's 3 (JAX's
 ``bssfp_bwd_is_available`` only warns there, and is not carried).
 ``epgx_spgr`` takes its kernels at a scalar ``tr`` and over a ``(nTR,)``
 ``tr`` train alike (the variable-TR instances ``xspgr_v_*`` stream each
@@ -108,7 +108,7 @@ def _per_voxel(kw, backend):
 
 
 def _decide_epg_spgr(kw, backend):
-    from mrphy_tpu_torch.kernels.epg import pick_tc
+    from mrphy_tpu_torch.kernels.epg import adjoint_tc
     fallback, nT = _per_voxel(kw, backend)
     if fallback:
         return fallback
@@ -120,7 +120,7 @@ def _decide_epg_spgr(kw, backend):
                '(nTR=%d, K=%d, nA=%d%s%s; the adjoint chunk tc=%d in '
                'float32)' % (nT, K, nA, ', variable tr/te' if varint else '',
                              ', diffusion' if kw.get('D') is not None
-                             else '', pick_tc(nT, K, nA, 4)))
+                             else '', adjoint_tc(nT, K, nA, 4)))
 
 
 def _decide_epg_cpmg(kw, backend):
@@ -156,7 +156,7 @@ def _decide_epgx_spgr(kw, backend):
 
 
 def _decide_epgx_cpmg(kw, backend):
-    from mrphy_tpu_torch.kernels.epg import pick_tc
+    from mrphy_tpu_torch.kernels.epg import adjoint_tc, pick_tc
     from mrphy_tpu_torch.kernels.epgx import PLANES
     fallback, nE = _per_voxel(kw, backend)
     if fallback:
@@ -164,12 +164,17 @@ def _decide_epgx_cpmg(kw, backend):
     nA = _n_atoms(kw, ('T1a', 'T2a', 'T1b', 'T2b', 'kab', 'kba', 'M0a',
                        'M0b', 'dfb', 'phi_ex', 'b1'))
     v = '_v' if len(_shape(kw.get('esp'))) == 1 else ''
+    # the scratch budget's chunk, and where the lane route caps it, its cap
+    tc = pick_tc(nE, nE + 1, nA, 4, PLANES)
+    lane_tc = adjoint_tc(nE, nE + 1, nA, 4, PLANES)
+    cap = '' if lane_tc == tc else ' by the scratch budget, %d on the ' \
+        'lane route,' % lane_tc
     return _mk('cuda-native-adjoint',
                'xcpmg%s_fwd, and xcpmg%s_fwd_chk + xcpmg%s_bwd under a '
-               'gradient (nE=%d, K=%d, nA=%d%s; the adjoint chunk tc=%d in '
+               'gradient (nE=%d, K=%d, nA=%d%s; the adjoint chunk tc=%d%s in '
                'float32)' % (v, v, v, nE, nE + 1, nA,
                              ', variable esp (per-step propagators)' if v
-                             else '', pick_tc(nE, nE + 1, nA, 4, PLANES)))
+                             else '', tc, cap))
 
 
 def _decide_epgx_mt_spgr(kw, backend):

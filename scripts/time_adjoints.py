@@ -1,5 +1,6 @@
-r"""Time the EPG adjoints K18 ``cpmg_bwd``, K21 ``xspgr_bwd`` and K24
-``xspgr_v_bwd`` at the main paths' shapes, and the path steps that run
+r"""Time the EPG adjoints K15 ``spgr_bwd``, K18 ``cpmg_bwd``, K21
+``xspgr_bwd``, K24 ``xspgr_v_bwd``, K27 ``xcpmg_bwd`` and K30
+``xcpmg_v_bwd`` at the main paths' shapes, and the path steps that run
 them, on one card, optionally against another checkout of the repository
 in the same run.
 
@@ -9,15 +10,20 @@ that side's kernels into its own ``build/kernels``, and then
 
 - for each kernel case, makes the checkpoints with the forward kernel at
   the side's own chunk length (``kernels.epg.adjoint_tc`` where the side
-  has it, else ``pick_tc``) and times the adjoint kernel alone: the median
-  of ``--reps`` CUDA-event timings after one warm-up call, with the peak
-  memory allocated;
+  has the adjoint's lane route, else ``pick_tc``), times that forward
+  (``chk_ms``) and the adjoint kernel alone: the median of ``--reps``
+  CUDA-event timings after one warm-up call, with the peak memory
+  allocated;
 - for each path case, times ``--steps`` steps through the entry points on
   the host's clock after one warm-up step, with the peak memory allocated
   over them: the T2 fit's Adam step at 1M voxels × 32 echoes
-  (``chip_smoke`` phase 20a) and the exchange-MRF refinement step of 4096
-  voxels (``ops.mrf.match_refine``, two 200-TR segments, K 48), at a
-  scalar tr (phase 22a) and over the tr trains (24a).
+  (``chip_smoke`` phase 20a), the exchange-MRF refinement step of 4096
+  voxels (``ops.mrf.match_refine``, two 200-TR segments, K 48) at a
+  scalar tr (22a) and over the tr trains (24a), ``epg_spgr``'s gradient
+  at bench_mrf_fisp width without and with diffusion (phase 16), the MRF
+  refinement step of 4096 voxels at K 16 (18a, from 10% off grid atoms),
+  and the MWF fit's Adam step over the 1M-voxel map in four blocks, at a
+  scalar esp (26a) and over ``MWF_V``'s esp train (28a).
 
 With ``--parent DIR`` the sides run in turns parent, change, change,
 parent::
@@ -49,6 +55,15 @@ CASES = (
     ('bench_mrf two-pool 64k x 400, K 48', 'xspgr_bwd', 65536, 400, 48, {}),
     ('bench_mrf variable-TR two-pool 64k x 400, K 24', 'xspgr_v_bwd', 65536,
      400, 24, dict(vartr=True)),
+    ('bench_mrf_fisp 64k x 400, K 48', 'spgr_bwd', 65536, 400, 48, {}),
+    ('bench_mrf_fisp + diffusion', 'spgr_bwd', 65536, 400, 48,
+     dict(D=True)),
+    ('MWF fit block 262,144 x 32, K 33, b1', 'xcpmg_bwd', 1 << 18, 32, None,
+     dict(mwf=True)),
+    ('bench_mrf EPG-X CPMG 64k x 32', 'xcpmg_bwd', 65536, 32, None,
+     dict(bench=True)),
+    ('MWF fit block over the esp train', 'xcpmg_v_bwd', 1 << 18, 32, None,
+     dict(mwf=True)),
 )
 
 
@@ -67,10 +82,13 @@ def side(root: Path, reps: int, steps: int, only):
     _, info = _build.library()
     print(json.dumps(dict(root=str(root), build_s=info['build_s'])),
           flush=True)
-    chooser = getattr(kepg, 'adjoint_tc', kepg.pick_tc)
     for seed, (label, kernel, nA, nT, K, kw) in enumerate(CASES, 900):
         if only and kernel not in only:
             continue
+        # the side's own chunk: adjoint_tc where the adjoint has its lane
+        # route, pick_tc's otherwise (the entry points' before it)
+        lanes = f'mrphy_{kernel}_lanes_f32' in _build._SIGNATURES
+        chooser = kepg.adjoint_tc if lanes else kepg.pick_tc
         row = dict(root=str(root), case=label, kernel=kernel)
         if kernel == 'cpmg_bwd':
             flips, ckw = cs.cpmg_case(nA, nT, torch.float32, dev, seed=seed,
@@ -79,12 +97,50 @@ def side(root: Path, reps: int, steps: int, only):
             args = (coef.contiguous(), par.contiguous(), dq.contiguous(),
                     cdiff, cfg)
             tc = chooser(nT, cfg.K, nA, 4)
-            chk = kepg.cpmg_fwd_chk(*args, tc=tc)[2]
+
+            def fwd():
+                return kepg.cpmg_fwd_chk(*args, tc=tc)[2]
+            chk = fwd()
             gr, gi = cs.cotangent(torch.empty((2, nT, nA), device=dev), seed)
 
             def run():
                 return kepg.cpmg_bwd(*args, chk, gr, gi, tc=tc)
             planes = 6
+        elif kernel == 'spgr_bwd':
+            coef, par, cdiff, cfg = cs.spgr_args(cs.mrf_fisp_case(
+                nA, nT, K, torch.float32, dev, seed=seed, **kw))
+            tc = chooser(nT, cfg.K, nA, 4)
+
+            def fwd():
+                return kepg.spgr_fwd_chk(coef, par, cdiff, cfg, tc=tc)[1]
+            chk = fwd()
+            g = cs.cotangent(torch.empty((nA, nT, 2), device=dev), seed)
+
+            def run():
+                return kepg.spgr_bwd(coef, par, cdiff, cfg, chk, g, tc=tc)
+            planes = 6
+        elif kernel.startswith('xcpmg'):
+            v = '_v' if kernel == 'xcpmg_v_bwd' else ''
+            flips, ckw = cs.xcpmg_case(nA, nT, torch.float32, dev, seed=seed,
+                                       **kw)
+            if v:
+                ckw['esp'] = torch.as_tensor(cs.MWF_V['esps'],
+                                             dtype=torch.float32, device=dev)
+            coef, pk, cfg, _ = epg._xcpmg_rows(flips, **ckw)
+            coef = coef.contiguous()
+            xp = tuple(x.contiguous() for x in (pk if v else (pk,)))
+            tc = chooser(nT, cfg.K, nA, 4, kx.PLANES)
+            fwd_chk = getattr(kx, f'xcpmg{v}_fwd_chk')
+            bwd = getattr(kx, f'xcpmg{v}_bwd')
+
+            def fwd():
+                return fwd_chk(coef, *xp, cfg, tc=tc)[2]
+            chk = fwd()
+            gr, gi = cs.cotangent(torch.empty((2, nT, nA), device=dev), seed)
+
+            def run():
+                return bwd(coef, *xp, cfg, chk, gr, gi, tc=tc)
+            planes = 12
         else:
             vartr = kernel == 'xspgr_v_bwd'
             case = cs.xmrf_case(nA, nT, K, torch.float32, dev, seed=seed,
@@ -96,26 +152,35 @@ def side(root: Path, reps: int, steps: int, only):
             g = cs.cotangent(torch.empty((nA, nT, 2), device=dev), seed)
             if vartr:
                 pk, pkt = par[0].contiguous(), par[1].contiguous()
-                chk = kx.xspgr_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)[1]
+
+                def fwd():
+                    return kx.xspgr_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)[1]
+                chk = fwd()
 
                 def run():
                     return kx.xspgr_v_bwd(coef, pk, pkt, cfg, chk, g, tc=tc)
             else:
                 par = par.contiguous()
-                chk = kx.xspgr_fwd_chk(coef, par, cfg, tc=tc)[1]
+
+                def fwd():
+                    return kx.xspgr_fwd_chk(coef, par, cfg, tc=tc)[1]
+                chk = fwd()
 
                 def run():
                     return kx.xspgr_bwd(coef, par, cfg, chk, g, tc=tc)
             planes = 12
         row.update(nA=nA, nT=nT, K=cfg.K, tc=tc,
                    pick_tc=kepg.pick_tc(nT, cfg.K, nA, 4, planes))
-        if hasattr(kepg, 'adjoint_cfg'):
+        if lanes:
             row['route'] = kepg.adjoint_cfg(cfg.K, 4, planes, tc)._asdict()
+        row['chk_ms'] = cs.time_ms(fwd, reps=reps)
+        # the adjoint's peak: its checkpoints resident, its own allocations
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         row['ms'] = cs.time_ms(run, reps=reps)
         row['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
         print(json.dumps(row), flush=True)
-        del chk, run
+        del chk, run, fwd
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     for label, name, make in PATHS:
@@ -199,6 +264,98 @@ def refine_step(vartr):
     return make
 
 
+def spgr_grad_step(D):
+    r"""Phase 16's gradient through ``epg_spgr`` at bench_mrf_fisp width
+    (``MRF_FISP``, float32, a TR train; ``D``: with spoiler diffusion):
+    Σ w·signals w.r.t. T1, T2, tr (and D), one step a gradient."""
+    def make(cs, dev):
+        import torch
+        from mrphy_tpu_torch.ops import epg
+        c = cs.MRF_FISP
+        kw = cs.mrf_fisp_case(c['nA'], c['nTR'], c['K'], torch.float32, dev,
+                              D=D, seed=7)
+        w = cs.cotangent(torch.empty((c['nA'], c['nTR'], 2), device=dev), 8)
+        names = ('T1', 'T2', 'tr') + (('D',) if D else ())
+
+        def run(n):
+            for _ in range(n):
+                xs = {k: kw[k].clone().requires_grad_() for k in names}
+                k2 = dict(kw, **xs, zinit=epg.ir_prep(c['ti'], xs['T1']))
+                torch.autograd.grad((w * epg.epg_spgr(**k2)).sum(),
+                                    list(xs.values()))
+        return run
+    return make
+
+
+def mrf_refine_step(cs, dev):
+    r"""Phase 18a's refinement: ``match_refine`` (batched, Adam at
+    ``MRF_PIPE``'s lr) of 4096 voxels over the bench_mrf_pipeline train at
+    K 16, from 10% off 4096 grid atoms drawn from numpy default_rng(0)."""
+    import numpy as np
+    import torch
+    from mrphy_tpu_torch.ops import epg, mrf
+    flips, T1, T2 = cs.mrf_pipe_grid(dev)
+    sel = torch.as_tensor(np.random.default_rng(0).choice(
+        T1.shape[0], cs.MRF_PIPE['nref'], replace=False), device=dev)
+    T1t, T2t = T1[sel], T2[sel]
+    seq = dict(tr=cs.MRF_SEQ['tr'], te=cs.MRF_SEQ['te'], K=16)
+    with torch.no_grad():
+        X = epg.epg_spgr(flips, None, T1=T1t, T2=T2t, **seq)
+    p0 = torch.log(torch.stack([1.1 * T1t, 0.9 * T2t], -1))
+
+    def sig_b(P):
+        return epg.epg_spgr(flips, None, T1=torch.exp(P[:, 0]),
+                            T2=torch.exp(P[:, 1]), **seq)
+
+    def run(n):
+        return mrf.match_refine(sig_b, p0, X, iters=n,
+                                lr=cs.MRF_PIPE['lr'], batched=True)
+    return run
+
+
+def mwf_fit_step(esp_train):
+    r"""Phase 26a's Adam step (``esp_train``: 28a's, over ``MWF_V``'s esp
+    train): the log pools of ``MWF_MAP``'s 1M voxels against the noisy
+    echoes at the truth, four 262,144-voxel blocks a step (each block's
+    loss and backward), from ``MWF``'s start."""
+    def make(cs, dev):
+        import numpy as np
+        import torch
+        c, m = cs.MWF, cs.MWF_MAP
+        nV, nb = m['nV'], m['block']
+        mwf, T2a, T2b, b1n, _ = cs.mwf_truth(nV)
+
+        def arr(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+        truth = {k: arr(v) for k, v in cs.mwf_pools(mwf, T2a, T2b).items()}
+        b1 = arr(b1n)
+        flips = torch.full((c['nE'],), np.pi, device=dev)
+        esp = arr(cs.MWF_V['esps']) if esp_train else None
+        with torch.no_grad():
+            ech = cs.mwf_train(flips, truth, b1, esp)
+            sigma = c['noise'] / 100 * float(ech[:, 0].abs().max())
+            gen = torch.Generator(device=dev).manual_seed(0)
+            ech = ech + sigma * torch.randn(ech.shape, generator=gen,
+                                            device=dev)
+        logp = {k: torch.full((nV,), np.log(v), device=dev,
+                              requires_grad=True)
+                for k, v in c['start'].items()}
+        opt = torch.optim.Adam(list(logp.values()), lr=c['lr'])
+
+        def run(n):
+            for _ in range(n):
+                opt.zero_grad()
+                for b0 in range(0, nV, nb):
+                    sl = slice(b0, b0 + nb)
+                    p = {k: torch.exp(v[sl]) for k, v in logp.items()}
+                    ((cs.mwf_train(flips, p, b1[sl], esp) - ech[sl]) ** 2
+                     ).mean(dim=(-2, -1)).sum().backward()
+                opt.step()
+        return run
+    return make
+
+
 # label, name (for --only), the maker of a function that runs n steps
 PATHS = (
     ('20a T2-fit step 1M x 32', 't2_fit', t2_fit_step),
@@ -206,6 +363,13 @@ PATHS = (
      refine_step(False)),
     ('24a exchange-MRF refinement step over the tr trains', 'refine_v',
      refine_step(True)),
+    ('16 epg_spgr gradient 64k x 400, K 48', 'spgr_grad',
+     spgr_grad_step(False)),
+    ('16 epg_spgr gradient + diffusion', 'spgr_grad_d', spgr_grad_step(True)),
+    ('18a MRF refinement step 4096 x 400, K 16', 'mrf_refine',
+     mrf_refine_step),
+    ('26a MWF fit step 1M x 32 (4 blocks)', 'mwf_fit', mwf_fit_step(False)),
+    ('28a MWF fit step over the esp train', 'mwf_fit_v', mwf_fit_step(True)),
 )
 
 
@@ -216,8 +380,10 @@ def main() -> int:
     ap.add_argument('--reps', type=int, default=5)
     ap.add_argument('--steps', type=int, default=20)
     ap.add_argument('--only', nargs='*', default=None,
-                    help='cases to time: cpmg_bwd, xspgr_bwd, xspgr_v_bwd, '
-                         't2_fit, refine, refine_v')
+                    help='cases to time: spgr_bwd, cpmg_bwd, xspgr_bwd, '
+                         'xspgr_v_bwd, xcpmg_bwd, xcpmg_v_bwd, t2_fit, '
+                         'refine, refine_v, spgr_grad, spgr_grad_d, '
+                         'mrf_refine, mwf_fit, mwf_fit_v')
     ap.add_argument('--out', type=Path, default=None)
     a = ap.parse_args()
     if a.side is not None:
@@ -254,6 +420,8 @@ def main() -> int:
         case = summary.setdefault(r['case'], {})
         case.setdefault(key, []).append(r['ms'])
         case.setdefault(key + '_peak_gb', []).append(r['peak_gb'])
+        if 'chk_ms' in r:
+            case.setdefault(key + '_chk_ms', []).append(r['chk_ms'])
     for case, s in summary.items():
         if 'parent' in s and 'change' in s:
             s['ratio'] = min(s['change']) / min(s['parent'])

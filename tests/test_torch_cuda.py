@@ -1754,3 +1754,180 @@ def test_epgx_mt_spgr_gradients_cuda_vs_plain(cuda, dtype):
     with pytest.raises(ValueError, match='CUDA tensors'):
         epg.epgx_mt_spgr(kw['flips'].cpu(), T1a=1.0, T2a=0.06, T1b=1.0,
                          kab=2.0, kba=20.0, tr=0.03, backend='cuda')
+
+
+# K15's two routes (kernels/epg.py adjoint_cfg), every option (b1,
+# diffusion; a fixed TR and a TR/TE train) at a ragged 1,001 atoms × 40
+# TRs: the lanes at kshift −1 (K 24: 8 lanes of 3 slots), 2 (K 37: 16 of
+# 3), 9, more orders than the group has lanes (K 16: 8 of 2, shifted in
+# pieces of at most 7), and in float64 (K 32: 16 of 2); one thread per
+# atom for a chunk past the S shared states (K 48: S 7, tc 8) and for
+# orders past the slots (K 161; float64 K 65).
+SPGR_ROUTE_CASES = [
+    (torch.float32, 2e-6, 1e-4, 24, -1, 5, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 37, 2, 4, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 16, 9, 8, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 48, 1, 8, 'thread'),
+    (torch.float32, 2e-6, 1e-4, 161, 1, 4, 'thread'),
+    (torch.float64, 1e-12, 1e-12, 32, 1, 5, 'lanes'),
+    (torch.float64, 1e-12, 1e-12, 65, -1, 4, 'thread')]
+SPGR_ROUTE_IDS = ['f32-lanes-K24-kshift-1', 'f32-lanes-K37-kshift2',
+                  'f32-lanes-K16-kshift9', 'f32-thread-tc-past-S',
+                  'f32-thread-K161', 'f64-lanes-K32', 'f64-thread-K65']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows,K,kshift,tc,route',
+                         SPGR_ROUTE_CASES, ids=SPGR_ROUTE_IDS)
+@pytest.mark.parametrize('vartr', [False, True], ids=['tr', 'tr-train'])
+def test_spgr_bwd_routes_on_card(cuda, dtype, bar, rows, K, kshift, tc,
+                                 route, vartr):
+    r"""``spgr_bwd`` on both routes against its plain version (which sums
+    over the orders and the warps' atoms in the route's order): per-atom
+    rows at ``bar``, per-TR rows at ``rows`` of their largest value; one
+    launch each."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.ops import epg
+    kw = _spgr_case(cuda, dtype, 1001, 40, K, kshift, True, vartr, True, 57)
+    coef, par, cdiff, cfg, _ = epg._spgr_rows(**kw)
+    coef, par = coef.contiguous(), par.contiguous()
+    assert kepg.adjoint_cfg(K, par.element_size(), 6, tc).route == route
+    chk = kepg.spgr_fwd_chk(coef, par, cdiff, cfg, tc=tc)[1]
+    g = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (1001, 40, 2)), dtype=dtype, device=cuda)
+    n0 = kepg.LAUNCHES['spgr_bwd']
+    dcoef, dpar = kepg.spgr_bwd(coef, par, cdiff, cfg, chk, g, tc=tc)
+    torch.cuda.synchronize()
+    assert kepg.LAUNCHES['spgr_bwd'] == n0 + 1
+    dcoef_p, dpar_p = kepg.spgr_bwd_torch(coef, par, cdiff, cfg, chk, g,
+                                          tc=tc)
+    _rows_close(dpar, dpar_p, bar)
+    _rows_close(dcoef, dcoef_p, rows)
+
+
+# K27's and K30's two routes, b1, at a ragged 1,001 atoms: the lanes at
+# 32 echoes (K 33: 16 lanes of 3 slots, S 4) and 24 (K 25: 16 of 2), in
+# float64 at 24 (K 25: 32 lanes of 1); one thread per atom for a chunk
+# past S (K 33, tc 8), for orders past the slots (K 101) and at the
+# 32-echo train's K 33 in float64.
+XCPMG_ROUTE_CASES = [
+    (torch.float32, 2e-6, 1e-4, 32, 4, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 24, 3, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 32, 8, 'thread'),
+    (torch.float32, 2e-6, 1e-4, 100, 4, 'thread'),
+    (torch.float64, 1e-12, 1e-12, 24, 3, 'lanes'),
+    (torch.float64, 1e-12, 1e-12, 32, 4, 'thread')]
+XCPMG_ROUTE_IDS = ['f32-lanes-K33', 'f32-lanes-K25', 'f32-thread-tc-past-S',
+                   'f32-thread-K101', 'f64-lanes-K25', 'f64-thread-K33']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows,nE,tc,route', XCPMG_ROUTE_CASES,
+                         ids=XCPMG_ROUTE_IDS)
+@pytest.mark.parametrize('varesp', [False, True],
+                         ids=['esp', 'esp-train'])
+def test_xcpmg_bwd_routes_on_card(cuda, dtype, bar, rows, nE, tc, route,
+                                  varesp):
+    r"""``xcpmg_bwd`` and ``xcpmg_v_bwd`` on both routes against their plain
+    versions (which sum in the route's order): per-atom outputs (``dpkt``
+    per atom and echo among them) at ``bar``, per-echo rows at ``rows`` of
+    their largest value; one launch each."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    kw = _xcpmg_case(cuda, dtype, 1001, nE, True, 61)
+    flips = kw.pop('flips')
+    esp = (torch.as_tensor(np.random.default_rng(9).uniform(0.008, 0.018, nE),
+                           dtype=dtype, device=cuda) if varesp else 0.01)
+    coef, pk, cfg, _ = epg._xcpmg_rows(flips, **kw, esp=esp)
+    assert kepg.adjoint_cfg(cfg.K, coef.element_size(), 12,
+                            tc).route == route
+    coef = coef.contiguous()
+    par = tuple(x.contiguous() for x in (pk if varesp else (pk,)))
+    v = '_v' if varesp else ''
+    fwd_chk, bwd, bwd_t = (getattr(kx, f'xcpmg{v}_{n}')
+                           for n in ('fwd_chk', 'bwd', 'bwd_torch'))
+    chk = fwd_chk(coef, *par, cfg, tc=tc)[2]
+    gr, gi = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (2, nE, 1001)), dtype=dtype, device=cuda)
+    n0 = kx.LAUNCHES[f'xcpmg{v}_bwd']
+    out = bwd(coef, *par, cfg, chk, gr, gi, tc=tc)
+    torch.cuda.synchronize()
+    assert kx.LAUNCHES[f'xcpmg{v}_bwd'] == n0 + 1
+    ref = bwd_t(coef, *par, cfg, chk, gr, gi, tc=tc)
+    _rows_close(out[0], ref[0], rows)
+    for x, y in zip(out[1:], ref[1:]):
+        _rows_close(x, y, bar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,ents', [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+def test_xcpmg_v_bwd_constant_train_equals_xcpmg_bwd_on_card(cuda, dtype,
+                                                            ents):
+    r"""Over a constant 10 ms train K30's lane route meets K27's at the
+    scalar esp: the per-echo rows and the initial state's and b1's
+    gradients alike (bit for bit expected: the same operations), the
+    per-echo entry gradients summed over the train within ``ents`` of the
+    largest (K27 sums them per lane over the train, K30 per echo)."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    kw = _xcpmg_case(cuda, dtype, 1001, 24, True, 67)
+    fl = kw.pop('flips')
+    coef, pk, cfg, _ = epg._xcpmg_rows(fl, **kw, esp=0.01)
+    coef_v, (pk5, pkt), _, _ = epg._xcpmg_rows(
+        fl, **kw, esp=torch.full((24,), 0.01, dtype=dtype, device=cuda))
+    coef, pk, pk5 = coef.contiguous(), pk.contiguous(), pk5.contiguous()
+    tc = 3
+    assert kepg.adjoint_cfg(cfg.K, coef.element_size(), 12,
+                            tc).route == 'lanes'
+    chk = kx.xcpmg_fwd_chk(coef, pk, cfg, tc=tc)[2]
+    gr, gi = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (2, 24, 1001)), dtype=dtype, device=cuda)
+    dcoef, dpk = kx.xcpmg_bwd(coef, pk, cfg, chk, gr, gi, tc=tc)
+    dcoef_v, dpk_v, dpkt = kx.xcpmg_v_bwd(coef_v, pk5, pkt, cfg, chk, gr, gi,
+                                          tc=tc)
+    bar = 2e-6 if dtype == torch.float32 else 1e-12
+    _rows_close(dcoef_v, dcoef, bar)
+    _rows_close(dpk_v, dpk[14:], bar)
+    _rows_close(dpkt.sum(dim=0), dpk[:14], ents)
+
+
+@pytest.mark.cuda
+def test_mrf_and_mwf_gradients_take_the_lane_route_once_on_card(cuda):
+    r"""An MRF-FISP dictionary's gradient (K 48, TR/TE train, diffusion)
+    and an MWF fit step's (K 33, b1), at the chunk the lane route takes
+    (:func:`adjoint_tc`), launch ``spgr_bwd`` and ``xcpmg_bwd`` (over an
+    esp train ``xcpmg_v_bwd``) once per backward, with finite gradients."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    kw = _spgr_case(cuda, torch.float32, 4096, 400, 48, 1, False, True, True,
+                    71)
+    assert kepg.adjoint_cfg(48, 4, 6, kepg.adjoint_tc(
+        400, 48, 4096, 4)).route == 'lanes'
+    T1 = kw['T1'].clone().requires_grad_()
+    n0 = dict(kepg.LAUNCHES)
+    loss = epg.epg_spgr(**dict(kw, T1=T1)).square().sum()
+    (gT1,) = torch.autograd.grad(loss, T1)
+    assert {n: kepg.LAUNCHES[n] - n0[n] for n in kepg.LAUNCHES} == dict(
+        dict.fromkeys(kepg.LAUNCHES, 0), spgr_fwd_chk=1, spgr_bwd=1)
+    assert bool(torch.isfinite(gT1).all())
+    for varesp in (False, True):
+        kw = _xcpmg_case(cuda, torch.float32, 4096, 32, True, 73)
+        if varesp:
+            kw['esp'] = torch.linspace(0.006, 0.014, 32, device=cuda)
+        else:
+            kw['esp'] = 0.01
+        assert kepg.adjoint_cfg(33, 4, 12, kepg.adjoint_tc(
+            32, 33, 4096, 4, 12)).route == 'lanes'
+        T2a = kw['T2a'].clone().requires_grad_()
+        v = '_v' if varesp else ''
+        n0 = dict(kx.LAUNCHES)
+        loss = epg.epgx_cpmg(**dict(kw, T2a=T2a)).square().sum()
+        (gT2a,) = torch.autograd.grad(loss, T2a)
+        assert {n: kx.LAUNCHES[n] - n0[n] for n in kx.LAUNCHES} == dict(
+            dict.fromkeys(kx.LAUNCHES, 0),
+            **{f'xcpmg{v}_fwd_chk': 1, f'xcpmg{v}_bwd': 1})
+        assert bool(torch.isfinite(gT2a).all())

@@ -1,12 +1,15 @@
 r"""The EPG adjoints' lane route on the CPU: the route and chunk chooser of
-K18 ``cpmg_bwd``, K21 ``xspgr_bwd`` and K24 ``xspgr_v_bwd``
+K15 ``spgr_bwd``, K18 ``cpmg_bwd``, K21 ``xspgr_bwd``, K24 ``xspgr_v_bwd``,
+K27 ``xcpmg_bwd`` and K30 ``xcpmg_v_bwd``
 (:func:`mrphy_tpu_torch.kernels.epg.adjoint_cfg`, ``adjoint_tc``), in pure
 Python at the main paths' shapes and at the large-K shapes that keep one
-thread per atom, and the order in which the plain versions sum over the
-orders (``_lane_sum``) against a sequential sum. The kernels themselves
-run on the card only (``tests/test_torch_cuda.py``); their plain versions'
-JAX parity is in ``test_torch_cpmg.py``, ``test_torch_epgx.py`` and
-``test_torch_epgxv.py``.
+thread per atom, the order in which the plain versions sum over the
+orders (``_lane_sum``) against a sequential sum, and K15's and K27/K30's
+plain versions in the lane order against their one-thread order. The
+kernels themselves run on the card only (``tests/test_torch_cuda.py``);
+their plain versions' JAX parity is in ``test_torch_epg.py``,
+``test_torch_cpmg.py``, ``test_torch_epgx.py``, ``test_torch_epgxv.py``,
+``test_torch_epgx_cpmg.py`` and ``test_torch_epgx_cpmg_v.py``.
 """
 
 import numpy as np
@@ -14,6 +17,8 @@ import pytest
 import torch
 
 from mrphy_tpu_torch.kernels import epg as kepg
+from mrphy_tpu_torch.kernels import epgx as kx
+from mrphy_tpu_torch.ops import epg
 
 # (K, itemsize, planes) -> (G, M, S) of the lane route, or None: one thread
 # per atom
@@ -28,15 +33,19 @@ CAPACITY = [
     ((64, 8, 6), (32, 2, 6)),
     ((65, 8, 6), None),
     ((201, 8, 6), None),
+    ((48, 4, 6), (16, 3, 7)),     # bench_mrf_fisp, K15
+    ((16, 4, 6), (8, 2, 8)),      # the MRF refinement's K 16
+    ((32, 8, 6), (16, 2, 5)),     # phase 16's float64 K 32 case
     ((48, 4, 12), (16, 3, 4)),    # bench_mrf two-pool, exchange-MRF
     ((24, 4, 12), (8, 3, 4)),     # bench_mrf variable-TR two-pool
     ((37, 4, 12), (16, 3, 4)),    # K not a multiple of G
     ((32, 4, 12), (16, 2, 6)),
+    ((33, 4, 12), (16, 3, 4)),    # MWF's 32 echoes, K27 and K30
     ((96, 4, 12), (32, 3, 4)),    # the largest two-pool K in float32
     ((97, 4, 12), None),
     ((201, 4, 12), None),         # phase 21's device-memory state
     ((32, 8, 12), (32, 1, 6)),
-    ((33, 8, 12), None),
+    ((33, 8, 12), None),          # MWF's float64 example: one thread
     ((101, 8, 12), None),
 ]
 
@@ -155,3 +164,127 @@ def test_lane_sum_order(G, K):
         o //= 2
     assert torch.equal(got, lanes[0])
 
+
+
+@pytest.mark.parametrize('shape,want', [
+    ((400, 48, 65536, 4, 6), 5),        # bench_mrf_fisp (pick_tc 25)
+    ((400, 16, 4096, 4, 6), 8),         # the MRF refinement (pick_tc 400)
+    ((32, 33, 1 << 18, 4, 12), 4),      # the MWF fit's block (pick_tc's)
+    ((32, 33, 65536, 4, 12), 4),        # bench_mrf's EPG-X CPMG (16)
+    ((32, 33, 4096, 4, 12), 4)],        # the MWF accuracy fit (32)
+    ids=['mrf-fisp', 'mrf-refine', 'mwf-block', 'xcpmg-64k', 'mwf-4096'])
+def test_adjoint_tc_k15_k27(shape, want):
+    r"""K15's and K27/K30's chunk at their paths' shapes: pick_tc capped at
+    S, on the lane route; K14 at bench_mrf_fisp then writes 80 checkpoints
+    of 75.5 MB (6.04 GB, within ``LANE_CHK_BYTES``)."""
+    nT, K, nA, isz, planes = shape
+    tc = kepg.adjoint_tc(*shape)
+    assert tc == want and nT % tc == 0
+    assert kepg.adjoint_cfg(K, isz, planes, tc).route == 'lanes'
+    assert tc <= kepg.pick_tc(*shape)
+    if shape[:3] == (400, 48, 65536):
+        assert kepg.pick_tc(*shape) == 25
+        assert nT // tc * planes * K * nA * isz == 80 * 75497472
+    # float64 at K 33, two pools, keeps one thread per atom
+    if planes == 12:
+        assert kepg.adjoint_cfg(K, 8, 12, tc).route == 'thread'
+
+
+def _spy_lane_parts(monkeypatch):
+    r"""Record the group width of every ``_lane_parts`` call the plain
+    versions make."""
+    seen = []
+    orig = kepg._lane_parts
+
+    def spy(x, G, acc=None):
+        seen.append(G)
+        return orig(x, G, acc)
+
+    monkeypatch.setattr(kepg, '_lane_parts', spy)
+    monkeypatch.setattr(kx, '_lane_parts', spy)
+    return seen
+
+
+def _one_thread(monkeypatch):
+    r"""Make the plain versions take the one-thread route's order."""
+    thread = kepg.AdjointCfg('thread', 1, 0, 0)
+    monkeypatch.setattr(kepg, 'adjoint_cfg', lambda *a: thread)
+    monkeypatch.setattr(kx, 'adjoint_cfg', lambda *a: thread)
+
+
+def _close(a, b):
+    assert a.shape == b.shape
+    scale = float(b.abs().max())
+    assert float((a - b).abs().max()) <= 1e-12 * scale
+
+
+def test_spgr_bwd_torch_lane_order(monkeypatch):
+    r"""``spgr_bwd_torch`` at a shape the lanes take (float64, K 10: 8
+    lanes of 2 slots; kshift 2, b1, a TR/TE train, diffusion; 37 atoms,
+    a ragged warp) sums in the lane order and meets its one-thread order
+    within float64 rounding."""
+    rng = np.random.default_rng(11)
+    nA, nTR, tc = 37, 12, 4
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=torch.float64)
+
+    coef, par, cdiff, cfg, _ = epg._spgr_rows(
+        arr(rng.uniform(0.1, 1.2, nTR)), arr(rng.uniform(0, 6, nTR)),
+        T1=arr(rng.uniform(0.2, 3, nA)), T2=arr(rng.uniform(0.02, 0.4, nA)),
+        tr=arr(rng.uniform(0.008, 0.016, nTR)),
+        te=arr(rng.uniform(1e-3, 4e-3, nTR)),
+        b1=arr(rng.uniform(0.8, 1.2, nA)),
+        D=arr(rng.uniform(0.4e-5, 3.2e-5, nA)), dk=450.0, kshift=2, K=10)
+    assert kepg.adjoint_cfg(10, 8, 6, tc) == kepg.AdjointCfg('lanes', 8, 2, 5)
+    _, chk = kepg.spgr_fwd_chk_torch(coef, par, cdiff, cfg, tc=tc)
+    g = arr(rng.standard_normal((nA, nTR, 2)))
+    seen = _spy_lane_parts(monkeypatch)
+    lanes = kepg.spgr_bwd_torch(coef, par, cdiff, cfg, chk, g, tc=tc)
+    assert seen and set(seen) == {8}
+    _one_thread(monkeypatch)
+    seen.clear()
+    thread = kepg.spgr_bwd_torch(coef, par, cdiff, cfg, chk, g, tc=tc)
+    assert not seen
+    for a, b in zip(lanes, thread):
+        _close(a, b)
+
+
+@pytest.mark.parametrize('varesp', [False, True], ids=['esp', 'esp-train'])
+def test_xcpmg_bwd_torch_lane_order(monkeypatch, varesp):
+    r"""``xcpmg_bwd_torch`` and ``xcpmg_v_bwd_torch`` at a shape the lanes
+    take (float64, 6 echoes, K 7: 8 lanes of 1 slot; b1; 37 atoms) sum in
+    the lane order (the entries per lane over both halves, over the train
+    or per echo) and meet their one-thread order within float64
+    rounding."""
+    rng = np.random.default_rng(13)
+    nA, nE, tc = 37, 6, 3
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=torch.float64)
+
+    esp = arr(rng.uniform(0.008, 0.018, nE)) if varesp else 0.01
+    coef, pk, cfg, _ = epg._xcpmg_rows(
+        arr(rng.uniform(1.75, 3.14, nE)), T1a=arr(rng.uniform(0.5, 2, nA)),
+        T2a=arr(rng.uniform(0.05, 0.3, nA)),
+        T1b=arr(rng.uniform(0.2, 0.6, nA)),
+        T2b=arr(rng.uniform(0.005, 0.03, nA)), kab=arr(rng.uniform(1, 10, nA)),
+        kba=arr(rng.uniform(5, 40, nA)), esp=esp,
+        M0b=arr(rng.uniform(0.05, 0.3, nA)), dfb=arr(rng.uniform(-20, 20, nA)),
+        b1=arr(rng.uniform(0.8, 1.2, nA)))
+    assert kepg.adjoint_cfg(cfg.K, 8, 12, tc) == kepg.AdjointCfg(
+        'lanes', 8, 1, 5)
+    par = tuple(pk) if varesp else (pk,)
+    v = '_v' if varesp else ''
+    chk = getattr(kx, f'xcpmg{v}_fwd_chk_torch')(coef, *par, cfg, tc=tc)[2]
+    gr, gi = arr(rng.standard_normal((2, nE, nA)))
+    bwd = getattr(kx, f'xcpmg{v}_bwd_torch')
+    seen = _spy_lane_parts(monkeypatch)
+    lanes = bwd(coef, *par, cfg, chk, gr, gi, tc=tc)
+    assert seen and set(seen) == {8}
+    _one_thread(monkeypatch)
+    seen.clear()
+    thread = bwd(coef, *par, cfg, chk, gr, gi, tc=tc)
+    assert not seen
+    for a, b in zip(lanes, thread):
+        _close(a, b)
