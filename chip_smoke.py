@@ -213,11 +213,14 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     ``ops.epg.epgx_spgr`` gives them (``XSPGR_CASES``): ``bench_mrf``'s
     two-pool dictionary (65,536 atoms × 400 TRs, K 48, tr 12 ms, float32),
     timed, with its bound; float64, per-atom b1, per-atom dfb, kshift −1
-    with per-atom M0b, no detailed balance, a ragged atom count, the
-    default K with the state in device memory, and the segments phase 22a
-    gives the kernels (its dictionary's two, 65,536 atoms × 200 TRs at K
-    48, and its refinement's first step, 4096 grid atoms in one chunk).
-    Per-atom outputs (echoes,
+    with per-atom M0b, kshift 2 at K 37 and 9 at K 24 (past the 8 lanes of
+    the forward's lane route), no detailed balance, a ragged atom count,
+    the default K with the state in device memory, and the segments phase
+    22a gives the kernels (its dictionary's two, 65,536 atoms × 200 TRs at
+    K 48, and its refinement's first step, 4096 grid atoms in one chunk).
+    ``xspgr_fwd_chk`` takes its lane route (``xspgr_fwd_lanes.cu``) or one
+    thread per atom (the default K) as ``kernels.epg.forward_cfg`` gives,
+    its rows naming the route (``forward``). Per-atom outputs (echoes,
     checkpoints, the 17 per-atom gradient rows) at ``EPG_BAR`` of their
     largest value (bit for bit expected; the rows that differ are named),
     the adjoint's per-TR rows at ``XSPGR_ROW_BAR`` (5e-7 in float32, 1e-15
@@ -251,7 +254,8 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     chunk); float64 with b1, dfb, M0b and rf-spoiled phases, kshift −1
     with M0b, no detailed balance, a ragged atom count, the default K with
     the state in device memory (float32 and float64), and a constant train,
-    whose echoes must also equal ``xspgr_fwd``'s at the same scalar tr.
+    whose echoes must also equal ``xspgr_fwd``'s at the same scalar tr;
+    routes as phase 21's.
     Per-atom outputs (echoes, checkpoints, ``dpar`` = [dM0a, dM0b, db1] and
     the per-step entry gradients ``dpkt``) at ``EPG_BAR`` (bit for bit
     expected; the rows that differ are named), the per-TR rows at
@@ -279,7 +283,10 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     in device memory. The chunk is the entry point's (``adjoint_tc``: 4
     echoes at the block, the adjoint on its lane route) where none is
     named; each adjoint row reports its route (float64 at K 33, tc = nE and
-    K 161/81 keep one thread per atom). Per-atom outputs (echoes,
+    K 161/81 keep one thread per atom), each ``xcpmg_fwd_chk`` row its
+    forward's (``xcpmg_fwd_lanes.cu`` where ``kernels.epg.forward_cfg``
+    takes the lanes, float64 K 33 among them; one thread per atom at K
+    161/81). Per-atom outputs (echoes,
     checkpoints, the 19 per-atom gradient rows) at ``EPG_BAR`` (bit for
     bit expected; the rows that differ are named), the per-echo rows at
     ``XCPMG_ROW_BAR``.
@@ -895,7 +902,7 @@ KERNELS = {
     'xspgr_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd.cu',
                       replaces='mrphy_tpu/ops/epg_pallas.py:2512'),
     'xspgr_fwd_chk': dict(
-        source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd.cu',
+        source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd_lanes.cu',
         replaces='mrphy_tpu/ops/epg_pallas.py:2535'),
     'xspgr_bwd': dict(
         source='mrphy_tpu_torch/kernels/csrc/xspgr_bwd_lanes.cu',
@@ -903,7 +910,7 @@ KERNELS = {
     'xspgr_v_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd.cu',
                         replaces='mrphy_tpu/ops/epg_pallas.py:2877'),
     'xspgr_v_fwd_chk': dict(
-        source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd.cu',
+        source='mrphy_tpu_torch/kernels/csrc/xspgr_fwd_lanes.cu',
         replaces='mrphy_tpu/ops/epg_pallas.py:2902'),
     'xspgr_v_bwd': dict(
         source='mrphy_tpu_torch/kernels/csrc/xspgr_bwd_lanes.cu',
@@ -911,7 +918,7 @@ KERNELS = {
     'xcpmg_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xcpmg_fwd.cu',
                       replaces='mrphy_tpu/ops/epg_pallas.py:3233'),
     'xcpmg_fwd_chk': dict(
-        source='mrphy_tpu_torch/kernels/csrc/xcpmg_fwd.cu',
+        source='mrphy_tpu_torch/kernels/csrc/xcpmg_fwd_lanes.cu',
         replaces='mrphy_tpu/ops/epg_pallas.py:3256'),
     'xcpmg_bwd': dict(
         source='mrphy_tpu_torch/kernels/csrc/xcpmg_bwd_lanes.cu',
@@ -919,7 +926,7 @@ KERNELS = {
     'xcpmg_v_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xcpmg_fwd.cu',
                         replaces='mrphy_tpu/ops/epg_pallas.py:3561'),
     'xcpmg_v_fwd_chk': dict(
-        source='mrphy_tpu_torch/kernels/csrc/xcpmg_fwd.cu',
+        source='mrphy_tpu_torch/kernels/csrc/xcpmg_fwd_lanes.cu',
         replaces='mrphy_tpu/ops/epg_pallas.py:3586'),
     'xcpmg_v_bwd': dict(
         source='mrphy_tpu_torch/kernels/csrc/xcpmg_bwd_lanes.cu',
@@ -3609,6 +3616,14 @@ def adjoint_meta(K, par, planes, tc) -> dict:
     return kepg.adjoint_cfg(K, par.element_size(), planes, tc)._asdict()
 
 
+def forward_meta(K, par) -> dict:
+    r"""The route K20, K23, K26 or K29 takes (``kernels.epg.forward_cfg``,
+    by shape alone, for any chunk): the lanes per atom G and the order slots
+    a lane M, or one thread per atom (``threads_state`` then says how)."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    return kepg.forward_cfg(K, par.element_size(), 12)._asdict()
+
+
 def phase_cpmg_kernels(dev):
     r"""Phase 19: ``cpmg_fwd``, ``cpmg_fwd_chk`` and ``cpmg_bwd`` against
     their plain versions on CPMG_CASES, the arguments ``epg_cpmg`` gives
@@ -3889,6 +3904,8 @@ XSPGR_CASES = (
      dict(kshift=-1, M0b=True), False),
     ('16k x 100, K 37, kshift 2 (K not a multiple of the lanes)', 16384, 100,
      37, torch.float32, dict(kshift=2), False),
+    ('16k x 100, K 24, kshift 9 (a shift past the 8 lanes, in pieces)',
+     16384, 100, 24, torch.float32, dict(kshift=9), False),
     ('16k x 200, K 32, no detailed balance (kab 8, kba 3, M0b 0.4)', 16384,
      200, 32, torch.float32, dict(ndb=True), False),
     ('ragged 1001 x 200, K 32, b1, dfb', 1001, 200, 32, torch.float32,
@@ -4004,6 +4021,8 @@ def phase_xspgr_kernels(dev):
                         threads_state=kepg.launch_cfg(
                             cfg.K, par.element_size(), kx.PLANES),
                         adjoint=adjoint_meta(cfg.K, par, kx.PLANES, tc))
+            if name.endswith('_fwd_chk'):
+                meta['forward'] = forward_meta(cfg.K, par)
             rows[name].append(compare_epg(
                 name, run_kernel, run_plain, inputs, names[name], meta,
                 dtype, timed, XSPGR_ROW_BAR))
@@ -4114,6 +4133,8 @@ def phase_xspgr_v_kernels(dev):
                         threads_state=kepg.launch_cfg(
                             cfg.K, pk.element_size(), kx.PLANES),
                         adjoint=adjoint_meta(cfg.K, pk, kx.PLANES, tc))
+            if name.endswith('_fwd_chk'):
+                meta['forward'] = forward_meta(cfg.K, pk)
             rows[name].append(compare_epg(
                 name, run_kernel, run_plain, inputs, names[name], meta,
                 dtype, timed, XSPGR_ROW_BAR))
@@ -5103,6 +5124,8 @@ def phase_xcpmg_kernels(dev, varesp=False):
             else:
                 meta['threads_state'] = kepg.launch_cfg(
                     cfg.K, coef.element_size(), kx.PLANES)
+            if name.endswith('_fwd_chk'):
+                meta['forward'] = forward_meta(cfg.K, coef)
             rows[name].append(compare_epg(
                 name, run_kernel, run_plain, inputs, names, meta, dtype,
                 timed, XCPMG_ROW_BAR))

@@ -120,6 +120,10 @@ _SIGNATURES = {
     'mrphy_xspgr_fwd_f64': (_P,) * 5 + (_I64,) * 7 + (_P,),
     'mrphy_xspgr_fwd_chk_f32': (_P,) * 5 + (_I64,) * 7 + (_P,),
     'mrphy_xspgr_fwd_chk_f64': (_P,) * 5 + (_I64,) * 7 + (_P,),
+    # the lane route of the _chk instance: coef, par, sig, chk, nA, nTR, K,
+    # kshift, flags, tc, G, M, stream
+    'mrphy_xspgr_fwd_chk_lanes_f32': (_P,) * 4 + (_I64,) * 8 + (_P,),
+    'mrphy_xspgr_fwd_chk_lanes_f64': (_P,) * 4 + (_I64,) * 8 + (_P,),
     # coef, par, chk, g, scratch, hstate, dpar, dcf, nA, nTR, K, kshift,
     # flags, tc, threads, stream
     'mrphy_xspgr_bwd_f32': (_P,) * 8 + (_I64,) * 7 + (_P,),
@@ -134,6 +138,10 @@ _SIGNATURES = {
     'mrphy_xspgr_v_fwd_f64': (_P,) * 6 + (_I64,) * 7 + (_P,),
     'mrphy_xspgr_v_fwd_chk_f32': (_P,) * 6 + (_I64,) * 7 + (_P,),
     'mrphy_xspgr_v_fwd_chk_f64': (_P,) * 6 + (_I64,) * 7 + (_P,),
+    # the lane route: coef, pk, pkt, sig, chk, nA, nTR, K, kshift, flags,
+    # tc, G, M, stream
+    'mrphy_xspgr_v_fwd_chk_lanes_f32': (_P,) * 5 + (_I64,) * 8 + (_P,),
+    'mrphy_xspgr_v_fwd_chk_lanes_f64': (_P,) * 5 + (_I64,) * 8 + (_P,),
     # coef, pk, pkt, chk, g, scratch, hstate, dpar, dcf, dpkt, nA, nTR, K,
     # kshift, flags, tc, threads, stream
     'mrphy_xspgr_v_bwd_f32': (_P,) * 10 + (_I64,) * 7 + (_P,),
@@ -147,6 +155,10 @@ _SIGNATURES = {
     'mrphy_xcpmg_fwd_f64': (_P,) * 6 + (_I64,) * 6 + (_P,),
     'mrphy_xcpmg_fwd_chk_f32': (_P,) * 6 + (_I64,) * 6 + (_P,),
     'mrphy_xcpmg_fwd_chk_f64': (_P,) * 6 + (_I64,) * 6 + (_P,),
+    # the lane route of the _chk instance: coef, pk, er, ei, chk, nA, nE, K,
+    # flags, tc, G, M, stream
+    'mrphy_xcpmg_fwd_chk_lanes_f32': (_P,) * 5 + (_I64,) * 7 + (_P,),
+    'mrphy_xcpmg_fwd_chk_lanes_f64': (_P,) * 5 + (_I64,) * 7 + (_P,),
     # coef, pk, chk, gr, gi, scratch, hstate, dpar, dcf, nA, nE, K, flags,
     # tc, threads, stream
     'mrphy_xcpmg_bwd_f32': (_P,) * 9 + (_I64,) * 6 + (_P,),
@@ -161,6 +173,10 @@ _SIGNATURES = {
     'mrphy_xcpmg_v_fwd_f64': (_P,) * 7 + (_I64,) * 6 + (_P,),
     'mrphy_xcpmg_v_fwd_chk_f32': (_P,) * 7 + (_I64,) * 6 + (_P,),
     'mrphy_xcpmg_v_fwd_chk_f64': (_P,) * 7 + (_I64,) * 6 + (_P,),
+    # the lane route: coef, pk, pkt, er, ei, chk, nA, nE, K, flags, tc, G,
+    # M, stream
+    'mrphy_xcpmg_v_fwd_chk_lanes_f32': (_P,) * 6 + (_I64,) * 7 + (_P,),
+    'mrphy_xcpmg_v_fwd_chk_lanes_f64': (_P,) * 6 + (_I64,) * 7 + (_P,),
     # coef, pk, pkt, chk, gr, gi, scratch, hstate, dpar, dcf, dpkt, nA, nE,
     # K, flags, tc, threads, stream
     'mrphy_xcpmg_v_bwd_f32': (_P,) * 11 + (_I64,) * 6 + (_P,),

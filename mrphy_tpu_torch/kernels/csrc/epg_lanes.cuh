@@ -2,7 +2,9 @@
 // configuration orders, for the EPG adjoints on their lane route
 // (spgr_bwd_lanes.cu: K15 `spgr_bwd`; cpmg_bwd_lanes.cu: K18 `cpmg_bwd`;
 // xspgr_bwd_lanes.cu: K21 `xspgr_bwd` and K24 `xspgr_v_bwd`;
-// xcpmg_bwd_lanes.cu: K27 `xcpmg_bwd` and K30 `xcpmg_v_bwd`).
+// xcpmg_bwd_lanes.cu: K27 `xcpmg_bwd` and K30 `xcpmg_v_bwd`) and the
+// two-pool forwards with checkpoints on theirs (xspgr_fwd_lanes.cu: K20,
+// K23; xcpmg_fwd_lanes.cu: K26, K29).
 //
 // Layout. Lane l of a group (G = 8, 16 or 32, a power of two) holds orders
 // k = l + i·G in slot i of each plane, i < M (M = ⌈K/G⌉, a template
@@ -49,6 +51,18 @@ struct Group {
 __host__ __device__ constexpr int stride(int planes, int M, int G) {
   return planes * M * G + (G < 32 ? G : 0);
 }
+
+// The blocks an SM the lane forwards (xspgr_fwd_lanes.cu,
+// xcpmg_fwd_lanes.cu) are built for at M slots a lane: 4 (16 warps, at most
+// 128 registers a thread) for float32 M ≤ 3, 3 (12 warps, 168) above and
+// in float64, where ptxas -v showed spills at 128 (float32 M 4, float64 M
+// 2; kernels/epg.py FWD_SLOTS_MAX).
+template <typename T, int M>
+constexpr int kFwdBlocks = sizeof(T) == 4 && M <= 3 ? 4 : 3;
+
+// The lane forwards' largest M (kernels/epg.py FWD_SLOTS_MAX).
+template <typename T>
+constexpr int kFwdSlotsMax = sizeof(T) == 4 ? 5 : 2;
 
 template <typename T>
 __device__ __forceinline__ T shfl(T v, int src, int G) {
@@ -227,6 +241,30 @@ __device__ __forceinline__ void stage(const T* __restrict__ src, T* slots,
   copy_wait();
 }
 
+// The mirror of stage: the block's atoms' states in slot 0 (atom aa at
+// slots + aa·stride) written to planes·K rows of nA atoms at dst, orders
+// below K only, in logical order, each row along the block's atoms (whole
+// 32-byte sectors where the block's atoms fill them); atoms past nA are
+// not written. Every thread of the block takes part; the caller
+// synchronises the block before it (after the groups' stores) and after it
+// (before the slot is written again).
+template <typename T>
+__device__ __forceinline__ void unstage(T* __restrict__ dst, const T* slots,
+                                        int64_t nA, int64_t a0, int lgA,
+                                        int planes, int K, int M, int lg,
+                                        int stride_atom) {
+  const int G = 1 << lg, aa = threadIdx.x & ((1 << lgA) - 1);
+  const int rstep = blockDim.x >> lgA, rows = planes * K;
+  const int64_t a = a0 + aa;
+  if (a >= nA) return;
+  const T* const src = slots + aa * stride_atom;
+  int row = threadIdx.x >> lgA, p = row / K, k = row - p * K;
+  for (; row < rows; row += rstep) {
+    dst[(int64_t)row * nA + a] = src[(p * M + (k >> lg)) * G + (k & (G - 1))];
+    for (k += rstep; k >= K; k -= K) ++p;
+  }
+}
+
 // Shared memory of the block set to 0 (the slots past K − 1 stay so).
 template <typename T>
 __device__ __forceinline__ void zero(T* slots, int n) {
@@ -237,8 +275,8 @@ __host__ __device__ constexpr int log2i(int v) {
   return v <= 1 ? 0 : 1 + log2i(v >> 1);
 }
 
-// G and M as the wrapper chose them (kernels/epg.py `adjoint_cfg`) for K
-// orders.
+// G and M as the wrapper chose them (kernels/epg.py `adjoint_cfg`,
+// `forward_cfg`) for K orders.
 inline bool valid_cfg(int64_t G, int64_t M, int64_t K) {
   return (G == 8 || G == 16 || G == 32) && M >= 1 && M * G >= K &&
          (M - 1) * G < K;

@@ -29,8 +29,9 @@
 // G) and the group shares it by shuffles. Per chunk,
 // newest first: the block reads the chunk's checkpoint once, coalesced
 // along the atoms, into slot 0 of its shared states; phase 1 runs the
-// forward from it in registers (per echo: half, mix, half) and stores the
-// tc − 1 later pre-echo states into slots 1 … tc − 1; phase 2 walks them
+// forward from it in registers (per echo: half, mix, half, the lane
+// forward's steps of epgx_lanes.cuh) and stores the tc − 1 later pre-echo
+// states into slots 1 … tc − 1; phase 2 walks them
 // backwards as xcpmg_bwd.cu does: the refocusing's input formed again,
 // order by order, from the stored state's neighbouring orders in shared
 // memory (`epgx::xhalf_at`, as xcpmg_bwd.cu; no registers held for it, no
@@ -48,66 +49,10 @@
 // xcpmg_bwd.cu's, but dcf (⌈nA·G/32⌉, nE, 5): a warp holds 32/G atoms and
 // sums their per-echo rows by shuffles; the wrapper sums over warps in a
 // fixed order.
-#include "cpmg_common.cuh"
-#include "epg_lanes.cuh"
-#include "epgx_common.cuh"
+#include "epgx_lanes.cuh"
 
 namespace mrphy {
 namespace xcpmg {
-
-using epgx::kPlanes;
-using epgx::Prop;
-using lanes::Group;
-
-// One half echo of both pools on every order: the exchange–relaxation,
-// then the crusher's unit shift.
-template <typename T, int M>
-__device__ __forceinline__ void xhalf_lanes(T (&x)[kPlanes][M],
-                                            const Prop<T>& e,
-                                            const Group& g) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    if (!g.valid(i)) continue;
-    T na[6] = {x[0][i], x[1][i], x[2][i], x[3][i], x[4][i], x[5][i]};
-    T nb[6] = {x[6][i], x[7][i], x[8][i], x[9][i], x[10][i], x[11][i]};
-    epgx::xrelax(e, g.order(i), na, nb);
-#pragma unroll
-    for (int p = 0; p < 6; ++p) {
-      x[p][i] = na[p];
-      x[6 + p][i] = nb[p];
-    }
-  }
-  lanes::shift_pool<0, false>(x, 1, g);
-  lanes::shift_pool<6, false>(x, 1, g);
-}
-
-// The refocusing mix about +x on both pools, every order.
-template <typename T, int M>
-__device__ __forceinline__ void xmix_lanes(T (&x)[kPlanes][M],
-                                           const cpmg::Trig<T>& tg,
-                                           const Group& g) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    if (!g.valid(i)) continue;
-#pragma unroll
-    for (int b = 0; b < kPlanes; b += 6) {
-      const T s[6] = {x[b][i],     x[b + 1][i], x[b + 2][i],
-                      x[b + 3][i], x[b + 4][i], x[b + 5][i]};
-      T o[6];
-      cpmg::mix0(tg, s, o);
-#pragma unroll
-      for (int p = 0; p < 6; ++p) x[b + p][i] = o[p];
-    }
-  }
-}
-
-// The refocusing trig held by lane `src` of the group, on every lane.
-template <typename T>
-__device__ __forceinline__ cpmg::Trig<T> trig_from(const cpmg::Trig<T>& own,
-                                                   int src, int G) {
-  return {lanes::shfl(own.ca2, src, G), lanes::shfl(own.sa2, src, G),
-          lanes::shfl(own.sa, src, G), lanes::shfl(own.ca, src, G)};
-}
 
 // x at a fixed spacing, y over a train.
 template <bool Y, typename A>

@@ -25,8 +25,9 @@
 // so each lane does its own; the spoiler's shift by kshift and its
 // transpose are shuffles. Per chunk, newest first: the block reads the
 // chunk's checkpoint once, coalesced along the atoms, into slot 0 of its
-// shared states; phase 1 runs the forward from it in registers and stores
-// the tc − 1 later pre-RF states into slots 1 … tc − 1; phase 2 walks them
+// shared states; phase 1 runs the forward from it in registers (the lane
+// forward's step, epgx_lanes.cuh `xstep_lanes`) and stores the tc − 1
+// later pre-RF states into slots 1 … tc − 1; phase 2 walks them
 // backwards as xspgr_bwd.cu does (the shift's transpose, the
 // exchange–relaxation's transpose with the 14 entry contractions, the
 // echo's cotangent, the mix's coefficient terms and transpose). Each lane
@@ -36,40 +37,12 @@
 // a variable-TR train (VARTR) each step's 14 entries are read and its 14
 // contractions written, as xspgr_bwd.cu's instance does. Outputs as
 // xspgr_bwd.cu's, but dcf (⌈nA·G/32⌉, nTR, 9): a warp holds 32/G atoms.
-#include "epg_lanes.cuh"
-#include "epgx_common.cuh"
+#include "epgx_lanes.cuh"
 
 namespace mrphy {
 namespace epgx {
 
-using lanes::Group;
 using spgr::Trig;
-
-// One TR of the forward on every order of both pools: the RF mix, the
-// exchange–relaxation, the spoiler's shift.
-template <typename T, int M>
-__device__ __forceinline__ void xstep_lanes(T (&x)[kPlanes][M],
-                                            const Trig<T>& tg,
-                                            const Prop<T>& e, int kshift,
-                                            const Group& g) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    if (!g.valid(i)) continue;
-    const T xa[6] = {x[0][i], x[1][i], x[2][i], x[3][i], x[4][i], x[5][i]};
-    const T xb[6] = {x[6][i], x[7][i], x[8][i], x[9][i], x[10][i], x[11][i]};
-    T na[6], nb[6];
-    spgr::mix(tg, xa, na);
-    spgr::mix(tg, xb, nb);
-    xrelax(e, g.order(i), na, nb);
-#pragma unroll
-    for (int p = 0; p < 6; ++p) {
-      x[p][i] = na[p];
-      x[6 + p][i] = nb[p];
-    }
-  }
-  lanes::shift_pool<0, false>(x, kshift, g);
-  lanes::shift_pool<6, false>(x, kshift, g);
-}
 
 // par: (17, nA) at a fixed TR; over a variable-TR train (VARTR) the rows
 // [M0a, M0b, b1] (3, nA), the entries of step t at pkt + t·14·nA and their
@@ -144,7 +117,8 @@ __global__ void __launch_bounds__(lanes::kThreads)
           if (active && tl + 1 < tc)
             e_f = load_prop(pkt + (t + 1) * 14 * nA, nA, a);
         }
-        xstep_lanes(x, tg, e, kshift, g);
+        T f0[2];  // the echo's total, which phase 2 forms again
+        xstep_lanes(x, tg, e, kshift, g, f0);
         lanes::store(mine + tl * st_slot, x, g);
       }
     }

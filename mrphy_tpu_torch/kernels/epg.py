@@ -101,7 +101,8 @@ __all__ = ['LAUNCHES', 'SpgrCfg', 'diff_coef', 'pick_tc', 'spgr',
            'spgr_fwd_chk_torch', 'spgr_bwd', 'spgr_bwd_torch', 'CpmgCfg',
            'cpmg', 'cpmg_fwd', 'cpmg_fwd_torch', 'cpmg_fwd_chk',
            'cpmg_fwd_chk_torch', 'cpmg_bwd', 'cpmg_bwd_torch', 'AdjointCfg',
-           'adjoint_cfg', 'adjoint_tc', 'lane_capacity']
+           'adjoint_cfg', 'adjoint_tc', 'lane_capacity', 'ForwardCfg',
+           'forward_cfg']
 
 LAUNCHES = {'spgr_fwd': 0, 'spgr_fwd_chk': 0, 'spgr_bwd': 0,
             'cpmg_fwd': 0, 'cpmg_fwd_chk': 0, 'cpmg_bwd': 0}
@@ -911,6 +912,48 @@ def adjoint_tc(nTR: int, K: int, nA: int, itemsize: int,
     lane_tc = largest_divisor_leq(nTR, cap.S)
     chk = nTR // lane_tc * planes * K * max(nA, 1) * itemsize
     return lane_tc if chk <= LANE_CHK_BYTES else tc
+
+
+# The two-pool forwards with checkpoints K20 (xspgr_fwd_chk), K23
+# (xspgr_v_fwd_chk), K26 (xcpmg_fwd_chk) and K29 (xcpmg_v_fwd_chk) on their
+# lane route (csrc/xspgr_fwd_lanes.cu, csrc/xcpmg_fwd_lanes.cu): 128 threads
+# a block, a group of G lanes per atom, at most FWD_SLOTS_MAX order slots a
+# lane (by planes and itemsize). They keep one staging slot an atom in
+# shared memory and no chunk states, so neither the chunk nor S bounds them;
+# the slots are bounded by registers: ptxas -v shows no spills at 16 warps
+# an SM (128 registers) for float32 M ≤ 3 and at 12 warps (168) for float32
+# M 4-5 and float64 M 1-2, the occupancy each instance is built for
+# (`lanes::kFwdBlocks`). M 6 (float32 K 161 at 32 lanes) is not built.
+FWD_SLOTS_MAX = {(12, 4): 5, (12, 8): 2}
+
+
+class ForwardCfg(NamedTuple):
+    r"""How K20, K23, K26 or K29 runs: ``route`` ``'lanes'``
+    (``csrc/xspgr_fwd_lanes.cu``, ``csrc/xcpmg_fwd_lanes.cu``: ``G`` lanes
+    per atom, ``M`` order slots a lane) or ``'thread'``
+    (``csrc/xspgr_fwd.cu``, ``csrc/xcpmg_fwd.cu``: one thread per atom,
+    :func:`launch_cfg`; ``G`` 1, ``M`` 0)."""
+    route: str
+    G: int
+    M: int
+
+
+def forward_cfg(K: int, itemsize: int, planes: int = 12) -> ForwardCfg:
+    r"""The route of the two-pool forwards with checkpoints (``planes`` 12:
+    K20, K23, K26, K29) for ``K`` orders at ``itemsize``, by shape alone and
+    for any chunk: the narrowest group of 8, 16 or 32 lanes whose ``M =
+    ⌈K/G⌉`` slots fit ``FWD_SLOTS_MAX``, else one thread per atom. Float32:
+    K ≤ 160 (K 24: G 8, M 3; K 33: G 8, M 5; K 48: G 16, M 3; K 101: G 32,
+    M 4), one thread at K 161 and 201; float64: K ≤ 64 (K 24: G 16, M 2; K
+    33 and 48: G 32, M 2), one thread at K 81 and 101. The checkpoints'
+    layout is the same on both routes, so either adjoint route reads
+    them."""
+    mmax = FWD_SLOTS_MAX[(planes, itemsize)]
+    for G in LANE_WIDTHS:
+        M = -(-K // G)
+        if M <= mmax:
+            return ForwardCfg('lanes', G, M)
+    return ForwardCfg('thread', 1, 0)
 
 
 def _sizes(name, coef, par, cdiff, cfg):

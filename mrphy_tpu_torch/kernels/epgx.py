@@ -16,9 +16,13 @@ below) at a fixed TR and over a variable-TR train:
   exchange–relaxation of every order (the complex 2×2 propagator on
   ``F+``, its conjugate on ``F−``, the real 2×2 on ``Z`` with the affine
   recovery into ``Z(0)``), and ``|kshift|`` unit shifts of both pools.
-- ``xspgr_fwd_chk`` (the same source, replaces ``_xspgr_fwd_chk_kernel``):
-  the same train, also writing the state at the start of every chunk of
-  ``tc`` TRs.
+- ``xspgr_fwd_chk`` (``csrc/xspgr_fwd_lanes.cu`` and the same source,
+  replaces ``_xspgr_fwd_chk_kernel``): the same train, also writing the
+  state at the start of every chunk of ``tc`` TRs. Two hand-written routes,
+  chosen by shape alone (:func:`mrphy_tpu_torch.kernels.epg.forward_cfg`):
+  a group of lanes per atom over the orders, the state in registers and
+  each checkpoint written along the atoms through shared memory, where the
+  orders fit the slots; one thread per atom otherwise.
 - ``xspgr_bwd`` (``csrc/xspgr_bwd_lanes.cu`` and ``csrc/xspgr_bwd.cu``,
   replaces ``_xspgr_bwd_kernel``): the two-phase chunk adjoint. Per chunk,
   newest first, phase 1 re-runs the forward from the chunk's start state
@@ -30,7 +34,7 @@ below) at a fixed TR and over a variable-TR train:
   a group of lanes per atom over the orders with the chunk's states in
   shared memory where they fit (the entry points' chunk,
   :func:`_adjoint_chunk`, is capped so), one thread per atom otherwise.
-- ``xspgr_v_fwd``, ``xspgr_v_fwd_chk`` and ``xspgr_v_bwd`` (the same two
+- ``xspgr_v_fwd``, ``xspgr_v_fwd_chk`` and ``xspgr_v_bwd`` (the same
   sources, instances for a variable-TR train; replace ``_epgx_v_kernel``,
   ``_xv_fwd_chk_kernel`` and ``_xv_bwd_kernel``): the same recursions
   with the 14 propagator entries of each step read from per-step planes,
@@ -80,10 +84,12 @@ same for the variable-TR kernels. Their chunk is :func:`_adjoint_chunk`'s
 (``adjoint_tc`` for 12 planes); the one-thread route's per-chunk scratch lies
 in device memory.
 
-The two-pool CPMG kernels (``csrc/xcpmg_fwd.cu``; the adjoint's two routes
-``csrc/xcpmg_bwd_lanes.cu`` and ``csrc/xcpmg_bwd.cu``, chosen by shape alone as
-``xspgr_bwd``'s) are the same three for the spin-echo train of myelin-water
-mapping: ``xcpmg_fwd`` (replaces ``_xcpmg_kernel``), ``xcpmg_fwd_chk``
+The two-pool CPMG kernels (``csrc/xcpmg_fwd.cu``, with the lane route
+``csrc/xcpmg_fwd_lanes.cu`` of ``xcpmg_fwd_chk`` chosen as
+``xspgr_fwd_chk``'s; the adjoint's two routes ``csrc/xcpmg_bwd_lanes.cu``
+and ``csrc/xcpmg_bwd.cu``, chosen by shape alone as ``xspgr_bwd``'s) are
+the same three for the spin-echo train of myelin-water mapping:
+``xcpmg_fwd`` (replaces ``_xcpmg_kernel``), ``xcpmg_fwd_chk``
 (``_xcpmg_fwd_chk_kernel``) and ``xcpmg_bwd`` (``_xcpmg_bwd_kernel``). From the
 closed-form state a π/2 excitation about ``φ_ex`` leaves on the equilibrium
 (``F± = (sin φ_ex ∓ i·cos φ_ex)·M0p``, ``Z = 0``, per pool), per echo: the
@@ -152,8 +158,8 @@ from mrphy_tpu_torch.kernels.epg import (_at0, _entry, _flip_trig,
                                          _group_sum, _ksum, _lane_parts,
                                          _lane_sum, _mix, _mix0_terms, _mix_T,
                                          _shift, _shift_T, _trig, _warp_sums,
-                                         adjoint_cfg, adjoint_tc, launch_cfg,
-                                         pick_tc)
+                                         adjoint_cfg, adjoint_tc,
+                                         forward_cfg, launch_cfg, pick_tc)
 
 __all__ = ['LAUNCHES', 'PLANES', 'XspgrCfg', 'xspgr', 'xspgr_fwd',
            'xspgr_fwd_torch', 'xspgr_fwd_chk', 'xspgr_fwd_chk_torch',
@@ -535,27 +541,37 @@ def _sizes(name, coef, par, cfg, pkt=None):
 
 def _launch_fwd(coef, par, cfg, tc, pkt=None):
     r"""``xspgr_fwd`` (``tc`` None) or ``xspgr_fwd_chk``; with ``pkt``,
-    their variable-TR instances, ``par`` then ``pk``."""
+    their variable-TR instances, ``par`` then ``pk``. The ``_chk`` kernels
+    take the route :func:`~mrphy_tpu_torch.kernels.epg.forward_cfg` gives
+    (``csrc/xspgr_fwd_lanes.cu`` or one thread per atom), the others one
+    thread per atom."""
     from mrphy_tpu_torch.kernels._build import library
     name = (('xspgr_fwd' if pkt is None else 'xspgr_v_fwd')
             + ('' if tc is None else '_chk'))
     nA, nTR = _sizes(name, coef, par, cfg, pkt)
     dt, dev = par.dtype, par.device
-    threads, in_smem = launch_cfg(cfg.K, par.element_size(), PLANES)
     sig = torch.empty((nA, nTR, 2), dtype=dt, device=dev)
     chk = None
     if tc is not None:
         _check_tc(nTR, tc)
         chk = torch.empty((nTR // tc, PLANES, cfg.K, nA), dtype=dt,
                           device=dev)
-    state = None if in_smem else torch.empty((PLANES, cfg.K, nA), dtype=dt,
-                                             device=dev)
     ins = (coef, par) if pkt is None else (coef, par, pkt)
     lib, _ = library()
-    with torch.cuda.device(dev):
-        err = _entry(lib, name, dt)(
-            *map(_ptr, ins + (sig, chk, state)), nA, nTR, cfg.K,
-            cfg.kshift, cfg.flags, tc or nTR, threads, _stream(dev))
+    route = forward_cfg(cfg.K, par.element_size(), PLANES)
+    if tc is not None and route.route == 'lanes':
+        with torch.cuda.device(dev):
+            err = _entry(lib, name + '_lanes', dt)(
+                *map(_ptr, ins + (sig, chk)), nA, nTR, cfg.K, cfg.kshift,
+                cfg.flags, tc, route.G, route.M, _stream(dev))
+    else:
+        threads, in_smem = launch_cfg(cfg.K, par.element_size(), PLANES)
+        state = None if in_smem else torch.empty((PLANES, cfg.K, nA),
+                                                 dtype=dt, device=dev)
+        with torch.cuda.device(dev):
+            err = _entry(lib, name, dt)(
+                *map(_ptr, ins + (sig, chk, state)), nA, nTR, cfg.K,
+                cfg.kshift, cfg.flags, tc or nTR, threads, _stream(dev))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return sig, chk
@@ -975,13 +991,16 @@ def _xcpmg_sizes(name, coef, pk, cfg, pkt=None):
 
 def _launch_xcpmg_fwd(coef, pk, cfg, tc, pkt=None):
     r"""``xcpmg_fwd`` (``tc`` None) or ``xcpmg_fwd_chk``; with ``pkt``,
-    their echo-spacing-train instances: ``(er, ei, chk)``."""
+    their echo-spacing-train instances: ``(er, ei, chk)``. The ``_chk``
+    kernels take the route
+    :func:`~mrphy_tpu_torch.kernels.epg.forward_cfg` gives
+    (``csrc/xcpmg_fwd_lanes.cu`` or one thread per atom), the others one
+    thread per atom."""
     from mrphy_tpu_torch.kernels._build import library
     name = (('xcpmg_fwd' if pkt is None else 'xcpmg_v_fwd')
             + ('' if tc is None else '_chk'))
     nA, nE = _xcpmg_sizes(name, coef, pk, cfg, pkt)
     dt, dev = pk.dtype, pk.device
-    threads, in_smem = launch_cfg(cfg.K, pk.element_size(), PLANES)
     er = torch.empty((nE, nA), dtype=dt, device=dev)
     ei = torch.empty((nE, nA), dtype=dt, device=dev)
     chk = None
@@ -989,14 +1008,22 @@ def _launch_xcpmg_fwd(coef, pk, cfg, tc, pkt=None):
         _check_tc(nE, tc)
         chk = torch.empty((nE // tc, PLANES, cfg.K, nA), dtype=dt,
                           device=dev)
-    state = None if in_smem else torch.empty((PLANES, cfg.K, nA), dtype=dt,
-                                             device=dev)
     ins = (coef, pk) if pkt is None else (coef, pk, pkt)
     lib, _ = library()
-    with torch.cuda.device(dev):
-        err = _entry(lib, name, dt)(
-            *map(_ptr, ins + (er, ei, chk, state)), nA, nE, cfg.K,
-            cfg.flags, tc or nE, threads, _stream(dev))
+    route = forward_cfg(cfg.K, pk.element_size(), PLANES)
+    if tc is not None and route.route == 'lanes':
+        with torch.cuda.device(dev):
+            err = _entry(lib, name + '_lanes', dt)(
+                *map(_ptr, ins + (er, ei, chk)), nA, nE, cfg.K, cfg.flags,
+                tc, route.G, route.M, _stream(dev))
+    else:
+        threads, in_smem = launch_cfg(cfg.K, pk.element_size(), PLANES)
+        state = None if in_smem else torch.empty((PLANES, cfg.K, nA),
+                                                 dtype=dt, device=dev)
+        with torch.cuda.device(dev):
+            err = _entry(lib, name, dt)(
+                *map(_ptr, ins + (er, ei, chk, state)), nA, nE, cfg.K,
+                cfg.flags, tc or nE, threads, _stream(dev))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return er, ei, chk

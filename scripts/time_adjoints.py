@@ -1,8 +1,10 @@
 r"""Time the EPG adjoints K15 ``spgr_bwd``, K18 ``cpmg_bwd``, K21
 ``xspgr_bwd``, K24 ``xspgr_v_bwd``, K27 ``xcpmg_bwd`` and K30
-``xcpmg_v_bwd`` at the main paths' shapes, and the path steps that run
-them, on one card, optionally against another checkout of the repository
-in the same run.
+``xcpmg_v_bwd``, the forwards that write their checkpoints (among them the
+two-pool K20 ``xspgr_fwd_chk``, K23 ``xspgr_v_fwd_chk``, K26
+``xcpmg_fwd_chk`` and K29 ``xcpmg_v_fwd_chk``), at the main paths' shapes,
+and the path steps that run them, on one card, optionally against another
+checkout of the repository in the same run.
 
 Each side runs in a process of its own, which imports ``mrphy_tpu_torch``
 and ``chip_smoke`` (for its case builders) from that side's root, builds
@@ -11,9 +13,17 @@ that side's kernels into its own ``build/kernels``, and then
 - for each kernel case, makes the checkpoints with the forward kernel at
   the side's own chunk length (``kernels.epg.adjoint_tc`` where the side
   has the adjoint's lane route, else ``pick_tc``), times that forward
-  (``chk_ms``) and the adjoint kernel alone: the median of ``--reps``
+  (``chk_ms``, with the route a two-pool forward takes, ``fwd_route``:
+  ``kernels.epg.forward_cfg``'s lanes G and slots M where the side has it,
+  else one thread per atom; where it takes the lanes, also the same
+  forward forced onto one thread per atom, ``chk_thread_ms``) and the
+  adjoint kernel alone: the median of ``--reps``
   CUDA-event timings after one warm-up call, with the peak memory
-  allocated;
+  allocated. Beside the paths' kernel shapes, the two-pool train also
+  runs at K 24 with a scalar tr, over a tr train at K 48 (an
+  exchange-MRF segment, 65,536 × 200) and at the exchange-MRF
+  refinement's 4096 atoms (scalar tr and tr train), the shapes on which
+  the forwards' route was chosen;
 - for each path case, times ``--steps`` steps through the entry points on
   the host's clock after one warm-up step, with the peak memory allocated
   over them: the T2 fit's Adam step at 1M voxels × 32 echoes
@@ -55,6 +65,13 @@ CASES = (
     ('bench_mrf two-pool 64k x 400, K 48', 'xspgr_bwd', 65536, 400, 48, {}),
     ('bench_mrf variable-TR two-pool 64k x 400, K 24', 'xspgr_v_bwd', 65536,
      400, 24, dict(vartr=True)),
+    ('bench_mrf two-pool at K 24, tr 12 ms', 'xspgr_bwd', 65536, 400, 24, {}),
+    ('exchange-MRF segment over a tr train 64k x 200, K 48', 'xspgr_v_bwd',
+     65536, 200, 48, dict(vartr=True)),
+    ('exchange-MRF refinement 4096 x 200, K 48', 'xspgr_bwd', 4096, 200, 48,
+     {}),
+    ('exchange-MRF refinement over a tr train', 'xspgr_v_bwd', 4096, 200, 48,
+     dict(vartr=True)),
     ('bench_mrf_fisp 64k x 400, K 48', 'spgr_bwd', 65536, 400, 48, {}),
     ('bench_mrf_fisp + diffusion', 'spgr_bwd', 65536, 400, 48,
      dict(D=True)),
@@ -173,7 +190,22 @@ def side(root: Path, reps: int, steps: int, only):
                    pick_tc=kepg.pick_tc(nT, cfg.K, nA, 4, planes))
         if lanes:
             row['route'] = kepg.adjoint_cfg(cfg.K, 4, planes, tc)._asdict()
+        if planes == 12:
+            # the two-pool forward's route: the side's forward_cfg, else the
+            # one thread per atom it had before
+            row['fwd_route'] = (kepg.forward_cfg(cfg.K, 4)._asdict()
+                                if hasattr(kepg, 'forward_cfg')
+                                else dict(route='thread', G=1, M=0))
         row['chk_ms'] = cs.time_ms(fwd, reps=reps)
+        if row.get('fwd_route', {}).get('route') == 'lanes':
+            # the same forward on one thread per atom, as the chooser's
+            # yardstick
+            lanes_cfg = kx.forward_cfg
+            kx.forward_cfg = lambda *a: kepg.ForwardCfg('thread', 1, 0)
+            try:
+                row['chk_thread_ms'] = cs.time_ms(fwd, reps=reps)
+            finally:
+                kx.forward_cfg = lanes_cfg
         # the adjoint's peak: its checkpoints resident, its own allocations
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -422,9 +454,16 @@ def main() -> int:
         case.setdefault(key + '_peak_gb', []).append(r['peak_gb'])
         if 'chk_ms' in r:
             case.setdefault(key + '_chk_ms', []).append(r['chk_ms'])
+        if 'fwd_route' in r:
+            case[key + '_fwd_route'] = r['fwd_route']
+        if 'chk_thread_ms' in r:
+            case.setdefault(key + '_chk_thread_ms', []).append(
+                r['chk_thread_ms'])
     for case, s in summary.items():
         if 'parent' in s and 'change' in s:
             s['ratio'] = min(s['change']) / min(s['parent'])
+        if 'parent_chk_ms' in s and 'change_chk_ms' in s:
+            s['chk_ratio'] = min(s['change_chk_ms']) / min(s['parent_chk_ms'])
     print(json.dumps(dict(card=smi, cases=summary)), flush=True)
     return 0
 

@@ -1894,6 +1894,166 @@ def test_xcpmg_v_bwd_constant_train_equals_xcpmg_bwd_on_card(cuda, dtype,
     _rows_close(dpkt.sum(dim=0), dpk[:14], ents)
 
 
+# K20's and K23's two routes (kernels/epg.py forward_cfg), b1, at a ragged
+# 1,001 atoms × 32 TRs, tc 4: the lanes at K 37 (8 lanes of 5 slots, K not
+# a multiple of the group) at kshift 2, K 24 (8 of 3) at kshift −1, 9 and
+# −17 (shifts past the group's lanes, in pieces), float64 K 29 (16 of 2);
+# one thread per atom at K 161 and float64 K 81.
+XSPGR_FWD_CASES = [
+    (torch.float32, 2e-6, 1e-4, 37, 2, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 24, -1, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 24, 9, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 24, -17, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 161, 1, 'thread'),
+    (torch.float64, 1e-12, 1e-12, 29, 2, 'lanes'),
+    (torch.float64, 1e-12, 1e-12, 81, 1, 'thread')]
+XSPGR_FWD_IDS = ['f32-lanes-K37-kshift2', 'f32-lanes-K24-kshift-1',
+                 'f32-lanes-K24-kshift9', 'f32-lanes-K24-kshift-17',
+                 'f32-thread-K161', 'f64-lanes-K29-kshift2',
+                 'f64-thread-K81']
+
+
+def _fwd_chk_routes(monkeypatch, fwd, fwd_t, bwd, bwd_t, args, cot, tc,
+                    natural, bar, rows):
+    r"""A forward with checkpoints on the route its shape takes against its
+    plain version and against the one-thread route (every output bit for
+    bit), then its checkpoints fed to the adjoint on the route the shape
+    takes and on one thread per atom (``natural``'s and the one-thread
+    route's summation order in the plain adjoint alike), each at ``bar``
+    per atom and ``rows`` per step."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    out = fwd(*args, tc=tc)
+    torch.cuda.synchronize()
+    ref = fwd_t(*args, tc=tc)
+    with monkeypatch.context() as m:
+        m.setattr(kx, 'forward_cfg',
+                  lambda *a: kepg.ForwardCfg('thread', 1, 0))
+        one = fwd(*args, tc=tc)
+    for x, y, z in zip(out, ref, one):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    chk = out[-1]
+    thread = kepg.AdjointCfg('thread', 1, 0, 0)
+    for adj in [natural] + ([thread] if natural.route == 'lanes' else []):
+        with monkeypatch.context() as m:
+            m.setattr(kx, 'adjoint_cfg', lambda *a: adj)
+            got = bwd(*args, chk, *cot, tc=tc)
+            want = bwd_t(*args, ref[-1], *cot, tc=tc)
+        _rows_close(got[0], want[0], rows)
+        for x, y in zip(got[1:], want[1:]):
+            _rows_close(x, y, bar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows,K,kshift,route', XSPGR_FWD_CASES,
+                         ids=XSPGR_FWD_IDS)
+@pytest.mark.parametrize('vartr', [False, True], ids=['tr', 'tr-train'])
+def test_xspgr_fwd_chk_routes_on_card(cuda, monkeypatch, dtype, bar, rows, K,
+                                      kshift, route, vartr):
+    r"""``xspgr_fwd_chk`` and ``xspgr_v_fwd_chk`` on the route their shape
+    takes: echoes and checkpoints bit for bit equal to
+    the plain versions' and to the one-thread route's; the lane forward's
+    checkpoints feed both adjoint routes at their existing bars."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    nA, nTR, tc = 1001, 32, 4
+    kw = _xspgr_case(cuda, dtype, nA, nTR, K, kshift, True, 53, vartr=vartr)
+    coef, par, cfg, _ = epg._xspgr_rows(kw.pop('flips'), kw.pop('phis'),
+                                        **kw)
+    isz = coef.element_size()
+    assert kepg.forward_cfg(K, isz, 12).route == route
+    args = (coef.contiguous(),) + tuple(
+        x.contiguous() for x in (par if vartr else (par,))) + (cfg,)
+    v = '_v' if vartr else ''
+    fwd, fwd_t, bwd, bwd_t = (getattr(kx, f'xspgr{v}_{n}') for n in (
+        'fwd_chk', 'fwd_chk_torch', 'bwd', 'bwd_torch'))
+    g = torch.as_tensor(np.random.default_rng(8).standard_normal(
+        (nA, nTR, 2)), dtype=dtype, device=cuda)
+    n0 = kx.LAUNCHES[f'xspgr{v}_fwd_chk']
+    _fwd_chk_routes(monkeypatch, fwd, fwd_t, bwd, bwd_t, args, (g,), tc,
+                    kepg.adjoint_cfg(K, isz, 12, tc), bar, rows)
+    assert kx.LAUNCHES[f'xspgr{v}_fwd_chk'] == n0 + 2   # both routes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K,G,M', [(37, 8, 6), (37, 16, 2), (37, 4, 10),
+                                   (161, 32, 6)],
+                         ids=['M-past-ceil-K-over-G', 'M-too-small',
+                              'G-not-a-width', 'M-past-the-instances'])
+def test_fwd_chk_lanes_refuse_on_card(cuda, monkeypatch, K, G, M):
+    r"""The lane forwards' entry points refuse a ``(G, M)`` other than ``M =
+    ⌈K/G⌉`` over 8, 16 or 32 lanes, or one no instance has, with
+    cudaErrorInvalidValue, which the wrappers raise: nothing falls back to
+    the other route."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    kw = _xspgr_case(cuda, torch.float32, 65, 8, K, 1, False, 3)
+    coef, par, xcfg, _ = epg._xspgr_rows(kw.pop('flips'), kw.pop('phis'),
+                                         **kw)
+    monkeypatch.setattr(kx, 'forward_cfg',
+                        lambda *a: kepg.ForwardCfg('lanes', G, M))
+    n0 = dict(kx.LAUNCHES)
+    with pytest.raises(RuntimeError, match='cudaError_t 1$'):
+        kx.xspgr_fwd_chk(coef.contiguous(), par.contiguous(), xcfg, tc=4)
+    ckw = _xcpmg_case(cuda, torch.float32, 65, K - 1, False, 3)
+    coef, pk, ccfg, _ = epg._xcpmg_rows(ckw.pop('flips'), **ckw, esp=0.01)
+    with pytest.raises(RuntimeError, match='cudaError_t 1$'):
+        kx.xcpmg_fwd_chk(coef.contiguous(), pk.contiguous(), ccfg, tc=4)
+    assert kx.LAUNCHES == n0
+
+
+# K26's and K29's two routes, b1, at 1,001 atoms: the lanes at 32 echoes
+# (K 33: 8 lanes of 5 slots) and 24 (K 25: 8 of 4), in float64 at 32 (K 33:
+# 32 of 2; its adjoint keeps one thread) and 24 (K 25: 16 of 2); one thread
+# per atom at 160 echoes (K 161) and float64 80 (K 81).
+XCPMG_FWD_CASES = [
+    (torch.float32, 2e-6, 1e-4, 32, 4, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 24, 3, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 160, 4, 'thread'),
+    (torch.float64, 1e-12, 1e-12, 32, 4, 'lanes'),
+    (torch.float64, 1e-12, 1e-12, 24, 3, 'lanes'),
+    (torch.float64, 1e-12, 1e-12, 80, 4, 'thread')]
+XCPMG_FWD_IDS = ['f32-lanes-K33', 'f32-lanes-K25', 'f32-thread-K161',
+                 'f64-lanes-K33', 'f64-lanes-K25', 'f64-thread-K81']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows,nE,tc,route', XCPMG_FWD_CASES,
+                         ids=XCPMG_FWD_IDS)
+@pytest.mark.parametrize('varesp', [False, True],
+                         ids=['esp', 'esp-train'])
+def test_xcpmg_fwd_chk_routes_on_card(cuda, monkeypatch, dtype, bar, rows, nE,
+                                      tc, route, varesp):
+    r"""``xcpmg_fwd_chk`` and ``xcpmg_v_fwd_chk`` on the route their shape
+    takes: echoes and checkpoints bit for bit equal to
+    the plain versions' and to the one-thread route's; the lane forward's
+    checkpoints feed both adjoint routes at their existing bars."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    nA = 1001
+    kw = _xcpmg_case(cuda, dtype, nA, nE, True, 59)
+    flips = kw.pop('flips')
+    esp = (torch.as_tensor(np.random.default_rng(10).uniform(
+        0.008, 0.018, nE), dtype=dtype, device=cuda) if varesp else 0.01)
+    coef, pk, cfg, _ = epg._xcpmg_rows(flips, **kw, esp=esp)
+    isz = coef.element_size()
+    assert kepg.forward_cfg(cfg.K, isz, 12).route == route
+    args = (coef.contiguous(),) + tuple(
+        x.contiguous() for x in (pk if varesp else (pk,))) + (cfg,)
+    v = '_v' if varesp else ''
+    fwd, fwd_t, bwd, bwd_t = (getattr(kx, f'xcpmg{v}_{n}') for n in (
+        'fwd_chk', 'fwd_chk_torch', 'bwd', 'bwd_torch'))
+    gr, gi = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        (2, nE, nA)), dtype=dtype, device=cuda)
+    n0 = kx.LAUNCHES[f'xcpmg{v}_fwd_chk']
+    _fwd_chk_routes(monkeypatch, fwd, fwd_t, bwd, bwd_t, args, (gr, gi), tc,
+                    kepg.adjoint_cfg(cfg.K, isz, 12, tc), bar, rows)
+    assert kx.LAUNCHES[f'xcpmg{v}_fwd_chk'] == n0 + 2   # both routes
+
+
 @pytest.mark.cuda
 def test_mrf_and_mwf_gradients_take_the_lane_route_once_on_card(cuda):
     r"""An MRF-FISP dictionary's gradient (K 48, TR/TE train, diffusion)

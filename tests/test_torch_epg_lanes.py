@@ -1,7 +1,9 @@
 r"""The EPG adjoints' lane route on the CPU: the route and chunk chooser of
 K15 ``spgr_bwd``, K18 ``cpmg_bwd``, K21 ``xspgr_bwd``, K24 ``xspgr_v_bwd``,
 K27 ``xcpmg_bwd`` and K30 ``xcpmg_v_bwd``
-(:func:`mrphy_tpu_torch.kernels.epg.adjoint_cfg`, ``adjoint_tc``), in pure
+(:func:`mrphy_tpu_torch.kernels.epg.adjoint_cfg`, ``adjoint_tc``) and the
+route chooser of the two-pool forwards with checkpoints K20, K23, K26 and
+K29 (``forward_cfg``), in pure
 Python at the main paths' shapes and at the large-K shapes that keep one
 thread per atom, the order in which the plain versions sum over the
 orders (``_lane_sum``) against a sequential sum, and K15's and K27/K30's
@@ -132,6 +134,42 @@ def test_adjoint_tc_checkpoint_budget():
             assert tc == pick and capped > kepg.LANE_CHK_BYTES
         else:
             assert tc == S and capped <= kepg.LANE_CHK_BYTES
+
+
+# (K, itemsize) -> (route, G, M) of the two-pool forwards with checkpoints
+# K20, K23, K26 and K29 (kernels/epg.py forward_cfg): the narrowest group
+# whose slots fit FWD_SLOTS_MAX (5 in float32, 2 in float64), one thread per
+# atom past it, for any chunk.
+FORWARD = [
+    ((24, 4), ('lanes', 8, 3)),       # bench_mrf variable-TR two-pool
+    ((33, 4), ('lanes', 8, 5)),       # MWF's 32 echoes
+    ((48, 4), ('lanes', 16, 3)),      # bench_mrf two-pool, exchange-MRF
+    ((101, 4), ('lanes', 32, 4)),     # past the adjoint's slots
+    ((161, 4), ('thread', 1, 0)),     # phase 25's device-memory state
+    ((201, 4), ('thread', 1, 0)),     # phase 21's default K
+    ((24, 8), ('lanes', 16, 2)),
+    ((33, 8), ('lanes', 32, 2)),      # MWF's float64 example (26b)
+    ((48, 8), ('lanes', 32, 2)),
+    ((101, 8), ('thread', 1, 0)),     # phase 21's float64 default K
+    ((161, 8), ('thread', 1, 0)),
+    ((201, 8), ('thread', 1, 0))]
+
+
+@pytest.mark.parametrize('key,want', FORWARD,
+                         ids=[f'K{k}-{i}B' for (k, i), _ in FORWARD])
+def test_forward_cfg(key, want):
+    r"""The forwards' route by shape alone: the narrowest group of 8, 16 or
+    32 lanes whose ``M = ⌈K/G⌉`` slots fit ``FWD_SLOTS_MAX``, else one
+    thread per atom; the lanes take every K ≤ 32·FWD_SLOTS_MAX."""
+    K, itemsize = key
+    cfg = kepg.forward_cfg(K, itemsize, 12)
+    assert tuple(cfg) == want
+    mmax = kepg.FWD_SLOTS_MAX[(12, itemsize)]
+    assert (cfg.route == 'lanes') == (K <= 32 * mmax)
+    if cfg.route == 'lanes':
+        assert (cfg.M - 1) * cfg.G < K <= cfg.M * cfg.G <= cfg.G * mmax
+        assert all(-(-K // G) > mmax for G in kepg.LANE_WIDTHS
+                   if G < cfg.G)
 
 
 @pytest.mark.parametrize('G', [1, 8, 16, 32])
