@@ -194,7 +194,14 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     Per-atom outputs (echoes, checkpoints, the eight per-atom gradient
     rows) at ``EPG_BAR`` of their largest value, the per-echo rows at
     ``EPG_ROW_BAR``; the plain adjoint is written out (no autograd graph
-    at full width).
+    at full width). ``cpmg_fwd_chk`` takes its lane route
+    (``cpmg_fwd_lanes.cu``) where ``kernels.epg.forward_cfg`` at 6 planes
+    gives it, ``cpmg_bwd`` its own where ``adjoint_cfg`` does, at the
+    entry point's chunk (tc 4 at the T2 map); each row names its route, and
+    each lane case is also run on one thread per atom: the forward's
+    echoes and checkpoints bit for bit, the adjoint's per-atom outputs at
+    ``EPG_BAR`` and its rows at ``EPG_ROW_BAR`` (another summation
+    order).
 20. The T2-mapping path through ``epg_cpmg``: (a) at full width
     (``T2MAP``), the forward timed in voxels per second, the gradient of
     the echo magnitudes' squared error w.r.t. T2, M0 and b1 timed, and 50
@@ -371,7 +378,13 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     the default K 401 with the state in device memory; a ragged atom count
     over three chunks of 67 TRs; float64 with b1 and ``wscale``. Per-atom
     outputs (echoes, checkpoints, ``dpk``) at ``EPG_BAR`` (bit for bit
-    expected), the per-TR rows at ``XMT_ROW_BAR``.
+    expected), the per-TR rows at ``XMT_ROW_BAR``. The chunk is the entry
+    point's (``kernels.epg.adjoint_tc`` at 8 planes: tc 5 at the
+    dictionary), ``xmt_bwd`` on its lane route (``xmt_bwd_lanes.cu``)
+    where ``adjoint_cfg`` gives it (one thread per atom at K 401, at the
+    ragged case's tc 67 past S); each row names its route, and each lane
+    case also runs on one thread per atom (per-atom outputs at ``EPG_BAR``,
+    rows at ``EPG_ROW_BAR``: another summation order).
 32. The qMT path: (a) ``QMT_DICT``, a 64 F × 32 kba × 32 T2b dictionary
     at ``examples/qmt_fit.py``'s pool over 400 TRs with a cycling
     saturation power, through ``xmt_spgr`` (``xmt_fwd``) in atoms per
@@ -402,7 +415,8 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     ``xmt_fwd_chk`` and ``xmt_bwd``; the default K 401 with the state in
     device memory; a ragged atom count over three chunks; float64 with b1
     and ``wscale``. Per-atom outputs (echoes, checkpoints, ``dpk``, ``dpkt``)
-    at ``EPG_BAR``, the per-TR rows at ``XMT_ROW_BAR``.
+    at ``EPG_BAR``, the per-TR rows at ``XMT_ROW_BAR``; chunks, routes and
+    the one-thread check as phase 31's.
 34. The qMT fingerprinting path over a variable-TR train: (a) phase 32a's
     path (``QMT_DICT``) over ``QMT_V``'s train tr_t = 12 ms + 6 ms·u_t
     through the variable-TR kernels: the dictionary in atoms per second,
@@ -3533,8 +3547,9 @@ T2MAP = dict(nV=1 << 20, nE=32, esp=0.01, flip=150.0, T1=1.0, T2=(0.02, 0.3),
 # cpmg_case keywords, timed. ``t2map``: T2MAP's train and tissue; otherwise
 # bench_mrf's CPMG dictionary train (benchmarks/suite.py:626-630: flips
 # uniform(120°, 180°), esp 10 ms) with the options named. The chunk is the
-# entry point's (kernels.epg.adjoint_tc: pick_tc capped at the states the
-# adjoint's lane route keeps in shared memory), or with ``tc='pick'``
+# entry point's (kernels.epg.adjoint_tc: where the adjoint's lane route
+# takes the shape, the largest divisor of the train within the states it
+# keeps in shared memory, 4 at K 33 in float32), or with ``tc='pick'``
 # pick_tc's own.
 CPMG_CASES = (
     ('T2 map 1M x 32, K 33, b1 (full width)', 1 << 20, 32, torch.float32,
@@ -3607,21 +3622,62 @@ def cpmg_case(nA, nE, dtype, dev, *, t2map=False, b1=False, varesp=False,
 
 
 def adjoint_meta(K, par, planes, tc) -> dict:
-    r"""The route K15/K18 (``planes`` 6) or K21/K24/K27/K30 (12) takes at
-    chunk ``tc``
-    (``kernels.epg.adjoint_cfg``): the lanes per atom G, the order slots a
-    lane M, the chunk states an atom keeps in shared memory S (the chunk's
-    tc of them are used), or one thread per atom."""
+    r"""The route K15/K18 (``planes`` 6), K21/K24/K27/K30 (12) or K33/K36
+    (8) takes at chunk ``tc`` (``kernels.epg.adjoint_cfg``): the lanes per
+    atom G, the order slots a lane M, the chunk states an atom keeps in
+    shared memory S (the chunk's tc of them are used), or one thread per
+    atom."""
     from mrphy_tpu_torch.kernels import epg as kepg
     return kepg.adjoint_cfg(K, par.element_size(), planes, tc)._asdict()
 
 
-def forward_meta(K, par) -> dict:
-    r"""The route K20, K23, K26 or K29 takes (``kernels.epg.forward_cfg``,
-    by shape alone, for any chunk): the lanes per atom G and the order slots
-    a lane M, or one thread per atom (``threads_state`` then says how)."""
+def forward_meta(K, par, planes=12) -> dict:
+    r"""The route K20, K23, K26 or K29 (``planes`` 12) or K17 (6) takes
+    (``kernels.epg.forward_cfg``, by shape alone, for any chunk): the lanes
+    per atom G and the order slots a lane M, or one thread per atom
+    (``threads_state`` then says how)."""
     from mrphy_tpu_torch.kernels import epg as kepg
-    return kepg.forward_cfg(K, par.element_size(), 12)._asdict()
+    return kepg.forward_cfg(K, par.element_size(), planes)._asdict()
+
+
+def thread_check(row, name, run_kernel, mod, kind, names, dtype):
+    r"""A lane case of kernel ``name`` against its one-thread route:
+    ``run_kernel`` once as it is and once with ``mod.<kind>``
+    (``forward_cfg`` or ``adjoint_cfg``) giving one thread per atom. A
+    forward's outputs must agree bit for bit; an adjoint's per-atom
+    outputs at EPG_BAR and its ``dcoef`` rows at EPG_ROW_BAR of their
+    largest value (the sums over the orders and over a warp's atoms run in
+    another order). The result goes into ``row`` and is printed."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    lanes = run_kernel()
+    thread = (kepg.ForwardCfg('thread', 1, 0) if kind == 'forward_cfg'
+              else kepg.AdjointCfg('thread', 1, 0, 0))
+    orig = getattr(mod, kind)
+    setattr(mod, kind, lambda *a: thread)
+    try:
+        one = run_kernel()
+    finally:
+        setattr(mod, kind, orig)
+    torch.cuda.synchronize()
+    pairs = dict(zip(names, zip(lanes, one)))
+    if kind == 'forward_cfg':
+        row['thread_bit_identical'] = all(torch.equal(a, b)
+                                          for a, b in pairs.values())
+        out = dict(thread_bit_identical=row['thread_bit_identical'])
+        check(row['thread_bit_identical'],
+              f'{name} {row["case"]}: lanes != one thread per atom')
+    else:
+        errs = {k: sliced_err(a, b) / max(float(b.abs().max()), 1e-30)
+                for k, (a, b) in pairs.items()}
+        row['thread_err'] = errs
+        out = dict(thread_err=errs)
+        for k, e in errs.items():
+            bar = (EPG_ROW_BAR if k == 'dcoef' else EPG_BAR)[dtype]
+            check(e <= bar, f'{name} {row["case"]} {k} lanes vs one '
+                  f'thread: {e} > {bar}')
+    print(f'{name} {row["case"]} against one thread per atom: '
+          + json.dumps(out), flush=True)
+    del lanes, one, pairs
 
 
 def phase_cpmg_kernels(dev):
@@ -3660,16 +3716,26 @@ def phase_cpmg_kernels(dev):
                 args[:4] + (chk, gr, gi))}
         names = {'cpmg_fwd': ('er', 'ei'), 'cpmg_fwd_chk': ('er', 'ei', 'chk'),
                  'cpmg_bwd': ('dcoef', 'dpar')}
+        fwd_route = forward_meta(cfg.K, par, 6)
+        adj_route = adjoint_meta(cfg.K, par, 6, tc)
         for name, (run_kernel, run_plain, inputs) in runs.items():
             meta = dict(case=label, nA=nA, nE=nE, K=cfg.K, tc=tc,
                         pick_tc=kepg.pick_tc(nE, cfg.K, nA,
                                              par.element_size()),
                         threads_state=kepg.launch_cfg(cfg.K,
                                                       par.element_size()),
-                        adjoint=adjoint_meta(cfg.K, par, 6, tc))
+                        adjoint=adj_route)
+            if name == 'cpmg_fwd_chk':
+                meta['forward'] = fwd_route
             rows[name].append(compare_epg(
                 name, run_kernel, run_plain, inputs, names[name], meta,
                 dtype, timed, EPG_ROW_BAR))
+            if name == 'cpmg_fwd_chk' and fwd_route['route'] == 'lanes':
+                thread_check(rows[name][-1], name, run_kernel, kepg,
+                             'forward_cfg', names[name], dtype)
+            if name == 'cpmg_bwd' and adj_route['route'] == 'lanes':
+                thread_check(rows[name][-1], name, run_kernel, kepg,
+                             'adjoint_cfg', names[name], dtype)
         del args, coef, par, dq, chk, gr, gi
     print(f'phase 19 took {time.perf_counter() - t0:.1f} s', flush=True)
     return rows
@@ -5896,7 +5962,7 @@ XMT_ROW_BAR = {torch.float32: 5e-7, torch.float64: 1e-15}
 XMT_KERNELS = ('xmt_fwd', 'xmt_fwd_chk', 'xmt_bwd')
 # The kernels' cases (phase 31): label, atoms, TRs, K (None: the default
 # nTR·|kshift| + 1), dtype, xmt_case keywords, the chunk (None: the
-# adjoint's own, kernels/epg.pick_tc at 8 planes), timed.
+# adjoint's own, kernels/epg.adjoint_tc at 8 planes), timed.
 XMT_CASES = (
     ('qMT dictionary 65,536 x 400, K 48 (phase 32a)', 65536, 400, 48,
      torch.float32, dict(qmt=True), None, True),
@@ -6022,7 +6088,7 @@ def phase_xmt_kernels(dev):
     against ``spgr_fwd`` (the single-pool train of pool a at te 0) at
     EPG_ROW_BAR. Returns each kernel's rows."""
     from mrphy_tpu_torch.kernels import epgx as kx
-    from mrphy_tpu_torch.kernels.epg import launch_cfg, pick_tc
+    from mrphy_tpu_torch.kernels.epg import adjoint_tc, launch_cfg
     from mrphy_tpu_torch.ops import epg
     t0 = time.perf_counter()
     rows = {name: [] for name in XMT_KERNELS}
@@ -6030,7 +6096,9 @@ def phase_xmt_kernels(dev):
             XMT_CASES, 310):
         ckw = xmt_case(nA, nTR, K, dtype, dev, seed=seed, **kw)
         coef, pk, cfg = xmt_args(ckw)
-        tc = tc or pick_tc(nTR, cfg.K, nA, pk.element_size(), kx.PLANES_MT)
+        tc = tc or adjoint_tc(nTR, cfg.K, nA, pk.element_size(),
+                              kx.PLANES_MT)
+        adj_route = adjoint_meta(cfg.K, pk, kx.PLANES_MT, tc)
         chk = kx.xmt_fwd_chk(coef, pk, cfg, tc=tc)[1]
         g = cotangent(torch.empty((nA, nTR, 2), dtype=dtype, device=dev),
                       seed)
@@ -6052,9 +6120,14 @@ def phase_xmt_kernels(dev):
                         kshift=cfg.kshift, tc=tc, b1=cfg.has_b1,
                         threads_state=launch_cfg(cfg.K, pk.element_size(),
                                                  kx.PLANES_MT))
+            if name == 'xmt_bwd':
+                meta['adjoint'] = adj_route
             rows[name].append(compare_epg(
                 name, run_kernel, run_plain, inputs, names[name], meta,
                 dtype, timed, XMT_ROW_BAR))
+            if name == 'xmt_bwd' and adj_route['route'] == 'lanes':
+                thread_check(rows[name][-1], name, run_kernel, kx,
+                             'adjoint_cfg', names[name], dtype)
         if kw.get('decoupled'):
             # pool a alone: the single-pool SPGR train at te 0
             sig = kx.xmt_fwd(coef, pk, cfg)
@@ -6766,8 +6839,8 @@ XMT_V_KERNELS = ('xmt_v_fwd', 'xmt_v_fwd_chk', 'xmt_v_bwd')
 # The variable-TR kernels' cases (phase 33): label, atoms, TRs, K (None:
 # the default nTR·|kshift| + 1), dtype, xmt_case keywords (``const``: a
 # constant 30 ms train, also against the scalar-tr kernels at tr 30 ms),
-# the chunk (None: the adjoint's own, kernels/epg.pick_tc at 8 planes),
-# timed. Every case runs over QMT_V's train (its first nTR TRs).
+# the chunk (None: the adjoint's own, kernels/epg.adjoint_tc at 8
+# planes), timed. Every case runs over QMT_V's train (its first nTR TRs).
 XMT_V_CASES = (
     ('qMT fingerprinting dictionary 65,536 x 400, K 48, tr train '
      '(phase 34a)', 65536, 400, 48, torch.float32, dict(qmt=True), None,
@@ -6819,7 +6892,7 @@ def phase_xmt_v_kernels(dev):
     over the train, newest TR first, against ``dpk``'s first seven) at
     XMT_ROW_BAR (bit for bit expected). Returns each kernel's rows."""
     from mrphy_tpu_torch.kernels import epgx as kx
-    from mrphy_tpu_torch.kernels.epg import launch_cfg, pick_tc
+    from mrphy_tpu_torch.kernels.epg import adjoint_tc, launch_cfg
     from mrphy_tpu_torch.ops import epg
     t0 = time.perf_counter()
     rows = {name: [] for name in XMT_V_KERNELS}
@@ -6833,7 +6906,9 @@ def phase_xmt_v_kernels(dev):
         ckw['tr'] = (torch.full((nTR,), QMT['tr'], dtype=dtype, device=dev)
                      if is_const else qmtv_dict_trs(nTR, dtype, dev))
         coef, (pk, pkt), cfg = xmt_args(ckw)
-        tc = tc or pick_tc(nTR, cfg.K, nA, pk.element_size(), kx.PLANES_MT)
+        tc = tc or adjoint_tc(nTR, cfg.K, nA, pk.element_size(),
+                              kx.PLANES_MT)
+        adj_route = adjoint_meta(cfg.K, pk, kx.PLANES_MT, tc)
         chk = kx.xmt_v_fwd_chk(coef, pk, pkt, cfg, tc=tc)[1]
         g = cotangent(torch.empty((nA, nTR, 2), dtype=dtype, device=dev),
                       seed)
@@ -6857,9 +6932,14 @@ def phase_xmt_v_kernels(dev):
                         kshift=cfg.kshift, tc=tc, b1=cfg.has_b1,
                         threads_state=launch_cfg(cfg.K, pk.element_size(),
                                                  kx.PLANES_MT))
+            if name == 'xmt_v_bwd':
+                meta['adjoint'] = adj_route
             rows[name].append(compare_epg(
                 name, run_kernel, run_plain, inputs, names[name], meta,
                 dtype, timed, XMT_ROW_BAR))
+            if name == 'xmt_v_bwd' and adj_route['route'] == 'lanes':
+                thread_check(rows[name][-1], name, run_kernel, kx,
+                             'adjoint_cfg', names[name], dtype)
         if kw.get('decoupled'):
             # pool a alone: the single-pool SPGR train at te 0, same train
             sig = kx.xmt_v_fwd(coef, pk, pkt, cfg)

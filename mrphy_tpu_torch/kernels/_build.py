@@ -106,6 +106,10 @@ _SIGNATURES = {
     'mrphy_cpmg_fwd_f64': (_P,) * 8 + (_I64,) * 6 + (_P,),
     'mrphy_cpmg_fwd_chk_f32': (_P,) * 8 + (_I64,) * 6 + (_P,),
     'mrphy_cpmg_fwd_chk_f64': (_P,) * 8 + (_I64,) * 6 + (_P,),
+    # the lane route: coef, par, dq, cdiff, er, ei, chk, nA, nE, nC, flags,
+    # tc, G, M, stream
+    'mrphy_cpmg_fwd_chk_lanes_f32': (_P,) * 7 + (_I64,) * 7 + (_P,),
+    'mrphy_cpmg_fwd_chk_lanes_f64': (_P,) * 7 + (_I64,) * 7 + (_P,),
     # coef, par, dq, cdiff, chk, gr, gi, scratch, hstate, dpar, dcf, nA, nE,
     # nC, flags, tc, threads, stream
     'mrphy_cpmg_bwd_f32': (_P,) * 11 + (_I64,) * 6 + (_P,),
@@ -195,6 +199,10 @@ _SIGNATURES = {
     # flags, tc, threads, stream
     'mrphy_xmt_bwd_f32': (_P,) * 8 + (_I64,) * 7 + (_P,),
     'mrphy_xmt_bwd_f64': (_P,) * 8 + (_I64,) * 7 + (_P,),
+    # the lane route: coef, pk, chk, g, dpk, dcf, nA, nTR, K, kshift, flags,
+    # tc, G, M, stream
+    'mrphy_xmt_bwd_lanes_f32': (_P,) * 6 + (_I64,) * 8 + (_P,),
+    'mrphy_xmt_bwd_lanes_f64': (_P,) * 6 + (_I64,) * 8 + (_P,),
     # coef, pk, pkt, sig, chk, gstate, nA, nTR, K, kshift, flags, tc,
     # threads, stream
     'mrphy_xmt_v_fwd_f32': (_P,) * 6 + (_I64,) * 7 + (_P,),
@@ -205,6 +213,10 @@ _SIGNATURES = {
     # kshift, flags, tc, threads, stream
     'mrphy_xmt_v_bwd_f32': (_P,) * 10 + (_I64,) * 7 + (_P,),
     'mrphy_xmt_v_bwd_f64': (_P,) * 10 + (_I64,) * 7 + (_P,),
+    # the lane route: coef, pk, pkt, chk, g, dpk, dcf, dpkt, nA, nTR, K,
+    # kshift, flags, tc, G, M, stream
+    'mrphy_xmt_v_bwd_lanes_f32': (_P,) * 8 + (_I64,) * 8 + (_P,),
+    'mrphy_xmt_v_bwd_lanes_f64': (_P,) * 8 + (_I64,) * 8 + (_P,),
     # coef, pk, er, ei, chk, nA, nTR, flags, tc, stream
     'mrphy_bssfp_fwd_f32': (_P,) * 5 + (_I64,) * 4 + (_P,),
     'mrphy_bssfp_fwd_f64': (_P,) * 5 + (_I64,) * 4 + (_P,),

@@ -8,15 +8,17 @@
 // M ≤ 5 slots a lane (float32; 2 in float64) of G = 8, 16 or 32 lanes and
 // the chunk's tc states fit the S that shared memory holds, and
 // cpmg_bwd.cu's one-thread-per-atom route otherwise (K 401, float64 K 201).
-// The entry point of the T2 fit (kernels/epg.py `adjoint_tc`) caps tc at S.
+// The entry point of the T2 fit (kernels/epg.py `adjoint_tc`) takes the
+// largest divisor of the train within S (tc 4 at 32 echoes, K 33).
 //
 // What bounds it on the H100: arithmetic, and reading the checkpoints once
-// (13.3 GB at 1,048,576 atoms × 32 echoes × K 33, tc 2, in float32). The
+// (6.6 GB at 1,048,576 atoms × 32 echoes × K 33, tc 4, in float32). The
 // one-thread route ran 8 warps an SM with 6·K values a thread in shared
 // memory and passed every chunk state through device memory about six
 // times.
 //
-// Design (epg_lanes.cuh). Lane l of the group holds orders l + i·G; the
+// Design (epg_lanes.cuh; the forward's steps in cpmg_lanes.cuh, which
+// K17's lane route shares). Lane l of the group holds orders l + i·G; the
 // state, the adjoint h and the echo's two intermediate states live in
 // registers; relaxation, the refocusing mix and their transposes act on
 // one order at a time, so each lane does its own; the crushers' unit shift
@@ -32,91 +34,10 @@
 // for bit (built without FMA contraction). Outputs as cpmg_bwd.cu's, but
 // dcf (⌈nA·G/32⌉, nE, nC): a warp holds 32/G atoms and sums their per-echo
 // rows by shuffles; the wrapper sums over warps in a fixed order.
-#include "cpmg_common.cuh"
-#include "epg_lanes.cuh"
+#include "cpmg_lanes.cuh"
 
 namespace mrphy {
 namespace cpmg {
-
-using lanes::Group;
-
-// Echo t's scalars: the refocusing's trig, the half's factors and its
-// diffusion step.
-template <typename T>
-struct EchoS {
-  Trig<T> tg;
-  Factors<T> f;
-  T dqt;
-};
-
-template <typename T>
-__device__ __forceinline__ EchoS<T> echo_scalars(
-    const T* __restrict__ coef, int64_t nE, int64_t t, T p0, T p1, T p2,
-    T b1, T dq, bool has_b1, bool varesp) {
-  EchoS<T> e;
-  e.tg = trig(coef, nE, t, b1, has_b1);
-  e.f = factors(coef, nE, t, p0, p1, p2, varesp);
-  e.dqt = varesp ? dq * (T(0.5) * coef[5 * nE + t]) : dq;
-  return e;
-}
-
-// Echo scalars held by lane `src` of the group, on every lane.
-template <typename T>
-__device__ __forceinline__ EchoS<T> echo_from(const EchoS<T>& own, int src,
-                                              int G) {
-  EchoS<T> e;
-  e.tg.ca2 = lanes::shfl(own.tg.ca2, src, G);
-  e.tg.sa2 = lanes::shfl(own.tg.sa2, src, G);
-  e.tg.sa = lanes::shfl(own.tg.sa, src, G);
-  e.tg.ca = lanes::shfl(own.tg.ca, src, G);
-  e.f.E1 = lanes::shfl(own.f.E1, src, G);
-  e.f.E2 = lanes::shfl(own.f.E2, src, G);
-  e.f.E2te = T(0);
-  e.f.rec = lanes::shfl(own.f.rec, src, G);
-  e.dqt = lanes::shfl(own.dqt, src, G);
-  return e;
-}
-
-// Order k's attenuations over one half (1 without diffusion).
-template <typename T>
-__device__ __forceinline__ void att(const T* __restrict__ cdiff, int K, int k,
-                                    T dqt, bool has_d, T (&A)[3]) {
-  A[0] = A[1] = A[2] = T(1);
-  if (has_d) spgr::attenuation(cdiff, K, k, dqt, A);
-}
-
-// One half echo on every order: relaxation (and the attenuation), then the
-// crusher's unit shift.
-template <typename T, int M>
-__device__ __forceinline__ void half_lanes(T (&x)[6][M], const EchoS<T>& e,
-                                           const T* __restrict__ cdiff,
-                                           bool has_d, const Group& g) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    if (!g.valid(i)) continue;
-    T n[6] = {x[0][i], x[1][i], x[2][i], x[3][i], x[4][i], x[5][i]};
-    T A[3];
-    att(cdiff, g.K, g.order(i), e.dqt, has_d, A);
-    spgr::relax(e.f, g.order(i), has_d, A, n);
-#pragma unroll
-    for (int p = 0; p < 6; ++p) x[p][i] = n[p];
-  }
-  lanes::shift_pool<0, false>(x, 1, g);
-}
-
-template <typename T, int M>
-__device__ __forceinline__ void mix_lanes(T (&x)[6][M], const Trig<T>& tg,
-                                          const Group& g) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    if (!g.valid(i)) continue;
-    const T s[6] = {x[0][i], x[1][i], x[2][i], x[3][i], x[4][i], x[5][i]};
-    T o[6];
-    mix0(tg, s, o);
-#pragma unroll
-    for (int p = 0; p < 6; ++p) x[p][i] = o[p];
-  }
-}
 
 template <typename T, int M>
 __global__ void __launch_bounds__(lanes::kThreads)

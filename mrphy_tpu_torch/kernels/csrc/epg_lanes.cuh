@@ -2,9 +2,10 @@
 // configuration orders, for the EPG adjoints on their lane route
 // (spgr_bwd_lanes.cu: K15 `spgr_bwd`; cpmg_bwd_lanes.cu: K18 `cpmg_bwd`;
 // xspgr_bwd_lanes.cu: K21 `xspgr_bwd` and K24 `xspgr_v_bwd`;
-// xcpmg_bwd_lanes.cu: K27 `xcpmg_bwd` and K30 `xcpmg_v_bwd`) and the
-// two-pool forwards with checkpoints on theirs (xspgr_fwd_lanes.cu: K20,
-// K23; xcpmg_fwd_lanes.cu: K26, K29).
+// xcpmg_bwd_lanes.cu: K27 `xcpmg_bwd` and K30 `xcpmg_v_bwd`;
+// xmt_bwd_lanes.cu: K33 `xmt_bwd` and K36 `xmt_v_bwd`) and the forwards
+// with checkpoints on theirs (cpmg_fwd_lanes.cu: K17; xspgr_fwd_lanes.cu:
+// K20, K23; xcpmg_fwd_lanes.cu: K26, K29).
 //
 // Layout. Lane l of a group (G = 8, 16 or 32, a power of two) holds orders
 // k = l + i·G in slot i of each plane, i < M (M = ⌈K/G⌉, a template
@@ -52,7 +53,7 @@ __host__ __device__ constexpr int stride(int planes, int M, int G) {
   return planes * M * G + (G < 32 ? G : 0);
 }
 
-// The blocks an SM the lane forwards (xspgr_fwd_lanes.cu,
+// The blocks an SM the two-pool lane forwards (xspgr_fwd_lanes.cu,
 // xcpmg_fwd_lanes.cu) are built for at M slots a lane: 4 (16 warps, at most
 // 128 registers a thread) for float32 M ≤ 3, 3 (12 warps, 168) above and
 // in float64, where ptxas -v showed spills at 128 (float32 M 4, float64 M
@@ -60,7 +61,7 @@ __host__ __device__ constexpr int stride(int planes, int M, int G) {
 template <typename T, int M>
 constexpr int kFwdBlocks = sizeof(T) == 4 && M <= 3 ? 4 : 3;
 
-// The lane forwards' largest M (kernels/epg.py FWD_SLOTS_MAX).
+// The two-pool lane forwards' largest M (kernels/epg.py FWD_SLOTS_MAX).
 template <typename T>
 constexpr int kFwdSlotsMax = sizeof(T) == 4 ? 5 : 2;
 
@@ -263,6 +264,48 @@ __device__ __forceinline__ void unstage(T* __restrict__ dst, const T* slots,
     dst[(int64_t)row * nA + a] = src[(p * M + (k >> lg)) * G + (k & (G - 1))];
     for (k += rstep; k >= K; k -= K) ++p;
   }
+}
+
+// A chunk's start state, written by the lane forwards: each group's state x
+// into its atom's slot (mine), then the block's atoms' states to dst as
+// unstage writes them. Every thread of the block takes part.
+template <typename T, int P, int M>
+__device__ __forceinline__ void checkpoint(T* __restrict__ dst,
+                                           const T (&x)[P][M], T* mine,
+                                           const T* slots, int64_t nA,
+                                           int64_t a0, int lgA, int lg,
+                                           int stride_atom, const Group& g) {
+  store(mine, x, g);
+  __syncthreads();
+  unstage(dst, slots, nA, a0, lgA, P, g.K, M, lg, stride_atom);
+  __syncthreads();
+}
+
+// A run of echoes of the CPMG lane forwards: lane tl of each group holds
+// echo t0 + tl's (vr, vi) for tl ≤ t − t0, t the run's last echo (tl = t
+// mod G); the groups put them in ebuf (2, G, A) and the block writes the
+// rows (echo, atoms) of er and ei (nE, nA) along its atoms. Every thread of
+// the block takes part; ab is the thread's atom in the block.
+template <typename T>
+__device__ __forceinline__ void echo_run(T* __restrict__ er,
+                                         T* __restrict__ ei, T* ebuf, T vr,
+                                         T vi, int64_t t, int tl, int64_t nA,
+                                         int64_t a0, int lgA, int ab,
+                                         const Group& g) {
+  const int A = 1 << lgA;
+  if (g.l <= tl) {
+    ebuf[g.l * A + ab] = vr;
+    ebuf[(g.G + g.l) * A + ab] = vi;
+  }
+  __syncthreads();
+  const int n = tl + 1;
+  const int64_t t0 = t - tl;
+  for (int r = threadIdx.x >> lgA; r < 2 * n; r += kThreads >> lgA) {
+    const int q = r >= n, u = r - q * n, aa = threadIdx.x & (A - 1);
+    if (a0 + aa < nA)
+      (q ? ei : er)[(t0 + u) * nA + a0 + aa] = ebuf[(q * g.G + u) * A + aa];
+  }
+  __syncthreads();
 }
 
 // Shared memory of the block set to 0 (the slots past K − 1 stay so).

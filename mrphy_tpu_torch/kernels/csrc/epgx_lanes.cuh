@@ -8,11 +8,15 @@
 // from the checkpoints. Each order's arithmetic is epgx_common.cuh's and
 // the shifts are shuffles that only move values, so a step matches the
 // plain versions (kernels/epgx.py `_xstep`, `_xhalf`, `_xmix`) bit for bit.
+// The EPG-X(MT) step (pool a's 6 planes and the bound pool's Z pair, 8 in
+// all) is here too, for phase 1 of its lane adjoint (xmt_bwd_lanes.cu: K33
+// `xmt_bwd`, K36 `xmt_v_bwd`; kernels/epgx.py `_mt_mix`, `_mt_next`).
 #pragma once
 
 #include "cpmg_common.cuh"
 #include "epg_lanes.cuh"
 #include "epgx_common.cuh"
+#include "xmt_common.cuh"
 
 namespace mrphy {
 namespace epgx {
@@ -120,4 +124,32 @@ __device__ __forceinline__ cpmg::Trig<T> trig_from(const cpmg::Trig<T>& own,
 }
 
 }  // namespace xcpmg
+
+namespace xmt {
+
+using lanes::Group;
+
+// One TR of the EPG-X(MT) train on every order: pool a's RF mix and the
+// bound pool's saturation, the exchange–relaxation, then the spoiler's
+// shift of pool a's F states.
+template <typename T, int M>
+__device__ __forceinline__ void mt_step_lanes(T (&x)[kPlanes][M],
+                                              const spgr::Trig<T>& tg, T sat,
+                                              const Prop<T>& e, int kshift,
+                                              const Group& g) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    if (!g.valid(i)) continue;
+    const T s[8] = {x[0][i], x[1][i], x[2][i], x[3][i],
+                    x[4][i], x[5][i], x[6][i], x[7][i]};
+    T n[8];
+    mt_mix(tg, sat, s, n);
+    mt_relax(e, g.order(i), n);
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) x[p][i] = n[p];
+  }
+  lanes::shift_pool<0, false>(x, kshift, g);
+}
+
+}  // namespace xmt
 }  // namespace mrphy

@@ -57,9 +57,8 @@ __global__ void __launch_bounds__(lanes::kThreads, (lanes::kFwdBlocks<T, M>))
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const slots = reinterpret_cast<T*>(smem_raw);
   const int G = 1 << lg, lgA = lanes::log2i(lanes::kThreads) - lg;
-  const int A = 1 << lgA;
-  const int tid = threadIdx.x, ab = tid >> lg;
-  const Group g{tid & (G - 1), G, K};
+  const int ab = threadIdx.x >> lg;
+  const Group g{(int)threadIdx.x & (G - 1), G, K};
   const int64_t a0 = (int64_t)blockIdx.x << lgA, a = a0 + ab;
   const bool active = a < nA;
   const bool has_b1 = flags & cpmg::kB1;
@@ -105,11 +104,8 @@ __global__ void __launch_bounds__(lanes::kThreads, (lanes::kFwdBlocks<T, M>))
     const int tl = (int)(t & (G - 1));
     if (left == 0) {
       // the chunk's start state, through the atom's shared slot
-      lanes::store(mine, x, g);
-      __syncthreads();
-      lanes::unstage(chk + (t / tc) * plane, slots, nA, a0, lgA, kPlanes, K,
-                     M, lg, st_atom);
-      __syncthreads();
+      lanes::checkpoint(chk + (t / tc) * plane, x, mine, slots, nA, a0, lgA,
+                        lg, st_atom, g);
       left = tc;
     }
     --left;
@@ -129,22 +125,8 @@ __global__ void __launch_bounds__(lanes::kThreads, (lanes::kFwdBlocks<T, M>))
       vr = fr;
       vi = fi;
     }
-    if (tl == G - 1 || t == nE - 1) {
-      // the run's echoes, rows (echo, atoms) along the block's atoms
-      if (g.l <= tl) {
-        ebuf[g.l * A + ab] = vr;
-        ebuf[(G + g.l) * A + ab] = vi;
-      }
-      __syncthreads();
-      const int n = tl + 1;
-      const int64_t t0 = t - tl;
-      for (int r = tid >> lgA; r < 2 * n; r += lanes::kThreads >> lgA) {
-        const int q = r >= n, u = r - q * n, aa = tid & (A - 1);
-        if (a0 + aa < nA)
-          (q ? ei : er)[(t0 + u) * nA + a0 + aa] = ebuf[(q * G + u) * A + aa];
-      }
-      __syncthreads();
-    }
+    if (tl == G - 1 || t == nE - 1)
+      lanes::echo_run(er, ei, ebuf, vr, vi, t, tl, nA, a0, lgA, ab, g);
   }
 }
 

@@ -97,11 +97,8 @@ __global__ void __launch_bounds__(lanes::kThreads, (lanes::kFwdBlocks<T, M>))
     const int tl = (int)(t & (G - 1));
     if (left == 0) {
       // the chunk's start state, through the atom's shared slot
-      lanes::store(mine, x, g);
-      __syncthreads();
-      lanes::unstage(chk + (t / tc) * plane, slots, nA, a0, lgA, kPlanes, K,
-                     M, lg, st_atom);
-      __syncthreads();
+      lanes::checkpoint(chk + (t / tc) * plane, x, mine, slots, nA, a0, lgA,
+                        lg, st_atom, g);
       left = tc;
     }
     --left;

@@ -69,6 +69,11 @@ rech, e_ss, e_sc, e_ca, b1]`` (``[R1, R2, M0, …]`` under ``varesp``),
 nE + 1). The echoes come as ``(er, ei)``, each ``(nE, nA)``; the adjoint
 returns ``dcoef (nC, nE)`` and ``dpar (8, nA)`` (the seven rows' and
 ``dq``'s). :func:`cpmg` is their autograd Function, as :func:`spgr`.
+``cpmg_fwd_chk`` has two hand-written routes, chosen by shape alone
+(:func:`forward_cfg` at 6 planes): ``csrc/cpmg_fwd_lanes.cu`` (a group of
+8, 16 or 32 lanes per atom over the orders, the state in registers) where
+an atom's orders fit its register slots, ``csrc/cpmg_fwd.cu``'s one
+thread per atom otherwise; ``cpmg_fwd`` keeps one thread per atom.
 
 ``spgr_bwd`` and ``cpmg_bwd`` have two hand-written routes each, chosen by
 shape alone (:func:`adjoint_cfg`): the lane route
@@ -83,8 +88,8 @@ atom, the chunk's states in a device-memory scratch sized by
 states while the extra checkpoints fit ``LANE_CHK_BYTES``. The plain
 versions sum over the orders in the chosen route's order
 (:func:`_lane_sum`). The two-pool ``xspgr_bwd``/``xspgr_v_bwd`` and
-``xcpmg_bwd``/``xcpmg_v_bwd`` share the lane route's chooser
-(``kernels/epgx.py``).
+``xcpmg_bwd``/``xcpmg_v_bwd``, and EPG-X(MT)'s ``xmt_bwd``/``xmt_v_bwd``,
+share the lane route's chooser (``kernels/epgx.py``).
 """
 
 from typing import NamedTuple
@@ -824,14 +829,16 @@ def launch_cfg(K: int, itemsize: int, planes: int = 6):
 
 
 # The adjoints K15 (spgr_bwd), K18 (cpmg_bwd), K21 (xspgr_bwd), K24
-# (xspgr_v_bwd), K27 (xcpmg_bwd) and K30 (xcpmg_v_bwd) on their lane route: 128
-# threads a block, a group of G lanes per atom, at most LANE_SLOTS_MAX order
-# slots a lane (their registers: one pool's 6 planes, two pools' 12; by
-# itemsize), at most LANE_STATES_MAX chunk states an atom in shared memory,
-# sized so LANE_BLOCKS blocks fit an SM.
+# (xspgr_v_bwd), K27 (xcpmg_bwd), K30 (xcpmg_v_bwd), K33 (xmt_bwd) and K36
+# (xmt_v_bwd) on their lane route: 128 threads a block, a group of G lanes
+# per atom, at most LANE_SLOTS_MAX order slots a lane (their registers: one
+# pool's 6 planes, two pools' 12, EPG-X(MT)'s 8; by itemsize), at most
+# LANE_STATES_MAX chunk states an atom in shared memory, sized so
+# LANE_BLOCKS blocks fit an SM.
 LANE_THREADS = 128
 LANE_WIDTHS = (8, 16, 32)
-LANE_SLOTS_MAX = {(6, 4): 5, (6, 8): 2, (12, 4): 3, (12, 8): 1}
+LANE_SLOTS_MAX = {(6, 4): 5, (6, 8): 2, (8, 4): 5, (8, 8): 3, (12, 4): 3,
+                  (12, 8): 1}
 LANE_STATES_MAX = 8
 LANE_BLOCKS = 3
 # The capped chunk (adjoint_tc) makes the forwards write nTR/tc checkpoints
@@ -841,12 +848,12 @@ LANE_CHK_BYTES = 16 << 30
 
 
 class AdjointCfg(NamedTuple):
-    r"""How K15, K18, K21, K24, K27 or K30 runs: ``route`` ``'lanes'``
-    (``csrc/*_bwd_lanes.cu``: ``G`` lanes per atom, ``M`` order slots a
-    lane, at most ``S`` chunk states an atom in shared memory, a block
-    using tc of them) or ``'thread'`` (``csrc/spgr_bwd.cu``,
-    ``cpmg_bwd.cu``, ``xspgr_bwd.cu``, ``xcpmg_bwd.cu``: one thread per
-    atom, :func:`launch_cfg`; ``G`` 1)."""
+    r"""How K15, K18, K21, K24, K27, K30, K33 or K36 runs: ``route``
+    ``'lanes'`` (``csrc/*_bwd_lanes.cu``: ``G`` lanes per atom, ``M`` order
+    slots a lane, at most ``S`` chunk states an atom in shared memory, a
+    block using tc of them) or ``'thread'`` (``csrc/spgr_bwd.cu``,
+    ``cpmg_bwd.cu``, ``xspgr_bwd.cu``, ``xcpmg_bwd.cu``, ``xmt_bwd.cu``:
+    one thread per atom, :func:`launch_cfg`; ``G`` 1)."""
     route: str
     G: int
     M: int
@@ -855,14 +862,17 @@ class AdjointCfg(NamedTuple):
 
 def lane_capacity(K: int, itemsize: int, planes: int = 6):
     r"""The lane route's :class:`AdjointCfg` for ``K`` orders of ``planes``
-    planes (6: K15, K18; 12: K21, K24, K27, K30) at ``itemsize``, or None
-    where an atom's orders do not fit: the narrowest group of 8, 16 or 32
-    lanes whose ``M = ⌈K/G⌉`` slots fit ``LANE_SLOTS_MAX``, and ``S`` the
-    states of ``M·G`` orders that shared memory holds for ``LANE_BLOCKS``
-    blocks an SM (at most ``LANE_STATES_MAX``). Float32: K ≤ 160 for one
-    pool (K 33: G 8, M 5, S 4; K 48: G 16, M 3, S 7; K 16: G 8, M 2, S 8),
-    K ≤ 96 for two (K 48: G 16, M 3, S 4; K 33: G 16, M 3, S 4; K 24: G 8,
-    M 3, S 4); float64: K ≤ 64 (K 32: G 16, M 2, S 5) and K ≤ 32."""
+    planes (6: K15, K18; 12: K21, K24, K27, K30; 8: K33, K36) at
+    ``itemsize``, or None where an atom's orders do not fit: the narrowest
+    group of 8, 16 or 32 lanes whose ``M = ⌈K/G⌉`` slots fit
+    ``LANE_SLOTS_MAX``, and ``S`` the states of ``M·G`` orders that shared
+    memory holds for ``LANE_BLOCKS`` blocks an SM (at most
+    ``LANE_STATES_MAX``). Float32: K ≤ 160 for one pool (K 33: G 8, M 5, S
+    4; K 48: G 16, M 3, S 7; K 16: G 8, M 2, S 8), K ≤ 96 for two (K 48: G
+    16, M 3, S 4; K 33: G 16, M 3, S 4; K 24: G 8, M 3, S 4), K ≤ 160 for
+    EPG-X(MT) (K 48: G 16, M 3, S 6; K 32: G 8, M 4, S 4); float64: K ≤
+    64 (K 32: G 16, M 2, S 5), K ≤ 32 and K ≤ 96 (K 32: G 16, M 2, S
+    4)."""
     mmax = LANE_SLOTS_MAX[(planes, itemsize)]
     for G in LANE_WIDTHS:
         M = -(-K // G)
@@ -878,8 +888,8 @@ def lane_capacity(K: int, itemsize: int, planes: int = 6):
 
 
 def adjoint_cfg(K: int, itemsize: int, planes: int, tc: int) -> AdjointCfg:
-    r"""The route of K15/K18 (``planes`` 6) or K21/K24/K27/K30 (12) at chunk
-    length ``tc``, by shape alone: the lanes where :func:`lane_capacity`
+    r"""The route of K15/K18 (``planes`` 6), K21/K24/K27/K30 (12) or
+    K33/K36 (8) at chunk length ``tc``, by shape alone: the lanes where :func:`lane_capacity`
     fits and ``tc`` ≤ its ``S``, else one thread per atom (K > 160 and
     float64 K > 64 of one pool; K > 96 and float64 K > 32 of two, the
     32-echo train's K 33 in float64 among them; or a ``tc`` past ``S``,
@@ -893,61 +903,80 @@ def adjoint_cfg(K: int, itemsize: int, planes: int, tc: int) -> AdjointCfg:
 
 def adjoint_tc(nTR: int, K: int, nA: int, itemsize: int,
                planes: int = 6) -> int:
-    r"""The chunk length of the adjoints K15, K18, K21/K24 and K27/K30 (and so
-    of their forwards K14, K17, K20, K23, K26, K29): :func:`pick_tc`,
-    capped where the lane route takes the shape by the ``S`` states its
-    shared memory keeps, to the largest divisor of ``nTR`` within both
-    (more checkpoints, each read once), as long as those ``nTR/tc``
-    checkpoints of ``planes·K·nA`` values fit ``LANE_CHK_BYTES``; past
-    that, :func:`pick_tc`'s (one thread per atom). T2 map 1,048,576 × 32: 2
-    (pick_tc's); bench_mrf CPMG 65,536 × 32: 4 (pick_tc 32; 0.42 GB); two-
-    pool 65,536 × 400, K 48: 4 (pick_tc 10; 15.1 GB against 6.0); at
-    131,072 atoms 5 (pick_tc's: 30.2 GB would pass the budget); one pool
-    65,536 × 400, K 48: 5 (pick_tc 25; 6.04 GB against 1.21); the MWF fit's
-    block 262,144 × 32, K 33, two pools: 4 (pick_tc's)."""
+    r"""The chunk length of the adjoints K15, K18, K21/K24, K27/K30 and
+    K33/K36 (and so of their forwards K14, K17, K20, K23, K26, K29, K32,
+    K35). Where the lane route takes the shape (:func:`lane_capacity`), the
+    largest divisor of ``nTR`` within the ``S`` states its shared memory
+    keeps: it allocates no scratch, so :func:`pick_tc`'s bound does not
+    hold it. Where that chunk is shorter than :func:`pick_tc`'s (more
+    checkpoints, each read once) it is taken as long as its ``nTR/tc``
+    checkpoints of ``planes·K·nA`` values fit ``LANE_CHK_BYTES``, and past
+    that :func:`pick_tc`'s (one thread per atom); where it is longer (fewer
+    checkpoints), always. Elsewhere :func:`pick_tc`'s.
+
+    At the paths' shapes in float32: T2 map 1,048,576 × 32, K 33: 4
+    (pick_tc 2; 6.6 GB of checkpoints against 13.3); bench_mrf CPMG 65,536
+    × 32: 4 (pick_tc 32; 0.42 GB); two-pool 65,536 × 400, K 48: 4 (pick_tc
+    10; 15.1 GB against 6.0); at 131,072 atoms 5 (pick_tc's: 30.2 GB would
+    pass the budget); one pool 65,536 × 400, K 48: 5 (pick_tc 25; 6.04 GB
+    against 1.21); the MWF fit's block 262,144 × 32, K 33, two pools: 4
+    (pick_tc's); the MWF map 1,048,576 × 32 at once, two pools: 4 (pick_tc
+    1; 13.3 GB against 53.2); the qMT dictionary 65,536 × 400, K 48, 8
+    planes: 5 (pick_tc 20; 8.05 GB against 2.01). The shapes whose chunk
+    grows past pick_tc's are those where pick_tc < S: of the paths', the
+    T2 map and the MWF map at once."""
     tc = pick_tc(nTR, K, nA, itemsize, planes)
     cap = lane_capacity(K, itemsize, planes)
-    if cap is None or tc <= cap.S:
+    if cap is None:
         return tc
     lane_tc = largest_divisor_leq(nTR, cap.S)
+    if lane_tc >= tc:
+        return lane_tc
     chk = nTR // lane_tc * planes * K * max(nA, 1) * itemsize
     return lane_tc if chk <= LANE_CHK_BYTES else tc
 
 
-# The two-pool forwards with checkpoints K20 (xspgr_fwd_chk), K23
-# (xspgr_v_fwd_chk), K26 (xcpmg_fwd_chk) and K29 (xcpmg_v_fwd_chk) on their
-# lane route (csrc/xspgr_fwd_lanes.cu, csrc/xcpmg_fwd_lanes.cu): 128 threads
-# a block, a group of G lanes per atom, at most FWD_SLOTS_MAX order slots a
-# lane (by planes and itemsize). They keep one staging slot an atom in
+# The forwards with checkpoints K17 (cpmg_fwd_chk, 6 planes), K20
+# (xspgr_fwd_chk), K23 (xspgr_v_fwd_chk), K26 (xcpmg_fwd_chk) and K29
+# (xcpmg_v_fwd_chk) (12 planes) on their lane route (csrc/cpmg_fwd_lanes.cu,
+# csrc/xspgr_fwd_lanes.cu, csrc/xcpmg_fwd_lanes.cu): 128 threads a block, a
+# group of G lanes per atom, at most FWD_SLOTS_MAX order slots a lane (by
+# planes and itemsize). They keep one staging slot an atom in
 # shared memory and no chunk states, so neither the chunk nor S bounds them;
 # the slots are bounded by registers: ptxas -v shows no spills at 16 warps
 # an SM (128 registers) for float32 M ≤ 3 and at 12 warps (168) for float32
 # M 4-5 and float64 M 1-2, the occupancy each instance is built for
-# (`lanes::kFwdBlocks`). M 6 (float32 K 161 at 32 lanes) is not built.
-FWD_SLOTS_MAX = {(12, 4): 5, (12, 8): 2}
+# (`lanes::kFwdBlocks`). M 6 (float32 K 161 at 32 lanes) is not built. The
+# one-pool forward's 6 planes take up to M 8 in float32 and 4 in float64,
+# every instance built for 16 warps an SM (csrc/cpmg_fwd_lanes.cu `kBlocks`,
+# `kSlotsMax`).
+FWD_SLOTS_MAX = {(6, 4): 8, (6, 8): 4, (12, 4): 5, (12, 8): 2}
 
 
 class ForwardCfg(NamedTuple):
-    r"""How K20, K23, K26 or K29 runs: ``route`` ``'lanes'``
-    (``csrc/xspgr_fwd_lanes.cu``, ``csrc/xcpmg_fwd_lanes.cu``: ``G`` lanes
-    per atom, ``M`` order slots a lane) or ``'thread'``
-    (``csrc/xspgr_fwd.cu``, ``csrc/xcpmg_fwd.cu``: one thread per atom,
-    :func:`launch_cfg`; ``G`` 1, ``M`` 0)."""
+    r"""How K17, K20, K23, K26 or K29 runs: ``route`` ``'lanes'``
+    (``csrc/cpmg_fwd_lanes.cu``, ``csrc/xspgr_fwd_lanes.cu``,
+    ``csrc/xcpmg_fwd_lanes.cu``: ``G`` lanes per atom, ``M`` order slots a
+    lane) or ``'thread'`` (``csrc/cpmg_fwd.cu``, ``csrc/xspgr_fwd.cu``,
+    ``csrc/xcpmg_fwd.cu``: one thread per atom, :func:`launch_cfg`; ``G``
+    1, ``M`` 0)."""
     route: str
     G: int
     M: int
 
 
 def forward_cfg(K: int, itemsize: int, planes: int = 12) -> ForwardCfg:
-    r"""The route of the two-pool forwards with checkpoints (``planes`` 12:
-    K20, K23, K26, K29) for ``K`` orders at ``itemsize``, by shape alone and
+    r"""The route of the forwards with checkpoints (``planes`` 12: K20, K23,
+    K26, K29; 6: K17) for ``K`` orders at ``itemsize``, by shape alone and
     for any chunk: the narrowest group of 8, 16 or 32 lanes whose ``M =
-    ⌈K/G⌉`` slots fit ``FWD_SLOTS_MAX``, else one thread per atom. Float32:
-    K ≤ 160 (K 24: G 8, M 3; K 33: G 8, M 5; K 48: G 16, M 3; K 101: G 32,
-    M 4), one thread at K 161 and 201; float64: K ≤ 64 (K 24: G 16, M 2; K
-    33 and 48: G 32, M 2), one thread at K 81 and 101. The checkpoints'
-    layout is the same on both routes, so either adjoint route reads
-    them."""
+    ⌈K/G⌉`` slots fit ``FWD_SLOTS_MAX``, else one thread per atom. Two
+    pools, float32: K ≤ 160 (K 24: G 8, M 3; K 33: G 8, M 5; K 48: G 16, M
+    3; K 101: G 32, M 4), one thread at K 161 and 201; float64: K ≤ 64 (K
+    24: G 16, M 2; K 33 and 48: G 32, M 2), one thread at K 81 and 101. One
+    pool, float32: K ≤ 256 (K 33: G 8, M 5; K 65: G 16, M 5), one thread at
+    K 401; float64: K ≤ 128 (K 17: G 8, M 3; K 33: G 16, M 3), one thread
+    at K 201. The checkpoints' layout is the same on both routes, so either
+    adjoint route reads them."""
     mmax = FWD_SLOTS_MAX[(planes, itemsize)]
     for G in LANE_WIDTHS:
         M = -(-K // G)
@@ -1127,6 +1156,8 @@ def _cpmg_sizes(name, coef, par, dq, cdiff, cfg):
 
 
 def _launch_cpmg_fwd(coef, par, dq, cdiff, cfg, tc):
+    r"""``cpmg_fwd`` (``tc`` None, one thread per atom) or ``cpmg_fwd_chk``
+    on the route :func:`forward_cfg` gives its shape: ``(er, ei, chk)``."""
     from mrphy_tpu_torch.kernels._build import library
     name = 'cpmg_fwd' if tc is None else 'cpmg_fwd_chk'
     nA, nE = _cpmg_sizes(name, coef, par, dq, cdiff, cfg)
@@ -1135,16 +1166,24 @@ def _launch_cpmg_fwd(coef, par, dq, cdiff, cfg, tc):
     er = torch.empty((nE, nA), dtype=dt, device=dev)
     ei = torch.empty((nE, nA), dtype=dt, device=dev)
     chk = None
+    route = ForwardCfg('thread', 1, 0)
     if tc is not None:
         _check_tc(nE, tc)
         chk = torch.empty((nE // tc, 6, cfg.K, nA), dtype=dt, device=dev)
-    state = None if in_smem else torch.empty((6, cfg.K, nA), dtype=dt,
-                                             device=dev)
+        route = forward_cfg(cfg.K, par.element_size(), 6)
     lib, _ = library()
-    with torch.cuda.device(dev):
-        err = _entry(lib, name, dt)(
-            *map(_ptr, (coef, par, dq, cdiff, er, ei, chk, state)), nA, nE,
-            cfg.nC, cfg.flags, tc or nE, threads, _stream(dev))
+    if route.route == 'lanes':
+        with torch.cuda.device(dev):
+            err = _entry(lib, name + '_lanes', dt)(
+                *map(_ptr, (coef, par, dq, cdiff, er, ei, chk)), nA, nE,
+                cfg.nC, cfg.flags, tc, route.G, route.M, _stream(dev))
+    else:
+        state = None if in_smem else torch.empty((6, cfg.K, nA), dtype=dt,
+                                                 device=dev)
+        with torch.cuda.device(dev):
+            err = _entry(lib, name, dt)(
+                *map(_ptr, (coef, par, dq, cdiff, er, ei, chk, state)), nA,
+                nE, cfg.nC, cfg.flags, tc or nE, threads, _stream(dev))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return er, ei, chk

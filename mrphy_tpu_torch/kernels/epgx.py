@@ -131,7 +131,13 @@ returns ``sig (nA, nTR, 2)`` and, with ``tc``, ``chk (nTR / tc, 8, K,
 nA)``; the adjoint ``dcoef (10, nTR)`` (summed over atoms, the per-TR
 ``∂wt`` among them) and ``dpk (11, nA)``. :func:`xmt` is their autograd
 Function, :func:`xmt_spgr` the qMT dictionary's entry point with a per-atom
-``wscale``.
+``wscale``. ``xmt_bwd`` has two hand-written routes, chosen by shape alone
+as the two-pool adjoints' (:func:`~mrphy_tpu_torch.kernels.epg.adjoint_cfg`
+at 8 planes): ``csrc/xmt_bwd_lanes.cu`` (a group of lanes per atom over the
+orders, the chunk's states in shared memory, no scratch) and
+``csrc/xmt_bwd.cu`` (one thread per atom, the chunk's states in a
+device-memory scratch); :func:`xmt` takes the chunk ``adjoint_tc`` at 8
+planes, and the plain adjoint sums in the route's order.
 
 Over a variable-TR train (``_mt_v_dispatch``, ``epg_pallas.py:4432-4459``)
 the same two sources give ``xmt_v_fwd`` (replaces ``_mtv_kernel``),
@@ -143,8 +149,9 @@ rb, E2a]`` over each interval ``tr[t]``
 ``dcoef (10, nTR)``, ``dpk (4, nA) = [dM0a, dM0b, db1, dwscale]``
 (``dM0a``/``dM0b`` through the initial state only; autograd of the planes
 adds their share through the recovery) and ``dpkt (nTR, 7, nA)``, each TR's
-entry gradients. :func:`xmt_v` is their autograd Function; :func:`xmt_spgr`
-takes it for a ``(nTR,)`` ``tr``.
+entry gradients. ``xmt_v_bwd`` takes the same two routes (the ``VARTR``
+instances of both sources). :func:`xmt_v` is their autograd Function;
+:func:`xmt_spgr` takes it for a ``(nTR,)`` ``tr``.
 """
 
 from typing import NamedTuple
@@ -159,7 +166,7 @@ from mrphy_tpu_torch.kernels.epg import (_at0, _entry, _flip_trig,
                                          _lane_sum, _mix, _mix0_terms, _mix_T,
                                          _shift, _shift_T, _trig, _warp_sums,
                                          adjoint_cfg, adjoint_tc,
-                                         forward_cfg, launch_cfg, pick_tc)
+                                         forward_cfg, launch_cfg)
 
 __all__ = ['LAUNCHES', 'PLANES', 'XspgrCfg', 'xspgr', 'xspgr_fwd',
            'xspgr_fwd_torch', 'xspgr_fwd_chk', 'xspgr_fwd_chk_torch',
@@ -1272,10 +1279,13 @@ def _mt_bwd(coef, rows, cfg, chk, g, tc, take):
     exchange–relaxation's transpose at the mixed state (its 7 entry terms),
     the echo's cotangent into ``Fa+(0)``, the saturation's transpose
     (``∂wt_t = −wscale·sat·Σ_k h·Zb``, ``∂wscale`` adds ``−wt_t·sat·Σ_k
-    h·Zb``), pool a's RF coefficient terms and transpose. Sums over the
-    orders are taken one order at a time, the per-TR rows summed over the
-    atoms by warps of 32 (:func:`_warp_sums`) and then over the warps, as
-    the wrapper sums the kernel's partial rows. Under ``b1`` the angle's
+    h·Zb``), pool a's RF coefficient terms and transpose. The 14 sums over
+    the orders are taken in the order of the route the kernel takes at
+    this shape (:func:`~mrphy_tpu_torch.kernels.epg.adjoint_cfg` at 8
+    planes, ``_lane_sum``: one order at a time on one thread per atom), the
+    per-TR rows summed over the atoms by warps of ``32 / G``
+    (:func:`_warp_sums`) and then over the warps, as the wrapper sums the
+    kernel's partial rows. Under ``b1`` the angle's
     gradient goes to ``db1`` and to the flip row (rows 0–3 stay 0).
     ``take(t, d)`` receives TR ``t``'s 7 entry gradients ``d`` (each `(nA,
     1)`, in the rows' order ``[Z00, Z01, Z10, Z11, ra, rb, E2a]``).
@@ -1292,8 +1302,10 @@ def _mt_bwd(coef, rows, cfg, chk, g, tc, take):
     wsc = rows(0)[10]
     zero = torch.zeros_like(wsc)
     h = (torch.zeros_like(chk[0, 0].T),) * PLANES_MT
+    G = adjoint_cfg(cfg.K, chk.element_size(), PLANES_MT, tc).G
     ab1 = awsc = zero
-    dcf = coef.new_zeros((-(-zero.shape[0] // 32), nTR, NC_MT))
+    # each warp's per-TR rows (a warp holds 32 / G atoms), as the kernel's
+    dcf = coef.new_zeros((-(-zero.shape[0] * G // 32), nTR, NC_MT))
     for j in reversed(range(ntc)):
         # phase 1: the forward from the chunk's start state, every pre-RF
         # state with its TR's factors and mixed state
@@ -1332,7 +1344,7 @@ def _mt_bwd(coef, rows, cfg, chk, g, tc, take):
             d_s1e = gyr * fi - gyi * fr
             # the saturation's terms, then pool a's mix coefficients
             terms += [h[6] * s[6] + h[7] * s[7]] + _mix_terms(h[:6], s[:6])
-            sums = _ksum(torch.stack(terms)).unsqueeze(-1)   # (14, nA, 1)
+            sums = _lane_sum(torch.stack(terms), G).unsqueeze(-1)  # (14, nA, 1)
             take(t, list(sums[:4]) + [d_ra, d_rb, sums[4]])
             dsat = sums[5]
             d_wt = -wsc * sat * dsat
@@ -1350,7 +1362,7 @@ def _mt_bwd(coef, rows, cfg, chk, g, tc, take):
                 ab1 = ab1 + d_al * coef[8, t]
                 rows_t[:4] = [zero] * 4
                 rows_t[8] = d_al * p[9]
-            dcf[:, t] = _warp_sums(torch.cat(rows_t, dim=1))
+            dcf[:, t] = _warp_sums(torch.cat(rows_t, dim=1), 32 // G)
             h = _mix_T(tg, h[:6]) + (sat * h[6], sat * h[7])
     # the initial state: M0a on Za(0)'s real part, M0b on Zb(0)'s
     return (dcf.sum(dim=0).T.contiguous(), h[4][:, :1], h[6][:, :1], ab1,
@@ -1484,26 +1496,34 @@ def _launch_xmt_bwd(coef, pk, cfg, chk, g, tc, pkt=None):
     dt, dev = pk.dtype, pk.device
     _check(chk, 'chk', (nTR // tc, PLANES_MT, cfg.K, nA), dt, dev)
     _check(g, 'g', (nA, nTR, 2), dt, dev)
-    threads, in_smem = launch_cfg(cfg.K, pk.element_size(), PLANES_MT)
-    # phase 1's pre-RF states of one chunk (the first is chk's own), the
-    # adjoint state when it does not fit in shared memory, and each warp's
-    # per-TR coefficient rows (summed over its atoms)
-    scratch = torch.empty((max(tc - 1, 1), PLANES_MT, cfg.K, nA), dtype=dt,
-                          device=dev)
-    hstate = None if in_smem else torch.empty((PLANES_MT, cfg.K, nA),
-                                              dtype=dt, device=dev)
+    route = adjoint_cfg(cfg.K, pk.element_size(), PLANES_MT, tc)
     dpk = torch.empty(pk.shape, dtype=dt, device=dev)
-    dcf = torch.empty((-(-nA // 32), nTR, NC_MT), dtype=dt, device=dev)
+    # each warp's per-TR coefficient rows (summed over its atoms)
+    dcf = torch.empty((-(-nA * route.G // 32), nTR, NC_MT), dtype=dt,
+                      device=dev)
     if pkt is None:
         ins, outs = (coef, pk, chk, g), (dpk, dcf)
     else:
         dpkt = torch.empty((nTR, NENT_MT, nA), dtype=dt, device=dev)
         ins, outs = (coef, pk, pkt, chk, g), (dpk, dcf, dpkt)
     lib, _ = library()
-    with torch.cuda.device(dev):
-        err = _entry(lib, name, dt)(
-            *map(_ptr, ins + (scratch, hstate) + outs), nA, nTR, cfg.K,
-            cfg.kshift, cfg.flags, tc, threads, _stream(dev))
+    if route.route == 'lanes':
+        with torch.cuda.device(dev):
+            err = _entry(lib, name + '_lanes', dt)(
+                *map(_ptr, ins + outs), nA, nTR, cfg.K, cfg.kshift,
+                cfg.flags, tc, route.G, route.M, _stream(dev))
+    else:
+        threads, in_smem = launch_cfg(cfg.K, pk.element_size(), PLANES_MT)
+        # phase 1's pre-RF states of one chunk (the first is chk's own) and
+        # the adjoint state when it does not fit in shared memory
+        scratch = torch.empty((max(tc - 1, 1), PLANES_MT, cfg.K, nA),
+                              dtype=dt, device=dev)
+        hstate = None if in_smem else torch.empty((PLANES_MT, cfg.K, nA),
+                                                  dtype=dt, device=dev)
+        with torch.cuda.device(dev):
+            err = _entry(lib, name, dt)(
+                *map(_ptr, ins + (scratch, hstate) + outs), nA, nTR, cfg.K,
+                cfg.kshift, cfg.flags, tc, threads, _stream(dev))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     # the warps' partial rows, summed in a fixed order
@@ -1560,8 +1580,10 @@ def xmt_v_bwd(coef, pk, pkt, cfg: XmtCfg, chk, g, *, tc: int):
 
 
 def _mt_chunk(coef, pk, cfg):
-    return pick_tc(coef.shape[1], cfg.K, pk.shape[1], pk.element_size(),
-                   PLANES_MT)
+    r"""The EPG-X(MT) adjoints' chunk, capped for their lane route
+    (:func:`~mrphy_tpu_torch.kernels.epg.adjoint_tc` at 8 planes)."""
+    return adjoint_tc(coef.shape[1], cfg.K, pk.shape[1], pk.element_size(),
+                      PLANES_MT)
 
 
 class _Xmt(torch.autograd.Function):

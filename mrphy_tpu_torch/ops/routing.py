@@ -30,13 +30,14 @@ scratch and HBM partials miss their budgets
 (``epg_pallas.spgr_bwd_is_available``, ``cpmg_bwd_is_available``). The
 port has no counterpart and no such gate: the H100 adjoints ``spgr_bwd``
 and ``cpmg_bwd`` shorten the chunk to fit a fixed budget of per-chunk
-scratch in device memory (:func:`mrphy_tpu_torch.kernels.epg.pick_tc`),
-capped further for their lane route, which keeps the chunk's states on
-chip, while its checkpoints fit a budget
-(:func:`mrphy_tpu_torch.kernels.epg.adjoint_tc`), so each takes every
-instance its forward takes; so do ``xspgr_bwd``'s, ``xspgr_v_bwd``'s,
-``xcpmg_bwd``'s and ``xcpmg_v_bwd``'s, their chunk fitted and capped alike
-for the two-pool state's 12 planes, and ``bssfp_bwd``'s, for an
+scratch in device memory (:func:`mrphy_tpu_torch.kernels.epg.pick_tc`);
+their lane route, which keeps the chunk's states on chip and allocates no
+scratch, takes the chunk its shared memory holds while the checkpoints fit
+a budget (:func:`mrphy_tpu_torch.kernels.epg.adjoint_tc`), so each takes
+every instance its forward takes; so do ``xspgr_bwd``'s,
+``xspgr_v_bwd``'s, ``xcpmg_bwd``'s and ``xcpmg_v_bwd``'s, their chunk
+chosen alike for the two-pool state's 12 planes, ``xmt_bwd``'s and
+``xmt_v_bwd``'s for EPG-X(MT)'s 8, and ``bssfp_bwd``'s, for an
 isochromat's 3 (JAX's
 ``bssfp_bwd_is_available`` only warns there, and is not carried).
 ``epgx_spgr`` takes its kernels at a scalar ``tr`` and over a ``(nTR,)``
@@ -123,18 +124,30 @@ def _decide_epg_spgr(kw, backend):
                              else '', adjoint_tc(nT, K, nA, 4)))
 
 
+def _chunk(nT, K, nA, planes):
+    r"""The adjoint's chunk in float32 as a reason states it: the scratch
+    budget's (:func:`~mrphy_tpu_torch.kernels.epg.pick_tc`) and, where the
+    lane route's differs (:func:`~mrphy_tpu_torch.kernels.epg.adjoint_tc`),
+    that one beside it."""
+    from mrphy_tpu_torch.kernels.epg import adjoint_tc, pick_tc
+    tc = pick_tc(nT, K, nA, 4, planes)
+    lane_tc = adjoint_tc(nT, K, nA, 4, planes)
+    cap = '' if lane_tc == tc else ' by the scratch budget, %d on the ' \
+        'lane route,' % lane_tc
+    return 'tc=%d%s' % (tc, cap)
+
+
 def _decide_epg_cpmg(kw, backend):
-    from mrphy_tpu_torch.kernels.epg import adjoint_tc
     fallback, nE = _per_voxel(kw, backend)
     if fallback:
         return fallback
     nA = _n_atoms(kw, ('T1', 'T2', 'M0', 'b1', 'phi_ex', 'alpha_ex', 'D'))
     return _mk('cuda-native-adjoint',
                'cpmg_fwd, and cpmg_fwd_chk + cpmg_bwd under a gradient '
-               '(nE=%d, nA=%d%s%s; the adjoint chunk tc=%d in float32)'
+               '(nE=%d, nA=%d%s%s; the adjoint chunk %s in float32)'
                % (nE, nA, ', variable esp' if len(_shape(kw.get('esp'))) == 1
                   else '', ', diffusion' if kw.get('D') is not None else '',
-                  adjoint_tc(nE, nE + 1, nA, 4)))
+                  _chunk(nE, nE + 1, nA, 6)))
 
 
 def _decide_epgx_spgr(kw, backend):
@@ -156,7 +169,6 @@ def _decide_epgx_spgr(kw, backend):
 
 
 def _decide_epgx_cpmg(kw, backend):
-    from mrphy_tpu_torch.kernels.epg import adjoint_tc, pick_tc
     from mrphy_tpu_torch.kernels.epgx import PLANES
     fallback, nE = _per_voxel(kw, backend)
     if fallback:
@@ -164,21 +176,15 @@ def _decide_epgx_cpmg(kw, backend):
     nA = _n_atoms(kw, ('T1a', 'T2a', 'T1b', 'T2b', 'kab', 'kba', 'M0a',
                        'M0b', 'dfb', 'phi_ex', 'b1'))
     v = '_v' if len(_shape(kw.get('esp'))) == 1 else ''
-    # the scratch budget's chunk, and where the lane route caps it, its cap
-    tc = pick_tc(nE, nE + 1, nA, 4, PLANES)
-    lane_tc = adjoint_tc(nE, nE + 1, nA, 4, PLANES)
-    cap = '' if lane_tc == tc else ' by the scratch budget, %d on the ' \
-        'lane route,' % lane_tc
     return _mk('cuda-native-adjoint',
                'xcpmg%s_fwd, and xcpmg%s_fwd_chk + xcpmg%s_bwd under a '
-               'gradient (nE=%d, K=%d, nA=%d%s; the adjoint chunk tc=%d%s in '
+               'gradient (nE=%d, K=%d, nA=%d%s; the adjoint chunk %s in '
                'float32)' % (v, v, v, nE, nE + 1, nA,
                              ', variable esp (per-step propagators)' if v
-                             else '', tc, cap))
+                             else '', _chunk(nE, nE + 1, nA, PLANES)))
 
 
 def _decide_epgx_mt_spgr(kw, backend):
-    from mrphy_tpu_torch.kernels.epg import pick_tc
     from mrphy_tpu_torch.kernels.epgx import PLANES_MT
     fallback, nT = _per_voxel(kw, backend)
     if fallback:
@@ -199,10 +205,10 @@ def _decide_epgx_mt_spgr(kw, backend):
     v = '_v' if len(_shape(kw.get('tr'))) == 1 else ''
     return _mk('cuda-native-adjoint',
                'xmt%s_fwd, and xmt%s_fwd_chk + xmt%s_bwd under a gradient '
-               '(nTR=%d, K=%d, nA=%d%s; the adjoint chunk tc=%d in float32)'
+               '(nTR=%d, K=%d, nA=%d%s; the adjoint chunk %s in float32)'
                % (v, v, v, nT, K, nA,
                   ', variable tr (per-TR propagators)' if v else '',
-                  pick_tc(nT, K, nA, 4, PLANES_MT)))
+                  _chunk(nT, K, nA, PLANES_MT)))
 
 
 def _decide_bssfp_train(kw, backend):

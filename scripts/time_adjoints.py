@@ -1,10 +1,12 @@
 r"""Time the EPG adjoints K15 ``spgr_bwd``, K18 ``cpmg_bwd``, K21
-``xspgr_bwd``, K24 ``xspgr_v_bwd``, K27 ``xcpmg_bwd`` and K30
-``xcpmg_v_bwd``, the forwards that write their checkpoints (among them the
-two-pool K20 ``xspgr_fwd_chk``, K23 ``xspgr_v_fwd_chk``, K26
-``xcpmg_fwd_chk`` and K29 ``xcpmg_v_fwd_chk``), at the main paths' shapes,
-and the path steps that run them, on one card, optionally against another
-checkout of the repository in the same run.
+``xspgr_bwd``, K24 ``xspgr_v_bwd``, K27 ``xcpmg_bwd``, K30
+``xcpmg_v_bwd``, K33 ``xmt_bwd`` and K36 ``xmt_v_bwd``, the forwards that
+write their checkpoints (among them K17 ``cpmg_fwd_chk``, the two-pool K20
+``xspgr_fwd_chk``, K23 ``xspgr_v_fwd_chk``, K26 ``xcpmg_fwd_chk`` and K29
+``xcpmg_v_fwd_chk``, and EPG-X(MT)'s K32 ``xmt_fwd_chk`` and K35
+``xmt_v_fwd_chk``), at the main paths' shapes, and the path steps that run
+them, on one card, optionally against another checkout of the repository
+in the same run.
 
 Each side runs in a process of its own, which imports ``mrphy_tpu_torch``
 and ``chip_smoke`` (for its case builders) from that side's root, builds
@@ -16,14 +18,19 @@ that side's kernels into its own ``build/kernels``, and then
   (``chk_ms``, with the route a two-pool forward takes, ``fwd_route``:
   ``kernels.epg.forward_cfg``'s lanes G and slots M where the side has it,
   else one thread per atom; where it takes the lanes, also the same
-  forward forced onto one thread per atom, ``chk_thread_ms``) and the
-  adjoint kernel alone: the median of ``--reps``
-  CUDA-event timings after one warm-up call, with the peak memory
-  allocated. Beside the paths' kernel shapes, the two-pool train also
+  forward forced onto one thread per atom, ``chk_thread_ms``; for
+  EPG-X(MT), whose forward keeps one thread per atom, the forward at
+  pick_tc's chunk too, ``chk_pick_ms``) and the adjoint kernel alone
+  (where the side's adjoint takes its lane route on an EPG-X(MT) case,
+  also forced onto one thread per atom at the same chunk, ``thread_ms``):
+  the median of ``--reps`` CUDA-event timings after one warm-up call, with
+  the peak memory allocated. A case may name its chunk (``tc``), which
+  both sides then take: the T2 map at tc 2, K18 at the chunk of both. Beside the paths' kernel shapes, the two-pool train also
   runs at K 24 with a scalar tr, over a tr train at K 48 (an
   exchange-MRF segment, 65,536 × 200) and at the exchange-MRF
   refinement's 4096 atoms (scalar tr and tr train), the shapes on which
-  the forwards' route was chosen;
+  the forwards' route was chosen; EPG-X(MT) at the qMT dictionary (65,536
+  × 400, K 48) at its scalar tr and over ``QMT_V``'s train;
 - for each path case, times ``--steps`` steps through the entry points on
   the host's clock after one warm-up step, with the peak memory allocated
   over them: the T2 fit's Adam step at 1M voxels × 32 echoes
@@ -32,8 +39,10 @@ that side's kernels into its own ``build/kernels``, and then
   scalar tr (22a) and over the tr trains (24a), ``epg_spgr``'s gradient
   at bench_mrf_fisp width without and with diffusion (phase 16), the MRF
   refinement step of 4096 voxels at K 16 (18a, from 10% off grid atoms),
-  and the MWF fit's Adam step over the 1M-voxel map in four blocks, at a
-  scalar esp (26a) and over ``MWF_V``'s esp train (28a).
+  the MWF fit's Adam step over the 1M-voxel map in four blocks, at a
+  scalar esp (26a) and over ``MWF_V``'s esp train (28a), and the qMT
+  protocol gradient at the dictionary's full width at its scalar tr (32a)
+  and over ``QMT_V``'s train (34a).
 
 With ``--parent DIR`` the sides run in turns parent, change, change,
 parent::
@@ -61,6 +70,8 @@ ROOT = Path(__file__).resolve().parents[1]
 CASES = (
     ('T2 map 1M x 32, K 33, b1', 'cpmg_bwd', 1 << 20, 32, None,
      dict(t2map=True)),
+    ('T2 map 1M x 32, K 33, b1, at tc 2', 'cpmg_bwd', 1 << 20, 32, None,
+     dict(t2map=True, tc=2)),
     ('bench_mrf CPMG 64k x 32', 'cpmg_bwd', 65536, 32, None, {}),
     ('bench_mrf two-pool 64k x 400, K 48', 'xspgr_bwd', 65536, 400, 48, {}),
     ('bench_mrf variable-TR two-pool 64k x 400, K 24', 'xspgr_v_bwd', 65536,
@@ -81,6 +92,10 @@ CASES = (
      dict(bench=True)),
     ('MWF fit block over the esp train', 'xcpmg_v_bwd', 1 << 18, 32, None,
      dict(mwf=True)),
+    ('qMT dictionary 64k x 400, K 48', 'xmt_bwd', 65536, 400, 48,
+     dict(qmt=True)),
+    ('qMT dictionary over the QMT_V train', 'xmt_v_bwd', 65536, 400, 48,
+     dict(qmt=True)),
 )
 
 
@@ -102,11 +117,18 @@ def side(root: Path, reps: int, steps: int, only):
     for seed, (label, kernel, nA, nT, K, kw) in enumerate(CASES, 900):
         if only and kernel not in only:
             continue
+        kw = dict(kw)
+        fixed_tc = kw.pop('tc', None)
         # the side's own chunk: adjoint_tc where the adjoint has its lane
-        # route, pick_tc's otherwise (the entry points' before it)
+        # route, pick_tc's otherwise (the entry points' before it), or the
+        # case's
         lanes = f'mrphy_{kernel}_lanes_f32' in _build._SIGNATURES
         chooser = kepg.adjoint_tc if lanes else kepg.pick_tc
+        if fixed_tc:
+            def chooser(*a, tc=fixed_tc):
+                return tc
         row = dict(root=str(root), case=label, kernel=kernel)
+        fwd_mod, thread = kx, None
         if kernel == 'cpmg_bwd':
             flips, ckw = cs.cpmg_case(nA, nT, torch.float32, dev, seed=seed,
                                       **kw)
@@ -122,7 +144,7 @@ def side(root: Path, reps: int, steps: int, only):
 
             def run():
                 return kepg.cpmg_bwd(*args, chk, gr, gi, tc=tc)
-            planes = 6
+            planes, fwd_mod = 6, kepg
         elif kernel == 'spgr_bwd':
             coef, par, cdiff, cfg = cs.spgr_args(cs.mrf_fisp_case(
                 nA, nT, K, torch.float32, dev, seed=seed, **kw))
@@ -158,6 +180,32 @@ def side(root: Path, reps: int, steps: int, only):
             def run():
                 return bwd(coef, *xp, cfg, chk, gr, gi, tc=tc)
             planes = 12
+        elif kernel.startswith('xmt'):
+            v = '_v' if kernel == 'xmt_v_bwd' else ''
+            case = cs.xmt_case(nA, nT, K, torch.float32, dev, seed=seed, **kw)
+            if v:
+                case['tr'] = cs.qmtv_dict_trs(nT, torch.float32, dev)
+            coef, pk, cfg = cs.xmt_args(case)
+            xp = pk if v else (pk,)
+            tc = chooser(nT, cfg.K, nA, 4, kx.PLANES_MT)
+            fwd_chk = getattr(kx, f'xmt{v}_fwd_chk')
+            bwd = getattr(kx, f'xmt{v}_bwd')
+
+            def fwd(tc=tc):
+                return fwd_chk(coef, *xp, cfg, tc=tc)[1]
+            chk = fwd()
+            g = cs.cotangent(torch.empty((nA, nT, 2), device=dev), seed)
+
+            def run():
+                return bwd(coef, *xp, cfg, chk, g, tc=tc)
+            planes = kx.PLANES_MT
+            # the one-thread forward at pick_tc's chunk (the chunk before
+            # the lane route)
+            pick = kepg.pick_tc(nT, cfg.K, nA, 4, planes)
+            row['chk_pick_ms'] = cs.time_ms(lambda: fwd(pick), reps=reps)
+            if lanes and kepg.adjoint_cfg(cfg.K, 4, planes,
+                                          tc).route == 'lanes':
+                thread = kepg.AdjointCfg('thread', 1, 0, 0)
         else:
             vartr = kernel == 'xspgr_v_bwd'
             case = cs.xmrf_case(nA, nT, K, torch.float32, dev, seed=seed,
@@ -190,22 +238,32 @@ def side(root: Path, reps: int, steps: int, only):
                    pick_tc=kepg.pick_tc(nT, cfg.K, nA, 4, planes))
         if lanes:
             row['route'] = kepg.adjoint_cfg(cfg.K, 4, planes, tc)._asdict()
-        if planes == 12:
-            # the two-pool forward's route: the side's forward_cfg, else the
-            # one thread per atom it had before
-            row['fwd_route'] = (kepg.forward_cfg(cfg.K, 4)._asdict()
-                                if hasattr(kepg, 'forward_cfg')
-                                else dict(route='thread', G=1, M=0))
+        if planes in (6, 12):
+            # the forward's route: the side's forward_cfg, else the one
+            # thread per atom it had before
+            try:
+                row['fwd_route'] = kepg.forward_cfg(cfg.K, 4,
+                                                    planes)._asdict()
+            except (AttributeError, KeyError):
+                row['fwd_route'] = dict(route='thread', G=1, M=0)
         row['chk_ms'] = cs.time_ms(fwd, reps=reps)
         if row.get('fwd_route', {}).get('route') == 'lanes':
             # the same forward on one thread per atom, as the chooser's
             # yardstick
-            lanes_cfg = kx.forward_cfg
-            kx.forward_cfg = lambda *a: kepg.ForwardCfg('thread', 1, 0)
+            lanes_cfg = fwd_mod.forward_cfg
+            fwd_mod.forward_cfg = lambda *a: kepg.ForwardCfg('thread', 1, 0)
             try:
                 row['chk_thread_ms'] = cs.time_ms(fwd, reps=reps)
             finally:
-                kx.forward_cfg = lanes_cfg
+                fwd_mod.forward_cfg = lanes_cfg
+        if thread is not None:
+            # the adjoint on one thread per atom at the same chunk
+            lanes_cfg = kx.adjoint_cfg
+            kx.adjoint_cfg = lambda *a: thread
+            try:
+                row['thread_ms'] = cs.time_ms(run, reps=reps)
+            finally:
+                kx.adjoint_cfg = lanes_cfg
         # the adjoint's peak: its checkpoints resident, its own allocations
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -345,6 +403,34 @@ def mrf_refine_step(cs, dev):
     return run
 
 
+def qmt_grad_step(vartr):
+    r"""Phase 32a's (``vartr``: 34a's, over ``QMT_V``'s train) protocol
+    gradient at the qMT dictionary's full width in float32: the
+    neighbouring-kba separation (``chip_smoke.qmt_separation``) w.r.t. the
+    flips, the wt train (the tr train) and the per-atom F, kba, T2b, one
+    gradient a step."""
+    def make(cs, dev):
+        import torch
+        from mrphy_tpu_torch.kernels import epgx as kx
+        c = cs.QMT_DICT
+        flips, phis, wt = cs.qmt_train(c['ntr'], torch.float32, dev)
+        F, kba, T2b = cs.qmt_grid(torch.float32, dev)[1]
+        xs = dict(flips=flips, wt=wt, F=F, kba=kba, T2b=T2b)
+        if vartr:
+            xs['tr'] = cs.qmtv_dict_trs(c['ntr'], torch.float32, dev)
+
+        def run(n):
+            for _ in range(n):
+                p = {k: v.detach().requires_grad_() for k, v in xs.items()}
+                kw = cs.qmt_kw(p['F'], p['kba'], p['T2b'])
+                if vartr:
+                    kw['tr'] = p['tr']
+                D = kx.xmt_spgr(p['flips'], phis, wt=p['wt'], **kw)
+                torch.autograd.grad(cs.qmt_separation(D), list(p.values()))
+        return run
+    return make
+
+
 def mwf_fit_step(esp_train):
     r"""Phase 26a's Adam step (``esp_train``: 28a's, over ``MWF_V``'s esp
     train): the log pools of ``MWF_MAP``'s 1M voxels against the noisy
@@ -402,6 +488,10 @@ PATHS = (
      mrf_refine_step),
     ('26a MWF fit step 1M x 32 (4 blocks)', 'mwf_fit', mwf_fit_step(False)),
     ('28a MWF fit step over the esp train', 'mwf_fit_v', mwf_fit_step(True)),
+    ('32a qMT protocol gradient 64k x 400, K 48', 'qmt_grad',
+     qmt_grad_step(False)),
+    ('34a qMT protocol gradient over the QMT_V train', 'qmt_grad_v',
+     qmt_grad_step(True)),
 )
 
 
@@ -413,9 +503,10 @@ def main() -> int:
     ap.add_argument('--steps', type=int, default=20)
     ap.add_argument('--only', nargs='*', default=None,
                     help='cases to time: spgr_bwd, cpmg_bwd, xspgr_bwd, '
-                         'xspgr_v_bwd, xcpmg_bwd, xcpmg_v_bwd, t2_fit, '
-                         'refine, refine_v, spgr_grad, spgr_grad_d, '
-                         'mrf_refine, mwf_fit, mwf_fit_v')
+                         'xspgr_v_bwd, xcpmg_bwd, xcpmg_v_bwd, xmt_bwd, '
+                         'xmt_v_bwd, t2_fit, refine, refine_v, spgr_grad, '
+                         'spgr_grad_d, mrf_refine, mwf_fit, mwf_fit_v, '
+                         'qmt_grad, qmt_grad_v')
     ap.add_argument('--out', type=Path, default=None)
     a = ap.parse_args()
     if a.side is not None:
@@ -456,9 +547,11 @@ def main() -> int:
             case.setdefault(key + '_chk_ms', []).append(r['chk_ms'])
         if 'fwd_route' in r:
             case[key + '_fwd_route'] = r['fwd_route']
-        if 'chk_thread_ms' in r:
-            case.setdefault(key + '_chk_thread_ms', []).append(
-                r['chk_thread_ms'])
+        for extra in ('chk_thread_ms', 'chk_pick_ms', 'thread_ms'):
+            if extra in r:
+                case.setdefault(f'{key}_{extra}', []).append(r[extra])
+        if 'tc' in r:
+            case[key + '_tc'] = r['tc']
     for case, s in summary.items():
         if 'parent' in s and 'change' in s:
             s['ratio'] = min(s['change']) / min(s['parent'])

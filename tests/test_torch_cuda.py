@@ -2091,3 +2091,195 @@ def test_mrf_and_mwf_gradients_take_the_lane_route_once_on_card(cuda):
             dict.fromkeys(kx.LAUNCHES, 0),
             **{f'xcpmg{v}_fwd_chk': 1, f'xcpmg{v}_bwd': 1})
         assert bool(torch.isfinite(gT2a).all())
+
+
+# K17's two routes (kernels/epg.py forward_cfg at 6 planes) at a ragged
+# 1,001 atoms: the lanes at 32 echoes (K 33: 8 lanes of 5 slots) with every
+# option (b1, an esp train, diffusion, the slice-profile excitation) at tc
+# 4 and bare at tc 2, at 24 echoes (K 25: 8 of 4), in float64 at 32 (K 33:
+# 16 of 3) and 16 (K 17: 8 of 3); one thread per atom at 400 echoes (K 401)
+# and float64 200 (K 201).
+CPMG_FWD_CASES = [
+    (torch.float32, 2e-6, 1e-4, 32, 4, True, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 32, 2, False, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 24, 3, True, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 400, 4, True, 'thread'),
+    (torch.float64, 1e-12, 1e-12, 32, 4, True, 'lanes'),
+    (torch.float64, 1e-12, 1e-12, 16, 4, True, 'lanes'),
+    (torch.float64, 1e-12, 1e-12, 200, 4, True, 'thread')]
+CPMG_FWD_IDS = ['f32-lanes-K33-every-option', 'f32-lanes-K33-bare-tc2',
+                'f32-lanes-K25', 'f32-thread-K401', 'f64-lanes-K33',
+                'f64-lanes-K17', 'f64-thread-K201']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows,nE,tc,opts,route', CPMG_FWD_CASES,
+                         ids=CPMG_FWD_IDS)
+def test_cpmg_fwd_chk_routes_on_card(cuda, monkeypatch, dtype, bar, rows, nE,
+                                     tc, opts, route):
+    r"""``cpmg_fwd_chk`` on the route its shape takes: echoes and
+    checkpoints bit for bit equal to the plain version's and to the
+    one-thread route's; its checkpoints fed to ``cpmg_bwd`` on the route the
+    shape takes and on one thread per atom, each against the plain adjoint
+    in that route's summation order (per atom at ``bar``, per echo at
+    ``rows``)."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.ops import epg
+    nA = 1001
+    flips, kw = _cpmg_case(cuda, dtype, nA, nE, opts, opts, opts, opts, 61)
+    coef, par, dq, cdiff, cfg, _ = epg._cpmg_rows(flips, **kw)
+    isz = par.element_size()
+    assert kepg.forward_cfg(cfg.K, isz, 6).route == route
+    args = (coef.contiguous(), par.contiguous(), dq.contiguous(), cdiff, cfg)
+    gr, gi = torch.as_tensor(np.random.default_rng(14).standard_normal(
+        (2, nE, nA)), dtype=dtype, device=cuda)
+    n0 = kepg.LAUNCHES['cpmg_fwd_chk']
+    out = kepg.cpmg_fwd_chk(*args, tc=tc)
+    torch.cuda.synchronize()
+    ref = kepg.cpmg_fwd_chk_torch(*args, tc=tc)
+    with monkeypatch.context() as m:
+        m.setattr(kepg, 'forward_cfg',
+                  lambda *a: kepg.ForwardCfg('thread', 1, 0))
+        one = kepg.cpmg_fwd_chk(*args, tc=tc)
+    assert kepg.LAUNCHES['cpmg_fwd_chk'] == n0 + 2   # both routes
+    for x, y, z in zip(out, ref, one):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    natural = kepg.adjoint_cfg(cfg.K, isz, 6, tc)
+    thread = kepg.AdjointCfg('thread', 1, 0, 0)
+    for adj in [natural] + ([thread] if natural.route == 'lanes' else []):
+        with monkeypatch.context() as m:
+            m.setattr(kepg, 'adjoint_cfg', lambda *a: adj)
+            got = kepg.cpmg_bwd(*args, out[2], gr, gi, tc=tc)
+            want = kepg.cpmg_bwd_torch(*args, ref[2], gr, gi, tc=tc)
+        _rows_close(got[0], want[0], rows)
+        _rows_close(got[1], want[1], bar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('G,M', [(8, 6), (16, 2), (4, 10), (32, 9)],
+                         ids=['M-past-ceil-K-over-G', 'M-too-small',
+                              'G-not-a-width', 'M-past-the-instances'])
+def test_cpmg_fwd_chk_lanes_refuse_on_card(cuda, monkeypatch, G, M):
+    r"""K17's lane entry point refuses a ``(G, M)`` other than ``M =
+    ⌈K/G⌉`` over 8, 16 or 32 lanes (K 33), or one no instance has (K 265 at
+    32 lanes of 9 slots), with cudaErrorInvalidValue, which the wrapper
+    raises: nothing falls back to the other route."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.ops import epg
+    nE = 264 if M == 9 else 32
+    flips, kw = _cpmg_case(cuda, torch.float32, 65, nE, True, False, False,
+                           False, 5)
+    coef, par, dq, cdiff, cfg, _ = epg._cpmg_rows(flips, **kw)
+    monkeypatch.setattr(kepg, 'forward_cfg',
+                        lambda *a: kepg.ForwardCfg('lanes', G, M))
+    n0 = dict(kepg.LAUNCHES)
+    with pytest.raises(RuntimeError, match='cudaError_t 1$'):
+        kepg.cpmg_fwd_chk(coef.contiguous(), par.contiguous(),
+                          dq.contiguous(), cdiff, cfg, tc=4)
+    assert kepg.LAUNCHES == n0
+
+
+# K33's and K36's two routes (kernels/epg.py adjoint_cfg at 8 planes) at a
+# ragged 1,001 atoms × 40 TRs, b1 and wscale: the lanes at K 48 (16 lanes of
+# 3 slots, tc 5), K 32 at kshift −1 (8 of 4, tc 4), K 24 at kshift 9 and −17
+# (8 of 3: shifts past the group's lanes, in pieces), float64 K 32 (16 of
+# 2) and K 12 (8 of 2); one thread per atom at a chunk past S and at the
+# default K 161.
+XMT_ROUTE_CASES = [
+    (torch.float32, 2e-6, 5e-7, 48, 1, 5, 'lanes'),
+    (torch.float32, 2e-6, 5e-7, 32, -1, 4, 'lanes'),
+    (torch.float32, 2e-6, 5e-7, 24, 9, 4, 'lanes'),
+    (torch.float32, 2e-6, 5e-7, 24, -17, 4, 'lanes'),
+    (torch.float32, 2e-6, 5e-7, 48, 1, 8, 'thread'),
+    (torch.float32, 2e-6, 5e-7, None, 4, 4, 'thread'),
+    (torch.float64, 1e-12, 1e-15, 32, 2, 4, 'lanes'),
+    (torch.float64, 1e-12, 1e-15, 12, 1, 4, 'lanes')]
+XMT_ROUTE_IDS = ['f32-lanes-K48', 'f32-lanes-K32-kshift-1',
+                 'f32-lanes-K24-kshift9', 'f32-lanes-K24-kshift-17',
+                 'f32-thread-tc-past-S', 'f32-thread-K161',
+                 'f64-lanes-K32-kshift2', 'f64-lanes-K12']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows,K,kshift,tc,route', XMT_ROUTE_CASES,
+                         ids=XMT_ROUTE_IDS)
+@pytest.mark.parametrize('vartr', [False, True], ids=['tr', 'tr-train'])
+def test_xmt_bwd_routes_on_card(cuda, monkeypatch, dtype, bar, rows, K,
+                                kshift, tc, route, vartr):
+    r"""``xmt_bwd`` and ``xmt_v_bwd`` on the route their shape takes against
+    their plain versions, which sum in that route's order: per-atom outputs
+    (``dpk``, and over a tr train ``dpkt``) bit for bit on the lanes, at
+    ``bar`` on one thread per atom, the per-TR rows at ``rows`` (phase 31's
+    bar); a lane case also forced onto one thread per atom, against the
+    plain version in the one-thread order; one launch each."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    nA, nTR = 1001, 40
+    kw = _xmt_case(cuda, dtype, nA, nTR, K, kshift, True, 67)
+    if vartr:
+        kw['tr'] = torch.as_tensor(np.random.default_rng(9).uniform(
+            0.025, 0.035, nTR), dtype=dtype, device=cuda)
+    coef, pk, cfg, _ = epg._xmt_rows(kw.pop('flips'), kw.pop('phis'), **kw)
+    coef = coef.contiguous()
+    par = tuple(x.contiguous() for x in (pk if vartr else (pk,)))
+    isz = coef.element_size()
+    natural = kepg.adjoint_cfg(cfg.K, isz, kx.PLANES_MT, tc)
+    assert natural.route == route
+    v = '_v' if vartr else ''
+    fwd, bwd, bwd_t = (getattr(kx, f'xmt{v}_{n}') for n in (
+        'fwd_chk', 'bwd', 'bwd_torch'))
+    chk = fwd(coef, *par, cfg, tc=tc)[1]
+    g = torch.as_tensor(np.random.default_rng(10).standard_normal(
+        (nA, nTR, 2)), dtype=dtype, device=cuda)
+    thread = kepg.AdjointCfg('thread', 1, 0, 0)
+    for adj in [natural] + ([thread] if route == 'lanes' else []):
+        n0 = kx.LAUNCHES[f'xmt{v}_bwd']
+        with monkeypatch.context() as m:
+            m.setattr(kx, 'adjoint_cfg', lambda *a: adj)
+            got = bwd(coef, *par, cfg, chk, g, tc=tc)
+            torch.cuda.synchronize()
+            want = bwd_t(coef, *par, cfg, chk, g, tc=tc)
+        assert kx.LAUNCHES[f'xmt{v}_bwd'] == n0 + 1
+        _rows_close(got[0], want[0], rows)
+        for x, y in zip(got[1:], want[1:]):
+            if adj.route == 'lanes':
+                assert torch.equal(x, y)
+            else:
+                _rows_close(x, y, bar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('G,M,tc', [(8, 6, 4), (16, 2, 4), (4, 12, 4),
+                                    (16, 3, 7)],
+                         ids=['M-past-the-instances', 'M-too-small',
+                              'G-not-a-width', 'tc-past-S'])
+def test_xmt_bwd_lanes_refuse_on_card(cuda, monkeypatch, G, M, tc):
+    r"""K33's and K36's lane entry points refuse a ``(G, M)`` other than ``M
+    = ⌈K/G⌉`` over 8, 16 or 32 lanes or one no instance has (K 48), and a
+    chunk past the S states shared memory holds (tc 7 at 16 lanes of 3
+    slots, S 6), with cudaErrorInvalidValue, which the wrappers raise:
+    nothing falls back to the other route."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.kernels import epgx as kx
+    from mrphy_tpu_torch.ops import epg
+    nTR = 28
+    kw = _xmt_case(cuda, torch.float32, 65, nTR, 48, 1, False, 71)
+    monkeypatch.setattr(kx, 'adjoint_cfg',
+                        lambda *a: kepg.AdjointCfg('lanes', G, M, 8))
+    g = torch.zeros((65, nTR, 2), device=cuda)
+    for vartr in (False, True):
+        kv = dict(kw)
+        if vartr:
+            kv['tr'] = torch.full((nTR,), 0.03, device=cuda)
+        coef, pk, cfg, _ = epg._xmt_rows(kv.pop('flips'), kv.pop('phis'),
+                                         **kv)
+        par = tuple(x.contiguous() for x in (pk if vartr else (pk,)))
+        v = '_v' if vartr else ''
+        chk = getattr(kx, f'xmt{v}_fwd_chk')(coef.contiguous(), *par, cfg,
+                                              tc=tc)[1]
+        n0 = dict(kx.LAUNCHES)
+        with pytest.raises(RuntimeError, match='cudaError_t 1$'):
+            getattr(kx, f'xmt{v}_bwd')(coef.contiguous(), *par, cfg, chk, g,
+                                       tc=tc)
+        assert kx.LAUNCHES == n0

@@ -332,7 +332,8 @@ def test_kernel_sources_present():
                      'bssfp_bwd.cu', 'xmt_fwd.cu', 'xmt_bwd.cu',
                      'cpmg_bwd_lanes.cu', 'xspgr_bwd_lanes.cu',
                      'spgr_bwd_lanes.cu', 'xcpmg_bwd_lanes.cu',
-                     'xspgr_fwd_lanes.cu', 'xcpmg_fwd_lanes.cu'}
+                     'xspgr_fwd_lanes.cu', 'xcpmg_fwd_lanes.cu',
+                     'cpmg_fwd_lanes.cu', 'xmt_bwd_lanes.cu'}
     assert '--use_fast_math' not in _build.NVCC_FLAGS
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
 
