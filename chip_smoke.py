@@ -122,8 +122,12 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     W 5, 32k samples), timed; a 1-D case, a W 7 case (the kernels'
     run-time-width instance), a batch with per-entry trajectories, a
     float64 batch with a shared trajectory and the float64 recon3d plan. max|Δ|/max|plain| at ``NUFFT_BAR`` for the sample and
-    the trajectory cotangent; the spread's atomics sum in another order,
-    held at :func:`atomic_bar` of the most taps that meet at one point.
+    the trajectory cotangent; the spread (binned, deterministic) sums by
+    bin, subproblem and sample, another order than ``index_add_``'s, held
+    at :func:`atomic_bar` of the most taps that meet at one point, its
+    grid from a second launch equal bit for bit on every case and, on the
+    float64 batch, under ``torch.use_deterministic_algorithms(True)``; the
+    timed cases also time its binning (``bin_ms``) and read its peak.
 15. The gridding path through the entry points: (a) the
     ``examples/recon3d.py`` problem in float64 (32³, 1200 spokes, data
     from the exact operator ``signal`` plus 1% noise, |k|² density
@@ -160,7 +164,10 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     adjoint's one-thread route), a ragged atom count and float64 cases, all
     at the entry point's chunk (``adjoint_tc``: 5 TRs at bench_mrf_fisp,
     the adjoint on its lane route, whose G, M, S each row reports), and
-    ``spgr_fwd_chk`` timed also at ``pick_tc``'s chunk (25 there). Per-atom
+    ``spgr_fwd_chk`` timed also at ``pick_tc``'s chunk (25 there); where
+    ``spgr_fwd_chk`` takes its lane route (``forward_cfg`` at 6 planes: 8
+    lanes an atom at K 48 and 16, all but the default-K cases), also on one
+    thread per atom, bit for bit, both timed. Per-atom
     outputs (echoes, checkpoints, per-atom gradient rows) at ``EPG_BAR`` of
     their largest value, the adjoint's per-TR rows (sums over atoms) at
     ``EPG_ROW_BAR``; then the forward and the full gradient (w.r.t. T1, T2,
@@ -480,6 +487,7 @@ NUFFT rows add ``sector_ms``, the gather's 32-byte-sector traffic over
 ...}}``.
 """
 
+import contextlib
 import functools
 import json
 import statistics
@@ -899,8 +907,9 @@ KERNELS = {
                      replaces='mrphy_tpu/ops/nufft_pallas.py:392'),
     'spgr_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/spgr_fwd.cu',
                      replaces='mrphy_tpu/ops/epg_pallas.py:1644'),
-    'spgr_fwd_chk': dict(source='mrphy_tpu_torch/kernels/csrc/spgr_fwd.cu',
-                         replaces='mrphy_tpu/ops/epg_pallas.py:1558'),
+    'spgr_fwd_chk': dict(
+        source='mrphy_tpu_torch/kernels/csrc/spgr_fwd_lanes.cu',
+        replaces='mrphy_tpu/ops/epg_pallas.py:1558'),
     'spgr_bwd': dict(
         source='mrphy_tpu_torch/kernels/csrc/spgr_bwd_lanes.cu',
         replaces='mrphy_tpu/ops/epg_pallas.py:1593'),
@@ -908,8 +917,9 @@ KERNELS = {
                   replaces='mrphy_tpu/ops/mrf_pallas.py:142'),
     'cpmg_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/cpmg_fwd.cu',
                      replaces='mrphy_tpu/ops/epg_pallas.py:2003'),
-    'cpmg_fwd_chk': dict(source='mrphy_tpu_torch/kernels/csrc/cpmg_fwd.cu',
-                         replaces='mrphy_tpu/ops/epg_pallas.py:2029'),
+    'cpmg_fwd_chk': dict(
+        source='mrphy_tpu_torch/kernels/csrc/cpmg_fwd_lanes.cu',
+        replaces='mrphy_tpu/ops/epg_pallas.py:2029'),
     'cpmg_bwd': dict(
         source='mrphy_tpu_torch/kernels/csrc/cpmg_bwd_lanes.cu',
         replaces='mrphy_tpu/ops/epg_pallas.py:2063'),
@@ -956,14 +966,15 @@ KERNELS = {
                     replaces='mrphy_tpu/ops/epg_pallas.py:3976'),
     'xmt_fwd_chk': dict(source='mrphy_tpu_torch/kernels/csrc/xmt_fwd.cu',
                         replaces='mrphy_tpu/ops/epg_pallas.py:3999'),
-    'xmt_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xmt_bwd.cu',
+    'xmt_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xmt_bwd_lanes.cu',
                     replaces='mrphy_tpu/ops/epg_pallas.py:4031'),
     'xmt_v_fwd': dict(source='mrphy_tpu_torch/kernels/csrc/xmt_fwd.cu',
                       replaces='mrphy_tpu/ops/epg_pallas.py:4337'),
     'xmt_v_fwd_chk': dict(source='mrphy_tpu_torch/kernels/csrc/xmt_fwd.cu',
                           replaces='mrphy_tpu/ops/epg_pallas.py:4362'),
-    'xmt_v_bwd': dict(source='mrphy_tpu_torch/kernels/csrc/xmt_bwd.cu',
-                      replaces='mrphy_tpu/ops/epg_pallas.py:4397'),
+    'xmt_v_bwd': dict(
+        source='mrphy_tpu_torch/kernels/csrc/xmt_bwd_lanes.cu',
+        replaces='mrphy_tpu/ops/epg_pallas.py:4397'),
 }
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
@@ -2316,7 +2327,7 @@ def phase_signal_path(dev):
 NUFFT3D = dict(n=128, fov=24.0, osf=1.5, width=4, spokes=8192)
 # Sample-stage bars on max|kernel − plain| / max|plain| (the kernels follow
 # their plain versions' operations: on the card they may agree bit for
-# bit); the spread's is atomic_bar().
+# bit); the spread's, whose sums run in the bins' order, is atomic_bar().
 NUFFT_BAR = {torch.float32: 5e-5, torch.float64: 1e-10}
 EPS = {torch.float32: 2.0 ** -23, torch.float64: 2.0 ** -52}
 # The W 4, osf 1.5 plan against the exact operator (relative 2-norm of the
@@ -2328,11 +2339,26 @@ NUFFT_PLAN_ACC = 3e-3
 
 
 def atomic_bar(dtype, m_max: int) -> float:
-    r"""Bar on max|spread − index_add_| / max|grid|: two sums of the same
+    r"""Bar on max|spread − index_add_| / max|grid| (the binned spread
+    sums by bin, subproblem and sample; ``index_add_`` on the card by
+    atomics): two sums of the same
     m terms in two orders differ by ~ε·√m of the partial sums' size
     (random-walk rounding, each order ε·√(m/2)), four standard deviations
     at the grid point where the most samples meet (``m_max`` taps)."""
     return 4 * EPS[dtype] * max(m_max, 1) ** 0.5
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    r"""``torch.use_deterministic_algorithms(True)`` for the block, then the
+    mode as it was."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
 
 
 def radial3d_k(n, fov, spokes):
@@ -2468,9 +2494,37 @@ def phase_nufft_kernels(dev):
                        bit_identical=bool(torch.equal(kout, pout)))
             if name == 'nufft_spread':
                 row['max_taps_at_one_point'] = m_max
+                # deterministic: a second launch gives the same grid, and
+                # so does one under torch.use_deterministic_algorithms
+                row['repeat_bit_identical'] = bool(torch.equal(
+                    kout, run_kernel()))
+                check(row['repeat_bit_identical'],
+                      f'nufft_spread {label}: two launches differ')
+                if dtype == torch.float64 and N > 1:
+                    n0 = knf.LAUNCHES['nufft_spread']
+                    with deterministic_algorithms():
+                        det = run_kernel()
+                    row['deterministic_mode_bit_identical'] = bool(
+                        torch.equal(kout, det)) and (
+                        knf.LAUNCHES['nufft_spread'] == n0 + 1)
+                    check(row['deterministic_mode_bit_identical'],
+                          f'nufft_spread {label}: under deterministic '
+                          'algorithms')
+                    del det
             if timed:
                 row['ms'] = time_ms(run_kernel)
                 row['samples_per_s'] = N * k.shape[-1] / row['ms'] * 1e3
+            if timed and name == 'nufft_spread':
+                # the binning alone (inside every launch), and what one
+                # launch allocates at its peak (grid, plan, partial tiles)
+                row['bin_ms'] = time_ms(lambda: knf.bin_plan(k, geom))
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                run_kernel()
+                torch.cuda.synchronize()
+                row['peak_mem_gb'] = (torch.cuda.max_memory_allocated(dev)
+                                      - base) / 1e9
             if timed == 'full':
                 row['plain_ms'] = time_ms(run_plain, reps=3)
                 row.update(bound(run_plain, inputs, pout))
@@ -3101,7 +3155,10 @@ def phase_epg_kernels(dev):
     r"""Phase 16: ``spgr_fwd``, ``spgr_fwd_chk`` and ``spgr_bwd`` against
     their plain versions on EPG_CASES at the entry point's chunk
     (``kernels.epg.adjoint_tc``; the adjoint fed the kernel's checkpoints
-    and a cotangent drawn from a seed, its route reported); the timed
+    and a cotangent drawn from a seed, its route reported;
+    ``spgr_fwd_chk``'s route too, and where it takes the lanes, its echoes
+    and checkpoints against the one-thread route's, bit for bit, both
+    timed); the timed
     full-width cases with their bounds, ``spgr_fwd_chk`` also at
     ``pick_tc``'s chunk (``ms_pick_tc``); then, at bench_mrf_fisp width,
     the forward and the full gradient through ``epg_spgr`` (w.r.t. T1, T2,
@@ -3135,6 +3192,7 @@ def phase_epg_kernels(dev):
                 (coef, par, cdiff, chk, g))}
         names = {'spgr_fwd': ('sig',), 'spgr_fwd_chk': ('sig', 'chk'),
                  'spgr_bwd': ('dcoef', 'dpar')}
+        fwd_route = forward_meta(cfg.K, par, 6)
         for name, (run_kernel, run_plain, inputs) in runs.items():
             meta = dict(case=label, nA=nA, nTR=nTR, K=cfg.K,
                         kshift=cfg.kshift, tc=tc, pick_tc=pick)
@@ -3143,9 +3201,27 @@ def phase_epg_kernels(dev):
             else:
                 meta['threads_state'] = kepg.launch_cfg(cfg.K,
                                                         par.element_size())
+            if name == 'spgr_fwd_chk':
+                meta['forward'] = fwd_route
             rows[name].append(compare_epg(
                 name, run_kernel, run_plain, inputs, names[name], meta,
                 dtype, timed, EPG_ROW_BAR))
+            if name == 'spgr_fwd_chk' and fwd_route['route'] == 'lanes':
+                # K14's lanes against its one-thread route, bit for bit,
+                # and both timed at the chunk
+                row = rows[name][-1]
+                thread_check(row, name, run_kernel, kepg, 'forward_cfg',
+                             names[name], dtype)
+                row['lanes_ms'] = row.get('ms') or time_ms(run_kernel)
+                orig = kepg.forward_cfg
+                kepg.forward_cfg = lambda *a: kepg.ForwardCfg('thread', 1, 0)
+                try:
+                    row['thread_ms'] = time_ms(run_kernel)
+                finally:
+                    kepg.forward_cfg = orig
+                print(f'spgr_fwd_chk {label}: ' + json.dumps(dict(
+                    forward=fwd_route, lanes_ms=row['lanes_ms'],
+                    thread_ms=row['thread_ms'])), flush=True)
             if name == 'spgr_fwd_chk' and timed:
                 # the chunk the one-thread route took (pick_tc's)
                 rows[name][-1]['ms_pick_tc'] = time_ms(
@@ -3632,9 +3708,9 @@ def adjoint_meta(K, par, planes, tc) -> dict:
 
 
 def forward_meta(K, par, planes=12) -> dict:
-    r"""The route K20, K23, K26 or K29 (``planes`` 12) or K17 (6) takes
-    (``kernels.epg.forward_cfg``, by shape alone, for any chunk): the lanes
-    per atom G and the order slots a lane M, or one thread per atom
+    r"""The route K20, K23, K26 or K29 (``planes`` 12) or K14, K17 (6)
+    takes (``kernels.epg.forward_cfg``, by shape alone, for any chunk): the
+    lanes per atom G and the order slots a lane M, or one thread per atom
     (``threads_state`` then says how)."""
     from mrphy_tpu_torch.kernels import epg as kepg
     return kepg.forward_cfg(K, par.element_size(), planes)._asdict()

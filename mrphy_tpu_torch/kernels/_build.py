@@ -80,9 +80,16 @@ _SIGNATURES = {
     # grid, k, out, geo (17 host doubles), k_bs, N, nT, D, W, stream
     'mrphy_nufft_sample_f32': (_P,) * 4 + (_I64,) * 5 + (_P,),
     'mrphy_nufft_sample_f64': (_P,) * 4 + (_I64,) * 5 + (_P,),
-    # s, k, grid, geo, k_bs, N, nT, D, W, stream
-    'mrphy_nufft_spread_f32': (_P,) * 4 + (_I64,) * 5 + (_P,),
-    'mrphy_nufft_spread_f64': (_P,) * 4 + (_I64,) * 5 + (_P,),
+    # k, keys, geo, tiles (12 host int64s), k_bs, Nk, nT, D, W, key_bytes,
+    # stream
+    'mrphy_nufft_bin_keys_f32': (_P,) * 4 + (_I64,) * 6 + (_P,),
+    'mrphy_nufft_bin_keys_f64': (_P,) * 4 + (_I64,) * 6 + (_P,),
+    # skeys, bin_start, sub_first, Nk, nT, nbins, P, key_bytes, stream
+    'mrphy_nufft_bin_offsets': (_P,) * 3 + (_I64,) * 5 + (_P,),
+    # s, k, perm, bin_start, sub_first, part, grid, geo, tiles, k_bs, N,
+    # nT, D, W, nsub_max, stream
+    'mrphy_nufft_spread_f32': (_P,) * 9 + (_I64,) * 6 + (_P,),
+    'mrphy_nufft_spread_f64': (_P,) * 9 + (_I64,) * 6 + (_P,),
     # grid, k, cot, dk, geo, k_bs, N, nT, D, W, stream
     'mrphy_nufft_dk_f32': (_P,) * 5 + (_I64,) * 5 + (_P,),
     'mrphy_nufft_dk_f64': (_P,) * 5 + (_I64,) * 5 + (_P,),
@@ -92,6 +99,10 @@ _SIGNATURES = {
     'mrphy_spgr_fwd_f64': (_P,) * 6 + (_I64,) * 8 + (_P,),
     'mrphy_spgr_fwd_chk_f32': (_P,) * 6 + (_I64,) * 8 + (_P,),
     'mrphy_spgr_fwd_chk_f64': (_P,) * 6 + (_I64,) * 8 + (_P,),
+    # the lane route of the _chk instance: coef, par, cdiff, sig, chk, nA,
+    # nTR, nC, K, kshift, flags, tc, G, M, stream
+    'mrphy_spgr_fwd_chk_lanes_f32': (_P,) * 5 + (_I64,) * 9 + (_P,),
+    'mrphy_spgr_fwd_chk_lanes_f64': (_P,) * 5 + (_I64,) * 9 + (_P,),
     # coef, par, cdiff, chk, g, scratch, hstate, dpar, dcf, nA, nTR, nC, K,
     # kshift, flags, tc, threads, stream
     'mrphy_spgr_bwd_f32': (_P,) * 9 + (_I64,) * 8 + (_P,),

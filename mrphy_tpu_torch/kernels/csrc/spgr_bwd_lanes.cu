@@ -16,7 +16,8 @@
 // with 6·K values a thread in shared memory and passed every chunk state
 // through a device-memory scratch (60 GB at that shape).
 //
-// Design (epg_lanes.cuh). Lane l of the group holds orders l + i·G; the
+// Design (epg_lanes.cuh; phase 1's step in spgr_lanes.cuh, which K14's
+// lane forward takes too). Lane l of the group holds orders l + i·G; the
 // pre-RF state and the adjoint h live in registers; the RF mix, relaxation
 // with the spoiler's diffusion attenuation and their transposes act on one
 // order at a time, so each lane does its own; the spoiler's shift by kshift
@@ -37,54 +38,10 @@
 // contraction). Outputs as spgr_bwd.cu's, but dcf (⌈nA·G/32⌉, nTR, nC): a
 // warp holds 32/G atoms and sums their per-TR rows by shuffles; the wrapper
 // sums over warps in a fixed order.
-#include "epg_lanes.cuh"
+#include "spgr_lanes.cuh"
 
 namespace mrphy {
 namespace spgr {
-
-using lanes::Group;
-
-// TR t's scalars: the RF factors, the relaxation's factors and the
-// diffusion step.
-template <typename T>
-struct StepS {
-  Trig<T> tg;
-  Factors<T> f;
-  T dqt;
-};
-
-template <typename T>
-__device__ __forceinline__ StepS<T> step_scalars(const T* __restrict__ coef,
-                                                 int64_t nTR, int64_t t,
-                                                 const T (&p)[4], T b1, T dq,
-                                                 bool has_b1, bool vartr) {
-  StepS<T> s;
-  s.tg = trig(coef, nTR, t, b1, has_b1);
-  s.f = factors(coef, nTR, t, p[0], p[1], p[2], p[3], vartr);
-  s.dqt = vartr ? dq * coef[9 * nTR + t] : dq;
-  return s;
-}
-
-// Step scalars held by lane `src` of the group, on every lane.
-template <typename T>
-__device__ __forceinline__ StepS<T> step_from(const StepS<T>& own, int src,
-                                              int G) {
-  StepS<T> s;
-  s.tg.ca2 = lanes::shfl(own.tg.ca2, src, G);
-  s.tg.sa2 = lanes::shfl(own.tg.sa2, src, G);
-  s.tg.sa = lanes::shfl(own.tg.sa, src, G);
-  s.tg.ca = lanes::shfl(own.tg.ca, src, G);
-  s.tg.c1 = lanes::shfl(own.tg.c1, src, G);
-  s.tg.s1 = lanes::shfl(own.tg.s1, src, G);
-  s.tg.c2 = lanes::shfl(own.tg.c2, src, G);
-  s.tg.s2 = lanes::shfl(own.tg.s2, src, G);
-  s.f.E1 = lanes::shfl(own.f.E1, src, G);
-  s.f.E2 = lanes::shfl(own.f.E2, src, G);
-  s.f.E2te = lanes::shfl(own.f.E2te, src, G);
-  s.f.rec = lanes::shfl(own.f.rec, src, G);
-  s.dqt = lanes::shfl(own.dqt, src, G);
-  return s;
-}
 
 // The diffusion attenuations of one order (slot i): at a fixed TR the
 // lane's own (A0), over a TR train formed from its coefficients (cd); 1
@@ -96,28 +53,6 @@ __device__ __forceinline__ void slot_att(const T (&cd)[3][M],
 #pragma unroll
   for (int q = 0; q < 3; ++q)
     A[q] = !has_d ? T(1) : (vartr ? exp(-dqt * cd[q][i]) : A0[q][i]);
-}
-
-// One TR of the forward on every order: the RF mix, relaxation with the
-// attenuation, the spoiler's shift.
-template <typename T, int M>
-__device__ __forceinline__ void step_lanes(T (&x)[6][M], const StepS<T>& s,
-                                           const T (&cd)[3][M],
-                                           const T (&A0)[3][M], bool has_d,
-                                           bool vartr, int kshift,
-                                           const Group& g) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    if (!g.valid(i)) continue;
-    const T xi[6] = {x[0][i], x[1][i], x[2][i], x[3][i], x[4][i], x[5][i]};
-    T n[6], A[3];
-    mix(s.tg, xi, n);
-    slot_att(cd, A0, i, s.dqt, has_d, vartr, A);
-    relax(s.f, g.order(i), has_d, A, n);
-#pragma unroll
-    for (int p = 0; p < 6; ++p) x[p][i] = n[p];
-  }
-  lanes::shift_pool<0, false>(x, kshift, g);
 }
 
 template <typename T, int M>
@@ -191,10 +126,13 @@ __global__ void __launch_bounds__(lanes::kThreads)
     __syncthreads();
     // phase 1: the forward from the chunk's start state, every state
     {
-      T x[6][M];
+      T x[6][M], f0[2];
       lanes::load(mine, x, g);
+      auto att = [&](int i, T dqt, T (&A)[3]) {
+        slot_att(cd, A0, i, dqt, has_d, vartr, A);
+      };
       for (int64_t tl = 1; tl < tc; ++tl) {
-        step_lanes(x, step(tl - 1), cd, A0, has_d, vartr, kshift, g);
+        step_lanes(x, step(tl - 1), att, has_d, kshift, g, f0);
         lanes::store(mine + tl * st_slot, x, g);
       }
     }

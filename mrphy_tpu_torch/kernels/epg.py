@@ -9,9 +9,14 @@ Six kernels, each the Hopper counterpart of a TPU kernel of
   the echo ``F+(0)`` demodulated by the transmit phase with its TE decay,
   relaxation over TR with recovery into ``Z(0)``, the spoiler's diffusion
   attenuation, and ``|kshift|`` unit shifts of the configuration orders.
-- ``spgr_fwd_chk`` (the same source, replaces ``_spgr_fwd_chk_kernel``):
-  the same train, also writing the state at the start of every chunk of
-  ``tc`` TRs.
+- ``spgr_fwd_chk`` (``csrc/spgr_fwd_lanes.cu`` and ``csrc/spgr_fwd.cu``,
+  replaces ``_spgr_fwd_chk_kernel``): the same train, also writing the
+  state at the start of every chunk of ``tc`` TRs; on two hand-written
+  routes chosen by shape alone (:func:`forward_cfg` at 6 planes), the
+  lanes (a group of 8, 16 or 32 lanes per atom over the orders, the state
+  in registers, the step shared with the adjoint's phase 1 in
+  ``csrc/spgr_lanes.cuh``) where an atom's orders fit its register slots,
+  one thread per atom otherwise.
 - ``spgr_bwd`` (``csrc/spgr_bwd_lanes.cu`` and ``csrc/spgr_bwd.cu``, replaces
   ``_spgr_bwd_kernel``): the two-phase chunk adjoint. Per chunk, newest first,
   phase 1 re-runs the forward from the chunk's start state and stores every
@@ -936,10 +941,11 @@ def adjoint_tc(nTR: int, K: int, nA: int, itemsize: int,
     return lane_tc if chk <= LANE_CHK_BYTES else tc
 
 
-# The forwards with checkpoints K17 (cpmg_fwd_chk, 6 planes), K20
-# (xspgr_fwd_chk), K23 (xspgr_v_fwd_chk), K26 (xcpmg_fwd_chk) and K29
-# (xcpmg_v_fwd_chk) (12 planes) on their lane route (csrc/cpmg_fwd_lanes.cu,
-# csrc/xspgr_fwd_lanes.cu, csrc/xcpmg_fwd_lanes.cu): 128 threads a block, a
+# The forwards with checkpoints K14 (spgr_fwd_chk) and K17 (cpmg_fwd_chk)
+# (6 planes), K20 (xspgr_fwd_chk), K23 (xspgr_v_fwd_chk), K26
+# (xcpmg_fwd_chk) and K29 (xcpmg_v_fwd_chk) (12 planes) on their lane route
+# (csrc/spgr_fwd_lanes.cu, csrc/cpmg_fwd_lanes.cu, csrc/xspgr_fwd_lanes.cu,
+# csrc/xcpmg_fwd_lanes.cu): 128 threads a block, a
 # group of G lanes per atom, at most FWD_SLOTS_MAX order slots a lane (by
 # planes and itemsize). They keep one staging slot an atom in
 # shared memory and no chunk states, so neither the chunk nor S bounds them;
@@ -947,17 +953,18 @@ def adjoint_tc(nTR: int, K: int, nA: int, itemsize: int,
 # an SM (128 registers) for float32 M ≤ 3 and at 12 warps (168) for float32
 # M 4-5 and float64 M 1-2, the occupancy each instance is built for
 # (`lanes::kFwdBlocks`). M 6 (float32 K 161 at 32 lanes) is not built. The
-# one-pool forward's 6 planes take up to M 8 in float32 and 4 in float64,
-# every instance built for 16 warps an SM (csrc/cpmg_fwd_lanes.cu `kBlocks`,
-# `kSlotsMax`).
+# one-pool forwards' 6 planes take up to M 8 in float32 and 4 in float64,
+# each instance built for the warps an SM its `kBlocks` names
+# (csrc/cpmg_fwd_lanes.cu, csrc/spgr_fwd_lanes.cu; `kSlotsMax`).
 FWD_SLOTS_MAX = {(6, 4): 8, (6, 8): 4, (12, 4): 5, (12, 8): 2}
 
 
 class ForwardCfg(NamedTuple):
-    r"""How K17, K20, K23, K26 or K29 runs: ``route`` ``'lanes'``
-    (``csrc/cpmg_fwd_lanes.cu``, ``csrc/xspgr_fwd_lanes.cu``,
-    ``csrc/xcpmg_fwd_lanes.cu``: ``G`` lanes per atom, ``M`` order slots a
-    lane) or ``'thread'`` (``csrc/cpmg_fwd.cu``, ``csrc/xspgr_fwd.cu``,
+    r"""How K14, K17, K20, K23, K26 or K29 runs: ``route`` ``'lanes'``
+    (``csrc/spgr_fwd_lanes.cu``, ``csrc/cpmg_fwd_lanes.cu``,
+    ``csrc/xspgr_fwd_lanes.cu``, ``csrc/xcpmg_fwd_lanes.cu``: ``G`` lanes
+    per atom, ``M`` order slots a lane) or ``'thread'``
+    (``csrc/spgr_fwd.cu``, ``csrc/cpmg_fwd.cu``, ``csrc/xspgr_fwd.cu``,
     ``csrc/xcpmg_fwd.cu``: one thread per atom, :func:`launch_cfg`; ``G``
     1, ``M`` 0)."""
     route: str
@@ -967,16 +974,19 @@ class ForwardCfg(NamedTuple):
 
 def forward_cfg(K: int, itemsize: int, planes: int = 12) -> ForwardCfg:
     r"""The route of the forwards with checkpoints (``planes`` 12: K20, K23,
-    K26, K29; 6: K17) for ``K`` orders at ``itemsize``, by shape alone and
-    for any chunk: the narrowest group of 8, 16 or 32 lanes whose ``M =
+    K26, K29; 6: K14, K17) for ``K`` orders at ``itemsize``, by shape alone
+    and for any chunk: the narrowest group of 8, 16 or 32 lanes whose ``M =
     ⌈K/G⌉`` slots fit ``FWD_SLOTS_MAX``, else one thread per atom. Two
     pools, float32: K ≤ 160 (K 24: G 8, M 3; K 33: G 8, M 5; K 48: G 16, M
     3; K 101: G 32, M 4), one thread at K 161 and 201; float64: K ≤ 64 (K
     24: G 16, M 2; K 33 and 48: G 32, M 2), one thread at K 81 and 101. One
-    pool, float32: K ≤ 256 (K 33: G 8, M 5; K 65: G 16, M 5), one thread at
-    K 401; float64: K ≤ 128 (K 17: G 8, M 3; K 33: G 16, M 3), one thread
-    at K 201. The checkpoints' layout is the same on both routes, so either
-    adjoint route reads them."""
+    pool, float32: K ≤ 256 (K 33: G 8, M 5; K 65: G 16, M 5; K14 at
+    bench_mrf_fisp and the MRF pipeline's dictionary, K 48: G 8, M 6; at its
+    refinement, K 16: G 8, M 2), one thread at K 401 (the default K of a
+    400-TR train at kshift 1); float64: K ≤ 128 (K 17: G 8, M 3; K 32 and
+    33: G 8, M 4 and G 16, M 3), one thread at K 201. The checkpoints'
+    layout is the same on both routes, so either adjoint route reads
+    them."""
     mmax = FWD_SLOTS_MAX[(planes, itemsize)]
     for G in LANE_WIDTHS:
         M = -(-K // G)
@@ -1008,24 +1018,36 @@ def _entry(lib, name, dtype):
 
 
 def _launch_fwd(coef, par, cdiff, cfg, tc):
+    r"""``spgr_fwd`` (``tc`` None, one thread per atom) or ``spgr_fwd_chk``
+    on the route :func:`forward_cfg` gives its shape at 6 planes: ``(sig,
+    chk)``."""
     from mrphy_tpu_torch.kernels._build import library
     name = 'spgr_fwd' if tc is None else 'spgr_fwd_chk'
     nA, nTR = _sizes(name, coef, par, cdiff, cfg)
     dt, dev = par.dtype, par.device
-    threads, in_smem = launch_cfg(cfg.K, par.element_size())
     sig = torch.empty((nA, nTR, 2), dtype=dt, device=dev)
     chk = None
+    route = ForwardCfg('thread', 1, 0)
     if tc is not None:
         _check_tc(nTR, tc)
         chk = torch.empty((nTR // tc, 6, cfg.K, nA), dtype=dt, device=dev)
-    state = None if in_smem else torch.empty((6, cfg.K, nA), dtype=dt,
-                                             device=dev)
+        route = forward_cfg(cfg.K, par.element_size(), 6)
     lib, _ = library()
-    with torch.cuda.device(dev):
-        err = _entry(lib, name, dt)(
-            *map(_ptr, (coef, par, cdiff, sig, chk, state)), nA, nTR,
-            cfg.nC, cfg.K, cfg.kshift, cfg.flags, tc or nTR, threads,
-            _stream(dev))
+    if route.route == 'lanes':
+        with torch.cuda.device(dev):
+            err = _entry(lib, name + '_lanes', dt)(
+                *map(_ptr, (coef, par, cdiff, sig, chk)), nA, nTR, cfg.nC,
+                cfg.K, cfg.kshift, cfg.flags, tc, route.G, route.M,
+                _stream(dev))
+    else:
+        threads, in_smem = launch_cfg(cfg.K, par.element_size())
+        state = None if in_smem else torch.empty((6, cfg.K, nA), dtype=dt,
+                                                 device=dev)
+        with torch.cuda.device(dev):
+            err = _entry(lib, name, dt)(
+                *map(_ptr, (coef, par, cdiff, sig, chk, state)), nA, nTR,
+                cfg.nC, cfg.K, cfg.kshift, cfg.flags, tc or nTR, threads,
+                _stream(dev))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return sig, chk

@@ -11,7 +11,13 @@ d = 1, 2 and 3):
   ``s[t] = Σ_taps w(k_t; tap)·B[tap]`` over the W^d Kaiser–Bessel taps.
 - ``nufft_spread`` (``csrc/nufft_spread.cu``, replaces ``_adj3d_kernel``
   of ``scatter3d``): its exact transpose, the samples spread onto the
-  grid, ``B[tap] += w(k_t; tap)·s[t]``.
+  grid, ``B[tap] += w(k_t; tap)·s[t]``, as a deterministic binned spread:
+  :func:`bin_plan` bins the samples by the grid tile of their first tap
+  (``nufft_bin_keys``, a stable ``torch.sort``, ``nufft_bin_offsets``)
+  and cuts each bin into subproblems of at most :func:`spread_p` samples; a warp spreads a
+  subproblem into its padded tile in shared memory, sample after sample
+  and without atomics, and a second pass sums each grid point's partials
+  in a fixed order. The plan is made inside every launch.
 - ``nufft_dk`` (``csrc/nufft_dk.cu``, replaces ``_dk3d_kernel`` of
   ``dk3d``): the trajectory cotangent
   ``dk_a[t] = Σ_taps ∂w/∂k_a·(g_r[t]·B_r[tap] + g_i[t]·B_i[tap])``, all d
@@ -31,9 +37,11 @@ Separable weights multiply as ``(w_0·w_1)·w_2`` over the flat tap order
 reciprocal (PyTorch divides a CUDA tensor by a scalar that way), and the
 plain versions sum the taps one by one in that order, so with
 ``-fmad=false`` the sample and dk kernels can round exactly as their plain
-versions. The spread's sums take the atomics' order, which changes from
-run to run: under ``torch.use_deterministic_algorithms(True)`` its launch
-raises (warns under ``warn_only=True``; :func:`refuse_nondeterministic`).
+versions. The spread's weights and products round as its plain version's;
+its sums run by bin, then subproblem, then sample, an order the trajectory
+alone fixes, so its grid is the same from launch to launch (also under
+``torch.use_deterministic_algorithms(True)``) and meets ``index_add_``'s
+to rounding.
 
 Layout: the grid and the samples are re/im pairs in the last axis (the
 real view of a complex tensor, so the FFT stage hands them over without a
@@ -54,7 +62,6 @@ or when asked (``plain=True``).
 """
 
 import ctypes
-import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -66,7 +73,9 @@ from mrphy_tpu_torch.kernels.bloch import (_check, _device_kind, _ptr,
 
 __all__ = ['LAUNCHES', 'Geom', 'taps', 'nufft_sample', 'nufft_sample_torch',
            'nufft_spread', 'nufft_spread_torch', 'nufft_dk',
-           'nufft_dk_torch', 'Sample', 'Spread', 'refuse_nondeterministic']
+           'nufft_dk_torch', 'Sample', 'Spread', 'Tiles', 'spread_tiles',
+           'BinPlan', 'bin_plan', 'bin_plan_torch', 'bin_keys_torch',
+           'bin_offsets_torch', 'spread_p', 'SPREAD_TILE', 'SPREAD_P']
 
 LAUNCHES = {'nufft_sample': 0, 'nufft_spread': 0, 'nufft_dk': 0}
 
@@ -75,6 +84,18 @@ THREADS = 256
 # Kernel widths the CUDA kernels take (`dispatch_w`, nufft_common.cuh: 4-6
 # with instances of their own, the others through one at run time).
 WIDTHS = range(2, 9)
+# The deterministic spread (csrc/nufft_spread.cu): tiles of SPREAD_TILE[d]
+# grid points an axis in d dimensions (at least W − 1 for every W taken,
+# so a sample's taps reach at most the tiles after its own), each bin cut
+# into subproblems of at most P samples (:func:`spread_p`: SPREAD_P from
+# 2^19 samples up, down to 64 for small trajectories, so that a warp's
+# chain of samples stays short and the card has subproblems enough; on an
+# H100 P 512 spread the recon3d plan's koosh ball in 0.68 ms where 1024
+# took 0.88), and the partial tiles of a launch kept within
+# SPREAD_PART_BYTES by spreading a batch in parts.
+SPREAD_TILE = {1: 256, 2: 16, 3: 8}
+SPREAD_P = 512
+SPREAD_PART_BYTES = 2 << 30
 
 # I₀ polynomials, Abramowitz & Stegun 9.8.1 (|x| < 3.75, in t = (x/3.75)²)
 # and 9.8.2 (x ≥ 3.75, in u = 3.75/x, times eˣ/√x); the derivatives'
@@ -269,6 +290,135 @@ def nufft_dk_torch(grid, k, g, geom: Geom, *, chunk=None):
 
 
 # ==========================================================================
+# The spread's bins
+# ==========================================================================
+
+class Tiles(NamedTuple):
+    r"""The deterministic spread's tiling of a grid (axes past ``d`` padded
+    with 1): per axis the tile ``B``, the tiles ``nb = ⌈G/B⌉`` and the
+    padded tile ``Bp = B + W − 1``; the points ``npts`` of a padded tile
+    and the bins ``nbins = Πnb``."""
+    B: tuple
+    nb: tuple
+    Bp: tuple
+    npts: int
+    nbins: int
+
+
+def spread_tiles(geom: Geom) -> Tiles:
+    r"""The tiling :func:`nufft_spread` takes for ``geom``: tiles of
+    ``SPREAD_TILE[d]`` points an axis (the whole axis where it is
+    shorter). At the recon3d plan (192³, W 4): 24³ tiles of 8³, padded
+    11³ = 1,331 points; at bench_nufft (256², W 5): 16² tiles of 16²,
+    padded 20²."""
+    d, W = geom.ndim, geom.width
+    B, nb, Bp = [1] * 3, [1] * 3, [1] * 3
+    for a in range(d):
+        G = int(geom.grid_size[a])
+        B[a] = min(G, SPREAD_TILE[d])
+        nb[a], Bp[a] = -(-G // B[a]), B[a] + W - 1
+    return Tiles(tuple(B), tuple(nb), tuple(Bp), Bp[0] * Bp[1] * Bp[2],
+                 nb[0] * nb[1] * nb[2])
+
+
+def spread_p(nT: int) -> int:
+    r"""The subproblems' size for ``nT`` samples: the power of two at or
+    above nT/1024, within [64, ``SPREAD_P``] (2,285,568 samples: 512;
+    169,200: 256; 32,768: 64)."""
+    want = 1 << max(0, (max(1, nT // 1024) - 1).bit_length())
+    return min(SPREAD_P, max(64, want))
+
+
+class BinPlan(NamedTuple):
+    r"""The samples of a trajectory ``(Nk, d, nT)`` binned for the spread,
+    one row per trajectory: ``perm (Nk, nT)`` the samples in bin order
+    (stable: in sample order within a bin), ``bin_start (Nk, nbins + 1)``
+    where each bin starts in ``perm``, ``sub_first (Nk, nbins + 1)`` each
+    bin's first subproblem (a bin of ``c`` samples has ``⌈c/P⌉``, its
+    samples cut in order into runs of ``P``), ``nsub_max`` a bound on any
+    row's subproblems (the partial buffer's), the ``tiles`` and ``P``."""
+    tiles: Tiles
+    P: int
+    perm: torch.Tensor
+    bin_start: torch.Tensor
+    sub_first: torch.Tensor
+    nsub_max: int
+
+
+def _key_dtype(tiles: Tiles):
+    r"""The keys' integer type: int16 where the bins fit (a radix sort of
+    half the passes), else int32."""
+    return torch.int16 if tiles.nbins <= 32767 else torch.int32
+
+
+def bin_keys_torch(k, geom: Geom, tiles: Tiles):
+    r"""Plain PyTorch version of the ``nufft_bin_keys`` kernel: the bin
+    `(Nk, nT)` of each sample of ``k (Nk, d, nT)``, the tile that holds its
+    first tap on every axis (the first tap as :func:`_axis` computes it),
+    row-major over the axes; int16 where the bins fit, else int32."""
+    c = geom.consts()
+    key = torch.zeros(k.shape[0], k.shape[-1], dtype=torch.int64,
+                      device=k.device)
+    for a in range(geom.ndim):
+        v = k[:, a] * c[3 + a] * c[6 + a]
+        m = (torch.floor(v - c[12]) + 1.0).long() % int(c[a])
+        key = key * tiles.nb[a] + m // tiles.B[a]
+    return key.to(_key_dtype(tiles))
+
+
+def bin_offsets_torch(skeys, nbins: int, P: int):
+    r"""Plain PyTorch version of the ``nufft_bin_offsets`` kernels: from
+    sorted keys `(Nk, nT)`, each bin's start `(Nk, nbins + 1)` (the first
+    place whose key is the bin or more; nT past the last) and its first
+    subproblem (the exclusive sum of ``⌈count/P⌉`` over the bins before
+    it; the last entry the row's total), both int32."""
+    Nk = skeys.shape[0]
+    edges = torch.arange(nbins + 1, dtype=skeys.dtype,
+                         device=skeys.device).expand(Nk, -1).contiguous()
+    bin_start = torch.searchsorted(skeys.contiguous(), edges, out_int32=True)
+    nsub = (bin_start[:, 1:] - bin_start[:, :-1] + (P - 1)) // P
+    sub_first = torch.zeros_like(bin_start)
+    sub_first[:, 1:] = torch.cumsum(nsub, dim=1, dtype=torch.int32)
+    return bin_start, sub_first
+
+
+def _plan(k, geom: Geom, P, keys_of, offsets_of) -> BinPlan:
+    r"""The plan from the keys and offsets of ``keys_of``/``offsets_of``:
+    the keys' stable sort between them (one row sorted flat, with less work
+    on the host)."""
+    P = spread_p(k.shape[-1]) if P is None else int(P)
+    tiles = spread_tiles(geom)
+    keys = keys_of(k, geom, tiles, P)
+    if keys.shape[0] == 1:
+        skeys, perm = torch.sort(keys[0], stable=True)
+        skeys, perm = skeys[None], perm[None]
+    else:
+        skeys, perm = torch.sort(keys, dim=-1, stable=True)
+    bin_start, sub_first = offsets_of(skeys, tiles.nbins, P)
+    nT = keys.shape[1]
+    return BinPlan(tiles, P, perm.contiguous(), bin_start, sub_first,
+                   (nT + min(tiles.nbins, nT) * (P - 1)) // P)
+
+
+def bin_plan_torch(k, geom: Geom, P: int = None) -> BinPlan:
+    r"""Plain PyTorch version of :func:`bin_plan`: :func:`bin_keys_torch`,
+    the keys' stable sort, :func:`bin_offsets_torch`."""
+    return _plan(k, geom, P, lambda k, g, t, P: bin_keys_torch(k, g, t),
+                 bin_offsets_torch)
+
+
+def bin_plan(k, geom: Geom, P: int = None) -> BinPlan:
+    r"""The spread's :class:`BinPlan` of ``k (Nk, d, nT)``: the keys
+    (``nufft_bin_keys``), their stable sort (``torch.sort``), and each
+    bin's start and first subproblem (``nufft_bin_offsets``) on CUDA
+    tensors, :func:`bin_plan_torch` on CPU tensors; integer bookkeeping,
+    no transfer to the host. ``P`` defaults to :func:`spread_p`'s."""
+    if _device_kind(k) == 'cpu':
+        return bin_plan_torch(k, geom, P)
+    return _plan(k, geom, P, _launch_bin_keys, _launch_bin_offsets)
+
+
+# ==========================================================================
 # The CUDA launches
 # ==========================================================================
 
@@ -322,35 +472,64 @@ def _launch_sample(grid, k, geom: Geom):
     return out
 
 
-def refuse_nondeterministic(name: str) -> None:
-    r"""A kernel that sums with ``atomicAdd`` gives results that change from
-    run to run in their last bits. Under
-    ``torch.use_deterministic_algorithms(True)`` this raises
-    :class:`RuntimeError`, as PyTorch's own such CUDA operations do; under
-    ``warn_only=True`` it warns and the kernel runs."""
-    if not torch.are_deterministic_algorithms_enabled():
-        return
-    msg = (f'{name} sums with atomicAdd on CUDA tensors, so its result '
-           'changes from run to run in the last bits, and '
-           'torch.use_deterministic_algorithms(True) is set')
-    if torch.is_deterministic_algorithms_warn_only_enabled():
-        warnings.warn(msg, UserWarning, stacklevel=3)
-    else:
-        raise RuntimeError(msg + "; the plain route (interp='gather', or "
-                           'CPU tensors) is deterministic')
+def _tiles_arg(tiles: Tiles, P: int):
+    return (ctypes.c_int64 * 12)(*tiles.B, *tiles.nb, *tiles.Bp,
+                                 tiles.npts, tiles.nbins, P)
+
+
+def _launch_bin_keys(k, geom: Geom, tiles: Tiles, P: int):
+    if k.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'nufft_bin_keys takes float32 or float64, not '
+                        f'{k.dtype}')
+    Nk, d, nT = k.shape
+    _check(k, 'k', (Nk, d, nT), k.dtype, k.device)
+    keys = torch.empty((Nk, nT), dtype=_key_dtype(tiles), device=k.device)
+    with torch.cuda.device(k.device):
+        err = _entry('bin_keys', k.dtype)(
+            _ptr(k), _ptr(keys), _geo(geom), _tiles_arg(tiles, P), d * nT,
+            Nk, nT, d, geom.width, keys.element_size(), _stream(k.device))
+    _raise_on(err, 'nufft_bin_keys')
+    return keys
+
+
+def _launch_bin_offsets(skeys, nbins: int, P: int):
+    from mrphy_tpu_torch.kernels._build import library
+    Nk, nT = skeys.shape
+    skeys = skeys.contiguous()
+    bin_start = torch.empty((Nk, nbins + 1), dtype=torch.int32,
+                            device=skeys.device)
+    sub_first = torch.empty_like(bin_start)
+    with torch.cuda.device(skeys.device):
+        err = library()[0].mrphy_nufft_bin_offsets(
+            _ptr(skeys), _ptr(bin_start), _ptr(sub_first), Nk, nT, nbins, P,
+            skeys.element_size(), _stream(skeys.device))
+    _raise_on(err, 'nufft_bin_offsets')
+    return bin_start, sub_first
 
 
 def _launch_spread(s, k, geom: Geom):
-    refuse_nondeterministic('nufft_spread')
     N, nT, d, k_bs = _sizes('nufft_spread', s, k, geom)
     _check(s, 's', (N, nT, 2), s.dtype, s.device)
-    grid = torch.zeros((N, int(np.prod(geom.grid_size)), 2), dtype=s.dtype,
+    plan = bin_plan(k, geom)
+    tl, npts = plan.tiles, plan.tiles.npts
+    grid = torch.empty((N, int(np.prod(geom.grid_size)), 2), dtype=s.dtype,
                        device=s.device)
+    # the batch in parts whose partial tiles fit SPREAD_PART_BYTES
+    per_entry = plan.nsub_max * npts * 2 * s.element_size()
+    step = max(1, min(N, SPREAD_PART_BYTES // per_entry))
+    part = torch.empty((step, plan.nsub_max, npts, 2), dtype=s.dtype,
+                       device=s.device)
+    targ = _tiles_arg(tl, plan.P)
     with torch.cuda.device(s.device):
-        err = _entry('spread', s.dtype)(
-            *map(_ptr, (s, k, grid)), _geo(geom), k_bs, N, nT, d,
-            geom.width, _stream(s.device))
-    _raise_on(err, 'nufft_spread')
+        for n0 in range(0, N, step):
+            n1 = min(N, n0 + step)
+            rows = slice(n0, n1) if k_bs else slice(0, 1)
+            err = _entry('spread', s.dtype)(
+                *map(_ptr, (s[n0:n1], k[rows], plan.perm[rows],
+                            plan.bin_start[rows], plan.sub_first[rows], part,
+                            grid[n0:n1])), _geo(geom), targ, k_bs, n1 - n0,
+                nT, d, geom.width, plan.nsub_max, _stream(s.device))
+            _raise_on(err, 'nufft_spread')
     LAUNCHES['nufft_spread'] += 1
     return grid
 

@@ -47,6 +47,16 @@ a ``(nE,)`` ``esp`` train (``xcpmg_v_*``), and ``epgx_mt_spgr`` at a scalar
 ``tr`` and over a ``(nTR,)`` ``tr`` train (``xmt_*`` and ``xmt_v_*``, their
 chunk fitted for the bound-pool state's 8 planes).
 
+The forwards that write the adjoints' checkpoints choose their route by
+shape alone (:func:`mrphy_tpu_torch.kernels.epg.forward_cfg`), whatever
+the chunk: ``spgr_fwd_chk`` and ``cpmg_fwd_chk`` take their lane route
+(a group of 8, 16 or 32 lanes per atom, the state in registers) up to K
+256 in float32 and 128 in float64, so ``epg_spgr``'s dictionary at K 48
+and its refinement at K 16 run on 8 lanes an atom, and one thread per
+atom at the default K = nTR·|kshift| + 1 of a long train; the two-pool
+forwards up to K 160 and 64. The reasons below name the families'
+kernels and chunks; the forwards' routes are the chooser's to report.
+
 Every family is ported. ``mesh=`` raises :class:`NotImplementedError`
 (multi-device runs are not ported yet).
 """

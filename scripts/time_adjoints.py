@@ -1,7 +1,8 @@
 r"""Time the EPG adjoints K15 ``spgr_bwd``, K18 ``cpmg_bwd``, K21
 ``xspgr_bwd``, K24 ``xspgr_v_bwd``, K27 ``xcpmg_bwd``, K30
 ``xcpmg_v_bwd``, K33 ``xmt_bwd`` and K36 ``xmt_v_bwd``, the forwards that
-write their checkpoints (among them K17 ``cpmg_fwd_chk``, the two-pool K20
+write their checkpoints (among them K14 ``spgr_fwd_chk``, K17
+``cpmg_fwd_chk``, the two-pool K20
 ``xspgr_fwd_chk``, K23 ``xspgr_v_fwd_chk``, K26 ``xcpmg_fwd_chk`` and K29
 ``xcpmg_v_fwd_chk``, and EPG-X(MT)'s K32 ``xmt_fwd_chk`` and K35
 ``xmt_v_fwd_chk``), at the main paths' shapes, and the path steps that run
@@ -15,9 +16,11 @@ that side's kernels into its own ``build/kernels``, and then
 - for each kernel case, makes the checkpoints with the forward kernel at
   the side's own chunk length (``kernels.epg.adjoint_tc`` where the side
   has the adjoint's lane route, else ``pick_tc``), times that forward
-  (``chk_ms``, with the route a two-pool forward takes, ``fwd_route``:
-  ``kernels.epg.forward_cfg``'s lanes G and slots M where the side has it,
-  else one thread per atom; where it takes the lanes, also the same
+  (``chk_ms``, with the route the forward takes, ``fwd_route``:
+  ``kernels.epg.forward_cfg``'s lanes G and slots M where the side has
+  that forward's lane entry point, else one thread per atom; a case may
+  cap the slots, ``fwd_slots``, to time a wider group; where it takes the
+  lanes, also the same
   forward forced onto one thread per atom, ``chk_thread_ms``; for
   EPG-X(MT), whose forward keeps one thread per atom, the forward at
   pick_tc's chunk too, ``chk_pick_ms``) and the adjoint kernel alone
@@ -86,6 +89,12 @@ CASES = (
     ('bench_mrf_fisp 64k x 400, K 48', 'spgr_bwd', 65536, 400, 48, {}),
     ('bench_mrf_fisp + diffusion', 'spgr_bwd', 65536, 400, 48,
      dict(D=True)),
+    ('bench_mrf_fisp, K14 on 16 lanes of 3 slots', 'spgr_bwd', 65536, 400,
+     48, dict(fwd_slots=3)),
+    ('bench_mrf_fisp + diffusion, K14 on 16 lanes of 3 slots', 'spgr_bwd',
+     65536, 400, 48, dict(D=True, fwd_slots=3)),
+    ('MRF refinement 4096 x 400, K 16', 'spgr_bwd', 4096, 400, 16,
+     dict(pipe=True)),
     ('MWF fit block 262,144 x 32, K 33, b1', 'xcpmg_bwd', 1 << 18, 32, None,
      dict(mwf=True)),
     ('bench_mrf EPG-X CPMG 64k x 32', 'xcpmg_bwd', 65536, 32, None,
@@ -119,6 +128,7 @@ def side(root: Path, reps: int, steps: int, only):
             continue
         kw = dict(kw)
         fixed_tc = kw.pop('tc', None)
+        fwd_slots = kw.pop('fwd_slots', None)
         # the side's own chunk: adjoint_tc where the adjoint has its lane
         # route, pick_tc's otherwise (the entry points' before it), or the
         # case's
@@ -146,7 +156,9 @@ def side(root: Path, reps: int, steps: int, only):
                 return kepg.cpmg_bwd(*args, chk, gr, gi, tc=tc)
             planes, fwd_mod = 6, kepg
         elif kernel == 'spgr_bwd':
-            coef, par, cdiff, cfg = cs.spgr_args(cs.mrf_fisp_case(
+            make = cs.mrf_pipe_case if kw.pop('pipe', False) \
+                else cs.mrf_fisp_case
+            coef, par, cdiff, cfg = cs.spgr_args(make(
                 nA, nT, K, torch.float32, dev, seed=seed, **kw))
             tc = chooser(nT, cfg.K, nA, 4)
 
@@ -157,7 +169,7 @@ def side(root: Path, reps: int, steps: int, only):
 
             def run():
                 return kepg.spgr_bwd(coef, par, cdiff, cfg, chk, g, tc=tc)
-            planes = 6
+            planes, fwd_mod = 6, kepg
         elif kernel.startswith('xcpmg'):
             v = '_v' if kernel == 'xcpmg_v_bwd' else ''
             flips, ckw = cs.xcpmg_case(nA, nT, torch.float32, dev, seed=seed,
@@ -238,14 +250,18 @@ def side(root: Path, reps: int, steps: int, only):
                    pick_tc=kepg.pick_tc(nT, cfg.K, nA, 4, planes))
         if lanes:
             row['route'] = kepg.adjoint_cfg(cfg.K, 4, planes, tc)._asdict()
-        if planes in (6, 12):
-            # the forward's route: the side's forward_cfg, else the one
-            # thread per atom it had before
-            try:
-                row['fwd_route'] = kepg.forward_cfg(cfg.K, 4,
-                                                    planes)._asdict()
-            except (AttributeError, KeyError):
-                row['fwd_route'] = dict(route='thread', G=1, M=0)
+        # the forward's route: the side's forward_cfg where the side has
+        # the forward's lane entry point, else one thread per atom
+        fwd_name = kernel.replace('_bwd', '_fwd_chk')
+        slots = dict(getattr(kepg, 'FWD_SLOTS_MAX', {}))
+        if f'mrphy_{fwd_name}_lanes_f32' in _build._SIGNATURES:
+            if fwd_slots:
+                # a cap on the slots for this case: a wider group
+                kepg.FWD_SLOTS_MAX[(planes, 4)] = fwd_slots
+                row['fwd_slots'] = fwd_slots
+            row['fwd_route'] = kepg.forward_cfg(cfg.K, 4, planes)._asdict()
+        elif planes in (6, 12):
+            row['fwd_route'] = dict(route='thread', G=1, M=0)
         row['chk_ms'] = cs.time_ms(fwd, reps=reps)
         if row.get('fwd_route', {}).get('route') == 'lanes':
             # the same forward on one thread per atom, as the chooser's
@@ -264,6 +280,8 @@ def side(root: Path, reps: int, steps: int, only):
                 row['thread_ms'] = cs.time_ms(run, reps=reps)
             finally:
                 kx.adjoint_cfg = lanes_cfg
+        if slots:
+            kepg.FWD_SLOTS_MAX.update(slots)
         # the adjoint's peak: its checkpoints resident, its own allocations
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()

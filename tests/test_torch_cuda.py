@@ -466,8 +466,9 @@ def test_nufft_kernels_vs_plain_on_card(cuda, dtype, bar, im_size, fov,
     r"""``nufft_sample``, ``nufft_spread`` and ``nufft_dk`` against their
     plain versions on the card, k up to 1.5× the Nyquist box (taps wrap),
     at widths with their own instance (4–6) and through the run-time-width
-    instance (3, 7, 8). The spread sums by atomics in another order than
-    ``index_add_``: its grid is held at the same relative bar."""
+    instance (3, 7, 8). The spread sums by bin, subproblem and sample,
+    another order than ``index_add_``'s: its grid is held at the same
+    relative bar."""
     from mrphy_tpu_torch.kernels import nufft as knf
     from mrphy_tpu_torch.ops import nufft as tnf
     rng = np.random.default_rng(19)
@@ -584,37 +585,79 @@ def test_nufft_toeplitz_and_dcf_on_card(cuda, dtype, bar):
                 1e-4 if dtype == torch.float32 else 1e-10)
 
 
+# The binned spread's cases: image size, FOV, W, batch, per-entry k, nT,
+# dtype, subproblem size P, and the share of the samples piled within a
+# tile of k = 0 (the koosh ball's centre): 1-D, 2-D, 3-D, the run-time
+# width (W 7), float64, a batch with a shared trajectory, and a pile-up
+# that cuts its bins into many subproblems.
+SPREAD_CASES = [
+    ((300,), (24.0,), 6, 1, 1, 2000, torch.float32, 64, 0.0),
+    ((40, 30), (24.0, 18.0), 5, 3, 1, 3000, torch.float32, 1024, 0.0),
+    ((20, 16, 24), (20.0, 16.0, 24.0), 4, 2, 2, 5000, torch.float32, 1024,
+     0.0),
+    ((12, 10, 14), (18.0, 15.0, 21.0), 7, 1, 1, 2000, torch.float32, 100,
+     0.0),
+    ((20, 16, 24), (20.0, 16.0, 24.0), 4, 2, 1, 5000, torch.float64, 256,
+     0.0),
+    ((24, 24, 24), (24.0,) * 3, 4, 1, 1, 20000, torch.float32, 128, 0.5)]
+SPREAD_IDS = ['1d-w6', '2d-w5-batch', '3d-w4-per-entry-k', '3d-w7',
+              'f64-3d-batch', '3d-hot-centre']
+
+
 @pytest.mark.cuda
-def test_nufft_spread_refuses_under_deterministic_algorithms(cuda):
-    r"""``nufft_spread`` sums with atomics: under
-    ``torch.use_deterministic_algorithms(True)`` its launch raises, on the
-    wrapper and through the adjoint's and the sample stage's autograd
-    (whose backward spreads), and under ``warn_only=True`` it warns and
-    runs."""
+@pytest.mark.parametrize('im_size,fov,W,N,Nk,nT,dtype,P,pile', SPREAD_CASES,
+                         ids=SPREAD_IDS)
+def test_nufft_spread_deterministic_on_card(cuda, monkeypatch, im_size, fov,
+                                            W, N, Nk, nT, dtype, P, pile):
+    r"""The binned ``nufft_spread``: its bin plan (``nufft_bin_keys``, the
+    stable sort, ``nufft_bin_offsets``: the samples in bin order, the bins'
+    starts and first subproblems) equals the plain version's; two launches give bitwise-identical grids, and so does one
+    under ``torch.use_deterministic_algorithms(True)``, where the adjoint
+    and the sample stage's backward (which spreads) run too; the grid meets
+    ``index_add_``'s at 4·ε·√(the most taps at one point) of its largest
+    value (chip_smoke's ``atomic_bar``), k to 1.5× the Nyquist box (taps
+    wrap at the edges)."""
     from mrphy_tpu_torch.kernels import nufft as knf
     from mrphy_tpu_torch.ops import nufft as tnf
-    rng = np.random.default_rng(31)
-    plan = tnf.nufft_plan((12, 10), (18.0, 15.0), device=cuda)
-    k = torch.as_tensor(rng.uniform(-0.3, 0.3, (2, 77)), dtype=torch.float32,
-                        device=cuda)
-    s = torch.as_tensor(rng.standard_normal((77, 2)), dtype=torch.float32,
-                        device=cuda)
-    img = torch.zeros((12, 10, 2), device=cuda, requires_grad=True)
+    rng = np.random.default_rng(37)
+    monkeypatch.setattr(knf, 'SPREAD_P', P)
+    plan = tnf.nufft_plan(im_size, fov, width=W, dtype=dtype, device=cuda)
+    g = plan.geom
+    k = np.stack([rng.uniform(-1.5 * n / (2 * f), 1.5 * n / (2 * f),
+                              (Nk, nT)) for n, f in zip(im_size, fov)], 1)
+    k[..., :int(pile * nT)] *= 0.02
+
+    def arr(x):
+        return torch.as_tensor(x, dtype=dtype, device=cuda)
+
+    k, s = arr(k), arr(rng.standard_normal((N, nT, 2)))
+    bp, ref = knf.bin_plan(k, g), knf.bin_plan_torch(k, g)
+    assert (bp.P, bp.nsub_max) == (ref.P, ref.nsub_max)
+    for x, y in ((bp.perm, ref.perm), (bp.bin_start, ref.bin_start),
+                 (bp.sub_first, ref.sub_first)):
+        assert torch.equal(x, y)
+    n0 = knf.LAUNCHES['nufft_spread']
+    a, b = knf.nufft_spread(s, k, g), knf.nufft_spread(s, k, g)
+    assert knf.LAUNCHES['nufft_spread'] == n0 + 2
+    assert torch.equal(a, b)
+    ref = knf.nufft_spread_torch(s, k, g)
+    fi, _, _ = knf.taps(k[:1], g)
+    m_max = int(torch.bincount(fi.reshape(-1)).max())
+    eps = 2.0 ** -23 if dtype == torch.float32 else 2.0 ** -52
+    _rows_close(a, ref, 4 * eps * m_max ** 0.5)
     was = torch.are_deterministic_algorithms_enabled()
     warn = torch.is_deterministic_algorithms_warn_only_enabled()
-    n0 = knf.LAUNCHES['nufft_spread']
+    img = torch.zeros(((N,) if N > 1 else ()) + im_size + (2,), dtype=dtype,
+                      device=cuda, requires_grad=True)
+    kk = k if Nk == N else k[0]
     try:
         torch.use_deterministic_algorithms(True)
-        with pytest.raises(RuntimeError, match='atomicAdd'):
-            tnf.nufft_adjoint(plan, s, k)
-        with pytest.raises(RuntimeError, match='atomicAdd'):
-            tnf.nufft(plan, img, k).sum().backward()
-        assert knf.LAUNCHES['nufft_spread'] == n0
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        with pytest.warns(UserWarning, match='atomicAdd'):
-            out = tnf.nufft_adjoint(plan, s, k)
-        assert knf.LAUNCHES['nufft_spread'] == n0 + 1
+        assert torch.equal(knf.nufft_spread(s, k, g), a)
+        out = tnf.nufft_adjoint(plan, s if N > 1 else s[0], kk)
+        tnf.nufft(plan, img, kk).sum().backward()
+        assert knf.LAUNCHES['nufft_spread'] == n0 + 5
         assert bool(torch.isfinite(out).all())
+        assert bool(torch.isfinite(img.grad).all())
     finally:
         torch.use_deterministic_algorithms(was, warn_only=warn)
 
@@ -1803,6 +1846,98 @@ def test_spgr_bwd_routes_on_card(cuda, dtype, bar, rows, K, kshift, tc,
                                           tc=tc)
     _rows_close(dpar, dpar_p, bar)
     _rows_close(dcoef, dcoef_p, rows)
+
+
+# K14's two routes (kernels/epg.py forward_cfg at 6 planes) at a ragged
+# 1,001 atoms × 40 TRs, b1 and a TR/TE train or a fixed TR, with and without
+# diffusion: the lanes at bench_mrf_fisp's K 48 (8 lanes of 6 slots), the
+# refinement's K 16 at kshift −1 (8 of 2), K 40 at kshift 2 (8 of 5), K 20
+# at kshift 9 and K 33 at −17 (shifts past the group's lanes, in pieces),
+# float64 at K 32 (8 of 4) and 48 (16 of 3); one thread per atom past the
+# slots (float32 K 257, float64 K 129).
+SPGR_FWD_CASES = [
+    (torch.float32, 2e-6, 1e-4, 48, 1, 5, True, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 48, 1, 4, False, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 16, -1, 8, True, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 40, 2, 5, True, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 20, 9, 4, False, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 33, -17, 5, False, 'lanes'),
+    (torch.float32, 2e-6, 1e-4, 257, 1, 5, True, 'thread'),
+    (torch.float64, 1e-12, 1e-12, 32, 1, 4, True, 'lanes'),
+    (torch.float64, 1e-12, 1e-12, 48, -1, 5, True, 'lanes'),
+    (torch.float64, 1e-12, 1e-12, 129, 2, 4, True, 'thread')]
+SPGR_FWD_IDS = ['f32-lanes-K48-diffusion', 'f32-lanes-K48-bare',
+                'f32-lanes-K16-kshift-1', 'f32-lanes-K40-kshift2',
+                'f32-lanes-K20-kshift9', 'f32-lanes-K33-kshift-17',
+                'f32-thread-K257', 'f64-lanes-K32', 'f64-lanes-K48-kshift-1',
+                'f64-thread-K129']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,bar,rows,K,kshift,tc,D,route',
+                         SPGR_FWD_CASES, ids=SPGR_FWD_IDS)
+@pytest.mark.parametrize('vartr', [False, True], ids=['tr', 'tr-train'])
+def test_spgr_fwd_chk_routes_on_card(cuda, monkeypatch, dtype, bar, rows, K,
+                                     kshift, tc, D, route, vartr):
+    r"""``spgr_fwd_chk`` on the route its shape takes: echoes and
+    checkpoints bit for bit equal to the plain version's and to the
+    one-thread route's; its checkpoints fed to ``spgr_bwd`` on the route the
+    shape takes and on one thread per atom, each against the plain adjoint
+    in that route's summation order (per atom at ``bar``, per TR at
+    ``rows``)."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.ops import epg
+    nA, nTR = 1001, 40
+    kw = _spgr_case(cuda, dtype, nA, nTR, K, kshift, True, vartr, D, 67)
+    coef, par, cdiff, cfg, _ = epg._spgr_rows(**kw)
+    args = (coef.contiguous(), par.contiguous(), cdiff, cfg)
+    isz = par.element_size()
+    assert kepg.forward_cfg(cfg.K, isz, 6).route == route
+    g = torch.as_tensor(np.random.default_rng(15).standard_normal(
+        (nA, nTR, 2)), dtype=dtype, device=cuda)
+    n0 = kepg.LAUNCHES['spgr_fwd_chk']
+    out = kepg.spgr_fwd_chk(*args, tc=tc)
+    torch.cuda.synchronize()
+    ref = kepg.spgr_fwd_chk_torch(*args, tc=tc)
+    with monkeypatch.context() as m:
+        m.setattr(kepg, 'forward_cfg',
+                  lambda *a: kepg.ForwardCfg('thread', 1, 0))
+        one = kepg.spgr_fwd_chk(*args, tc=tc)
+    assert kepg.LAUNCHES['spgr_fwd_chk'] == n0 + 2   # both routes
+    for x, y, z in zip(out, ref, one):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    natural = kepg.adjoint_cfg(cfg.K, isz, 6, tc)
+    thread = kepg.AdjointCfg('thread', 1, 0, 0)
+    for adj in [natural] + ([thread] if natural.route == 'lanes' else []):
+        with monkeypatch.context() as m:
+            m.setattr(kepg, 'adjoint_cfg', lambda *a: adj)
+            got = kepg.spgr_bwd(*args, out[1], g, tc=tc)
+            want = kepg.spgr_bwd_torch(*args, ref[1], g, tc=tc)
+        _rows_close(got[0], want[0], rows)
+        _rows_close(got[1], want[1], bar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('G,M', [(8, 5), (16, 2), (4, 12), (32, 9)],
+                         ids=['M-below-ceil-K-over-G', 'M-too-small',
+                              'G-not-a-width', 'M-past-the-instances'])
+def test_spgr_fwd_chk_lanes_refuse_on_card(cuda, monkeypatch, G, M):
+    r"""K14's lane entry point refuses a ``(G, M)`` other than ``M =
+    ⌈K/G⌉`` over 8, 16 or 32 lanes (K 48), or one no instance has (K 280 at
+    32 lanes of 9 slots), with cudaErrorInvalidValue, which the wrapper
+    raises: nothing falls back to the other route."""
+    from mrphy_tpu_torch.kernels import epg as kepg
+    from mrphy_tpu_torch.ops import epg
+    kw = _spgr_case(cuda, torch.float32, 65, 20, 280 if M == 9 else 48, 1,
+                    False, True, False, 5)
+    coef, par, cdiff, cfg, _ = epg._spgr_rows(**kw)
+    monkeypatch.setattr(kepg, 'forward_cfg',
+                        lambda *a: kepg.ForwardCfg('lanes', G, M))
+    n0 = dict(kepg.LAUNCHES)
+    with pytest.raises(RuntimeError, match='cudaError_t 1$'):
+        kepg.spgr_fwd_chk(coef.contiguous(), par.contiguous(), cdiff, cfg,
+                          tc=4)
+    assert kepg.LAUNCHES == n0
 
 
 # K27's and K30's two routes, b1, at a ragged 1,001 atoms: the lanes at

@@ -3,7 +3,8 @@ K15 ``spgr_bwd``, K18 ``cpmg_bwd``, K21 ``xspgr_bwd``, K24 ``xspgr_v_bwd``,
 K27 ``xcpmg_bwd``, K30 ``xcpmg_v_bwd``, K33 ``xmt_bwd`` and K36
 ``xmt_v_bwd`` (:func:`mrphy_tpu_torch.kernels.epg.adjoint_cfg`,
 ``adjoint_tc``) and the route chooser of the forwards with checkpoints
-K17, K20, K23, K26 and K29 (``forward_cfg``), in pure
+K14, K17, K20, K23, K26 and K29 (``forward_cfg``; K14's beside the
+routing report's reason), in pure
 Python at the main paths' shapes and at the large-K shapes that keep one
 thread per atom, the order in which the plain versions sum over the
 orders (``_lane_sum``) against a sequential sum, K15's and K27/K30's
@@ -218,6 +219,52 @@ def test_forward_cfg(key, want, planes):
         assert (cfg.M - 1) * cfg.G < K <= cfg.M * cfg.G <= cfg.G * mmax
         assert all(-(-K // G) > mmax for G in kepg.LANE_WIDTHS
                    if G < cfg.G)
+
+
+# K14 (spgr_fwd_chk, 6 planes) at the MRF paths' shapes, 400 TRs:
+# bench_mrf_fisp and the pipeline's dictionary at K 48 (8 lanes of 6 slots
+# in float32), the refinement at K 16, with diffusion and at kshift −1 and
+# 2; the default K (401, 801 at kshift 2) keeps one thread per atom, as
+# float64 past 128 orders does. (K, itemsize, kshift, diffusion, atoms) ->
+# (route, G, M).
+SPGR_FORWARD = [
+    ((48, 4, 1, False, 65536), ('lanes', 8, 6)),
+    ((48, 4, 1, True, 65536), ('lanes', 8, 6)),
+    ((16, 4, -1, False, 4096), ('lanes', 8, 2)),
+    ((16, 4, 2, True, 4096), ('lanes', 8, 2)),
+    ((None, 4, 1, False, 2048), ('thread', 1, 0)),
+    ((None, 4, 2, True, 2048), ('thread', 1, 0)),
+    ((48, 8, 2, True, 8192), ('lanes', 16, 3)),
+    ((16, 8, -1, False, 4096), ('lanes', 8, 2)),
+    ((None, 8, 1, False, 1000), ('thread', 1, 0))]
+
+
+@pytest.mark.parametrize('key,want', SPGR_FORWARD, ids=[
+    f'K{k[0] or "default"}-{k[1]}B-kshift{k[2]}' + ('-diffusion' if k[3]
+                                                    else '')
+    for k, _ in SPGR_FORWARD])
+def test_spgr_fwd_chk_route(key, want):
+    r"""K14's route by shape alone (``forward_cfg`` at 6 planes, the
+    chooser K17 takes): the lanes wherever an atom's orders fit, one thread
+    per atom at the default K; the routing report's reason for the same
+    ``epg_spgr`` call keeps its words (the forward's route is the chooser's
+    to say)."""
+    from mrphy_tpu_torch.ops.routing import route
+    K, itemsize, kshift, diff, nA = key
+    nTR = 400
+    Kk = nTR * abs(kshift) + 1 if K is None else K
+    assert tuple(kepg.forward_cfg(Kk, itemsize, 6)) == want
+    kw = dict(flips=np.zeros(nTR), T1=np.zeros(nA), T2=np.zeros(nA),
+              tr=np.zeros(nTR), kshift=kshift, K=K)
+    if diff:
+        kw['D'] = np.zeros(nA)
+    r = route('epg_spgr', backend='cuda', **kw)
+    assert r['path'] == 'cuda-native-adjoint'
+    assert r['reason'] == (
+        'spgr_fwd, and spgr_fwd_chk + spgr_bwd under a gradient (nTR=%d, '
+        'K=%d, nA=%d, variable tr/te%s; the adjoint chunk tc=%d in '
+        'float32)' % (nTR, Kk, nA, ', diffusion' if diff else '',
+                      kepg.adjoint_tc(nTR, Kk, nA, 4)))
 
 
 @pytest.mark.parametrize('G', [1, 8, 16, 32])

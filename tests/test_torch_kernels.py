@@ -333,7 +333,8 @@ def test_kernel_sources_present():
                      'cpmg_bwd_lanes.cu', 'xspgr_bwd_lanes.cu',
                      'spgr_bwd_lanes.cu', 'xcpmg_bwd_lanes.cu',
                      'xspgr_fwd_lanes.cu', 'xcpmg_fwd_lanes.cu',
-                     'cpmg_fwd_lanes.cu', 'xmt_bwd_lanes.cu'}
+                     'cpmg_fwd_lanes.cu', 'xmt_bwd_lanes.cu',
+                     'spgr_fwd_lanes.cu'}
     assert '--use_fast_math' not in _build.NVCC_FLAGS
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
 
@@ -539,28 +540,3 @@ def test_epg_and_mrf_names():
         assert set(mod.__all__) == ported[mod]
         assert ported[mod] <= set(jmod.__all__)
         assert all(callable(getattr(mod, n)) for n in mod.__all__)
-
-
-def test_refuse_nondeterministic():
-    r"""The check before every ``nufft_spread`` launch: silent by default,
-    :class:`RuntimeError` under ``torch.use_deterministic_algorithms(True)``,
-    a warning under ``warn_only=True``; the plain route on CPU tensors is
-    deterministic and never checks."""
-    from mrphy_tpu_torch.kernels import nufft as knf
-    was = torch.are_deterministic_algorithms_enabled()
-    warn = torch.is_deterministic_algorithms_warn_only_enabled()
-    geom = knf.Geom((8,), (12,), (10.0,), 4, 5.0)
-    s = torch.ones((1, 5, 2), dtype=torch.float64)
-    k = torch.linspace(-0.3, 0.3, 5, dtype=torch.float64).reshape(1, 1, 5)
-    try:
-        torch.use_deterministic_algorithms(False)
-        knf.refuse_nondeterministic('nufft_spread')
-        torch.use_deterministic_algorithms(True)
-        with pytest.raises(RuntimeError, match='atomicAdd'):
-            knf.refuse_nondeterministic('nufft_spread')
-        assert knf.nufft_spread(s, k, geom).shape == (1, 12, 2)
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        with pytest.warns(UserWarning, match='atomicAdd'):
-            knf.refuse_nondeterministic('nufft_spread')
-    finally:
-        torch.use_deterministic_algorithms(was, warn_only=warn)
