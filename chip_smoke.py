@@ -92,10 +92,20 @@ Phases, each of which raises on failure (no fallback, nothing caught):
     (262,144 spins × 16,384 samples × 8 coils, Δf ∈ ±100 Hz, T2* ∈ [5, 50]
     ms, float32, timed; the plain versions' reductions run on cuBLAS, the
     counterpart of the JAX package's default XLA route); at 16,384 spins ×
-    4,096 samples one coil without maps, 32 coils (four coil groups),
-    neither Δf nor T2*, N = 3 with broadcast inputs, ragged sizes (16381 ×
-    4093) with per-batch inputs, and the float64 instance. ``SIG_BAR`` on
-    the linear outputs, ``SIG_CHAIN_BAR`` on the phase-chain cotangents.
+    4,096 samples one coil without maps, 32 coils (one row block of the
+    tensor-core kernels, four coil groups of sig_vjp), 64 coils (two row
+    blocks), neither Δf nor T2*, N = 3 with broadcast inputs, ragged sizes
+    (16381 × 4093) with per-batch inputs, and the float64 instance.
+    ``SIG_BAR`` on the linear outputs, ``SIG_CHAIN_BAR`` on the
+    phase-chain cotangents. Each row names its route (``sig_fwd``/
+    ``sig_adj``: split-TF32 ``mma.sync`` in float32, FP64 ``mma.sync`` in
+    float64; ``sig_vjp``: CUDA cores); at bench_signal a second launch of
+    ``sig_fwd`` and ``sig_adj`` must give the same bits, and their bound
+    counts the coil sums at the tensor cores' TF32 rate (``tc_bound``; the
+    bound with every operation at the float32 rate stays beside it). One
+    more case scales k on half of the samples by 3·10⁵ (|φ| to ~2²⁵
+    cycles), so that one launch of the float32 kernels takes the fast sign
+    and the exact one.
 13. The acquisition path through the entry points: (a) the
     ``examples/recon_sense.py`` problem (32×32, 4 coils, spiral-out, Δf
     ±40 Hz, CG-SENSE 40 iterations) in float64 against the JAX package's
@@ -978,10 +988,12 @@ KERNELS = {
 }
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
-# bytes per second and float32 operations per second outside the tensor
-# cores. No kernel here uses the tensor cores.
+# bytes per second, float32 operations per second outside the tensor
+# cores, and the tensor cores' dense TF32 rate, at which sig_fwd and
+# sig_adj run their coil sums (`tc_bound`).
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
+TF32_OPS = 495e12          # dense TF32 tensor-core rate
 
 
 def device() -> torch.device:
@@ -1857,12 +1869,15 @@ SIG_CHAIN_BAR = {torch.float32: 2e-4, torch.float64: 1e-10}
 
 
 def signal_case(nM, nT, dtype, dev, *, nC=8, N=1, bcast=True, sens=True,
-                df=True, t2=True, seed=0):
+                df=True, t2=True, far=False, seed=0):
     r"""``signal`` inputs of the bench_signal configuration, from ``seed``:
     M standard normal, locations uniform over ±12 cm, readout gradients
     uniform in ±2 G/cm at dt0 (the Rx k-space their γ·dt cumsum, |k| up to
     ~2.5 cycle/cm), ``nC`` standard-normal receive maps, Δf ∈ ±100 Hz, T2*
-    ∈ [5, 50] ms. With ``bcast`` every input but M has a batch of 1."""
+    ∈ [5, 50] ms. With ``bcast`` every input but M has a batch of 1. With
+    ``far`` the k-space of the second half of the samples is scaled by
+    3·10⁵ (|φ| up to ~2²⁵ cycles: past the float32 kernels' fast sign,
+    which holds to |φ| < 2²¹)."""
     from mrphy_tpu_torch import dt0, gamH
     rng = np.random.default_rng(seed)
     Nb = 1 if bcast else N
@@ -1872,7 +1887,10 @@ def signal_case(nM, nT, dtype, dev, *, nC=8, N=1, bcast=True, sens=True,
 
     M = arr(rng.standard_normal((N, nM, 3)))
     loc = arr(rng.uniform(-12, 12, (Nb, nM, 3)))
-    k = arr(np.cumsum(rng.uniform(-2, 2, (Nb, 3, nT)), axis=2) * gamH * dt0)
+    k = np.cumsum(rng.uniform(-2, 2, (Nb, 3, nT)), axis=2) * gamH * dt0
+    if far:
+        k[..., nT // 2:] *= 3e5
+    k = arr(k)
     kw = {}
     if sens:
         kw['sens'] = arr(rng.standard_normal((Nb, nM, 2, nC)))
@@ -1891,14 +1909,25 @@ SIG_CASES = (
     ('16k x 4k, 1 coil, no sens', 1 << 14, 4096, torch.float32,
      dict(nC=1, sens=False), False),
     ('16k x 4k x 32 coils', 1 << 14, 4096, torch.float32, dict(nC=32), False),
+    ('16k x 4k x 64 coils', 1 << 14, 4096, torch.float32, dict(nC=64), False),
     ('16k x 4k x 8 coils, no df/T2*', 1 << 14, 4096, torch.float32,
      dict(df=False, t2=False), False),
     ('N=3 x 16k x 4k x 4 coils, inputs broadcast', 1 << 14, 4096,
      torch.float32, dict(nC=4, N=3), False),
     ('16381 x 4093 x 3 coils, ragged, N=2 per-batch inputs', 16381, 4093,
      torch.float32, dict(nC=3, N=2, bcast=False), False),
+    ('16k x 4k x 8 coils, df+T2*, k x 3e5 on half the samples (|phi| to '
+     '~2^25)', 1 << 14, 4096, torch.float32, dict(far=True), False),
     ('16k x 4k x 8 coils, df+T2*', 1 << 14, 4096, torch.float64, {}, False))
 
+# The design each kernel's source holds for each dtype, as phase 12's rows
+# name it.
+SIG_ROUTE = {**{(n, torch.float32): 'split-TF32 mma.sync, 3 passes'
+                for n in ('sig_fwd', 'sig_adj')},
+             **{(n, torch.float64): 'FP64 mma.sync'
+                for n in ('sig_fwd', 'sig_adj')},
+             **{('sig_vjp', d): 'CUDA cores'
+                for d in (torch.float32, torch.float64)}}
 SIG_OUT = {'sig_fwd': ('U', 'V'), 'sig_adj': ('XR', 'XS'),
            'sig_vjp': ('XR', 'XS', 'dloc', 'dk', 'ddf', 'di2')}
 
@@ -1937,18 +1966,28 @@ def phase_signal_kernels(dev):
                     check(a.shape == b.shape, f'{name} {n} shape')
                     abs_errs[n] = max_err(a, b)
                     errs[n] = row_err(a, b)
-            del k
             lin = [n for n in errs if n in ('U', 'V', 'XR', 'XS')]
             row = dict(case=label, dtype=str(dtype).replace('torch.', ''),
                        rel_err=errs, bar=SIG_BAR[dtype],
                        chain_bar=SIG_CHAIN_BAR[dtype],
                        max_abs_err=max(abs_errs[n] for n in lin),
                        max_rel_err=max(errs[n] for n in lin))
+            row['route'] = SIG_ROUTE[name, dtype]
+            if timed and name != 'sig_vjp':
+                # a second launch on the same inputs: the same bits
+                row['repeat_bitwise'] = all(
+                    torch.equal(a, b) for a, b in zip(k, run_kernel()))
+                check(row['repeat_bitwise'], f'{name} {label}: a second '
+                      'launch differs')
+            del k
             if timed:
                 row['ms'] = time_ms(run_kernel)
                 row['plain_ms'] = time_ms(run_plain, reps=3)
                 if dtype == torch.float32:
                     row.update(bound(run_plain, inputs, p))
+                    if name != 'sig_vjp':
+                        row.update(tc_bound(row, inputs[0], nM, nT))
+                    row['bound_share'] = row['bound_ms'] / row['ms']
             del p
             print(f'{name} {label}: ' + json.dumps(row), flush=True)
             for n, e in errs.items():
@@ -1957,6 +1996,26 @@ def phase_signal_kernels(dev):
             rows[name].append(row)
         del w2, sp, g2
     return rows
+
+
+def tc_bound(row, rows, nM, nT) -> dict:
+    r"""The bound of ``sig_fwd``/``sig_adj``, whose coil sums run on the
+    tensor cores: the larger of the bytes over HBM_BPS, the factor
+    operations (the plain version's operations less its two products,
+    2·MACs) over F32_OPS and the three TF32 passes of both products, 3 · 2
+    · MACs, over TF32_OPS; ``rows`` `(N, 2nC, ·)` gives the products' MACs,
+    2 · N · 2nC · nM · nT. The bound of :func:`bound`, all operations at
+    F32_OPS, is kept as ``cuda_core_bound_ms``; ``floor_by`` names the
+    larger time."""
+    macs = 2 * rows.shape[0] * rows.shape[1] * nM * nT
+    times = {'bytes': row['bytes'] / HBM_BPS * 1e3,
+             'factors': (row['ops'] - 2 * macs) / F32_OPS * 1e3,
+             'tensor cores': 3 * 2 * macs / TF32_OPS * 1e3}
+    by = max(times, key=times.get)
+    return dict(cuda_core_bound_ms=row['bound_ms'],
+                cuda_core_bound_by=row['bound_by'], bound_ms=times[by],
+                bound_by='bytes' if by == 'bytes' else 'operations',
+                floor_by=by)
 
 
 def phase_sincos_accuracy(dev):
@@ -7402,6 +7461,10 @@ def main() -> int:
             # the gather's 32-byte-sector traffic over HBM_BPS, beside the
             # bound's inputs-once bytes
             kernels[-1]['sector_ms'] = head['sector_ms']
+        if name in ('sig_fwd', 'sig_adj'):
+            # the bound with the coil sums at F32_OPS, beside the tensor
+            # cores' one
+            kernels[-1]['cuda_core_bound_ms'] = head['cuda_core_bound_ms']
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -69,10 +69,13 @@ _SIGNATURES = {
     # nM, nT, nC, nsplit, dt, stream
     'mrphy_sig_fwd_f32': (_P,) * 7 + (_I64,) * 9 + (_D, _P),
     'mrphy_sig_fwd_f64': (_P,) * 7 + (_I64,) * 9 + (_D, _P),
-    # s2, pos, df, it2, k, XR, XS, pos_bs, df_bs, it2_bs, k_bs, N, nM, nT,
-    # nC, dt, stream
-    'mrphy_sig_adj_f32': (_P,) * 7 + (_I64,) * 8 + (_D, _P),
-    'mrphy_sig_adj_f64': (_P,) * 7 + (_I64,) * 8 + (_D, _P),
+    # s2, pos, df, it2, k, XRpart, XSpart, pos_bs, df_bs, it2_bs, k_bs, N,
+    # nM, nT, nC, nsplit, dt, stream
+    'mrphy_sig_adj_f32': (_P,) * 7 + (_I64,) * 9 + (_D, _P),
+    'mrphy_sig_adj_f64': (_P,) * 7 + (_I64,) * 9 + (_D, _P),
+    # N, nM, nT, nC, sms; returns the splits (not an error code)
+    'mrphy_sig_fwd_splits': (_I64,) * 5,
+    'mrphy_sig_adj_splits': (_I64,) * 5,
     # g2, w2, pos, df, it2, k, XR, XS, dloc, ddf, di2, dk, pos_bs, df_bs,
     # it2_bs, k_bs, N, nM, nT, nC, nblk, dt, stream
     'mrphy_sig_vjp_f32': (_P,) * 12 + (_I64,) * 9 + (_D, _P),

@@ -1,6 +1,9 @@
 // Shared by the k-space signal kernels (sig_fwd.cu, sig_adj.cu,
 // sig_vjp.cu): the encoding phase, its exact half-cycle reduction, the
-// sin/cos and the T2* decay, and the coil-group layout of the rows.
+// sin/cos and the T2* decay, and the coil-group layout of the rows. sig_fwd
+// and sig_adj take the tensor-core kernels of sig_mma.cuh, which use
+// `phase`, `factors` (float64) and `IntC` from here (float32 forms the
+// same factors with its own sign step); the coil groups serve sig_vjp.
 //
 // Phase: φ = ((x·k_x + y·k_y) + z·k_z) + Δf·t_t in cycles, t_t = (t+1)·dt,
 // written in the order of the plain versions (kernels/signal.py

@@ -49,6 +49,16 @@ PyTorch's legacy and new TF32 flags consistent) and restores the previous
 setting on exit. The setting is process-wide, so it is not thread-safe
 against another thread changing it at the same time.
 
+On the card, ``sig_fwd`` and ``sig_adj`` run the tensor-core kernels of
+``csrc/sig_mma.cuh``: each factor is formed once per spin-sample, by the
+thread that holds it in an ``mma.sync`` B fragment. In float32 the coil
+sum runs as split-TF32 products, ``x = hi + lo`` with both parts rounded
+to TF32 and three passes ``Alo·Bhi + Ahi·Blo + Ahi·Bhi`` into float32
+sums (~2⁻²² relative per product; TF32 alone keeps ~10 bits); in float64
+as FP64 ``mma.sync``. The header holds their tile geometry and picks the
+splits of the sum, which the wrappers ask for to size the partial rows;
+``sig_vjp`` stays on CUDA cores.
+
 Each kernel has a launch count, ``LAUNCHES[name]``, raised by one at
 every launch of the kernel and nowhere else. The wrappers
 (:func:`sig_fwd`, :func:`sig_adj`, :func:`sig_vjp`) take the plain
@@ -70,17 +80,14 @@ __all__ = ['LAUNCHES', 'full_f32_matmul', 'pick_chunk', 'sig_fwd',
 
 LAUNCHES = {'sig_fwd': 0, 'sig_vjp': 0, 'sig_adj': 0}
 
-# Threads per block of the CUDA kernels (`kThreads`, csrc/sig_common.cuh).
+# Threads per block of sig_vjp (`kThreads`, csrc/sig_common.cuh).
 THREADS = 256
-# Coils per accumulator group of the kernels (`kGroup`): more coils take
+# Coils per accumulator group of sig_vjp (`kGroup`): more coils take
 # several groups, each recomputing the phase.
 GROUP = 8
-# Blocks per streaming multiprocessor the kernels aim for when they split
-# a sum over spins across blocks (sig_fwd) or let a block walk several spin
-# tiles (sig_vjp).
-BLOCKS_PER_SM = {'sig_fwd': 4, 'sig_vjp': 2}
-
-
+# Blocks per streaming multiprocessor sig_vjp aims for when it lets a block
+# walk several spin tiles.
+BLOCKS_PER_SM = {'sig_vjp': 2}
 @contextlib.contextmanager
 def full_f32_matmul():
     r"""Run float32 matrix products in full float32 (no TF32) inside the
@@ -233,15 +240,29 @@ def _target_blocks(name, dev) -> int:
     return BLOCKS_PER_SM[name] * sms
 
 
+def _splits(kind, N, nM, nT, nC, dev) -> int:
+    r"""The splits of the tensor-core kernels' sum (``csrc/sig_mma.cuh``
+    ``splits``) on the card of ``dev``."""
+    from mrphy_tpu_torch.kernels._build import library
+    lib, _ = library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return getattr(lib, f'mrphy_sig_{kind}_splits')(N, nM, nT, nC, sms)
+
+
+def _split_sum(part):
+    r"""The splits' partial rows `(2, nsplit, …)` summed in a fixed
+    order."""
+    return (part[0, 0], part[1, 0]) if part.shape[1] == 1 else \
+        tuple(part.sum(dim=1))
+
+
 def _launch_sig_fwd(w2, pos, df, it2, k, dt):
     N = w2.shape[0]
-    nM, nT, nC, ng, bs = _sizes('sig_fwd', w2, pos, df, it2, k, N)
+    nM, nT, nC, _, bs = _sizes('sig_fwd', w2, pos, df, it2, k, N)
     _check(w2, 'w2', (N, 2 * nC, nM), w2.dtype, w2.device)
-    tblocks, tiles = -(-nT // THREADS), -(-nM // THREADS)
     # split the spins over enough blocks to fill the card; each split
-    # writes its own partial rows, summed below in a fixed order
-    nsplit = max(1, min(tiles, -(-_target_blocks('sig_fwd', w2.device)
-                                 // (tblocks * N * ng))))
+    # writes its own partial rows, summed in a fixed order
+    nsplit = _splits('fwd', N, nM, nT, nC, w2.device)
     part = torch.empty((2, nsplit, N, 2 * nC, nT), dtype=w2.dtype,
                        device=w2.device)
     with torch.cuda.device(w2.device):
@@ -250,22 +271,24 @@ def _launch_sig_fwd(w2, pos, df, it2, k, dt):
             *bs, N, nM, nT, nC, nsplit, float(dt), _stream(w2.device))
     _raise_on(err, 'sig_fwd')
     LAUNCHES['sig_fwd'] += 1
-    U, V = part.sum(dim=1)
-    return U, V
+    return _split_sum(part)
 
 
 def _launch_sig_adj(s2, pos, df, it2, k, dt):
     N = s2.shape[0]
     nM, nT, nC, _, bs = _sizes('sig_adj', s2, pos, df, it2, k, N)
     _check(s2, 's2', (N, 2 * nC, nT), s2.dtype, s2.device)
-    out = torch.empty((2, N, 2 * nC, nM), dtype=s2.dtype, device=s2.device)
+    # the samples split where the spins alone leave the card idle
+    nsplit = _splits('adj', N, nM, nT, nC, s2.device)
+    part = torch.empty((2, nsplit, N, 2 * nC, nM), dtype=s2.dtype,
+                       device=s2.device)
     with torch.cuda.device(s2.device):
         err = _entry('adj', s2.dtype)(
-            *map(_ptr, (s2, pos, df, it2, k, out[0], out[1])),
-            *bs, N, nM, nT, nC, float(dt), _stream(s2.device))
+            *map(_ptr, (s2, pos, df, it2, k, part[0], part[1])),
+            *bs, N, nM, nT, nC, nsplit, float(dt), _stream(s2.device))
     _raise_on(err, 'sig_adj')
     LAUNCHES['sig_adj'] += 1
-    return out[0], out[1]
+    return _split_sum(part)
 
 
 def _launch_sig_vjp(g2, w2, pos, df, it2, k, dt):

@@ -59,13 +59,12 @@ with ``--out FILE`` it also writes the timed lines there. It fails without
 a card.
 """
 
-import argparse
 import json
-import os
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+import _sides
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -514,69 +513,20 @@ PATHS = (
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    ap.add_argument('--parent', type=Path, default=None)
-    ap.add_argument('--side', type=Path, default=None)
-    ap.add_argument('--reps', type=int, default=5)
-    ap.add_argument('--steps', type=int, default=20)
-    ap.add_argument('--only', nargs='*', default=None,
-                    help='cases to time: spgr_bwd, cpmg_bwd, xspgr_bwd, '
-                         'xspgr_v_bwd, xcpmg_bwd, xcpmg_v_bwd, xmt_bwd, '
-                         'xmt_v_bwd, t2_fit, refine, refine_v, spgr_grad, '
-                         'spgr_grad_d, mrf_refine, mwf_fit, mwf_fit_v, '
-                         'qmt_grad, qmt_grad_v')
-    ap.add_argument('--out', type=Path, default=None)
+    ap = _sides.parser(__doc__, 20, 'cases to time: spgr_bwd, cpmg_bwd, '
+                       'xspgr_bwd, xspgr_v_bwd, xcpmg_bwd, xcpmg_v_bwd, '
+                       'xmt_bwd, xmt_v_bwd, t2_fit, refine, refine_v, '
+                       'spgr_grad, spgr_grad_d, mrf_refine, mwf_fit, '
+                       'mwf_fit_v, qmt_grad, qmt_grad_v')
     a = ap.parse_args()
     if a.side is not None:
         side(a.side.resolve(), a.reps, a.steps, a.only)
         return 0
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True).stdout.strip()
-    print(smi, flush=True)
-    order = [ROOT] if a.parent is None else [a.parent.resolve(), ROOT, ROOT,
-                                              a.parent.resolve()]
-    rows = []
-    for root in order:
-        cmd = [sys.executable, str(Path(__file__).resolve()), '--side',
-               str(root), '--reps', str(a.reps), '--steps', str(a.steps)]
-        if a.only:
-            cmd += ['--only', *a.only]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              cwd=str(root), env=dict(os.environ))
-        sys.stderr.write(proc.stderr[-4000:])
-        if proc.returncode != 0:
-            print(f'side {root} failed ({proc.returncode})', flush=True)
-            return 1
-        for line in proc.stdout.splitlines():
-            print(line, flush=True)
-            if line.startswith('{') and '"ms"' in line:
-                rows.append(json.loads(line))
-    if a.out is not None:
-        a.out.parent.mkdir(parents=True, exist_ok=True)
-        a.out.write_text(''.join(json.dumps(r) + '\n' for r in rows))
-    summary = {}
-    for r in rows:
-        key = 'change' if Path(r['root']) == ROOT else 'parent'
-        case = summary.setdefault(r['case'], {})
-        case.setdefault(key, []).append(r['ms'])
-        case.setdefault(key + '_peak_gb', []).append(r['peak_gb'])
-        if 'chk_ms' in r:
-            case.setdefault(key + '_chk_ms', []).append(r['chk_ms'])
-        if 'fwd_route' in r:
-            case[key + '_fwd_route'] = r['fwd_route']
-        for extra in ('chk_thread_ms', 'chk_pick_ms', 'thread_ms'):
-            if extra in r:
-                case.setdefault(f'{key}_{extra}', []).append(r[extra])
-        if 'tc' in r:
-            case[key + '_tc'] = r['tc']
-    for case, s in summary.items():
-        if 'parent' in s and 'change' in s:
-            s['ratio'] = min(s['change']) / min(s['parent'])
-        if 'parent_chk_ms' in s and 'change_chk_ms' in s:
-            s['chk_ratio'] = min(s['change_chk_ms']) / min(s['parent_chk_ms'])
-    print(json.dumps(dict(card=smi, cases=summary)), flush=True)
-    return 0
+    return _sides.drive(
+        Path(__file__).resolve(), ROOT, a,
+        lists=('chk_ms', 'chk_thread_ms', 'chk_pick_ms', 'thread_ms'),
+        scalars=('fwd_route', 'tc'),
+        ratios=(('ratio', 'ms'), ('chk_ratio', 'chk_ms')))
 
 
 if __name__ == '__main__':

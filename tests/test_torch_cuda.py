@@ -338,12 +338,13 @@ def test_mc_engine_gradients_cuda_vs_plain(cuda, dtype):
 
 
 def sig_args(N=2, nM=300, nT=97, nC=3, seed=7, dtype=np.float32, df=True,
-             t2=True, bcast=True):
+             t2=True, bcast=True, far=False):
     r"""The signal kernels' arguments (numpy): coil-weighted spins ``w2``,
     cotangent rows ``g2``, locations over ±12 cm, a k-space walk of
     readout gradients up to 2 G/cm at 4 µs, Δf ∈ ±100 Hz, T2* ∈ [5, 50]
     ms; with ``bcast`` the per-spin and per-sample inputs have a batch of
-    1 (broadcast over N)."""
+    1 (broadcast over N); with ``far`` the k of the second half of the
+    samples times 3·10⁵ (|φ| up to ~2²⁵ cycles)."""
     rng = np.random.default_rng(seed)
     Nb = 1 if bcast else N
     a = dict(w2=rng.standard_normal((N, 2 * nC, nM)),
@@ -352,6 +353,8 @@ def sig_args(N=2, nM=300, nT=97, nC=3, seed=7, dtype=np.float32, df=True,
              df=rng.uniform(-100, 100, (Nb, nM)) if df else None,
              it2=1 / rng.uniform(5e-3, 5e-2, (Nb, nM)) if t2 else None,
              k=np.cumsum(rng.uniform(-2, 2, (Nb, 3, nT)), -1) * 4257.6 * 4e-6)
+    if far:
+        a['k'][..., nT // 2:] *= 3e5
     return {k: None if v is None else v.astype(dtype) for k, v in a.items()}
 
 
@@ -361,14 +364,23 @@ def sig_args(N=2, nM=300, nT=97, nC=3, seed=7, dtype=np.float32, df=True,
 @pytest.mark.parametrize('kw', [dict(nC=1, df=False, t2=False),
                                 dict(nC=3, bcast=False),
                                 dict(nC=8, N=1, nM=1000, nT=300),
-                                dict(nC=32, nM=257, nT=129)],
+                                dict(nC=32, nM=257, nT=129),
+                                dict(nC=5, nM=1031, nT=389),
+                                dict(nC=64, nM=523, nT=261),
+                                dict(nC=3, nM=2000, nT=700, far=True)],
                          ids=['1coil-bare', '3coil-batched', '8coil',
-                              '32coil-ragged'])
+                              '32coil-ragged', '5coil-ragged',
+                              '64coil-ragged', 'far-phase'])
 def test_signal_kernels_vs_plain_on_card(cuda, dtype, bar, kw):
     r"""``sig_fwd``, ``sig_adj`` and ``sig_vjp`` against their plain
     versions: one coil with neither Δf nor T2*, a batch with per-batch
     inputs, 8 coils (one full group), 32 coils (four groups) on ragged
-    sizes."""
+    sizes; 5 coils (10 rows: one padded m16 tile of the tensor-core
+    kernels) and 64 coils (two row blocks of them) on ragged sizes; and
+    |φ| up to ~2²⁵ cycles on the second half of the samples, where the
+    float32 tensor-core kernels take their exact sign (rint and the 64-bit
+    parity) for some passes and blocks of a launch and the fast one for
+    the others."""
     from mrphy_tpu_torch.kernels import signal as ks
     npdt = np.float32 if dtype == torch.float32 else np.float64
     a = {k: None if v is None else torch.as_tensor(v, device=cuda)
@@ -387,6 +399,31 @@ def test_signal_kernels_vs_plain_on_card(cuda, dtype, bar, kw):
             else:
                 assert x.shape == y.shape
                 _rows_close(x, y, bar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('deterministic', [False, True])
+def test_signal_kernels_repeat_bitwise(cuda, deterministic, dtype):
+    r"""Two launches of ``sig_fwd`` and of ``sig_adj`` on the same inputs
+    give the same bits (no atomics; the split sums are added in a fixed
+    order), also under ``torch.use_deterministic_algorithms(True)``; both
+    dtypes take the tensor-core kernels."""
+    from mrphy_tpu_torch.kernels import signal as ks
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    a = {k: None if v is None else torch.as_tensor(v, device=cuda)
+         for k, v in sig_args(nC=8, N=2, nM=20000, nT=3001,
+                              dtype=npdt).items()}
+    sp = (a['pos'], a['df'], a['it2'], a['k'], 4e-6)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        for run in (lambda: ks.sig_fwd(a['w2'], *sp),
+                    lambda: ks.sig_adj(a['g2'], *sp)):
+            x, y = run(), run()
+            assert all(torch.equal(u, v) for u, v in zip(x, y))
+    finally:
+        torch.use_deterministic_algorithms(prev)
 
 
 @pytest.mark.cuda
